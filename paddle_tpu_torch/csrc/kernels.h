@@ -1,0 +1,26 @@
+// Plain C interface of the port's CUDA kernels, loaded with ctypes by
+// paddle_tpu_torch/_build.py.  Every entry point launches on the given
+// stream, allocates nothing, does not synchronise, and returns the
+// cudaError_t of the launch (0 on success).
+#pragma once
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+// Ragged paged attention (see paged_attention.cu).
+//   q, out    [batch, q_len, q_heads, head_dim]      dtype: 0 = f32, 1 = bf16
+//   k/v_pool  [num_blocks, block_size, kv_heads, head_dim]
+//             the q dtype, or int8 when quantized != 0
+//   k/v_scale [num_blocks, block_size] f32, read only when quantized
+//   tables    [batch, nb] int32,  pos [batch] int32
+int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
+                        const float* k_scale, const float* v_scale,
+                        const int* tables, const int* pos, void* out,
+                        int batch, int q_len, int q_heads, int kv_heads,
+                        int head_dim, int block_size, int nb, int dtype,
+                        int quantized, void* stream);
+
+#ifdef __cplusplus
+}
+#endif

@@ -1,0 +1,16 @@
+"""Continuous-batching LLM serving on the paged KV pool."""
+
+from .engine import (
+    Engine, EngineConfig, kernel_launches, reset_kernel_launches,
+)
+from .kv_cache import PagedKV, PagedKVCache, PagedKVPool, paged_write
+from .paged_attention import paged_attention, paged_attention_plain
+from .sampling import SamplingParams, request_seed, sample_batch
+from .scheduler import Request, Scheduler
+
+__all__ = [
+    "Engine", "EngineConfig", "kernel_launches", "reset_kernel_launches",
+    "PagedKV", "PagedKVCache", "PagedKVPool", "paged_write",
+    "paged_attention", "paged_attention_plain", "SamplingParams",
+    "request_seed", "sample_batch", "Request", "Scheduler",
+]
