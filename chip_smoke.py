@@ -4,19 +4,26 @@ and check it: the quickest proof that the port still starts on the card.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises, so the script
-exits nonzero and prints no result:
+Phases, each printing one JSON line per case; any failure raises, so
+the script exits nonzero and prints no result:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, and the build of every CUDA kernel from csrc/ (nvcc,
-   with the ptxas register / spill report).
+   one process per source, with the ptxas register / spill report).
 2. kernels: each kernel against its plain PyTorch twin on the same card
    inputs — ragged paged attention at the LLaMA-2-7B (32/32/128) and
    LLaMA-3-8B GQA (32/8/128) head layouts, decode (s=1, 8 lanes, ragged
    pos 0..2000) and prefill windows (s=128, s=512), bf16, f32 and an int8
-   pool with per-token scales; RMSNorm at [8,4096] and [4096,4096].
-   Tolerances are stated with the comparison (see TOLERANCES).  Prints
-   each case's kernel, plain and library times and its bound.
+   pool with per-token scales; RMSNorm forward at [8,4096], [4096,4096]
+   and [8192,4096]; RMSNorm backward at [8192,4096] (bf16, f32) and
+   [8,4096]; flash attention forward, dQ and dK/dV at the train phase's
+   batch of 2 sequences: 7B MHA s=4096 causal (bf16, f32), 8B GQA s=4096,
+   s=1000 (ragged edge), s=1024 not causal, and a 256-query block over
+   1024 keys.  Tolerances are stated
+   with the comparisons (TOLERANCES).  Each case
+   prints its kernel, plain and library times and its bound.  Then the
+   RMSNorm autograd repair: gradients through the kernel path's
+   rms_norm must equal those of the plain forward under torch autograd.
 3. engine: LlamaForCausalLM(LLAMA2_7B) in bf16, all 32 layers, random
    weights from a seeded generator on the card, served by
    Engine(num_slots=8, max_seq_len=2048) for 8 requests (prompts 16..1024
@@ -25,9 +32,21 @@ exits nonzero and prints no result:
    The same workload then runs once more under torch.profiler for the
    device's idle share and the kernel time by name.
 4. parity: one request through the engine (prefill + 8 greedy decode
-   steps) against the uncached full-sequence forward of the same model
-   (plain masked-softmax attention in f32, RMSNorm through the kernel),
-   in bf16 and over an f32 copy of the weights (see PARITY_FACTOR).
+   steps) against the uncached full-sequence forward of the same model,
+   which runs the flash-attention kernel: two independent kernels (paged
+   and flash), both held against the uncached forward over an f32 copy
+   of the weights (see PARITY_FACTOR).
+5. train: LLaMA-2-7B widths cut to 8 layers (TRAIN_LAYERS), bf16 params,
+   the fused LM-head loss, AdamW(0.9, 0.95, eps 1e-5, decay 0.1,
+   multi_precision) with ClipGradByGlobalNorm(1.0) and LinearWarmup into
+   CosineAnnealingDecay, jit.TrainStep on one seeded batch of 2 x 4096
+   tokens (labels = ids, unshifted): 2 warm-up and 4 timed steps with
+   the five kernels' launch counts asserted per step and a finite,
+   strictly decreasing loss; then one step under torch.profiler.
+6. train parity: 2 layers of the same widths, b=2, s=2048: one step's
+   loss and every parameter's gradient through the kernels in bf16,
+   against the same step through the plain functions in bf16 and on an
+   f32 copy (see GRAD_PARITY_FACTOR).
 
 The last three lines are the card's nvidia-smi line, the per-kernel JSON
 summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
@@ -35,7 +54,10 @@ summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -45,12 +67,16 @@ import time
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, no TF32
 
-# (rtol, atol) of kernel vs plain on identical inputs.  Both compute in
-# f32 and differ only in summation order (and the exp/rsqrt ulps): f32
-# outputs agree to ~1e-6, so 1e-4 leaves two orders of margin over 2048
-# keys; a bf16 output rounds the same f32 value, so a flip to the
-# neighbouring bf16 value (relative step <= 2**-7) is the most it may move.
-TOLERANCES = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 1e-3)}
+# (rtol, fraction of max |plain|) of every kernel vs its plain twin on
+# identical inputs: elementwise |kernel - plain| <= rtol |plain| + frac
+# max|plain|.  Both sides compute in f32 and differ in summation order
+# (and the exp/log/rsqrt ulps).  A bf16 output rounds an f32 value that
+# moved by ~1e-6, so it may flip to the neighbouring bf16 value (at most
+# 2**-7 of itself); values near 0 are held to 1e-3 of the tensor's
+# largest.  f32 outputs agree to ~1e-6 relative over 4096 keys: 1e-4
+# leaves two orders of margin, and 1e-5 of the largest value covers
+# elements that cancel to near 0.
+TOLERANCES = {"bfloat16": (2.0 ** -7, 1e-3), "float32": (1e-4, 1e-5)}
 # engine vs the uncached forward: both run in bf16 and round at different
 # points through 32 layers of GEMMs whose cuBLAS algorithms differ with M,
 # so neither is the truth; the truth is the same forward over an f32 copy
@@ -60,6 +86,15 @@ TOLERANCES = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 1e-3)}
 # write moves them far more than that
 PARITY_FACTOR = 2.0
 PARITY_FLOOR = 1e-3
+# training parity: the kernel path's relative gradient error against the
+# f32 plain step must stay within GRAD_PARITY_FACTOR times the plain bf16
+# step's own error plus GRAD_PARITY_FLOOR (both bf16 steps round at other
+# places through the GEMMs; a wrong gradient kernel moves far more)
+GRAD_PARITY_FACTOR = 2.0
+GRAD_PARITY_FLOOR = 1e-3
+TRAIN_LAYERS = 8               # LLaMA-2-7B has 32; its AdamW state is ~94 GB
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_WARMUP, TRAIN_TIMED = 2, 4
 
 
 def emit(obj):
@@ -98,17 +133,22 @@ def bound(nbytes, ops, dtype_name):
 
 
 def check_close(name, out, ref, dtype_name):
+    """Elementwise |out - ref| <= rtol |ref| + frac max|ref| (see
+    TOLERANCES); returns the max abs error."""
     import torch
 
-    rtol, atol = TOLERANCES[dtype_name]
+    rtol, frac = TOLERANCES[dtype_name]
+    out, ref = out.float(), ref.float()
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite kernel output")
-    err = (out.float() - ref.float()).abs()
-    limit = atol + rtol * ref.float().abs()
+    err = (out - ref).abs()
+    limit = rtol * ref.abs() + frac * ref.abs().max()
     if not (err <= limit).all():
-        raise AssertionError(f"{name}: max |kernel - plain| "
-                             f"{err.max().item():.3e} beyond rtol {rtol} "
-                             f"atol {atol}")
+        worst = (err - limit).argmax()
+        raise AssertionError(
+            f"{name}: |kernel - plain| {err.flatten()[worst].item():.3e} "
+            f"beyond {limit.flatten()[worst].item():.3e} (rtol {rtol}, "
+            f"{frac} of max {ref.abs().max().item():.3e})")
     return err.max().item()
 
 
@@ -221,7 +261,7 @@ def kernel_phase(torch, dev):
                 if (lname, wname, dname, quant) == (
                         "llama2_7b", "decode", "bfloat16", False):
                     summary["paged_attention"] = case
-    for shape in ((8, 4096), (4096, 4096)):
+    for shape in ((8, 4096), (4096, 4096), (8192, 4096)):
         for dname in ("bfloat16", "float32"):
             dtype = getattr(torch, dname)
             g = torch.Generator(device="cpu").manual_seed(seed)
@@ -246,9 +286,195 @@ def kernel_phase(torch, dev):
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
             emit(case)
-            if (shape, dname) == ((8, 4096), "bfloat16"):
+            if (shape, dname) == ((8192, 4096), "bfloat16"):
                 summary["rms_norm"] = case
+    seed = rms_bwd_cases(torch, dev, summary, seed)
+    seed = flash_cases(torch, dev, summary, seed)
+    rms_autograd_check(torch, dev, seed)
     return summary
+
+
+def rms_bwd_cases(torch, dev, summary, seed):
+    """RMSNorm backward kernel vs its plain twin from the same rstd;
+    library yardstick: the backward of torch.nn.functional.rms_norm
+    (forward not timed)."""
+    from paddle_tpu_torch.ops.rms_norm import (
+        rms_norm_bwd, rms_norm_bwd_plain, rms_norm_fwd_plain,
+    )
+
+    import torch.nn.functional as F
+
+    for shape, dname in (((8192, 4096), "bfloat16"),
+                         ((8192, 4096), "float32"), ((8, 4096), "bfloat16")):
+        dtype = getattr(torch, dname)
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        seed += 1
+        x = torch.randn(*shape, generator=g).to(dtype).to(dev)
+        w = (1.0 + 0.1 * torch.randn(shape[-1], generator=g)).to(dtype).to(dev)
+        gy = torch.randn(*shape, generator=g).to(dtype).to(dev)
+        _, rstd = rms_norm_fwd_plain(x, w, 1e-6)
+        dx, dw = rms_norm_bwd(x, w, rstd, gy)
+        dx_p, dw_p = rms_norm_bwd_plain(x, w, rstd, gy)
+        torch.cuda.synchronize()
+        name = f"rms_norm_bwd/{shape[0]}x{shape[1]}/{dname}"
+        err = max(check_close(name + "/dx", dx, dx_p, dname),
+                  check_close(name + "/dw", dw, dw_p, dname))
+        kern_ms = cuda_ms(lambda: rms_norm_bwd(x, w, rstd, gy), 50)
+        plain_ms = cuda_ms(lambda: rms_norm_bwd_plain(x, w, rstd, gy), 10)
+        xl = x.detach().requires_grad_(True)
+        wl = w.detach().requires_grad_(True)
+        yl = F.rms_norm(xl, (shape[-1],), wl, 1e-6)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            yl, (xl, wl), gy, retain_graph=True), 50)
+        item = x.element_size()
+        nbytes = (3 * x.numel() + 2 * w.numel()) * item + rstd.numel() * 4
+        b_ms, b_by = bound(nbytes, 8 * x.numel(), dname)
+        case = {"phase": "kernel", "name": name, "x": list(shape),
+                "max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bytes": nbytes}
+        emit(case)
+        if (shape, dname) == ((8192, 4096), "bfloat16"):
+            summary["rms_norm_bwd"] = case
+    return seed
+
+
+def visible_pairs(sq, sk, causal):
+    """(query, key) pairs that the causal mask leaves visible, per batch
+    row and query head."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(min(sk, max(0, i + off + 1)) for i in range(sq))
+
+
+def flash_cases(torch, dev, summary, seed):
+    """Flash forward, dQ and dK/dV kernels vs the plain twins on the same
+    card inputs, at the train phase's batch of TRAIN_BATCH sequences (the
+    backward from the plain forward's out and lse, so each kernel is held
+    alone).  Library yardstick: SDPA forward, and its
+    backward alone (graph built once, not timed).  Bounds: 4 D flops per
+    visible pair and query head forward, 6 D for dQ (QK^T, dO V^T, dS K)
+    and 8 D for dK/dV (QK^T, dO V^T, P^T dO, dS^T Q), over the card's
+    peak for the dtype, or the bytes of the inputs and outputs over
+    3.35 TB/s, whichever is larger."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_bwd_plain,
+        flash_fwd_kernel, flash_fwd_plain,
+    )
+
+    cases = [("llama2_7b/s4096/causal", 32, 32, 4096, 4096, True, "bfloat16"),
+             ("llama2_7b/s4096/causal", 32, 32, 4096, 4096, True, "float32"),
+             ("llama3_8b_gqa/s4096/causal", 32, 8, 4096, 4096, True,
+              "bfloat16"),
+             ("llama2_7b/s1000/causal", 32, 32, 1000, 1000, True, "bfloat16"),
+             ("llama2_7b/s1024/full", 32, 32, 1024, 1024, False, "bfloat16"),
+             ("llama2_7b/q256_k1024/causal", 32, 32, 256, 1024, True,
+              "bfloat16")]
+    b, d = TRAIN_BATCH, 128
+    for cname, qh, kh, sq, sk, causal, dname in cases:
+        dtype = getattr(torch, dname)
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        seed += 1
+        q = torch.randn(b, sq, qh, d, generator=g).to(dtype).to(dev)
+        k = torch.randn(b, sk, kh, d, generator=g).to(dtype).to(dev)
+        v = torch.randn(b, sk, kh, d, generator=g).to(dtype).to(dev)
+        do = torch.randn(b, sq, qh, d, generator=g).to(dtype).to(dev)
+        scale = 1.0 / math.sqrt(d)
+        out, lse = flash_fwd_kernel(q, k, v, scale, causal)
+        out_p, lse_p = flash_fwd_plain(q, k, v, scale, causal)
+        delta = (do.float() * out_p.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dq = flash_bwd_dq_kernel(q, k, v, do, lse_p, delta, scale, causal)
+        dk, dv = flash_bwd_dkv_kernel(q, k, v, do, lse_p, delta, scale,
+                                      causal)
+        dq_p, dk_p, dv_p = flash_bwd_plain(q, k, v, out_p, lse_p, do, scale,
+                                           causal)
+        torch.cuda.synchronize()
+        name = f"flash/{cname}/{dname}"
+        err_fwd = max(check_close(name + "/out", out, out_p, dname),
+                      check_close(name + "/lse", lse, lse_p, "float32"))
+        err_dq = check_close(name + "/dq", dq, dq_p, dname)
+        err_dkv = max(check_close(name + "/dk", dk, dk_p, dname),
+                      check_close(name + "/dv", dv, dv_p, dname))
+        fwd_ms = cuda_ms(lambda: flash_fwd_kernel(q, k, v, scale, causal), 5)
+        dq_ms = cuda_ms(lambda: flash_bwd_dq_kernel(
+            q, k, v, do, lse_p, delta, scale, causal), 5)
+        dkv_ms = cuda_ms(lambda: flash_bwd_dkv_kernel(
+            q, k, v, do, lse_p, delta, scale, causal), 5)
+        plain_fwd_ms = cuda_ms(
+            lambda: flash_fwd_plain(q, k, v, scale, causal), 3)
+        plain_bwd_ms = cuda_ms(lambda: flash_bwd_plain(
+            q, k, v, out_p, lse_p, do, scale, causal), 3)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=qh != kh)
+        if causal and sq != sk:
+            lib_fwd_ms = lib_bwd_ms = None   # SDPA's is_causal is top-left
+        else:
+            lib_fwd_ms = cuda_ms(sdpa, 10)
+            lo = sdpa()
+            dot = do.transpose(1, 2)
+            lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                lo, (qt, kt, vt), dot, retain_graph=True), 10)
+            del lo
+        pairs = visible_pairs(sq, sk, causal) * b * qh
+        item = q.element_size()
+        qbytes, kbytes = q.numel() * item, k.numel() * item
+        rows = b * qh * sq * 4                             # lse / delta
+        b_fwd = bound(2 * qbytes + 2 * kbytes + rows, 4 * d * pairs, dname)
+        b_dq = bound(3 * qbytes + 2 * kbytes + 2 * rows, 6 * d * pairs,
+                     dname)
+        b_dkv = bound(2 * qbytes + 4 * kbytes + 2 * rows, 8 * d * pairs,
+                      dname)
+        base = {"phase": "kernel", "q": list(q.shape), "k": list(k.shape),
+                "causal": causal, "pairs": pairs}
+        per = {"flash_fwd": (err_fwd, fwd_ms, plain_fwd_ms, b_fwd,
+                             lib_fwd_ms),
+               "flash_bwd_dq": (err_dq, dq_ms, plain_bwd_ms, b_dq,
+                                lib_bwd_ms),
+               "flash_bwd_dkv": (err_dkv, dkv_ms, plain_bwd_ms, b_dkv,
+                                 lib_bwd_ms)}
+        for kname, (err, ms, pms, (b_ms, b_by), lms) in per.items():
+            case = dict(base, name=f"{kname}/{cname}/{dname}",
+                        max_abs_err=err, ms=ms, plain_ms=pms,
+                        library_ms=lms, bound_ms=b_ms, bound_by=b_by)
+            emit(case)
+            if (cname, dname) == ("llama2_7b/s4096/causal", "bfloat16"):
+                summary[kname] = case
+        del out_p, dq_p, dk_p, dv_p
+    return seed
+
+
+def rms_autograd_check(torch, dev, seed):
+    """The repaired fault: a loss.backward() through rms_norm on the card
+    reaches x and the weight, and the gradients equal those of the plain
+    forward differentiated by torch autograd."""
+    from paddle_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x0 = torch.randn(8192, 4096, generator=g).to(torch.bfloat16).to(dev)
+    w0 = (1.0 + 0.1 * torch.randn(4096, generator=g)).to(torch.bfloat16) \
+        .to(dev)
+    gy = torch.randn(8192, 4096, generator=g).to(torch.bfloat16).to(dev)
+    grads = []
+    for fn in (rms_norm, rms_norm_plain):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        (fn(x, w, 1e-6).float() * gy.float()).sum().backward()
+        if x.grad is None or w.grad is None:
+            raise AssertionError(f"{fn.__name__}: no gradient reached x or w")
+        grads.append((x.grad, w.grad))
+    torch.cuda.synchronize()
+    err = [check_close(f"rms_norm autograd/{n}", a, b, "bfloat16")
+           for n, a, b in zip(("dx", "dw"), *grads)]
+    emit({"phase": "rms_norm_autograd", "x": [8192, 4096],
+          "dtype": "bfloat16", "max_abs_err_dx": err[0],
+          "max_abs_err_dw": err[1],
+          "reference": "rms_norm_plain under torch autograd"})
 
 
 # ------------------------------------------------------------ phase 3/4
@@ -369,17 +595,29 @@ def engine_phase(torch, dev):
                                  f"{req.output_ids[k]} != reference "
                                  f"argmax {int(ref32[k].argmax())}")
     emit({"phase": "parity", "prompt_len": len(prompt), "steps": report,
-          "reference": "uncached full-sequence forward (plain f32 causal "
-                       "softmax attention, RMSNorm kernel) in bf16 and in "
-                       "an f32 copy of the same weights"})
+          "reference": "uncached full-sequence forward (flash-attention "
+                       "and RMSNorm kernels) in bf16 and in an f32 copy of "
+                       "the same weights: the paged and the flash kernel, "
+                       "both held against the f32 forward"})
     return launches
 
 
 def profile_phase(torch, eng, prompts, params):
-    """The engine workload once more under torch.profiler: the device's
-    busy share of the wall time (union of kernel intervals) and the
-    kernel time by name.  The profiler slows the host, so the idle share
-    here is an upper bound of the unprofiled run's."""
+    """The engine workload once more under torch.profiler (see
+    :func:`profiled`)."""
+    def run():
+        for p, sp in zip(prompts, params):
+            eng.submit(p, sp)
+        eng.run()
+
+    emit(dict(profiled(torch, run), phase="profile"))
+
+
+def profiled(torch, run):
+    """``run()`` under torch.profiler: the device's busy share of the
+    wall time (union of kernel intervals) and the kernel time by name.
+    The profiler slows the host, so the idle share is an upper bound of
+    the unprofiled run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -387,9 +625,7 @@ def profile_phase(torch, eng, prompts, params):
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for p, sp in zip(prompts, params):
-            eng.submit(p, sp)
-        eng.run()
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -403,12 +639,193 @@ def profile_phase(torch, eng, prompts, params):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit({"phase": "profile", "wall_ms": wall_us / 1e3,
-          "device_busy_ms": busy / 1e3 if kernels else "not measured",
-          "device_idle_share": 1 - busy / wall_us if kernels
-          else "not measured",
-          "kernel_events": len(kernels),
-          "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]})
+    return {"wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3 if kernels else "not measured",
+            "device_idle_share": 1 - busy / wall_us if kernels
+            else "not measured",
+            "kernel_events": len(kernels),
+            "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
+
+
+# ------------------------------------------------------------ phase 5/6
+def train_config(layers):
+    from paddle_tpu_torch.models.llama import LLAMA2_7B
+
+    return dataclasses.replace(LLAMA2_7B, num_hidden_layers=layers,
+                               fused_lm_loss=True)
+
+
+def loss_fn(net, ids, labels):
+    loss, _ = net(ids, labels=labels)
+    return loss
+
+
+def train_phase(torch, dev):
+    """A few optimizer steps of the LLaMA-2-7B-width decoder (see the
+    module docstring), launch counts asserted per step."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (
+        CosineAnnealingDecay, LinearWarmup,
+    )
+
+    cfg = train_config(TRAIN_LAYERS)
+    layers = cfg.num_hidden_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    model.train()
+    # LLaMA-2 (Touvron et al. 2023, sec. 2.2): peak 3e-4, cosine to 10 %,
+    # AdamW(0.9, 0.95, eps 1e-5), decay 0.1, clip 1.0; the warm-up and
+    # the cosine span this run's own steps
+    sched = LinearWarmup(CosineAnnealingDecay(3e-4, T_max=TRAIN_TIMED,
+                                              eta_min=3e-5),
+                         TRAIN_WARMUP, 0.0, 3e-4)
+    opt = AdamW(learning_rate=sched, beta1=0.9, beta2=0.95, epsilon=1e-5,
+                parameters=model.named_parameters(), weight_decay=0.1,
+                grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True,
+                device=dev)
+    step = TrainStep(model, loss_fn, opt, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(4321)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, lrs = [], []
+    for _ in range(TRAIN_WARMUP):
+        lrs.append(opt.get_lr())
+        losses.append(step(ids, ids).item())
+        sched.step()
+    per_step = {"flash_fwd": layers, "flash_bwd_dq": layers,
+                "flash_bwd_dkv": layers, "rms_norm": 2 * layers + 1,
+                "rms_norm_bwd": 2 * layers + 1, "paged_attention": 0}
+    step_s = []
+    reset_kernel_launches()
+    for _ in range(TRAIN_TIMED):
+        lrs.append(opt.get_lr())
+        t1 = time.perf_counter()
+        losses.append(step(ids, ids).item())      # .item() synchronises
+        step_s.append(time.perf_counter() - t1)
+        sched.step()
+    launches = kernel_launches()
+    for name, n in per_step.items():
+        if launches[name] != n * TRAIN_TIMED:
+            raise AssertionError(f"train: {name} launched {launches[name]} "
+                                 f"times in {TRAIN_TIMED} steps, want "
+                                 f"{n} a step")
+    timed = losses[TRAIN_WARMUP:]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not all(a > b for a, b in zip(timed, timed[1:])):
+        raise AssertionError(f"train: loss not strictly decreasing {timed}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = n_params - sum(
+        p.numel() for n, p in model.named_parameters()
+        if n.endswith("norm.weight") or n == "model.embed_tokens.weight")
+    heads, d = cfg.num_attention_heads, cfg.head_dim
+    pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True) * TRAIN_BATCH * heads
+    # 6 flops a matmul weight per token (forward + backward), plus the
+    # attention products: 4 D forward and 8 D backward per visible pair
+    flops = 6 * n_matmul * tokens + 12 * d * pairs * layers
+    mean_s = sum(step_s) / len(step_s)
+    emit({"phase": "train", "model": "LLAMA2_7B widths", "layers": layers,
+          "dtype": "bfloat16", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "params": n_params, "setup_s": setup_s, "lr": lrs,
+          "losses": losses, "step_s": step_s, "step_s_mean": mean_s,
+          "tokens_per_s": tokens / mean_s, "model_flops_per_step": flops,
+          "model_tflops_per_s": flops / mean_s / 1e12,
+          "mfu_of_989": flops / mean_s / 989e12,
+          "peak_memory_gb": peak_gb, "kernel_launches": launches,
+          "launches_per_step": per_step})
+    prof = profiled(torch, lambda: step(ids, ids).item())
+    emit(dict(prof, phase="train_profile", steps=1))
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def plain_path(torch):
+    """The model's attention and norms through the plain twins (torch
+    autograd over the plain forwards), for the reference passes."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_plain
+    from paddle_tpu_torch.ops.rms_norm import rms_norm_plain
+
+    saved = gpt.flash_attention, gpt.rms_norm
+    gpt.flash_attention, gpt.rms_norm = flash_attention_plain, rms_norm_plain
+    try:
+        yield
+    finally:
+        gpt.flash_attention, gpt.rms_norm = saved
+
+
+def train_parity_phase(torch, dev):
+    """One step's loss and gradients: kernels in bf16 vs plain in bf16
+    vs plain on an f32 copy (the truth), per parameter."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config(2)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=7)
+    g = torch.Generator(device="cpu").manual_seed(99)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, 2048),
+                        generator=g).to(dev)
+
+    def grads_of(m):
+        m.zero_grad(set_to_none=True)
+        loss = loss_fn(m, ids, ids)
+        loss.backward()
+        out = {n: p.grad.float() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.item(), out
+
+    reset_kernel_launches()
+    loss_k, g_k = grads_of(model)
+    launches = kernel_launches()
+    if min(launches[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv", "rms_norm",
+                                 "rms_norm_bwd")) == 0:
+        raise AssertionError(f"train parity: a kernel did not run "
+                             f"{launches}")
+    with plain_path(torch):
+        loss_p, g_p = grads_of(model)
+        model32 = copy.deepcopy(model).float()
+        loss_32, g_32 = grads_of(model32)
+    del model32, model
+    worst, report = 0.0, {}
+    for n, ref in g_32.items():
+        norm = ref.norm().item()
+        e_k = (g_k[n] - ref).norm().item() / norm
+        e_p = (g_p[n] - ref).norm().item() / norm
+        tol = GRAD_PARITY_FACTOR * e_p + GRAD_PARITY_FLOOR
+        report[n] = [e_k, e_p]
+        worst = max(worst, e_k / tol)
+        if not (math.isfinite(e_k) and e_k <= tol):
+            raise AssertionError(f"train parity {n}: kernel grad rel err "
+                                 f"{e_k:.3e} > {tol:.3e} (plain bf16 "
+                                 f"{e_p:.3e})")
+    l_tol = (GRAD_PARITY_FACTOR * abs(loss_p - loss_32)
+             + GRAD_PARITY_FLOOR * abs(loss_32))
+    if not abs(loss_k - loss_32) <= l_tol:
+        raise AssertionError(f"train parity loss: kernel {loss_k} plain "
+                             f"bf16 {loss_p} f32 {loss_32}")
+    emit({"phase": "train_parity", "layers": 2, "batch": TRAIN_BATCH,
+          "seq": 2048,
+          "loss_kernel_bf16": loss_k, "loss_plain_bf16": loss_p,
+          "loss_plain_f32": loss_32, "worst_err_over_tol": worst,
+          "grad_rel_err_kernel_vs_plain_bf16": report,
+          "launches": launches})
 
 
 def main():
@@ -435,23 +852,37 @@ def main():
           "build_s": build_s, "built": sorted(built), "ptxas": ptxas})
 
     summary = kernel_phase(torch, dev)
-    launches = engine_phase(torch, dev)
+    serve = engine_phase(torch, dev)
+    train = train_phase(torch, dev)
+    train_parity_phase(torch, dev)
 
     sources = {
         "paged_attention": ("cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
-                            "paddle_tpu/serving/paged_attention.py:284"),
+                            "paddle_tpu/serving/paged_attention.py:284",
+                            "serve"),
         "rms_norm": ("triton", "paddle_tpu_torch/ops/rms_norm.py",
-                     "paddle_tpu/ops/pallas/norms.py:220"),
+                     "paddle_tpu/ops/pallas/norms.py:220", "serve"),
+        "rms_norm_bwd": ("triton", "paddle_tpu_torch/ops/rms_norm.py",
+                         "paddle_tpu/ops/pallas/norms.py:257", "train"),
+        "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                      "paddle_tpu/ops/pallas/flash.py:132", "train"),
+        "flash_bwd_dq": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+                         "paddle_tpu/ops/pallas/flash.py:255", "train"),
+        "flash_bwd_dkv": ("cuda",
+                          "paddle_tpu_torch/csrc/flash_attention.cu",
+                          "paddle_tpu/ops/pallas/flash.py:277", "train"),
     }
     kernels = []
-    for name, (route, source, replaces) in sources.items():
+    for name, (route, source, replaces, path) in sources.items():
         c = summary[name]
+        counts = serve if path == "serve" else train
         kernels.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": counts[name],
                         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"],
-                        "library_ms": c["library_ms"], "case": c["name"]})
+                        "library_ms": c["library_ms"], "case": c["name"],
+                        "path": path, "train_launches": train[name]})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

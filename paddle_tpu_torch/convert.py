@@ -1,4 +1,5 @@
-"""Load the JAX package's model weights into the port.
+"""Load the JAX package's model weights and optimizer state into the
+port.
 
 ``state_dict_from_jax`` takes the arrays of a JAX ``GPTForCausalLM``'s
 ``state_dict()`` (as numpy, e.g. ``{k: v.numpy() for k, v in
@@ -77,4 +78,46 @@ def state_dict_from_jax(np_state, config, device=None, dtype=None):
                              f"conversion, expected {shape}")
         t = torch.tensor(a)              # a copy: the state stays the caller's
         out[key] = t.to(device=dev, dtype=dtype or t.dtype)
+    return out
+
+
+_ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow",
+                 "master_weight")
+
+
+def optimizer_state_from_jax(np_state, config, device=None):
+    """The JAX ``Adam``/``AdamW`` accumulators -> an optimizer
+    ``state_dict`` of the port, so a JAX run resumes in the port.
+
+    ``np_state`` maps ``"<model state_dict key>.<accumulator>"`` to arrays
+    (``moment1``, ``moment2``, ``beta1_pow``, ``beta2_pow`` and, under
+    ``multi_precision``, ``master_weight``: the JAX optimizer's
+    ``_accumulators`` of each parameter, keyed by the model's state_dict
+    key) and may carry ``"global_step"``.  Per-element accumulators of a
+    ``Linear`` weight are transposed as the weight is.  Load the result
+    with ``optimizer.set_state_dict`` on an optimizer built from
+    ``model.named_parameters()``.  Raises on a key that names no
+    parameter or accumulator, or a misshaped array."""
+    dev = resolve_device(device)
+    want = expected_shapes(config)
+    out = {"global_step": int(np_state.get("global_step", 0))}
+    for key, a in np_state.items():
+        if key == "global_step":
+            continue
+        pkey, _, acc = key.rpartition(".")
+        if pkey not in want or acc not in _ACCUMULATORS:
+            raise KeyError(f"optimizer state {key!r} names no parameter "
+                           "accumulator of this config")
+        a = np.asarray(a)
+        if acc in ("beta1_pow", "beta2_pow"):
+            if a.size != 1:
+                raise ValueError(f"{key}: shape {a.shape}, expected a scalar")
+            a = a.reshape(())
+        else:
+            if _is_linear(pkey):
+                a = a.T
+            if tuple(a.shape) != want[pkey]:
+                raise ValueError(f"{key}: shape {tuple(a.shape)} after "
+                                 f"layout conversion, expected {want[pkey]}")
+        out[key] = torch.tensor(a, dtype=torch.float32, device=dev)
     return out

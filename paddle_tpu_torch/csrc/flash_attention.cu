@@ -1,0 +1,1092 @@
+// Flash attention forward and backward (recompute form), for sm_90a.
+//
+// Replaces the three Pallas TPU kernels of paddle_tpu/ops/pallas/flash.py
+// (each with an f32 kernel and a bf16 "_mma" kernel here):
+//   flash_fwd_kernel     <- _fwd_kernel  (:74, launched by _flash_fwd :132)
+//   flash_bwd_dq_kernel  <- _dq_kernel   (:163, launched by _flash_bwd :255)
+//   flash_bwd_dkv_kernel <- _dkv_kernel  (:197, launched by _flash_bwd :277)
+// and computes what they compute: S = Q K^T * scale under the causal mask
+// q_idx + (kv_len - q_len) >= k_idx (flash.py:29-45), an f32 online softmax
+// with O and lse = m + log(l) saved, and the backward from lse and
+// delta = rowsum(dO * O) alone:
+//   P = exp(S - lse),  dS = P * (dO V^T - delta) * scale,
+//   dQ = dS K,  dK = dS^T Q,  dV = P^T dO.
+//
+// Layout.  q, out, dout, dq are [B, Sq, H, D]; k, v, dk, dv [B, Sk, KH, D]
+// (the port's [batch, seq, heads, head_dim], read in place: no transposes);
+// lse and delta are [B, H, Sq] f32.  GQA: query head h reads kv head
+// h / (H / KH), and K/V are never repeated in memory.
+//
+// Design.  The TPU kernels walk the k (or q) blocks as a sequential grid
+// axis and carry m, l and acc (or dq, dk, dv) in VMEM scratch.  Here a
+// thread block owns one output tile and loops over the other axis itself:
+//   forward and dq: one block per (64-row q tile, q head, batch), looping
+//     over the k tiles in order, m/l/acc (or dq) in f32 registers;
+//   dkv: one block per (64-row k tile, kv head, batch), looping over the
+//     q_per_kv query heads of its group and their q tiles (the sum that
+//     _dkv_kernel accumulates over grid axes), dk/dv in f32 registers.
+// Each block owns its output, so there are no atomics and the result is
+// deterministic.  Two arithmetic paths share that structure:
+//   bf16 inputs: the tensor cores (mma.sync, see the bf16 section below);
+//   f32 inputs: plain FMA on the CUDA cores (f32 products have no tensor
+//     core path that keeps f32 precision).  256 threads as a 16 x 16 grid;
+//     a thread computes a 4 x 4 piece of each 64 x 64 score tile (rows
+//     ty + 16 i, columns tx + 16 j) and D/16 columns of its 4 output rows.
+//     Tiles are staged in shared memory as f32 with one word of row
+//     padding, so the column reads of K, V, Q and dO hit 16 distinct
+//     banks.  Score-row max and sum are shuffles over the 16 lanes that
+//     share ty.
+// K tiles wholly above the causal diagonal are never loaded (the pl.when
+// skip of the TPU kernels); ragged edges are masked in the kernel (rows
+// past the end load as 0 and are not stored).  A query row
+// with no visible key (q_len > kv_len under the causal mask) keeps l = 0:
+// it outputs 0 with lse = -inf, and its probabilities are a literal 0 in
+// the backward, so it has zero gradients (the flash-attn convention; the
+// TPU kernel's finite NEG_INF instead gives such rows mean(v)).
+//
+// Bound.  Each kernel is bounded by operations at these sizes: per visible
+// (q, k) pair and query head, 4 D flops forward (QK^T, PV) and 10 D
+// backward (five products; the dq and dkv kernels each recompute QK^T and
+// dO V^T, so they do 14 D together), over 989 TFLOP/s for bf16 (tensor
+// cores) or 67 TFLOP/s for f32 (CUDA cores) on an H100 SXM.  The bf16 path
+// issues mma.sync from registers with operands staged by plain loads; the
+// Hopper-only wgmma, TMA and a pipelined K/V ring are later work, and the
+// hi/lo split of P and dS costs one extra mma per second product.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "kernels.h"
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;  // running-max floor: exp(m - m_new) stays finite
+constexpr int BQ = 64;             // q rows per tile
+constexpr int BK = 64;             // keys per tile
+constexpr int NT = 256;            // threads per block (16 x 16)
+constexpr int LDP = BK + 1;        // padded row stride of a [BQ, BK] tile
+
+// reduce over the 16 lanes that share ty (lanes 0-15 and 16-31 of a warp)
+__device__ __forceinline__ float row_max16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Stage rows [r0, r0 + 64) of one head into dst[64][D + 1], with 16-byte
+// loads; rows at or past n load as 0.  src points at row 0 of the head and
+// rows are `stride` elements apart.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
+                                          size_t stride, int r0, int n) {
+  constexpr int CPR = D / 4;  // 16-byte chunks per row
+  constexpr int LD = D + 1;
+  for (int idx = threadIdx.x; idx < 64 * CPR; idx += NT) {
+    const int r = idx / CPR, ch = idx % CPR;
+    float* d = dst + r * LD + ch * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n)
+      v = reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * stride)[ch];
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+}
+
+// s[i][j] += A[ty + 16 i] . B[tx + 16 j] over D (A, B padded [64][D + 1])
+template <int D>
+__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
+                                         const float* B, int ty, int tx) {
+  constexpr int LD = D + 1;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * LD + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+  }
+}
+
+// number of k tiles that rows [q0, q0 + 64) can see
+__device__ __forceinline__ int k_tiles(int q0, int Sq, int Sk, int causal) {
+  int k_end = Sk;
+  if (causal) k_end = min(Sk, min(q0 + BQ, Sq) - 1 + (Sk - Sq) + 1);
+  return k_end > 0 ? (k_end + BK - 1) / BK : 0;
+}
+
+__device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Sk,
+                                        int causal) {
+  return qi < Sq && kj < Sk && (!causal || qi + (Sk - Sq) >= kj);
+}
+
+// ---------------------------------------------------------------- forward
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KH,
+                 float scale, int causal) {
+  constexpr int LD = D + 1;
+  constexpr int E = D / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sP = sV + BK * LD;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = qt * BQ;
+
+  load_tile<D>(sQ, q + ((size_t)b * Sq * H + h) * D, (size_t)H * D, q0, Sq);
+  const float* kb = k + ((size_t)b * Sk * KH + kh) * D;
+  const float* vb = v + ((size_t)b * Sk * KH + kh) * D;
+
+  float m[4], l[4], acc[4][E];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+  }
+
+  const int n_k = k_tiles(q0, Sq, Sk, causal);
+  for (int jt = 0; jt < n_k; ++jt) {
+    const int k0 = jt * BK;
+    __syncthreads();  // the previous tile's sK, sV, sP are consumed
+    load_tile<D>(sK, kb, (size_t)KH * D, k0, Sk);
+    load_tile<D>(sV, vb, (size_t)KH * D, k0, Sk);
+    __syncthreads();
+
+    float s[4][4] = {};
+    tile_dot<D>(s, sQ, sK, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty + 16 * i;
+      bool vis[4];
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        vis[j] = visible(qi, k0 + tx + 16 * j, Sq, Sk, causal);
+        s[i][j] *= scale;
+        if (vis[j]) mx = fmaxf(mx, s[i][j]);
+      }
+      mx = row_max16(mx);
+      const float alpha = expf(m[i] - mx);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = vis[j] ? expf(s[i][j] - mx) : 0.f;
+        sP[(ty + 16 * i) * LDP + tx + 16 * j] = p;
+        ps += p;
+      }
+      l[i] = l[i] * alpha + row_sum16(ps);
+      m[i] = mx;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[i][e] *= alpha;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = sP[(ty + 16 * i) * LDP + c];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float vv = sV[c * LD + tx + 16 * e];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][e] = fmaf(p[i], vv, acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= Sq) continue;
+    const bool any = l[i] > 0.f;
+    float* op = out + (((size_t)b * Sq + qi) * H + h) * D;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      op[tx + 16 * e] = (any ? acc[i][e] / l[i] : 0.f);
+    if (tx == 0)
+      lse[((size_t)b * H + h) * Sq + qi] = any ? m[i] + logf(l[i]) : -INFINITY;
+  }
+}
+
+// --------------------------------------------------------------- backward
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int Sq, int Sk, int H, int KH, float scale, int causal) {
+  constexpr int LD = D + 1;
+  constexpr int E = D / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sO = sQ + BQ * LD;  // dO
+  float* sK = sO + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sS = sV + BK * LD;  // dS
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = qt * BQ;
+  const size_t qoff = ((size_t)b * Sq * H + h) * D;
+
+  load_tile<D>(sQ, q + qoff, (size_t)H * D, q0, Sq);
+  load_tile<D>(sO, dout + qoff, (size_t)H * D, q0, Sq);
+  const float* kb = k + ((size_t)b * Sk * KH + kh) * D;
+  const float* vb = v + ((size_t)b * Sk * KH + kh) * D;
+
+  float rl[4], rd[4], acc[4][E];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    const size_t at = ((size_t)b * H + h) * Sq + qi;
+    rl[i] = qi < Sq ? lse[at] : 0.f;
+    rd[i] = qi < Sq ? delta[at] : 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+  }
+
+  const int n_k = k_tiles(q0, Sq, Sk, causal);
+  for (int jt = 0; jt < n_k; ++jt) {
+    const int k0 = jt * BK;
+    __syncthreads();
+    load_tile<D>(sK, kb, (size_t)KH * D, k0, Sk);
+    load_tile<D>(sV, vb, (size_t)KH * D, k0, Sk);
+    __syncthreads();
+
+    float s[4][4] = {}, dp[4][4] = {};
+    tile_dot<D>(s, sQ, sK, ty, tx);
+    tile_dot<D>(dp, sO, sV, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool vis = visible(qi, k0 + tx + 16 * j, Sq, Sk, causal);
+        const float p = vis ? expf(s[i][j] * scale - rl[i]) : 0.f;
+        sS[(ty + 16 * i) * LDP + tx + 16 * j] = p * (dp[i][j] - rd[i]) * scale;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = sS[(ty + 16 * i) * LDP + c];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float kv = sK[c * LD + tx + 16 * e];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][e] = fmaf(ds[i], kv, acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    if (qi >= Sq) continue;
+    float* op = dq + (((size_t)b * Sq + qi) * H + h) * D;
+#pragma unroll
+    for (int e = 0; e < E; ++e) op[tx + 16 * e] = acc[i][e];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Sk, int H, int KH,
+                     float scale, int causal) {
+  constexpr int LD = D + 1;
+  constexpr int E = D / 16;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + BK * LD;
+  float* sQ = sV + BK * LD;
+  float* sO = sQ + BQ * LD;  // dO
+  float* sP = sO + BQ * LD;
+  float* sS = sP + BQ * LDP;  // dS
+  float* sL = sS + BQ * LDP;  // lse of the q tile's rows
+  float* sD = sL + BQ;        // delta of the q tile's rows
+
+  const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KH;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int k0 = kt * BK;
+  const size_t koff = ((size_t)b * Sk * KH + kh) * D;
+
+  load_tile<D>(sK, k + koff, (size_t)KH * D, k0, Sk);
+  load_tile<D>(sV, v + koff, (size_t)KH * D, k0, Sk);
+
+  // rows c = ty + 16 i of the k tile, columns tx + 16 e
+  float ak[4][E], av[4][E];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < E; ++e) ak[i][e] = av[i][e] = 0.f;
+
+  const int n_q = (Sq + BQ - 1) / BQ;
+  for (int g = 0; g < G; ++g) {
+    const int h = kh * G + g;
+    const size_t qoff = ((size_t)b * Sq * H + h) * D;
+    const float* lrow = lse + ((size_t)b * H + h) * Sq;
+    const float* drow = delta + ((size_t)b * H + h) * Sq;
+    for (int it = 0; it < n_q; ++it) {
+      const int q0 = it * BQ;
+      // q tiles wholly below-left of the diagonal see none of these keys
+      if (causal && min(q0 + BQ, Sq) - 1 + (Sk - Sq) < k0) continue;
+      __syncthreads();
+      load_tile<D>(sQ, q + qoff, (size_t)H * D, q0, Sq);
+      load_tile<D>(sO, dout + qoff, (size_t)H * D, q0, Sq);
+      if (threadIdx.x < BQ) {
+        const int qi = q0 + threadIdx.x;
+        sL[threadIdx.x] = qi < Sq ? lrow[qi] : 0.f;
+        sD[threadIdx.x] = qi < Sq ? drow[qi] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4] = {}, dp[4][4] = {};
+      tile_dot<D>(s, sQ, sK, ty, tx);
+      tile_dot<D>(dp, sO, sV, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool vis = visible(q0 + r, k0 + tx + 16 * j, Sq, Sk, causal);
+          const float p = vis ? expf(s[i][j] * scale - sL[r]) : 0.f;
+          sP[r * LDP + tx + 16 * j] = p;
+          sS[r * LDP + tx + 16 * j] = p * (dp[i][j] - sD[r]) * scale;
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int r = 0; r < BQ; ++r) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = sP[r * LDP + ty + 16 * i];
+          ds[i] = sS[r * LDP + ty + 16 * i];
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float o = sO[r * LD + tx + 16 * e];
+          const float qq = sQ[r * LD + tx + 16 * e];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            av[i][e] = fmaf(p[i], o, av[i][e]);
+            ak[i][e] = fmaf(ds[i], qq, ak[i][e]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kj = k0 + ty + 16 * i;
+    if (kj >= Sk) continue;
+    const size_t at = (((size_t)b * Sk + kj) * KH + kh) * D;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      dk[at + tx + 16 * e] = ak[i][e];
+      dv[at + tx + 16 * e] = av[i][e];
+    }
+  }
+}
+
+// ------------------------------------------------- bf16 tensor-core path
+// The same three functions for bf16 inputs on the tensor cores, with
+// mma.sync.m16n8k16 (bf16 operands, f32 accumulation).  A block of 4 warps
+// owns 64 rows of its output tile, 16 per warp.  Operand tiles are staged
+// in shared memory as bf16, row-major, with 8 elements of row padding (a
+// row then starts 4 banks after the last, so fragment loads are free of
+// conflicts); where a product needs an operand transposed (V in P V, K in
+// dS K, Q and dO in dS^T Q and P^T dO), ldmatrix.trans reads it from the
+// same row-major tile.  The f32
+// scores never leave registers: the accumulator fragments of S (or of the
+// transposed scores in dK/dV) are already laid out as the A fragments of
+// the next product.  P and dS enter that product as two bf16 terms,
+// hi = bf16(x) and lo = bf16(x - hi), so they keep about 16 bits of
+// mantissa (two mma per product): the result stays within f32 rounding of
+// the plain twins, where one bf16 term would add a 2^-9 relative error to
+// every probability.
+typedef __nv_bfloat16 bf16;
+constexpr int MT = 128;     // threads per block of the tensor-core kernels
+constexpr int BQ2 = 32;     // q rows per inner step of the dK/dV kernel
+// scores are kept in log2 units (scale * log2 e folded into one multiply)
+// so each probability is one exp2; lse stays a natural log in memory
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// every (row, key) pair of the tile is visible: no mask arithmetic needed
+__device__ __forceinline__ bool tile_full(int q0, int rows, int k0, int Sq,
+                                          int Sk, int causal) {
+  return k0 + BK <= Sk && q0 + rows <= Sq &&
+         (!causal || q0 + (Sk - Sq) >= k0 + BK - 1);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x0 (lower column) and x1 -> the hi and lo bf16x2 terms
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment (16 x 16) of rows r0.. and columns c0.. of a row-major tile
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld,
+                                       int r0, int c0, int g, int t) {
+  a[0] = ld32(s + (r0 + g) * ld + c0 + 2 * t);
+  a[1] = ld32(s + (r0 + g + 8) * ld + c0 + 2 * t);
+  a[2] = ld32(s + (r0 + g) * ld + c0 + 2 * t + 8);
+  a[3] = ld32(s + (r0 + g + 8) * ld + c0 + 2 * t + 8);
+}
+
+// B fragment (k 16 x n 8) whose column n is row n0 + n of a row-major tile
+// and whose k runs along that row from k0
+__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const bf16* s,
+                                       int ld, int n0, int k0, int g, int t) {
+  b0 = ld32(s + (n0 + g) * ld + k0 + 2 * t);
+  b1 = ld32(s + (n0 + g) * ld + k0 + 2 * t + 8);
+}
+
+// two adjacent accumulator tiles (columns 16 kk .. 16 kk + 15) -> the hi
+// and lo A fragments of k-step kk
+__device__ __forceinline__ void c_to_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                       const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// B fragments of the n-tiles n0 and n0 + 8 (b[0..1] and b[2..3]) of
+// B[k][n] = s[(k0 + k) * ld + n]: k runs down the rows of a row-major tile,
+// so each 8 x 8 piece is read transposed by ldmatrix
+__device__ __forceinline__ void load_b_trans(uint32_t (&b)[4], const bf16* s,
+                                             int ld, int k0, int n0,
+                                             int lane) {
+  const int mi = lane / 8;  // lanes 8 mi .. 8 mi + 7 address matrix mi
+  const bf16* p = s + (k0 + (mi & 1) * 8 + lane % 8) * ld + n0 + (mi >> 1) * 8;
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(addr));
+}
+
+// Stage rows [r0, r0 + R) of one head (rows `stride` elements apart) into
+// dst[R][D + 8] with 16-byte copies; rows at or past n load as 0.
+template <int D, int R>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ src,
+                                      size_t stride, int r0, int n) {
+  constexpr int CPR = D / 8;
+  for (int idx = threadIdx.x; idx < R * CPR; idx += MT) {
+    const int r = idx / CPR, ch = idx % CPR;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < n)
+      v = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride)[ch];
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + ch * 8) = v;
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MT)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int Sq, int Sk, int H, int KH,
+                     float scale, int causal) {
+  constexpr int LD = D + 8, KS = D / 16, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + BQ * LD;
+  bf16* sV = sK + BK * LD;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
+  const int q0 = qt * BQ;
+  const bf16* kb = k + ((size_t)b * Sk * KH + kh) * D;
+  const bf16* vb = v + ((size_t)b * Sk * KH + kh) * D;
+
+  stage<D, BQ>(sQ, q + ((size_t)b * Sq * H + h) * D, (size_t)H * D, q0, Sq);
+  __syncthreads();
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) load_a(qa[kk], sQ, LD, r0, 16 * kk, g, t);
+
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  const float sl2 = scale * LOG2E;
+  const int n_k = k_tiles(q0, Sq, Sk, causal);
+  for (int jt = 0; jt < n_k; ++jt) {
+    const int k0 = jt * BK;
+    const bool full = tile_full(q0, BQ, k0, Sq, Sk, causal);
+    __syncthreads();  // the previous tile's sK, sV are consumed
+    stage<D, BK>(sK, kb, (size_t)KH * D, k0, Sk);
+    stage<D, BK>(sV, vb, (size_t)KH * D, k0, Sk);
+    __syncthreads();
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t b0, b1;
+        load_b(b0, b1, sK, LD, 8 * j, 16 * kk, g, t);
+        mma16816(s[j], qa[kk], b0, b1);
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {  // rows r0 + g and r0 + g + 8
+      const int qi = q0 + r0 + g + 8 * hf;
+      float mx = m[hf];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[j][2 * hf + e] *= sl2;
+          if (full || visible(qi, k0 + 8 * j + 2 * t + e, Sq, Sk, causal))
+            mx = fmaxf(mx, s[j][2 * hf + e]);
+        }
+      mx = quad_max(mx);
+      const float alpha = exp2f(m[hf] - mx);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool vis =
+              full || visible(qi, k0 + 8 * j + 2 * t + e, Sq, Sk, causal);
+          const float p = vis ? exp2f(s[j][2 * hf + e] - mx) : 0.f;
+          s[j][2 * hf + e] = p;
+          ps += p;
+        }
+      l[hf] = l[hf] * alpha + quad_sum(ps);
+      m[hf] = mx;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][2 * hf] *= alpha;
+        o[n][2 * hf + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      c_to_a(ph, pl, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bv[4];
+        load_b_trans(bv, sV, LD, 16 * kk, 8 * n, lane);
+        mma16816(o[n], ph, bv[0], bv[1]);
+        mma16816(o[n], pl, bv[0], bv[1]);
+        mma16816(o[n + 1], ph, bv[2], bv[3]);
+        mma16816(o[n + 1], pl, bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qi = q0 + r0 + g + 8 * hf;
+    if (qi >= Sq) continue;
+    const bool any = l[hf] > 0.f;
+    bf16* op = out + (((size_t)b * Sq + qi) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      store2(op + 8 * n, any ? o[n][2 * hf] / l[hf] : 0.f,
+             any ? o[n][2 * hf + 1] / l[hf] : 0.f);
+    if (t == 0)
+      lse[((size_t)b * H + h) * Sq + qi] =
+          any ? m[hf] * LN2 + logf(l[hf]) : -INFINITY;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MT)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                        int Sq, int Sk, int H, int KH, float scale,
+                        int causal) {
+  constexpr int LD = D + 8, KS = D / 16, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sO = sQ + BQ * LD;  // dO
+  bf16* sK = sO + BQ * LD;
+  bf16* sV = sK + BK * LD;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / KH);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
+  const int q0 = qt * BQ;
+  const size_t qoff = ((size_t)b * Sq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * Sk * KH + kh) * D;
+  const bf16* vb = v + ((size_t)b * Sk * KH + kh) * D;
+
+  stage<D, BQ>(sQ, q + qoff, (size_t)H * D, q0, Sq);
+  stage<D, BQ>(sO, dout + qoff, (size_t)H * D, q0, Sq);
+  float rl[2], rd[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qi = q0 + r0 + g + 8 * hf;
+    const size_t at = ((size_t)b * H + h) * Sq + qi;
+    rl[hf] = qi < Sq ? lse[at] * LOG2E : 0.f;
+    rd[hf] = qi < Sq ? delta[at] : 0.f;
+  }
+  const float sl2 = scale * LOG2E;
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int n_k = k_tiles(q0, Sq, Sk, causal);
+  for (int jt = 0; jt < n_k; ++jt) {
+    const int k0 = jt * BK;
+    const bool full = tile_full(q0, BQ, k0, Sq, Sk, causal);
+    __syncthreads();
+    stage<D, BK>(sK, kb, (size_t)KH * D, k0, Sk);
+    stage<D, BK>(sV, vb, (size_t)KH * D, k0, Sk);
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t aq[4], ao[4];
+      load_a(aq, sQ, LD, r0, 16 * kk, g, t);
+      load_a(ao, sO, LD, r0, 16 * kk, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t b0, b1;
+        load_b(b0, b1, sK, LD, 8 * j, 16 * kk, g, t);
+        mma16816(s[j], aq, b0, b1);
+        load_b(b0, b1, sV, LD, 8 * j, 16 * kk, g, t);
+        mma16816(dp[j], ao, b0, b1);
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int qi = q0 + r0 + g + 8 * hf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 2 * hf + e;
+          const bool vis =
+              full || visible(qi, k0 + 8 * j + 2 * t + e, Sq, Sk, causal);
+          const float p = vis ? exp2f(s[j][c] * sl2 - rl[hf]) : 0.f;
+          s[j][c] = p * (dp[j][c] - rd[hf]) * scale;  // dS
+        }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t dh[4], dl[4];
+      c_to_a(dh, dl, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bk[4];
+        load_b_trans(bk, sK, LD, 16 * kk, 8 * n, lane);
+        mma16816(acc[n], dh, bk[0], bk[1]);
+        mma16816(acc[n], dl, bk[0], bk[1]);
+        mma16816(acc[n + 1], dh, bk[2], bk[3]);
+        mma16816(acc[n + 1], dl, bk[2], bk[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qi = q0 + r0 + g + 8 * hf;
+    if (qi >= Sq) continue;
+    bf16* op = dq + (((size_t)b * Sq + qi) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      store2(op + 8 * n, acc[n][2 * hf], acc[n][2 * hf + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MT)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int Sq, int Sk, int H, int KH,
+                         float scale, int causal) {
+  constexpr int LD = D + 8, KS = D / 16, NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + BK * LD;
+  bf16* sQ = sV + BK * LD;
+  bf16* sO = sQ + BQ2 * LD;  // dO
+  float* sL = reinterpret_cast<float*>(sO + BQ2 * LD);
+  float* sD = sL + BQ2;
+
+  const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
+  const int k0 = kt * BK;
+  const size_t koff = ((size_t)b * Sk * KH + kh) * D;
+
+  stage<D, BK>(sK, k + koff, (size_t)KH * D, k0, Sk);
+  stage<D, BK>(sV, v + koff, (size_t)KH * D, k0, Sk);
+
+  // rows r0 + g (+ 8) of the k tile, columns 8 n + 2 t (+ 1)
+  float ak[NO][4], av[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+
+  const float sl2 = scale * LOG2E;
+  const int n_q = (Sq + BQ2 - 1) / BQ2;
+  for (int gh = 0; gh < G; ++gh) {
+    const int h = kh * G + gh;
+    const size_t qoff = ((size_t)b * Sq * H + h) * D;
+    const float* lrow = lse + ((size_t)b * H + h) * Sq;
+    const float* drow = delta + ((size_t)b * H + h) * Sq;
+    for (int it = 0; it < n_q; ++it) {
+      const int q0 = it * BQ2;
+      if (causal && min(q0 + BQ2, Sq) - 1 + (Sk - Sq) < k0) continue;
+      const bool full = tile_full(q0, BQ2, k0, Sq, Sk, causal);
+      __syncthreads();
+      stage<D, BQ2>(sQ, q + qoff, (size_t)H * D, q0, Sq);
+      stage<D, BQ2>(sO, dout + qoff, (size_t)H * D, q0, Sq);
+      if (threadIdx.x < BQ2) {
+        const int qi = q0 + threadIdx.x;
+        sL[threadIdx.x] = qi < Sq ? lrow[qi] * LOG2E : 0.f;
+        sD[threadIdx.x] = qi < Sq ? drow[qi] : 0.f;
+      }
+      __syncthreads();
+
+      // transposed scores: rows = keys r0 + g (+ 8), columns = q 8 j + 2 t (+ 1)
+      float s[BQ2 / 8][4], dp[BQ2 / 8][4];
+#pragma unroll
+      for (int j = 0; j < BQ2 / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t a_k[4], a_v[4];
+        load_a(a_k, sK, LD, r0, 16 * kk, g, t);
+        load_a(a_v, sV, LD, r0, 16 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < BQ2 / 8; ++j) {
+          uint32_t b0, b1;
+          load_b(b0, b1, sQ, LD, 8 * j, 16 * kk, g, t);
+          mma16816(s[j], a_k, b0, b1);
+          load_b(b0, b1, sO, LD, 8 * j, 16 * kk, g, t);
+          mma16816(dp[j], a_v, b0, b1);
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int kj = k0 + r0 + g + 8 * hf;
+#pragma unroll
+        for (int j = 0; j < BQ2 / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 2 * hf + e, qc = 8 * j + 2 * t + e;
+            const bool vis = full || visible(q0 + qc, kj, Sq, Sk, causal);
+            const float p = vis ? exp2f(s[j][c] * sl2 - sL[qc]) : 0.f;
+            s[j][c] = p;
+            dp[j][c] = p * (dp[j][c] - sD[qc]) * scale;  // dS^T
+          }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ2 / 16; ++kk) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        c_to_a(ph, pl, s[2 * kk], s[2 * kk + 1]);
+        c_to_a(dh, dl, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t bb[4];
+          load_b_trans(bb, sO, LD, 16 * kk, 8 * n, lane);
+          mma16816(av[n], ph, bb[0], bb[1]);
+          mma16816(av[n], pl, bb[0], bb[1]);
+          mma16816(av[n + 1], ph, bb[2], bb[3]);
+          mma16816(av[n + 1], pl, bb[2], bb[3]);
+          load_b_trans(bb, sQ, LD, 16 * kk, 8 * n, lane);
+          mma16816(ak[n], dh, bb[0], bb[1]);
+          mma16816(ak[n], dl, bb[0], bb[1]);
+          mma16816(ak[n + 1], dh, bb[2], bb[3]);
+          mma16816(ak[n + 1], dl, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kj = k0 + r0 + g + 8 * hf;
+    if (kj >= Sk) continue;
+    const size_t at = (((size_t)b * Sk + kj) * KH + kh) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      store2(dk + at + 8 * n, ak[n][2 * hf], ak[n][2 * hf + 1]);
+      store2(dv + at + 8 * n, av[n][2 * hf], av[n][2 * hf + 1]);
+    }
+  }
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int D>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Sq, int Sk, int H, int KH, float scale,
+                int causal, cudaStream_t st) {
+  const size_t smem = (size_t)(BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LDP) * 4;
+  auto kernel = flash_fwd_kernel<D>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kernel<<<grid, NT, smem, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                 static_cast<const float*>(v), static_cast<float*>(out),
+                                 lse, Sq, Sk, H, KH, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dq(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int B, int Sq, int Sk, int H, int KH, float scale,
+                   int causal, cudaStream_t st) {
+  const size_t smem = (size_t)(2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LDP) * 4;
+  auto kernel = flash_bwd_dq_kernel<D>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kernel<<<grid, NT, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), Sq, Sk, H, KH,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    void* dk, void* dv, int B, int Sq, int Sk, int H, int KH,
+                    float scale, int causal, cudaStream_t st) {
+  const size_t smem =
+      (size_t)(2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * LDP + 2 * BQ) * 4;
+  auto kernel = flash_bwd_dkv_kernel<D>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sk + BK - 1) / BK, KH, B);
+  kernel<<<grid, NT, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), Sq, Sk, H, KH, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* out,
+                    float* lse, int B, int Sq, int Sk, int H, int KH,
+                    float scale, int causal, cudaStream_t st) {
+  const size_t smem = (size_t)(BQ + 2 * BK) * (D + 8) * 2;
+  auto kernel = flash_fwd_mma_kernel<D>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kernel<<<grid, MT, smem, st>>>(static_cast<const bf16*>(q),
+                                 static_cast<const bf16*>(k),
+                                 static_cast<const bf16*>(v),
+                                 static_cast<bf16*>(out), lse, Sq, Sk, H, KH,
+                                 scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dq, int B, int Sq, int Sk, int H, int KH,
+                       float scale, int causal, cudaStream_t st) {
+  const size_t smem = (size_t)(2 * BQ + 2 * BK) * (D + 8) * 2;
+  auto kernel = flash_bwd_dq_mma_kernel<D>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  kernel<<<grid, MT, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dq), Sq, Sk, H, KH, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_dkv_mma(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse,
+                        const float* delta, void* dk, void* dv, int B, int Sq,
+                        int Sk, int H, int KH, float scale, int causal,
+                        cudaStream_t st) {
+  const size_t smem =
+      (size_t)(2 * BK + 2 * BQ2) * (D + 8) * 2 + 2 * BQ2 * sizeof(float);
+  auto kernel = flash_bwd_dkv_mma_kernel<D>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sk + BK - 1) / BK, KH, B);
+  kernel<<<grid, MT, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H, KH, scale,
+      causal);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int B, int Sq, int Sk, int H, int KH, int head_dim) {
+  return B < 0 || Sq < 0 || Sk < 0 || KH <= 0 || H % KH != 0 ||
+         (head_dim != 64 && head_dim != 128);
+}
+
+}  // namespace
+
+// f32 inputs take the FMA kernels, bf16 inputs the tensor-core kernels
+#define FA_DISPATCH(CALL, CALL_MMA)                                        \
+  if (dtype == 0 && head_dim == 128) return CALL(128);                     \
+  if (dtype == 0 && head_dim == 64) return CALL(64);                       \
+  if (dtype == 1 && head_dim == 128) return CALL_MMA(128);                 \
+  if (dtype == 1 && head_dim == 64) return CALL_MMA(64);                   \
+  return cudaErrorInvalidValue;
+
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
+                                   void* out, float* lse, int batch, int q_len,
+                                   int kv_len, int q_heads, int kv_heads,
+                                   int head_dim, float scale, int causal,
+                                   int dtype, void* stream) {
+  if (bad_shape(batch, q_len, kv_len, q_heads, kv_heads, head_dim))
+    return cudaErrorInvalidValue;
+  if (batch == 0 || q_len == 0 || q_heads == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FA_FWD(D) \
+  fwd<D>(q, k, v, out, lse, batch, q_len, kv_len, q_heads, kv_heads, scale, causal, st)
+#define FA_FWD_MMA(D) \
+  fwd_mma<D>(q, k, v, out, lse, batch, q_len, kv_len, q_heads, kv_heads, scale, causal, st)
+  FA_DISPATCH(FA_FWD, FA_FWD_MMA)
+#undef FA_FWD
+#undef FA_FWD_MMA
+}
+
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const float* lse, const float* delta,
+                                      void* dq, int batch, int q_len,
+                                      int kv_len, int q_heads, int kv_heads,
+                                      int head_dim, float scale, int causal,
+                                      int dtype, void* stream) {
+  if (bad_shape(batch, q_len, kv_len, q_heads, kv_heads, head_dim))
+    return cudaErrorInvalidValue;
+  if (batch == 0 || q_len == 0 || q_heads == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FA_DQ(D)                                                           \
+  bwd_dq<D>(q, k, v, dout, lse, delta, dq, batch, q_len, kv_len, q_heads, \
+            kv_heads, scale, causal, st)
+#define FA_DQ_MMA(D)                                                          \
+  bwd_dq_mma<D>(q, k, v, dout, lse, delta, dq, batch, q_len, kv_len, q_heads, \
+                kv_heads, scale, causal, st)
+  FA_DISPATCH(FA_DQ, FA_DQ_MMA)
+#undef FA_DQ
+#undef FA_DQ_MMA
+}
+
+extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const float* lse, const float* delta,
+                                       void* dk, void* dv, int batch,
+                                       int q_len, int kv_len, int q_heads,
+                                       int kv_heads, int head_dim, float scale,
+                                       int causal, int dtype, void* stream) {
+  if (bad_shape(batch, q_len, kv_len, q_heads, kv_heads, head_dim))
+    return cudaErrorInvalidValue;
+  if (batch == 0 || kv_len == 0 || kv_heads == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FA_DKV(D)                                                          \
+  bwd_dkv<D>(q, k, v, dout, lse, delta, dk, dv, batch, q_len, kv_len, \
+             q_heads, kv_heads, scale, causal, st)
+#define FA_DKV_MMA(D)                                                         \
+  bwd_dkv_mma<D>(q, k, v, dout, lse, delta, dk, dv, batch, q_len, kv_len, \
+                 q_heads, kv_heads, scale, causal, st)
+  FA_DISPATCH(FA_DKV, FA_DKV_MMA)
+#undef FA_DKV
+#undef FA_DKV_MMA
+}

@@ -21,6 +21,27 @@ int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
                         int head_dim, int block_size, int nb, int dtype,
                         int quantized, void* stream);
 
+// Flash attention forward / backward (see flash_attention.cu).
+//   q, out, dout, dq  [batch, q_len, q_heads, head_dim]    dtype: 0 = f32, 1 = bf16
+//   k, v, dk, dv      [batch, kv_len, kv_heads, head_dim]  head_dim 64 or 128
+//   lse, delta        [batch, q_heads, q_len] f32
+// causal != 0 masks key j from query i unless i + (kv_len - q_len) >= j.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
+                        float* lse, int batch, int q_len, int kv_len,
+                        int q_heads, int kv_heads, int head_dim, float scale,
+                        int causal, int dtype, void* stream);
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dq, int batch, int q_len,
+                           int kv_len, int q_heads, int kv_heads, int head_dim,
+                           float scale, int causal, int dtype, void* stream);
+int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dk, void* dv, int batch,
+                            int q_len, int kv_len, int q_heads, int kv_heads,
+                            int head_dim, float scale, int causal, int dtype,
+                            void* stream);
+
 #ifdef __cplusplus
 }
 #endif

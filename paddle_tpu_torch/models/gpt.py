@@ -11,14 +11,21 @@ conversion transposes paddle's ``[in, out]`` once, at load.
 * the paged serving path (``cache`` is a :class:`PagedKV`): rope at
   ``pos + arange(s)``, ``paged_write`` of k and v into the pool, then
   the ragged paged-attention kernel over the block table;
-* the uncached full-sequence path: plain causal masked softmax in f32.
-  It is the reference the parity checks compare the serving path with,
-  not a kernel path.
+* the uncached full-sequence path (training, and the reference the
+  serving parity checks compare with): rope at ``arange(s)``, then
+  causal flash attention (``ops/flash_attention.py``: the hand-written
+  forward and backward kernels on the card), as the JAX model's SDPA
+  routes to its Pallas flash kernel.
+
+``GPTForCausalLM.forward(input_ids, labels)`` returns the mean token
+cross-entropy beside the logits, or beside None with
+``config.fused_lm_loss`` (the chunked fused LM-head loss, which never
+materialises the ``[B*S, vocab]`` f32 logits).  The labels are used as
+given, unshifted, as the JAX model does.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import torch
@@ -26,6 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.flash_attention import flash_attention
+from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.rms_norm import rms_norm
 from ..ops.rope import apply_rotary_emb
 from ..serving.kv_cache import PagedKV, paged_write
@@ -45,6 +54,9 @@ class GPTConfig:
     rope_theta: float = 10000.0
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
+    # fused chunked LM-head CE: never materialises [B*S, vocab] f32 logits
+    # (forward(labels=...) then returns (loss, None))
+    fused_lm_loss: bool = False
 
     @property
     def head_dim(self):
@@ -107,7 +119,7 @@ class GPTAttention(nn.Module):
         pos = torch.arange(s, device=x.device)
         q = apply_rotary_emb(q, pos, self.rope_theta)
         k = apply_rotary_emb(k, pos, self.rope_theta)
-        out = causal_attention(q, k, v)
+        out = flash_attention(q, k, v, causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
     def _forward_paged(self, q, k, v, cache, b, s):
@@ -124,22 +136,6 @@ class GPTAttention(nn.Module):
                               cache.tables, pos)
         out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         return out, PagedKV(cache.k, cache.v, cache.tables, pos + s)
-
-
-def causal_attention(q, k, v):
-    """Plain causal masked softmax attention in f32 over [B, S, H, D]
-    (GQA: kv heads repeat over their query groups); output in q's
-    dtype."""
-    b, s, qh, d = q.shape
-    g = qh // k.shape[2]
-    qf = q.to(torch.float32)
-    kf = k.to(torch.float32).repeat_interleave(g, dim=2)
-    vf = v.to(torch.float32).repeat_interleave(g, dim=2)
-    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / math.sqrt(d)
-    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    sc = sc.masked_fill(~mask, float("-inf"))
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, dim=-1), vf)
-    return out.to(q.dtype)
 
 
 class GPTMLP(nn.Module):
@@ -245,7 +241,24 @@ class GPTForCausalLM(nn.Module):
             return self.lm_head(h)
         return h @ self.model.embed_tokens.weight.t()
 
-    def forward(self, input_ids):
-        """Full-sequence causal logits [B, S, vocab] (the uncached
-        reference path)."""
-        return self._logits(self.model(input_ids))
+    def forward(self, input_ids, labels=None):
+        """Full-sequence causal logits [B, S, vocab] (the uncached path);
+        with ``labels`` [B, S] (``-100`` = ignored) ``(loss, logits)``, or
+        ``(loss, None)`` under ``config.fused_lm_loss``.  The loss is the
+        mean cross-entropy over the rows that are not ignored."""
+        h = self.model(input_ids)
+        if labels is not None and self.config.fused_lm_loss:
+            # torch Linear weights are [vocab, hidden], as a tied embedding
+            weight = (self.lm_head.weight if self.lm_head is not None
+                      else self.model.embed_tokens.weight)
+            loss = fused_linear_cross_entropy(
+                h.reshape(-1, self.config.hidden_size), weight,
+                labels.reshape(-1), ignore_index=-100, transpose_weight=True)
+            return loss, None
+        logits = self._logits(h)
+        if labels is not None:
+            loss = F.cross_entropy(
+                logits.reshape(-1, self.config.vocab_size).to(torch.float32),
+                labels.reshape(-1).to(torch.int64), ignore_index=-100)
+            return loss, logits
+        return logits

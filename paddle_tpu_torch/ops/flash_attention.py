@@ -1,0 +1,286 @@
+"""Flash attention over ``[B, S, H, D]``, forward and backward.
+
+The counterpart of ``paddle_tpu/ops/pallas/flash.py`` and
+``paddle_tpu/ops/flash_attention.py``.  q is ``[B, Sq, H, D]``, k and v
+``[B, Sk, KH, D]`` with ``H % KH == 0`` (GQA: query head ``h`` reads kv
+head ``h // (H // KH)``).  With ``causal`` key ``j`` is visible from
+query ``i`` when ``i + (Sk - Sq) >= j`` (the Pallas kernels' ``_mask``).
+
+* :func:`flash_fwd` -> ``(out, lse)``: out in q's dtype, ``lse`` the f32
+  log-sum-exp of each query row's scaled scores, ``[B, H, Sq]``.
+* :func:`flash_bwd` -> ``(dq, dk, dv)`` from the saved ``out`` and
+  ``lse`` alone (the recompute form): ``P = exp(S - lse)``,
+  ``dS = P * (dO V^T - delta) * scale`` with ``delta = rowsum(dO * O)``.
+* :func:`flash_attention` -> out, differentiable (an
+  ``autograd.Function`` over the two).
+
+On CUDA tensors the three hand-written kernels of
+``csrc/flash_attention.cu`` run (``flash_fwd_kernel``,
+``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``, replacing the Pallas
+``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``; bf16 inputs run on
+the tensor cores, f32 inputs on the CUDA cores' FMA, both accumulating
+in f32); ``delta`` is plain torch, as the JAX package computes it in jnp
+outside its kernels.  On
+CPU tensors the plain twins run: the same recompute math, dense and in
+f32.  Anything else raises.
+
+A query row with no visible key (causal with ``Sq > Sk``) outputs 0 with
+``lse = -inf`` and gets zero gradients, the flash-attn convention that
+the JAX package's ``_sdpa_ref`` follows.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_HEAD_DIMS = (64, 128)
+
+
+def _visible(sq, sk, causal, device):
+    """``[Sq, Sk]`` bool visibility, or None when every key is visible."""
+    if not causal:
+        return None
+    qi = torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(sk, device=device)[None, :]
+    return qi + (sk - sq) >= kj
+
+
+def _expand_kv(x, groups):
+    return x.to(torch.float32).repeat_interleave(groups, dim=2)
+
+
+def flash_fwd_plain(q, k, v, scale, causal=False):
+    """The plain twin of the forward kernel: dense f32 softmax attention.
+    Differentiable by torch autograd, so it also serves as the plain
+    reference of :func:`flash_attention`."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    groups = h // kh
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     _expand_kv(k, groups)) * scale
+    vis = _visible(sq, sk, causal, q.device)
+    if vis is not None:
+        s = s.masked_fill(~vis, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)                       # masked keys: exactly 0
+    l = p.sum(dim=-1, keepdim=True)
+    any_key = l > 0
+    l_safe = torch.where(any_key, l, torch.ones_like(l))
+    o = torch.einsum("bhqk,bkhd->bhqd", p, _expand_kv(v, groups)) / l_safe
+    lse = torch.where(any_key, m + torch.log(l_safe),
+                      torch.full_like(l, float("-inf")))
+    return o.transpose(1, 2).to(q.dtype), lse[..., 0]
+
+
+def flash_bwd_plain(q, k, v, out, lse, dout, scale, causal=False):
+    """The plain twin of the two backward kernels (and of ``delta``)."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    groups = h // kh
+    qf, dof = q.to(torch.float32), dout.to(torch.float32)
+    kf, vf = _expand_kv(k, groups), _expand_kv(v, groups)
+    delta = (dof * out.to(torch.float32)).sum(-1).transpose(1, 2)  # [B,H,Sq]
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    vis = _visible(sq, sk, causal, q.device)
+    if vis is not None:
+        p = torch.where(vis, p, torch.zeros_like(p))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(b, sk, kh, groups, d).sum(3)
+    dv = dv.reshape(b, sk, kh, groups, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ----------------------------------------------------------------- kernels
+def _fn(name, n_ptr):
+    """The C entry point: ``n_ptr`` pointers, six shape ints, the scale,
+    causal, dtype and the stream."""
+    fn = getattr(_build.load("flash_attention"), name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * n_ptr + [i] * 6 + [ctypes.c_float, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_bwd(q, dout, lse, delta):
+    b, sq, h, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("flash attention kernel: dout must match q")
+    for t in (lse, delta):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq):
+            raise ValueError("flash attention kernel: lse and delta must "
+                             f"be float32 [{b}, {h}, {sq}]")
+
+
+def _check(q, k, v, *rest):
+    dev = q.device
+    for t in (q, k, v) + rest:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError("flash attention kernel: inputs must be CUDA "
+                             f"tensors on one device ({dev}), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("flash attention kernel: inputs must be "
+                             "contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("flash attention kernel: inputs must be "
+                             "16-byte aligned")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"flash attention kernel: q/k/v dtypes {q.dtype}, "
+                        f"{k.dtype}, {v.dtype} (one of float32, bfloat16)")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash attention kernel: q [B,Sq,H,D] and equal "
+                         "k, v [B,Sk,KH,D]")
+    b, sq, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash attention kernel: q {tuple(q.shape)} vs k "
+                         f"{tuple(k.shape)}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash attention kernel: head_dim {d} (supported: "
+                         f"{_KERNEL_HEAD_DIMS})")
+    if k.shape[2] == 0 or h % k.shape[2]:
+        raise ValueError(f"flash attention kernel: {h} query heads over "
+                         f"{k.shape[2]} kv heads")
+    return b, sq, k.shape[1], h, k.shape[2], d
+
+
+def _raise_on(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def flash_fwd_kernel(q, k, v, scale, causal=False):
+    """Launch the forward kernel on the current stream -> (out, lse)."""
+    b, sq, sk, h, kh, d = _check(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            rc = _fn("flash_attention_fwd", 5)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), b, sq, sk, h, kh, d, float(scale),
+                int(bool(causal)), _DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _raise_on(rc, "flash_fwd")
+        flash_fwd_kernel.launches += 1
+    return out, lse
+
+
+def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal=False):
+    """Launch the dQ kernel on the current stream -> dq."""
+    b, sq, sk, h, kh, d = _check(q, k, v, dout, lse, delta)
+    _check_bwd(q, dout, lse, delta)
+    dq = torch.empty_like(q)
+    if dq.numel():
+        with torch.cuda.device(q.device):
+            rc = _fn("flash_attention_bwd_dq", 7)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, sk,
+                h, kh, d, float(scale), int(bool(causal)),
+                _DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _raise_on(rc, "flash_bwd_dq")
+        flash_bwd_dq_kernel.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, scale, causal=False):
+    """Launch the dK/dV kernel on the current stream -> (dk, dv)."""
+    b, sq, sk, h, kh, d = _check(q, k, v, dout, lse, delta)
+    _check_bwd(q, dout, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() and not dout.numel():        # no queries: no gradient
+        dk.zero_()
+        dv.zero_()
+    elif dk.numel():
+        with torch.cuda.device(q.device):
+            rc = _fn("flash_attention_bwd_dkv", 8)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b, sq, sk, h, kh, d, float(scale),
+                int(bool(causal)), _DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+        _raise_on(rc, "flash_bwd_dkv")
+        flash_bwd_dkv_kernel.launches += 1
+    return dk, dv
+
+
+flash_fwd_kernel.launches = 0
+flash_bwd_dq_kernel.launches = 0
+flash_bwd_dkv_kernel.launches = 0
+
+
+# ---------------------------------------------------------------- dispatch
+def flash_fwd(q, k, v, scale, causal=False):
+    """(out, lse): the kernel for CUDA tensors, the plain twin for CPU."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, scale, causal)
+    if q.device.type == "cuda":
+        return flash_fwd_kernel(q, k, v, scale, causal)
+    raise ValueError(f"flash_fwd: unsupported device {q.device}")
+
+
+def flash_bwd(q, k, v, out, lse, dout, scale, causal=False):
+    """(dq, dk, dv): the two kernels for CUDA tensors, the plain twin for
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, dout, scale, causal)
+    if q.device.type == "cuda":
+        delta = (dout.to(torch.float32) * out.to(torch.float32)).sum(-1)
+        delta = delta.transpose(1, 2).contiguous()            # [B, H, Sq]
+        dq = flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal)
+        dk, dv = flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, scale,
+                                      causal)
+        return dq, dk, dv
+    raise ValueError(f"flash_bwd: unsupported device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        out, lse = flash_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                               ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def _scale_of(q, k, scale):
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"GQA needs q heads {q.shape[2]} divisible by kv "
+                         f"heads {k.shape[2]}")
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
+def flash_attention(q, k, v, causal=False, scale=None):
+    """Attention over ``[B, S, H, D]`` (k/v may carry fewer heads), the
+    flash kernels on CUDA and the plain twins on the CPU; differentiable."""
+    scale = _scale_of(q, k, scale)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, scale, bool(causal))
+    return flash_fwd(q, k, v, scale, bool(causal))[0]
+
+
+def flash_attention_plain(q, k, v, causal=False, scale=None):
+    """The plain twin of :func:`flash_attention` on any device,
+    differentiated by torch autograd (a reference for the kernel path)."""
+    return flash_fwd_plain(q, k, v, _scale_of(q, k, scale), causal)[0]

@@ -1,0 +1,5 @@
+from . import lr
+from .optimizer import Optimizer
+from .optimizers import Adam, AdamW
+
+__all__ = ["Optimizer", "Adam", "AdamW", "lr"]

@@ -1,8 +1,7 @@
 """Continuous-batching LLM serving on the paged KV pool."""
 
-from .engine import (
-    Engine, EngineConfig, kernel_launches, reset_kernel_launches,
-)
+from ..ops import kernel_launches, reset_kernel_launches
+from .engine import Engine, EngineConfig
 from .kv_cache import PagedKV, PagedKVCache, PagedKVPool, paged_write
 from .paged_attention import paged_attention, paged_attention_plain
 from .sampling import SamplingParams, request_seed, sample_batch

@@ -36,9 +36,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.rms_norm import rms_norm
+from ..ops import kernel_launches
 from .kv_cache import PagedKVCache
-from .paged_attention import paged_attention
 from .sampling import SamplingParams, sample_batch
 from .scheduler import Scheduler
 
@@ -58,17 +57,6 @@ class EngineConfig:
     kv_pool_blocks: int = 0
     #: kv cache dtype; None = the model's parameter dtype
     cache_dtype: object = None
-
-
-def kernel_launches():
-    """The process-wide launch counts of the port's kernel wrappers."""
-    return {"paged_attention": paged_attention.launches,
-            "rms_norm": rms_norm.launches}
-
-
-def reset_kernel_launches():
-    paged_attention.launches = 0
-    rms_norm.launches = 0
 
 
 class Engine:

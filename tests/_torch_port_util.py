@@ -44,7 +44,8 @@ def torch_config(cfg):
         max_position_embeddings=cfg.max_position_embeddings,
         rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
         initializer_range=cfg.initializer_range,
-        tie_word_embeddings=cfg.tie_word_embeddings)
+        tie_word_embeddings=cfg.tie_word_embeddings,
+        fused_lm_loss=cfg.fused_lm_loss)
 
 
 def jax_model(cfg, seed=0):

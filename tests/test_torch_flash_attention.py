@@ -1,0 +1,203 @@
+"""The port's flash attention (the plain twins of its CUDA kernels, run
+on CPU tensors, and the autograd.Function over them) against the JAX
+Pallas flash kernels in interpret mode and their ``jax.grad``, on
+numpy-seeded inputs: MHA and GQA, causal and not, a short query block
+against a longer key block (the causal diagonal offset), and S = 200
+(not a multiple of the Pallas block).
+
+Tolerances.  f32: both sides compute in f32 and differ only in the order
+of their sums (at these sizes one Pallas block covers every key), so
+out, lse and the gradients agree to 2e-5 of their scale.  bf16: the
+Pallas kernels round P and dS to bf16 before their second products
+(``p.astype(v.dtype)``), the port keeps them in f32; each term then
+moves by at most 2**-8 of itself, and the outputs, rounded to bf16 on
+both sides, agree to 2**-6 of the largest value.
+
+The fully-masked case (causal, q_len > kv_len) is held against the JAX
+package's ``_sdpa_ref``: zero output rows and zero gradients for the
+rows that see no key, the flash-attn convention (the interpret-mode
+Pallas kernel gives those rows mean(v) instead, a known reference
+caveat).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.nn.functional.attention import _sdpa_ref
+from paddle_tpu.ops.pallas.flash import _fa_fwd_padded
+from paddle_tpu.ops.pallas.flash import flash_attention as pallas_flash
+from paddle_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_plain, flash_bwd, flash_bwd_dkv_kernel,
+    flash_bwd_dq_kernel, flash_fwd, flash_fwd_kernel, flash_fwd_plain,
+)
+
+from _torch_port_util import one_thread  # noqa: F401
+
+# (b, sq, sk, h, kh, d, causal)
+CASES = {
+    "mha_causal": (2, 64, 64, 4, 4, 16, True),
+    "mha_full": (1, 64, 64, 4, 4, 16, False),
+    "gqa_causal": (1, 48, 48, 8, 2, 16, True),
+    "gqa_full": (2, 32, 32, 4, 2, 32, False),
+    "short_q_causal": (1, 24, 80, 4, 2, 16, True),
+    "short_q_full": (1, 24, 80, 4, 4, 16, False),
+    "s200_causal": (1, 200, 200, 2, 1, 16, True),
+}
+TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -6}
+
+
+def _inputs(b, sq, sk, h, kh, d, seed=0):
+    r = np.random.RandomState(seed)
+    q = r.randn(b, sq, h, d).astype(np.float32)
+    k = r.randn(b, sk, kh, d).astype(np.float32)
+    v = r.randn(b, sk, kh, d).astype(np.float32)
+    do = r.randn(b, sq, h, d).astype(np.float32)
+    return q, k, v, do
+
+
+def _as(dtype_name, *arrays):
+    """numpy f32 -> (jax arrays, torch tensors) holding the same values
+    in the dtype (bf16 rounds once, on the torch side)."""
+    dt = getattr(torch, dtype_name)
+    ts = [torch.from_numpy(a).to(dt) for a in arrays]
+    js = [jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype_name))
+          for t in ts]
+    return js, ts
+
+
+def _close(out, ref, dtype_name):
+    out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=TOL[dtype_name] * np.abs(ref).max())
+
+
+def _jax_lse(q, k, v, scale, causal):
+    """lse [B, H, Sq] of the interpret-mode Pallas forward."""
+    b, sq, h, d = q.shape
+
+    def bhsd(x):
+        return x.transpose(0, 2, 1, 3).reshape(-1, x.shape[1], d)
+
+    _, res = _fa_fwd_padded(bhsd(q), bhsd(k), bhsd(v), scale, causal, True)
+    return np.asarray(res[4])[:, :sq, 0].reshape(b, h, sq)
+
+
+def _jax_grads(fn, q, k, v, do):
+    loss = lambda q, k, v: jnp.sum(fn(q, k, v).astype(jnp.float32)
+                                   * do.astype(jnp.float32))
+    return jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+
+
+def _port_grads(q, k, v, do, causal):
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention(q, k, v, causal=causal)
+    (out.float() * do.float()).sum().backward()
+    return out.detach(), (q.grad, k.grad, v.grad)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_pallas_interpret(case, dtype_name):
+    b, sq, sk, h, kh, d, causal = CASES[case]
+    (jq, jk, jv, _), (q, k, v, _) = _as(dtype_name,
+                                         *_inputs(b, sq, sk, h, kh, d))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = flash_fwd(q, k, v, scale, causal)
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    assert tuple(lse.shape) == (b, h, sq)
+    ref = pallas_flash(jq, jk, jv, causal=causal, interpret=True)
+    _close(out.float().numpy(), ref.astype(jnp.float32), dtype_name)
+    ref_lse = _jax_lse(jq, jk, jv, scale, causal)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, rtol=0,
+                               atol=1e-2 if dtype_name == "bfloat16"
+                               else 1e-5)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_gradients_match_pallas_interpret_grad(case, dtype_name):
+    b, sq, sk, h, kh, d, causal = CASES[case]
+    (jq, jk, jv, jdo), (q, k, v, do) = _as(
+        dtype_name, *_inputs(b, sq, sk, h, kh, d, seed=1))
+    ref = _jax_grads(lambda q, k, v: pallas_flash(q, k, v, causal=causal,
+                                                  interpret=True),
+                     jq, jk, jv, jdo)
+    _, grads = _port_grads(q, k, v, do, causal)
+    for got, want in zip(grads, ref):
+        assert got.dtype == q.dtype
+        _close(got.float().numpy(), want.astype(jnp.float32), dtype_name)
+
+
+def test_fully_masked_rows_are_zero_with_zero_gradients():
+    """q_len > kv_len under the causal mask: the first q_len - kv_len
+    rows see no key.  Held against _sdpa_ref (output and jax.grad)."""
+    q, k, v, do = _inputs(1, 8, 4, 2, 2, 16)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _as("float32", q, k, v, do)
+    out, lse = flash_fwd(tq, tk, tv, 0.25, True)
+    ref = _sdpa_ref(jq, jk, jv, causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=2e-5)
+    assert (out[:, :4] == 0).all()
+    assert torch.isneginf(lse[:, :, :4]).all()
+    assert torch.isfinite(lse[:, :, 4:]).all()
+    ref_g = _jax_grads(lambda q, k, v: _sdpa_ref(q, k, v, causal=True),
+                       jq, jk, jv, jdo)
+    _, grads = _port_grads(tq, tk, tv, tdo, True)
+    for got, want in zip(grads, ref_g):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+    assert (grads[0][:, :4] == 0).all()
+
+
+def test_plain_forward_autograd_equals_the_recompute_backward():
+    """flash_attention_plain (torch autograd through the dense forward)
+    and flash_attention (the recompute backward twin) agree: the two
+    references of the kernel path are one function."""
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _inputs(2, 40, 56, 4, 2, 16, seed=3))
+    grads = []
+    for fn in (flash_attention, flash_attention_plain):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*ts, causal=True) * do).sum().backward()
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def test_lse_is_the_log_sum_exp_of_the_scaled_scores():
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(1, 16, 16, 2, 2, 8))
+    _, lse = flash_fwd_plain(q, k, v, 0.5, False)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * 0.5
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=0,
+                               atol=1e-5)
+
+
+def test_cpu_tensors_run_the_plain_twins_uncounted():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(1, 16, 16, 2, 2, 8))
+    counts = (flash_fwd_kernel.launches, flash_bwd_dq_kernel.launches,
+              flash_bwd_dkv_kernel.launches)
+    out, lse = flash_fwd(q, k, v, 0.3, True)
+    flash_bwd(q, k, v, out, lse, do, 0.3, True)
+    _port_grads(q, k, v, do, True)
+    assert (flash_fwd_kernel.launches, flash_bwd_dq_kernel.launches,
+            flash_bwd_dkv_kernel.launches) == counts
+
+
+def test_other_devices_and_bad_inputs_raise():
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 4, 2, 8))
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"), 0.3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_bwd(*(t.to("meta") for t in (q, k, v, q)),
+                  torch.zeros(1, 4, 8, device="meta"), do.to("meta"), 0.3)
+    with pytest.raises(ValueError, match="divisible"):
+        k3 = torch.cat([k, k[:, :, :1]], dim=2)          # 3 kv heads
+        flash_attention(q, k3, k3)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_kernel(q, k, v, 0.3)
