@@ -19,11 +19,21 @@ the script exits nonzero and prints no result:
    [8,4096]; flash attention forward, dQ and dK/dV at the train phase's
    batch of 2 sequences: 7B MHA s=4096 causal (bf16, f32), 8B GQA s=4096,
    s=1000 (ragged edge), s=1024 not causal, and a 256-query block over
-   1024 keys.  Tolerances are stated
+   1024 keys; and at the SD UNet's attention calls (batch 4, 8 heads,
+   self over 4096/1024/256/64 tokens and cross over 77, head dims
+   40/80/160/160); LayerNorm forward and backward at [16384,320],
+   [4096,640], [1024,1280] (bf16) and [4096,640] (f32); GroupNorm
+   forward and backward at [4,320,64,64], [4,960,64,64], [4,2560,8,8]
+   (bf16, 32 groups) and [4,320,64,64] (f32).  Tolerances are stated
    with the comparisons (TOLERANCES).  Each case
-   prints its kernel, plain and library times and its bound.  Then the
+   prints its kernel, plain and library times and its bound; the flash
+   and norm cases also the kernel's and the library's device time under
+   torch.profiler (device_ms), which leaves out the host launch path.  Then the
    RMSNorm autograd repair: gradients through the kernel path's
-   rms_norm must equal those of the plain forward under torch autograd.
+   rms_norm must equal those of the plain forward under torch autograd;
+   and a shape, dtype or head dim that no kernel takes (2-D GroupNorm,
+   float64 norms, head dim 192, float16 attention) must raise through
+   nn.functional on the card.
 3. engine: LlamaForCausalLM(LLAMA2_7B) in bf16, all 32 layers, random
    weights from a seeded generator on the card, served by
    Engine(num_slots=8, max_seq_len=2048) for 8 requests (prompts 16..1024
@@ -47,6 +57,20 @@ the script exits nonzero and prints no result:
    loss and every parameter's gradient through the kernels in bf16,
    against the same step through the plain functions in bf16 and on an
    f32 copy (see GRAD_PARITY_FACTOR).
+7. unet_train: the SD-1.x UNet at full width (UNetConfig(), 0.81 B
+   parameters, channels_last=False so every GroupNorm reaches its
+   kernel), bf16, seeded random weights made on the card, batch 4 of
+   64x64 latents with a [4, 77, 768] context, AdamW(1e-4,
+   multi_precision) and mse_loss against the latents as bench_unet,
+   through jit.TrainStep: 2 warm-up and 4 timed steps with the seven
+   kernels' launch counts asserted per step (GroupNorm 61 + 61,
+   LayerNorm 48 + 48, flash 32 each), a finite loss whose last timed
+   value is below the first; then one step under torch.profiler.
+8. unet_train_parity: a reduced UNet (block_out_channels (320, 640,
+   1280), one layer a level: head dims 40, 80, 160 and a concat
+   GroupNorm all occur), b=2, 32x32 latents: one step's loss and every
+   parameter's gradient through the kernels in bf16, against the plain
+   functions in bf16 and on an f32 copy (see GRAD_PARITY_FACTOR).
 
 The last three lines are the card's nvidia-smi line, the per-kernel JSON
 summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
@@ -95,6 +119,8 @@ GRAD_PARITY_FLOOR = 1e-3
 TRAIN_LAYERS = 8               # LLaMA-2-7B has 32; its AdamW state is ~94 GB
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_WARMUP, TRAIN_TIMED = 2, 4
+# the SD-UNet train step (SD-1.x widths, 512-px training: 64x64 latents)
+UNET_BATCH, UNET_LATENT, UNET_CONTEXT = 4, 64, 77
 
 
 def emit(obj):
@@ -124,6 +150,24 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps):
+    """Mean device milliseconds of one ``fn()`` call: the time of every
+    kernel it launches, summed, under torch.profiler (after one warm-up
+    call).  Unlike :func:`cuda_ms` it leaves out the host's launch path,
+    which bounds back-to-back calls of a kernel shorter than it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / reps / 1e3
 
 
 def bound(nbytes, ops, dtype_name):
@@ -290,7 +334,9 @@ def kernel_phase(torch, dev):
                 summary["rms_norm"] = case
     seed = rms_bwd_cases(torch, dev, summary, seed)
     seed = flash_cases(torch, dev, summary, seed)
+    seed = norm_cases(torch, dev, summary, seed)
     rms_autograd_check(torch, dev, seed)
+    unsupported_check(torch, dev)
     return summary
 
 
@@ -350,7 +396,8 @@ def visible_pairs(sq, sk, causal):
 
 def flash_cases(torch, dev, summary, seed):
     """Flash forward, dQ and dK/dV kernels vs the plain twins on the same
-    card inputs, at the train phase's batch of TRAIN_BATCH sequences (the
+    card inputs, at the train phase's batch of TRAIN_BATCH sequences and
+    at the UNet's attention shapes (:func:`unet_flash_shapes`; the
     backward from the plain forward's out and lse, so each kernel is held
     alone).  Library yardstick: SDPA forward, and its
     backward alone (graph built once, not timed).  Bounds: 4 D flops per
@@ -365,6 +412,7 @@ def flash_cases(torch, dev, summary, seed):
         flash_fwd_kernel, flash_fwd_plain,
     )
 
+    b, d = TRAIN_BATCH, 128
     cases = [("llama2_7b/s4096/causal", 32, 32, 4096, 4096, True, "bfloat16"),
              ("llama2_7b/s4096/causal", 32, 32, 4096, 4096, True, "float32"),
              ("llama3_8b_gqa/s4096/causal", 32, 8, 4096, 4096, True,
@@ -373,8 +421,8 @@ def flash_cases(torch, dev, summary, seed):
              ("llama2_7b/s1024/full", 32, 32, 1024, 1024, False, "bfloat16"),
              ("llama2_7b/q256_k1024/causal", 32, 32, 256, 1024, True,
               "bfloat16")]
-    b, d = TRAIN_BATCH, 128
-    for cname, qh, kh, sq, sk, causal, dname in cases:
+    cases = [c + (b, d) for c in cases] + unet_flash_shapes()
+    for cname, qh, kh, sq, sk, causal, dname, b, d in cases:
         dtype = getattr(torch, dname)
         g = torch.Generator(device="cpu").manual_seed(seed)
         seed += 1
@@ -399,11 +447,14 @@ def flash_cases(torch, dev, summary, seed):
         err_dq = check_close(name + "/dq", dq, dq_p, dname)
         err_dkv = max(check_close(name + "/dk", dk, dk_p, dname),
                       check_close(name + "/dv", dv, dv_p, dname))
-        fwd_ms = cuda_ms(lambda: flash_fwd_kernel(q, k, v, scale, causal), 5)
-        dq_ms = cuda_ms(lambda: flash_bwd_dq_kernel(
-            q, k, v, do, lse_p, delta, scale, causal), 5)
-        dkv_ms = cuda_ms(lambda: flash_bwd_dkv_kernel(
-            q, k, v, do, lse_p, delta, scale, causal), 5)
+        kern = {"flash_fwd": lambda: flash_fwd_kernel(q, k, v, scale,
+                                                     causal),
+                "flash_bwd_dq": lambda: flash_bwd_dq_kernel(
+                    q, k, v, do, lse_p, delta, scale, causal),
+                "flash_bwd_dkv": lambda: flash_bwd_dkv_kernel(
+                    q, k, v, do, lse_p, delta, scale, causal)}
+        times = {n: (cuda_ms(fn, 5), device_ms(torch, fn, 3))
+                 for n, fn in kern.items()}
         plain_fwd_ms = cuda_ms(
             lambda: flash_fwd_plain(q, k, v, scale, causal), 3)
         plain_bwd_ms = cuda_ms(lambda: flash_bwd_plain(
@@ -413,14 +464,15 @@ def flash_cases(torch, dev, summary, seed):
         sdpa = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=qh != kh)
         if causal and sq != sk:
-            lib_fwd_ms = lib_bwd_ms = None   # SDPA's is_causal is top-left
+            lib_fwd = lib_bwd = (None, None)  # SDPA's is_causal is top-left
         else:
-            lib_fwd_ms = cuda_ms(sdpa, 10)
+            lib_fwd = cuda_ms(sdpa, 10), device_ms(torch, sdpa, 3)
             lo = sdpa()
             dot = do.transpose(1, 2)
-            lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-                lo, (qt, kt, vt), dot, retain_graph=True), 10)
-            del lo
+            sdpa_bwd = lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
+                                                   retain_graph=True)
+            lib_bwd = cuda_ms(sdpa_bwd, 10), device_ms(torch, sdpa_bwd, 3)
+            del lo, sdpa_bwd
         pairs = visible_pairs(sq, sk, causal) * b * qh
         item = q.element_size()
         qbytes, kbytes = q.numel() * item, k.numel() * item
@@ -432,20 +484,135 @@ def flash_cases(torch, dev, summary, seed):
                       dname)
         base = {"phase": "kernel", "q": list(q.shape), "k": list(k.shape),
                 "causal": causal, "pairs": pairs}
-        per = {"flash_fwd": (err_fwd, fwd_ms, plain_fwd_ms, b_fwd,
-                             lib_fwd_ms),
-               "flash_bwd_dq": (err_dq, dq_ms, plain_bwd_ms, b_dq,
-                                lib_bwd_ms),
-               "flash_bwd_dkv": (err_dkv, dkv_ms, plain_bwd_ms, b_dkv,
-                                 lib_bwd_ms)}
-        for kname, (err, ms, pms, (b_ms, b_by), lms) in per.items():
+        per = {"flash_fwd": (err_fwd, plain_fwd_ms, b_fwd, lib_fwd),
+               "flash_bwd_dq": (err_dq, plain_bwd_ms, b_dq, lib_bwd),
+               "flash_bwd_dkv": (err_dkv, plain_bwd_ms, b_dkv, lib_bwd)}
+        for kname, (err, pms, (b_ms, b_by), (lms, lib_dev)) in per.items():
             case = dict(base, name=f"{kname}/{cname}/{dname}",
-                        max_abs_err=err, ms=ms, plain_ms=pms,
-                        library_ms=lms, bound_ms=b_ms, bound_by=b_by)
+                        max_abs_err=err, ms=times[kname][0],
+                        device_ms=times[kname][1], plain_ms=pms,
+                        library_ms=lms, library_device_ms=lib_dev,
+                        bound_ms=b_ms, bound_by=b_by)
             emit(case)
             if (cname, dname) == ("llama2_7b/s4096/causal", "bfloat16"):
                 summary[kname] = case
         del out_p, dq_p, dk_p, dv_p
+    return seed
+
+
+def unet_flash_shapes():
+    """The SD UNet's attention calls at UNET_BATCH and 64x64 latents, 8
+    heads, not causal: self-attention over the level's HW tokens and
+    cross-attention over the context's 77, at head dims 320/8 = 40,
+    80 and 160 (40 runs padded to the kernel's 48)."""
+    out = []
+    for level, d, hw in (("level0", 40, 4096), ("level1", 80, 1024),
+                         ("level2", 160, 256), ("mid", 160, 64)):
+        for kind, sk in (("self", hw), ("cross", UNET_CONTEXT)):
+            out.append((f"unet_{level}_d{d}/{kind}", 8, 8, hw, sk, False,
+                        "bfloat16", UNET_BATCH, d))
+    return out
+
+
+def norm_cases(torch, dev, summary, seed):
+    """LayerNorm and GroupNorm forward and backward kernels vs their
+    plain twins on the same card inputs (the backward from the plain
+    forward's statistics, so each kernel is held alone), at the UNet
+    train step's shapes: LayerNorm over [4 * HW, C] rows, GroupNorm over
+    [4, C, H, W] with 32 groups (960 channels at 64x64 is the longest
+    row, 30 x 4096 elements).  Library yardstick: F.layer_norm and
+    F.group_norm, forward and backward (graph built once, not timed).
+    Bounds: bytes (x, y or x, g, dx once each, the affine vectors, the
+    f32 statistics) over 3.35 TB/s, or 7 (forward) and 12 (backward)
+    operations per element, whichever is larger."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.group_norm import (
+        group_norm_bwd_kernel, group_norm_bwd_plain, group_norm_fwd_plain,
+        group_norm_kernel,
+    )
+    from paddle_tpu_torch.ops.layer_norm import (
+        layer_norm_bwd_kernel, layer_norm_bwd_plain, layer_norm_fwd_plain,
+        layer_norm_kernel,
+    )
+
+    ln = [((16384, 320), "bfloat16"), ((4096, 640), "bfloat16"),
+          ((1024, 1280), "bfloat16"), ((4096, 640), "float32")]
+    gn = [((4, 320, 64, 64), "bfloat16"), ((4, 960, 64, 64), "bfloat16"),
+          ((4, 2560, 8, 8), "bfloat16"), ((4, 320, 64, 64), "float32")]
+    for kind, shapes in (("layer_norm", ln), ("group_norm", gn)):
+        for shape, dname in shapes:
+            dtype = getattr(torch, dname)
+            g = torch.Generator(device="cpu").manual_seed(seed)
+            seed += 1
+            c = shape[-1] if kind == "layer_norm" else shape[1]
+            # a large common mean, as activations carry: the variance
+            # must not cancel
+            x = (3.0 + 2.0 * torch.randn(*shape, generator=g)).to(dtype) \
+                .to(dev)
+            w = (1.0 + 0.1 * torch.randn(c, generator=g)).to(dtype).to(dev)
+            bias = (0.1 * torch.randn(c, generator=g)).to(dtype).to(dev)
+            gy = torch.randn(*shape, generator=g).to(dtype).to(dev)
+            if kind == "layer_norm":
+                args, eps = (), 1e-5
+                fwd_k, fwd_p = layer_norm_kernel, layer_norm_fwd_plain
+                bwd_k, bwd_p = layer_norm_bwd_kernel, layer_norm_bwd_plain
+                lib = lambda x_, w_, b_: F.layer_norm(x_, (c,), w_, b_, eps)
+                rows = x.numel() // c
+            else:
+                args, eps = (32,), 1e-5
+                fwd_k, fwd_p = group_norm_kernel, group_norm_fwd_plain
+                bwd_k, bwd_p = group_norm_bwd_kernel, group_norm_bwd_plain
+                lib = lambda x_, w_, b_: F.group_norm(x_, 32, w_, b_, eps)
+                rows = shape[0] * 32
+            out = fwd_k(x, w, bias, *args, eps)
+            ref = fwd_p(x, w, bias, *args, eps)
+            _, mean, rstd = ref
+            grads = bwd_k(x, w, mean, rstd, gy, *args)
+            grads_p = bwd_p(x, w, mean, rstd, gy, *args)
+            torch.cuda.synchronize()
+            name = f"{kind}/{'x'.join(map(str, shape))}/{dname}"
+            err_f = max(check_close(f"{name}/{n}", a, r,
+                                    dname if n == "y" else "float32")
+                        for n, a, r in zip(("y", "mean", "rstd"), out, ref))
+            err_b = max(check_close(f"{name}/{n}", a, r, dname)
+                        for n, a, r in zip(("dx", "dw", "db"), grads,
+                                           grads_p))
+            xl, wl, bl = (t.detach().requires_grad_(True)
+                          for t in (x, w, bias))
+            yl = lib(xl, wl, bl)
+            fns = {"fwd": lambda: fwd_k(x, w, bias, *args, eps),
+                   "bwd": lambda: bwd_k(x, w, mean, rstd, gy, *args),
+                   "lib_fwd": lambda: lib(x, w, bias),
+                   "lib_bwd": lambda: torch.autograd.grad(
+                       yl, (xl, wl, bl), gy, retain_graph=True)}
+            t = {n: (cuda_ms(fn, 20), device_ms(torch, fn, 5))
+                 for n, fn in fns.items()}
+            pf_ms = cuda_ms(lambda: fwd_p(x, w, bias, *args, eps), 5)
+            pb_ms = cuda_ms(lambda: bwd_p(x, w, mean, rstd, gy, *args), 5)
+            del yl, fns
+            item, n_el = x.element_size(), x.numel()
+            stats, affine = 2 * rows * 4, 2 * c * w.element_size()
+            bound_f = bound(2 * n_el * item + affine + stats, 7 * n_el,
+                            dname)
+            bound_b = bound(3 * n_el * item + 3 * c * w.element_size()
+                            + stats, 12 * n_el, dname)
+            for kname, err, (ms, dev_ms), pms, (lms, lib_dev), \
+                    (bd_ms, bd_by) in (
+                        (kind, err_f, t["fwd"], pf_ms, t["lib_fwd"],
+                         bound_f),
+                        (kind + "_bwd", err_b, t["bwd"], pb_ms, t["lib_bwd"],
+                         bound_b)):
+                case = {"phase": "kernel", "name": f"{kname}/"
+                        f"{'x'.join(map(str, shape))}/{dname}",
+                        "x": list(shape), "max_abs_err": err, "ms": ms,
+                        "device_ms": dev_ms, "plain_ms": pms,
+                        "library_ms": lms, "library_device_ms": lib_dev,
+                        "bound_ms": bd_ms, "bound_by": bd_by}
+                emit(case)
+                if dname == "bfloat16" and shape in ((4096, 640),
+                                                     (4, 960, 64, 64)):
+                    summary[kname] = case
     return seed
 
 
@@ -475,6 +642,39 @@ def rms_autograd_check(torch, dev, seed):
           "dtype": "bfloat16", "max_abs_err_dx": err[0],
           "max_abs_err_dw": err[1],
           "reference": "rms_norm_plain under torch autograd"})
+
+
+def unsupported_check(torch, dev):
+    """On the card a shape, dtype or head dim that no kernel takes raises
+    through the functionals the models call: nothing falls back to plain
+    torch, a plain twin or a library call."""
+    from paddle_tpu_torch.nn import functional as F
+
+    bf, f64 = torch.bfloat16, torch.float64
+    rand = lambda *shape, dtype=bf: torch.randn(*shape, dtype=dtype,
+                                                device=dev)
+    w = torch.ones(16, dtype=bf, device=dev)
+    cases = {
+        "group_norm/2d_nc": lambda: F.group_norm(rand(4, 16), 4, 1e-5, w, w),
+        "group_norm/float64": lambda: F.group_norm(
+            rand(4, 16, 8, 8, dtype=f64), 4, 1e-5, w.double(), w.double()),
+        "layer_norm/float64": lambda: F.layer_norm(
+            rand(8, 16, dtype=f64), 16, w.double(), w.double()),
+        "sdpa/head_dim_192": lambda: F.scaled_dot_product_attention(
+            rand(1, 8, 2, 192), rand(1, 8, 2, 192), rand(1, 8, 2, 192)),
+        "sdpa/float16": lambda: F.scaled_dot_product_attention(
+            *(rand(1, 8, 2, 64, dtype=torch.float16) for _ in range(3))),
+    }
+    raised = {}
+    for name, fn in cases.items():
+        try:
+            fn()
+        except (TypeError, ValueError) as e:
+            raised[name] = f"{type(e).__name__}: {e}"[:160]
+        else:
+            raise AssertionError(f"unsupported {name} ran on the card; "
+                                 "want a raise")
+    emit({"phase": "unsupported_raises", "raised": raised})
 
 
 # ------------------------------------------------------------ phase 3/4
@@ -613,6 +813,17 @@ def profile_phase(torch, eng, prompts, params):
     emit(dict(profiled(torch, run), phase="profile"))
 
 
+# the port's kernels by their function names (CUDA templates, Triton
+# functions); every other kernel is a library's (cuBLAS, cuDNN, PyTorch)
+PORT_KERNELS = (
+    ("flash", ("flash_fwd", "flash_bwd")),
+    ("paged_attention", ("paged_attn",)),
+    ("group_norm", ("_gn_fwd", "_gn_bwd")),
+    ("layer_norm", ("_ln_fwd", "_ln_bwd")),
+    ("rms_norm", ("_rms_fwd", "_rms_bwd")),
+)
+
+
 def profiled(torch, run):
     """``run()`` under torch.profiler: the device's busy share of the
     wall time (union of kernel intervals) and the kernel time by name.
@@ -639,11 +850,17 @@ def profiled(torch, run):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    by_kind = {}
+    for n, t in by_name.items():
+        kind = next((k for k, keys in PORT_KERNELS if any(
+            key in n for key in keys)), "library")
+        by_kind[kind] = by_kind.get(kind, 0.0) + t / 1e3
     return {"wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3 if kernels else "not measured",
             "device_idle_share": 1 - busy / wall_us if kernels
             else "not measured",
             "kernel_events": len(kernels),
+            "device_ms_by_kind": by_kind,
             "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
 
 
@@ -828,6 +1045,238 @@ def train_parity_phase(torch, dev):
           "launches": launches})
 
 
+# ------------------------------------------------------------ phase 7/8
+UNET_PER_STEP = {"group_norm": 61, "group_norm_bwd": 61, "layer_norm": 48,
+                 "layer_norm_bwd": 48, "flash_fwd": 32, "flash_bwd_dq": 32,
+                 "flash_bwd_dkv": 32, "rms_norm": 0, "rms_norm_bwd": 0,
+                 "paged_attention": 0}
+
+
+def unet_batch(torch, cfg, b, hw, dev, seed):
+    """Seeded latents [b, 4, hw, hw] (also the target, as bench_unet),
+    timesteps in [0, 1000) and a [b, 77, 768] context, bf16 on the card."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lat = torch.randn(b, cfg.in_channels, hw, hw, generator=g)
+    t = torch.randint(0, 1000, (b,), generator=g)
+    ctx = torch.randn(b, UNET_CONTEXT, cfg.cross_attention_dim, generator=g)
+    lat, ctx = (x.to(torch.bfloat16).to(dev) for x in (lat, ctx))
+    return lat, t.to(dev), ctx, lat
+
+
+def unet_forward_flops(torch, model, batch):
+    """Forward FLOPs of one call, counted by hooks from the shapes each
+    layer sees: a conv 2 (Cin k^2) Cout Hout Wout per sample; a Linear
+    module 2 in out per row; an attention's projections through its
+    concatenated weights (2 D 3D per token self, 2 Ctx 2D per context
+    token cross) and 4 D per (query, key) pair per head.  A train step
+    is 3x (the backward does two products per forward product)."""
+    from torch import nn
+
+    from paddle_tpu_torch.models.unet import CrossAttention
+
+    total = [0]
+
+    def conv(m, inp, out):
+        total[0] += 2 * m.weight[0].numel() * out.numel()
+
+    def linear(m, inp, out):
+        total[0] += 2 * m.weight.numel() * (out.numel() // out.shape[-1])
+
+    def attn(m, inp, out):
+        x = inp[0]
+        b, sq, dim = x.shape
+        ctx = inp[1] if len(inp) > 1 else None
+        sk = sq if ctx is None else ctx.shape[1]
+        proj = (2 * dim * 3 * dim * b * sq if ctx is None else
+                2 * ctx.shape[2] * 2 * dim * b * sk)
+        total[0] += proj + 4 * dim * sq * sk * b
+
+    hooks = []
+    for m in model.modules():
+        fn = (conv if isinstance(m, nn.Conv2d) else
+              linear if isinstance(m, nn.Linear) else
+              attn if isinstance(m, CrossAttention) else None)
+        if fn is not None:
+            hooks.append(m.register_forward_hook(fn))
+    try:
+        with torch.no_grad():
+            model(*batch[:3])
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def unet_train_phase(torch, dev):
+    """A few AdamW steps of the SD-1.x UNet at full width (see the
+    module docstring), the seven kernels' launch counts asserted per
+    step; then one step under torch.profiler."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.unet import (
+        UNet2DConditionModel, UNetConfig, unet_loss,
+    )
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = UNetConfig(channels_last=False)
+    t0 = time.perf_counter()
+    model = UNet2DConditionModel(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=0)
+    model.train()
+    # bench_unet (benchmarks/bench_models.py:190-224): AdamW(1e-4,
+    # multi_precision), mse_loss against the latents
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                multi_precision=True, device=dev)
+    step = TrainStep(model, unet_loss, opt, device=dev)
+    batch = unet_batch(torch, cfg, UNET_BATCH, UNET_LATENT, dev, 2024)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    flops = 3 * unet_forward_flops(torch, model, batch)
+    losses = [step(*batch).item() for _ in range(TRAIN_WARMUP)]
+    step_s = []
+    reset_kernel_launches()
+    for _ in range(TRAIN_TIMED):
+        t1 = time.perf_counter()
+        losses.append(step(*batch).item())        # .item() synchronises
+        step_s.append(time.perf_counter() - t1)
+    launches = kernel_launches()
+    for name, n in UNET_PER_STEP.items():
+        if launches[name] != n * TRAIN_TIMED:
+            raise AssertionError(f"unet_train: {name} launched "
+                                 f"{launches[name]} times in {TRAIN_TIMED} "
+                                 f"steps, want {n} a step")
+    timed = losses[TRAIN_WARMUP:]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"unet_train: non-finite loss {losses}")
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"unet_train: loss did not fall {timed}")
+    mean_s = sum(step_s) / len(step_s)
+    # one more step, as TrainStep runs it, split where its wall time goes
+    # (host clock, each part ending in a synchronize)
+    split, t1 = {}, time.perf_counter()
+    opt.clear_grad()
+    loss = unet_loss(model, *batch)
+    for part, run in (("forward_s", lambda: None), ("backward_s",
+                                                    loss.backward),
+                      ("optimizer_s", opt.step)):
+        run()
+        torch.cuda.synchronize()
+        split[part] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+    opt.clear_grad()
+    del loss
+    emit({"phase": "unet_train", "model": "SD-1.x UNet (UNetConfig())",
+          "channels_last": False, "dtype": "bfloat16", "batch": UNET_BATCH,
+          "latent": [UNET_LATENT, UNET_LATENT], "context": UNET_CONTEXT,
+          "params": sum(p.numel() for p in model.parameters()),
+          "setup_s": setup_s, "losses": losses, "step_s": step_s,
+          "step_s_mean": mean_s, "iters_per_s": 1 / mean_s,
+          "samples_per_s": UNET_BATCH / mean_s, "step_split_s": split,
+          "model_flops_per_step": flops,
+          "model_flops_formula": "3 x forward: conv 2 Cin k^2 Cout Hout "
+                                 "Wout, linear 2 in out per row, attention "
+                                 "projections + 4 D per pair per head",
+          "model_tflops_per_s": flops / mean_s / 1e12,
+          "mfu_of_989": flops / mean_s / 989e12,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "kernel_launches": launches, "launches_per_step": UNET_PER_STEP})
+    prof = profiled(torch, lambda: step(*batch).item())
+    emit(dict(prof, phase="unet_train_profile", steps=1))
+    del step, opt, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def unet_plain_path(torch):
+    """The UNet's norms and attention through the plain twins (torch
+    autograd over the plain forwards), for the reference passes."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_plain
+    from paddle_tpu_torch.ops.group_norm import group_norm_plain
+    from paddle_tpu_torch.ops.layer_norm import layer_norm_plain
+
+    saved = F._layer_norm_op, F._group_norm_op, F.flash_attention
+    F._layer_norm_op, F._group_norm_op, F.flash_attention = (
+        layer_norm_plain, group_norm_plain, flash_attention_plain)
+    try:
+        yield
+    finally:
+        F._layer_norm_op, F._group_norm_op, F.flash_attention = saved
+
+
+def unet_train_parity_phase(torch, dev):
+    """One step's loss and gradients of a reduced UNet (three levels,
+    one layer each: head dims 40, 80 and 160 and a concat GroupNorm all
+    occur), b=2, 32x32 latents: kernels in bf16 vs plain in bf16 vs
+    plain on an f32 copy (the truth), per parameter."""
+    from paddle_tpu_torch.models.unet import (
+        UNet2DConditionModel, UNetConfig, unet_loss,
+    )
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = UNetConfig(block_out_channels=(320, 640, 1280), layers_per_block=1,
+                     channels_last=False)
+    model = UNet2DConditionModel(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=7)
+    batch = unet_batch(torch, cfg, 2, 32, dev, 99)
+
+    def grads_of(m, dtype):
+        m.zero_grad(set_to_none=True)
+        loss = unet_loss(m, *(x.to(dtype) if x.is_floating_point() else x
+                              for x in batch))
+        loss.backward()
+        out = {n: p.grad.float() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.item(), out
+
+    reset_kernel_launches()
+    loss_k, g_k = grads_of(model, torch.bfloat16)
+    launches = kernel_launches()
+    if min(launches[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv", "layer_norm",
+                                 "layer_norm_bwd", "group_norm",
+                                 "group_norm_bwd")) == 0:
+        raise AssertionError(f"unet parity: a kernel did not run {launches}")
+    with unet_plain_path(torch):
+        loss_p, g_p = grads_of(model, torch.bfloat16)
+        model32 = copy.deepcopy(model).float()
+        loss_32, g_32 = grads_of(model32, torch.float32)
+    del model32, model
+    worst, report = 0.0, {}
+    for n, ref in g_32.items():
+        norm = ref.norm().item()
+        e_k = (g_k[n] - ref).norm().item() / norm
+        e_p = (g_p[n] - ref).norm().item() / norm
+        tol = GRAD_PARITY_FACTOR * e_p + GRAD_PARITY_FLOOR
+        report[n] = [e_k, e_p]
+        worst = max(worst, e_k / tol)
+        if not (math.isfinite(e_k) and e_k <= tol):
+            raise AssertionError(f"unet parity {n}: kernel grad rel err "
+                                 f"{e_k:.3e} > {tol:.3e} (plain bf16 "
+                                 f"{e_p:.3e})")
+    l_tol = (GRAD_PARITY_FACTOR * abs(loss_p - loss_32)
+             + GRAD_PARITY_FLOOR * abs(loss_32))
+    if not abs(loss_k - loss_32) <= l_tol:
+        raise AssertionError(f"unet parity loss: kernel {loss_k} plain "
+                             f"bf16 {loss_p} f32 {loss_32}")
+    top = sorted(report.items(), key=lambda kv: -kv[1][0])[:8]
+    emit({"phase": "unet_train_parity", "block_out_channels": [320, 640,
+                                                               1280],
+          "layers_per_block": 1, "batch": 2, "latent": [32, 32],
+          "loss_kernel_bf16": loss_k, "loss_plain_bf16": loss_p,
+          "loss_plain_f32": loss_32, "worst_err_over_tol": worst,
+          "params_checked": len(report),
+          "largest_grad_rel_err_kernel_vs_plain_bf16": top,
+          "launches": launches})
+
+
 def main():
     import torch
 
@@ -843,7 +1292,8 @@ def main():
     built = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for info in built.values()
-             for ln in info["log"].splitlines() if "registers" in ln
+             for ln in info["log"].splitlines()
+             if "Function properties for" in ln or "registers" in ln
              or "spill" in ln]
     emit({"phase": "environment", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -855,6 +1305,8 @@ def main():
     serve = engine_phase(torch, dev)
     train = train_phase(torch, dev)
     train_parity_phase(torch, dev)
+    unet = unet_train_phase(torch, dev)
+    unet_train_parity_phase(torch, dev)
 
     sources = {
         "paged_attention": ("cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -871,18 +1323,31 @@ def main():
         "flash_bwd_dkv": ("cuda",
                           "paddle_tpu_torch/csrc/flash_attention.cu",
                           "paddle_tpu/ops/pallas/flash.py:277", "train"),
+        "layer_norm": ("triton", "paddle_tpu_torch/ops/layer_norm.py",
+                       "paddle_tpu/ops/pallas/norms.py:79", "unet_train"),
+        "layer_norm_bwd": ("triton", "paddle_tpu_torch/ops/layer_norm.py",
+                           "paddle_tpu/ops/pallas/norms.py:141",
+                           "unet_train"),
+        "group_norm": ("triton", "paddle_tpu_torch/ops/group_norm.py",
+                       "paddle_tpu/ops/pallas/norms.py:366", "unet_train"),
+        "group_norm_bwd": ("triton", "paddle_tpu_torch/ops/group_norm.py",
+                           "paddle_tpu/ops/pallas/norms.py:424",
+                           "unet_train"),
     }
+    runs = {"serve": serve, "train": train, "unet_train": unet}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]
-        counts = serve if path == "serve" else train
         kernels.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": runs[path][name],
                         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                        "device_ms": c.get("device_ms"),
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"],
                         "library_ms": c["library_ms"], "case": c["name"],
-                        "path": path, "train_launches": train[name]})
+                        "path": path,
+                        "launches_by_path": {p: r[name]
+                                             for p, r in runs.items()}})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

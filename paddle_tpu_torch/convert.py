@@ -13,6 +13,14 @@ matrix is transposed here, once.  Embeddings (``[vocab, hidden]``) and
 norm weights keep their layout.  With tied embeddings the JAX model has
 no ``lm_head.weight`` and neither has the port: both compute the logits
 against the embedding matrix.
+
+``unet_state_dict_from_jax`` does the same for the SD UNet
+(``models/unet.py``): the weights of its linear layers transpose
+(``time_mlp1``, ``time_mlp2``, each ResnetBlock's ``time_emb_proj``, each
+attention's ``to_q``, ``to_k``, ``to_v`` and ``to_out``, each
+TransformerBlock's ``ff1`` and ``ff2``); convolution weights are OIHW in
+both frameworks (in either ``channels_last`` layout) and keep theirs, as
+do biases and the GroupNorm / LayerNorm weights and biases.
 """
 
 from __future__ import annotations
@@ -120,4 +128,111 @@ def optimizer_state_from_jax(np_state, config, device=None):
                 raise ValueError(f"{key}: shape {tuple(a.shape)} after "
                                  f"layout conversion, expected {want[pkey]}")
         out[key] = torch.tensor(a, dtype=torch.float32, device=dev)
+    return out
+
+
+_UNET_LINEARS = ("time_mlp1", "time_mlp2", "time_emb_proj", "to_q", "to_k",
+                 "to_v", "to_out", "ff1", "ff2")
+
+
+def unet_expected_shapes(config):
+    """``{key: torch-layout shape}`` of a ``UNet2DConditionModel(config)``,
+    from the same topology the model builds."""
+    from .models.unet import UNet2DConditionModel
+
+    c = config
+    ch = c.block_out_channels
+    temb = ch[0] * 4
+    shapes = {}
+
+    def conv(p, i, o, k):
+        shapes[p + ".weight"] = (o, i, k, k)
+        shapes[p + ".bias"] = (o,)
+
+    def linear(p, i, o, bias=True):
+        shapes[p + ".weight"] = (o, i)
+        if bias:
+            shapes[p + ".bias"] = (o,)
+
+    def norm(p, n):
+        shapes[p + ".weight"] = (n,)
+        shapes[p + ".bias"] = (n,)
+
+    def resnet(p, i, o):
+        norm(p + ".norm1", i)
+        conv(p + ".conv1", i, o, 3)
+        linear(p + ".time_emb_proj", temb, o)
+        norm(p + ".norm2", o)
+        conv(p + ".conv2", o, o, 3)
+        if i != o:
+            conv(p + ".shortcut", i, o, 1)
+
+    def block(p, d):
+        norm(p + ".norm_in", d)
+        conv(p + ".proj_in", d, d, 1)
+        for a, ctx in (("attn1", d), ("attn2", c.cross_attention_dim)):
+            norm(p + ".norm" + a[-1], d)
+            linear(f"{p}.{a}.to_q", d, d, bias=False)
+            linear(f"{p}.{a}.to_k", ctx, d, bias=False)
+            linear(f"{p}.{a}.to_v", ctx, d, bias=False)
+            linear(f"{p}.{a}.to_out", d, d)
+        norm(p + ".norm3", d)
+        linear(p + ".ff1", d, 4 * d)
+        linear(p + ".ff2", 4 * d, d)
+        conv(p + ".proj_out", d, d, 1)
+
+    conv("conv_in", c.in_channels, ch[0], 3)
+    linear("time_mlp1", ch[0], temb)
+    linear("time_mlp2", temb, temb)
+    r, in_c = 0, ch[0]
+    for i, out_c in enumerate(ch):
+        for _ in range(c.layers_per_block):
+            resnet(f"down_resnets.{r}", in_c, out_c)
+            if i < len(ch) - 1:
+                block(f"down_attns.{r}", out_c)
+            r, in_c = r + 1, out_c
+        if i < len(ch) - 1:
+            conv(f"downsamplers.{i}.conv", out_c, out_c, 3)
+    resnet("mid_res1", ch[-1], ch[-1])
+    block("mid_attn", ch[-1])
+    resnet("mid_res2", ch[-1], ch[-1])
+    r, prev = 0, ch[-1]
+    for i, out_c in enumerate(reversed(ch)):
+        skip = UNet2DConditionModel._skip_channels(ch, i, c.layers_per_block)
+        for j in range(c.layers_per_block + 1):
+            resnet(f"up_resnets.{r}", prev + skip[j], out_c)
+            if i > 0:
+                block(f"up_attns.{r}", out_c)
+            r, prev = r + 1, out_c
+        if i < len(ch) - 1:
+            conv(f"upsamplers.{i}.conv", out_c, out_c, 3)
+    norm("conv_norm_out", ch[0])
+    conv("conv_out", ch[0], c.out_channels, 3)
+    return shapes
+
+
+def unet_state_dict_from_jax(np_state, config, device=None, dtype=None):
+    """The JAX ``UNet2DConditionModel``'s ``state_dict`` (as numpy) ->
+    tensors for the port's ``load_state_dict``, on ``device`` (``cuda``
+    unless asked otherwise) in ``dtype`` (default: the arrays' own).
+    Linear weights are transposed (see the module docstring).  Raises on
+    a missing, unexpected or misshaped key."""
+    dev = resolve_device(device)
+    want = unet_expected_shapes(config)
+    missing = sorted(set(want) - set(np_state))
+    extra = sorted(set(np_state) - set(want))
+    if missing or extra:
+        raise KeyError(f"state dict mismatch: missing {missing[:4]}, "
+                       f"unexpected {extra[:4]}")
+    out = {}
+    for key, shape in want.items():
+        a = np.asarray(np_state[key])
+        if key.endswith(".weight") and \
+                key.rsplit(".", 2)[-2] in _UNET_LINEARS:
+            a = a.T                       # paddle [in, out] -> [out, in]
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{key}: shape {tuple(a.shape)} after layout "
+                             f"conversion, expected {shape}")
+        t = torch.tensor(a)
+        out[key] = t.to(device=dev, dtype=dtype or t.dtype)
     return out

@@ -1014,19 +1014,24 @@ cudaError_t bwd_dkv_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int Sq, int Sk, int H, int KH, int head_dim) {
-  return B < 0 || Sq < 0 || Sk < 0 || KH <= 0 || H % KH != 0 ||
-         (head_dim != 64 && head_dim != 128);
+bool bad_shape(int B, int Sq, int Sk, int H, int KH) {
+  return B < 0 || Sq < 0 || Sk < 0 || KH <= 0 || H % KH != 0;
 }
 
 }  // namespace
 
-// f32 inputs take the FMA kernels, bf16 inputs the tensor-core kernels
+// f32 inputs take the FMA kernels (head dims 64 and 128), bf16 inputs the
+// tensor-core kernels (48, 64, 80, 128 and 160: the LLaMA head and the SD
+// UNet's 40 (padded to 48 by the caller), 80 and 160).  Any other
+// (dtype, head_dim) is refused.
 #define FA_DISPATCH(CALL, CALL_MMA)                                        \
   if (dtype == 0 && head_dim == 128) return CALL(128);                     \
   if (dtype == 0 && head_dim == 64) return CALL(64);                       \
   if (dtype == 1 && head_dim == 128) return CALL_MMA(128);                 \
   if (dtype == 1 && head_dim == 64) return CALL_MMA(64);                   \
+  if (dtype == 1 && head_dim == 48) return CALL_MMA(48);                   \
+  if (dtype == 1 && head_dim == 80) return CALL_MMA(80);                   \
+  if (dtype == 1 && head_dim == 160) return CALL_MMA(160);                 \
   return cudaErrorInvalidValue;
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -1034,7 +1039,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int kv_len, int q_heads, int kv_heads,
                                    int head_dim, float scale, int causal,
                                    int dtype, void* stream) {
-  if (bad_shape(batch, q_len, kv_len, q_heads, kv_heads, head_dim))
+  if (bad_shape(batch, q_len, kv_len, q_heads, kv_heads))
     return cudaErrorInvalidValue;
   if (batch == 0 || q_len == 0 || q_heads == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1054,7 +1059,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       int kv_len, int q_heads, int kv_heads,
                                       int head_dim, float scale, int causal,
                                       int dtype, void* stream) {
-  if (bad_shape(batch, q_len, kv_len, q_heads, kv_heads, head_dim))
+  if (bad_shape(batch, q_len, kv_len, q_heads, kv_heads))
     return cudaErrorInvalidValue;
   if (batch == 0 || q_len == 0 || q_heads == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1076,7 +1081,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int q_len, int kv_len, int q_heads,
                                        int kv_heads, int head_dim, float scale,
                                        int causal, int dtype, void* stream) {
-  if (bad_shape(batch, q_len, kv_len, q_heads, kv_heads, head_dim))
+  if (bad_shape(batch, q_len, kv_len, q_heads, kv_heads))
     return cudaErrorInvalidValue;
   if (batch == 0 || kv_len == 0 || kv_heads == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

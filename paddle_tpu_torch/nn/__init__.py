@@ -1,3 +1,5 @@
+from . import functional
 from .clip import ClipGradByGlobalNorm
+from .norm import GroupNorm, LayerNorm
 
-__all__ = ["ClipGradByGlobalNorm"]
+__all__ = ["ClipGradByGlobalNorm", "GroupNorm", "LayerNorm", "functional"]

@@ -3,6 +3,8 @@ from .flash_attention import (
     flash_bwd_dq_kernel, flash_fwd, flash_fwd_kernel,
 )
 from .fused_ce import fused_linear_cross_entropy
+from .group_norm import group_norm, group_norm_bwd, group_norm_plain
+from .layer_norm import layer_norm, layer_norm_bwd, layer_norm_plain
 from .rms_norm import rms_norm, rms_norm_bwd, rms_norm_plain
 from .rope import apply_rotary_emb
 
@@ -13,7 +15,9 @@ def _counters():
     return {"paged_attention": paged_attention, "rms_norm": rms_norm,
             "rms_norm_bwd": rms_norm_bwd, "flash_fwd": flash_fwd_kernel,
             "flash_bwd_dq": flash_bwd_dq_kernel,
-            "flash_bwd_dkv": flash_bwd_dkv_kernel}
+            "flash_bwd_dkv": flash_bwd_dkv_kernel,
+            "layer_norm": layer_norm, "layer_norm_bwd": layer_norm_bwd,
+            "group_norm": group_norm, "group_norm_bwd": group_norm_bwd}
 
 
 def kernel_launches():
@@ -29,6 +33,8 @@ def reset_kernel_launches():
 
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd",
-           "flash_bwd", "fused_linear_cross_entropy", "rms_norm",
+           "flash_bwd", "fused_linear_cross_entropy", "group_norm",
+           "group_norm_bwd", "group_norm_plain", "layer_norm",
+           "layer_norm_bwd", "layer_norm_plain", "rms_norm",
            "rms_norm_bwd", "rms_norm_plain", "apply_rotary_emb",
            "kernel_launches", "reset_kernel_launches"]

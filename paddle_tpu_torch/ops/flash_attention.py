@@ -27,6 +27,16 @@ f32.  Anything else raises.
 A query row with no visible key (causal with ``Sq > Sk``) outputs 0 with
 ``lse = -inf`` and gets zero gradients, the flash-attn convention that
 the JAX package's ``_sdpa_ref`` follows.
+
+Head dims.  The kernels are instantiated at D = 64 and 128 for f32 and
+at 48, 64, 80, 128 and 160 for bf16 (the LLaMA head and the SD UNet's
+80 and 160).  A head dim between instantiations runs at the next one up
+(:func:`kernel_head_dim`: the UNet's 40 runs at 48): the wrappers
+zero-pad q, k, v (and dout) to it and slice out, dq, dk and dv back, with
+``scale`` still ``1/sqrt(true D)`` from the caller.  Zero columns add 0
+to every score and give zero output columns, so lse and ``delta`` are
+unchanged (the JAX package pads to 128 lanes for the same reason, a TPU
+rule).  A head dim above the largest instantiation raises.
 """
 
 from __future__ import annotations
@@ -39,7 +49,9 @@ import torch
 from .. import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
+#: the head dims csrc/flash_attention.cu instantiates, per dtype
+_KERNEL_HEAD_DIMS = {torch.float32: (64, 128),
+                     torch.bfloat16: (48, 64, 80, 128, 160)}
 
 
 def _visible(sq, sk, causal, device):
@@ -147,13 +159,31 @@ def _check(q, k, v, *rest):
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash attention kernel: q {tuple(q.shape)} vs k "
                          f"{tuple(k.shape)}")
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash attention kernel: head_dim {d} (supported: "
-                         f"{_KERNEL_HEAD_DIMS})")
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"flash attention kernel: {h} query heads over "
                          f"{k.shape[2]} kv heads")
-    return b, sq, k.shape[1], h, k.shape[2], d
+    return b, sq, k.shape[1], h, k.shape[2], kernel_head_dim(d, q.dtype)
+
+
+def kernel_head_dim(d, dtype):
+    """The instantiated head dim that a ``d``-wide head runs at: the
+    smallest one >= d.  Raises when there is none for the dtype."""
+    for dp in _KERNEL_HEAD_DIMS.get(dtype, ()):
+        if dp >= d:
+            return dp
+    raise ValueError(f"flash attention kernel: head_dim {d} in {dtype} "
+                     f"(instantiated: {_KERNEL_HEAD_DIMS.get(dtype, ())})")
+
+
+def _pad(t, dp):
+    """``t`` with its last dim zero-padded to ``dp`` (itself if equal)."""
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
+
+
+def _slice(t, d):
+    """``t`` cut back to ``d`` columns (itself if equal)."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def _raise_on(rc, name):
@@ -163,43 +193,49 @@ def _raise_on(rc, name):
 
 def flash_fwd_kernel(q, k, v, scale, causal=False):
     """Launch the forward kernel on the current stream -> (out, lse)."""
-    b, sq, sk, h, kh, d = _check(q, k, v)
+    b, sq, sk, h, kh, dp = _check(q, k, v)
+    d = q.shape[-1]
+    q, k, v = (_pad(t, dp) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if out.numel():
         with torch.cuda.device(q.device):
             rc = _fn("flash_attention_fwd", 5)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), b, sq, sk, h, kh, d, float(scale),
+                lse.data_ptr(), b, sq, sk, h, kh, dp, float(scale),
                 int(bool(causal)), _DTYPE_CODES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on(rc, "flash_fwd")
         flash_fwd_kernel.launches += 1
-    return out, lse
+    return _slice(out, d), lse
 
 
 def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal=False):
     """Launch the dQ kernel on the current stream -> dq."""
-    b, sq, sk, h, kh, d = _check(q, k, v, dout, lse, delta)
+    b, sq, sk, h, kh, dp = _check(q, k, v, dout, lse, delta)
     _check_bwd(q, dout, lse, delta)
+    d = q.shape[-1]
+    q, k, v, dout = (_pad(t, dp) for t in (q, k, v, dout))
     dq = torch.empty_like(q)
     if dq.numel():
         with torch.cuda.device(q.device):
             rc = _fn("flash_attention_bwd_dq", 7)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, sk,
-                h, kh, d, float(scale), int(bool(causal)),
+                h, kh, dp, float(scale), int(bool(causal)),
                 _DTYPE_CODES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on(rc, "flash_bwd_dq")
         flash_bwd_dq_kernel.launches += 1
-    return dq
+    return _slice(dq, d)
 
 
 def flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, scale, causal=False):
     """Launch the dK/dV kernel on the current stream -> (dk, dv)."""
-    b, sq, sk, h, kh, d = _check(q, k, v, dout, lse, delta)
+    b, sq, sk, h, kh, dp = _check(q, k, v, dout, lse, delta)
     _check_bwd(q, dout, lse, delta)
+    d = q.shape[-1]
+    q, k, v, dout = (_pad(t, dp) for t in (q, k, v, dout))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() and not dout.numel():        # no queries: no gradient
         dk.zero_()
@@ -209,12 +245,12 @@ def flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, scale, causal=False):
             rc = _fn("flash_attention_bwd_dkv", 8)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), b, sq, sk, h, kh, d, float(scale),
+                dv.data_ptr(), b, sq, sk, h, kh, dp, float(scale),
                 int(bool(causal)), _DTYPE_CODES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on(rc, "flash_bwd_dkv")
         flash_bwd_dkv_kernel.launches += 1
-    return dk, dv
+    return _slice(dk, d), _slice(dv, d)
 
 
 flash_fwd_kernel.launches = 0

@@ -13,6 +13,16 @@ Pallas kernels round P and dS to bf16 before their second products
 moves by at most 2**-8 of itself, and the outputs, rounded to bf16 on
 both sides, agree to 2**-6 of the largest value.
 
+The SD UNet's head dims (40, 80, 160; not causal, cross-attention over
+77 keys) are held against ``_sdpa_ref`` and its ``jax.grad`` (the JAX
+package routes these short sequences to it on every backend but the
+TPU), with the tolerances above.  The kernels run such a head dim at the
+next instantiated one (40 at 48 in bf16), zero-padding their inputs and
+slicing their outputs back: the same padding through the plain twins
+gives the unpadded result (1e-6) with ``scale = 1/sqrt(true D)``, the
+identity the kernel wrappers rest on (``chip_smoke.py`` holds the
+wrappers themselves at D = 40 on the card).
+
 The fully-masked case (causal, q_len > kv_len) is held against the JAX
 package's ``_sdpa_ref``: zero output rows and zero gradients for the
 rows that see no key, the flash-attn convention (the interpret-mode
@@ -34,7 +44,8 @@ from paddle_tpu.ops.pallas.flash import _fa_fwd_padded
 from paddle_tpu.ops.pallas.flash import flash_attention as pallas_flash
 from paddle_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_plain, flash_bwd, flash_bwd_dkv_kernel,
-    flash_bwd_dq_kernel, flash_fwd, flash_fwd_kernel, flash_fwd_plain,
+    flash_bwd_dq_kernel, flash_bwd_plain, flash_fwd, flash_fwd_kernel,
+    flash_fwd_plain, kernel_head_dim,
 )
 
 from _torch_port_util import one_thread  # noqa: F401
@@ -201,3 +212,80 @@ def test_other_devices_and_bad_inputs_raise():
         flash_attention(q, k3, k3)
     with pytest.raises(ValueError, match="CUDA"):
         flash_fwd_kernel(q, k, v, 0.3)
+
+
+# the SD UNet's attention at a small size: (b, sq, sk, h, d)
+UNET_CASES = {
+    "d40_self": (2, 64, 64, 2, 40),
+    "d40_cross": (2, 64, 77, 2, 40),
+    "d80_cross": (1, 32, 77, 2, 80),
+    "d160_self": (1, 16, 16, 2, 160),
+    "d160_cross": (1, 16, 77, 2, 160),
+}
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(UNET_CASES))
+def test_unet_head_dims_match_sdpa_ref(case, dtype_name):
+    b, sq, sk, h, d = UNET_CASES[case]
+    (jq, jk, jv, jdo), (q, k, v, do) = _as(
+        dtype_name, *_inputs(b, sq, sk, h, h, d, seed=4))
+    ref = _sdpa_ref(jq, jk, jv)
+    ref_g = _jax_grads(lambda q, k, v: _sdpa_ref(q, k, v), jq, jk, jv, jdo)
+    out, grads = _port_grads(q, k, v, do, False)
+    _close(out.float().numpy(), ref.astype(jnp.float32), dtype_name)
+    for got, want in zip(grads, ref_g):
+        assert got.shape[-1] == d
+        _close(got.float().numpy(), want.astype(jnp.float32), dtype_name)
+
+
+def test_kernel_head_dims():
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert [kernel_head_dim(d, bf16) for d in (40, 48, 64, 80, 128, 160)] \
+        == [48, 48, 64, 80, 128, 160]
+    assert [kernel_head_dim(d, f32) for d in (40, 64, 80, 128)] \
+        == [64, 64, 128, 128]
+    for d, dt in ((161, bf16), (160, f32), (64, torch.float16)):
+        with pytest.raises(ValueError, match="head_dim"):
+            kernel_head_dim(d, dt)
+
+
+@pytest.mark.parametrize("d,dp", [(40, 48), (40, 64), (80, 128)])
+def test_pad_and_slice_keeps_the_true_scale(d, dp):
+    """Zero-padding q, k, v (and out, dout) from d to dp columns and
+    cutting the results back to d, at scale 1/sqrt(d), gives the unpadded
+    out, lse, dq, dk and dv: zero columns add 0 to every score and to
+    delta, and give zero output columns."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(2, 40, 77, 2, 2, d,
+                                                        seed=5))
+    pad = lambda t: torch.nn.functional.pad(t, (0, dp - d))
+    scale = 1.0 / math.sqrt(d)
+    ref, ref_lse = flash_fwd_plain(q, k, v, scale, False)
+    out, lse = flash_fwd_plain(pad(q), pad(k), pad(v), scale, False)
+    assert out.shape[-1] == dp and not out[..., d:].any()
+    torch.testing.assert_close(out[..., :d], ref, rtol=0, atol=1e-6)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-6)
+    want = flash_bwd_plain(q, k, v, ref, ref_lse, do, scale)
+    got = flash_bwd_plain(pad(q), pad(k), pad(v), out, lse, pad(do), scale)
+    for g, w in zip(got, want):
+        assert g.shape[-1] == dp
+        torch.testing.assert_close(g[..., :d], w, rtol=0, atol=1e-6)
+
+
+def test_functional_sdpa_is_flash_and_refuses_masks_and_dropout():
+    """nn.functional.scaled_dot_product_attention routes every query
+    length (here 16, under JAX's TPU threshold of 128) to flash
+    attention, which matches _sdpa_ref; a mask or training dropout has
+    no port yet and raises."""
+    from paddle_tpu_torch.nn import functional as F
+
+    (jq, jk, jv), (q, k, v) = _as("float32", *_inputs(1, 16, 77, 2, 2, 40,
+                                                      seed=6)[:3])
+    out = F.scaled_dot_product_attention(q, k, v)
+    _close(out.numpy(), _sdpa_ref(jq, jk, jv), "float32")
+    with pytest.raises(NotImplementedError):
+        F.scaled_dot_product_attention(q, k, v, attn_mask=torch.ones(
+            16, 77, dtype=torch.bool))
+    with pytest.raises(NotImplementedError):
+        F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+    F.scaled_dot_product_attention(q, k, v, dropout_p=0.1, training=False)
