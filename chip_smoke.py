@@ -14,7 +14,11 @@ the script exits nonzero and prints no result:
    inputs — ragged paged attention at the LLaMA-2-7B (32/32/128) and
    LLaMA-3-8B GQA (32/8/128) head layouts, decode (s=1, 8 lanes, ragged
    pos 0..2000) and prefill windows (s=128, s=512), bf16, f32 and an int8
-   pool with per-token scales; RMSNorm forward at [8,4096], [4096,4096]
+   pool with per-token scales, and the engine's own prefill geometry (8
+   lanes x 1024 at pos 0, bf16); then the bf16 paged kernel's row
+   invariance, bit for bit (tables widened by scratch columns; one
+   s=512 window against 8 windows of 64 and 512 one-row decode lanes);
+   RMSNorm forward at [8,4096], [4096,4096]
    and [8192,4096]; RMSNorm backward at [8192,4096] (bf16, f32) and
    [8,4096]; flash attention forward, dQ and dK/dV at the train phase's
    batch of 2 sequences: 7B MHA s=4096 causal (bf16, f32), 8B GQA s=4096,
@@ -26,9 +30,11 @@ the script exits nonzero and prints no result:
    forward and backward at [4,320,64,64], [4,960,64,64], [4,2560,8,8]
    (bf16, 32 groups) and [4,320,64,64] (f32).  Tolerances are stated
    with the comparisons (TOLERANCES).  Each case
-   prints its kernel, plain and library times and its bound; the flash
-   and norm cases also the kernel's and the library's device time under
-   torch.profiler (device_ms), which leaves out the host launch path.  Then the
+   prints its kernel, plain and library times and its bound; the
+   attention and norm cases also the kernel's and the library's device
+   time under torch.profiler (device_ms), which leaves out the host
+   launch path, and the attention cases the achieved TFLOP/s and share of
+   the bound from it.  Then the
    RMSNorm autograd repair: gradients through the kernel path's
    rms_norm must equal those of the plain forward under torch autograd;
    and a shape, dtype or head dim that no kernel takes (2-D GroupNorm,
@@ -153,10 +159,16 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(torch, fn, reps):
-    """Mean device milliseconds of one ``fn()`` call: the time of every
-    kernel it launches, summed, under torch.profiler (after one warm-up
-    call).  Unlike :func:`cuda_ms` it leaves out the host's launch path,
-    which bounds back-to-back calls of a kernel shorter than it."""
+    """Device milliseconds of one ``fn()`` call under torch.profiler (after
+    one warm-up call): for each kernel name, the median duration of its
+    events times the number of its launches per call.  Unlike
+    :func:`cuda_ms` it leaves out the host's launch path, which bounds
+    back-to-back calls of a kernel shorter than it.  The profiler can drop
+    kernel events (a run read 0.0 for a kernel that ran, and two-thirds
+    of another's time), so a mean over all events would undercount; the
+    median of those that arrived does not."""
+    import statistics
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,8 +178,14 @@ def device_ms(torch, fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / reps / 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not by_name:
+        return "not measured"
+    return sum(statistics.median(t) * max(1, round(len(t) / reps))
+               for t in by_name.values()) / 1e3
 
 
 def bound(nbytes, ops, dtype_name):
@@ -250,6 +268,60 @@ def paged_library_fn(torch, q, k, v, tables, pos):
                                                   attn_mask=mask)
 
 
+def rates(case, ops):
+    """Achieved TFLOP/s and share of the bound from a case's device time."""
+    dev_ms = case.get("device_ms")
+    if isinstance(dev_ms, float) and dev_ms > 0:
+        case["tflops"] = ops / dev_ms / 1e9
+        case["bound_share"] = case["bound_ms"] / dev_ms
+    return case
+
+
+def paged_invariance_check(torch, dev):
+    """Row invariance of the bf16 paged kernel, bit for bit on the card,
+    for both layouts: (a) nb: the decode and prefill512 inputs with 7
+    scratch columns appended to every table give equal outputs; (b) the
+    window: the rows of one s = 512 window at pos 0 equal the same rows
+    computed as 8 windows of 64 at pos 0, 64, ... and as 512 one-row
+    decode lanes (lane r at pos r), over the same pool."""
+    from paddle_tpu_torch.serving.paged_attention import paged_attention
+
+    report = {}
+    for lname, qh, kh in (("llama2_7b", 32, 32), ("llama3_8b_gqa", 32, 8)):
+        for wname, s, pos_list in (("decode", 1, [0, 17, 130, 511, 777,
+                                                  1024, 1500, 2000]),
+                                   ("prefill512", 512, [0, 700])):
+            (q, k, v, tables, pos, _, _), _ = paged_case(
+                torch, qh, kh, s, pos_list, torch.bfloat16, False, 77, dev)
+            wide = torch.cat([tables, torch.zeros_like(tables[:, :7])], 1)
+            a = paged_attention(q, k, v, tables, pos)
+            b = paged_attention(q, k, v, wide.contiguous(), pos)
+            if not torch.equal(a, b):
+                raise AssertionError(f"paged nb invariance {lname}/{wname}: "
+                                     f"{(a != b).sum().item()} elements differ")
+            report[f"{lname}/{wname}/nb+7"] = "equal"
+        (q, k, v, tables, pos, _, _), _ = paged_case(
+            torch, qh, kh, 512, [0], torch.bfloat16, False, 78, dev)
+        whole = paged_attention(q, k, v, tables, pos)[0]
+        pos64 = torch.arange(0, 512, 64, dtype=torch.int32, device=dev)
+        win = torch.cat([paged_attention(q[:, w:w + 64].contiguous(), k, v,
+                                         tables, pos64[i:i + 1])[0]
+                         for i, w in enumerate(range(0, 512, 64))])
+        rows = paged_attention(
+            q[0][:, None].contiguous(), k, v,
+            tables.expand(512, -1).contiguous(),
+            torch.arange(512, dtype=torch.int32, device=dev))[:, 0]
+        for form, got in (("8 windows of 64", win), ("512 decode rows", rows)):
+            if not torch.equal(whole, got):
+                raise AssertionError(
+                    f"paged window invariance {lname}: {form} differ from "
+                    f"one s=512 window in {(whole != got).sum().item()} "
+                    "elements")
+            report[f"{lname}/s512 vs {form}"] = "equal"
+    emit({"phase": "paged_invariance", "dtype": "bfloat16",
+          "checks": report})
+
+
 def kernel_phase(torch, dev):
     from paddle_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
     from paddle_tpu_torch.serving.paged_attention import (
@@ -259,13 +331,17 @@ def kernel_phase(torch, dev):
     summary = {}
     decode_pos = [0, 17, 130, 511, 777, 1024, 1500, 2000]
     windows = [("decode", 1, decode_pos), ("prefill128", 128, [0, 700]),
-               ("prefill512", 512, [0, 700])]
+               ("prefill512", 512, [0, 700]),
+               ("prefill8x1024", 1024, [0] * 8)]   # the engine's prefill
     layouts = [("llama2_7b", 32, 32), ("llama3_8b_gqa", 32, 8)]
     variants = [("bfloat16", False), ("float32", False), ("bfloat16", True)]
     seed = 0
     for lname, qh, kh in layouts:
         for wname, s, pos_list in windows:
             for dname, quant in variants:
+                if wname == "prefill8x1024" and (dname, quant) != (
+                        "bfloat16", False):
+                    continue
                 seed += 1
                 dtype = getattr(torch, dname)
                 (q, k, v, tables, pos, ks, vs), need = paged_case(
@@ -276,15 +352,17 @@ def kernel_phase(torch, dev):
                 name = (f"paged_attention/{lname}/{wname}/{dname}"
                         + ("/int8_pool" if quant else ""))
                 err = check_close(name, out, ref, dname)
-                kern_ms = cuda_ms(
-                    lambda: paged_attention(q, k, v, tables, pos, ks, vs), 20)
+                del out, ref
+                kern = lambda: paged_attention(q, k, v, tables, pos, ks, vs)
+                kern_ms, kern_dev = cuda_ms(kern, 20), device_ms(torch, kern, 5)
                 plain_ms = cuda_ms(
                     lambda: paged_attention_plain(q, k, v, tables, pos,
                                                   ks, vs), 3)
-                lib_ms = None
+                lib_ms = lib_dev = None
                 if not quant:
                     lib = paged_library_fn(torch, q, k, v, tables, pos)
-                    lib_ms = cuda_ms(lib, 10)
+                    lib_ms, lib_dev = cuda_ms(lib, 10), device_ms(torch, lib, 3)
+                    del lib
                 item = k.element_size()
                 d = q.shape[-1]
                 kv_tokens = sum(need) * 16
@@ -295,16 +373,20 @@ def kernel_phase(torch, dev):
                 keys = sum(p + r + 1 for p in pos_list for r in range(s))
                 ops = 4 * keys * qh * d
                 b_ms, b_by = bound(nbytes, ops, dname)
-                case = {"phase": "kernel", "name": name,
-                        "q": list(q.shape), "pos": pos_list,
-                        "max_abs_err": err, "ms": kern_ms,
-                        "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "bytes": nbytes, "ops": ops}
+                case = rates({"phase": "kernel", "name": name,
+                              "q": list(q.shape), "pos": pos_list,
+                              "max_abs_err": err, "ms": kern_ms,
+                              "device_ms": kern_dev, "plain_ms": plain_ms,
+                              "library_ms": lib_ms,
+                              "library_device_ms": lib_dev,
+                              "bound_ms": b_ms, "bound_by": b_by,
+                              "bytes": nbytes, "ops": ops}, ops)
                 emit(case)
                 if (lname, wname, dname, quant) == (
                         "llama2_7b", "decode", "bfloat16", False):
                     summary["paged_attention"] = case
+                del q, k, v, tables, pos, ks, vs
+    paged_invariance_check(torch, dev)
     for shape in ((8, 4096), (4096, 4096), (8192, 4096)):
         for dname in ("bfloat16", "float32"):
             dtype = getattr(torch, dname)
@@ -453,7 +535,7 @@ def flash_cases(torch, dev, summary, seed):
                     q, k, v, do, lse_p, delta, scale, causal),
                 "flash_bwd_dkv": lambda: flash_bwd_dkv_kernel(
                     q, k, v, do, lse_p, delta, scale, causal)}
-        times = {n: (cuda_ms(fn, 5), device_ms(torch, fn, 3))
+        times = {n: (cuda_ms(fn, 5), device_ms(torch, fn, 5))
                  for n, fn in kern.items()}
         plain_fwd_ms = cuda_ms(
             lambda: flash_fwd_plain(q, k, v, scale, causal), 3)
@@ -466,12 +548,12 @@ def flash_cases(torch, dev, summary, seed):
         if causal and sq != sk:
             lib_fwd = lib_bwd = (None, None)  # SDPA's is_causal is top-left
         else:
-            lib_fwd = cuda_ms(sdpa, 10), device_ms(torch, sdpa, 3)
+            lib_fwd = cuda_ms(sdpa, 10), device_ms(torch, sdpa, 5)
             lo = sdpa()
             dot = do.transpose(1, 2)
             sdpa_bwd = lambda: torch.autograd.grad(lo, (qt, kt, vt), dot,
                                                    retain_graph=True)
-            lib_bwd = cuda_ms(sdpa_bwd, 10), device_ms(torch, sdpa_bwd, 3)
+            lib_bwd = cuda_ms(sdpa_bwd, 10), device_ms(torch, sdpa_bwd, 5)
             del lo, sdpa_bwd
         pairs = visible_pairs(sq, sk, causal) * b * qh
         item = q.element_size()
@@ -487,12 +569,14 @@ def flash_cases(torch, dev, summary, seed):
         per = {"flash_fwd": (err_fwd, plain_fwd_ms, b_fwd, lib_fwd),
                "flash_bwd_dq": (err_dq, plain_bwd_ms, b_dq, lib_bwd),
                "flash_bwd_dkv": (err_dkv, plain_bwd_ms, b_dkv, lib_bwd)}
+        flops = {"flash_fwd": 4 * d * pairs, "flash_bwd_dq": 6 * d * pairs,
+                 "flash_bwd_dkv": 8 * d * pairs}
         for kname, (err, pms, (b_ms, b_by), (lms, lib_dev)) in per.items():
-            case = dict(base, name=f"{kname}/{cname}/{dname}",
-                        max_abs_err=err, ms=times[kname][0],
-                        device_ms=times[kname][1], plain_ms=pms,
-                        library_ms=lms, library_device_ms=lib_dev,
-                        bound_ms=b_ms, bound_by=b_by)
+            case = rates(dict(base, name=f"{kname}/{cname}/{dname}",
+                              max_abs_err=err, ms=times[kname][0],
+                              device_ms=times[kname][1], plain_ms=pms,
+                              library_ms=lms, library_device_ms=lib_dev,
+                              bound_ms=b_ms, bound_by=b_by), flops[kname])
             emit(case)
             if (cname, dname) == ("llama2_7b/s4096/causal", "bfloat16"):
                 summary[kname] = case
@@ -816,8 +900,8 @@ def profile_phase(torch, eng, prompts, params):
 # the port's kernels by their function names (CUDA templates, Triton
 # functions); every other kernel is a library's (cuBLAS, cuDNN, PyTorch)
 PORT_KERNELS = (
-    ("flash", ("flash_fwd", "flash_bwd")),
-    ("paged_attention", ("paged_attn",)),
+    ("flash", ("flash_fwd", "flash_bwd", "FlashProblem")),
+    ("paged_attention", ("paged_attn", "PagedProblem")),
     ("group_norm", ("_gn_fwd", "_gn_bwd")),
     ("layer_norm", ("_ln_fwd", "_ln_bwd")),
     ("rms_norm", ("_rms_fwd", "_rms_bwd")),
@@ -1309,14 +1393,14 @@ def main():
     unet_train_parity_phase(torch, dev)
 
     sources = {
-        "paged_attention": ("cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
+        "paged_attention": ("cuda", "paddle_tpu_torch/csrc/attention_sm90.cuh",
                             "paddle_tpu/serving/paged_attention.py:284",
                             "serve"),
         "rms_norm": ("triton", "paddle_tpu_torch/ops/rms_norm.py",
                      "paddle_tpu/ops/pallas/norms.py:220", "serve"),
         "rms_norm_bwd": ("triton", "paddle_tpu_torch/ops/rms_norm.py",
                          "paddle_tpu/ops/pallas/norms.py:257", "train"),
-        "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+        "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/attention_sm90.cuh",
                       "paddle_tpu/ops/pallas/flash.py:132", "train"),
         "flash_bwd_dq": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
                          "paddle_tpu/ops/pallas/flash.py:255", "train"),

@@ -4,8 +4,9 @@ ctypes.
 Each ``csrc/*.cu`` compiles with nvcc into its own shared library with
 a plain C interface (declared in ``csrc/kernels.h``) under the
 git-ignored ``build/`` directory beside this file.  A library's file
-name carries a hash of its source, the headers and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  All the
+name carries a hash of its source, every header under ``csrc/``
+(``*.h`` and ``*.cuh``) and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  All the
 sources that need building compile at once, one nvcc process each.
 Nothing here falls back: a missing nvcc or a failed build raises.
 """
@@ -38,7 +39,7 @@ def _nvcc():
 
 def _library_path(src):
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.h")) + [src]:
+    for p in sorted([*CSRC.glob("*.h"), *CSRC.glob("*.cuh")]) + [src]:
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}.{h.hexdigest()[:16]}.so"

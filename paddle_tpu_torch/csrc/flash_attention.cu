@@ -1,10 +1,9 @@
 // Flash attention forward and backward (recompute form), for sm_90a.
 //
-// Replaces the three Pallas TPU kernels of paddle_tpu/ops/pallas/flash.py
-// (each with an f32 kernel and a bf16 "_mma" kernel here):
-//   flash_fwd_kernel     <- _fwd_kernel  (:74, launched by _flash_fwd :132)
-//   flash_bwd_dq_kernel  <- _dq_kernel   (:163, launched by _flash_bwd :255)
-//   flash_bwd_dkv_kernel <- _dkv_kernel  (:197, launched by _flash_bwd :277)
+// Replaces the three Pallas TPU kernels of paddle_tpu/ops/pallas/flash.py:
+//   forward  <- _fwd_kernel  (:74, launched by _flash_fwd :132)
+//   dq       <- _dq_kernel   (:163, launched by _flash_bwd :255)
+//   dk, dv   <- _dkv_kernel  (:197, launched by _flash_bwd :277)
 // and computes what they compute: S = Q K^T * scale under the causal mask
 // q_idx + (kv_len - q_len) >= k_idx (flash.py:29-45), an f32 online softmax
 // with O and lse = m + log(l) saved, and the backward from lse and
@@ -19,15 +18,20 @@
 //
 // Design.  The TPU kernels walk the k (or q) blocks as a sequential grid
 // axis and carry m, l and acc (or dq, dk, dv) in VMEM scratch.  Here a
-// thread block owns one output tile and loops over the other axis itself:
-//   forward and dq: one block per (64-row q tile, q head, batch), looping
-//     over the k tiles in order, m/l/acc (or dq) in f32 registers;
+// thread block owns its output tiles and loops over the other axis itself,
+// so there are no atomics and the result is deterministic:
+//   bf16 forward: the Hopper mainloop of attention_sm90.cuh (TMA-fed K/V
+//     ring, wgmma, warp-specialised), with the contiguous loader below: a
+//     block owns 128 query rows (two 64-row tiles) of one (q head, batch);
+//   f32 forward and dq: one block per (64-row q tile, q head, batch),
+//     looping over the k tiles in order, m/l/acc (or dq) in f32 registers;
 //   dkv: one block per (64-row k tile, kv head, batch), looping over the
 //     q_per_kv query heads of its group and their q tiles (the sum that
 //     _dkv_kernel accumulates over grid axes), dk/dv in f32 registers.
-// Each block owns its output, so there are no atomics and the result is
-// deterministic.  Two arithmetic paths share that structure:
-//   bf16 inputs: the tensor cores (mma.sync, see the bf16 section below);
+// Three arithmetic paths:
+//   the bf16 forward on the tensor cores with wgmma (attention_sm90.cuh);
+//   the bf16 backward on the tensor cores with mma.sync (see the bf16
+//     section below);
 //   f32 inputs: plain FMA on the CUDA cores (f32 products have no tensor
 //     core path that keeps f32 precision).  256 threads as a 16 x 16 grid;
 //     a thread computes a 4 x 4 piece of each 64 x 64 score tile (rows
@@ -48,15 +52,17 @@
 // (q, k) pair and query head, 4 D flops forward (QK^T, PV) and 10 D
 // backward (five products; the dq and dkv kernels each recompute QK^T and
 // dO V^T, so they do 14 D together), over 989 TFLOP/s for bf16 (tensor
-// cores) or 67 TFLOP/s for f32 (CUDA cores) on an H100 SXM.  The bf16 path
-// issues mma.sync from registers with operands staged by plain loads; the
-// Hopper-only wgmma, TMA and a pipelined K/V ring are later work, and the
+// cores) or 67 TFLOP/s for f32 (CUDA cores) on an H100 SXM.  The bf16
+// forward's P V product runs twice (hi and lo terms of P, see
+// attention_sm90.cuh), 1.5x the bound's tensor work; the backward issues
+// mma.sync from registers with operands staged by plain loads, and its
 // hi/lo split of P and dS costs one extra mma per second product.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_sm90.cuh"
 #include "kernels.h"
 
 namespace {
@@ -422,9 +428,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------- bf16 tensor-core path
-// The same three functions for bf16 inputs on the tensor cores, with
-// mma.sync.m16n8k16 (bf16 operands, f32 accumulation).  A block of 4 warps
+// --------------------------------------- bf16 tensor-core path (backward)
+// The two backward functions for bf16 inputs on the tensor cores, with
+// mma.sync.m16n8k16 (bf16 operands, f32 accumulation); the bf16 forward is
+// the wgmma mainloop of attention_sm90.cuh.  A block of 4 warps
 // owns 64 rows of its output tile, 16 per warp.  Operand tiles are staged
 // in shared memory as bf16, row-major, with 8 elements of row padding (a
 // row then starts 4 banks after the last, so fragment loads are free of
@@ -442,9 +449,8 @@ typedef __nv_bfloat16 bf16;
 constexpr int MT = 128;     // threads per block of the tensor-core kernels
 constexpr int BQ2 = 32;     // q rows per inner step of the dK/dV kernel
 // scores are kept in log2 units (scale * log2 e folded into one multiply)
-// so each probability is one exp2; lse stays a natural log in memory
+// so each probability is one exp2 of the score minus lse * log2 e
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 // every (row, key) pair of the tile is visible: no mask arithmetic needed
 __device__ __forceinline__ bool tile_full(int q0, int rows, int k0, int Sq,
@@ -507,15 +513,6 @@ __device__ __forceinline__ void c_to_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
   split2(c1[2], c1[3], hi[3], lo[3]);
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // B fragments of the n-tiles n0 and n0 + 8 (b[0..1] and b[2..3]) of
 // B[k][n] = s[(k0 + k) * ld + n]: k runs down the rows of a row-major tile,
 // so each 8 x 8 piece is read transposed by ldmatrix
@@ -548,123 +545,6 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ src,
 
 __device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-
-template <int D>
-__global__ void __launch_bounds__(MT)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int Sq, int Sk, int H, int KH,
-                     float scale, int causal) {
-  constexpr int LD = D + 8, KS = D / 16, NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BQ * LD;
-  bf16* sV = sK + BK * LD;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
-  const int q0 = qt * BQ;
-  const bf16* kb = k + ((size_t)b * Sk * KH + kh) * D;
-  const bf16* vb = v + ((size_t)b * Sk * KH + kh) * D;
-
-  stage<D, BQ>(sQ, q + ((size_t)b * Sq * H + h) * D, (size_t)H * D, q0, Sq);
-  __syncthreads();
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) load_a(qa[kk], sQ, LD, r0, 16 * kk, g, t);
-
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  const float sl2 = scale * LOG2E;
-  const int n_k = k_tiles(q0, Sq, Sk, causal);
-  for (int jt = 0; jt < n_k; ++jt) {
-    const int k0 = jt * BK;
-    const bool full = tile_full(q0, BQ, k0, Sq, Sk, causal);
-    __syncthreads();  // the previous tile's sK, sV are consumed
-    stage<D, BK>(sK, kb, (size_t)KH * D, k0, Sk);
-    stage<D, BK>(sV, vb, (size_t)KH * D, k0, Sk);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1;
-        load_b(b0, b1, sK, LD, 8 * j, 16 * kk, g, t);
-        mma16816(s[j], qa[kk], b0, b1);
-      }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {  // rows r0 + g and r0 + g + 8
-      const int qi = q0 + r0 + g + 8 * hf;
-      float mx = m[hf];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[j][2 * hf + e] *= sl2;
-          if (full || visible(qi, k0 + 8 * j + 2 * t + e, Sq, Sk, causal))
-            mx = fmaxf(mx, s[j][2 * hf + e]);
-        }
-      mx = quad_max(mx);
-      const float alpha = exp2f(m[hf] - mx);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool vis =
-              full || visible(qi, k0 + 8 * j + 2 * t + e, Sq, Sk, causal);
-          const float p = vis ? exp2f(s[j][2 * hf + e] - mx) : 0.f;
-          s[j][2 * hf + e] = p;
-          ps += p;
-        }
-      l[hf] = l[hf] * alpha + quad_sum(ps);
-      m[hf] = mx;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][2 * hf] *= alpha;
-        o[n][2 * hf + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      c_to_a(ph, pl, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t bv[4];
-        load_b_trans(bv, sV, LD, 16 * kk, 8 * n, lane);
-        mma16816(o[n], ph, bv[0], bv[1]);
-        mma16816(o[n], pl, bv[0], bv[1]);
-        mma16816(o[n + 1], ph, bv[2], bv[3]);
-        mma16816(o[n + 1], pl, bv[2], bv[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int qi = q0 + r0 + g + 8 * hf;
-    if (qi >= Sq) continue;
-    const bool any = l[hf] > 0.f;
-    bf16* op = out + (((size_t)b * Sq + qi) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      store2(op + 8 * n, any ? o[n][2 * hf] / l[hf] : 0.f,
-             any ? o[n][2 * hf + 1] / l[hf] : 0.f);
-    if (t == 0)
-      lse[((size_t)b * H + h) * Sq + qi] =
-          any ? m[hf] * LN2 + logf(l[hf]) : -INFINITY;
-  }
 }
 
 template <int D>
@@ -961,23 +841,6 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 template <int D>
-cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* out,
-                    float* lse, int B, int Sq, int Sk, int H, int KH,
-                    float scale, int causal, cudaStream_t st) {
-  const size_t smem = (size_t)(BQ + 2 * BK) * (D + 8) * 2;
-  auto kernel = flash_fwd_mma_kernel<D>;
-  cudaError_t e = set_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kernel<<<grid, MT, smem, st>>>(static_cast<const bf16*>(q),
-                                 static_cast<const bf16*>(k),
-                                 static_cast<const bf16*>(v),
-                                 static_cast<bf16*>(out), lse, Sq, Sk, H, KH,
-                                 scale, causal);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dq, int B, int Sq, int Sk, int H, int KH,
@@ -1014,6 +877,90 @@ cudaError_t bwd_dkv_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The contiguous K/V loader of the Hopper mainloop: a block owns the 64-row
+// q tiles tile0, tile0 + 1 of one (q head h, batch b), K/V tiles are TMA
+// boxes of 64 keys of kv head h / (H / KH), and rows past Sk (and columns
+// past D) arrive as zeros.
+struct FlashProblem {
+  CUtensorMap tq, tk, tv;  // q [B, Sq, H, D]; k, v [B, Sk, KH, D]
+  bf16* out;
+  float* lse;
+  int Sq, Sk, H, KH, causal;
+  float sl2;  // scale * log2 e
+  static constexpr bool kOverlap = true;  // see attention_sm90.cuh
+  static constexpr bool kZeroRing = false;
+
+  struct Cta {
+    int b, h, kh, tile0;
+  };
+  __device__ Cta cta(int nc) const {
+    Cta c;
+    c.b = blockIdx.z;
+    c.h = blockIdx.y;
+    c.kh = c.h / (H / KH);
+    c.tile0 = (gridDim.x - 1 - blockIdx.x) * nc;  // the longest causal rows first
+    return c;
+  }
+  __device__ int n_valid(const Cta&, int tile) const {
+    return max(0, min(sm90::BM, Sq - tile * sm90::BM));
+  }
+  __device__ int diag(const Cta&, int tile, int i) const {
+    return causal ? tile * sm90::BM + i + (Sk - Sq) : sm90::NO_LIMIT;
+  }
+  __device__ int klim(const Cta&) const { return Sk; }
+  __device__ uint32_t q_box_bytes() const { return sm90::ATOM_BYTES; }
+  __device__ void load_q(const Cta& c, int tile, uint8_t* dst, uint64_t* bar,
+                         int a) const {
+    sm90::tma_load_4d(dst, &tq, bar, a * sm90::ATOM, c.h, tile * sm90::BM, c.b);
+  }
+  template <int DA>
+  __device__ void load_kv(const Cta& c, int kt, uint8_t* k, uint8_t* v,
+                          uint64_t* bar, int lane, int&) const {
+    if (lane != 0) return;
+    sm90::mbar_expect_tx(bar, 2 * DA * sm90::ATOM_BYTES);
+    for (int a = 0; a < DA; ++a) {
+      sm90::tma_load_4d(k + a * sm90::ATOM_BYTES, &tk, bar, a * sm90::ATOM, c.kh,
+                        kt * sm90::BN, c.b);
+      sm90::tma_load_4d(v + a * sm90::ATOM_BYTES, &tv, bar, a * sm90::ATOM, c.kh,
+                        kt * sm90::BN, c.b);
+    }
+  }
+  template <int D>
+  __device__ bf16* out_row(const Cta& c, int tile, int i) const {
+    return out + (((size_t)c.b * Sq + tile * sm90::BM + i) * H + c.h) * D;
+  }
+  __device__ void store_lse(const Cta& c, int tile, int i, float x) const {
+    lse[((size_t)c.b * H + c.h) * Sq + tile * sm90::BM + i] = x;
+  }
+};
+
+template <int D>
+cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int B, int Sq, int Sk, int H, int KH,
+                     float scale, int causal, cudaStream_t st) {
+  constexpr int NC = 2;
+  FlashProblem p;
+  const uint64_t row = (uint64_t)D * sizeof(bf16);
+  const uint64_t sk = Sk > 0 ? Sk : 1;
+  if (!sm90::make_map(&p.tq, q, D, H, Sq, B, row, row * H, row * H * Sq, 1,
+                      sm90::BM, 1) ||
+      !sm90::make_map(&p.tk, k, D, KH, sk, B, row, row * KH, row * KH * sk, 1,
+                      sm90::BN, 1) ||
+      !sm90::make_map(&p.tv, v, D, KH, sk, B, row, row * KH, row * KH * sk, 1,
+                      sm90::BN, 1))
+    return cudaErrorInvalidValue;
+  p.out = static_cast<bf16*>(out);
+  p.lse = lse;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.H = H;
+  p.KH = KH;
+  p.causal = causal;
+  p.sl2 = scale * sm90::LOG2E;
+  const dim3 grid((Sq + NC * sm90::BM - 1) / (NC * sm90::BM), H, B);
+  return sm90::launch<D, NC>(p, grid, st);
+}
+
 bool bad_shape(int B, int Sq, int Sk, int H, int KH) {
   return B < 0 || Sq < 0 || Sk < 0 || KH <= 0 || H % KH != 0;
 }
@@ -1022,8 +969,9 @@ bool bad_shape(int B, int Sq, int Sk, int H, int KH) {
 
 // f32 inputs take the FMA kernels (head dims 64 and 128), bf16 inputs the
 // tensor-core kernels (48, 64, 80, 128 and 160: the LLaMA head and the SD
-// UNet's 40 (padded to 48 by the caller), 80 and 160).  Any other
-// (dtype, head_dim) is refused.
+// UNet's 40 (padded to 48 by the caller), 80 and 160; the forward on the
+// wgmma mainloop, the backward on mma.sync).  Any other (dtype, head_dim)
+// is refused.
 #define FA_DISPATCH(CALL, CALL_MMA)                                        \
   if (dtype == 0 && head_dim == 128) return CALL(128);                     \
   if (dtype == 0 && head_dim == 64) return CALL(64);                       \
@@ -1046,7 +994,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 #define FA_FWD(D) \
   fwd<D>(q, k, v, out, lse, batch, q_len, kv_len, q_heads, kv_heads, scale, causal, st)
 #define FA_FWD_MMA(D) \
-  fwd_mma<D>(q, k, v, out, lse, batch, q_len, kv_len, q_heads, kv_heads, scale, causal, st)
+  fwd_sm90<D>(q, k, v, out, lse, batch, q_len, kv_len, q_heads, kv_heads, scale, causal, st)
   FA_DISPATCH(FA_FWD, FA_FWD_MMA)
 #undef FA_FWD
 #undef FA_FWD_MMA

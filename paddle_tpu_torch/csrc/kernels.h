@@ -14,16 +14,19 @@ extern "C" {
 //             the q dtype, or int8 when quantized != 0
 //   k/v_scale [num_blocks, block_size] f32, read only when quantized
 //   tables    [batch, nb] int32,  pos [batch] int32
+// bf16 runs the wgmma kernel (head_dim 64 or 128, q_heads / kv_heads <= 64),
+// f32 and int8 pools the FMA kernel.
 int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
                         const float* k_scale, const float* v_scale,
                         const int* tables, const int* pos, void* out,
                         int batch, int q_len, int q_heads, int kv_heads,
-                        int head_dim, int block_size, int nb, int dtype,
-                        int quantized, void* stream);
+                        int head_dim, int block_size, int nb, int num_blocks,
+                        int dtype, int quantized, void* stream);
 
 // Flash attention forward / backward (see flash_attention.cu).
 //   q, out, dout, dq  [batch, q_len, q_heads, head_dim]    dtype: 0 = f32, 1 = bf16
-//   k, v, dk, dv      [batch, kv_len, kv_heads, head_dim]  head_dim 64 or 128
+//   k, v, dk, dv      [batch, kv_len, kv_heads, head_dim]
+//   head_dim 64 or 128 for f32; 48, 64, 80, 128 or 160 for bf16
 //   lse, delta        [batch, q_heads, q_len] f32
 // causal != 0 masks key j from query i unless i + (kv_len - q_len) >= j.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,

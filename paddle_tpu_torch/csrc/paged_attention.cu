@@ -9,43 +9,58 @@
 // q's dtype.  An int8 pool carries one f32 scale per token ([NB, bs]) and
 // is dequantized right after each block load.
 //
-// Design.  The TPU kernel walks grid axis i (table columns) in order and
-// carries m, l and acc in VMEM scratch across it.  Here one thread block
-// owns (tile of up to 16 query vectors, kv head, lane); a query vector is
-// one (row r, group head g) pair, so a decode step (s = 1) of a GQA model
-// puts all G heads that share a kv head in one block.  The table-column
-// loop runs inside the block: each warp takes up to 4 vectors and, when
-// the tile has fewer than 16 vectors, the warps also split the columns
-// round robin and merge their (m, l, acc) in fixed warp order at the end.
-// A warp stages one pool block of K and V (bs = 16 tokens x D) in its own
-// shared memory with 16-byte loads, then scores its vectors against it:
-// each lane holds D/32 dimensions of q and acc in registers, the dot
-// products are warp-shuffle sums, and m, l, acc stay in registers across
-// columns.  The block reads tables[b, i] and pos[b] itself and stops at
+// The TPU kernel walks grid axis i (table columns) in order and carries m,
+// l and acc in VMEM scratch across it.  Here the column walk runs inside a
+// thread block that owns (tile of query vectors, kv head, lane); a query
+// vector is one (row r, group head g) pair, ordered by r then g, so a
+// decode step (s = 1) of a GQA model puts all G heads that share a kv head
+// in one tile.  The block reads pos[b] and tables[b, i] itself and stops at
 // the first column past its deepest visible key (the ragged skip of the
-// TPU kernel's pl.when at :193), so a short lane's tail blocks are never
-// read.  Masked scores sit at the finite floor NEG_INF and masked
-// probabilities are a literal 0 (never exp(NEG_INF - m)), so a column
-// with no visible key changes nothing; acc is divided by l once, at the
-// end.
+// TPU kernel's pl.when at :193): a short lane's tail columns, and scratch
+// block 0 past them, are never read.  Masked scores never enter the max,
+// masked probabilities are a literal 0 (never exp(NEG_INF - m)), and acc
+// is divided by l once, at the end.  Two kernels:
+//
+// bf16 pools: the Hopper mainloop of attention_sm90.cuh (wgmma on the
+//   tensor cores, K/V by TMA) with the paged loader below.  A tile is 64
+//   query vectors; a block owns one tile (decode: one tile holds every
+//   vector of a (lane, kv head)) or two.  The loader views the pool as
+//   rows of KH * D elements and issues one TMA box of 16 tokens per table
+//   column, four columns per 64-key tile; the producer warp reads the
+//   table, 32 columns at a time, itself.  Every bf16 window (decode, spec
+//   verify, prefill) takes this one path and walks the same fixed 64-key
+//   tiles from key 0, so each output row's bits depend only on its q
+//   vector and its visible keys: not on s, the lane count, nb, or the
+//   row's place in its tile (no split-KV).
+// f32 and int8 pools: plain f32 FMA on the CUDA cores (f32 is the
+//   precision check; the int8 pool waits for its engine knob).  A block
+//   owns up to 16 query vectors; each warp takes up to 4 vectors and, when
+//   the tile has fewer than 16 vectors, the warps also split the columns
+//   round robin and merge their (m, l, acc) in fixed warp order at the end.
+//   A warp stages one pool block of K and V (bs = 16 tokens x D) in its own
+//   shared memory with 16-byte loads, then scores its vectors against it:
+//   each lane holds D/32 dimensions of q and acc in registers, the dot
+//   products are warp-shuffle sums, and m, l, acc stay in registers across
+//   columns.
 //
 // Bound.  The function must read, for every lane, the table-mapped blocks
 // up to its last visible key, for every kv head, k and v:
 //   bytes = sum_b ceil((pos_b + s) / bs) * bs * KH * D * 2 * itemsize
 //           (+ 2 * 4 bytes of scale per token when quantized)
 //           + q bytes + out bytes,
-// over 3.35 TB/s of HBM on an H100 SXM.  Decode (s * G <= 16 vectors per
-// kv head) reads each live block once per kv head, which is exactly that
-// count.  Windows with more than 16 vectors per kv head (prefill) re-read
-// the block range once per tile; those re-reads mostly hit the 50 MB L2.
-// The arithmetic is plain f32 FMA on the CUDA cores (no wgmma yet), so long
-// prefill windows are bounded by operations, 4 * keys * D per query vector,
-// rather than by bytes.
+// over 3.35 TB/s of HBM on an H100 SXM, or its operations, 4 D per visible
+// (row, key) pair and query head, over the card's peak for the dtype
+// (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32 on FMA),
+// whichever is larger: decode is bounded by bytes, long prefill windows by
+// operations.  A block re-reads its lane's blocks once per tile, from L2
+// for all but the first; the bf16 kernel's P V product runs twice (hi and
+// lo terms of P), 1.5x the bound's tensor work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_sm90.cuh"
 #include "kernels.h"
 
 namespace {
@@ -253,6 +268,113 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
   }
 }
 
+// The paged K/V loader of the Hopper mainloop (bf16 pools).  A block owns
+// tiles tile0, tile0 + 1 of one (kv head kh, lane b); tile t holds rows
+// t TR .. t TR + TR - 1 of the window, G vectors each (TR = 64 / G).  The
+// Q tile is one TMA box {D, G heads, TR rows}; a K/V tile is four boxes of
+// 16 tokens, one per table column, and the columns past the block's
+// deepest visible key are not loaded (their ring rows keep finite values
+// from earlier tiles or the initial zeros, under probability 0).
+struct PagedProblem {
+  CUtensorMap tq, tk, tv;  // q [B, S, QH, D]; pools [NB, 16, KH, D]
+  const int* tables;
+  const int* pos;
+  sm90::bf16* out;
+  int S, QH, KH, G, TR, nb;
+  float sl2;  // log2 e / sqrt(D)
+  static constexpr bool kOverlap = false;  // see attention_sm90.cuh
+  static constexpr bool kZeroRing = true;
+
+  struct Cta {
+    int b, kh, tile0, pos, ncols;
+  };
+  __device__ Cta cta(int nc) const {
+    Cta c;
+    c.b = blockIdx.z;
+    c.kh = blockIdx.y;
+    c.tile0 = blockIdx.x * nc;
+    c.pos = pos[c.b];
+    const int r_last = min(S, (c.tile0 + nc) * TR) - 1;
+    c.ncols = min(nb, (c.pos + r_last) / BS + 1);
+    return c;
+  }
+  __device__ int n_valid(const Cta&, int tile) const {
+    return max(0, min(TR, S - tile * TR)) * G;
+  }
+  __device__ int diag(const Cta& c, int tile, int i) const {
+    return c.pos + tile * TR + i / G;
+  }
+  __device__ int klim(const Cta&) const { return nb * BS; }
+  __device__ uint32_t q_box_bytes() const { return 128u * G * TR; }
+  __device__ void load_q(const Cta& c, int tile, uint8_t* dst, uint64_t* bar,
+                         int a) const {
+    sm90::tma_load_4d(dst, &tq, bar, a * sm90::ATOM, c.kh * G, tile * TR, c.b);
+  }
+  // the whole producer warp: lane l holds table column 32 j + l of the
+  // current run of 8 tiles; lane 0 issues the boxes
+  template <int DA>
+  __device__ void load_kv(const Cta& c, int kt, uint8_t* k, uint8_t* v,
+                          uint64_t* bar, int lane, int& tab) const {
+    constexpr int BOX = sm90::ATOM_BYTES / 4;  // 16 tokens x 128 bytes
+    if ((kt & 7) == 0) {
+      const int col = kt * 4 + lane;
+      tab = col < c.ncols ? tables[(size_t)c.b * nb + col] : 0;
+    }
+    int blk[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      blk[j] = __shfl_sync(0xffffffffu, tab, (kt & 7) * 4 + j);
+    if (lane == 0) {
+      const int n = min(4, c.ncols - kt * 4);
+      sm90::mbar_expect_tx(bar, 2 * n * DA * BOX);
+      for (int j = 0; j < n; ++j)
+        for (int a = 0; a < DA; ++a) {
+          const int off = a * sm90::ATOM_BYTES + j * BOX;
+          sm90::tma_load_4d(k + off, &tk, bar, a * sm90::ATOM, c.kh, 0, blk[j]);
+          sm90::tma_load_4d(v + off, &tv, bar, a * sm90::ATOM, c.kh, 0, blk[j]);
+        }
+    }
+    __syncwarp();
+  }
+  template <int D>
+  __device__ sm90::bf16* out_row(const Cta& c, int tile, int i) const {
+    const int r = tile * TR + i / G;
+    return out + (((size_t)c.b * S + r) * QH + c.kh * G + i % G) * D;
+  }
+  __device__ void store_lse(const Cta&, int, int, float) const {}
+};
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k_pool, const void* v_pool,
+                        const int* tables, const int* pos, void* out, int batch,
+                        int q_len, int q_heads, int kv_heads, int nb,
+                        int num_blocks, cudaStream_t stream) {
+  PagedProblem p;
+  p.G = q_heads / kv_heads;
+  p.TR = sm90::BM / p.G;
+  if (p.TR < 1) return cudaErrorInvalidValue;
+  const uint64_t row = (uint64_t)D * sizeof(sm90::bf16);
+  if (!sm90::make_map(&p.tq, q, D, q_heads, q_len, batch, row, row * q_heads,
+                      row * q_heads * q_len, p.G, p.TR, 1) ||
+      !sm90::make_map(&p.tk, k_pool, D, kv_heads, BS, num_blocks, row,
+                      row * kv_heads, row * kv_heads * BS, 1, BS, 1) ||
+      !sm90::make_map(&p.tv, v_pool, D, kv_heads, BS, num_blocks, row,
+                      row * kv_heads, row * kv_heads * BS, 1, BS, 1))
+    return cudaErrorInvalidValue;
+  p.tables = tables;
+  p.pos = pos;
+  p.out = static_cast<sm90::bf16*>(out);
+  p.S = q_len;
+  p.QH = q_heads;
+  p.KH = kv_heads;
+  p.nb = nb;
+  p.sl2 = sm90::LOG2E / sqrtf(static_cast<float>(D));
+  const int tiles = (q_len + p.TR - 1) / p.TR;
+  if (tiles == 1)
+    return sm90::launch<D, 1>(p, dim3(1, kv_heads, batch), stream);
+  return sm90::launch<D, 2>(p, dim3((tiles + 1) / 2, kv_heads, batch), stream);
+}
+
 template <typename QT, typename PT, int D, bool QUANT>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const float* k_scale, const float* v_scale,
@@ -284,13 +406,15 @@ template <int D>
 cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
                      const float* k_scale, const float* v_scale,
                      const int* tables, const int* pos, void* out, int batch,
-                     int q_len, int q_heads, int kv_heads, int nb, int dtype,
-                     int quantized, cudaStream_t stream) {
+                     int q_len, int q_heads, int kv_heads, int nb,
+                     int num_blocks, int dtype, int quantized,
+                     cudaStream_t stream) {
 #define PA_ARGS q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, batch, \
                 q_len, q_heads, kv_heads, nb, stream
   if (dtype == 0 && !quantized) return launch<float, float, D, false>(PA_ARGS);
   if (dtype == 1 && !quantized)
-    return launch<__nv_bfloat16, __nv_bfloat16, D, false>(PA_ARGS);
+    return launch_bf16<D>(q, k_pool, v_pool, tables, pos, out, batch, q_len,
+                          q_heads, kv_heads, nb, num_blocks, stream);
   if (dtype == 0 && quantized) return launch<float, int8_t, D, true>(PA_ARGS);
   if (dtype == 1 && quantized)
     return launch<__nv_bfloat16, int8_t, D, true>(PA_ARGS);
@@ -306,16 +430,20 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pool,
                                    const int* pos, void* out, int batch,
                                    int q_len, int q_heads, int kv_heads,
                                    int head_dim, int block_size, int nb,
-                                   int dtype, int quantized, void* stream) {
-  if (block_size != BS || kv_heads <= 0 || q_heads % kv_heads != 0 || nb < 1)
+                                   int num_blocks, int dtype, int quantized,
+                                   void* stream) {
+  if (block_size != BS || kv_heads <= 0 || q_heads % kv_heads != 0 || nb < 1 ||
+      num_blocks < 1)
     return cudaErrorInvalidValue;
   if (batch == 0 || q_len == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 128)
     return dispatch<128>(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out,
-                         batch, q_len, q_heads, kv_heads, nb, dtype, quantized, st);
+                         batch, q_len, q_heads, kv_heads, nb, num_blocks, dtype,
+                         quantized, st);
   if (head_dim == 64)
     return dispatch<64>(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out,
-                        batch, q_len, q_heads, kv_heads, nb, dtype, quantized, st);
+                        batch, q_len, q_heads, kv_heads, nb, num_blocks, dtype,
+                        quantized, st);
   return cudaErrorInvalidValue;
 }

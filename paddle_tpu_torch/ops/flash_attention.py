@@ -18,9 +18,10 @@ On CUDA tensors the three hand-written kernels of
 ``csrc/flash_attention.cu`` run (``flash_fwd_kernel``,
 ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``, replacing the Pallas
 ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``; bf16 inputs run on
-the tensor cores, f32 inputs on the CUDA cores' FMA, both accumulating
-in f32); ``delta`` is plain torch, as the JAX package computes it in jnp
-outside its kernels.  On
+the tensor cores, the forward on the Hopper wgmma + TMA mainloop of
+``csrc/attention_sm90.cuh`` and the backward on ``mma.sync``, f32 inputs
+on the CUDA cores' FMA, all accumulating in f32); ``delta`` is plain
+torch, as the JAX package computes it in jnp outside its kernels.  On
 CPU tensors the plain twins run: the same recompute math, dense and in
 f32.  Anything else raises.
 

@@ -8,10 +8,16 @@ lane ``b`` sits at absolute position ``pos[b] + r`` and sees the keys at
 positions ``<= pos[b] + r`` (write-before-attend).  Returns
 ``[B, s, QH, D]`` in q's dtype.
 
-:func:`paged_attention` runs the hand-written CUDA kernel
-(``csrc/paged_attention.cu``, which replaces the Pallas kernel
+:func:`paged_attention` runs the hand-written CUDA kernels of
+``csrc/paged_attention.cu`` (which replace the Pallas kernel
 ``_paged_attn_kernel``) for CUDA tensors and the plain PyTorch version
-for CPU tensors; anything else raises.
+for CPU tensors; anything else raises.  A bf16 pool runs the Hopper
+tensor-core kernel (the wgmma + TMA mainloop of
+``csrc/attention_sm90.cuh``) for every window, decode and prefill alike:
+it walks fixed 64-key tiles from key 0, so an output row's bits depend
+only on its q vector and its visible keys, not on the window length, the
+lane count, ``nb`` or the row's place in its tile.  f32 and int8 pools
+run the FMA kernel.
 
 The plain version is the same per-table-column online-softmax recurrence
 as the JAX reference ``_xla_paged_attention``, not a dense masked
@@ -41,6 +47,7 @@ NEG_INF = -1e30      # finite floor: keeps exp(s - m) NaN-free when a
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_BLOCK_SIZE = 16
 _KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_MAX_GROUP = 64      # a 64-vector tile holds one row of every group head
 
 
 def paged_attention_plain(q, k_pool, v_pool, tables, pos,
@@ -90,7 +97,7 @@ def _lib():
     fn = lib.paged_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 9 + [p]
+        fn.argtypes = [p] * 8 + [i] * 10 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -132,9 +139,10 @@ def paged_attention_kernel(q, k_pool, v_pool, tables, pos,
     if bs != _KERNEL_BLOCK_SIZE:
         raise ValueError(f"paged_attention kernel: block_size {bs} "
                          f"(supported: {_KERNEL_BLOCK_SIZE})")
-    if qh % kh:
+    if qh % kh or qh // kh > _KERNEL_MAX_GROUP:
         raise ValueError(f"paged_attention kernel: {qh} query heads over "
-                         f"{kh} kv heads")
+                         f"{kh} kv heads (a group of at most "
+                         f"{_KERNEL_MAX_GROUP})")
     if (tables.dtype != torch.int32 or tables.dim() != 2
             or tables.shape[0] != b or tables.shape[1] < 1):
         raise ValueError("paged_attention kernel: tables must be int32 "
@@ -159,8 +167,9 @@ def paged_attention_kernel(q, k_pool, v_pool, tables, pos,
                 k_scale.data_ptr() if quant else None,
                 v_scale.data_ptr() if quant else None,
                 tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                b, s, qh, kh, d, bs, tables.shape[1], _DTYPE_CODES[q.dtype],
-                int(quant), torch.cuda.current_stream(dev).cuda_stream)
+                b, s, qh, kh, d, bs, tables.shape[1], num_blocks,
+                _DTYPE_CODES[q.dtype], int(quant),
+                torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"paged_attention kernel launch failed: "
                                f"CUDA error {rc}")

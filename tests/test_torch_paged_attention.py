@@ -7,6 +7,8 @@ per-column recurrence, only the einsum summation order differs: 1e-5
 absolute (outputs are O(1)).  bf16 outputs round the same f32 value:
 one bf16 step (relative 2**-7)."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,11 +18,14 @@ import jax.numpy as jnp
 from paddle_tpu.serving.paged_attention import (
     _pallas_paged_attention, _xla_paged_attention,
 )
+from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 from paddle_tpu_torch.serving.paged_attention import (
     NEG_INF, paged_attention, paged_attention_kernel, paged_attention_plain,
 )
 
-from _torch_port_util import one_thread  # noqa: F401
+from _torch_port_util import (  # noqa: F401
+    TINY, TINY_GQA, jax_model, one_thread, port_model,
+)
 
 ATOL = 1e-5
 LAYOUTS = pytest.mark.parametrize("qh,kh", [(4, 4), (4, 2)],
@@ -159,3 +164,38 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_masking_floor_matches_reference():
     assert NEG_INF == -1e30
+
+
+@pytest.mark.parametrize("cfg", [TINY, TINY_GQA], ids=["mha", "gqa"])
+def test_engine_prefill_geometry_matches_xla_reference(cfg, monkeypatch):
+    """The call the port's engine makes for one batched prefill (three
+    prompts padded to four lanes, the padding lane's table row all zero,
+    one window at pos 0 padded to the length bucket), captured inside the
+    first layer and run through the plain version and through JAX's
+    ``_xla_paged_attention``: 1e-5 (f32 on both sides)."""
+    gpt = importlib.import_module("paddle_tpu_torch.models.gpt")
+    calls = []
+
+    def capture(q, k_pool, v_pool, tables, pos, *rest):
+        if not calls:         # the pools change in place: copy them now
+            calls.append(tuple(t.clone() for t in (q, k_pool, v_pool,
+                                                   tables, pos)))
+        return paged_attention(q, k_pool, v_pool, tables, pos, *rest)
+
+    monkeypatch.setattr(gpt, "paged_attention", capture)
+    model = port_model(cfg, jax_model(cfg))
+    eng = Engine(model, EngineConfig(num_slots=4, max_seq_len=64),
+                 device="cpu")
+    r = np.random.RandomState(6)
+    for n in (17, 25, 30):                       # one length bucket: 32
+        eng.submit(r.randint(0, cfg.vocab_size, n).tolist(),
+                   SamplingParams(max_new_tokens=4))
+    eng.admit()
+    q, k, v, tables, pos = calls[0]
+    assert tuple(q.shape[:2]) == (4, 32)         # 3 lanes padded to 4
+    assert not pos.any() and not tables[3].any()
+    assert (tables[:3] != 0).all()
+    arrays = [t.numpy() for t in (q, k, v, tables, pos)]
+    np.testing.assert_allclose(
+        paged_attention_plain(q, k, v, tables, pos).numpy(),
+        _jax(_xla_paged_attention, *arrays), rtol=0, atol=ATOL)
