@@ -9,7 +9,8 @@ the script exits nonzero and prints no result:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, and the build of every CUDA kernel from csrc/ (nvcc,
-   one process per source, with the ptxas register / spill report).
+   one process per source, with the ptxas register / spill report and
+   the functions whose stack frame or spills are not 0).
 2. kernels: each kernel against its plain PyTorch twin on the same card
    inputs — ragged paged attention at the LLaMA-2-7B (32/32/128) and
    LLaMA-3-8B GQA (32/8/128) head layouts, decode (s=1, 8 lanes, ragged
@@ -22,18 +23,23 @@ the script exits nonzero and prints no result:
    and [8192,4096]; RMSNorm backward at [8192,4096] (bf16, f32) and
    [8,4096]; flash attention forward, dQ and dK/dV at the train phase's
    batch of 2 sequences: 7B MHA s=4096 causal (bf16, f32), 8B GQA s=4096,
-   s=1000 (ragged edge), s=1024 not causal, and a 256-query block over
-   1024 keys; and at the SD UNet's attention calls (batch 4, 8 heads,
-   self over 4096/1024/256/64 tokens and cross over 77, head dims
-   40/80/160/160); LayerNorm forward and backward at [16384,320],
+   s=1000 (ragged edge), s=1024 not causal, a 256-query block over 1024
+   keys and 1024 queries over 256 keys (causal: the first 768 rows see no
+   key, so their dQ must be exactly 0 and the visible rows alone must
+   give the same dK/dV); and at the SD UNet's attention calls (batch 4, 8
+   heads, self over 4096/1024/256/64 tokens and cross over 77, head dims
+   40/80/160/160), each case with the dK/dV kernel's query split
+   (dkv_splits); then the bf16 backward's determinism, dQ, dK and dV bit
+   for bit over two calls at the LM shape (one query range) and the
+   UNet's level-0 cross-attention (16 ranges summed by a second kernel); LayerNorm forward and backward at [16384,320],
    [4096,640], [1024,1280] (bf16) and [4096,640] (f32); GroupNorm
    forward and backward at [4,320,64,64], [4,960,64,64], [4,2560,8,8]
    (bf16, 32 groups) and [4,320,64,64] (f32).  Tolerances are stated
    with the comparisons (TOLERANCES).  Each case
    prints its kernel, plain and library times and its bound; the
-   attention and norm cases also the kernel's and the library's device
-   time under torch.profiler (device_ms), which leaves out the host
-   launch path, and the attention cases the achieved TFLOP/s and share of
+   attention and norm cases (RMSNorm too) also the kernel's and the
+   library's device time under torch.profiler (device_ms), which leaves
+   out the host launch path, and the attention cases the achieved TFLOP/s and share of
    the bound from it.  Then the
    RMSNorm autograd repair: gradients through the kernel path's
    rms_norm must equal those of the plain forward under torch autograd;
@@ -90,6 +96,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -141,6 +148,19 @@ def nvidia_smi():
     return out[0]
 
 
+def ptxas_spills(lines):
+    """{function: its ptxas spill line} for each function whose stack
+    frame, spill stores or spill loads are not 0."""
+    out, fn = {}, None
+    for ln in lines:
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for", 1)[1].strip()
+        elif "spill" in ln and fn is not None and any(
+                int(n) for n in re.findall(r"(\d+) bytes", ln)):
+            out[fn] = ln
+    return out
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds of ``fn`` over ``reps`` back-to-back launches,
     by CUDA events, after one warm-up call."""
@@ -166,7 +186,8 @@ def device_ms(torch, fn, reps):
     back-to-back calls of a kernel shorter than it.  The profiler can drop
     kernel events (a run read 0.0 for a kernel that ran, and two-thirds
     of another's time), so a mean over all events would undercount; the
-    median of those that arrived does not."""
+    median of those that arrived does not; a window in which none arrived
+    is profiled once more."""
     import statistics
 
     from torch.autograd import DeviceType
@@ -174,14 +195,18 @@ def device_ms(torch, fn, reps):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for _ in range(2):         # once more when no kernel event arrived
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        if by_name:
+            break
     if not by_name:
         return "not measured"
     return sum(statistics.median(t) * max(1, round(len(t) / reps))
@@ -400,22 +425,28 @@ def kernel_phase(torch, dev):
             torch.cuda.synchronize()
             name = f"rms_norm/{shape[0]}x{shape[1]}/{dname}"
             err = check_close(name, out, ref, dname)
-            kern_ms = cuda_ms(lambda: rms_norm(x, w, 1e-6), 50)
+            kern = lambda: rms_norm(x, w, 1e-6)
+            kern_ms, kern_dev = cuda_ms(kern, 50), device_ms(torch, kern, 5)
             plain_ms = cuda_ms(lambda: rms_norm_plain(x, w, 1e-6), 10)
             lib = getattr(torch.nn.functional, "rms_norm", None)
-            lib_ms = None if lib is None else cuda_ms(
-                lambda: lib(x, (shape[-1],), w, 1e-6), 50)
+            lib_ms = lib_dev = None
+            if lib is not None:
+                lib_fn = lambda: lib(x, (shape[-1],), w, 1e-6)
+                lib_ms = cuda_ms(lib_fn, 50)
+                lib_dev = device_ms(torch, lib_fn, 5)
             nbytes = (2 * x.numel() + w.numel()) * x.element_size()
             b_ms, b_by = bound(nbytes, 4 * x.numel(), dname)
             case = {"phase": "kernel", "name": name, "x": list(shape),
                     "max_abs_err": err, "ms": kern_ms,
-                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "device_ms": kern_dev, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "library_device_ms": lib_dev,
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
             emit(case)
             if (shape, dname) == ((8192, 4096), "bfloat16"):
                 summary["rms_norm"] = case
     seed = rms_bwd_cases(torch, dev, summary, seed)
     seed = flash_cases(torch, dev, summary, seed)
+    seed = flash_bwd_determinism_check(torch, dev, seed)
     seed = norm_cases(torch, dev, summary, seed)
     rms_autograd_check(torch, dev, seed)
     unsupported_check(torch, dev)
@@ -447,20 +478,23 @@ def rms_bwd_cases(torch, dev, summary, seed):
         name = f"rms_norm_bwd/{shape[0]}x{shape[1]}/{dname}"
         err = max(check_close(name + "/dx", dx, dx_p, dname),
                   check_close(name + "/dw", dw, dw_p, dname))
-        kern_ms = cuda_ms(lambda: rms_norm_bwd(x, w, rstd, gy), 50)
+        kern = lambda: rms_norm_bwd(x, w, rstd, gy)
+        kern_ms, kern_dev = cuda_ms(kern, 50), device_ms(torch, kern, 5)
         plain_ms = cuda_ms(lambda: rms_norm_bwd_plain(x, w, rstd, gy), 10)
         xl = x.detach().requires_grad_(True)
         wl = w.detach().requires_grad_(True)
         yl = F.rms_norm(xl, (shape[-1],), wl, 1e-6)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(
-            yl, (xl, wl), gy, retain_graph=True), 50)
+        lib_fn = lambda: torch.autograd.grad(yl, (xl, wl), gy,
+                                             retain_graph=True)
+        lib_ms, lib_dev = cuda_ms(lib_fn, 50), device_ms(torch, lib_fn, 5)
         item = x.element_size()
         nbytes = (3 * x.numel() + 2 * w.numel()) * item + rstd.numel() * 4
         b_ms, b_by = bound(nbytes, 8 * x.numel(), dname)
         case = {"phase": "kernel", "name": name, "x": list(shape),
-                "max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "bytes": nbytes}
+                "max_abs_err": err, "ms": kern_ms, "device_ms": kern_dev,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_device_ms": lib_dev, "bound_ms": b_ms,
+                "bound_by": b_by, "bytes": nbytes}
         emit(case)
         if (shape, dname) == ((8192, 4096), "bfloat16"):
             summary["rms_norm_bwd"] = case
@@ -490,8 +524,8 @@ def flash_cases(torch, dev, summary, seed):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_bwd_plain,
-        flash_fwd_kernel, flash_fwd_plain,
+        dkv_splits, flash_bwd_dkv_kernel, flash_bwd_dq_kernel,
+        flash_bwd_plain, flash_fwd_kernel, flash_fwd_plain,
     )
 
     b, d = TRAIN_BATCH, 128
@@ -502,6 +536,8 @@ def flash_cases(torch, dev, summary, seed):
              ("llama2_7b/s1000/causal", 32, 32, 1000, 1000, True, "bfloat16"),
              ("llama2_7b/s1024/full", 32, 32, 1024, 1024, False, "bfloat16"),
              ("llama2_7b/q256_k1024/causal", 32, 32, 256, 1024, True,
+              "bfloat16"),
+             ("llama2_7b/q1024_k256/causal", 32, 32, 1024, 256, True,
               "bfloat16")]
     cases = [c + (b, d) for c in cases] + unet_flash_shapes()
     for cname, qh, kh, sq, sk, causal, dname, b, d in cases:
@@ -524,11 +560,32 @@ def flash_cases(torch, dev, summary, seed):
                                            causal)
         torch.cuda.synchronize()
         name = f"flash/{cname}/{dname}"
+        # rows that see no key (causal, sq > sk) have lse = -inf on both
+        # sides; the finite rest is compared
+        seen = torch.isfinite(lse_p)
+        if not torch.equal(seen, torch.isfinite(lse)) or \
+                (lse[~seen] != -math.inf).any():
+            raise AssertionError(f"{name}/lse: -inf rows differ")
         err_fwd = max(check_close(name + "/out", out, out_p, dname),
-                      check_close(name + "/lse", lse, lse_p, "float32"))
+                      check_close(name + "/lse", lse[seen], lse_p[seen],
+                                  "float32"))
         err_dq = check_close(name + "/dq", dq, dq_p, dname)
         err_dkv = max(check_close(name + "/dk", dk, dk_p, dname),
                       check_close(name + "/dv", dv, dv_p, dname))
+        if causal and sq > sk:
+            # rows that see no key: dQ exactly 0, and nothing added to
+            # dK/dV (the visible rows alone give the same dk, dv)
+            blind = sq - sk
+            if dq[:, :blind].count_nonzero().item():
+                raise AssertionError(f"{name}: nonzero dq on rows that see "
+                                     "no key")
+            sub = [t[:, blind:].contiguous() for t in (q, do)]
+            dk_s, dv_s = flash_bwd_dkv_kernel(
+                sub[0], k, v, sub[1], lse_p[:, :, blind:].contiguous(),
+                delta[:, :, blind:].contiguous(), scale, causal)
+            check_close(name + "/dk_visible_rows", dk, dk_s, dname)
+            check_close(name + "/dv_visible_rows", dv, dv_s, dname)
+            del dk_s, dv_s, sub
         kern = {"flash_fwd": lambda: flash_fwd_kernel(q, k, v, scale,
                                                      causal),
                 "flash_bwd_dq": lambda: flash_bwd_dq_kernel(
@@ -564,8 +621,9 @@ def flash_cases(torch, dev, summary, seed):
                      dname)
         b_dkv = bound(2 * qbytes + 4 * kbytes + 2 * rows, 8 * d * pairs,
                       dname)
+        ns = dkv_splits(b, sq, sk, kh, d) if dname == "bfloat16" else 1
         base = {"phase": "kernel", "q": list(q.shape), "k": list(k.shape),
-                "causal": causal, "pairs": pairs}
+                "causal": causal, "pairs": pairs, "dkv_splits": ns}
         per = {"flash_fwd": (err_fwd, plain_fwd_ms, b_fwd, lib_fwd),
                "flash_bwd_dq": (err_dq, plain_bwd_ms, b_dq, lib_bwd),
                "flash_bwd_dkv": (err_dkv, plain_bwd_ms, b_dkv, lib_bwd)}
@@ -581,6 +639,52 @@ def flash_cases(torch, dev, summary, seed):
             if (cname, dname) == ("llama2_7b/s4096/causal", "bfloat16"):
                 summary[kname] = case
         del out_p, dq_p, dk_p, dv_p
+    return seed
+
+
+def flash_bwd_determinism_check(torch, dev, seed):
+    """The bf16 backward kernels give bitwise equal dQ, dK and dV over
+    two calls on the same inputs: at the LM shape (one query range) and
+    at the UNet's level-0 cross-attention (dkv_splits > 1: f32 partials
+    summed in index order by the second kernel)."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        dkv_splits, flash_bwd_dkv_kernel, flash_bwd_dq_kernel,
+        flash_fwd_plain,
+    )
+
+    report = {}
+    for cname, b, qh, kh, sq, sk, d, causal in (
+            ("llama2_7b/s4096/causal", TRAIN_BATCH, 32, 32, 4096, 4096, 128,
+             True),
+            ("unet_level0_d40/cross", UNET_BATCH, 8, 8, 4096, UNET_CONTEXT,
+             40, False)):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        seed += 1
+        q, k, v, do = (torch.randn(b, s, h, d, generator=g).to(
+            torch.bfloat16).to(dev) for s, h in ((sq, qh), (sk, kh),
+                                                 (sk, kh), (sq, qh)))
+        scale = 1.0 / math.sqrt(d)
+        out, lse = flash_fwd_plain(q, k, v, scale, causal)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        runs = [(flash_bwd_dq_kernel(q, k, v, do, lse, delta, scale, causal),)
+                + flash_bwd_dkv_kernel(q, k, v, do, lse, delta, scale, causal)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        ns = dkv_splits(b, sq, sk, kh, d)
+        for n, a, c in zip(("dq", "dk", "dv"), *runs):
+            if not torch.equal(a, c):
+                raise AssertionError(f"flash_bwd_determinism {cname}/{n}: "
+                                     f"{(a != c).sum().item()} elements "
+                                     f"differ between two calls (NS {ns})")
+        report[cname] = {"dkv_splits": ns, "dq_dk_dv": "bitwise equal"}
+        del q, k, v, do, out, lse, delta, runs
+    if min(r["dkv_splits"] for r in report.values()) != 1 or \
+            max(r["dkv_splits"] for r in report.values()) <= 1:
+        raise AssertionError(f"flash_bwd_determinism: want NS = 1 and NS > 1 "
+                             f"{report}")
+    emit({"phase": "flash_bwd_determinism", "dtype": "bfloat16",
+          "checks": report})
     return seed
 
 
@@ -1383,7 +1487,8 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "device": torch.cuda.get_device_name(0),
-          "build_s": build_s, "built": sorted(built), "ptxas": ptxas})
+          "build_s": build_s, "built": sorted(built), "ptxas": ptxas,
+          "ptxas_spills": ptxas_spills(ptxas)})
 
     summary = kernel_phase(torch, dev)
     serve = engine_phase(torch, dev)
@@ -1402,10 +1507,10 @@ def main():
                          "paddle_tpu/ops/pallas/norms.py:257", "train"),
         "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/attention_sm90.cuh",
                       "paddle_tpu/ops/pallas/flash.py:132", "train"),
-        "flash_bwd_dq": ("cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+        "flash_bwd_dq": ("cuda", "paddle_tpu_torch/csrc/flash_bwd_sm90.cuh",
                          "paddle_tpu/ops/pallas/flash.py:255", "train"),
         "flash_bwd_dkv": ("cuda",
-                          "paddle_tpu_torch/csrc/flash_attention.cu",
+                          "paddle_tpu_torch/csrc/flash_bwd_sm90.cuh",
                           "paddle_tpu/ops/pallas/flash.py:277", "train"),
         "layer_norm": ("triton", "paddle_tpu_torch/ops/layer_norm.py",
                        "paddle_tpu/ops/pallas/norms.py:79", "unet_train"),

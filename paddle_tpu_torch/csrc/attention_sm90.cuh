@@ -207,6 +207,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// S (64 x 32, f32) {+}= A (64 x 16, smem) . B (16 x 32, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // O (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                            const uint32_t (&a)[4],
@@ -349,26 +366,30 @@ __device__ __forceinline__ float sum16(const float (&v)[16]) {
   return __fadd_rn(__fadd_rn(b[0], b[1]), __fadd_rn(b[2], b[3]));
 }
 
-// S = Q K^T of one K tile into f32 registers (issued, not waited)
-template <int KS>
-__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t qa,
+// S = Q K^T of one K tile (64 keys, or 32 for a 16-register S) into f32
+// registers (issued, not waited)
+template <int KS, int N>
+__device__ __forceinline__ void issue_qk(float (&s)[N], uint32_t qa,
                                          uint32_t ka) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const uint32_t off = (kk / 4) * ATOM_BYTES + (kk % 4) * 32;
-    wgmma_ss_n64(s, desc_sw128(qa + off, 16, 1024),
-                 desc_sw128(ka + off, 16, 1024), kk > 0);
+    const uint64_t da = desc_sw128(qa + off, 16, 1024);
+    const uint64_t db = desc_sw128(ka + off, 16, 1024);
+    if constexpr (N == 32) wgmma_ss_n64(s, da, db, kk > 0);
+    if constexpr (N == 16) wgmma_ss_n32(s, da, db, kk > 0);
   }
 }
 
-// O += P V of one V tile, P as its hi and lo terms (issued, not waited)
-template <int DP>
+// O += P V over NKK k16 steps (the 16 NKK rows of V from va), P as its hi
+// and lo terms (issued, not waited)
+template <int DP, int NKK>
 __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
-                                         const uint32_t (&ph)[4][4],
-                                         const uint32_t (&pl)[4][4],
+                                         const uint32_t (&ph)[NKK][4],
+                                         const uint32_t (&pl)[NKK][4],
                                          uint32_t va) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NKK; ++kk) {
     const uint64_t dv = desc_sw128(va + kk * 16 * 128, ATOM_BYTES, 1024);
     wgmma_rs<DP>(o, ph[kk], dv);
     wgmma_rs<DP>(o, pl[kk], dv);
@@ -425,11 +446,12 @@ __device__ __forceinline__ void rescale(float (&o)[DP / 2],
 }
 
 // P as hi + lo A fragments: k16 step kk holds key blocks 2kk, 2kk + 1
-__device__ __forceinline__ void to_hi_lo(const float (&s)[32],
-                                         uint32_t (&ph)[4][4],
-                                         uint32_t (&pl)[4][4]) {
+template <int NKK>
+__device__ __forceinline__ void to_hi_lo(const float (&s)[8 * NKK],
+                                         uint32_t (&ph)[NKK][4],
+                                         uint32_t (&pl)[NKK][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < NKK; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       split_hi_lo(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);

@@ -30,8 +30,12 @@
 //     _dkv_kernel accumulates over grid axes), dk/dv in f32 registers.
 // Three arithmetic paths:
 //   the bf16 forward on the tensor cores with wgmma (attention_sm90.cuh);
-//   the bf16 backward on the tensor cores with mma.sync (see the bf16
-//     section below);
+//   the bf16 backward on the tensor cores with wgmma (flash_bwd_sm90.cuh):
+//     dQ as the forward, a block of two 64-row query tiles with a TMA-fed
+//     K/V ring; dK/dV a block of 128 keys (64 at D 160) with a TMA-fed
+//     ring of Q / dO tiles, split over query ranges into f32 partials
+//     and a second summing kernel where the key tiles alone cannot fill
+//     the card (the wrapper chooses the split from the shape);
 //   f32 inputs: plain FMA on the CUDA cores (f32 products have no tensor
 //     core path that keeps f32 precision).  256 threads as a 16 x 16 grid;
 //     a thread computes a 4 x 4 piece of each 64 x 64 score tile (rows
@@ -53,16 +57,16 @@
 // backward (five products; the dq and dkv kernels each recompute QK^T and
 // dO V^T, so they do 14 D together), over 989 TFLOP/s for bf16 (tensor
 // cores) or 67 TFLOP/s for f32 (CUDA cores) on an H100 SXM.  The bf16
-// forward's P V product runs twice (hi and lo terms of P, see
-// attention_sm90.cuh), 1.5x the bound's tensor work; the backward issues
-// mma.sync from registers with operands staged by plain loads, and its
-// hi/lo split of P and dS costs one extra mma per second product.
+// kernels' second products take P (and dS) as hi and lo bf16 terms (see
+// attention_sm90.cuh and flash_bwd_sm90.cuh): the forward issues 1.5x its
+// bound's tensor work, dQ 4/3 and dK/dV 3/2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_sm90.cuh"
+#include "flash_bwd_sm90.cuh"
 #include "kernels.h"
 
 namespace {
@@ -428,361 +432,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// --------------------------------------- bf16 tensor-core path (backward)
-// The two backward functions for bf16 inputs on the tensor cores, with
-// mma.sync.m16n8k16 (bf16 operands, f32 accumulation); the bf16 forward is
-// the wgmma mainloop of attention_sm90.cuh.  A block of 4 warps
-// owns 64 rows of its output tile, 16 per warp.  Operand tiles are staged
-// in shared memory as bf16, row-major, with 8 elements of row padding (a
-// row then starts 4 banks after the last, so fragment loads are free of
-// conflicts); where a product needs an operand transposed (V in P V, K in
-// dS K, Q and dO in dS^T Q and P^T dO), ldmatrix.trans reads it from the
-// same row-major tile.  The f32
-// scores never leave registers: the accumulator fragments of S (or of the
-// transposed scores in dK/dV) are already laid out as the A fragments of
-// the next product.  P and dS enter that product as two bf16 terms,
-// hi = bf16(x) and lo = bf16(x - hi), so they keep about 16 bits of
-// mantissa (two mma per product): the result stays within f32 rounding of
-// the plain twins, where one bf16 term would add a 2^-9 relative error to
-// every probability.
-typedef __nv_bfloat16 bf16;
-constexpr int MT = 128;     // threads per block of the tensor-core kernels
-constexpr int BQ2 = 32;     // q rows per inner step of the dK/dV kernel
-// scores are kept in log2 units (scale * log2 e folded into one multiply)
-// so each probability is one exp2 of the score minus lse * log2 e
-constexpr float LOG2E = 1.4426950408889634f;
-
-// every (row, key) pair of the tile is visible: no mask arithmetic needed
-__device__ __forceinline__ bool tile_full(int q0, int rows, int k0, int Sq,
-                                          int Sk, int causal) {
-  return k0 + BK <= Sk && q0 + rows <= Sq &&
-         (!causal || q0 + (Sk - Sq) >= k0 + BK - 1);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// x0 (lower column) and x1 -> the hi and lo bf16x2 terms
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment (16 x 16) of rows r0.. and columns c0.. of a row-major tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld,
-                                       int r0, int c0, int g, int t) {
-  a[0] = ld32(s + (r0 + g) * ld + c0 + 2 * t);
-  a[1] = ld32(s + (r0 + g + 8) * ld + c0 + 2 * t);
-  a[2] = ld32(s + (r0 + g) * ld + c0 + 2 * t + 8);
-  a[3] = ld32(s + (r0 + g + 8) * ld + c0 + 2 * t + 8);
-}
-
-// B fragment (k 16 x n 8) whose column n is row n0 + n of a row-major tile
-// and whose k runs along that row from k0
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1, const bf16* s,
-                                       int ld, int n0, int k0, int g, int t) {
-  b0 = ld32(s + (n0 + g) * ld + k0 + 2 * t);
-  b1 = ld32(s + (n0 + g) * ld + k0 + 2 * t + 8);
-}
-
-// two adjacent accumulator tiles (columns 16 kk .. 16 kk + 15) -> the hi
-// and lo A fragments of k-step kk
-__device__ __forceinline__ void c_to_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                       const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// B fragments of the n-tiles n0 and n0 + 8 (b[0..1] and b[2..3]) of
-// B[k][n] = s[(k0 + k) * ld + n]: k runs down the rows of a row-major tile,
-// so each 8 x 8 piece is read transposed by ldmatrix
-__device__ __forceinline__ void load_b_trans(uint32_t (&b)[4], const bf16* s,
-                                             int ld, int k0, int n0,
-                                             int lane) {
-  const int mi = lane / 8;  // lanes 8 mi .. 8 mi + 7 address matrix mi
-  const bf16* p = s + (k0 + (mi & 1) * 8 + lane % 8) * ld + n0 + (mi >> 1) * 8;
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
-}
-
-// Stage rows [r0, r0 + R) of one head (rows `stride` elements apart) into
-// dst[R][D + 8] with 16-byte copies; rows at or past n load as 0.
-template <int D, int R>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ src,
-                                      size_t stride, int r0, int n) {
-  constexpr int CPR = D / 8;
-  for (int idx = threadIdx.x; idx < R * CPR; idx += MT) {
-    const int r = idx / CPR, ch = idx % CPR;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      v = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride)[ch];
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + ch * 8) = v;
-  }
-}
-
-__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-
-template <int D>
-__global__ void __launch_bounds__(MT)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq,
-                        int Sq, int Sk, int H, int KH, float scale,
-                        int causal) {
-  constexpr int LD = D + 8, KS = D / 16, NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + BQ * LD;  // dO
-  bf16* sK = sO + BQ * LD;
-  bf16* sV = sK + BK * LD;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
-  const int q0 = qt * BQ;
-  const size_t qoff = ((size_t)b * Sq * H + h) * D;
-  const bf16* kb = k + ((size_t)b * Sk * KH + kh) * D;
-  const bf16* vb = v + ((size_t)b * Sk * KH + kh) * D;
-
-  stage<D, BQ>(sQ, q + qoff, (size_t)H * D, q0, Sq);
-  stage<D, BQ>(sO, dout + qoff, (size_t)H * D, q0, Sq);
-  float rl[2], rd[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int qi = q0 + r0 + g + 8 * hf;
-    const size_t at = ((size_t)b * H + h) * Sq + qi;
-    rl[hf] = qi < Sq ? lse[at] * LOG2E : 0.f;
-    rd[hf] = qi < Sq ? delta[at] : 0.f;
-  }
-  const float sl2 = scale * LOG2E;
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int n_k = k_tiles(q0, Sq, Sk, causal);
-  for (int jt = 0; jt < n_k; ++jt) {
-    const int k0 = jt * BK;
-    const bool full = tile_full(q0, BQ, k0, Sq, Sk, causal);
-    __syncthreads();
-    stage<D, BK>(sK, kb, (size_t)KH * D, k0, Sk);
-    stage<D, BK>(sV, vb, (size_t)KH * D, k0, Sk);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, sQ, LD, r0, 16 * kk, g, t);
-      load_a(ao, sO, LD, r0, 16 * kk, g, t);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1;
-        load_b(b0, b1, sK, LD, 8 * j, 16 * kk, g, t);
-        mma16816(s[j], aq, b0, b1);
-        load_b(b0, b1, sV, LD, 8 * j, 16 * kk, g, t);
-        mma16816(dp[j], ao, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int qi = q0 + r0 + g + 8 * hf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 2 * hf + e;
-          const bool vis =
-              full || visible(qi, k0 + 8 * j + 2 * t + e, Sq, Sk, causal);
-          const float p = vis ? exp2f(s[j][c] * sl2 - rl[hf]) : 0.f;
-          s[j][c] = p * (dp[j][c] - rd[hf]) * scale;  // dS
-        }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t dh[4], dl[4];
-      c_to_a(dh, dl, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t bk[4];
-        load_b_trans(bk, sK, LD, 16 * kk, 8 * n, lane);
-        mma16816(acc[n], dh, bk[0], bk[1]);
-        mma16816(acc[n], dl, bk[0], bk[1]);
-        mma16816(acc[n + 1], dh, bk[2], bk[3]);
-        mma16816(acc[n + 1], dl, bk[2], bk[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int qi = q0 + r0 + g + 8 * hf;
-    if (qi >= Sq) continue;
-    bf16* op = dq + (((size_t)b * Sq + qi) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      store2(op + 8 * n, acc[n][2 * hf], acc[n][2 * hf + 1]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MT)
-flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int Sq, int Sk, int H, int KH,
-                         float scale, int causal) {
-  constexpr int LD = D + 8, KS = D / 16, NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BK * LD;
-  bf16* sQ = sV + BK * LD;
-  bf16* sO = sQ + BQ2 * LD;  // dO
-  float* sL = reinterpret_cast<float*>(sO + BQ2 * LD);
-  float* sD = sL + BQ2;
-
-  const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, r0 = warp * 16;
-  const int k0 = kt * BK;
-  const size_t koff = ((size_t)b * Sk * KH + kh) * D;
-
-  stage<D, BK>(sK, k + koff, (size_t)KH * D, k0, Sk);
-  stage<D, BK>(sV, v + koff, (size_t)KH * D, k0, Sk);
-
-  // rows r0 + g (+ 8) of the k tile, columns 8 n + 2 t (+ 1)
-  float ak[NO][4], av[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
-
-  const float sl2 = scale * LOG2E;
-  const int n_q = (Sq + BQ2 - 1) / BQ2;
-  for (int gh = 0; gh < G; ++gh) {
-    const int h = kh * G + gh;
-    const size_t qoff = ((size_t)b * Sq * H + h) * D;
-    const float* lrow = lse + ((size_t)b * H + h) * Sq;
-    const float* drow = delta + ((size_t)b * H + h) * Sq;
-    for (int it = 0; it < n_q; ++it) {
-      const int q0 = it * BQ2;
-      if (causal && min(q0 + BQ2, Sq) - 1 + (Sk - Sq) < k0) continue;
-      const bool full = tile_full(q0, BQ2, k0, Sq, Sk, causal);
-      __syncthreads();
-      stage<D, BQ2>(sQ, q + qoff, (size_t)H * D, q0, Sq);
-      stage<D, BQ2>(sO, dout + qoff, (size_t)H * D, q0, Sq);
-      if (threadIdx.x < BQ2) {
-        const int qi = q0 + threadIdx.x;
-        sL[threadIdx.x] = qi < Sq ? lrow[qi] * LOG2E : 0.f;
-        sD[threadIdx.x] = qi < Sq ? drow[qi] : 0.f;
-      }
-      __syncthreads();
-
-      // transposed scores: rows = keys r0 + g (+ 8), columns = q 8 j + 2 t (+ 1)
-      float s[BQ2 / 8][4], dp[BQ2 / 8][4];
-#pragma unroll
-      for (int j = 0; j < BQ2 / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t a_k[4], a_v[4];
-        load_a(a_k, sK, LD, r0, 16 * kk, g, t);
-        load_a(a_v, sV, LD, r0, 16 * kk, g, t);
-#pragma unroll
-        for (int j = 0; j < BQ2 / 8; ++j) {
-          uint32_t b0, b1;
-          load_b(b0, b1, sQ, LD, 8 * j, 16 * kk, g, t);
-          mma16816(s[j], a_k, b0, b1);
-          load_b(b0, b1, sO, LD, 8 * j, 16 * kk, g, t);
-          mma16816(dp[j], a_v, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int kj = k0 + r0 + g + 8 * hf;
-#pragma unroll
-        for (int j = 0; j < BQ2 / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = 2 * hf + e, qc = 8 * j + 2 * t + e;
-            const bool vis = full || visible(q0 + qc, kj, Sq, Sk, causal);
-            const float p = vis ? exp2f(s[j][c] * sl2 - sL[qc]) : 0.f;
-            s[j][c] = p;
-            dp[j][c] = p * (dp[j][c] - sD[qc]) * scale;  // dS^T
-          }
-      }
-#pragma unroll
-      for (int kk = 0; kk < BQ2 / 16; ++kk) {
-        uint32_t ph[4], pl[4], dh[4], dl[4];
-        c_to_a(ph, pl, s[2 * kk], s[2 * kk + 1]);
-        c_to_a(dh, dl, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < NO; n += 2) {
-          uint32_t bb[4];
-          load_b_trans(bb, sO, LD, 16 * kk, 8 * n, lane);
-          mma16816(av[n], ph, bb[0], bb[1]);
-          mma16816(av[n], pl, bb[0], bb[1]);
-          mma16816(av[n + 1], ph, bb[2], bb[3]);
-          mma16816(av[n + 1], pl, bb[2], bb[3]);
-          load_b_trans(bb, sQ, LD, 16 * kk, 8 * n, lane);
-          mma16816(ak[n], dh, bb[0], bb[1]);
-          mma16816(ak[n], dl, bb[0], bb[1]);
-          mma16816(ak[n + 1], dh, bb[2], bb[3]);
-          mma16816(ak[n + 1], dl, bb[2], bb[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int kj = k0 + r0 + g + 8 * hf;
-    if (kj >= Sk) continue;
-    const size_t at = (((size_t)b * Sk + kj) * KH + kh) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      store2(dk + at + 8 * n, ak[n][2 * hf], ak[n][2 * hf + 1]);
-      store2(dv + at + 8 * n, av[n][2 * hf], av[n][2 * hf + 1]);
-    }
-  }
-}
-
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -840,42 +489,7 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* delta,
-                       void* dq, int B, int Sq, int Sk, int H, int KH,
-                       float scale, int causal, cudaStream_t st) {
-  const size_t smem = (size_t)(2 * BQ + 2 * BK) * (D + 8) * 2;
-  auto kernel = flash_bwd_dq_mma_kernel<D>;
-  cudaError_t e = set_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kernel<<<grid, MT, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dq), Sq, Sk, H, KH, scale, causal);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t bwd_dkv_mma(const void* q, const void* k, const void* v,
-                        const void* dout, const float* lse,
-                        const float* delta, void* dk, void* dv, int B, int Sq,
-                        int Sk, int H, int KH, float scale, int causal,
-                        cudaStream_t st) {
-  const size_t smem =
-      (size_t)(2 * BK + 2 * BQ2) * (D + 8) * 2 + 2 * BQ2 * sizeof(float);
-  auto kernel = flash_bwd_dkv_mma_kernel<D>;
-  cudaError_t e = set_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((Sk + BK - 1) / BK, KH, B);
-  kernel<<<grid, MT, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H, KH, scale,
-      causal);
-  return cudaGetLastError();
-}
+using sm90::bf16;
 
 // The contiguous K/V loader of the Hopper mainloop: a block owns the 64-row
 // q tiles tile0, tile0 + 1 of one (q head h, batch b), K/V tiles are TMA
@@ -961,6 +575,54 @@ cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* out,
   return sm90::launch<D, NC>(p, grid, st);
 }
 
+template <int D>
+cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse, const float* delta,
+                        void* dq, int B, int Sq, int Sk, int H, int KH,
+                        float scale, int causal, cudaStream_t st) {
+  sm90::BwdArgs a{};
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = static_cast<bf16*>(dq);
+  a.B = B;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.KH = KH;
+  a.causal = causal;
+  a.splits = 1;
+  a.scale = scale;
+  a.sl2 = scale * sm90::LOG2E;
+  if (!sm90::bwd_maps(a, q, k, v, dout, D)) return cudaErrorInvalidValue;
+  return sm90::launch_bwd_dq<D>(a, st);
+}
+
+template <int D>
+cudaError_t bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, void* dk, void* dv, int B, int Sq,
+                         int Sk, int H, int KH, float scale, int causal,
+                         int splits, float* ws, cudaStream_t st) {
+  if (splits < 1 || (splits > 1 && ws == nullptr)) return cudaErrorInvalidValue;
+  sm90::BwdArgs a{};
+  a.lse = lse;
+  a.delta = delta;
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.ws = ws;
+  a.B = B;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.KH = KH;
+  a.causal = causal;
+  a.splits = splits;
+  a.scale = scale;
+  a.sl2 = scale * sm90::LOG2E;
+  if (!sm90::bwd_maps(a, q, k, v, dout, D)) return cudaErrorInvalidValue;
+  return sm90::launch_bwd_dkv<D>(a, st);
+}
+
 bool bad_shape(int B, int Sq, int Sk, int H, int KH) {
   return B < 0 || Sq < 0 || Sk < 0 || KH <= 0 || H % KH != 0;
 }
@@ -969,17 +631,16 @@ bool bad_shape(int B, int Sq, int Sk, int H, int KH) {
 
 // f32 inputs take the FMA kernels (head dims 64 and 128), bf16 inputs the
 // tensor-core kernels (48, 64, 80, 128 and 160: the LLaMA head and the SD
-// UNet's 40 (padded to 48 by the caller), 80 and 160; the forward on the
-// wgmma mainloop, the backward on mma.sync).  Any other (dtype, head_dim)
-// is refused.
-#define FA_DISPATCH(CALL, CALL_MMA)                                        \
+// UNet's 40 (padded to 48 by the caller), 80 and 160), forward and
+// backward on wgmma.  Any other (dtype, head_dim) is refused.
+#define FA_DISPATCH(CALL, CALL_SM90)                                       \
   if (dtype == 0 && head_dim == 128) return CALL(128);                     \
   if (dtype == 0 && head_dim == 64) return CALL(64);                       \
-  if (dtype == 1 && head_dim == 128) return CALL_MMA(128);                 \
-  if (dtype == 1 && head_dim == 64) return CALL_MMA(64);                   \
-  if (dtype == 1 && head_dim == 48) return CALL_MMA(48);                   \
-  if (dtype == 1 && head_dim == 80) return CALL_MMA(80);                   \
-  if (dtype == 1 && head_dim == 160) return CALL_MMA(160);                 \
+  if (dtype == 1 && head_dim == 128) return CALL_SM90(128);                \
+  if (dtype == 1 && head_dim == 64) return CALL_SM90(64);                  \
+  if (dtype == 1 && head_dim == 48) return CALL_SM90(48);                  \
+  if (dtype == 1 && head_dim == 80) return CALL_SM90(80);                  \
+  if (dtype == 1 && head_dim == 160) return CALL_SM90(160);                \
   return cudaErrorInvalidValue;
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -993,11 +654,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_FWD(D) \
   fwd<D>(q, k, v, out, lse, batch, q_len, kv_len, q_heads, kv_heads, scale, causal, st)
-#define FA_FWD_MMA(D) \
+#define FA_FWD_SM90(D) \
   fwd_sm90<D>(q, k, v, out, lse, batch, q_len, kv_len, q_heads, kv_heads, scale, causal, st)
-  FA_DISPATCH(FA_FWD, FA_FWD_MMA)
+  FA_DISPATCH(FA_FWD, FA_FWD_SM90)
 #undef FA_FWD
-#undef FA_FWD_MMA
+#undef FA_FWD_SM90
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
@@ -1014,32 +675,34 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
 #define FA_DQ(D)                                                           \
   bwd_dq<D>(q, k, v, dout, lse, delta, dq, batch, q_len, kv_len, q_heads, \
             kv_heads, scale, causal, st)
-#define FA_DQ_MMA(D)                                                          \
-  bwd_dq_mma<D>(q, k, v, dout, lse, delta, dq, batch, q_len, kv_len, q_heads, \
-                kv_heads, scale, causal, st)
-  FA_DISPATCH(FA_DQ, FA_DQ_MMA)
+#define FA_DQ_SM90(D)                                                          \
+  bwd_dq_sm90<D>(q, k, v, dout, lse, delta, dq, batch, q_len, kv_len, q_heads, \
+                 kv_heads, scale, causal, st)
+  FA_DISPATCH(FA_DQ, FA_DQ_SM90)
 #undef FA_DQ
-#undef FA_DQ_MMA
+#undef FA_DQ_SM90
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const float* lse, const float* delta,
-                                       void* dk, void* dv, int batch,
-                                       int q_len, int kv_len, int q_heads,
-                                       int kv_heads, int head_dim, float scale,
-                                       int causal, int dtype, void* stream) {
+                                       void* dk, void* dv, float* workspace,
+                                       int batch, int q_len, int kv_len,
+                                       int q_heads, int kv_heads, int head_dim,
+                                       float scale, int causal, int dtype,
+                                       int splits, void* stream) {
   if (bad_shape(batch, q_len, kv_len, q_heads, kv_heads))
     return cudaErrorInvalidValue;
+  if (dtype == 0 && splits != 1) return cudaErrorInvalidValue;
   if (batch == 0 || kv_len == 0 || kv_heads == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_DKV(D)                                                          \
   bwd_dkv<D>(q, k, v, dout, lse, delta, dk, dv, batch, q_len, kv_len, \
              q_heads, kv_heads, scale, causal, st)
-#define FA_DKV_MMA(D)                                                         \
-  bwd_dkv_mma<D>(q, k, v, dout, lse, delta, dk, dv, batch, q_len, kv_len, \
-                 q_heads, kv_heads, scale, causal, st)
-  FA_DISPATCH(FA_DKV, FA_DKV_MMA)
+#define FA_DKV_SM90(D)                                                         \
+  bwd_dkv_sm90<D>(q, k, v, dout, lse, delta, dk, dv, batch, q_len, kv_len, \
+                  q_heads, kv_heads, scale, causal, splits, workspace, st)
+  FA_DISPATCH(FA_DKV, FA_DKV_SM90)
 #undef FA_DKV
-#undef FA_DKV_MMA
+#undef FA_DKV_SM90
 }

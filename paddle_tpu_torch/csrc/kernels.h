@@ -38,11 +38,15 @@ int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                            const float* delta, void* dq, int batch, int q_len,
                            int kv_len, int q_heads, int kv_heads, int head_dim,
                            float scale, int causal, int dtype, void* stream);
+// dK/dV: splits >= 1 contiguous query ranges (bf16 only; f32 takes 1);
+// splits > 1 needs workspace, f32 [2, splits, batch, kv_len, kv_heads,
+// head_dim], which the call overwrites.
 int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
-                            const float* delta, void* dk, void* dv, int batch,
-                            int q_len, int kv_len, int q_heads, int kv_heads,
-                            int head_dim, float scale, int causal, int dtype,
+                            const float* delta, void* dk, void* dv,
+                            float* workspace, int batch, int q_len, int kv_len,
+                            int q_heads, int kv_heads, int head_dim,
+                            float scale, int causal, int dtype, int splits,
                             void* stream);
 
 #ifdef __cplusplus

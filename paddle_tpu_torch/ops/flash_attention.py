@@ -19,9 +19,13 @@ On CUDA tensors the three hand-written kernels of
 ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``, replacing the Pallas
 ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``; bf16 inputs run on
 the tensor cores, the forward on the Hopper wgmma + TMA mainloop of
-``csrc/attention_sm90.cuh`` and the backward on ``mma.sync``, f32 inputs
-on the CUDA cores' FMA, all accumulating in f32); ``delta`` is plain
-torch, as the JAX package computes it in jnp outside its kernels.  On
+``csrc/attention_sm90.cuh`` and the backward on the same machinery in
+``csrc/flash_bwd_sm90.cuh``, f32 inputs on the CUDA cores' FMA, all
+accumulating in f32); ``delta`` is plain torch, as the JAX package
+computes it in jnp outside its kernels.  Where the bf16 dK/dV kernel's
+key tiles alone cannot fill the card (cross-attention over 77 keys), the
+wrapper splits its query tiles into :func:`dkv_splits` contiguous ranges
+whose f32 partial sums a second kernel adds in index order.  On
 CPU tensors the plain twins run: the same recompute math, dense and in
 f32.  Anything else raises.
 
@@ -62,6 +66,29 @@ def _visible(sq, sk, causal, device):
     qi = torch.arange(sq, device=device)[:, None]
     kj = torch.arange(sk, device=device)[None, :]
     return qi + (sk - sq) >= kj
+
+
+#: the card's streaming multiprocessors (H100 SXM)
+_SMS = 132
+
+
+def dkv_splits(b, sq, sk, kh, d):
+    """Query ranges that the bf16 dK/dV kernel splits into, a pure
+    function of the shape (so the sums, and the result, keep one order):
+    1 while its blocks (128 keys each, 64 at a head dim above 128, times
+    kv heads times batch) keep more than half of the card's 132 SMs busy
+    (a block fills an SM, so splitting 67-131 blocks only adds waves);
+    else the smallest power of two that gives at least two blocks an SM,
+    capped by the query tiles of 64."""
+    keys = 64 if kernel_head_dim(d, torch.bfloat16) > 128 else 128
+    blocks = -(-sk // keys) * kh * b
+    tiles = -(-sq // 64)
+    if blocks == 0 or 2 * blocks > _SMS or tiles <= 1:
+        return 1
+    ns = 1
+    while blocks * ns < 2 * _SMS:
+        ns *= 2
+    return min(ns, tiles)
 
 
 def _expand_kv(x, groups):
@@ -116,13 +143,15 @@ def flash_bwd_plain(q, k, v, out, lse, dout, scale, causal=False):
 
 
 # ----------------------------------------------------------------- kernels
-def _fn(name, n_ptr):
+def _fn(name, n_ptr, n_tail=2):
     """The C entry point: ``n_ptr`` pointers, six shape ints, the scale,
-    causal, dtype and the stream."""
+    ``n_tail`` ints (causal, dtype and, for dK/dV, the splits) and the
+    stream."""
     fn = getattr(_build.load("flash_attention"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * n_ptr + [i] * 6 + [ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * n_ptr + [i] * 6 + [ctypes.c_float] + \
+            [i] * n_tail + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -232,7 +261,8 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal=False):
 
 
 def flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, scale, causal=False):
-    """Launch the dK/dV kernel on the current stream -> (dk, dv)."""
+    """Launch the dK/dV kernel on the current stream -> (dk, dv); with
+    :func:`dkv_splits` > 1 its summing kernel too (one launch counted)."""
     b, sq, sk, h, kh, dp = _check(q, k, v, dout, lse, delta)
     _check_bwd(q, dout, lse, delta)
     d = q.shape[-1]
@@ -242,12 +272,17 @@ def flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, scale, causal=False):
         dk.zero_()
         dv.zero_()
     elif dk.numel():
+        ns = dkv_splits(b, sq, sk, kh, d) if q.dtype == torch.bfloat16 \
+            else 1
+        ws = None if ns == 1 else torch.empty(
+            (2, ns, b, sk, kh, dp), dtype=torch.float32, device=q.device)
         with torch.cuda.device(q.device):
-            rc = _fn("flash_attention_bwd_dkv", 8)(
+            rc = _fn("flash_attention_bwd_dkv", 9, 3)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), b, sq, sk, h, kh, dp, float(scale),
-                int(bool(causal)), _DTYPE_CODES[q.dtype],
+                dv.data_ptr(), None if ws is None else ws.data_ptr(), b, sq,
+                sk, h, kh, dp, float(scale), int(bool(causal)),
+                _DTYPE_CODES[q.dtype], ns,
                 torch.cuda.current_stream(q.device).cuda_stream)
         _raise_on(rc, "flash_bwd_dkv")
         flash_bwd_dkv_kernel.launches += 1

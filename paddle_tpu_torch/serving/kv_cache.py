@@ -21,6 +21,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 @dataclass
 class PagedKV:
@@ -74,12 +76,15 @@ class PagedKVPool:
     """The refcounted block pool: per layer one k and one v buffer of
     ``[num_blocks, block_size, kv_heads, head_dim]``.  Block 0 is pinned
     scratch; every other block is tracked by a host refcount and returns
-    to the free list when its last reference is released."""
+    to the free list when its last reference is released.  The buffers
+    live on the CUDA card unless ``device="cpu"`` is asked for (see
+    :func:`~paddle_tpu_torch.resolve_device`)."""
 
     def __init__(self, num_layers, num_blocks, block_size, kv_heads,
-                 head_dim, dtype=torch.float32, device="cpu"):
+                 head_dim, dtype=torch.float32, device=None):
         if num_blocks < 2:
             raise ValueError("paged pool needs >= 2 blocks (one scratch)")
+        device = resolve_device(device)
         self.num_layers = num_layers
         self.num_blocks = num_blocks
         self.block_size = block_size
@@ -153,7 +158,7 @@ class PagedKVCache:
 
     def __init__(self, num_layers, num_slots, max_seq_len, block_size,
                  kv_heads, head_dim, dtype=torch.float32, num_blocks=0,
-                 device="cpu"):
+                 device=None):
         self.num_layers = num_layers
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len

@@ -59,11 +59,24 @@ def _flash_dispatch():
     block = block[:block.index("return cudaErrorInvalidValue")]
     out = {}
     for code, d, inst in re.findall(
-            r"dtype == (\d) && head_dim == (\d+)\) return CALL(?:_MMA)?\((\d+)\)",
+            r"dtype == (\d) && head_dim == (\d+)\) return CALL(?:_SM90)?\((\d+)\)",
             block):
         assert d == inst, f"head_dim {d} dispatched to instantiation {inst}"
         out.setdefault(int(code), set()).add(int(d))
     return out
+
+
+def _bf16_dispatch(macro):
+    """The head dims FA_DISPATCH sends to CALL_SM90 for bf16 (dtype 1) and
+    the function the entry point named ``macro`` maps CALL_SM90 to."""
+    text = _source("flash_attention.cu")
+    block = text[text.index("#define FA_DISPATCH"):]
+    block = block[:block.index("return cudaErrorInvalidValue")]
+    dims = {int(d) for d in re.findall(
+        r"dtype == 1 && head_dim == (\d+)\) return CALL_SM90\(", block)}
+    body = text[text.index(f"#define {macro}_SM90(D)"):]
+    fn = re.search(r"(\w+)<D>\(", body).group(1)
+    return dims, fn
 
 
 def test_flash_head_dims_match_the_dispatch():
@@ -101,3 +114,42 @@ def test_paged_group_limit_matches_the_tile():
     text = _source("attention_sm90.cuh")
     bm = re.search(r"constexpr int BM = (\d+);", text)
     assert int(bm.group(1)) == pa._KERNEL_MAX_GROUP
+
+
+@pytest.mark.parametrize("macro,fn", [("FA_DQ", "bwd_dq_sm90"),
+                                      ("FA_DKV", "bwd_dkv_sm90")])
+def test_bf16_backward_dispatches_to_the_wgmma_kernels(macro, fn):
+    """Every bf16 head dim of the wrappers reaches the TMA + wgmma
+    backward of flash_bwd_sm90.cuh, whose launchers those functions
+    call."""
+    dims, got = _bf16_dispatch(macro)
+    assert dims == set(fa._KERNEL_HEAD_DIMS[torch.bfloat16])
+    assert got == fn
+    text = _source("flash_attention.cu")
+    body = text[text.index(f"cudaError_t {fn}("):]
+    body = body[:body.index("\n}\n")]
+    kernel = "launch_bwd_dq" if macro == "FA_DQ" else "launch_bwd_dkv"
+    assert f"sm90::{kernel}<D>" in body
+    assert '#include "flash_bwd_sm90.cuh"' in text
+
+
+def test_bf16_backward_widths_have_a_wgmma_rs_shape():
+    """dQ += dS K, dV += P^T dO and dK += dS^T Q run at the padded head
+    width: each bf16 head dim needs its wgmma_rs shape."""
+    text = _source("attention_sm90.cuh")
+    shapes = {int(n) for n in re.findall(
+        r"if constexpr \(N == (\d+)\) wgmma_rs_n\1\(", text)}
+    for d in fa._KERNEL_HEAD_DIMS[torch.bfloat16]:
+        assert 64 * math.ceil(d / 64) in shapes, d
+    bwd = _source("flash_bwd_sm90.cuh")
+    assert "issue_pv<T::DP>" in bwd and "wgmma" in bwd
+
+
+@pytest.mark.parametrize("name", ["flash_attention.cu", "flash_bwd_sm90.cuh",
+                                  "attention_sm90.cuh"])
+def test_no_mma_sync_remains_in_the_bf16_attention(name):
+    text = _source(name)
+    assert "mma.sync" not in text
+    for helper in ("mma16816", "load_b_trans", "c_to_a", "BQ2",
+                   "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel"):
+        assert helper not in text, helper

@@ -43,9 +43,9 @@ from paddle_tpu.nn.functional.attention import _sdpa_ref
 from paddle_tpu.ops.pallas.flash import _fa_fwd_padded
 from paddle_tpu.ops.pallas.flash import flash_attention as pallas_flash
 from paddle_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_plain, flash_bwd, flash_bwd_dkv_kernel,
-    flash_bwd_dq_kernel, flash_bwd_plain, flash_fwd, flash_fwd_kernel,
-    flash_fwd_plain, kernel_head_dim,
+    dkv_splits, flash_attention, flash_attention_plain, flash_bwd,
+    flash_bwd_dkv_kernel, flash_bwd_dq_kernel, flash_bwd_plain, flash_fwd,
+    flash_fwd_kernel, flash_fwd_plain, kernel_head_dim,
 )
 
 from _torch_port_util import one_thread  # noqa: F401
@@ -289,3 +289,71 @@ def test_functional_sdpa_is_flash_and_refuses_masks_and_dropout():
     with pytest.raises(NotImplementedError):
         F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
     F.scaled_dot_product_attention(q, k, v, dropout_p=0.1, training=False)
+
+
+# (b, sq, sk, kh, d) -> the query split of the bf16 dK/dV kernel: the
+# LM's train shapes (LLaMA-2-7B MHA and LLaMA-3-8B GQA, b=2, s=4096) and
+# the SD UNet's (b=4, 8 heads) self- and cross-attention at 64x64 latents
+SPLITS = {
+    "llama2_7b_s4096": ((2, 4096, 4096, 32, 128), 1),
+    "llama3_8b_gqa_s4096": ((2, 4096, 4096, 8, 128), 1),
+    "llama2_7b_s2048": ((2, 2048, 2048, 32, 128), 1),
+    "unet_level0_self": ((4, 4096, 4096, 8, 40), 1),
+    "unet_level1_self": ((4, 1024, 1024, 8, 80), 1),
+    "unet_level2_self": ((4, 256, 256, 8, 160), 1),   # 128 blocks
+    "llama2_7b_q1024_k256": ((2, 1024, 256, 32, 128), 1),
+    "unet_level0_cross": ((4, 4096, 77, 8, 40), 16),
+    "unet_level1_cross": ((4, 1024, 77, 8, 80), 16),
+    "unet_level2_cross": ((4, 256, 77, 8, 160), 4),
+    "unet_mid_cross": ((4, 64, 77, 8, 160), 1),      # one query tile
+}
+
+
+@pytest.mark.parametrize("case", list(SPLITS))
+def test_dkv_splits_is_a_pure_function_of_the_shape(case):
+    shape, want = SPLITS[case]
+    b, sq, sk, kh, d = shape
+    got = [dkv_splits(*shape) for _ in range(3)]
+    assert got == [want] * 3
+    assert 1 <= want <= max(1, -(-sq // 64))          # never past the tiles
+    if want > 1:                   # a power of two that fills the card
+        keys = 64 if d > 128 else 128
+        blocks = -(-sk // keys) * kh * b
+        assert 2 * blocks <= 132 and want & (want - 1) == 0
+        assert blocks * want >= 2 * 132 or want == -(-sq // 64)
+
+
+def _split_ranges(sq, ns):
+    """The kernel's query ranges: NS contiguous runs of 64-row tiles,
+    ceil(tiles / NS) each, the last ones possibly short or empty."""
+    tiles = -(-sq // 64)
+    per = -(-tiles // ns)
+    return [(min(sq, 64 * min(tiles, s * per)),
+             min(sq, 64 * min(tiles, (s + 1) * per))) for s in range(ns)]
+
+
+@pytest.mark.parametrize("ns", [2, 4, 16])
+@pytest.mark.parametrize("shape", [(2, 200, 77, 4, 2, 40),
+                                   (1, 256, 77, 2, 2, 160),
+                                   (2, 64, 33, 4, 4, 16)])
+def test_split_partials_sum_to_the_unsplit_dkv(shape, ns):
+    """dK and dV summed over NS contiguous query ranges, in index order
+    and in f32 (the split kernel's partials and its summing kernel),
+    equal the unsplit result within f32 rounding (cross-attention, not
+    causal: the split's case)."""
+    b, sq, sk, h, kh, d = shape
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(b, sq, sk, h, kh, d,
+                                                        seed=8))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = flash_fwd_plain(q, k, v, scale, False)
+    _, dk, dv = flash_bwd_plain(q, k, v, out, lse, do, scale)
+    sum_k, sum_v = torch.zeros_like(dk), torch.zeros_like(dv)
+    for a, e in _split_ranges(sq, ns):
+        if a == e:
+            continue
+        _, pk, pv = flash_bwd_plain(q[:, a:e], k, v, out[:, a:e],
+                                    lse[:, :, a:e], do[:, a:e], scale)
+        sum_k, sum_v = sum_k + pk, sum_v + pv
+    for got, want in ((sum_k, dk), (sum_v, dv)):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * want.abs().max().item())

@@ -67,7 +67,7 @@ def test_paged_write_casts_to_the_pool_dtype():
 
 def test_pool_refcounts_and_pinned_scratch():
     pool = PagedKVPool(num_layers=2, num_blocks=4, block_size=4,
-                       kv_heads=2, head_dim=8)
+                       kv_heads=2, head_dim=8, device="cpu")
     assert (pool.capacity, pool.free_blocks, pool.blocks_in_use) == (3, 3, 0)
     assert pool.refcount(0) == 1
     a, b, c = pool.alloc(), pool.alloc(), pool.alloc()
@@ -87,12 +87,12 @@ def test_pool_refcounts_and_pinned_scratch():
     assert pool.k[0].shape == (4, 4, 2, 8) and len(pool.v) == 2
     assert pool.bytes_per_block == 2 * 2 * 4 * 2 * 8 * 4
     with pytest.raises(ValueError, match=">= 2 blocks"):
-        PagedKVPool(1, 1, 4, 2, 8)
+        PagedKVPool(1, 1, 4, 2, 8, device="cpu")
 
 
 def test_pool_matches_jax_pool_on_a_random_op_sequence():
     r = np.random.RandomState(0)
-    tp = PagedKVPool(1, 9, 4, 1, 8)
+    tp = PagedKVPool(1, 9, 4, 1, 8, device="cpu")
     jp = JPagedKVPool(1, 9, 4, 1, 8)
     live = []
     for _ in range(200):
@@ -119,7 +119,7 @@ def test_pool_matches_jax_pool_on_a_random_op_sequence():
 def test_cache_lazy_blocks_and_release_match_jax():
     kw = dict(num_layers=2, num_slots=3, max_seq_len=20, block_size=4,
               kv_heads=1, head_dim=8)
-    tc, jc = PagedKVCache(**kw), JPagedKVCache(**kw)
+    tc, jc = PagedKVCache(**kw, device="cpu"), JPagedKVCache(**kw)
     assert tc.max_blocks_per_slot == jc.max_blocks_per_slot == 5
     assert tc.pool.num_blocks == jc.pool.num_blocks == 16
     for c in (tc, jc):
@@ -143,14 +143,14 @@ def test_cache_lazy_blocks_and_release_match_jax():
 
 
 def test_cache_ensure_blocks_reports_a_dry_pool():
-    c = PagedKVCache(1, 2, 16, 4, 1, 8, num_blocks=3)
+    c = PagedKVCache(1, 2, 16, 4, 1, 8, num_blocks=3, device="cpu")
     assert c.ensure_blocks(0, 8)
     assert not c.ensure_blocks(1, 4)
     assert c.pool.free_blocks == 0
 
 
 def test_layer_views_share_tables_and_pos():
-    c = PagedKVCache(3, 2, 16, 4, 1, 8)
+    c = PagedKVCache(3, 2, 16, 4, 1, 8, device="cpu")
     tables = torch.zeros(2, 4, dtype=torch.int32)
     pos = torch.tensor([1, 2], dtype=torch.int32)
     views = c.layer_views(tables, pos)

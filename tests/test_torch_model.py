@@ -22,7 +22,9 @@ from paddle_tpu_torch.convert import state_dict_from_jax
 from paddle_tpu_torch.models import GPTForCausalLM, LLAMA2_7B
 from paddle_tpu_torch.models.llama import LLAMA3_8B
 from paddle_tpu_torch.ops.rope import apply_rotary_emb
-from paddle_tpu_torch.serving.kv_cache import PagedKV
+from paddle_tpu_torch.serving.kv_cache import (
+    PagedKV, PagedKVCache, PagedKVPool,
+)
 
 from _torch_port_util import (  # noqa: F401
     CONFIGS, TINY, jax_model, jax_state, one_thread, port_model,
@@ -147,6 +149,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_kv_pool_and_cache_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVPool(1, 4, 4, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache(1, 2, 16, 4, 2, 8)
+    # the block count is checked before the device
+    with pytest.raises(ValueError, match=">= 2 blocks"):
+        PagedKVPool(1, 1, 4, 2, 8)
+    pool = PagedKVPool(1, 4, 4, 2, 8, device="cpu")
+    assert pool.k[0].device.type == "cpu"
 
 
 def test_presets_keep_the_published_widths():
