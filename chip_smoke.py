@@ -32,9 +32,16 @@ the script exits nonzero and prints no result:
    (dkv_splits); then the bf16 backward's determinism, dQ, dK and dV bit
    for bit over two calls at the LM shape (one query range) and the
    UNet's level-0 cross-attention (16 ranges summed by a second kernel); LayerNorm forward and backward at [16384,320],
-   [4096,640], [1024,1280] (bf16) and [4096,640] (f32); GroupNorm
-   forward and backward at [4,320,64,64], [4,960,64,64], [4,2560,8,8]
-   (bf16, 32 groups) and [4,320,64,64] (f32).  Tolerances are stated
+   [4096,640], [1024,1280] (bf16), [4096,640] (f32), [4096,768] (BERT's
+   width) and [4096,100] (rows not in whole 16-byte vectors: the
+   CTA-per-row backward); GroupNorm forward and backward at
+   [4,320,64,64], [4,960,64,64], [4,2560,8,8] (bf16, 32 groups),
+   [4,320,64,64] (f32), [2,6,5,7] with 3 groups (odd spatial size: the
+   scalar streaming backward) and [1,64,128,128] f32 with 1 group (a row
+   too long for shared memory: the vector streaming backward), each
+   backward's profile holding its own kernel alone; then the norm
+   backwards' determinism, dx, dw and db bit for bit over two calls at
+   [16384,320] and [4,960,64,64] (bf16).  Tolerances are stated
    with the comparisons (TOLERANCES).  Each case
    prints its kernel, plain and library times and its bound; the
    attention and norm cases (RMSNorm too) also the kernel's and the
@@ -448,6 +455,7 @@ def kernel_phase(torch, dev):
     seed = flash_cases(torch, dev, summary, seed)
     seed = flash_bwd_determinism_check(torch, dev, seed)
     seed = norm_cases(torch, dev, summary, seed)
+    seed = norm_bwd_determinism_check(torch, dev, seed)
     rms_autograd_check(torch, dev, seed)
     unsupported_check(torch, dev)
     return summary
@@ -702,17 +710,35 @@ def unet_flash_shapes():
     return out
 
 
+def kernel_names(torch, fn):
+    """The names of the kernels one ``fn()`` call launches (after one
+    warm-up call), from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA})
+
+
 def norm_cases(torch, dev, summary, seed):
     """LayerNorm and GroupNorm forward and backward kernels vs their
     plain twins on the same card inputs (the backward from the plain
     forward's statistics, so each kernel is held alone), at the UNet
     train step's shapes: LayerNorm over [4 * HW, C] rows, GroupNorm over
     [4, C, H, W] with 32 groups (960 channels at 64x64 is the longest
-    row, 30 x 4096 elements).  Library yardstick: F.layer_norm and
-    F.group_norm, forward and backward (graph built once, not timed).
-    Bounds: bytes (x, y or x, g, dx once each, the affine vectors, the
-    f32 statistics) over 3.35 TB/s, or 7 (forward) and 12 (backward)
-    operations per element, whichever is larger."""
+    row, 30 x 4096 elements); and at shapes that take the backwards'
+    other variants (see the module docstring).  Each backward's profile
+    must hold its own CUDA kernel alone (no torch reduction or cast
+    after it).  Library yardstick: F.layer_norm and F.group_norm,
+    forward and backward (graph built once, not timed).  Bounds: bytes
+    (x, y or x, g, dx once each, the affine vectors, the f32 statistics)
+    over 3.35 TB/s, or 7 (forward) and 12 (backward) operations per
+    element, whichever is larger."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.group_norm import (
@@ -724,12 +750,15 @@ def norm_cases(torch, dev, summary, seed):
         layer_norm_kernel,
     )
 
-    ln = [((16384, 320), "bfloat16"), ((4096, 640), "bfloat16"),
-          ((1024, 1280), "bfloat16"), ((4096, 640), "float32")]
-    gn = [((4, 320, 64, 64), "bfloat16"), ((4, 960, 64, 64), "bfloat16"),
-          ((4, 2560, 8, 8), "bfloat16"), ((4, 320, 64, 64), "float32")]
+    ln = [((16384, 320), "bfloat16", None), ((4096, 640), "bfloat16", None),
+          ((1024, 1280), "bfloat16", None), ((4096, 640), "float32", None),
+          ((4096, 768), "bfloat16", None), ((4096, 100), "bfloat16", None)]
+    gn = [((4, 320, 64, 64), "bfloat16", 32), ((4, 960, 64, 64), "bfloat16", 32),
+          ((4, 2560, 8, 8), "bfloat16", 32), ((4, 320, 64, 64), "float32", 32),
+          ((2, 6, 5, 7), "bfloat16", 3), ((1, 64, 128, 128), "float32", 1)]
+    bwd_names = {"layer_norm": "ln_bwd", "group_norm": "gn_bwd"}
     for kind, shapes in (("layer_norm", ln), ("group_norm", gn)):
-        for shape, dname in shapes:
+        for shape, dname, groups in shapes:
             dtype = getattr(torch, dname)
             g = torch.Generator(device="cpu").manual_seed(seed)
             seed += 1
@@ -748,11 +777,11 @@ def norm_cases(torch, dev, summary, seed):
                 lib = lambda x_, w_, b_: F.layer_norm(x_, (c,), w_, b_, eps)
                 rows = x.numel() // c
             else:
-                args, eps = (32,), 1e-5
+                args, eps = (groups,), 1e-5
                 fwd_k, fwd_p = group_norm_kernel, group_norm_fwd_plain
                 bwd_k, bwd_p = group_norm_bwd_kernel, group_norm_bwd_plain
-                lib = lambda x_, w_, b_: F.group_norm(x_, 32, w_, b_, eps)
-                rows = shape[0] * 32
+                lib = lambda x_, w_, b_: F.group_norm(x_, groups, w_, b_, eps)
+                rows = shape[0] * groups
             out = fwd_k(x, w, bias, *args, eps)
             ref = fwd_p(x, w, bias, *args, eps)
             _, mean, rstd = ref
@@ -776,6 +805,10 @@ def norm_cases(torch, dev, summary, seed):
                        yl, (xl, wl, bl), gy, retain_graph=True)}
             t = {n: (cuda_ms(fn, 20), device_ms(torch, fn, 5))
                  for n, fn in fns.items()}
+            names = kernel_names(torch, fns["bwd"])
+            if len(names) != 1 or bwd_names[kind] not in names[0]:
+                raise AssertionError(f"{kind}_bwd/{name}: one call launched "
+                                     f"{names}, want its CUDA kernel alone")
             pf_ms = cuda_ms(lambda: fwd_p(x, w, bias, *args, eps), 5)
             pb_ms = cuda_ms(lambda: bwd_p(x, w, mean, rstd, gy, *args), 5)
             del yl, fns
@@ -797,10 +830,59 @@ def norm_cases(torch, dev, summary, seed):
                         "device_ms": dev_ms, "plain_ms": pms,
                         "library_ms": lms, "library_device_ms": lib_dev,
                         "bound_ms": bd_ms, "bound_by": bd_by}
+                if groups is not None:
+                    case["groups"] = groups
+                if kname.endswith("_bwd"):
+                    case["kernels"] = names
                 emit(case)
                 if dname == "bfloat16" and shape in ((4096, 640),
                                                      (4, 960, 64, 64)):
                     summary[kname] = case
+    return seed
+
+
+def norm_bwd_determinism_check(torch, dev, seed):
+    """The norm backward kernels give bitwise equal dx, dw and db over
+    two calls on the same inputs (their sums across blocks run in a
+    fixed order, with no floating-point atomics): LayerNorm at
+    [16384,320] and GroupNorm at [4,960,64,64], bf16."""
+    from paddle_tpu_torch.ops.group_norm import (
+        group_norm_bwd_kernel, group_norm_fwd_plain,
+    )
+    from paddle_tpu_torch.ops.layer_norm import (
+        layer_norm_bwd_kernel, layer_norm_fwd_plain,
+    )
+
+    report = {}
+    for cname, shape in (("layer_norm_bwd/16384x320", (16384, 320)),
+                         ("group_norm_bwd/4x960x64x64", (4, 960, 64, 64))):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        seed += 1
+        c = shape[-1] if len(shape) == 2 else shape[1]
+        x = (3.0 + 2.0 * torch.randn(*shape, generator=g)).to(
+            torch.bfloat16).to(dev)
+        w = (1.0 + 0.1 * torch.randn(c, generator=g)).to(torch.bfloat16) \
+            .to(dev)
+        gy = torch.randn(*shape, generator=g).to(torch.bfloat16).to(dev)
+        if len(shape) == 2:
+            _, mean, rstd = layer_norm_fwd_plain(x, w, torch.zeros_like(w))
+            runs = [layer_norm_bwd_kernel(x, w, mean, rstd, gy)
+                    for _ in range(2)]
+        else:
+            _, mean, rstd = group_norm_fwd_plain(x, w, torch.zeros_like(w),
+                                                 32)
+            runs = [group_norm_bwd_kernel(x, w, mean, rstd, gy, 32)
+                    for _ in range(2)]
+        torch.cuda.synchronize()
+        for n, a, b in zip(("dx", "dw", "db"), *runs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"norm_bwd_determinism {cname}/{n}: "
+                                     f"{(a != b).sum().item()} elements "
+                                     "differ between two calls")
+        report[cname] = {"dx_dw_db": "bitwise equal"}
+        del x, w, gy, runs
+    emit({"phase": "norm_bwd_determinism", "dtype": "bfloat16",
+          "checks": report})
     return seed
 
 
@@ -1006,8 +1088,8 @@ def profile_phase(torch, eng, prompts, params):
 PORT_KERNELS = (
     ("flash", ("flash_fwd", "flash_bwd", "FlashProblem")),
     ("paged_attention", ("paged_attn", "PagedProblem")),
-    ("group_norm", ("_gn_fwd", "_gn_bwd")),
-    ("layer_norm", ("_ln_fwd", "_ln_bwd")),
+    ("group_norm", ("_gn_fwd", "gn_bwd_kernel")),
+    ("layer_norm", ("_ln_fwd", "ln_bwd_warp_kernel", "ln_bwd_row_kernel")),
     ("rms_norm", ("_rms_fwd", "_rms_bwd")),
 )
 
@@ -1514,12 +1596,12 @@ def main():
                           "paddle_tpu/ops/pallas/flash.py:277", "train"),
         "layer_norm": ("triton", "paddle_tpu_torch/ops/layer_norm.py",
                        "paddle_tpu/ops/pallas/norms.py:79", "unet_train"),
-        "layer_norm_bwd": ("triton", "paddle_tpu_torch/ops/layer_norm.py",
+        "layer_norm_bwd": ("cuda", "paddle_tpu_torch/csrc/norms.cu",
                            "paddle_tpu/ops/pallas/norms.py:141",
                            "unet_train"),
         "group_norm": ("triton", "paddle_tpu_torch/ops/group_norm.py",
                        "paddle_tpu/ops/pallas/norms.py:366", "unet_train"),
-        "group_norm_bwd": ("triton", "paddle_tpu_torch/ops/group_norm.py",
+        "group_norm_bwd": ("cuda", "paddle_tpu_torch/csrc/norms.cu",
                            "paddle_tpu/ops/pallas/norms.py:424",
                            "unet_train"),
     }

@@ -9,6 +9,7 @@ name carries a hash of its source, every header under ``csrc/``
 rebuilt and a stale library is never loaded.  All the
 sources that need building compile at once, one nvcc process each.
 Nothing here falls back: a missing nvcc or a failed build raises.
+:func:`ticket` keeps the one piece of scratch that outlives a launch.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS = {}
+_TICKETS = {}
 
 
 def _nvcc():
@@ -96,3 +98,18 @@ def load(name):
             build_all()
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def ticket(device):
+    """A zeroed int32 on ``device`` for its current stream: the counter
+    through which the last block of a norm backward launch finds itself
+    (``csrc/norms.cu``), left at 0 again by that block.  One per (device,
+    stream): the launches of one stream run in order and never hold it at
+    once."""
+    import torch
+
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t

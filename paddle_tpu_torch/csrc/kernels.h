@@ -49,6 +49,39 @@ int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                             float scale, int causal, int dtype, int splits,
                             void* stream);
 
+// LayerNorm and GroupNorm backward (see norms.cu).  dtype and wdtype (x's
+// and the weight's): 0 = f32, 1 = bf16, 2 = f16.  mean, rstd are f32, one
+// per normalised row; dx is x's dtype, dw and db the weight's.  ticket is
+// an int that is 0 before the launch and that the launch leaves at 0.
+// LayerNorm: x, g, dx [n, h]; k = 0 runs the CTA-per-row kernel, k in
+// 1..6 the warp-per-row kernel with k 16-byte vectors a lane (h % (16 /
+// itemsize) == 0, h <= 32 k 16 / itemsize, 16-byte aligned rows); ctas is
+// a multiple of 8 (clusters of 8); ws holds ws_floats f32, at least
+// [ctas / 8 (+ ctas when k = 0), 2 h] (a smaller one is refused).
+// layer_norm_bwd_max_ctas gives the most CTAs of the (dtype, h, k) kernel
+// the device holds at once.
+int layer_norm_bwd_max_ctas(int dtype, int h, int k, int* ctas);
+int layer_norm_bwd(const void* x, const void* w, const float* mean,
+                   const float* rstd, const void* g, void* dx, void* dw,
+                   void* db, float* ws, int ws_floats, int* ticket, int n,
+                   int h, int dtype, int wdtype, int k, int ctas,
+                   void* stream);
+// GroupNorm: x, g, dx [n, c, hw] with c % groups == 0; `clusters`
+// clusters of `cluster` CTAs (1..8, at most c / groups), each walking the
+// (sample, group) rows cluster id, + clusters, ...; mode 0 = chunks in
+// shared memory (hw * itemsize % 16 == 0, 16-byte aligned tensors), 1 =
+// streamed 16-byte vectors (the same alignment), 2 = streamed scalars;
+// smem_bytes the dynamic shared memory a CTA asks for (at least what the
+// mode needs); ws is f32 [n, 2, c].  group_norm_bwd_max_clusters gives the
+// most clusters of that kernel the device holds at once.
+int group_norm_bwd_max_clusters(int dtype, int mode, int cluster,
+                                int smem_bytes, int* clusters);
+int group_norm_bwd(const void* x, const void* w, const float* mean,
+                   const float* rstd, const void* g, void* dx, void* dw,
+                   void* db, float* ws, int* ticket, int n, int c, int groups,
+                   int hw, int dtype, int wdtype, int mode, int cluster,
+                   int clusters, int smem_bytes, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -1,0 +1,918 @@
+// LayerNorm and GroupNorm backward, for sm_90a.
+//
+// Replaces two Pallas TPU kernels of paddle_tpu/ops/pallas/norms.py:
+//   LayerNorm  <- _ln_bwd_kernel (:44, launched by _ln_vjp_bwd :141)
+//   GroupNorm  <- _gn_bwd_kernel (:318, launched by _gn_vjp_bwd :424)
+// and computes what they compute, in f32 from the saved f32 mean and rstd
+// of each normalised row (xhat = (x - mean) * rstd):
+//   dx = rstd * (g w - mean(g w) - xhat * mean(g w xhat)),
+//   dw = sum of g xhat and db = sum of g over every row a weight scales,
+// dx in x's dtype, dw and db in the weight's (f32, bf16 or f16).
+//
+// Bound.  Both move x and g in and dx out once (3 elements of x's dtype
+// per element) against ~12 operations: bytes bound them, 4.7 us at
+// [4096, 640] and 28 us at [4, 960, 64, 64] in bf16 on an H100 (3.35
+// TB/s).  The TPU kernels walk the rows as a sequential grid and carry
+// dw and db in VMEM from one step to the next; blocks here run in no
+// order, so each launch reduces dw and db itself, in a fixed order (no
+// floating-point atomics: the result is bitwise the same run to run), and
+// writes them in the weight's dtype.  One launch a call, no torch op after.
+//
+// LayerNorm ([N, H] rows).  A persistent grid of 8-warp CTAs in clusters of
+// 8, as many as the card holds at once (the wrapper asks the occupancy API).
+//   ln_bwd_warp_kernel<T, K>: one warp per row, the row in registers: a
+//     lane holds K 16-byte vectors of x and of g (columns (k 32 + lane)
+//     VW ...), so H <= 32 K VW (H <= 1536 in 2-byte types, 768 in f32).
+//     A warp walks rows warp, warp + total warps, ...; before it reduces
+//     a row it issues the next row's loads (two rows in flight a warp).
+//     The row sums are xor-shuffle butterflies (every lane ends with the
+//     same bits, no __syncthreads); dw and db accumulate in f32 registers
+//     across the warp's rows and are summed over the CTA's 8 warps in
+//     warp order through shared memory.
+//   ln_bwd_row_kernel<T>: any H and any alignment: a CTA per row, scalar
+//     loads, block sums in warp order; the CTA's dw and db accumulate in
+//     its own f32 row of the workspace.
+//   Across CTAs (ln_tail): rank r of a cluster sums column slice r of the
+//     cluster's 8 CTA partials (distributed shared memory, or the
+//     workspace rows) in rank order into the cluster's partial row; the
+//     last cluster to take a ticket splits the columns again and sums
+//     the cluster partials (at most ~34 rows, 1/8 of the columns a CTA)
+//     in cluster order.  The ticket is an int the last cluster resets.
+//
+// GroupNorm ([N, C, HW], G groups of Cg = C / G channels: a row is one
+// (sample, group), Cg HW contiguous elements).  Persistent clusters of S
+// CTAs (S <= 8), as many as the card holds, each walking rows cluster id,
+// + clusters, ...; rank r takes the whole channels [r Cg / S, (r + 1) Cg /
+// S) of a row.  Per row: each channel's sum(g) and sum(g xhat) (split
+// over warps when the chunk has fewer channels than warps; parts summed
+// in order) are the [N, C] dw/db partials; the CTA's sums of w sum(g) and
+// w sum(g xhat) go to every rank by st.async into its shared memory,
+// completing there on a barrier (no fence waits on earlier stores), and
+// each rank adds them in rank order; dx is written one row behind the
+// sums, while the pushes land.
+//   MODE 0 (x and g over 32 MiB, the wrapper decides): a producer warp
+//     loads each row's chunk once into a 3-stage shared-memory ring by TMA
+//     bulk copies (cp.async.bulk of whole channels, >= 8 KB a copy, one
+//     mbarrier per copy), refilling a stage once its dx is written, and
+//     dx is computed from shared memory: x and g leave device memory once.
+//   MODE 1: the chunk streams from device memory twice (sums, then dx) in
+//     16-byte vectors; where x and g fit the 50 MB L2 the second pass is
+//     served from it, and one CTA a row is then faster than a cluster.
+//   MODE 2: as MODE 1 with scalar loads, where HW * sizeof(T) is not a
+//     multiple of 16 (no 16-byte vectors, no bulk copies).
+//   The [N, C] partials are summed over N in sample order by the last
+//   cluster to take the ticket, which resets it.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "attention_sm90.cuh"
+#include "kernels.h"
+
+namespace norms {
+
+namespace cg = cooperative_groups;
+using sm90::mbar_arrive;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::smem_u32;
+
+constexpr int LN_WARPS = 8;     // warps of a LayerNorm CTA
+constexpr int LN_CLUSTER = 8;   // CTAs of a LayerNorm cluster
+constexpr int GN_WARPS = 8;     // warps of a GroupNorm CTA
+constexpr int GN_MAX_CLUSTER = 8;
+constexpr int GN_PIECE = 8192;  // bytes of x a bulk copy brings at least
+constexpr int GN_STAGES = 3;    // rows of chunks a CTA holds: summed, awaiting dx, loading
+constexpr int GN_UNROLL = 4;    // vectors a thread loads before it computes on them
+constexpr unsigned FULL = 0xffffffffu;
+
+struct LnArgs {
+  const void* x;
+  const void* w;
+  const float* mean;
+  const float* rstd;
+  const void* g;
+  void* dx;
+  void* dw;
+  void* db;
+  float* ws;     // [clusters][2H] cluster partials, then (row kernel) [ctas][2H]
+  int* ticket;
+  int n, h, wdtype;
+};
+
+struct GnArgs {
+  const void* x;
+  const void* w;
+  const float* mean;
+  const float* rstd;
+  const void* g;
+  void* dx;
+  void* dw;
+  void* db;
+  float* ws;     // [2][N][C]: dw partials, then db partials
+  int* ticket;
+  int n, c, groups, hw, wdtype, s, max_ch;
+};
+
+// --------------------------------------------------------------- numbers
+template <typename T>
+__device__ __forceinline__ float to_f(T v);
+template <>
+__device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
+
+template <typename T, int VW>
+__device__ __forceinline__ void store_vec(T* p, const float (&f)[VW]) {
+  if constexpr (VW == 1) {
+    *p = from_f<T>(f[0]);
+  } else {
+    uint4 v;
+    T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+    for (int i = 0; i < VW; ++i) e[i] = from_f<T>(f[i]);
+    *reinterpret_cast<uint4*>(p) = v;
+  }
+}
+
+// VW elements as loaded: one 16-byte vector, or one element (VW = 1)
+template <typename T, int VW>
+using Raw = typename std::conditional<VW == 1, T, uint4>::type;
+
+template <typename T, int VW>
+__device__ __forceinline__ Raw<T, VW> load_raw(const T* p) {
+  return *reinterpret_cast<const Raw<T, VW>*>(p);
+}
+
+template <typename T, int VW>
+__device__ __forceinline__ void unpack_raw(const Raw<T, VW>& v, float (&f)[VW]) {
+  const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+  for (int i = 0; i < VW; ++i) f[i] = to_f<T>(e[i]);
+}
+
+// the weight's dtype at run time: 0 f32, 1 bf16, 2 f16
+__device__ __forceinline__ float load_w(const void* w, int code, int i) {
+  if (code == 1) return to_f(static_cast<const __nv_bfloat16*>(w)[i]);
+  if (code == 2) return to_f(static_cast<const __half*>(w)[i]);
+  return static_cast<const float*>(w)[i];
+}
+
+__device__ __forceinline__ void store_w(void* w, int code, int i, float v) {
+  if (code == 1) static_cast<__nv_bfloat16*>(w)[i] = from_f<__nv_bfloat16>(v);
+  else if (code == 2) static_cast<__half*>(w)[i] = from_f<__half>(v);
+  else static_cast<float*>(w)[i] = v;
+}
+
+// a + b over the warp; every lane ends with the same bits (each butterfly
+// step adds the same two values on both lanes of a pair)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// one bulk copy of `bytes` (a multiple of 16) from device memory into this
+// CTA's shared memory, completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait for the phase of the given parity of a barrier in this CTA's shared
+// memory.  The common case (the copy has landed) is one try_wait; only a
+// wait that has to spin reads the clock, and one longer than 10 s (a lost
+// arrival) traps instead of hanging the card.
+__device__ __forceinline__ void wait_parity(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u64 t0, t1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, 10000000000;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Two floats into rank `rank`'s shared memory at the address of `dst` in
+// this CTA, completing 8 bytes on that rank's barrier at the address of
+// `bar`: a store across the cluster that orders nothing else (no fence
+// waits for this CTA's earlier stores to device memory).
+__device__ __forceinline__ void push2(float* dst, uint64_t* bar, int rank, float a, float b) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 d, m;\n"
+      "mapa.shared::cluster.u32 d, %0, %2;\n"
+      "mapa.shared::cluster.u32 m, %1, %2;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [d], {%3, %4}, [m];\n"
+      "}\n" ::"r"(smem_u32(dst)),
+      "r"(smem_u32(bar)), "r"(rank), "f"(a), "f"(b)
+      : "memory");
+}
+
+// out(col, sum over r < rows of src[r * stride + col], taken in r order)
+// for every col in [lo, hi), over the CTA's threads.  A thread keeps CB
+// columns x RB rows of loads in flight: the rows are partials in L2, and
+// one load at a time would pay its latency once per row (the compiler
+// cannot overlap one column's loads with the last one's stores, which may
+// alias them).
+template <int CB, int RB, typename Out>
+__device__ __forceinline__ void sum_rows(const float* src, int rows, size_t stride, int lo,
+                                         int hi, Out out) {
+  for (int c0 = lo + threadIdx.x; c0 < hi; c0 += CB * blockDim.x) {
+    float s[CB];
+#pragma unroll
+    for (int k = 0; k < CB; ++k) s[k] = 0.f;
+    for (int r0 = 0; r0 < rows; r0 += RB) {
+      float v[CB][RB];
+#pragma unroll
+      for (int k = 0; k < CB; ++k)
+#pragma unroll
+        for (int j = 0; j < RB; ++j) {
+          const int col = c0 + k * blockDim.x;
+          v[k][j] = col < hi && r0 + j < rows ? __ldcg(src + (size_t)(r0 + j) * stride + col)
+                                              : 0.f;
+        }
+#pragma unroll
+      for (int k = 0; k < CB; ++k)
+#pragma unroll
+        for (int j = 0; j < RB; ++j)
+          if (r0 + j < rows) s[k] += v[k][j];
+    }
+#pragma unroll
+    for (int k = 0; k < CB; ++k)
+      if (c0 + k * blockDim.x < hi) out(c0 + k * blockDim.x, s[k]);
+  }
+}
+
+// The end of both kernels, once every CTA has written its rows of the
+// partials ws [rows][cols]: each cluster takes a ticket, and the last
+// cluster (the ticket's count, which it resets) sums the rows in row order,
+// its `size` CTAs splitting the columns.  out(col, sum) writes a result.
+// Ordering: the cluster barrier (release / acquire) puts the cluster's
+// partial writes before rank 0's ticket, an acq_rel atomic at GPU scope;
+// the last cluster's rank 0 acquires every other cluster's writes through
+// it and passes them on through the next cluster barrier (the pattern of
+// a CTA barrier and one thread's release in CUTLASS's semaphore).
+template <int CB, int RB, typename Out>
+__device__ void last_cluster_sums(int* ticket, int size, const float* ws, int rows, int cols,
+                                  Out out) {
+  __shared__ int s_last;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    int old;
+    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
+                 : "=r"(old)
+                 : "l"(ticket)
+                 : "memory");
+    const int last = old == (int)gridDim.x / size - 1;
+    if (last) atomicExch(ticket, 0);
+    for (int q = 0; q < size; ++q) *cluster.map_shared_rank(&s_last, q) = last;
+  }
+  cluster.sync();
+  if (!s_last) return;
+  sum_rows<CB, RB>(ws, rows, cols, (int)((int64_t)rank * cols / size),
+                   (int)((int64_t)(rank + 1) * cols / size), out);
+}
+
+// ------------------------------------------------------------- LayerNorm
+// The cross-CTA sum of dw and db (see the file comment).  `part` is this
+// CTA's partial [2H] (dw, then db): in shared memory (global == false) or
+// in its workspace row (global == true, the row kernel).
+__device__ void ln_tail(const LnArgs& a, float* part, bool global) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nclusters = gridDim.x / LN_CLUSTER;
+  const int h2 = 2 * a.h, nt = blockDim.x;
+  const int hi = (int)((int64_t)(rank + 1) * h2 / LN_CLUSTER);
+  float* cws = a.ws + (size_t)(blockIdx.x / LN_CLUSTER) * h2;
+  cluster.sync();
+  // two columns a pass: 16 loads in flight
+  for (int col = (int)((int64_t)rank * h2 / LN_CLUSTER) + threadIdx.x; col < hi;
+       col += 2 * nt) {
+    const bool two = col + nt < hi;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int q = 0; q < LN_CLUSTER; ++q) {
+      const float* p =
+          global ? part + (int64_t)(q - rank) * h2 : cluster.map_shared_rank(part, q);
+      s0 += global ? __ldcg(p + col) : p[col];
+      if (two) s1 += global ? __ldcg(p + col + nt) : p[col + nt];
+    }
+    cws[col] = s0;
+    if (two) cws[col + nt] = s1;
+  }
+  last_cluster_sums<2, 32>(a.ticket, LN_CLUSTER, a.ws, nclusters, h2, [&](int col, float s) {
+    if (col < a.h)
+      store_w(a.dw, a.wdtype, col, s);
+    else
+      store_w(a.db, a.wdtype, col - a.h, s);
+  });
+}
+
+// shared memory of the warp-per-row kernel, in floats: the weight, each
+// warp's dw and db, the CTA's partial [2H]
+template <int VW, int K>
+__host__ __device__ constexpr int ln_slots() { return K * VW * 32; }
+__host__ __device__ inline int ln_pad4(int h) { return (h + 3) & ~3; }
+
+template <typename T, int K>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+    ln_bwd_warp_kernel(const LnArgs a) {
+  constexpr int VW = 16 / sizeof(T);
+  constexpr int SLOTS = ln_slots<VW, K>();
+  extern __shared__ __align__(16) float ln_smem[];
+  const int h = a.h, nvec = h / VW;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* wf = ln_smem;                                 // [H] weight in f32
+  // [LN_WARPS][2][SLOTS]: each warp's dw and db at the end, slot
+  // (k VW + e) 32 + lane for column (k 32 + lane) VW + e: a warp's stores
+  // fall on 32 consecutive words (no bank conflicts)
+  float* acc = ln_smem + ln_pad4(h);
+  float* part = acc + LN_WARPS * 2 * SLOTS;            // [2H]
+  const T* x = static_cast<const T*>(a.x);
+  const T* g = static_cast<const T*>(a.g);
+  T* dx = static_cast<T*>(a.dx);
+  float dw[K][VW], db[K][VW];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < VW; ++e) dw[k][e] = db[k][e] = 0.f;
+
+  const int64_t stride = (int64_t)gridDim.x * LN_WARPS;
+  int64_t r = (int64_t)blockIdx.x * LN_WARPS + warp;
+  uint4 xc[K], gc[K];
+  float mc = 0.f, rc = 0.f;
+  auto load_row = [&](int64_t row, uint4 (&xv)[K], uint4 (&gv)[K], float& m, float& rs) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * h);
+    const uint4* gr = reinterpret_cast<const uint4*>(g + row * h);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = k * 32 + lane;
+      if (j < nvec) {
+        xv[k] = __ldcs(xr + j);
+        gv[k] = __ldcs(gr + j);
+      }
+    }
+    m = a.mean[row];
+    rs = a.rstd[row];
+  };
+  if (r < a.n) load_row(r, xc, gc, mc, rc);
+  // the weight, while the first row is in flight
+#pragma unroll 4
+  for (int i = threadIdx.x; i < h; i += blockDim.x) wf[i] = load_w(a.w, a.wdtype, i);
+  __syncthreads();
+  while (r < a.n) {
+    const int64_t rn = r + stride;
+    uint4 xn[K], gn[K];
+    float mn = 0.f, rsn = 0.f;
+    if (rn < a.n) load_row(rn, xn, gn, mn, rsn);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = k * 32 + lane;
+      if (j < nvec) {
+        float xf[VW], gf[VW];
+        unpack_raw<T, VW>(xc[k], xf);
+        unpack_raw<T, VW>(gc[k], gf);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float gw = gf[e] * wf[j * VW + e];
+          s1 += gw;
+          s2 += gw * ((xf[e] - mc) * rc);
+        }
+      }
+    }
+    const float c1 = warp_sum(s1) / (float)h;
+    const float c2 = warp_sum(s2) / (float)h;
+    uint4* dxr = reinterpret_cast<uint4*>(dx + r * h);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = k * 32 + lane;
+      if (j < nvec) {
+        float xf[VW], gf[VW], df[VW];
+        unpack_raw<T, VW>(xc[k], xf);
+        unpack_raw<T, VW>(gc[k], gf);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const float xh = (xf[e] - mc) * rc;
+          df[e] = rc * (gf[e] * wf[j * VW + e] - c1 - xh * c2);
+          dw[k][e] += gf[e] * xh;
+          db[k][e] += gf[e];
+        }
+        uint4 v;
+        T* o = reinterpret_cast<T*>(&v);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) o[e] = from_f<T>(df[e]);
+        __stcs(dxr + j, v);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      xc[k] = xn[k];
+      gc[k] = gn[k];
+    }
+    mc = mn;
+    rc = rsn;
+    r = rn;
+  }
+
+  // the CTA's dw, db: the warps' registers summed in warp order
+  float* mine = acc + warp * 2 * SLOTS + lane;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < VW; ++e) {
+      mine[(k * VW + e) * 32] = dw[k][e];
+      mine[SLOTS + (k * VW + e) * 32] = db[k][e];
+    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * SLOTS; i += blockDim.x) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < LN_WARPS; ++w) s += acc[w * 2 * SLOTS + i];
+    const int half = i / SLOTS, j = i % SLOTS;
+    const int col = ((j / (VW * 32)) * 32 + j % 32) * VW + (j / 32) % VW;
+    if (col < h) part[half * h + col] = s;
+  }
+  ln_tail(a, part, false);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(LN_WARPS * 32) ln_bwd_row_kernel(const LnArgs a) {
+  __shared__ float wsum[2][LN_WARPS][2];
+  const int h = a.h, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nclusters = gridDim.x / LN_CLUSTER;
+  float* acc = a.ws + ((size_t)nclusters + blockIdx.x) * 2 * h;
+  for (int i = threadIdx.x; i < h; i += blockDim.x) acc[i] = acc[h + i] = 0.f;
+  const T* x = static_cast<const T*>(a.x);
+  const T* g = static_cast<const T*>(a.g);
+  T* dx = static_cast<T*>(a.dx);
+  int it = 0;
+  for (int64_t r = blockIdx.x; r < a.n; r += gridDim.x, it ^= 1) {
+    const T* xr = x + r * h;
+    const T* gr = g + r * h;
+    const float m = a.mean[r], rs = a.rstd[r];
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = threadIdx.x; i < h; i += blockDim.x) {
+      const float gw = to_f<T>(gr[i]) * load_w(a.w, a.wdtype, i);
+      s1 += gw;
+      s2 += gw * ((to_f<T>(xr[i]) - m) * rs);
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      wsum[it][warp][0] = s1;
+      wsum[it][warp][1] = s2;
+    }
+    __syncthreads();
+    float c1 = 0.f, c2 = 0.f;
+#pragma unroll
+    for (int w = 0; w < LN_WARPS; ++w) {
+      c1 += wsum[it][w][0];
+      c2 += wsum[it][w][1];
+    }
+    c1 /= (float)h;
+    c2 /= (float)h;
+    for (int i = threadIdx.x; i < h; i += blockDim.x) {
+      const float gf = to_f<T>(gr[i]);
+      const float xh = (to_f<T>(xr[i]) - m) * rs;
+      dx[r * h + i] = from_f<T>(rs * (gf * load_w(a.w, a.wdtype, i) - c1 - xh * c2));
+      acc[i] += gf * xh;
+      acc[h + i] += gf;
+    }
+  }
+  ln_tail(a, acc, true);
+}
+
+typedef void (*LnKernel)(const LnArgs);
+
+template <typename T>
+LnKernel ln_kernel_of(int k) {
+  switch (k) {
+    case 0: return ln_bwd_row_kernel<T>;
+    case 1: return ln_bwd_warp_kernel<T, 1>;
+    case 2: return ln_bwd_warp_kernel<T, 2>;
+    case 3: return ln_bwd_warp_kernel<T, 3>;
+    case 4: return ln_bwd_warp_kernel<T, 4>;
+    case 5: return ln_bwd_warp_kernel<T, 5>;
+    case 6: return ln_bwd_warp_kernel<T, 6>;
+  }
+  return nullptr;
+}
+
+LnKernel ln_kernel(int dtype, int k) {
+  if (dtype == 0) return ln_kernel_of<float>(k);
+  if (dtype == 1) return ln_kernel_of<__nv_bfloat16>(k);
+  if (dtype == 2) return ln_kernel_of<__half>(k);
+  return nullptr;
+}
+
+size_t ln_smem_bytes(int dtype, int k, int h) {
+  const int slots = k * (dtype == 0 ? 4 : 8) * 32;
+  return k ? (size_t)(ln_pad4(h) + LN_WARPS * 2 * slots + 2 * h) * sizeof(float) : 0;
+}
+
+cudaLaunchConfig_t cluster_config(int grid, int threads, int cluster, size_t smem,
+                                  cudaStream_t st, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the most clusters of `kernel` the device holds at once (the occupancy API)
+template <typename Kern>
+cudaError_t max_clusters(Kern kernel, int threads, int cluster, size_t smem, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, threads, cluster, smem, 0, &attr);
+  e = cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  if (e == cudaSuccess && *out <= 0) e = cudaErrorInvalidConfiguration;
+  return e;
+}
+
+template <typename Kern, typename Args>
+cudaError_t launch_cluster(Kern kernel, int grid, int threads, int cluster, size_t smem,
+                           cudaStream_t st, const Args& a) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, threads, cluster, smem, st, &attr);
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+// ------------------------------------------------------------- GroupNorm
+// the GroupNorm CTA's consumer warps (they alone reduce and write dx) wait
+// here for one another; the producer warp never does
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(GN_WARPS * 32) : "memory");
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__((GN_WARPS + 1) * 32) gn_bwd_kernel(const GnArgs a) {
+  constexpr int VW = MODE == 2 ? 1 : 16 / sizeof(T);
+  constexpr int NT = GN_WARPS * 32;   // consumer threads; warp GN_WARPS is the producer
+  constexpr int ST = GN_STAGES;
+  extern __shared__ __align__(128) unsigned char gn_smem[];
+  // by row parity: every rank's two row-sum partials, pushed here by each
+  // rank, and the barrier they complete; the row's mean(g w), mean(g w xhat)
+  __shared__ __align__(8) float xch[2][GN_MAX_CLUSTER][2];
+  __shared__ uint64_t xbar[2];
+  __shared__ uint64_t empty[ST];   // a stage's dx is written: the producer may refill it
+  __shared__ float mu[2][2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int s = a.s, cid = blockIdx.x / s, nclusters = gridDim.x / s;
+  const int rows = a.n * a.groups, cgs = a.c / a.groups;
+  const int nrows = (rows - cid + nclusters - 1) / nclusters;   // this cluster's
+  const int c0 = (int)((int64_t)rank * cgs / s);
+  const int nch = (int)((int64_t)(rank + 1) * cgs / s) - c0;
+  const int hw = a.hw, vpc = hw / VW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* x = static_cast<const T*>(a.x);
+  const T* g = static_cast<const T*>(a.g);
+  T* dx = static_cast<T*>(a.dx);
+
+  // shared memory (gn_smem_bytes; group_norm_bwd_smem in ops/group_norm.py):
+  // MODE 0's ST stages of x and g chunks and their barriers, the sums of a
+  // row, the weights of two rows
+  const size_t chunk = MODE == 0 ? (size_t)a.max_ch * hw * sizeof(T) : 0;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(gn_smem + 2 * ST * chunk);   // [ST][max_ch]
+  float2* tsum = reinterpret_cast<float2*>(bars + (MODE == 0 ? ST * a.max_ch : 0));
+  float2* csum = tsum + max(GN_WARPS, a.max_ch);
+  float* wf = reinterpret_cast<float*>(csum + a.max_ch);                      // [2][max_ch]
+  // MODE 0 copies whole channels in pieces of at least GN_PIECE bytes of
+  // x, each piece on its own barrier of the stage
+  const int pc = max(1, GN_PIECE / (int)(hw * sizeof(T)));
+  const int npieces = (nch + pc - 1) / pc;
+  auto row_of = [&](int it) { return cid + it * nclusters; };
+  auto base_of = [&](int it) { return ((int64_t)row_of(it) * cgs + c0) * hw; };
+  auto src = [&](const T* p, int it, int tensor) {   // row it's x (0) or g (1) chunk
+    return MODE == 0
+               ? reinterpret_cast<const T*>(gn_smem + (2 * (it % ST) + tensor) * chunk)
+               : p + base_of(it);
+  };
+  auto bar = [&](int it, int piece) { return &bars[(it % ST) * a.max_ch + piece]; };
+  if (tid == 0) {
+    mbar_init(&xbar[0], 1);
+    mbar_init(&xbar[1], 1);
+    if constexpr (MODE == 0) {
+      for (int st = 0; st < ST; ++st) {
+        mbar_init(&empty[st], 1);
+        for (int i = 0; i < npieces; ++i) mbar_init(&bars[st * a.max_ch + i], 1);
+      }
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();   // no rank pushes to a barrier before it is made
+
+  if (warp == GN_WARPS) {
+    // ----------------------------------------------------- producer (MODE 0)
+    // row it's chunk into stage it % ST once row it - ST's dx is written
+    if constexpr (MODE == 0) {
+      if (lane == 0) {
+        for (int it = 0; it < nrows; ++it) {
+          if (it >= ST) wait_parity(&empty[it % ST], (it / ST - 1) & 1);
+          for (int i = 0; i < npieces; ++i) {
+            const int c = i * pc;
+            const uint32_t bytes = (uint32_t)(min(pc, nch - c) * hw * sizeof(T));
+            mbar_expect_tx(bar(it, i), 2 * bytes);
+            bulk_load(const_cast<T*>(src(x, it, 0)) + (size_t)c * hw,
+                      x + base_of(it) + (int64_t)c * hw, bytes, bar(it, i));
+            bulk_load(const_cast<T*>(src(g, it, 1)) + (size_t)c * hw,
+                      g + base_of(it) + (int64_t)c * hw, bytes, bar(it, i));
+          }
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // ---------------------------------------------------------- consumers
+    // dx of row it from its chunk, its weights and its two means:
+    // dx = g (rstd w) + (x - mean) (-rstd^2 mean(g w xhat)) - rstd mean(g w)
+    const float inv_vpc = 1.f / (float)vpc;
+    auto dx_row = [&](int it, float mean, float rstd) {
+      const T* xs = src(x, it, 0);
+      const T* gs = src(g, it, 1);
+      const float* w = wf + (it & 1) * a.max_ch;
+      const float b = -rstd * rstd * mu[it & 1][1], c = -rstd * mu[it & 1][0];
+      if constexpr (MODE == 0)   // every piece has landed (returns at once)
+        for (int i = 0; i < npieces; ++i) wait_parity(bar(it, i), (it / ST) & 1);
+      T* dxg = dx + base_of(it);
+      const int nv = nch * vpc;
+      for (int v0 = tid; v0 < nv; v0 += GN_UNROLL * NT) {   // GN_UNROLL loads in flight
+        Raw<T, VW> xr[GN_UNROLL], gr[GN_UNROLL];
+#pragma unroll
+        for (int u = 0; u < GN_UNROLL; ++u) {
+          const int v = v0 + u * NT;
+          if (v < nv) {
+            xr[u] = load_raw<T, VW>(xs + (size_t)v * VW);
+            gr[u] = load_raw<T, VW>(gs + (size_t)v * VW);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < GN_UNROLL; ++u) {
+          const int v = v0 + u * NT;
+          if (v < nv) {
+            int ch = (int)((float)v * inv_vpc);   // v / vpc, corrected below
+            ch -= ch * vpc > v;
+            ch += (ch + 1) * vpc <= v;
+            const float aw = rstd * w[ch];
+            float xf[VW], gf[VW], df[VW];
+            unpack_raw<T, VW>(xr[u], xf);
+            unpack_raw<T, VW>(gr[u], gf);
+#pragma unroll
+            for (int e = 0; e < VW; ++e) df[e] = fmaf(gf[e], aw, fmaf(xf[e] - mean, b, c));
+            store_vec<T, VW>(dxg + (size_t)v * VW, df);
+          }
+        }
+      }
+    };
+
+    // The cluster walks its rows; row it's sums, pushed to every rank,
+    // then row it - 1's dx (whose stage the producer then refills) while
+    // the pushes land, then row it's means from what the ranks pushed.
+    const int nsplit = nch < GN_WARPS ? GN_WARPS / nch : 1;
+    // a row's statistics and (a thread's first) weight load one row ahead
+    auto w_of = [&](int it, int i) {
+      return load_w(a.w, a.wdtype, row_of(it) % a.groups * cgs + c0 + i);
+    };
+    float mean_n = a.mean[row_of(0)], rstd_n = a.rstd[row_of(0)];
+    float w_n = tid < nch ? w_of(0, tid) : 0.f;
+    float mean_p = 0.f, rstd_p = 0.f;
+    for (int it = 0; it < nrows; ++it) {
+      const int row = row_of(it), grp = row % a.groups, smp = row / a.groups;
+      const T* xs = src(x, it, 0);
+      const T* gs = src(g, it, 1);
+      const float mean = mean_n, rstd = rstd_n;
+      float* w = wf + (it & 1) * a.max_ch;
+      if (tid < nch) w[tid] = w_n;
+      for (int i = tid + NT; i < nch; i += NT) w[i] = w_of(it, i);
+      if (it + 1 < nrows) {
+        mean_n = a.mean[row_of(it + 1)];
+        rstd_n = a.rstd[row_of(it + 1)];
+        if (tid < nch) w_n = w_of(it + 1, tid);
+      }
+
+      // per channel: sum(g) and sum(g xhat), a channel split over nsplit
+      // warps when the chunk has fewer channels than warps
+      for (int t = warp; t < nch * nsplit; t += GN_WARPS) {
+        const int ch = t / nsplit, part = t % nsplit;
+        if constexpr (MODE == 0) wait_parity(bar(it, ch / pc), (it / ST) & 1);
+        const int v0 = (int)((int64_t)part * vpc / nsplit);
+        const int v1 = (int)((int64_t)(part + 1) * vpc / nsplit);
+        const T* xp = xs + (size_t)ch * hw;
+        const T* gp = gs + (size_t)ch * hw;
+        float sg = 0.f, sgx = 0.f;
+        for (int vb = v0 + lane; vb < v1; vb += GN_UNROLL * 32) {   // GN_UNROLL loads in flight
+          Raw<T, VW> xr[GN_UNROLL], gr[GN_UNROLL];
+#pragma unroll
+          for (int u = 0; u < GN_UNROLL; ++u) {
+            const int v = vb + u * 32;
+            if (v < v1) {
+              xr[u] = load_raw<T, VW>(xp + (size_t)v * VW);
+              gr[u] = load_raw<T, VW>(gp + (size_t)v * VW);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < GN_UNROLL; ++u)
+            if (vb + u * 32 < v1) {
+              float xf[VW], gf[VW];
+              unpack_raw<T, VW>(xr[u], xf);
+              unpack_raw<T, VW>(gr[u], gf);
+#pragma unroll
+              for (int e = 0; e < VW; ++e) {
+                sg += gf[e];
+                sgx += gf[e] * ((xf[e] - mean) * rstd);
+              }
+            }
+        }
+        sg = warp_sum(sg);
+        sgx = warp_sum(sgx);
+        if (lane == 0) tsum[t] = make_float2(sg, sgx);
+      }
+      consumers_sync();
+      // ws [N][2][C]: sum(g xhat), then sum(g), per sample and channel
+      for (int ch = tid; ch < nch; ch += NT) {
+        float sg = 0.f, sgx = 0.f;
+        for (int p = 0; p < nsplit; ++p) {
+          sg += tsum[ch * nsplit + p].x;
+          sgx += tsum[ch * nsplit + p].y;
+        }
+        csum[ch] = make_float2(sg, sgx);
+        const size_t col = (size_t)grp * cgs + c0 + ch;
+        a.ws[(size_t)smp * 2 * a.c + col] = sgx;
+        a.ws[((size_t)smp * 2 + 1) * a.c + col] = sg;
+      }
+      consumers_sync();
+      if (warp == 0) {   // the chunk's sums over its channels; lane q pushes them to rank q
+        float s1 = 0.f, s2 = 0.f;
+        for (int ch = lane; ch < nch; ch += 32) {
+          s1 += w[ch] * csum[ch].x;
+          s2 += w[ch] * csum[ch].y;
+        }
+        s1 = warp_sum(s1);
+        s2 = warp_sum(s2);
+        if (lane == 0) mbar_expect_tx(&xbar[it & 1], 8 * s);
+        if (lane < s) push2(&xch[it & 1][rank][0], &xbar[it & 1], lane, s1, s2);
+      }
+      if (it > 0) {
+        dx_row(it - 1, mean_p, rstd_p);
+        consumers_sync();   // row it - 1's stage and weights are free again
+        if constexpr (MODE == 0)
+          if (tid == 0) mbar_arrive(&empty[(it - 1) % ST]);
+      }
+      if (tid == 0) {   // once every rank's partials have landed: add them in rank order
+        wait_parity(&xbar[it & 1], (it >> 1) & 1);
+        float s1 = 0.f, s2 = 0.f;
+        for (int q = 0; q < s; ++q) {
+          s1 += xch[it & 1][q][0];
+          s2 += xch[it & 1][q][1];
+        }
+        const float len = (float)cgs * (float)hw;
+        mu[it & 1][0] = s1 / len;
+        mu[it & 1][1] = s2 / len;
+      }
+      consumers_sync();
+      mean_p = mean;
+      rstd_p = rstd;
+    }
+    if (nrows > 0) dx_row(nrows - 1, mean_p, rstd_p);
+  }
+
+  // dw, db: the [N][2][C] partials summed over N
+  last_cluster_sums<16, 4>(a.ticket, s, a.ws, a.n, 2 * a.c, [&](int col, float v) {
+    if (col < a.c)
+      store_w(a.dw, a.wdtype, col, v);
+    else
+      store_w(a.db, a.wdtype, col - a.c, v);
+  });
+}
+
+size_t gn_smem_bytes(int mode, int max_ch, int hw, int item) {
+  const size_t chunk = mode == 0 ? (size_t)max_ch * hw * item : 0;
+  return 2 * GN_STAGES * chunk + (mode == 0 ? 8 * GN_STAGES * (size_t)max_ch : 0) +
+         8 * (size_t)(max_ch > GN_WARPS ? max_ch : GN_WARPS) + 16 * (size_t)max_ch;
+}
+
+typedef void (*GnKernel)(const GnArgs);
+
+template <typename T>
+GnKernel gn_kernel_of(int mode) {
+  if (mode == 0) return gn_bwd_kernel<T, 0>;
+  if (mode == 1) return gn_bwd_kernel<T, 1>;
+  return gn_bwd_kernel<T, 2>;
+}
+
+GnKernel gn_kernel(int dtype, int mode) {
+  if (mode < 0 || mode > 2) return nullptr;
+  if (dtype == 0) return gn_kernel_of<float>(mode);
+  if (dtype == 1) return gn_kernel_of<__nv_bfloat16>(mode);
+  if (dtype == 2) return gn_kernel_of<__half>(mode);
+  return nullptr;
+}
+
+}  // namespace norms
+
+using namespace norms;
+
+extern "C" int layer_norm_bwd_max_ctas(int dtype, int h, int k, int* ctas) {
+  LnKernel kernel = ln_kernel(dtype, k);
+  if (kernel == nullptr || h <= 0) return cudaErrorInvalidValue;
+  int clusters = 0;
+  const cudaError_t e =
+      max_clusters(kernel, LN_WARPS * 32, LN_CLUSTER, ln_smem_bytes(dtype, k, h), &clusters);
+  *ctas = clusters * LN_CLUSTER;
+  return e;
+}
+
+extern "C" int layer_norm_bwd(const void* x, const void* w, const float* mean,
+                              const float* rstd, const void* g, void* dx, void* dw,
+                              void* db, float* ws, int ws_floats, int* ticket, int n, int h,
+                              int dtype, int wdtype, int k, int ctas, void* stream) {
+  LnKernel kernel = ln_kernel(dtype, k);
+  if (kernel == nullptr || n <= 0 || h <= 0 || ctas <= 0 || ctas % LN_CLUSTER ||
+      wdtype < 0 || wdtype > 2 ||
+      (int64_t)ws_floats < (int64_t)(ctas / LN_CLUSTER + (k ? 0 : ctas)) * 2 * h)
+    return cudaErrorInvalidValue;
+  const LnArgs a = {x, w, mean, rstd, g, dx, dw, db, ws, ticket, n, h, wdtype};
+  return launch_cluster(kernel, ctas, LN_WARPS * 32, LN_CLUSTER, ln_smem_bytes(dtype, k, h),
+                        static_cast<cudaStream_t>(stream), a);
+}
+
+extern "C" int group_norm_bwd_max_clusters(int dtype, int mode, int cluster, int smem_bytes,
+                                           int* clusters) {
+  GnKernel kernel = gn_kernel(dtype, mode);
+  if (kernel == nullptr || cluster < 1 || cluster > GN_MAX_CLUSTER || smem_bytes < 0)
+    return cudaErrorInvalidValue;
+  return max_clusters(kernel, (GN_WARPS + 1) * 32, cluster, smem_bytes, clusters);
+}
+
+extern "C" int group_norm_bwd(const void* x, const void* w, const float* mean,
+                              const float* rstd, const void* g, void* dx, void* dw,
+                              void* db, float* ws, int* ticket, int n, int c, int groups,
+                              int hw, int dtype, int wdtype, int mode, int cluster,
+                              int clusters, int smem_bytes, void* stream) {
+  GnKernel kernel = gn_kernel(dtype, mode);
+  if (kernel == nullptr || n <= 0 || c <= 0 || groups <= 0 || c % groups || hw <= 0 ||
+      wdtype < 0 || wdtype > 2 || cluster < 1 || cluster > GN_MAX_CLUSTER ||
+      cluster > c / groups || clusters < 1 || clusters > n * groups)
+    return cudaErrorInvalidValue;
+  const int item = dtype == 0 ? 4 : 2;
+  if (mode != 2 && (hw * item) % 16) return cudaErrorInvalidValue;
+  const int max_ch = (c / groups + cluster - 1) / cluster;
+  if ((size_t)smem_bytes < gn_smem_bytes(mode, max_ch, hw, item)) return cudaErrorInvalidValue;
+  const GnArgs a = {x, w, mean, rstd, g, dx, dw, db, ws, ticket,
+                    n, c, groups, hw, wdtype, cluster, max_ch};
+  return launch_cluster(kernel, clusters * cluster, (GN_WARPS + 1) * 32, cluster, smem_bytes,
+                        static_cast<cudaStream_t>(stream), a);
+}

@@ -39,7 +39,7 @@ def _logits(h, weight, transpose_weight):
 class _FusedLinearCrossEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, weight, labels, ignore_index, transpose_weight,
-                chunk):
+                chunk, mean):
         total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for s in range(0, hidden.shape[0], chunk):
@@ -52,7 +52,7 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
             total += torch.where(valid, lse - true,
                                  torch.zeros_like(lse)).sum()
             cnt += valid.sum()
-        denom = cnt.clamp(min=1.0)
+        denom = cnt.clamp(min=1.0) if mean else torch.ones_like(cnt)
         ctx.save_for_backward(hidden, weight, labels, denom)
         ctx.cfg = (ignore_index, transpose_weight, chunk)
         return total / denom
@@ -80,18 +80,25 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
             else:                           # logits = h @ W, W [H, V]
                 dh[s:s + chunk] = dlog @ weight.t()
                 dw += _mm_f32(h_c.t(), dlog)
-        return dh, dw.to(weight.dtype), None, None, None, None
+        return dh, dw.to(weight.dtype), None, None, None, None, None
 
 
 def fused_linear_cross_entropy(hidden, weight, labels, ignore_index=-100,
-                               transpose_weight=False, chunk_rows=2048):
-    """Mean CE(softmax(hidden @ weight), labels) over the rows not
-    labelled ``ignore_index``, without materialising the logits.
+                               transpose_weight=False, chunk_rows=2048,
+                               reduction="mean"):
+    """CE(softmax(hidden @ weight), labels) over the rows not labelled
+    ``ignore_index``, without materialising the logits: their mean
+    (``reduction="mean"``) or sum (``"sum"``); per-row losses are
+    ``nn.functional.cross_entropy``'s, as in the JAX version.
     hidden [N, H]; weight [H, V], or [V, H] with ``transpose_weight=True``
     (the tied-embedding and torch ``Linear`` layout); labels [N]."""
+    if reduction not in ("mean", "sum"):
+        raise ValueError("fused_linear_cross_entropy supports "
+                         "reduction='mean'|'sum'; use "
+                         "nn.functional.cross_entropy for per-row losses")
     labels = labels.reshape(-1).to(torch.int64)
     if hidden.shape[0] == 0:
         return torch.zeros((), dtype=torch.float32, device=hidden.device)
     return _FusedLinearCrossEntropy.apply(
         hidden, weight, labels, ignore_index, bool(transpose_weight),
-        int(chunk_rows))
+        int(chunk_rows), reduction == "mean")

@@ -6,35 +6,36 @@ of ``Cg * HW`` elements (``Cg = C / G``, ``HW`` the spatial size), and
 
 Replaces the Pallas kernels ``_gn_fwd_kernel`` (launched by
 ``_gn_call_fwd``) and ``_gn_bwd_kernel`` (launched by ``_gn_vjp_bwd``),
-``paddle_tpu/ops/pallas/norms.py:304, :366`` and ``:318, :424``.  On the
-card both are Triton kernels with one program per (sample, group) row:
+``paddle_tpu/ops/pallas/norms.py:304, :366`` and ``:318, :424``.
 
-* The rows are long (up to 30 x 4096 = 122,880 elements in the SD UNet)
+* forward, a Triton kernel with one program per (sample, group) row.
+  The rows are long (up to 30 x 4096 = 122,880 elements in the SD UNet)
   and few (``N * G``, 128 at batch 4), so a row never fits in registers:
   each program walks it in ``[BLOCK_C, BLOCK_HW]`` tiles, channels down
   and spatial positions across, so the per-channel weight and bias are
   a ``[BLOCK_C]`` vector read once per tile (the TPU kernel instead
-  reads a broadcast ``[G, Cg * HW]`` copy of them from HBM).
-* forward: three passes over the row: the sum, then the sum of
-  ``(x - mean)^2`` (two passes, not ``E[x^2] - mean^2``, which cancels
-  at 10^5 elements with a large mean), then y.  The row is re-read from
-  L2 on the second and third pass: 128 rows of at most 240 KB (bf16)
-  fit the 50 MB L2.
-* backward: the first pass reduces each channel's ``sum(g)`` and
-  ``sum(g * xhat)`` over its ``HW`` positions and stores them as f32
-  partials ``[N, C]``; the row's ``mean(g*w)`` and ``mean(g*w*xhat)``
-  follow from those and ``w`` with no second reduction.  The second pass
-  writes ``dx = rstd * (g*w - mean(g*w) - xhat * mean(g*w*xhat))``.
-  ``dw`` and ``db`` are the partials summed over N by one ``.sum(0)`` in
-  a fixed order: deterministic, no atomics (the TPU kernel accumulates
-  ``[G, Cg * HW]`` column partials in VMEM over a sequential grid and
-  reduces them outside).
+  reads a broadcast ``[G, Cg * HW]`` copy of them from HBM); three
+  passes over the row: the sum, then the sum of ``(x - mean)^2`` (two
+  passes, not ``E[x^2] - mean^2``, which cancels at 10^5 elements with a
+  large mean), then y.  The row is re-read from L2 on the second and
+  third pass: 128 rows of at most 240 KB (bf16) fit the 50 MB L2.
+* backward, CUDA (``csrc/norms.cu``, one launch a call): clusters of
+  ``S`` CTAs, as many as the card holds, each walking rows; each CTA
+  takes a run of whole channels of a row, which it loads once into
+  shared memory with TMA bulk copies (the next row's chunk loads while
+  this one is reduced); each channel's
+  ``sum(g)`` and ``sum(g * xhat)`` are the ``[N, C]`` dw/db partials,
+  the row's ``mean(g*w)`` and ``mean(g*w*xhat)`` are summed across the
+  cluster through distributed shared memory, and ``dx = rstd * (g*w -
+  mean(g*w) - xhat * mean(g*w*xhat))`` is written from shared memory:
+  x and g are read once.  A chunk too large for shared memory streams
+  from device memory twice (16-byte vectors, or scalars where ``HW`` is
+  not a whole number of them).  The last CTA sums the partials over N
+  in a fixed order (no atomics on floats) into dw and db in the
+  weight's dtype, the last cluster's CTAs splitting the channels.  :func:`group_norm_bwd_plan` is the launch's plan.
 
 Bound: bytes (``2 N C HW`` elements forward, ``3 N C HW`` backward, plus
-the statistics, affine vectors and partials), against a few operations
-per element.  The grid of ``N * G`` programs fills at most 128 of the
-H100's 132 SMs at batch 4: splitting a row over several programs is
-later work, with the times in ``PERF.md``.
+the statistics and affine vectors), against a few operations per element.
 
 :func:`group_norm` is differentiable (a ``torch.autograd.Function``):
 the kernels for CUDA tensors, the plain twins for CPU tensors, and a
@@ -44,13 +45,42 @@ differentiated by torch autograd, the reference of the kernel path.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from .. import _build
+from .layer_norm import DTYPE_CODES
 
 #: ``triton.language``, bound at the first launch (triton is imported
 #: only when a kernel is launched, so this module imports without it)
 tl = None
 _KERNELS = {}
 _TILE = 4096           # elements of one [BLOCK_C, BLOCK_HW] tile
+#: the backward's geometry (``csrc/norms.cu``): warps a CTA, CTAs a
+#: cluster at most (the portable cluster size), rows of chunks a CTA holds
+#: in mode 0 (one summed, one awaiting its dx, one loading)
+GN_WARPS, GN_MAX_CLUSTER, GN_STAGES = 8, 8, 3
+#: dynamic shared memory a CTA may ask for: the H100's 227 KB per block
+#: less room for the kernel's static shared memory
+SMEM_MAX = 232448 - 128
+#: the largest x + g chunk the plan gives a CTA where the row splits
+#: finer (a CTA holds GN_STAGES of them)
+CHUNK_TARGET = 64 * 1024
+#: x and g of all rows together, in bytes, above which the chunks are
+#: staged in shared memory (mode 0).  Below it the rows in flight fit the
+#: H100's 50 MB L2, so the streamed kernel's second pass over a row comes
+#: from L2 and device memory still moves each byte once; measured on the
+#: card at every GroupNorm shape of the SD-UNet step, the streamed kernel
+#: with one CTA a row is then the faster (PERF.md §6).
+STAGED_MIN_BYTES = 32 * 1024 * 1024
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the C entry points' parameters (``csrc/kernels.h``) as ctypes types
+ARGTYPES = {
+    "group_norm_bwd": [_P] * 10 + [_I] * 10 + [_P],
+    "group_norm_bwd_max_clusters": [_I] * 4 + [ctypes.POINTER(_I)],
+}
+_MAX_CLUSTERS = {}
 
 
 def _dims(x, num_groups):
@@ -143,63 +173,13 @@ def _gn_fwd(X, W, B, Y, MEAN, RSTD, G, CG, HW, eps,
     tl.store(RSTD + pid, rstd)
 
 
-def _gn_bwd(X, W, MEAN, RSTD, G_, DX, DWP, DBP, G, CG, HW,
-            BLOCK_C: tl.constexpr, BLOCK_HW: tl.constexpr):
-    pid = tl.program_id(0)                  # sample * G + group
-    row_len = CG * HW
-    base = pid.to(tl.int64) * row_len
-    w0 = (pid % G) * CG
-    mean = tl.load(MEAN + pid)
-    rstd = tl.load(RSTD + pid)
-    cs = tl.arange(0, BLOCK_C)
-    hs = tl.arange(0, BLOCK_HW)
-    s1 = tl.zeros([BLOCK_C], dtype=tl.float32)   # w * sum(g) per channel
-    s2 = tl.zeros([BLOCK_C], dtype=tl.float32)   # w * sum(g * xhat)
-    for c0 in range(0, CG, BLOCK_C):
-        c = c0 + cs
-        cm = c < CG
-        acc_g = tl.zeros([BLOCK_C, BLOCK_HW], dtype=tl.float32)
-        acc_gx = tl.zeros([BLOCK_C, BLOCK_HW], dtype=tl.float32)
-        for h0 in range(0, HW, BLOCK_HW):
-            h = h0 + hs
-            m = cm[:, None] & (h < HW)[None, :]
-            off = base + c[:, None] * HW + h[None, :]
-            x = tl.load(X + off, mask=m, other=0.0).to(tl.float32)
-            g = tl.load(G_ + off, mask=m, other=0.0).to(tl.float32)
-            acc_g += g
-            acc_gx += g * tl.where(m, (x - mean) * rstd, 0.0)
-        db_c = tl.sum(acc_g, axis=1)
-        dw_c = tl.sum(acc_gx, axis=1)
-        tl.store(DBP + pid * CG + c, db_c, mask=cm)
-        tl.store(DWP + pid * CG + c, dw_c, mask=cm)
-        w = tl.load(W + w0 + c, mask=cm, other=0.0).to(tl.float32)
-        s1 += w * db_c
-        s2 += w * dw_c
-    c1 = tl.sum(s1, axis=0) / row_len
-    c2 = tl.sum(s2, axis=0) / row_len
-    for c0 in range(0, CG, BLOCK_C):
-        c = c0 + cs
-        cm = c < CG
-        w = tl.load(W + w0 + c, mask=cm, other=0.0).to(tl.float32)
-        for h0 in range(0, HW, BLOCK_HW):
-            h = h0 + hs
-            m = cm[:, None] & (h < HW)[None, :]
-            off = base + c[:, None] * HW + h[None, :]
-            x = tl.load(X + off, mask=m, other=0.0).to(tl.float32)
-            g = tl.load(G_ + off, mask=m, other=0.0).to(tl.float32)
-            xhat = (x - mean) * rstd
-            dx = rstd * (g * w[:, None] - c1 - xhat * c2)
-            tl.store(DX + off, dx.to(DX.dtype.element_ty), mask=m)
-
-
-def _kernel(name):
+def _fwd_kernel():
     global tl
     if not _KERNELS:
         import triton
         import triton.language as tl
         _KERNELS["fwd"] = triton.jit(_gn_fwd)
-        _KERNELS["bwd"] = triton.jit(_gn_bwd)
-    return _KERNELS[name]
+    return _KERNELS["fwd"]
 
 
 def _tiles(cg, hw):
@@ -246,19 +226,99 @@ def group_norm_kernel(x, weight, bias, num_groups, eps=1e-5):
     rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
     if x.numel():
         block_c, block_hw, warps = _tiles(cg, hw)
-        _kernel("fwd")[(rows,)](
+        _fwd_kernel()[(rows,)](
             x, weight, bias, y, mean, rstd, num_groups, cg, hw, float(eps),
             BLOCK_C=block_c, BLOCK_HW=block_hw, num_warps=warps)
         group_norm.launches += 1
     return y, mean, rstd
 
 
+def group_norm_bwd_smem(mode, max_ch, hw, item):
+    """Dynamic shared memory of a backward CTA (``gn_smem_bytes`` in
+    ``csrc/norms.cu``): in mode 0 ``GN_STAGES`` stages of x and g chunks
+    of ``max_ch`` channels and a barrier per channel and stage; the
+    per-warp and per-channel sums of a row and the weights of two rows."""
+    chunk = max_ch * hw * item if mode == 0 else 0
+    return (2 * GN_STAGES * chunk + (8 * GN_STAGES * max_ch if mode == 0 else 0)
+            + 8 * max(GN_WARPS, max_ch) + 16 * max_ch)
+
+
+def group_norm_bwd_plan(n, c, groups, hw, item, aligned, sms, max_clusters):
+    """The backward's launch -> ``{"mode", "cluster", "max_ch", "smem",
+    "clusters"}``.  ``hw * item`` a whole number of 16-byte vectors (with
+    ``aligned`` tensors) gives mode 0, the chunks staged in shared memory,
+    where x and g together exceed ``STAGED_MIN_BYTES`` and ``GN_STAGES``
+    chunks fit at the largest cluster; otherwise mode 1 (streamed
+    vectors); scalars stream in mode 2.  The cluster size ``S`` (at most
+    8 and ``Cg``): in mode 0 the smallest that gives ``2 * sms`` CTAs over
+    the ``N * G`` rows with chunks of at most ``CHUNK_TARGET`` bytes, the
+    largest where none does; streamed, the smallest that gives ``sms / 2``
+    CTAs (one CTA a row at the SD-UNet's 128 rows, where splitting a row
+    measured slower).  The grid holds as many clusters as the device runs
+    at once (``max_clusters(mode, S, smem)``), at most one a row; each
+    walks rows ``cluster, cluster + clusters, ...``
+    (:func:`group_norm_bwd_rows`)."""
+    cg, rows = c // groups, n * groups
+    top = min(GN_MAX_CLUSTER, cg)
+    per = lambda s: -(-cg // s)                  # channels of the widest CTA
+    vec = aligned and (hw * item) % 16 == 0
+    if vec and 2 * n * c * hw * item > STAGED_MIN_BYTES \
+            and group_norm_bwd_smem(0, per(top), hw, item) <= SMEM_MAX:
+        mode = 0
+        s = next((s for s in range(1, top + 1) if rows * s >= 2 * sms
+                  and 2 * per(s) * hw * item <= CHUNK_TARGET), top)
+    else:
+        mode = 1 if vec else 2
+        s = next((s for s in range(1, top + 1) if 2 * rows * s >= sms), top)
+    smem = group_norm_bwd_smem(mode, per(s), hw, item)
+    return {"mode": mode, "cluster": s, "max_ch": per(s), "smem": smem,
+            "clusters": min(rows, max_clusters(mode, s, smem))}
+
+
+def group_norm_bwd_rows(plan, rows, cluster):
+    """The (sample, group) rows one cluster of ``plan`` walks, in order."""
+    return range(cluster, rows, plan["clusters"])
+
+
+def group_norm_bwd_chunks(plan, cg):
+    """The channels ``[c0, c1)`` of a row that each CTA of a cluster
+    takes, in rank order (as the kernel splits them)."""
+    s = plan["cluster"]
+    return [(r * cg // s, (r + 1) * cg // s) for r in range(s)]
+
+
+def _lib():
+    lib = _build.load("norms")
+    for name, types in ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _max_clusters(lib, device, code, mode, s, smem):
+    key = (device.index, code, mode, s, smem)
+    if key not in _MAX_CLUSTERS:
+        out = ctypes.c_int(0)
+        rc = lib.group_norm_bwd_max_clusters(code, mode, s, smem,
+                                             ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"group_norm_bwd occupancy query failed: CUDA "
+                               f"error {rc}")
+        _MAX_CLUSTERS[key] = out.value
+    return _MAX_CLUSTERS[key]
+
+
 def group_norm_bwd_kernel(x, weight, mean, rstd, g, num_groups):
-    """Launch the Triton backward on CUDA tensors -> (dx, dw, db)."""
+    """Launch the CUDA backward on the current stream -> (dx, dw, db)."""
     n, c, cg, hw = _check("group_norm_bwd", x, weight, num_groups, mean,
                           rstd, g)
     if g.shape != x.shape or g.dtype != x.dtype:
         raise ValueError("group_norm_bwd kernel: g must match x")
+    if weight.dtype not in DTYPE_CODES:
+        raise TypeError(f"group_norm_bwd kernel: unsupported weight dtype "
+                        f"{weight.dtype}")
     rows = n * num_groups
     for t in (mean, rstd):
         if t.dtype != torch.float32 or tuple(t.shape) != (rows,):
@@ -267,14 +327,29 @@ def group_norm_bwd_kernel(x, weight, mean, rstd, g, num_groups):
     dx = torch.empty_like(x)
     if not x.numel():
         return dx, torch.zeros_like(weight), torch.zeros_like(weight)
-    dwp = torch.empty((n, c), dtype=torch.float32, device=x.device)
-    dbp = torch.empty_like(dwp)
-    block_c, block_hw, warps = _tiles(cg, hw)
-    _kernel("bwd")[(rows,)](
-        x, weight, mean, rstd, g, dx, dwp, dbp, num_groups, cg, hw,
-        BLOCK_C=block_c, BLOCK_HW=block_hw, num_warps=warps)
+    dw, db = torch.empty_like(weight), torch.empty_like(weight)
+    dev, code = x.device, DTYPE_CODES[x.dtype]
+    ws = torch.empty((n, 2, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        lib = _lib()
+        plan = group_norm_bwd_plan(
+            n, c, num_groups, hw, x.element_size(),
+            all(t.data_ptr() % 16 == 0 for t in (x, g, dx)),
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            lambda mode, s, smem: _max_clusters(lib, dev, code, mode, s,
+                                                smem))
+        rc = lib.group_norm_bwd(
+            x.data_ptr(), weight.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), ws.data_ptr(), _build.ticket(dev).data_ptr(), n, c,
+            num_groups, hw, code, DTYPE_CODES[weight.dtype], plan["mode"],
+            plan["cluster"], plan["clusters"], plan["smem"],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"group_norm_bwd kernel launch failed: CUDA error "
+                           f"{rc}")
     group_norm_bwd.launches += 1
-    return dx, dwp.sum(0).to(weight.dtype), dbp.sum(0).to(weight.dtype)
+    return dx, dw, db
 
 
 def group_norm_fwd(x, weight, bias, num_groups, eps=1e-5):

@@ -65,13 +65,18 @@ class Adam(Optimizer):
 
 
 class AdamW(Adam):
+    """Adam with decoupled decay.  ``lr_ratio(p)``, where given, scales
+    the step's learning rate for parameter ``p`` (the decay too, as in
+    the JAX version, which multiplies the lr before both)."""
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, grad_clip=None,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  multi_precision=False, device=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, multi_precision, device)
         self._coeff = float(weight_decay)
+        self._lr_ratio = lr_ratio
         self._apply_decay_param_fun = apply_decay_param_fun
 
     def _decay_for(self, p):
@@ -83,5 +88,7 @@ class AdamW(Adam):
         return self._coeff
 
     def _update_raw(self, p, param, grad, state, lr):
+        if self._lr_ratio is not None:
+            lr = lr * self._lr_ratio(p)
         return self._adam_math(param, grad, state, lr,
                                decoupled_wd=self._decay_for(p))

@@ -437,8 +437,10 @@ class Engine:
 
     def stats(self):
         """Counters of this engine, plus the process-wide kernel launch
-        counts (``kernel_launches``)."""
-        return {
+        counts (``kernel_launches``).  ``ttft_avg_s``, the mean TTFT of
+        the finished requests, is present once one has finished (the JAX
+        engine's key and rule)."""
+        c = {
             "requests_finished": self._finished,
             "prefill_calls": self._prefill_calls,
             "prompt_tokens": self._prompt_tokens,
@@ -447,9 +449,10 @@ class Engine:
             "decode_tokens": self._decode_tokens,
             "decode_seconds": self._decode_s,
             "tokens_generated": self._tokens_generated,
-            "ttft_mean_s": (self._ttft_sum / self._finished
-                            if self._finished else None),
             "kv_blocks_in_use": self.pool.blocks_in_use,
             "kv_blocks_capacity": self.pool.capacity,
             "kernel_launches": kernel_launches(),
         }
+        if self._finished:
+            c["ttft_avg_s"] = self._ttft_sum / self._finished
+        return c

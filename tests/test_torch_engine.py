@@ -168,3 +168,22 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
               "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=PORT.parent, timeout=120)
+
+
+def test_stats_ttft_avg_follows_the_jax_engine():
+    """``stats()["ttft_avg_s"]`` has the JAX engine's name and rule:
+    absent until a request finishes, then the sum of the finished
+    requests' TTFT over their count."""
+    jm = jax_model(TINY, seed=3)
+    prompts = _prompts(TINY, [5, 9, 4])
+    jeng = JEngine(jm, JEngineConfig(num_slots=2, max_seq_len=64,
+                                     max_horizon=4), register_profiler=False)
+    eng = _port_engine(TINY, jm)
+    for e, sp in ((jeng, JSamplingParams), (eng, SamplingParams)):
+        assert "ttft_avg_s" not in e.stats()
+        reqs = [e.submit(p, sp(max_new_tokens=3)) for p in prompts]
+        e.run()
+        st = e.stats()
+        assert st["ttft_avg_s"] == pytest.approx(
+            sum(r.ttft for r in reqs) / len(reqs), rel=1e-12)
+    assert "ttft_mean_s" not in eng.stats()

@@ -116,6 +116,37 @@ def _adamw(decay_fun):
             device="cpu"))
 
 
+def _half_lr_for_vectors(p):
+    """An ``lr_ratio``: half the step for 1-D parameters (the norm)."""
+    return 0.5 if p.ndim == 1 else 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_lr_ratio_matches_jax_over_20_steps(dtype):
+    """AdamW's ``lr_ratio`` scales each parameter's learning rate, as in
+    the JAX version (``optimizers.py`` ``AdamW._update_raw``)."""
+    make_j, make_t = (
+        lambda s, ps, c: paddle.optimizer.AdamW(
+            learning_rate=s, parameters=ps, weight_decay=0.1, grad_clip=c,
+            lr_ratio=_half_lr_for_vectors, multi_precision=True),
+        lambda s, ps, c: AdamW(
+            learning_rate=s, parameters=ps, weight_decay=0.1, grad_clip=c,
+            lr_ratio=_half_lr_for_vectors, multi_precision=True,
+            device="cpu"))
+    jp, tp, jopt, topt = _run(make_j, make_t, dtype, True)
+    for n in SHAPES:
+        if dtype == "float32":
+            _close(tp[n].detach().numpy(), jp[n].numpy())
+        else:
+            np.testing.assert_allclose(
+                tp[n].detach().float().numpy(),
+                np.asarray(jp[n].numpy(), np.float32), rtol=2 ** -7, atol=0)
+    _check_state(jp, tp, jopt, topt, SHAPES)
+    # the ratio moved the norm weight and left the matrices' steps alone
+    _, base, _, _ = _run(*_adamw(None), dtype, True)
+    assert not torch.equal(base["norm.weight"], tp["norm.weight"])
+
+
 @pytest.mark.parametrize("clip", [True, False], ids=["clip", "noclip"])
 def test_adamw_f32_matches_jax_over_20_steps(clip):
     no_norm = lambda name: "norm" not in name

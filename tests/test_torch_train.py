@@ -158,3 +158,45 @@ def test_fused_loss_on_an_indivisible_row_count():
         grads.append((loss.detach(), th.grad, tw.grad))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum"])
+def test_fused_loss_reduction_matches_jax(reduction):
+    """``reduction="mean"|"sum"`` of the fused loss: the loss and its
+    gradients equal the JAX version's (``paddle_tpu/ops/fused_ce.py``,
+    differentiated by ``jax.grad``) on the same inputs, with ignored
+    rows and a short last chunk; other reductions raise in both."""
+    import jax
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.fused_ce import (
+        fused_linear_cross_entropy as jax_fused_ce,
+    )
+    from paddle_tpu_torch.ops.fused_ce import fused_linear_cross_entropy
+
+    n, h, v = 70, 8, 13
+    r = np.random.RandomState(11)
+    hid = r.randn(n, h).astype(np.float32)
+    w = r.randn(h, v).astype(np.float32)
+    y = r.randint(0, v, n)
+    y[::5] = -100
+    f = lambda a, b: jax_fused_ce(a, b, jnp.asarray(y), chunk_rows=32,
+                                  reduction=reduction)
+    want, (dh_j, dw_j) = jax.value_and_grad(f, argnums=(0, 1))(
+        jnp.asarray(hid), jnp.asarray(w))
+    th = torch.from_numpy(hid).requires_grad_(True)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    loss = fused_linear_cross_entropy(th, tw, torch.from_numpy(y),
+                                      chunk_rows=32, reduction=reduction)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
+    for got, ref in ((th.grad, dh_j), (tw.grad, dw_j)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+    with pytest.raises(ValueError):
+        fused_linear_cross_entropy(th, tw, torch.from_numpy(y),
+                                   reduction="none")
+    with pytest.raises(ValueError):
+        jax_fused_ce(jnp.asarray(hid), jnp.asarray(w), jnp.asarray(y),
+                     reduction="none")
