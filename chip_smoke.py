@@ -31,18 +31,24 @@ the script exits nonzero and prints no result:
    40/80/160/160), each case with the dK/dV kernel's query split
    (dkv_splits); then the bf16 backward's determinism, dQ, dK and dV bit
    for bit over two calls at the LM shape (one query range) and the
-   UNet's level-0 cross-attention (16 ranges summed by a second kernel); LayerNorm forward and backward at [16384,320],
-   [4096,640], [1024,1280] (bf16), [4096,640] (f32), [4096,768] (BERT's
-   width) and [4096,100] (rows not in whole 16-byte vectors: the
-   CTA-per-row backward); GroupNorm forward and backward at
-   [4,320,64,64], [4,960,64,64], [4,2560,8,8] (bf16, 32 groups),
-   [4,320,64,64] (f32), [2,6,5,7] with 3 groups (odd spatial size: the
-   scalar streaming backward) and [1,64,128,128] f32 with 1 group (a row
-   too long for shared memory: the vector streaming backward), each
-   backward's profile holding its own kernel alone; then the norm
-   backwards' determinism, dx, dw and db bit for bit over two calls at
-   [16384,320] and [4,960,64,64] (bf16).  Tolerances are stated
-   with the comparisons (TOLERANCES).  Each case
+   UNet's level-0 cross-attention (16 ranges summed by a second kernel);
+   LayerNorm forward and backward at [16384,320], [4096,640], [1024,1280],
+   [256,1280] (bf16), [4096,640] (f32), [4096,768] (BERT's width) and
+   [4096,100] (rows not in whole 16-byte vectors: the CTA-per-row
+   backward); GroupNorm forward and backward at [4,320,64,64],
+   [4,960,64,64], [4,2560,8,8] (bf16, 32 groups), [4,320,64,64] (f32),
+   [2,6,5,7] with 3 groups (odd spatial size: the scalar streaming
+   kernels) and [1,64,128,128] f32 with 1 group (a row too long for
+   shared memory: the vector streaming kernels), each backward's and
+   each GroupNorm forward's profile holding its own kernel alone; then
+   the norms' determinism, the backwards' dx, dw and db bit for bit over
+   two calls at [16384,320] and [4,960,64,64], the GroupNorm forward's
+   y, mean and rstd at [4,960,64,64] and [4,320,64,64] (bf16); then the
+   GroupNorm forward at the 14 shapes of the UNet step (UNET_GN_SHAPES,
+   bf16): device and CUDA-event ms, bound and F.group_norm's device ms,
+   and their sums over the step weighted by the calls (gn_fwd_sweep; run
+   alone with ``--gn-fwd-sweep``, see sweep_main).  Tolerances are
+   stated with the comparisons (TOLERANCES).  Each case
    prints its kernel, plain and library times and its bound; the
    attention and norm cases (RMSNorm too) also the kernel's and the
    library's device time under torch.profiler (device_ms), which leaves
@@ -93,6 +99,13 @@ the script exits nonzero and prints no result:
 
 The last three lines are the card's nvidia-smi line, the per-kernel JSON
 summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
+
+    python3 chip_smoke.py --gn-fwd-sweep [--variants] [--tree DIR]
+
+runs the GroupNorm forward sweep alone: with ``--variants`` also every
+launch the kernel takes at each shape (mode x cluster size), and with
+``--tree DIR`` the ``paddle_tpu_torch`` of another checkout (a parent
+commit's, to compare two versions in one run on one card).
 """
 
 from __future__ import annotations
@@ -103,6 +116,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -141,6 +155,14 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_WARMUP, TRAIN_TIMED = 2, 4
 # the SD-UNet train step (SD-1.x widths, 512-px training: 64x64 latents)
 UNET_BATCH, UNET_LATENT, UNET_CONTEXT = 4, 64, 77
+# the GroupNorm forwards of one such step (32 groups), x shape: calls a
+# step; tests/test_torch_norm_plan.py traces the model to the same table
+UNET_GN_SHAPES = {
+    (4, 960, 64, 64): 1, (4, 640, 64, 64): 2, (4, 1920, 32, 32): 1,
+    (4, 320, 64, 64): 13, (4, 1280, 32, 32): 1, (4, 960, 32, 32): 1,
+    (4, 640, 32, 32): 11, (4, 2560, 16, 16): 2, (4, 1920, 16, 16): 1,
+    (4, 320, 32, 32): 1, (4, 1280, 16, 16): 11, (4, 640, 16, 16): 1,
+    (4, 2560, 8, 8): 3, (4, 1280, 8, 8): 12}
 
 
 def emit(obj):
@@ -456,6 +478,7 @@ def kernel_phase(torch, dev):
     seed = flash_bwd_determinism_check(torch, dev, seed)
     seed = norm_cases(torch, dev, summary, seed)
     seed = norm_bwd_determinism_check(torch, dev, seed)
+    seed = gn_fwd_sweep(torch, dev, seed)
     rms_autograd_check(torch, dev, seed)
     unsupported_check(torch, dev)
     return summary
@@ -712,17 +735,23 @@ def unet_flash_shapes():
 
 def kernel_names(torch, fn):
     """The names of the kernels one ``fn()`` call launches (after one
-    warm-up call), from torch.profiler."""
+    warm-up call), from torch.profiler; profiled again (up to three
+    times) when no kernel event arrived, as the profiler can drop them
+    (see :func:`device_ms`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == DeviceType.CUDA})
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA})
+        if names:
+            break
+    return names
 
 
 def norm_cases(torch, dev, summary, seed):
@@ -751,8 +780,9 @@ def norm_cases(torch, dev, summary, seed):
     )
 
     ln = [((16384, 320), "bfloat16", None), ((4096, 640), "bfloat16", None),
-          ((1024, 1280), "bfloat16", None), ((4096, 640), "float32", None),
-          ((4096, 768), "bfloat16", None), ((4096, 100), "bfloat16", None)]
+          ((1024, 1280), "bfloat16", None), ((256, 1280), "bfloat16", None),
+          ((4096, 640), "float32", None), ((4096, 768), "bfloat16", None),
+          ((4096, 100), "bfloat16", None)]
     gn = [((4, 320, 64, 64), "bfloat16", 32), ((4, 960, 64, 64), "bfloat16", 32),
           ((4, 2560, 8, 8), "bfloat16", 32), ((4, 320, 64, 64), "float32", 32),
           ((2, 6, 5, 7), "bfloat16", 3), ((1, 64, 128, 128), "float32", 1)]
@@ -809,6 +839,12 @@ def norm_cases(torch, dev, summary, seed):
             if len(names) != 1 or bwd_names[kind] not in names[0]:
                 raise AssertionError(f"{kind}_bwd/{name}: one call launched "
                                      f"{names}, want its CUDA kernel alone")
+            fwd_names = kernel_names(torch, fns["fwd"])
+            if kind == "group_norm" and (len(fwd_names) != 1
+                                         or "gn_fwd" not in fwd_names[0]):
+                raise AssertionError(f"{name}: one forward call launched "
+                                     f"{fwd_names}, want its CUDA kernel "
+                                     "alone")
             pf_ms = cuda_ms(lambda: fwd_p(x, w, bias, *args, eps), 5)
             pb_ms = cuda_ms(lambda: bwd_p(x, w, mean, rstd, gy, *args), 5)
             del yl, fns
@@ -834,6 +870,8 @@ def norm_cases(torch, dev, summary, seed):
                     case["groups"] = groups
                 if kname.endswith("_bwd"):
                     case["kernels"] = names
+                elif kind == "group_norm":
+                    case["kernels"] = fwd_names
                 emit(case)
                 if dname == "bfloat16" and shape in ((4096, 640),
                                                      (4, 960, 64, 64)):
@@ -845,9 +883,11 @@ def norm_bwd_determinism_check(torch, dev, seed):
     """The norm backward kernels give bitwise equal dx, dw and db over
     two calls on the same inputs (their sums across blocks run in a
     fixed order, with no floating-point atomics): LayerNorm at
-    [16384,320] and GroupNorm at [4,960,64,64], bf16."""
+    [16384,320] and GroupNorm at [4,960,64,64], bf16; and the GroupNorm
+    forward bitwise equal y, mean and rstd (the ranks' partials merged
+    in rank order) at [4,960,64,64] and [4,320,64,64], bf16."""
     from paddle_tpu_torch.ops.group_norm import (
-        group_norm_bwd_kernel, group_norm_fwd_plain,
+        group_norm_bwd_kernel, group_norm_fwd_plain, group_norm_kernel,
     )
     from paddle_tpu_torch.ops.layer_norm import (
         layer_norm_bwd_kernel, layer_norm_fwd_plain,
@@ -881,8 +921,109 @@ def norm_bwd_determinism_check(torch, dev, seed):
                                      "differ between two calls")
         report[cname] = {"dx_dw_db": "bitwise equal"}
         del x, w, gy, runs
+    for shape in ((4, 960, 64, 64), (4, 320, 64, 64)):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        seed += 1
+        x = (3.0 + 2.0 * torch.randn(*shape, generator=g)).to(
+            torch.bfloat16).to(dev)
+        w = (1.0 + 0.1 * torch.randn(shape[1], generator=g)).to(
+            torch.bfloat16).to(dev)
+        b = (0.1 * torch.randn(shape[1], generator=g)).to(torch.bfloat16) \
+            .to(dev)
+        runs = [group_norm_kernel(x, w, b, 32) for _ in range(2)]
+        torch.cuda.synchronize()
+        cname = f"group_norm/{'x'.join(map(str, shape))}"
+        for n, a, b_ in zip(("y", "mean", "rstd"), *runs):
+            if not torch.equal(a, b_):
+                raise AssertionError(f"norm_determinism {cname}/{n}: "
+                                     f"{(a != b_).sum().item()} elements "
+                                     "differ between two calls")
+        report[cname] = {"y_mean_rstd": "bitwise equal"}
+        del x, w, b, runs
     emit({"phase": "norm_bwd_determinism", "dtype": "bfloat16",
           "checks": report})
+    return seed
+
+
+def gn_fwd_variants(gn, shape, item):
+    """Every launch the GroupNorm forward kernel takes at ``shape`` (32
+    groups): staged (mode 0) where the chunk fits shared memory and
+    streamed (mode 1, with the plan's hold), at each cluster size S <=
+    min(8, Cg); and streamed one CTA a row with each hold."""
+    n, c, h, w = shape
+    cg, hw = c // 32, h * w
+    out = {}
+    for mode in (0, 1):
+        for s in range(1, min(8, cg) + 1):
+            max_ch = -(-cg // s)
+            smem = gn.group_norm_fwd_smem(mode, max_ch, hw, item)
+            if smem <= gn.SMEM_MAX:
+                out[f"mode{mode}/S{s}"] = {
+                    "mode": mode, "cluster": s, "smem": smem,
+                    "hold": gn.group_norm_fwd_hold(mode, max_ch, hw, item)}
+    for k in gn.FWD_HOLDS:
+        out[f"mode1/S1/hold{k}"] = dict(out["mode1/S1"], hold=k)
+    return out
+
+
+def gn_fwd_sweep(torch, dev, seed, variants=False):
+    """The GroupNorm forward at the 14 shapes of the UNet step
+    (UNET_GN_SHAPES, bf16, 32 groups), each checked against its plain
+    twin: device ms (profiler), CUDA-event ms over back-to-back calls
+    (the host launch path included), the byte bound and F.group_norm's
+    device ms; then the step's sums weighted by the calls.  With
+    ``variants`` (``--variants``) also the device ms of every launch the
+    kernel takes (gn_fwd_variants) beside the plan's own."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    gn = importlib.import_module("paddle_tpu_torch.ops.group_norm")
+    total = {"device_ms": 0.0, "ms": 0.0, "bound_ms": 0.0,
+             "library_device_ms": 0.0}
+    for shape, calls in UNET_GN_SHAPES.items():
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        seed += 1
+        x = (3.0 + 2.0 * torch.randn(*shape, generator=g)).to(
+            torch.bfloat16).to(dev)
+        w = (1.0 + 0.1 * torch.randn(shape[1], generator=g)).to(
+            torch.bfloat16).to(dev)
+        b = (0.1 * torch.randn(shape[1], generator=g)).to(torch.bfloat16) \
+            .to(dev)
+        name = f"group_norm/{'x'.join(map(str, shape))}/bfloat16"
+        ref = gn.group_norm_fwd_plain(x, w, b, 32)
+        err = max(check_close(f"{name}/{n}", a, r,
+                              "bfloat16" if n == "y" else "float32")
+                  for n, a, r in zip(("y", "mean", "rstd"),
+                                     gn.group_norm_kernel(x, w, b, 32), ref))
+        kern = lambda: gn.group_norm_kernel(x, w, b, 32)
+        lib = lambda: F.group_norm(x, 32, w, b, 1e-5)
+        n_el, rows = x.numel(), shape[0] * 32
+        b_ms, _ = bound(2 * n_el * 2 + 2 * shape[1] * 2 + 2 * rows * 4,
+                        7 * n_el, "bfloat16")
+        case = {"phase": "gn_fwd_sweep", "x": list(shape), "calls": calls,
+                "max_abs_err": err, "device_ms": device_ms(torch, kern, 5),
+                "ms": cuda_ms(kern, 200), "bound_ms": b_ms,
+                "library_device_ms": device_ms(torch, lib, 5)}
+        plan_fn = getattr(gn, "group_norm_fwd_plan", None)
+        if plan_fn is not None:
+            n, c, h, w_ = shape
+            case["plan"] = plan_fn(n, c, 32, h * w_, 2, True)
+        if variants and plan_fn is not None:
+            case["variants"] = {}
+            for k, p in gn_fwd_variants(gn, shape, 2).items():
+                launch = gn._fwd_launch(x, w, b, 32, p)
+                check_close(f"{name}/{k}/y", gn._fwd_run(
+                    launch, x, w, b, 1e-5)[0], ref[0], "bfloat16")
+                case["variants"][k] = device_ms(
+                    torch, lambda: gn._fwd_run(launch, x, w, b, 1e-5), 5)
+        emit(case)
+        for k in total:
+            if isinstance(case[k], float):
+                total[k] += calls * case[k]
+        del x, w, b, ref
+    emit({"phase": "gn_fwd_sweep_step", "calls": sum(UNET_GN_SHAPES.values()),
+          **{f"{k}_per_step": v for k, v in total.items()}})
     return seed
 
 
@@ -1088,7 +1229,7 @@ def profile_phase(torch, eng, prompts, params):
 PORT_KERNELS = (
     ("flash", ("flash_fwd", "flash_bwd", "FlashProblem")),
     ("paged_attention", ("paged_attn", "PagedProblem")),
-    ("group_norm", ("_gn_fwd", "gn_bwd_kernel")),
+    ("group_norm", ("gn_fwd_kernel", "gn_bwd_kernel")),
     ("layer_norm", ("_ln_fwd", "ln_bwd_warp_kernel", "ln_bwd_row_kernel")),
     ("rms_norm", ("_rms_fwd", "_rms_bwd")),
 )
@@ -1547,6 +1688,23 @@ def unet_train_parity_phase(torch, dev):
           "launches": launches})
 
 
+def sweep_main(torch, args):
+    """``--gn-fwd-sweep [--variants] [--tree DIR]``: the GroupNorm forward
+    sweep alone (:func:`gn_fwd_sweep`), of the ``paddle_tpu_torch`` under
+    DIR (another checkout, e.g. a parent commit's) if given."""
+    if "--tree" in args:
+        sys.path.insert(0, os.path.abspath(args[args.index("--tree") + 1]))
+    import paddle_tpu_torch
+
+    smi = nvidia_smi()
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "package": os.path.dirname(paddle_tpu_torch.__file__)})
+    gn_fwd_sweep(torch, torch.device("cuda"), 0, "--variants" in args)
+    print(smi)
+    return 0
+
+
 def main():
     import torch
 
@@ -1554,6 +1712,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "kernels need a CUDA device", file=sys.stderr)
         return 1
+    if "--gn-fwd-sweep" in sys.argv[1:]:
+        return sweep_main(torch, sys.argv[1:])
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
@@ -1599,7 +1759,7 @@ def main():
         "layer_norm_bwd": ("cuda", "paddle_tpu_torch/csrc/norms.cu",
                            "paddle_tpu/ops/pallas/norms.py:141",
                            "unet_train"),
-        "group_norm": ("triton", "paddle_tpu_torch/ops/group_norm.py",
+        "group_norm": ("cuda", "paddle_tpu_torch/csrc/norms.cu",
                        "paddle_tpu/ops/pallas/norms.py:366", "unet_train"),
         "group_norm_bwd": ("cuda", "paddle_tpu_torch/csrc/norms.cu",
                            "paddle_tpu/ops/pallas/norms.py:424",

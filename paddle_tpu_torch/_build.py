@@ -100,15 +100,18 @@ def load(name):
     return lib
 
 
-def ticket(device):
-    """A zeroed int32 on ``device`` for its current stream: the counter
-    through which the last block of a norm backward launch finds itself
+def ticket(device, stream=None):
+    """A zeroed int32 on ``device`` for ``stream`` (a raw stream handle;
+    by default the device's current stream): the counter through which
+    the last block of a norm backward launch finds itself
     (``csrc/norms.cu``), left at 0 again by that block.  One per (device,
     stream): the launches of one stream run in order and never hold it at
     once."""
     import torch
 
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
     t = _TICKETS.get(key)
     if t is None:
         t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)

@@ -82,6 +82,21 @@ int group_norm_bwd(const void* x, const void* w, const float* mean,
                    int hw, int dtype, int wdtype, int mode, int cluster,
                    int clusters, int smem_bytes, void* stream);
 
+// GroupNorm forward (see norms.cu): x, y [n, c, hw] with c % groups == 0,
+// w and b [c] (wdtype, bdtype: 0 = f32, 1 = bf16, 2 = f16, each its own);
+// stats f32 [2, n * groups]: each (sample, group) row's mean, then its
+// rstd.  n * groups clusters of `cluster` CTAs (1..8, at most c / groups),
+// one a row; mode 0 = each CTA's channels staged in shared memory
+// (hw * itemsize % 16 == 0, 16-byte aligned x and y; hold 1), 1 =
+// streamed 16-byte vectors (the same alignment; hold 4, 8 or 10
+// vectors a thread, held in registers where the chunk fits), 2 = streamed
+// scalars (hold 4); smem_bytes the dynamic shared memory a CTA asks for
+// (at least what the mode needs).
+int group_norm_fwd(const void* x, const void* w, const void* b, void* y,
+                   float* stats, int n, int c, int groups, int hw, int dtype,
+                   int wdtype, int bdtype, int mode, int hold, int cluster,
+                   int smem_bytes, float eps, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

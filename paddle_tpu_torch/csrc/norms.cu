@@ -1,15 +1,16 @@
-// LayerNorm and GroupNorm backward, for sm_90a.
+// LayerNorm and GroupNorm backward, GroupNorm forward, for sm_90a.
 //
-// Replaces two Pallas TPU kernels of paddle_tpu/ops/pallas/norms.py:
+// Replaces three Pallas TPU kernels of paddle_tpu/ops/pallas/norms.py:
 //   LayerNorm  <- _ln_bwd_kernel (:44, launched by _ln_vjp_bwd :141)
 //   GroupNorm  <- _gn_bwd_kernel (:318, launched by _gn_vjp_bwd :424)
-// and computes what they compute, in f32 from the saved f32 mean and rstd
-// of each normalised row (xhat = (x - mean) * rstd):
+//   GroupNorm  <- _gn_fwd_kernel (:304, launched by _gn_call_fwd :366)
+// The backwards compute what their TPU kernels compute, in f32 from the
+// saved f32 mean and rstd of each normalised row (xhat = (x - mean) * rstd):
 //   dx = rstd * (g w - mean(g w) - xhat * mean(g w xhat)),
 //   dw = sum of g xhat and db = sum of g over every row a weight scales,
 // dx in x's dtype, dw and db in the weight's (f32, bf16 or f16).
 //
-// Bound.  Both move x and g in and dx out once (3 elements of x's dtype
+// Bound.  Both backwards move x and g in and dx out once (3 elements of x's dtype
 // per element) against ~12 operations: bytes bound them, 4.7 us at
 // [4096, 640] and 28 us at [4, 960, 64, 64] in bf16 on an H100 (3.35
 // TB/s).  The TPU kernels walk the rows as a sequential grid and carry
@@ -62,6 +63,33 @@
 //     multiple of 16 (no 16-byte vectors, no bulk copies).
 //   The [N, C] partials are summed over N in sample order by the last
 //   cluster to take the ticket, which resets it.
+//
+// GroupNorm forward (same rows): y = (x - mean) rstd w[c] + b[c] with the
+// row's f32 mean and rstd = rsqrt(mean((x - mean)^2) + eps), y in x's
+// dtype, mean and rstd f32 [N G].  Bound by bytes: x in and y out once,
+// 19 us at [4, 960, 64, 64] in bf16 on an H100.  The TPU kernel holds a
+// block of rows in VMEM; here the problem is parallelism: the SD UNet has
+// only N G = 128 rows of up to 240 KB, so one CTA a row streams 128 rows
+// with a few KB in flight each.  A row is split instead over a cluster of
+// S <= 8 CTAs (the wrapper's plan sizes S from the shape alone), one CTA
+// for each rank's whole channels [r Cg / S, (r + 1) Cg / S), one launch
+// of rows x S CTAs, no persistence and no tail.  A CTA takes its chunk's
+// sum, then M2 about the chunk's own mean (two passes, never E[x^2] -
+// mean^2); the ranks push (sum, M2) to every rank by st.async, and each
+// merges them in rank order (Chan: M2 = sum of M2_r + n_r (mean_r -
+// mean)^2), so every rank holds the same bits and the result is bitwise
+// the same run to run.  y is then written from the chunk.
+//   MODE 0: the chunk lands once in shared memory by bulk copies of
+//     GNF_PIECE bytes, each on its own barrier, and the sum starts on the
+//     first piece; the second pass and y read shared memory: x leaves
+//     device memory once.
+//   MODE 1: the chunk streams from device memory (16-byte vectors): a
+//     row of at most 10 vectors a thread (40 KB) is loaded once and held
+//     in registers through the passes, which beats the bulk copies and
+//     the shared-memory passes there; a chunk too large for shared memory
+//     is read in every pass, the later passes hitting the L2.
+//   MODE 2: as MODE 1 with scalar loads, where HW * sizeof(T) is not a
+//     multiple of 16.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -89,6 +117,8 @@ constexpr int GN_MAX_CLUSTER = 8;
 constexpr int GN_PIECE = 8192;  // bytes of x a bulk copy brings at least
 constexpr int GN_STAGES = 3;    // rows of chunks a CTA holds: summed, awaiting dx, loading
 constexpr int GN_UNROLL = 4;    // vectors a thread loads before it computes on them
+constexpr int GNF_WARPS = 8;    // warps of a GroupNorm forward CTA
+constexpr int GNF_PIECE = 32768;  // bytes of x a forward bulk copy brings at most
 constexpr unsigned FULL = 0xffffffffu;
 
 struct LnArgs {
@@ -117,6 +147,16 @@ struct GnArgs {
   float* ws;     // [2][N][C]: dw partials, then db partials
   int* ticket;
   int n, c, groups, hw, wdtype, s, max_ch;
+};
+
+struct GnFwdArgs {
+  const void* x;
+  const void* w;
+  const void* b;
+  void* y;
+  float* stats;  // [2][rows]: the rows' mean, then their rstd
+  int rows, cg, groups, hw, wdtype, bdtype, s, max_ch;
+  float eps;
 };
 
 // --------------------------------------------------------------- numbers
@@ -861,6 +901,246 @@ GnKernel gn_kernel(int dtype, int mode) {
   return nullptr;
 }
 
+// ----------------------------------------------------- GroupNorm forward
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// v summed over the CTA through red[GNF_WARPS]: every thread adds the
+// warps' sums in warp order, so all end with the same bits
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < GNF_WARPS; ++w) s += red[w];
+  return s;
+}
+
+// f(v, the VW values of vector v) for the CTA's share of vectors [v0, v1)
+// of src, U loads in flight a thread (device memory needs several to hide
+// its latency; from shared memory one is faster)
+template <typename T, int VW, int U, typename F>
+__device__ __forceinline__ void for_vectors(const T* src, int v0, int v1, F f) {
+  constexpr int NT = GNF_WARPS * 32;
+  for (int vb = v0 + (int)threadIdx.x; vb < v1; vb += U * NT) {
+    Raw<T, VW> r[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (vb + u * NT < v1) r[u] = load_raw<T, VW>(src + (size_t)(vb + u * NT) * VW);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (vb + u * NT < v1) {
+        float f32[VW];
+        unpack_raw<T, VW>(r[u], f32);
+        f(vb + u * NT, f32);
+      }
+  }
+}
+
+// One CTA takes the whole channels [r Cg / S, (r + 1) Cg / S) of one row
+// (rank r of the row's cluster of S; S = 1 launches no cluster).  MODE 0
+// loads them once into shared memory by bulk copies of GNF_PIECE bytes, one
+// barrier each, and sums each piece as it lands; MODE 1 (16-byte vectors)
+// and MODE 2 (scalars) load U vectors a thread at once: a chunk of at most
+// U a thread is held in registers through the passes, a larger one is
+// read from device memory in every pass.  U (the plan's "hold") is the
+// smallest instantiation that holds the chunk: unused slots cost.
+template <typename T, int MODE, int U>
+__global__ void __launch_bounds__(GNF_WARPS * 32) gn_fwd_kernel(const GnFwdArgs a) {
+  constexpr int VW = MODE == 2 ? 1 : 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char gnf_smem[];
+  __shared__ float red[2][GNF_WARPS];
+  const int s = a.s, rank = s == 1 ? 0 : (int)(blockIdx.x % s);
+  const int row = s == 1 ? (int)blockIdx.x : (int)(blockIdx.x / s);
+  const int cgs = a.cg, hw = a.hw, tid = threadIdx.x;
+  // the ranks' channels in 32 bits (the entry point takes Cg < 2^28)
+  auto first_ch = [&](int r) { return (int)((unsigned)r * cgs / (unsigned)s); };
+  const int c0 = s == 1 ? 0 : first_ch(rank);
+  const int nch = s == 1 ? cgs : first_ch(rank + 1) - c0;
+  const int vpc = hw / VW, nv = nch * vpc;
+  const int64_t base = ((int64_t)row * cgs + c0) * hw;
+  const T* xg = static_cast<const T*>(a.x) + base;
+  T* yg = static_cast<T*>(a.y) + base;
+  // shared memory (gn_fwd_smem_bytes; group_norm_fwd_smem in
+  // ops/group_norm.py): MODE 0's chunk and a barrier a piece; the barrier
+  // of the exchange and each rank's (sum, M2), pushed here by that rank;
+  // the chunk's weights and biases in f32
+  const size_t chunk = MODE == 0 ? (size_t)a.max_ch * hw * sizeof(T) : 0;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(gnf_smem + chunk);
+  uint64_t* xbar = bars + (chunk + GNF_PIECE - 1) / GNF_PIECE;
+  float* xch = reinterpret_cast<float*>(xbar + 1);   // [GN_MAX_CLUSTER][2]
+  float* wf = xch + 2 * GN_MAX_CLUSTER;
+  float* bf = wf + a.max_ch;
+  const T* xs = MODE == 0 ? reinterpret_cast<const T*>(gnf_smem) : xg;
+  const uint32_t bytes = MODE == 0 ? (uint32_t)(nch * hw * sizeof(T)) : 0;
+  const int npieces = (int)((bytes + GNF_PIECE - 1) / GNF_PIECE);
+
+  // barriers only where they are used: a streamed chunk of a row of its
+  // own (the small rows) waits on none
+  const bool barriers = MODE == 0 || s > 1;
+  if (barriers && tid == 0) {
+    if constexpr (MODE == 0)
+      for (int p = 0; p < npieces; ++p) mbar_init(&bars[p], 1);
+    mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (s > 1) mbar_expect_tx(xbar, 8 * s);
+  }
+  // the chunk's weights and biases: loaded now, kept in registers until
+  // after the second pass (waiting on them here would hold the first
+  // pass for a round trip to device memory, twice where the card is busy)
+  const int w0 = row % a.groups * cgs + c0;
+  float w_r = 0.f, b_r = 0.f;
+  if (tid < nch) {
+    w_r = load_w(a.w, a.wdtype, w0 + tid);
+    b_r = load_w(a.b, a.bdtype, w0 + tid);
+  }
+  // a streamed chunk of at most one batch a thread (the small rows) is
+  // loaded once, here, and held in registers through the three passes
+  constexpr int NT = GNF_WARPS * 32;
+  const bool held = MODE != 0 && nv <= U * NT;
+  Raw<T, VW> keep[U];
+  if (held) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (tid + u * NT < nv) keep[u] = load_raw<T, VW>(xs + (size_t)(tid + u * NT) * VW);
+  }
+  auto each = [&](auto f) {   // f(v, its VW values) over the CTA's vectors
+    if (held) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (tid + u * NT < nv) {
+          float f32[VW];
+          unpack_raw<T, VW>(keep[u], f32);
+          f(tid + u * NT, f32);
+        }
+    } else {
+      for_vectors<T, VW, U>(xs, 0, nv, f);
+    }
+  };
+  if (barriers) __syncthreads();   // the barriers are made
+  if (s > 1) cluster_arrive_relaxed();   // waited for before the first push
+  // the copies, after the barrier: an issue blocks while the SM's copy
+  // queue is full, and the other warps start on the first piece meanwhile
+  if constexpr (MODE == 0)
+    if (tid == 0)
+      for (int p = 0; p < npieces; ++p) {
+        const uint32_t pb = min((uint32_t)GNF_PIECE, bytes - p * GNF_PIECE);
+        mbar_expect_tx(&bars[p], pb);
+        bulk_load(gnf_smem + (size_t)p * GNF_PIECE,
+                  reinterpret_cast<const unsigned char*>(xg) + (size_t)p * GNF_PIECE, pb, &bars[p]);
+      }
+
+  // the chunk's sum, then M2 about its own mean (two passes, never E[x^2])
+  float s1 = 0.f;
+  auto add = [&](int, const float(&f)[VW]) {
+#pragma unroll
+    for (int e = 0; e < VW; ++e) s1 += f[e];
+  };
+  if constexpr (MODE == 0) {
+    constexpr int PV = GNF_PIECE / 16;   // vectors a piece
+    for (int p = 0; p < npieces; ++p) {
+      wait_parity(&bars[p], 0);
+      for_vectors<T, VW, U>(xs, p * PV, min(nv, (p + 1) * PV), add);
+    }
+  } else {
+    each(add);
+  }
+  const float n_loc = (float)nch * (float)hw, n_row = (float)cgs * (float)hw;
+  const float sum = block_sum(s1, red[0]);
+  const float m_loc = sum / n_loc;
+  float s2 = 0.f;
+  each([&](int, const float(&f)[VW]) {
+#pragma unroll
+    for (int e = 0; e < VW; ++e) {
+      const float d = f[e] - m_loc;
+      s2 = fmaf(d, d, s2);
+    }
+  });
+  if (tid < nch) {   // in shared memory once block_sum's barrier has passed
+    wf[tid] = w_r;
+    bf[tid] = b_r;
+  }
+  for (int i = tid + GNF_WARPS * 32; i < nch; i += GNF_WARPS * 32) {
+    wf[i] = load_w(a.w, a.wdtype, w0 + i);
+    bf[i] = load_w(a.b, a.bdtype, w0 + i);
+  }
+  const float m2 = block_sum(s2, red[1]);
+
+  // the row's statistics: each rank's (sum, M2) to every rank, merged in
+  // rank order by Chan's formula, M2 = sum over r of M2_r + n_r (mean_r -
+  // mean)^2 (every thread of every rank computes the same bits)
+  float mean = m_loc, m2_row = m2;
+  if (s > 1) {
+    cluster_wait();
+    if (tid < s) push2(&xch[2 * rank], xbar, tid, sum, m2);
+    wait_parity(xbar, 0);
+    float tot = 0.f;
+    for (int q = 0; q < s; ++q) tot += xch[2 * q];
+    mean = tot / n_row;
+    m2_row = 0.f;
+    for (int q = 0; q < s; ++q) {
+      const float nq = (float)(first_ch(q + 1) - first_ch(q)) * (float)hw;
+      const float d = xch[2 * q] / nq - mean;
+      m2_row += xch[2 * q + 1] + nq * d * d;
+    }
+  }
+  const float rstd = rsqrtf(m2_row / n_row + a.eps);
+  if (rank == 0 && tid == 0) {
+    a.stats[row] = mean;
+    a.stats[a.rows + row] = rstd;
+  }
+
+  // y = (x - mean) (rstd w[c]) + b[c], in x's dtype
+  const float inv_vpc = 1.f / (float)vpc;
+  each([&](int v, const float(&f)[VW]) {
+    int ch;
+    if (nv < (1 << 22)) {   // v / vpc by a float product, corrected: exact here
+      ch = (int)((float)v * inv_vpc);
+      ch -= ch * vpc > v;
+      ch += (ch + 1) * vpc <= v;
+    } else {
+      ch = v / vpc;
+    }
+    const float sc = rstd * wf[ch], sh = bf[ch];
+    float o[VW];
+#pragma unroll
+    for (int e = 0; e < VW; ++e) o[e] = fmaf(f[e] - mean, sc, sh);
+    store_vec<T, VW>(yg + (size_t)v * VW, o);
+  });
+}
+
+size_t gn_fwd_smem_bytes(int mode, int max_ch, int hw, int item) {
+  const size_t chunk = mode == 0 ? (size_t)max_ch * hw * item : 0;
+  return chunk + 8 * ((chunk + GNF_PIECE - 1) / GNF_PIECE + 1 + GN_MAX_CLUSTER + (size_t)max_ch);
+}
+
+typedef void (*GnFwdKernel)(const GnFwdArgs);
+
+// (mode, hold): staged with one load in flight, or streamed holding /
+// loading `hold` vectors a thread (group_norm_fwd_hold in ops/group_norm.py)
+template <typename T>
+GnFwdKernel gn_fwd_kernel_of(int mode, int hold) {
+  if (mode == 0 && hold == 1) return gn_fwd_kernel<T, 0, 1>;
+  if (mode == 1 && hold == 4) return gn_fwd_kernel<T, 1, 4>;
+  if (mode == 1 && hold == 8) return gn_fwd_kernel<T, 1, 8>;
+  if (mode == 1 && hold == 10) return gn_fwd_kernel<T, 1, 10>;
+  if (mode == 2 && hold == 4) return gn_fwd_kernel<T, 2, 4>;
+  return nullptr;
+}
+
+GnFwdKernel gn_fwd_kernel_for(int dtype, int mode, int hold) {
+  if (dtype == 0) return gn_fwd_kernel_of<float>(mode, hold);
+  if (dtype == 1) return gn_fwd_kernel_of<__nv_bfloat16>(mode, hold);
+  if (dtype == 2) return gn_fwd_kernel_of<__half>(mode, hold);
+  return nullptr;
+}
+
 }  // namespace norms
 
 using namespace norms;
@@ -915,4 +1195,35 @@ extern "C" int group_norm_bwd(const void* x, const void* w, const float* mean,
                     n, c, groups, hw, wdtype, cluster, max_ch};
   return launch_cluster(kernel, clusters * cluster, (GN_WARPS + 1) * 32, cluster, smem_bytes,
                         static_cast<cudaStream_t>(stream), a);
+}
+
+extern "C" int group_norm_fwd(const void* x, const void* w, const void* b, void* y, float* stats,
+                              int n, int c, int groups, int hw, int dtype, int wdtype, int bdtype,
+                              int mode, int hold, int cluster, int smem_bytes, float eps,
+                              void* stream) {
+  GnFwdKernel kernel = gn_fwd_kernel_for(dtype, mode, hold);
+  if (kernel == nullptr || n <= 0 || c <= 0 || groups <= 0 || c % groups || hw <= 0 ||
+      c / groups >= (1 << 28) || wdtype < 0 || wdtype > 2 || bdtype < 0 || bdtype > 2 ||
+      cluster < 1 || cluster > GN_MAX_CLUSTER || cluster > c / groups ||
+      (int64_t)n * groups * cluster > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const int item = dtype == 0 ? 4 : 2;
+  if (mode != 2 && ((hw * item) % 16 || (reinterpret_cast<uintptr_t>(x) |
+                                         reinterpret_cast<uintptr_t>(y)) % 16))
+    return cudaErrorInvalidValue;
+  const int max_ch = (c / groups + cluster - 1) / cluster;
+  if ((size_t)smem_bytes < gn_fwd_smem_bytes(mode, max_ch, hw, item)) return cudaErrorInvalidValue;
+  // above 48 KB of shared memory (static included) a kernel must opt in
+  if (smem_bytes > 40 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return e;
+  }
+  const GnFwdArgs a = {x,  w,      b,  y,      stats,   n * groups, c / groups,
+                       groups, hw, wdtype, bdtype, cluster, max_ch, eps};
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(n * groups * cluster, GNF_WARPS * 32, cluster,
+                                          smem_bytes, static_cast<cudaStream_t>(stream), &attr);
+  if (cluster == 1) cfg.numAttrs = 0;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }

@@ -8,17 +8,23 @@ Replaces the Pallas kernels ``_gn_fwd_kernel`` (launched by
 ``_gn_call_fwd``) and ``_gn_bwd_kernel`` (launched by ``_gn_vjp_bwd``),
 ``paddle_tpu/ops/pallas/norms.py:304, :366`` and ``:318, :424``.
 
-* forward, a Triton kernel with one program per (sample, group) row.
-  The rows are long (up to 30 x 4096 = 122,880 elements in the SD UNet)
-  and few (``N * G``, 128 at batch 4), so a row never fits in registers:
-  each program walks it in ``[BLOCK_C, BLOCK_HW]`` tiles, channels down
-  and spatial positions across, so the per-channel weight and bias are
-  a ``[BLOCK_C]`` vector read once per tile (the TPU kernel instead
-  reads a broadcast ``[G, Cg * HW]`` copy of them from HBM); three
-  passes over the row: the sum, then the sum of ``(x - mean)^2`` (two
-  passes, not ``E[x^2] - mean^2``, which cancels at 10^5 elements with a
-  large mean), then y.  The row is re-read from L2 on the second and
-  third pass: 128 rows of at most 240 KB (bf16) fit the 50 MB L2.
+* forward, CUDA (``csrc/norms.cu``, one launch a call).  The rows are
+  long (up to 30 x 4096 = 122,880 elements in the SD UNet) and few
+  (``N * G``, 128 at batch 4): one CTA a row would stream 128 rows with
+  a few KB in flight each, so a row is split over a cluster of ``S``
+  CTAs, each taking a run of whole channels (:func:`group_norm_fwd_plan`
+  sizes ``S`` from the shape).  A CTA loads its chunk once, into
+  registers for a row of at most ``FWD_STREAM_MAX`` bytes, else into
+  shared memory with TMA bulk copies (or streams a chunk too large for
+  it), takes its sum and then the sum of ``(x - mean_chunk)^2`` (two
+  passes, not ``E[x^2] - mean^2``, which cancels at 10^5 elements with
+  a large mean), and the ranks merge those partials in rank order through
+  distributed shared memory (Chan's formula): every rank holds the
+  row's mean and rstd bit for bit, and writes its y from the chunk.
+  The per-channel weight and bias are read once a CTA (the TPU kernel
+  instead reads a broadcast ``[G, Cg * HW]`` copy of them from HBM).
+  The host path is memoized: checks, plan and the C call's constants
+  are made once per (device, dtypes, shapes, alignment).
 * backward, CUDA (``csrc/norms.cu``, one launch a call): clusters of
   ``S`` CTAs, as many as the card holds, each walking rows; each CTA
   takes a run of whole channels of a row, which it loads once into
@@ -52,21 +58,33 @@ import torch
 from .. import _build
 from .layer_norm import DTYPE_CODES
 
-#: ``triton.language``, bound at the first launch (triton is imported
-#: only when a kernel is launched, so this module imports without it)
-tl = None
-_KERNELS = {}
-_TILE = 4096           # elements of one [BLOCK_C, BLOCK_HW] tile
 #: the backward's geometry (``csrc/norms.cu``): warps a CTA, CTAs a
 #: cluster at most (the portable cluster size), rows of chunks a CTA holds
 #: in mode 0 (one summed, one awaiting its dx, one loading)
 GN_WARPS, GN_MAX_CLUSTER, GN_STAGES = 8, 8, 3
+#: the forward's: warps a CTA, and the bytes of x a bulk copy brings at
+#: most (one barrier each)
+GNF_WARPS, GNF_PIECE = 8, 32768
 #: dynamic shared memory a CTA may ask for: the H100's 227 KB per block
 #: less room for the kernel's static shared memory
 SMEM_MAX = 232448 - 128
 #: the largest x + g chunk the plan gives a CTA where the row splits
 #: finer (a CTA holds GN_STAGES of them)
 CHUNK_TARGET = 64 * 1024
+#: the forward's plan, from a sweep on the card over the SD-UNet step's
+#: GroupNorm shapes (PERF.md §6): a row of at most FWD_ROW_MAX bytes
+#: is one CTA's; a longer one splits into chunks of at most
+#: FWD_CHUNK_TARGET bytes (several CTAs an SM then overlap their loads and
+#: stores); a row of at most FWD_STREAM_MAX bytes is loaded straight
+#: into registers (as many 16-byte vectors a thread of 256 as FWD_HOLDS
+#: allows: cheaper there than bulk copies and shared-memory passes), a
+#: longer one is staged
+FWD_ROW_MAX, FWD_CHUNK_TARGET = 128 * 1024, 32 * 1024
+#: the vectors a streaming forward thread loads at once, and holds where
+#: the chunk fits: the kernel's instantiations (an unused slot costs, so
+#: the plan takes the smallest that holds the chunk)
+FWD_HOLDS = (4, 8, 10)
+FWD_STREAM_MAX = FWD_HOLDS[-1] * 16 * GNF_WARPS * 32
 #: x and g of all rows together, in bytes, above which the chunks are
 #: staged in shared memory (mode 0).  Below it the rows in flight fit the
 #: H100's 50 MB L2, so the streamed kernel's second pass over a row comes
@@ -77,10 +95,14 @@ STAGED_MIN_BYTES = 32 * 1024 * 1024
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the C entry points' parameters (``csrc/kernels.h``) as ctypes types
 ARGTYPES = {
+    "group_norm_fwd": [_P] * 5 + [_I] * 11 + [ctypes.c_float, _P],
     "group_norm_bwd": [_P] * 10 + [_I] * 10 + [_P],
     "group_norm_bwd_max_clusters": [_I] * 4 + [ctypes.POINTER(_I)],
 }
-_MAX_CLUSTERS = {}
+#: the launches made so far, by what decides them: (library function,
+#: device index, rows, the C call's integer arguments)
+_FWD_LAUNCHES = {}
+_BWD_LAUNCHES = {}
 
 
 def _dims(x, num_groups):
@@ -129,67 +151,6 @@ def group_norm_bwd_plain(x, weight, mean, rstd, g, num_groups):
             db.to(weight.dtype))
 
 
-def _gn_fwd(X, W, B, Y, MEAN, RSTD, G, CG, HW, eps,
-            BLOCK_C: tl.constexpr, BLOCK_HW: tl.constexpr):
-    pid = tl.program_id(0)                  # sample * G + group
-    row_len = CG * HW
-    base = pid.to(tl.int64) * row_len
-    w0 = (pid % G) * CG                     # first channel of the group
-    cs = tl.arange(0, BLOCK_C)
-    hs = tl.arange(0, BLOCK_HW)
-    acc = tl.zeros([BLOCK_C, BLOCK_HW], dtype=tl.float32)
-    for c0 in range(0, CG, BLOCK_C):
-        for h0 in range(0, HW, BLOCK_HW):
-            c = c0 + cs
-            h = h0 + hs
-            m = (c < CG)[:, None] & (h < HW)[None, :]
-            off = base + c[:, None] * HW + h[None, :]
-            acc += tl.load(X + off, mask=m, other=0.0).to(tl.float32)
-    mean = tl.sum(tl.sum(acc, axis=1), axis=0) / row_len
-    acc = tl.zeros([BLOCK_C, BLOCK_HW], dtype=tl.float32)
-    for c0 in range(0, CG, BLOCK_C):
-        for h0 in range(0, HW, BLOCK_HW):
-            c = c0 + cs
-            h = h0 + hs
-            m = (c < CG)[:, None] & (h < HW)[None, :]
-            off = base + c[:, None] * HW + h[None, :]
-            x = tl.load(X + off, mask=m, other=0.0).to(tl.float32)
-            d = tl.where(m, x - mean, 0.0)
-            acc += d * d
-    rstd = 1.0 / tl.sqrt(tl.sum(tl.sum(acc, axis=1), axis=0) / row_len + eps)
-    for c0 in range(0, CG, BLOCK_C):
-        c = c0 + cs
-        cm = c < CG
-        w = tl.load(W + w0 + c, mask=cm, other=0.0).to(tl.float32)
-        b = tl.load(B + w0 + c, mask=cm, other=0.0).to(tl.float32)
-        for h0 in range(0, HW, BLOCK_HW):
-            h = h0 + hs
-            m = cm[:, None] & (h < HW)[None, :]
-            off = base + c[:, None] * HW + h[None, :]
-            x = tl.load(X + off, mask=m, other=0.0).to(tl.float32)
-            y = (x - mean) * rstd * w[:, None] + b[:, None]
-            tl.store(Y + off, y.to(Y.dtype.element_ty), mask=m)
-    tl.store(MEAN + pid, mean)
-    tl.store(RSTD + pid, rstd)
-
-
-def _fwd_kernel():
-    global tl
-    if not _KERNELS:
-        import triton
-        import triton.language as tl
-        _KERNELS["fwd"] = triton.jit(_gn_fwd)
-    return _KERNELS["fwd"]
-
-
-def _tiles(cg, hw):
-    """(BLOCK_C, BLOCK_HW, num_warps): a tile of at most _TILE elements,
-    as wide along the contiguous spatial axis as the row allows."""
-    block_hw = min(1 << max(0, hw - 1).bit_length(), _TILE)
-    block_c = min(1 << max(0, cg - 1).bit_length(), _TILE // block_hw)
-    return block_c, block_hw, 8 if block_c * block_hw >= 2048 else 4
-
-
 def _check(name, x, weight, num_groups, *rest):
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"{name} kernel: unsupported dtype {x.dtype}")
@@ -213,24 +174,136 @@ def _check(name, x, weight, num_groups, *rest):
     return n, c, cg, hw
 
 
-def group_norm_kernel(x, weight, bias, num_groups, eps=1e-5):
-    """Launch the Triton forward on CUDA tensors -> (y, mean [N*G] f32,
-    rstd [N*G] f32).  Raises on anything it does not take."""
+def group_norm_fwd_smem(mode, max_ch, hw, item):
+    """Dynamic shared memory of a forward CTA (``gn_fwd_smem_bytes`` in
+    ``csrc/norms.cu``): in mode 0 the chunk of ``max_ch`` channels and a
+    barrier a ``GNF_PIECE``; the exchange's barrier and every rank's (sum,
+    M2); the chunk's weights and biases in f32."""
+    chunk = max_ch * hw * item if mode == 0 else 0
+    return chunk + 8 * (-(-chunk // GNF_PIECE) + 1 + GN_MAX_CLUSTER + max_ch)
+
+
+def group_norm_fwd_hold(mode, max_ch, hw, item):
+    """The vectors a forward thread loads at once (``hold`` of
+    :func:`group_norm_fwd_plan`): 1 staged (mode 0), 4 scalars (mode 2);
+    streamed vectors (mode 1), the smallest of ``FWD_HOLDS`` in which a
+    CTA's threads hold the chunk, the largest where none does."""
+    if mode != 1:
+        return 1 if mode == 0 else 4
+    per_thread = -(-(max_ch * hw * item // 16) // (GNF_WARPS * 32))
+    return next((k for k in FWD_HOLDS if k >= per_thread), FWD_HOLDS[-1])
+
+
+def group_norm_fwd_plan(n, c, groups, hw, item, aligned):
+    """The forward's launch -> ``{"mode", "hold", "cluster", "max_ch",
+    "smem", "ctas"}``: a cluster of ``S`` CTAs a (sample, group) row,
+    ``N * G * S`` CTAs in all, rank r taking channels
+    ``group_norm_fwd_chunks``.  ``S``
+    is 1 for a row of at most ``FWD_ROW_MAX`` bytes, else the smallest (at
+    most 8 and ``Cg``) that gives no CTA more than ``FWD_CHUNK_TARGET``
+    bytes of x, the largest where none does.  Mode 0 (the chunk staged in
+    shared memory by bulk copies) for a row over ``FWD_STREAM_MAX`` bytes
+    where ``hw * item`` is a whole number of 16-byte vectors (with
+    ``aligned`` tensors) and the chunk fits ``SMEM_MAX``; otherwise mode 1
+    (streamed vectors) or, without 16-byte vectors, mode 2 (streamed
+    scalars); ``hold`` from :func:`group_norm_fwd_hold`."""
+    cg = c // groups
+    per = lambda s: -(-cg // s)                  # channels of the widest CTA
+    row = cg * hw * item
+    s = 1
+    if row > FWD_ROW_MAX:
+        top = min(GN_MAX_CLUSTER, cg)
+        s = next((s for s in range(2, top + 1)
+                  if per(s) * hw * item <= FWD_CHUNK_TARGET), top)
+    vec = aligned and (hw * item) % 16 == 0
+    staged = row > FWD_STREAM_MAX \
+        and group_norm_fwd_smem(0, per(s), hw, item) <= SMEM_MAX
+    mode = 0 if vec and staged else 1 if vec else 2
+    return {"mode": mode, "hold": group_norm_fwd_hold(mode, per(s), hw, item),
+            "cluster": s, "max_ch": per(s),
+            "smem": group_norm_fwd_smem(mode, per(s), hw, item),
+            "ctas": n * groups * s}
+
+
+def group_norm_fwd_chunks(plan, cg):
+    """The channels ``[c0, c1)`` of a row that each CTA of its cluster
+    takes, in rank order (as the kernel splits them and merges their
+    statistics)."""
+    s = plan["cluster"]
+    return [(r * cg // s, (r + 1) * cg // s) for r in range(s)]
+
+
+def _stream(index):
+    """The raw handle of the current CUDA stream of device ``index`` (the
+    call Triton's launcher makes: no ``torch.cuda.Stream`` is built)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _on_device(index, fn, *args):
+    """``fn(*args)`` with device ``index`` current, entering its context
+    only when another device is current."""
+    if torch.cuda.current_device() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
+
+
+def _fwd_launch(x, weight, bias, num_groups, plan=None):
+    """Check a forward call of a new (device, dtypes, shapes, alignment)
+    and make its launch (see ``_FWD_LAUNCHES``), from ``plan`` or the
+    shape's own :func:`group_norm_fwd_plan`.  Raises on anything the
+    kernel does not take."""
     n, c, cg, hw = _check("group_norm", x, weight, num_groups, bias)
     if bias.shape != (c,):
         raise ValueError(f"group_norm kernel: bias {tuple(bias.shape)} does "
                          f"not match {c} channels")
-    y = torch.empty_like(x)
+    for t in (weight, bias):
+        if t.dtype not in DTYPE_CODES:
+            raise TypeError(f"group_norm kernel: unsupported affine dtype "
+                            f"{t.dtype}")
     rows = n * num_groups
-    mean = torch.empty(rows, dtype=torch.float32, device=x.device)
-    rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
-    if x.numel():
-        block_c, block_hw, warps = _tiles(cg, hw)
-        _fwd_kernel()[(rows,)](
-            x, weight, bias, y, mean, rstd, num_groups, cg, hw, float(eps),
-            BLOCK_C=block_c, BLOCK_HW=block_hw, num_warps=warps)
+    if not x.numel():
+        return None, x.device.index, rows, ()
+    if plan is None:
+        plan = group_norm_fwd_plan(n, c, num_groups, hw, x.element_size(),
+                                   x.data_ptr() % 16 == 0)
+    return (_lib().group_norm_fwd, x.device.index, rows,
+            (n, c, num_groups, hw, DTYPE_CODES[x.dtype],
+             DTYPE_CODES[weight.dtype], DTYPE_CODES[bias.dtype], plan["mode"],
+             plan["hold"], plan["cluster"], plan["smem"]))
+
+
+def group_norm_kernel(x, weight, bias, num_groups, eps=1e-5):
+    """Launch the CUDA forward on the current stream -> (y, mean [N*G] f32,
+    rstd [N*G] f32).  Raises on anything it does not take.  The checks,
+    the plan and the launch's constants are made once per (device,
+    dtypes, shapes, 16-byte alignment of x); a later call of the same
+    key reads them back."""
+    key = (x.device, x.dtype, x.shape, num_groups, weight.device,
+           weight.dtype, weight.shape, bias.device, bias.dtype, bias.shape,
+           x.data_ptr() % 16 == 0)
+    launch = _FWD_LAUNCHES.get(key)
+    if launch is None:
+        launch = _FWD_LAUNCHES[key] = _fwd_launch(x, weight, bias, num_groups)
+    return _fwd_run(launch, x, weight, bias, eps)
+
+
+def _fwd_run(launch, x, weight, bias, eps):
+    fn, index, rows, args = launch
+    if not (x.is_contiguous() and weight.is_contiguous()
+            and bias.is_contiguous()):
+        raise ValueError("group_norm kernel: inputs must be contiguous")
+    y = torch.empty_like(x)
+    stats = torch.empty((2, rows), dtype=torch.float32, device=x.device)
+    if fn is not None:
+        rc = _on_device(index, fn, x.data_ptr(), weight.data_ptr(),
+                        bias.data_ptr(), y.data_ptr(), stats.data_ptr(), *args,
+                        eps, _stream(index))
+        if rc != 0:
+            raise RuntimeError(f"group_norm kernel launch failed: CUDA error "
+                               f"{rc}")
         group_norm.launches += 1
-    return y, mean, rstd
+    return y, stats[0], stats[1]
 
 
 def group_norm_bwd_smem(mode, max_ch, hw, item):
@@ -297,21 +370,20 @@ def _lib():
     return lib
 
 
-def _max_clusters(lib, device, code, mode, s, smem):
-    key = (device.index, code, mode, s, smem)
-    if key not in _MAX_CLUSTERS:
-        out = ctypes.c_int(0)
-        rc = lib.group_norm_bwd_max_clusters(code, mode, s, smem,
-                                             ctypes.byref(out))
-        if rc != 0:
-            raise RuntimeError(f"group_norm_bwd occupancy query failed: CUDA "
-                               f"error {rc}")
-        _MAX_CLUSTERS[key] = out.value
-    return _MAX_CLUSTERS[key]
+def _max_clusters(lib, code, mode, s, smem):
+    out = ctypes.c_int(0)
+    rc = lib.group_norm_bwd_max_clusters(code, mode, s, smem,
+                                         ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"group_norm_bwd occupancy query failed: CUDA "
+                           f"error {rc}")
+    return out.value
 
 
-def group_norm_bwd_kernel(x, weight, mean, rstd, g, num_groups):
-    """Launch the CUDA backward on the current stream -> (dx, dw, db)."""
+def _bwd_launch(x, weight, mean, rstd, g, num_groups):
+    """Check a backward call of a new (device, dtypes, shapes, alignment)
+    and make its launch (see ``_BWD_LAUNCHES``): the plan, with the
+    device's multiprocessors and the occupancy queries it needs."""
     n, c, cg, hw = _check("group_norm_bwd", x, weight, num_groups, mean,
                           rstd, g)
     if g.shape != x.shape or g.dtype != x.dtype:
@@ -324,27 +396,47 @@ def group_norm_bwd_kernel(x, weight, mean, rstd, g, num_groups):
         if t.dtype != torch.float32 or tuple(t.shape) != (rows,):
             raise ValueError(f"group_norm_bwd kernel: mean and rstd must be "
                              f"float32 [{rows}]")
-    dx = torch.empty_like(x)
+    dev, code = x.device, DTYPE_CODES[x.dtype]
     if not x.numel():
+        return None, dev.index, rows, ()
+    lib = _lib()
+    plan = _on_device(dev.index, group_norm_bwd_plan, n, c, num_groups, hw,
+                      x.element_size(),
+                      (x.data_ptr() | g.data_ptr()) % 16 == 0,
+                      torch.cuda.get_device_properties(dev)
+                      .multi_processor_count,
+                      lambda mode, s, smem: _max_clusters(lib, code, mode, s,
+                                                          smem))
+    return (lib.group_norm_bwd, dev.index, rows,
+            (n, c, num_groups, hw, code, DTYPE_CODES[weight.dtype],
+             plan["mode"], plan["cluster"], plan["clusters"], plan["smem"]))
+
+
+def group_norm_bwd_kernel(x, weight, mean, rstd, g, num_groups):
+    """Launch the CUDA backward on the current stream -> (dx, dw, db).
+    Made once per key as the forward's (:func:`group_norm_kernel`)."""
+    key = (x.device, x.dtype, x.shape, num_groups, weight.device,
+           weight.dtype, weight.shape, mean.device, mean.dtype, mean.shape,
+           rstd.device, rstd.dtype, rstd.shape, g.device, g.dtype, g.shape,
+           (x.data_ptr() | g.data_ptr()) % 16 == 0)
+    launch = _BWD_LAUNCHES.get(key)
+    if launch is None:
+        launch = _BWD_LAUNCHES[key] = _bwd_launch(x, weight, mean, rstd, g,
+                                                  num_groups)
+    fn, index, rows, args = launch
+    if not all(t.is_contiguous() for t in (x, weight, mean, rstd, g)):
+        raise ValueError("group_norm_bwd kernel: inputs must be contiguous")
+    dx = torch.empty_like(x)
+    if fn is None:
         return dx, torch.zeros_like(weight), torch.zeros_like(weight)
     dw, db = torch.empty_like(weight), torch.empty_like(weight)
-    dev, code = x.device, DTYPE_CODES[x.dtype]
-    ws = torch.empty((n, 2, c), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        lib = _lib()
-        plan = group_norm_bwd_plan(
-            n, c, num_groups, hw, x.element_size(),
-            all(t.data_ptr() % 16 == 0 for t in (x, g, dx)),
-            torch.cuda.get_device_properties(dev).multi_processor_count,
-            lambda mode, s, smem: _max_clusters(lib, dev, code, mode, s,
-                                                smem))
-        rc = lib.group_norm_bwd(
-            x.data_ptr(), weight.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-            db.data_ptr(), ws.data_ptr(), _build.ticket(dev).data_ptr(), n, c,
-            num_groups, hw, code, DTYPE_CODES[weight.dtype], plan["mode"],
-            plan["cluster"], plan["clusters"], plan["smem"],
-            torch.cuda.current_stream(dev).cuda_stream)
+    ws = torch.empty((args[0], 2, args[1]), dtype=torch.float32,
+                     device=x.device)
+    stream = _stream(index)
+    rc = _on_device(index, fn, x.data_ptr(), weight.data_ptr(),
+                    mean.data_ptr(), rstd.data_ptr(), g.data_ptr(),
+                    dx.data_ptr(), dw.data_ptr(), db.data_ptr(), ws.data_ptr(),
+                    _build.ticket(x.device, stream).data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"group_norm_bwd kernel launch failed: CUDA error "
                            f"{rc}")

@@ -1,4 +1,4 @@
-"""The port's GroupNorm (the plain PyTorch twins of its Triton kernels,
+"""The port's GroupNorm (the plain PyTorch twins of its CUDA kernels,
 run on CPU tensors, and the autograd.Function over them) against the JAX
 Pallas kernel ``group_norm`` in interpret mode and its ``jax.grad``
 (``_gn_bwd_kernel``), on numpy-seeded inputs over the shapes of
@@ -23,12 +23,14 @@ import jax.numpy as jnp
 
 import paddle_tpu as paddle
 import paddle_tpu.nn.functional as PF
+from paddle_tpu.ops.pallas.norms import _gn_fwd as pallas_gn_fwd
 from paddle_tpu.ops.pallas.norms import group_norm as pallas_group_norm
 from paddle_tpu_torch.nn import GroupNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.group_norm import (
     group_norm, group_norm_bwd, group_norm_bwd_kernel, group_norm_bwd_plain,
-    group_norm_fwd_plain, group_norm_kernel, group_norm_plain,
+    group_norm_fwd_chunks, group_norm_fwd_plain, group_norm_kernel,
+    group_norm_plain,
 )
 
 from _torch_port_util import one_thread  # noqa: F401
@@ -103,6 +105,58 @@ def test_bf16_large_mean_rounds_once_with_f32_statistics():
         .numpy(), rtol=1e-5)
 
 
+def _merged_stats(x, groups, cluster, eps):
+    """The CUDA forward's statistics in torch: each rank of a row's
+    cluster takes its chunk's f32 sum and M2 about the chunk's own mean
+    (two passes), and the ranks' (sum, M2) merge in rank order by Chan's
+    formula, M2 = sum over r of M2_r + n_r (mean_r - mean)^2."""
+    n, c, cg = x.shape[0], x.shape[1], x.shape[1] // groups
+    rows = x.float().reshape(n * groups, cg, -1)
+    hw = rows.shape[-1]
+    parts = []
+    for c0, c1 in group_norm_fwd_chunks({"cluster": cluster}, cg):
+        chunk = rows[:, c0:c1].reshape(n * groups, -1)
+        total = chunk.sum(-1)
+        m2 = ((chunk - (total / chunk.shape[-1])[:, None]) ** 2).sum(-1)
+        parts.append(((c1 - c0) * hw, total, m2))
+    total = torch.zeros(n * groups)
+    for _, t, _ in parts:
+        total = total + t
+    mean = total / (cg * hw)
+    m2 = torch.zeros(n * groups)
+    for cnt, t, m in parts:
+        m2 = m2 + (m + cnt * (t / cnt - mean) ** 2)
+    return mean, 1.0 / torch.sqrt(m2 / (cg * hw) + eps)
+
+
+@pytest.mark.parametrize("shape,groups,cluster,chunks", [
+    ((2, 32, 8, 8), 4, 4, [2, 2, 2, 2]),            # several even ranks
+    ((1, 60, 6, 6), 2, 8, [3, 4, 4, 4, 3, 4, 4, 4]),   # the UNet's 30 / 8
+    ((2, 30, 5, 5), 3, 4, [2, 3, 2, 3]),            # a ragged last rank
+], ids=["4_ranks", "8_ranks_cg30", "ragged"])
+def test_cluster_merge_of_rank_partials_matches_pallas(shape, groups,
+                                                       cluster, chunks):
+    """The kernel's per-rank partials merged in the plan's rank order give
+    the mean and rstd of the JAX kernel (interpret mode) on rows with a
+    large mean (100, std 3, bf16): f32 to 1e-5 relative.  A variance
+    taken as E[x^2] - mean^2 would cancel here."""
+    r = np.random.RandomState(7)
+    x = torch.from_numpy((r.randn(*shape) * 3 + 100).astype(np.float32)) \
+        .to(torch.bfloat16)
+    w = torch.ones(shape[1], dtype=torch.bfloat16)
+    cg = shape[1] // groups
+    assert [c1 - c0 for c0, c1 in group_norm_fwd_chunks(
+        {"cluster": cluster}, cg)] == chunks
+    mean, rstd = _merged_stats(x, groups, cluster, 1e-5)
+    as_j = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    _, (_, _, ref_mean, ref_rstd, _, _) = pallas_gn_fwd(
+        as_j(x), as_j(w), as_j(w), groups, 1e-5, True)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(ref_mean).ravel(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(ref_rstd).ravel(),
+                               rtol=1e-5)
+
+
 def test_backward_twin_equals_autograd_of_the_plain_forward():
     """group_norm_bwd_plain (the kernel's twin: per-channel partials,
     dw and db summed over N) and torch autograd through group_norm_plain
@@ -146,9 +200,10 @@ def test_functional_and_layer_match_paddle(data_format):
     ((1, 32, 2 ** 13, 2 ** 13), 1, "row of"),     # 2**31 elements a row
 ], ids=["2d", "c_mod_g", "zero_groups", "row_2e31"])
 def test_unsupported_shapes_raise(shape, groups, match):
-    """The kernels' own guard (the TPU's VMEM budget does not apply: the
-    Triton kernel walks any row in tiles) raises on a shape it does not
-    take; meta tensors, so the 2**31 row allocates nothing."""
+    """The CUDA kernels' own guard (the TPU's VMEM budget does not apply:
+    the forward splits any row over CTAs, staging or streaming each
+    chunk) raises on a shape it does not take; meta tensors, so the 2**31
+    row allocates nothing."""
     x = torch.empty(shape, device="meta")
     w = torch.empty(shape[1], device="meta")
     with pytest.raises(ValueError, match=match):
@@ -183,6 +238,9 @@ def test_functional_routes_every_nc_shape_with_affine_to_the_op(
 
 
 def test_cpu_runs_the_plain_twins_uncounted_and_other_devices_raise():
+    """CPU tensors take the plain twins and count no launch; the CUDA
+    kernel wrappers, forward and backward, raise on them, and the
+    dispatcher on any other device."""
     x, w, b, g = _t(*_inputs((2, 8, 4, 4), seed=6))
     counts = (group_norm.launches, group_norm_bwd.launches)
     ts = [t.clone().requires_grad_(True) for t in (x, w, b)]

@@ -21,8 +21,10 @@ device) and of ``chip_smoke.py``'s ``norm_cases``:
 
 import ctypes
 import importlib
+import importlib.util
 import re
 from collections import Counter
+from pathlib import Path
 
 import pytest
 import torch
@@ -203,6 +205,127 @@ def test_group_norm_cluster_size(unet_norm_shapes):
             assert plan["cluster"] == 1
 
 
+def test_group_norm_fwd_plan_covers_every_row_and_channel_once(
+        unet_norm_shapes):
+    """The forward's grid is N * G clusters of S CTAs, CTA i taking rank i
+    % S of row i // S: every (sample, group) row once, and its ranks
+    every channel once, on channel boundaries, none empty."""
+    for n, c, groups, hw, item, aligned in _gn_cases(unet_norm_shapes):
+        plan = gn.group_norm_fwd_plan(n, c, groups, hw, item, aligned)
+        s, cg, rows = plan["cluster"], c // groups, n * groups
+        assert plan["ctas"] == rows * s
+        assert 1 <= s <= min(gn.GN_MAX_CLUSTER, cg)
+        walked = Counter(i // s for i in range(plan["ctas"]))
+        assert walked == Counter({r: s for r in range(rows)})
+        chunks = gn.group_norm_fwd_chunks(plan, cg)
+        assert len(chunks) == s
+        assert chunks[0][0] == 0 and chunks[-1][1] == cg
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        assert all(c1 > c0 for c0, c1 in chunks)
+        assert max(c1 - c0 for c0, c1 in chunks) == plan["max_ch"]
+
+
+def test_group_norm_fwd_chunks_fit_the_shared_memory_they_ask_for(
+        unet_norm_shapes):
+    for n, c, groups, hw, item, aligned in _gn_cases(unet_norm_shapes):
+        plan = gn.group_norm_fwd_plan(n, c, groups, hw, item, aligned)
+        assert plan["smem"] == gn.group_norm_fwd_smem(
+            plan["mode"], plan["max_ch"], hw, item) <= gn.SMEM_MAX
+        chunk = plan["max_ch"] * hw * item
+        if plan["mode"] == 0:
+            assert chunk % 16 == 0                   # whole bulk copies
+            pieces = -(-chunk // gn.GNF_PIECE)
+            assert chunk + 8 * pieces < plan["smem"]
+        else:                                        # no chunk staged
+            assert plan["smem"] == gn.group_norm_fwd_smem(1, plan["max_ch"],
+                                                          1, 1)
+        if 1 < plan["cluster"] < min(gn.GN_MAX_CLUSTER, c // groups):
+            assert chunk <= gn.FWD_CHUNK_TARGET
+
+
+def test_group_norm_fwd_scalars_exactly_where_vectors_cannot_run(
+        unet_norm_shapes):
+    """Mode 2 (scalars) exactly where the rows' channels are not whole
+    16-byte vectors or the tensors not 16-byte aligned; otherwise staged
+    (mode 0) exactly where the row exceeds FWD_STREAM_MAX bytes and the
+    chunk fits shared memory, streamed vectors (mode 1) elsewhere."""
+    modes = {}
+    for n, c, groups, hw, item, aligned in _gn_cases(unet_norm_shapes):
+        plan = gn.group_norm_fwd_plan(n, c, groups, hw, item, aligned)
+        vec = aligned and hw * item % 16 == 0
+        row = c // groups * hw * item
+        fits = gn.group_norm_fwd_smem(0, plan["max_ch"], hw, item) \
+            <= gn.SMEM_MAX
+        want = 2 if not vec else 0 if row > gn.FWD_STREAM_MAX and fits \
+            else 1
+        assert plan["mode"] == want, (n, c, groups, hw, item, aligned)
+        modes[(n, c, groups, hw, item, aligned)] = plan["mode"]
+    assert modes[(2, 6, 3, 35, 2, True)] == 2             # 70-byte channels
+    assert modes[(4, 960, 32, 4096, 2, False)] == 2       # misaligned
+    assert modes[(2, 32, 8, 81, 4, True)] == 2            # 324-byte channels
+    assert modes[(1, 64, 1, 128 * 128, 4, True)] == 1     # too long a chunk
+    assert modes[(4, 1280, 32, 64, 2, True)] == 1         # a 5 KB row
+    assert modes[(4, 640, 32, 1024, 2, True)] == 1        # a 40 KB row
+    assert modes[(4, 960, 32, 1024, 2, True)] == 0        # a 60 KB row
+    assert modes[(4, 960, 32, 4096, 2, True)] == 0
+
+
+def test_group_norm_fwd_holds_a_streamed_row_in_registers(
+        unet_norm_shapes):
+    """A streamed row of at most FWD_STREAM_MAX bytes fits the smallest
+    hold the plan gives it (a CTA's 256 threads hold it in registers),
+    and no smaller hold would; a chunk too long for that streams with
+    the largest hold; staged and scalar launches hold 1 and 4."""
+    for n, c, groups, hw, item, aligned in _gn_cases(unet_norm_shapes):
+        plan = gn.group_norm_fwd_plan(n, c, groups, hw, item, aligned)
+        k, nv = plan["hold"], plan["max_ch"] * hw * item // 16
+        if plan["mode"] != 1:
+            assert k == (1 if plan["mode"] == 0 else 4)
+        elif nv <= gn.FWD_HOLDS[-1] * gn.GNF_WARPS * 32:
+            assert nv <= k * gn.GNF_WARPS * 32
+            smaller = [h for h in gn.FWD_HOLDS if h < k]
+            assert not smaller or nv > smaller[-1] * gn.GNF_WARPS * 32
+        else:
+            assert k == gn.FWD_HOLDS[-1]
+    hold = {s: gn.group_norm_fwd_plan(s[0], s[1], 32, s[2] * s[3], 2,
+                                      True)["hold"]
+            for s in [(4, 1280, 8, 8), (4, 2560, 8, 8), (4, 1280, 16, 16),
+                      (4, 640, 32, 32)]}
+    assert list(hold.values()) == [4, 4, 8, 10]
+
+
+def test_group_norm_fwd_cluster_size(unet_norm_shapes):
+    """A row of at most FWD_ROW_MAX bytes is one CTA's; a longer one
+    takes the smallest S that gives chunks of at most FWD_CHUNK_TARGET
+    bytes (the SD-UNet's two longest rows over 8 and 5 CTAs)."""
+    for n, c, groups, hw, item, aligned in _gn_cases(unet_norm_shapes):
+        plan = gn.group_norm_fwd_plan(n, c, groups, hw, item, aligned)
+        s, cg = plan["cluster"], c // groups
+        if cg * hw * item <= gn.FWD_ROW_MAX:
+            assert s == 1
+        elif s < min(gn.GN_MAX_CLUSTER, cg):
+            assert plan["max_ch"] * hw * item <= gn.FWD_CHUNK_TARGET
+            assert s == 2 or -(-cg // (s - 1)) * hw * item \
+                > gn.FWD_CHUNK_TARGET
+    big = {(shape, groups): gn.group_norm_fwd_plan(
+        shape[0], shape[1], groups, shape[2] * shape[3], 2, True)["cluster"]
+        for shape, groups in unet_norm_shapes[0]}
+    assert big.pop(((4, 960, 64, 64), 32)) == 8
+    assert big.pop(((4, 640, 64, 64), 32)) == 5
+    assert set(big.values()) == {1}
+
+
+def test_chip_smokes_sweep_shapes_are_the_unet_steps(unet_norm_shapes):
+    """chip_smoke.py's forward sweep (UNET_GN_SHAPES) holds every
+    GroupNorm shape of the step with its number of calls."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert {(shape, 32): k for shape, k in smoke.UNET_GN_SHAPES.items()} \
+        == dict(unet_norm_shapes[0])
+
+
 def test_layer_norm_grid_covers_every_row_once(unet_norm_shapes):
     for n, h, item, aligned in _ln_cases(unet_norm_shapes):
         for cap in (8, 64, 120, 240, 496):
@@ -275,6 +398,16 @@ def test_norm_sources_agree_with_the_plans():
     assert int(const["GN_WARPS"]) == gn.GN_WARPS
     assert int(const["GN_MAX_CLUSTER"]) == gn.GN_MAX_CLUSTER
     assert int(const["GN_STAGES"]) == gn.GN_STAGES
+    assert int(const["GNF_WARPS"]) == gn.GNF_WARPS
+    assert int(const["GNF_PIECE"]) == gn.GNF_PIECE
+    # the streamed forward's instantiations are the plan's holds
+    holds = [int(k) for k in re.findall(
+        r"mode == 1 && hold == (\d+)\) return gn_fwd_kernel<T, 1, \1>;", text)]
+    assert tuple(holds) == gn.FWD_HOLDS
+    # the forward's shared memory: chunk, a barrier a piece, the exchange's
+    # barrier and slots, the weights and biases (group_norm_fwd_smem)
+    assert ("chunk + 8 * ((chunk + GNF_PIECE - 1) / GNF_PIECE + 1 + "
+            "GN_MAX_CLUSTER + (size_t)max_ch)") in text
     ks = {int(k) for k in re.findall(
         r"case (\d+): return ln_bwd_warp_kernel<T, \1>;", text)}
     assert ks == set(range(1, ln.LN_KMAX + 1))
@@ -293,3 +426,94 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     x4 = torch.randn(2, 8, 3, 3)
     with pytest.raises(ValueError):
         gn.group_norm_bwd_kernel(x4, w, stats, stats, x4, 2)
+    with pytest.raises(ValueError):
+        gn.group_norm_kernel(x4, w, w, 2)
+
+
+class _StubFn:
+    """A C entry point of the stub library: records each call's
+    arguments, sets an out-parameter to 4, returns 0."""
+
+    argtypes = None
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        if isinstance(args[-1], type(ctypes.byref(ctypes.c_int()))):
+            args[-1]._obj.value = 4
+        return 0
+
+
+@pytest.fixture
+def stub_library(monkeypatch):
+    """The GroupNorm wrappers on CPU tensors against a stub of the CUDA
+    library: the checks that need a card pass, the stream is 7, every
+    device is the current one, and a device-properties read counts.
+    Yields {"load": [...], "props": [...], C function: [calls]}."""
+    seen = {"load": [], "props": [], "group_norm_fwd": [],
+            "group_norm_bwd": [], "group_norm_bwd_max_clusters": []}
+    lib = type("Lib", (), {k: _StubFn(seen[k]) for k in gn.ARGTYPES})
+    monkeypatch.setattr(gn._build, "load",
+                        lambda name: seen["load"].append(name) or lib)
+    monkeypatch.setattr(gn._build, "_TICKETS", {})
+    monkeypatch.setattr(gn, "_check", lambda name, x, w, groups, *rest:
+                        gn._dims(x, groups))
+    monkeypatch.setattr(gn, "_stream", lambda index: 7)
+    monkeypatch.setattr(gn, "_FWD_LAUNCHES", {})
+    monkeypatch.setattr(gn, "_BWD_LAUNCHES", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties", lambda d: seen["props"].append(
+            d) or type("P", (), {"multi_processor_count": SMS}))
+    for fn in (gn.group_norm, gn.group_norm_bwd):
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    yield seen
+
+
+def test_a_warm_forward_call_reuses_its_plan(stub_library, monkeypatch):
+    """The forward's checks, plan and library lookup run once per (device,
+    dtypes, shapes, alignment); each call launches once with the plan's
+    constants, the eps it was given and the current stream."""
+    seen = stub_library
+    plans = []
+    plan_of = gn.group_norm_fwd_plan
+    monkeypatch.setattr(gn, "group_norm_fwd_plan",
+                        lambda *a: plans.append(a) or plan_of(*a))
+    x = torch.randn(4, 64, 8, 8)
+    w, b = torch.ones(64), torch.zeros(64, dtype=torch.bfloat16)
+    launches = gn.group_norm.launches
+    for eps in (1e-5, 1e-6, 1e-5):
+        y, mean, rstd = gn.group_norm_kernel(x, w, b, 32, eps)
+    assert y.shape == x.shape and mean.shape == rstd.shape == (128,)
+    assert len(plans) == 1 and seen["load"] == ["norms"]
+    assert seen["props"] == []
+    calls = seen["group_norm_fwd"]
+    assert len(calls) == 3 == gn.group_norm.launches - launches
+    plan = plan_of(4, 64, 32, 64, 4, x.data_ptr() % 16 == 0)
+    assert calls[0][5:16] == (4, 64, 32, 64, 0, 0, 1, plan["mode"],
+                              plan["hold"], plan["cluster"], plan["smem"])
+    assert [c[16:] for c in calls] == [(1e-5, 7), (1e-6, 7), (1e-5, 7)]
+    gn.group_norm_kernel(x[:2].contiguous(), w, b, 32)     # another shape
+    assert len(plans) == 2 and len(calls) == 4
+
+
+def test_a_warm_backward_call_reuses_its_plan(stub_library):
+    """The backward's plan (its occupancy queries and the device's
+    multiprocessors) is made once per key, as the forward's."""
+    seen = stub_library
+    x, g = torch.randn(4, 64, 8, 8), torch.randn(4, 64, 8, 8)
+    w, stats = torch.ones(64), torch.zeros(128)
+    launches = gn.group_norm_bwd.launches
+    for _ in range(3):
+        gn.group_norm_bwd_kernel(x, w, stats, stats, g, 32)
+    assert len(seen["props"]) == 1 and seen["load"] == ["norms"]
+    queries = len(seen["group_norm_bwd_max_clusters"])
+    assert queries >= 1
+    calls = seen["group_norm_bwd"]
+    assert len(calls) == 3 == gn.group_norm_bwd.launches - launches
+    assert len({c[10:] for c in calls}) == 1 and calls[0][-1] == 7
+    gn.group_norm_bwd_kernel(x, w, stats, stats, g, 32)
+    assert len(seen["props"]) == 1
+    assert len(seen["group_norm_bwd_max_clusters"]) == queries
