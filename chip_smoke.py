@@ -35,19 +35,23 @@ the script exits nonzero and prints no result:
    LayerNorm forward and backward at [16384,320], [4096,640], [1024,1280],
    [256,1280] (bf16), [4096,640] (f32), [4096,768] (BERT's width) and
    [4096,100] (rows not in whole 16-byte vectors: the CTA-per-row
-   backward); GroupNorm forward and backward at [4,320,64,64],
+   kernels); GroupNorm forward and backward at [4,320,64,64],
    [4,960,64,64], [4,2560,8,8] (bf16, 32 groups), [4,320,64,64] (f32),
    [2,6,5,7] with 3 groups (odd spatial size: the scalar streaming
    kernels) and [1,64,128,128] f32 with 1 group (a row too long for
-   shared memory: the vector streaming kernels), each backward's and
-   each GroupNorm forward's profile holding its own kernel alone; then
-   the norms' determinism, the backwards' dx, dw and db bit for bit over
-   two calls at [16384,320] and [4,960,64,64], the GroupNorm forward's
-   y, mean and rstd at [4,960,64,64] and [4,320,64,64] (bf16); then the
-   GroupNorm forward at the 14 shapes of the UNet step (UNET_GN_SHAPES,
-   bf16): device and CUDA-event ms, bound and F.group_norm's device ms,
-   and their sums over the step weighted by the calls (gn_fwd_sweep; run
-   alone with ``--gn-fwd-sweep``, see sweep_main).  Tolerances are
+   shared memory: the vector streaming kernels), each call's profile
+   holding its own kernel alone; then the norms' determinism, the
+   backwards' dx, dw and db bit for bit over two calls at [16384,320]
+   and [4,960,64,64], the GroupNorm forward's y, mean and rstd at
+   [4,960,64,64] and [4,320,64,64], the LayerNorm forward's at
+   [16384,320] and [4096,640] (bf16); then the GroupNorm forward at the
+   14 shapes of the UNet step (UNET_GN_SHAPES, bf16): device and
+   CUDA-event ms, bound and F.group_norm's device ms, and their sums over
+   the step weighted by the calls (gn_fwd_sweep; run alone with
+   ``--gn-fwd-sweep``, see sweep_main); and the LayerNorm forward at the
+   step's 4 shapes (UNET_LN_SHAPES) likewise, with the backward's device
+   and CUDA-event ms beside it (ln_fwd_sweep, ``--ln-fwd-sweep``).
+   Tolerances are
    stated with the comparisons (TOLERANCES).  Each case
    prints its kernel, plain and library times and its bound; the
    attention and norm cases (RMSNorm too) also the kernel's and the
@@ -101,11 +105,14 @@ The last three lines are the card's nvidia-smi line, the per-kernel JSON
 summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
 
     python3 chip_smoke.py --gn-fwd-sweep [--variants] [--tree DIR]
+    python3 chip_smoke.py --ln-fwd-sweep [--variants] [--tree DIR]
 
-runs the GroupNorm forward sweep alone: with ``--variants`` also every
-launch the kernel takes at each shape (mode x cluster size), and with
-``--tree DIR`` the ``paddle_tpu_torch`` of another checkout (a parent
-commit's, to compare two versions in one run on one card).
+runs the GroupNorm or the LayerNorm forward sweep alone: with
+``--variants`` also every launch the kernel takes at each shape
+(GroupNorm: mode x cluster size x hold; LayerNorm: threads a row x
+vectors a thread x grid), and with ``--tree DIR`` the
+``paddle_tpu_torch`` of another checkout (a parent commit's, to compare
+two versions in one run on one card).
 """
 
 from __future__ import annotations
@@ -130,11 +137,12 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, no TF32
 # max|plain|.  Both sides compute in f32 and differ in summation order
 # (and the exp/log/rsqrt ulps).  A bf16 output rounds an f32 value that
 # moved by ~1e-6, so it may flip to the neighbouring bf16 value (at most
-# 2**-7 of itself); values near 0 are held to 1e-3 of the tensor's
-# largest.  f32 outputs agree to ~1e-6 relative over 4096 keys: 1e-4
-# leaves two orders of margin, and 1e-5 of the largest value covers
-# elements that cancel to near 0.
-TOLERANCES = {"bfloat16": (2.0 ** -7, 1e-3), "float32": (1e-4, 1e-5)}
+# 2**-7 of itself; an f16 output, 2**-10); values near 0 are held to 1e-3
+# of the tensor's largest.  f32 outputs agree to ~1e-6 relative over 4096
+# keys: 1e-4 leaves two orders of margin, and 1e-5 of the largest value
+# covers elements that cancel to near 0.
+TOLERANCES = {"bfloat16": (2.0 ** -7, 1e-3), "float16": (2.0 ** -10, 1e-3),
+              "float32": (1e-4, 1e-5)}
 # engine vs the uncached forward: both run in bf16 and round at different
 # points through 32 layers of GEMMs whose cuBLAS algorithms differ with M,
 # so neither is the truth; the truth is the same forward over an f32 copy
@@ -163,6 +171,10 @@ UNET_GN_SHAPES = {
     (4, 640, 32, 32): 11, (4, 2560, 16, 16): 2, (4, 1920, 16, 16): 1,
     (4, 320, 32, 32): 1, (4, 1280, 16, 16): 11, (4, 640, 16, 16): 1,
     (4, 2560, 8, 8): 3, (4, 1280, 8, 8): 12}
+# its LayerNorm forwards, [4 * HW, C] rows: calls a step (the same test
+# traces them)
+UNET_LN_SHAPES = {(16384, 320): 15, (4096, 640): 15, (1024, 1280): 15,
+                  (256, 1280): 3}
 
 
 def emit(obj):
@@ -216,7 +228,7 @@ def device_ms(torch, fn, reps):
     kernel events (a run read 0.0 for a kernel that ran, and two-thirds
     of another's time), so a mean over all events would undercount; the
     median of those that arrived does not; a window in which none arrived
-    is profiled once more."""
+    is profiled again, up to four windows."""
     import statistics
 
     from torch.autograd import DeviceType
@@ -225,7 +237,7 @@ def device_ms(torch, fn, reps):
     fn()
     torch.cuda.synchronize()
     by_name = {}
-    for _ in range(2):         # once more when no kernel event arrived
+    for _ in range(4):         # again when no kernel event arrived
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -477,8 +489,10 @@ def kernel_phase(torch, dev):
     seed = flash_cases(torch, dev, summary, seed)
     seed = flash_bwd_determinism_check(torch, dev, seed)
     seed = norm_cases(torch, dev, summary, seed)
+    seed = ln_fwd_dtype_check(torch, dev, seed)
     seed = norm_bwd_determinism_check(torch, dev, seed)
     seed = gn_fwd_sweep(torch, dev, seed)
+    seed = ln_fwd_sweep(torch, dev, seed)
     rms_autograd_check(torch, dev, seed)
     unsupported_check(torch, dev)
     return summary
@@ -735,17 +749,19 @@ def unet_flash_shapes():
 
 def kernel_names(torch, fn):
     """The names of the kernels one ``fn()`` call launches (after one
-    warm-up call), from torch.profiler; profiled again (up to three
-    times) when no kernel event arrived, as the profiler can drop them
-    (see :func:`device_ms`)."""
+    warm-up call), from torch.profiler over three calls; profiled again
+    (up to five windows) when no kernel event arrived, as the profiler
+    can drop them (see :func:`device_ms`: a run once read [] in three
+    windows of one call each for a kernel that ran)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(3):
+                fn()
             torch.cuda.synchronize()
         names = sorted({e.name for e in prof.events()
                         if e.device_type == DeviceType.CUDA})
@@ -761,13 +777,13 @@ def norm_cases(torch, dev, summary, seed):
     train step's shapes: LayerNorm over [4 * HW, C] rows, GroupNorm over
     [4, C, H, W] with 32 groups (960 channels at 64x64 is the longest
     row, 30 x 4096 elements); and at shapes that take the backwards'
-    other variants (see the module docstring).  Each backward's profile
+    other variants (see the module docstring).  Each call's profile
     must hold its own CUDA kernel alone (no torch reduction or cast
-    after it).  Library yardstick: F.layer_norm and F.group_norm,
-    forward and backward (graph built once, not timed).  Bounds: bytes
-    (x, y or x, g, dx once each, the affine vectors, the f32 statistics)
-    over 3.35 TB/s, or 7 (forward) and 12 (backward) operations per
-    element, whichever is larger."""
+    after it), forwards and backwards.  Library yardstick: F.layer_norm
+    and F.group_norm, forward and backward (graph built once, not
+    timed).  Bounds: bytes (x, y or x, g, dx once each, the affine
+    vectors, the f32 statistics) over 3.35 TB/s, or 7 (forward) and 12
+    (backward) operations per element, whichever is larger."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.group_norm import (
@@ -787,6 +803,7 @@ def norm_cases(torch, dev, summary, seed):
           ((4, 2560, 8, 8), "bfloat16", 32), ((4, 320, 64, 64), "float32", 32),
           ((2, 6, 5, 7), "bfloat16", 3), ((1, 64, 128, 128), "float32", 1)]
     bwd_names = {"layer_norm": "ln_bwd", "group_norm": "gn_bwd"}
+    fwd_keys = {"layer_norm": "ln_fwd", "group_norm": "gn_fwd"}
     for kind, shapes in (("layer_norm", ln), ("group_norm", gn)):
         for shape, dname, groups in shapes:
             dtype = getattr(torch, dname)
@@ -840,8 +857,7 @@ def norm_cases(torch, dev, summary, seed):
                 raise AssertionError(f"{kind}_bwd/{name}: one call launched "
                                      f"{names}, want its CUDA kernel alone")
             fwd_names = kernel_names(torch, fns["fwd"])
-            if kind == "group_norm" and (len(fwd_names) != 1
-                                         or "gn_fwd" not in fwd_names[0]):
+            if len(fwd_names) != 1 or fwd_keys[kind] not in fwd_names[0]:
                 raise AssertionError(f"{name}: one forward call launched "
                                      f"{fwd_names}, want its CUDA kernel "
                                      "alone")
@@ -868,10 +884,8 @@ def norm_cases(torch, dev, summary, seed):
                         "bound_ms": bd_ms, "bound_by": bd_by}
                 if groups is not None:
                     case["groups"] = groups
-                if kname.endswith("_bwd"):
-                    case["kernels"] = names
-                elif kind == "group_norm":
-                    case["kernels"] = fwd_names
+                case["kernels"] = names if kname.endswith("_bwd") \
+                    else fwd_names
                 emit(case)
                 if dname == "bfloat16" and shape in ((4096, 640),
                                                      (4, 960, 64, 64)):
@@ -879,18 +893,52 @@ def norm_cases(torch, dev, summary, seed):
     return seed
 
 
+def ln_fwd_dtype_check(torch, dev, seed):
+    """The LayerNorm forward with affine dtypes other than x's (each of w
+    and b converted by its own dtype code: the kernels' other
+    instantiation) and in float16, against its plain twin, in a row of a
+    warp ([4096,640]) and of a CTA ([256,1280])."""
+    from paddle_tpu_torch.ops.layer_norm import (
+        layer_norm_fwd_plain, layer_norm_kernel,
+    )
+
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    report = {}
+    for shape in ((4096, 640), (256, 1280)):
+        for xd, wd, bd in ((bf16, f32, f32), (bf16, f32, bf16),
+                           (f32, bf16, f16), (f16, f16, f16)):
+            g = torch.Generator(device="cpu").manual_seed(seed)
+            seed += 1
+            x = (3.0 + 2.0 * torch.randn(*shape, generator=g)).to(xd).to(dev)
+            w = (1.0 + 0.1 * torch.randn(shape[1], generator=g)).to(wd).to(dev)
+            b = (0.1 * torch.randn(shape[1], generator=g)).to(bd).to(dev)
+            out = layer_norm_kernel(x, w, b)
+            ref = layer_norm_fwd_plain(x, w, b)
+            torch.cuda.synchronize()
+            name = (f"layer_norm/{shape[0]}x{shape[1]}/"
+                    f"{str(xd)[6:]}_{str(wd)[6:]}_{str(bd)[6:]}")
+            tol = str(xd)[6:]
+            report[name] = max(check_close(f"{name}/{n}", a, r,
+                                           tol if n == "y" else "float32")
+                               for n, a, r in zip(("y", "mean", "rstd"), out,
+                                                  ref))
+    emit({"phase": "ln_fwd_dtypes", "max_abs_err": report})
+    return seed
+
+
 def norm_bwd_determinism_check(torch, dev, seed):
     """The norm backward kernels give bitwise equal dx, dw and db over
     two calls on the same inputs (their sums across blocks run in a
     fixed order, with no floating-point atomics): LayerNorm at
-    [16384,320] and GroupNorm at [4,960,64,64], bf16; and the GroupNorm
-    forward bitwise equal y, mean and rstd (the ranks' partials merged
-    in rank order) at [4,960,64,64] and [4,320,64,64], bf16."""
+    [16384,320] and GroupNorm at [4,960,64,64], bf16; and the forwards
+    bitwise equal y, mean and rstd: GroupNorm (the ranks' partials merged
+    in rank order) at [4,960,64,64] and [4,320,64,64], LayerNorm (each
+    row's sums in lane order) at [16384,320] and [4096,640], bf16."""
     from paddle_tpu_torch.ops.group_norm import (
         group_norm_bwd_kernel, group_norm_fwd_plain, group_norm_kernel,
     )
     from paddle_tpu_torch.ops.layer_norm import (
-        layer_norm_bwd_kernel, layer_norm_fwd_plain,
+        layer_norm_bwd_kernel, layer_norm_fwd_plain, layer_norm_kernel,
     )
 
     report = {}
@@ -921,18 +969,24 @@ def norm_bwd_determinism_check(torch, dev, seed):
                                      "differ between two calls")
         report[cname] = {"dx_dw_db": "bitwise equal"}
         del x, w, gy, runs
-    for shape in ((4, 960, 64, 64), (4, 320, 64, 64)):
+    for shape in ((4, 960, 64, 64), (4, 320, 64, 64), (16384, 320),
+                  (4096, 640)):
         g = torch.Generator(device="cpu").manual_seed(seed)
         seed += 1
+        c = shape[-1] if len(shape) == 2 else shape[1]
         x = (3.0 + 2.0 * torch.randn(*shape, generator=g)).to(
             torch.bfloat16).to(dev)
-        w = (1.0 + 0.1 * torch.randn(shape[1], generator=g)).to(
+        w = (1.0 + 0.1 * torch.randn(c, generator=g)).to(
             torch.bfloat16).to(dev)
-        b = (0.1 * torch.randn(shape[1], generator=g)).to(torch.bfloat16) \
+        b = (0.1 * torch.randn(c, generator=g)).to(torch.bfloat16) \
             .to(dev)
-        runs = [group_norm_kernel(x, w, b, 32) for _ in range(2)]
+        if len(shape) == 2:
+            runs = [layer_norm_kernel(x, w, b) for _ in range(2)]
+        else:
+            runs = [group_norm_kernel(x, w, b, 32) for _ in range(2)]
         torch.cuda.synchronize()
-        cname = f"group_norm/{'x'.join(map(str, shape))}"
+        kind = "layer_norm" if len(shape) == 2 else "group_norm"
+        cname = f"{kind}/{'x'.join(map(str, shape))}"
         for n, a, b_ in zip(("y", "mean", "rstd"), *runs):
             if not torch.equal(a, b_):
                 raise AssertionError(f"norm_determinism {cname}/{n}: "
@@ -1023,6 +1077,112 @@ def gn_fwd_sweep(torch, dev, seed, variants=False):
                 total[k] += calls * case[k]
         del x, w, b, ref
     emit({"phase": "gn_fwd_sweep_step", "calls": sum(UNET_GN_SHAPES.values()),
+          **{f"{k}_per_step": v for k, v in total.items()}})
+    return seed
+
+
+def ln_fwd_variants(ln, n, h, item):
+    """Every launch the LayerNorm forward kernel takes at ``n`` rows of
+    ``h`` (aligned, 16-byte vectors) with at most half its vector slots
+    empty: each thread count of ``LNF_THREADS`` that holds the row in at
+    most ``LNF_VALUES`` values a thread.  A row of a warp or less runs in
+    CTAs of 8 warps with the grid at the occupancy cap (each warp walking
+    several groups of rows, the next group's loads in flight) and with
+    one group of rows a warp (more CTAs than the card holds at once where
+    the rows need it); a row of a CTA runs one CTA a row."""
+    lib, code = ln._lib(), 1 if item == 2 else 0
+    nvec = h * item // 16
+    out = {}
+    for threads in ln.LNF_THREADS:
+        k = -(-nvec // threads)
+        if k * 16 // item > ln.LNF_VALUES or 2 * nvec < k * threads:
+            continue
+        warps = 8 if threads <= 32 else threads // 32
+        cap = ln._max_ctas(lib.layer_norm_fwd_max_ctas, "layer_norm", code,
+                           code, code, k, threads, warps)
+        grids = {"row": n}
+        if threads <= 32:
+            unit = warps * 32 // threads
+            per = -(-n // (unit * cap))
+            grids = {"cap": -(-n // (unit * per)), "one": -(-n // unit)}
+        for grid, ctas in grids.items():
+            if grid == "one" and ctas == grids["cap"]:
+                continue
+            out[f"T{threads}/k{k}/w{warps}/{grid}"] = {
+                "k": k, "threads": threads, "warps": warps, "ctas": ctas,
+                "cap": cap}
+    return out
+
+
+def ln_fwd_sweep(torch, dev, seed, variants=False):
+    """The LayerNorm forward at the 4 shapes of the UNet step
+    (UNET_LN_SHAPES, bf16), each checked against its plain twin: device
+    ms (profiler), CUDA-event ms over back-to-back calls (the host launch
+    path included; the least of three runs of 200, as the host's cores
+    are shared), the byte bound and F.layer_norm's device ms; the
+    backward's device and CUDA-event ms beside them (its host path); then
+    the step's sums weighted by the calls.  With ``variants``
+    (``--variants``) also the device ms of every launch the kernel takes
+    (ln_fwd_variants) beside the plan's own."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    ln = importlib.import_module("paddle_tpu_torch.ops.layer_norm")
+    total = {"device_ms": 0.0, "ms": 0.0, "bound_ms": 0.0,
+             "library_device_ms": 0.0, "bwd_device_ms": 0.0, "bwd_ms": 0.0}
+    for shape, calls in UNET_LN_SHAPES.items():
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        seed += 1
+        n, h = shape
+        x = (3.0 + 2.0 * torch.randn(*shape, generator=g)).to(
+            torch.bfloat16).to(dev)
+        w = (1.0 + 0.1 * torch.randn(h, generator=g)).to(
+            torch.bfloat16).to(dev)
+        b = (0.1 * torch.randn(h, generator=g)).to(torch.bfloat16).to(dev)
+        gy = torch.randn(*shape, generator=g).to(torch.bfloat16).to(dev)
+        name = f"layer_norm/{n}x{h}/bfloat16"
+        ref = ln.layer_norm_fwd_plain(x, w, b)
+        err = max(check_close(f"{name}/{k}", a, r,
+                              "bfloat16" if k == "y" else "float32")
+                  for k, a, r in zip(("y", "mean", "rstd"),
+                                     ln.layer_norm_kernel(x, w, b), ref))
+        _, mean, rstd = ref
+        kern = lambda: ln.layer_norm_kernel(x, w, b)
+        bwd = lambda: ln.layer_norm_bwd_kernel(x, w, mean, rstd, gy)
+        lib = lambda: F.layer_norm(x, (h,), w, b, 1e-5)
+        b_ms, _ = bound(2 * n * h * 2 + 2 * h * 2 + 2 * n * 4, 7 * n * h,
+                        "bfloat16")
+        case = {"phase": "ln_fwd_sweep", "x": list(shape), "calls": calls,
+                "max_abs_err": err, "device_ms": device_ms(torch, kern, 5),
+                "ms": min(cuda_ms(kern, 200) for _ in range(3)),
+                "bound_ms": b_ms,
+                "library_device_ms": device_ms(torch, lib, 5),
+                "bwd_device_ms": device_ms(torch, bwd, 5),
+                "bwd_ms": min(cuda_ms(bwd, 200) for _ in range(3))}
+        plan_fn = getattr(ln, "layer_norm_fwd_plan", None)
+        if plan_fn is not None:
+            lib_ = ln._lib()
+            case["plan"] = plan_fn(n, h, 2, True, lambda k, t, warps:
+                                   ln._max_ctas(lib_.layer_norm_fwd_max_ctas,
+                                                "layer_norm", 1, 1, 1, k, t,
+                                                warps))
+        if variants and plan_fn is not None:
+            case["variants"] = {}
+            for k, p in ln_fwd_variants(ln, n, h, 2).items():
+                launch = ln._fwd_launch(x, w, b, p)
+                check_close(f"{name}/{k}/y", ln._fwd_run(
+                    launch, x, w, b, 1e-5)[0], ref[0], "bfloat16")
+                case["variants"][k] = [device_ms(
+                    torch, lambda: ln._fwd_run(launch, x, w, b, 1e-5), 5),
+                    p["ctas"], p["cap"]]
+        emit(case)
+        for k in total:
+            if isinstance(case[k], float):
+                total[k] += calls * case[k]
+        del x, w, b, gy, ref, mean, rstd
+    emit({"phase": "ln_fwd_sweep_step",
+          "calls": sum(UNET_LN_SHAPES.values()),
           **{f"{k}_per_step": v for k, v in total.items()}})
     return seed
 
@@ -1230,7 +1390,8 @@ PORT_KERNELS = (
     ("flash", ("flash_fwd", "flash_bwd", "FlashProblem")),
     ("paged_attention", ("paged_attn", "PagedProblem")),
     ("group_norm", ("gn_fwd_kernel", "gn_bwd_kernel")),
-    ("layer_norm", ("_ln_fwd", "ln_bwd_warp_kernel", "ln_bwd_row_kernel")),
+    ("layer_norm", ("ln_fwd_warp_kernel", "ln_fwd_row_kernel",
+                    "ln_bwd_warp_kernel", "ln_bwd_row_kernel")),
     ("rms_norm", ("_rms_fwd", "_rms_bwd")),
 )
 
@@ -1689,18 +1850,28 @@ def unet_train_parity_phase(torch, dev):
 
 
 def sweep_main(torch, args):
-    """``--gn-fwd-sweep [--variants] [--tree DIR]``: the GroupNorm forward
-    sweep alone (:func:`gn_fwd_sweep`), of the ``paddle_tpu_torch`` under
-    DIR (another checkout, e.g. a parent commit's) if given."""
+    """``--gn-fwd-sweep`` or ``--ln-fwd-sweep``, ``[--variants] [--tree
+    DIR]``: the GroupNorm or LayerNorm forward sweep alone
+    (:func:`gn_fwd_sweep`, :func:`ln_fwd_sweep`), of the
+    ``paddle_tpu_torch`` under DIR (another checkout, e.g. a parent
+    commit's) if given.  Builds the kernels first (the ptxas report's
+    spills printed)."""
     if "--tree" in args:
         sys.path.insert(0, os.path.abspath(args[args.index("--tree") + 1]))
     import paddle_tpu_torch
+    from paddle_tpu_torch import _build
 
     smi = nvidia_smi()
+    built = _build.build_all(verbose=True)
+    ptxas = [ln.strip() for info in built.values()
+             for ln in info["log"].splitlines()
+             if "Function properties for" in ln or "spill" in ln]
     emit({"phase": "environment", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "package": os.path.dirname(paddle_tpu_torch.__file__)})
-    gn_fwd_sweep(torch, torch.device("cuda"), 0, "--variants" in args)
+          "package": os.path.dirname(paddle_tpu_torch.__file__),
+          "built": sorted(built), "ptxas_spills": ptxas_spills(ptxas)})
+    sweep = gn_fwd_sweep if "--gn-fwd-sweep" in args else ln_fwd_sweep
+    sweep(torch, torch.device("cuda"), 0, "--variants" in args)
     print(smi)
     return 0
 
@@ -1712,7 +1883,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "kernels need a CUDA device", file=sys.stderr)
         return 1
-    if "--gn-fwd-sweep" in sys.argv[1:]:
+    if {"--gn-fwd-sweep", "--ln-fwd-sweep"} & set(sys.argv[1:]):
         return sweep_main(torch, sys.argv[1:])
     from paddle_tpu_torch import _build, resolve_device
 
@@ -1754,7 +1925,7 @@ def main():
         "flash_bwd_dkv": ("cuda",
                           "paddle_tpu_torch/csrc/flash_bwd_sm90.cuh",
                           "paddle_tpu/ops/pallas/flash.py:277", "train"),
-        "layer_norm": ("triton", "paddle_tpu_torch/ops/layer_norm.py",
+        "layer_norm": ("cuda", "paddle_tpu_torch/csrc/norms.cu",
                        "paddle_tpu/ops/pallas/norms.py:79", "unet_train"),
         "layer_norm_bwd": ("cuda", "paddle_tpu_torch/csrc/norms.cu",
                            "paddle_tpu/ops/pallas/norms.py:141",

@@ -17,8 +17,8 @@ Three slices so far:
   RMSNorm backward;
 * training the Stable-Diffusion UNet (``models.UNet2DConditionModel``,
   ``models.unet_loss``): LayerNorm and GroupNorm forward and backward
-  (``csrc/norms.cu``; the LayerNorm forward in Triton,
-  ``ops/layer_norm.py``) and flash at head dims 40/80/160.
+  (``csrc/norms.cu``, bound in ``ops/layer_norm.py`` and
+  ``ops/group_norm.py``) and flash at head dims 40/80/160.
 
 On the CPU the UNet runs at a tiny size with ``device="cpu"``, e.g.
 ``UNet2DConditionModel(UNetConfig(block_out_channels=(16, 32),

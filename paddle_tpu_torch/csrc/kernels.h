@@ -82,6 +82,25 @@ int group_norm_bwd(const void* x, const void* w, const float* mean,
                    int hw, int dtype, int wdtype, int mode, int cluster,
                    int clusters, int smem_bytes, void* stream);
 
+// LayerNorm forward (see norms.cu): x, y [n, h], w and b [h] (wdtype,
+// bdtype: 0 = f32, 1 = bf16, 2 = f16, each its own); stats f32 [2, n]: each
+// row's mean, then its rstd.  k = 0 (threads 0, warps 8) runs the
+// CTA-per-row kernel; k in 1..4 holds a row in registers, `threads`
+// threads a row holding k 16-byte vectors each (h % (16 / itemsize) == 0,
+// h <= threads k 16 / itemsize, 16-byte aligned x, y, w and b): 8, 16 or
+// 32 lanes of a warp (CTAs of `warps` warps, 1..8, whose ctas CTAs walk
+// the rows), or a CTA of threads = 32 warps (2..8).  A row a CTA (k = 0, or
+// threads > 32) takes ctas = n.  layer_norm_fwd_max_ctas gives the most
+// CTAs of a kernel the device holds at once.  w and b both in x's dtype
+// take kernels that load them as x; other affine dtypes convert at run
+// time.
+int layer_norm_fwd_max_ctas(int dtype, int wdtype, int bdtype, int k,
+                            int threads, int warps, int* ctas);
+int layer_norm_fwd(const void* x, const void* w, const void* b, void* y,
+                   float* stats, int n, int h, int dtype, int wdtype,
+                   int bdtype, int k, int threads, int warps, int ctas,
+                   float eps, void* stream);
+
 // GroupNorm forward (see norms.cu): x, y [n, c, hw] with c % groups == 0,
 // w and b [c] (wdtype, bdtype: 0 = f32, 1 = bf16, 2 = f16, each its own);
 // stats f32 [2, n * groups]: each (sample, group) row's mean, then its

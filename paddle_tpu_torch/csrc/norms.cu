@@ -1,6 +1,7 @@
-// LayerNorm and GroupNorm backward, GroupNorm forward, for sm_90a.
+// LayerNorm and GroupNorm, forward and backward, for sm_90a.
 //
-// Replaces three Pallas TPU kernels of paddle_tpu/ops/pallas/norms.py:
+// Replaces four Pallas TPU kernels of paddle_tpu/ops/pallas/norms.py:
+//   LayerNorm  <- _ln_fwd_kernel (:32, launched by _ln_call_fwd :79)
 //   LayerNorm  <- _ln_bwd_kernel (:44, launched by _ln_vjp_bwd :141)
 //   GroupNorm  <- _gn_bwd_kernel (:318, launched by _gn_vjp_bwd :424)
 //   GroupNorm  <- _gn_fwd_kernel (:304, launched by _gn_call_fwd :366)
@@ -90,6 +91,42 @@
 //     is read in every pass, the later passes hitting the L2.
 //   MODE 2: as MODE 1 with scalar loads, where HW * sizeof(T) is not a
 //     multiple of 16.
+//
+// LayerNorm forward ([N, H] rows): y = (x - mean) rstd w + b with the row's
+// f32 mean and rstd = rsqrt(mean((x - mean)^2) + eps), y in x's dtype, mean
+// and rstd f32 [N].  Bound by bytes: x in and y out once (plus w, b and 8
+// bytes of statistics a row), 6.3 us at [16384, 320] in bf16 on an H100,
+// against ~7 operations an element.  The TPU kernel takes blocks of 256
+// rows in VMEM (padding the rows to a whole block); the rows here are short
+// (640 B at H 320) and many, or few and wide, so the problem is bytes in
+// flight per SM and a row's latency, with no barrier between a row's load
+// and its sums where a warp holds it.  A row is held in registers by P
+// threads, K 16-byte vectors each (columns (k P + p) VW ...), at most
+// LNF_VALUES values a thread (more cost registers and occupancy); the
+// wrapper picks (K, P) from H alone, the pair that leaves the fewest slots
+// empty: H 320 in 16 lanes (K 3), H 640 in 32 (K 3), H 1280 in a CTA of
+// 160 threads (K 1).  A row's sums run in a fixed order (each vector
+// pairwise, the vectors in order, then butterflies), so its bits depend on
+// the row and on (K, P) alone, never on the grid: bitwise the same run to
+// run.  The mean, then M2 about it: two passes over the registers, never
+// E[x^2] - mean^2.
+//   ln_fwd_warp_kernel<T, K, LANES, SAME>: a row per 8, 16 or 32 lanes (4,
+//     2 or 1 rows a warp at once), a persistent grid at the occupancy cap;
+//     a warp walks its groups of rows and issues the next group's loads
+//     before this one's sums, which are xor-shuffle butterflies over the
+//     row's lanes (no shared memory, no __syncthreads).  w and b are
+//     loaded once a lane and kept in f32 registers: a lane takes the same
+//     columns in every row.
+//   ln_fwd_cta_kernel<T, K, SAME>: a row per CTA of 2..8 warps, one CTA a
+//     row (the rows that need it are few: their time is a load's round trip
+//     and the sums' latency); warp butterflies, then the warps' sums in warp
+//     order; w and b loaded after the sums.
+//   ln_fwd_row_kernel<T>: any H and any alignment: a CTA a row, scalar
+//     loads, block sums in warp order.
+//   SAME: w and b both in x's dtype, whose code is then a constant; other
+//   affine dtypes convert by codes read at run time (measured slower at
+//   every SD UNet shape: more instructions an element).
+// y leaves in 16-byte stores; one thread a row writes mean and rstd.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -112,6 +149,7 @@ using sm90::smem_u32;
 
 constexpr int LN_WARPS = 8;     // warps of a LayerNorm CTA
 constexpr int LN_CLUSTER = 8;   // CTAs of a LayerNorm cluster
+constexpr int LNF_VALUES = 24;  // values a LayerNorm forward thread holds at most
 constexpr int GN_WARPS = 8;     // warps of a GroupNorm CTA
 constexpr int GN_MAX_CLUSTER = 8;
 constexpr int GN_PIECE = 8192;  // bytes of x a bulk copy brings at least
@@ -147,6 +185,16 @@ struct GnArgs {
   float* ws;     // [2][N][C]: dw partials, then db partials
   int* ticket;
   int n, c, groups, hw, wdtype, s, max_ch;
+};
+
+struct LnFwdArgs {
+  const void* x;
+  const void* w;
+  const void* b;
+  void* y;
+  float* stats;  // [2][n]: the rows' mean, then their rstd
+  int n, h, wdtype, bdtype;
+  float eps;
 };
 
 struct GnFwdArgs {
@@ -224,12 +272,29 @@ __device__ __forceinline__ void store_w(void* w, int code, int i, float v) {
   else static_cast<float*>(w)[i] = v;
 }
 
-// a + b over the warp; every lane ends with the same bits (each butterfly
-// step adds the same two values on both lanes of a pair)
-__device__ __forceinline__ float warp_sum(float v) {
+// v summed over each aligned group of LANES lanes (a power of two up to 32);
+// every lane of a group ends with the same bits (each butterfly step adds
+// the same two values on both lanes of a pair)
+template <int LANES>
+__device__ __forceinline__ float lanes_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  for (int o = LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) { return lanes_sum<32>(v); }
+
+// v summed over a CTA of WARPS warps through red[WARPS]: every thread adds
+// the warps' sums in warp order, so all end with the same bits
+template <int WARPS>
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) s += red[w];
+  return s;
 }
 
 // one bulk copy of `bytes` (a multiple of 16) from device memory into this
@@ -630,6 +695,278 @@ cudaError_t launch_cluster(Kern kernel, int grid, int threads, int cluster, size
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
+// ----------------------------------------------------- LayerNorm forward
+// the code of a dtype as the entry points take it: 0 f32, 1 bf16, 2 f16
+template <typename T>
+__host__ __device__ constexpr int dtype_code() {
+  return std::is_same<T, float>::value ? 0 : std::is_same<T, __nv_bfloat16>::value ? 1 : 2;
+}
+
+// the affine vector's VW values from element i0 in f32, its dtype read at
+// run time (0 f32, 1 bf16, 2 f16); the vector starts on a multiple of VW
+// elements of a 16-byte aligned base, so it loads as 16- or 8-byte pieces
+template <int VW>
+__device__ __forceinline__ void load_affine(const void* p, int code, int i0, float (&f)[VW]) {
+  if (code == 0) {
+    const float4* q = reinterpret_cast<const float4*>(static_cast<const float*>(p) + i0);
+#pragma unroll
+    for (int i = 0; i < VW / 4; ++i) {
+      const float4 v = q[i];
+      f[4 * i] = v.x;
+      f[4 * i + 1] = v.y;
+      f[4 * i + 2] = v.z;
+      f[4 * i + 3] = v.w;
+    }
+  } else {
+    using V = typename std::conditional<VW == 8, uint4, uint2>::type;
+    const V v = *reinterpret_cast<const V*>(static_cast<const unsigned short*>(p) + i0);
+    const unsigned short* e = reinterpret_cast<const unsigned short*>(&v);
+#pragma unroll
+    for (int i = 0; i < VW; ++i)
+      f[i] = code == 1 ? __bfloat162float(__ushort_as_bfloat16(e[i]))
+                       : __half2float(__ushort_as_half(e[i]));
+  }
+}
+
+// The register-held forward row of one thread: K 16-byte vectors of x (its
+// vectors k P + p of the row, p its place among the P threads that hold
+// the row) and the affine values of those columns in f32.  SAME: w and b
+// are both in x's dtype, whose code is a constant; otherwise each is
+// converted by its own code read at run time.  Its partial sums run in a
+// fixed order: each vector's values pairwise, then the vectors in order
+// (short dependency chains, the same bits every run).
+template <typename T, int K, bool SAME>
+struct LnFwdRow {
+  static constexpr int VW = 16 / sizeof(T);
+  uint4 x[K];
+  float w[K][VW], b[K][VW];
+
+  __device__ __forceinline__ void load(const T* row, int p, int P, int nvec, bool valid) {
+    const uint4* xr = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = k * P + p;
+      x[k] = valid && j < nvec ? xr[j] : make_uint4(0, 0, 0, 0);
+    }
+  }
+  __device__ __forceinline__ void load_affine_of(const LnFwdArgs& a, int p, int P, int nvec) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = k * P + p;
+      if (j < nvec) {   // SAME: the codes are constants, their branches fold away
+        load_affine<VW>(a.w, SAME ? dtype_code<T>() : a.wdtype, j * VW, w[k]);
+        load_affine<VW>(a.b, SAME ? dtype_code<T>() : a.bdtype, j * VW, b[k]);
+      }
+    }
+  }
+  static __device__ __forceinline__ float pairwise(float (&t)[VW]) {
+#pragma unroll
+    for (int s = VW / 2; s > 0; s >>= 1)
+#pragma unroll
+      for (int i = 0; i < s; ++i) t[i] += t[i + s];
+    return t[0];
+  }
+  // the sum of the thread's values (masked vectors are 0)
+  __device__ __forceinline__ float sum() const {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float f[VW];
+      unpack_raw<T, VW>(x[k], f);
+      s += pairwise(f);
+    }
+    return s;
+  }
+  // the sum of (x - mean)^2 over the thread's vectors of the row
+  __device__ __forceinline__ float m2(float mean, int p, int P, int nvec) const {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k * P + p < nvec) {
+        float f[VW];
+        unpack_raw<T, VW>(x[k], f);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) f[e] = (f[e] - mean) * (f[e] - mean);
+        s += pairwise(f);
+      }
+    return s;
+  }
+  // y = (x - mean) rstd w + b, in 16-byte stores
+  __device__ __forceinline__ void store(T* row, float mean, float rstd, int p, int P,
+                                        int nvec) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = k * P + p;
+      if (j < nvec) {
+        float f[VW], o[VW];
+        unpack_raw<T, VW>(x[k], f);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) o[e] = fmaf((f[e] - mean) * rstd, w[k][e], b[k][e]);
+        store_vec<T, VW>(row + (int64_t)j * VW, o);
+      }
+    }
+  }
+};
+
+// A row per LANES lanes (8, 16 or 32: 32 / LANES rows a warp at once), held
+// in registers (LnFwdRow).  A warp walks its groups of rows (warp id, +
+// the grid's warps, ...) and issues the next group's loads before it
+// reduces this one; the row sums are xor-shuffle butterflies over the
+// row's lanes: no shared memory, no barrier.
+template <typename T, int K, int LANES, bool SAME>
+__global__ void __launch_bounds__(LN_WARPS * 32) ln_fwd_warp_kernel(const LnFwdArgs a) {
+  using Row = LnFwdRow<T, K, SAME>;
+  constexpr int RPW = 32 / LANES;
+  const int h = a.h, nvec = h / Row::VW;
+  const float inv_h = 1.f / (float)h;   // a product, not a division, a row
+  const int lane = threadIdx.x & 31, p = lane % LANES, sub = lane / LANES;
+  const int warps = blockDim.x >> 5;
+  const int64_t groups = ((int64_t)a.n + RPW - 1) / RPW;
+  const int64_t stride = (int64_t)gridDim.x * warps;
+  int64_t gi = (int64_t)blockIdx.x * warps + (threadIdx.x >> 5);
+  const T* x = static_cast<const T*>(a.x);
+  T* y = static_cast<T*>(a.y);
+  Row cur;
+  if (gi < groups) cur.load(x + (gi * RPW + sub) * h, p, LANES, nvec, gi * RPW + sub < a.n);
+  cur.load_affine_of(a, p, LANES, nvec);   // while the first row is in flight
+  while (gi < groups) {
+    const int64_t gn = gi + stride, r = gi * RPW + sub;
+    uint4 next[K];
+    if (gn < groups) {
+      Row nx;   // only its x is used: the affine values stay in cur
+      nx.load(x + (gn * RPW + sub) * h, p, LANES, nvec, gn * RPW + sub < a.n);
+#pragma unroll
+      for (int k = 0; k < K; ++k) next[k] = nx.x[k];
+    }
+    const float mean = lanes_sum<LANES>(cur.sum()) * inv_h;
+    const float rstd = rsqrtf(lanes_sum<LANES>(cur.m2(mean, p, LANES, nvec)) * inv_h + a.eps);
+    if (r < a.n) {
+      cur.store(y + r * h, mean, rstd, p, LANES, nvec);
+      if (p == 0) {
+        a.stats[r] = mean;
+        a.stats[a.n + r] = rstd;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) cur.x[k] = next[k];
+    gi = gn;
+  }
+}
+
+// A row per CTA of W = blockDim.x / 32 warps (P = 32 W threads), held in
+// registers (LnFwdRow), one CTA a row: for rows a warp would hold only in
+// long runs of vectors a lane.  Such rows are few (256 and 1024 in the SD
+// UNet), so a row's time is one load's round trip and its sums' latency:
+// the row sums are warp butterflies, then the warps' sums, loaded at once
+// and added in warp order.  The affine values are loaded after the sums:
+// loaded beside x, the whole of w and b for each of the ~8 CTAs an SM
+// holds slowed x's own loads (measured on the card).
+template <typename T, int K, bool SAME>
+__global__ void __launch_bounds__(LN_WARPS * 32) ln_fwd_cta_kernel(const LnFwdArgs a) {
+  using Row = LnFwdRow<T, K, SAME>;
+  __shared__ float red[2][LN_WARPS];
+  const int h = a.h, nvec = h / Row::VW;
+  const float inv_h = 1.f / (float)h;   // a product, not a division, a row
+  const int p = threadIdx.x, P = blockDim.x, warps = P >> 5;
+  const int64_t r = blockIdx.x;
+  // the warps' sums in warp order (every thread the same bits)
+  auto row_sum = [&](float v, float* slot) {
+    v = warp_sum(v);
+    if ((p & 31) == 0) slot[p >> 5] = v;
+    __syncthreads();
+    float part[LN_WARPS];
+#pragma unroll
+    for (int w = 0; w < LN_WARPS; ++w) part[w] = w < warps ? slot[w] : 0.f;
+    float s = part[0];
+#pragma unroll
+    for (int w = 1; w < LN_WARPS; ++w) s += part[w];
+    return s;
+  };
+  Row row;
+  row.load(static_cast<const T*>(a.x) + r * h, p, P, nvec, true);
+  const float mean = row_sum(row.sum(), red[0]) * inv_h;
+  const float rstd = rsqrtf(row_sum(row.m2(mean, p, P, nvec), red[1]) * inv_h + a.eps);
+  row.load_affine_of(a, p, P, nvec);
+  row.store(static_cast<T*>(a.y) + r * h, mean, rstd, p, P, nvec);
+  if (p == 0) {
+    a.stats[r] = mean;
+    a.stats[a.n + r] = rstd;
+  }
+}
+
+// Any H and any alignment: a CTA a row, scalar loads, the row read three
+// times (the later passes hit L1), block sums in warp order.
+template <typename T>
+__global__ void __launch_bounds__(LN_WARPS * 32) ln_fwd_row_kernel(const LnFwdArgs a) {
+  __shared__ float red[2][LN_WARPS];
+  const int h = a.h;
+  const int64_t r = blockIdx.x;
+  const T* xr = static_cast<const T*>(a.x) + r * h;
+  T* yr = static_cast<T*>(a.y) + r * h;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < h; i += blockDim.x) s += to_f<T>(xr[i]);
+  const float mean = block_sum<LN_WARPS>(s, red[0]) / (float)h;
+  float m2 = 0.f;
+  for (int i = threadIdx.x; i < h; i += blockDim.x) {
+    const float d = to_f<T>(xr[i]) - mean;
+    m2 = fmaf(d, d, m2);
+  }
+  const float rstd = rsqrtf(block_sum<LN_WARPS>(m2, red[1]) / (float)h + a.eps);
+  for (int i = threadIdx.x; i < h; i += blockDim.x)
+    yr[i] = from_f<T>(fmaf((to_f<T>(xr[i]) - mean) * rstd, load_w(a.w, a.wdtype, i),
+                           load_w(a.b, a.bdtype, i)));
+  if (threadIdx.x == 0) {
+    a.stats[r] = mean;
+    a.stats[a.n + r] = rstd;
+  }
+}
+
+typedef void (*LnFwdKernel)(const LnFwdArgs);
+
+// k vectors a thread, `threads` threads a row (layer_norm_fwd_layout in
+// ops/layer_norm.py): 8, 16 or 32 lanes of a warp, or a CTA of 64..256
+template <typename T, int K, bool SAME>
+LnFwdKernel ln_fwd_kernel_k(int threads) {
+  if (threads == 8) return ln_fwd_warp_kernel<T, K, 8, SAME>;
+  if (threads == 16) return ln_fwd_warp_kernel<T, K, 16, SAME>;
+  if (threads == 32) return ln_fwd_warp_kernel<T, K, 32, SAME>;
+  return ln_fwd_cta_kernel<T, K, SAME>;
+}
+
+// (k, threads): the row kernel (0, 0), or k vectors a thread, at most
+// LNF_VALUES values (k <= 3 in 2-byte types, 6 in f32)
+template <typename T, bool SAME>
+LnFwdKernel ln_fwd_kernel_of(int k, int threads) {
+  if (k == 0) return threads == 0 ? ln_fwd_row_kernel<T> : nullptr;
+  switch (k) {
+    case 1: return ln_fwd_kernel_k<T, 1, SAME>(threads);
+    case 2: return ln_fwd_kernel_k<T, 2, SAME>(threads);
+    case 3: return ln_fwd_kernel_k<T, 3, SAME>(threads);
+  }
+  if constexpr (6 * (16 / sizeof(T)) <= LNF_VALUES) {   // f32
+    switch (k) {
+      case 4: return ln_fwd_kernel_k<T, 4, SAME>(threads);
+      case 5: return ln_fwd_kernel_k<T, 5, SAME>(threads);
+      case 6: return ln_fwd_kernel_k<T, 6, SAME>(threads);
+    }
+  }
+  return nullptr;
+}
+
+template <typename T>
+LnFwdKernel ln_fwd_kernel_of(int k, int threads, bool same) {
+  return same ? ln_fwd_kernel_of<T, true>(k, threads) : ln_fwd_kernel_of<T, false>(k, threads);
+}
+
+// the kernel for x's dtype and the affine dtypes (SAME where both are x's)
+LnFwdKernel ln_fwd_kernel(int dtype, int wdtype, int bdtype, int k, int threads) {
+  const bool same = wdtype == dtype && bdtype == dtype;
+  if (dtype == 0) return ln_fwd_kernel_of<float>(k, threads, same);
+  if (dtype == 1) return ln_fwd_kernel_of<__nv_bfloat16>(k, threads, same);
+  if (dtype == 2) return ln_fwd_kernel_of<__half>(k, threads, same);
+  return nullptr;
+}
+
 // ------------------------------------------------------------- GroupNorm
 // the GroupNorm CTA's consumer warps (they alone reduce and write dx) wait
 // here for one another; the producer warp never does
@@ -910,18 +1247,6 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// v summed over the CTA through red[GNF_WARPS]: every thread adds the
-// warps' sums in warp order, so all end with the same bits
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < GNF_WARPS; ++w) s += red[w];
-  return s;
-}
-
 // f(v, the VW values of vector v) for the CTA's share of vectors [v0, v1)
 // of src, U loads in flight a thread (device memory needs several to hide
 // its latency; from shared memory one is faster)
@@ -1052,7 +1377,7 @@ __global__ void __launch_bounds__(GNF_WARPS * 32) gn_fwd_kernel(const GnFwdArgs 
     each(add);
   }
   const float n_loc = (float)nch * (float)hw, n_row = (float)cgs * (float)hw;
-  const float sum = block_sum(s1, red[0]);
+  const float sum = block_sum<GNF_WARPS>(s1, red[0]);
   const float m_loc = sum / n_loc;
   float s2 = 0.f;
   each([&](int, const float(&f)[VW]) {
@@ -1070,7 +1395,7 @@ __global__ void __launch_bounds__(GNF_WARPS * 32) gn_fwd_kernel(const GnFwdArgs 
     wf[i] = load_w(a.w, a.wdtype, w0 + i);
     bf[i] = load_w(a.b, a.bdtype, w0 + i);
   }
-  const float m2 = block_sum(s2, red[1]);
+  const float m2 = block_sum<GNF_WARPS>(s2, red[1]);
 
   // the row's statistics: each rank's (sum, M2) to every rank, merged in
   // rank order by Chan's formula, M2 = sum over r of M2_r + n_r (mean_r -
@@ -1167,6 +1492,50 @@ extern "C" int layer_norm_bwd(const void* x, const void* w, const float* mean,
   const LnArgs a = {x, w, mean, rstd, g, dx, dw, db, ws, ticket, n, h, wdtype};
   return launch_cluster(kernel, ctas, LN_WARPS * 32, LN_CLUSTER, ln_smem_bytes(dtype, k, h),
                         static_cast<cudaStream_t>(stream), a);
+}
+
+// a forward launch's geometry: the row kernel (k 0, 8 warps), a row per
+// 8, 16 or 32 lanes (any warps a CTA), or a row per CTA of 2..8 warps
+static bool ln_fwd_geometry(int k, int threads, int warps) {
+  if (warps < 1 || warps > LN_WARPS) return false;
+  if (k == 0) return threads == 0 && warps == LN_WARPS;
+  return threads == 8 || threads == 16 || threads == 32 || (warps > 1 && threads == warps * 32);
+}
+
+extern "C" int layer_norm_fwd_max_ctas(int dtype, int wdtype, int bdtype, int k, int threads,
+                                       int warps, int* ctas) {
+  LnFwdKernel kernel = ln_fwd_kernel(dtype, wdtype, bdtype, k, threads);
+  if (kernel == nullptr || !ln_fwd_geometry(k, threads, warps)) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, 0);
+  if (e == cudaSuccess && per_sm <= 0) e = cudaErrorInvalidConfiguration;
+  *ctas = per_sm * sms;
+  return e;
+}
+
+extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b, void* y, float* stats,
+                              int n, int h, int dtype, int wdtype, int bdtype, int k, int threads,
+                              int warps, int ctas, float eps, void* stream) {
+  LnFwdKernel kernel = ln_fwd_kernel(dtype, wdtype, bdtype, k, threads);
+  if (kernel == nullptr || !ln_fwd_geometry(k, threads, warps) || n <= 0 || h <= 0 ||
+      ctas <= 0 || wdtype < 0 || wdtype > 2 || bdtype < 0 || bdtype > 2)
+    return cudaErrorInvalidValue;
+  // the CTA-a-row kernels take one row a CTA
+  if ((k == 0 || threads > 32) && ctas != n) return cudaErrorInvalidValue;
+  const int vw = dtype == 0 ? 4 : 8;
+  if (k && (h % vw || h > k * threads * vw ||
+            (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+             reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(b)) % 16))
+    return cudaErrorInvalidValue;
+  const LnFwdArgs a = {x, w, b, y, stats, n, h, wdtype, bdtype, eps};
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      cluster_config(ctas, warps * 32, 1, 0, static_cast<cudaStream_t>(stream), &attr);
+  cfg.numAttrs = 0;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 extern "C" int group_norm_bwd_max_clusters(int dtype, int mode, int cluster, int smem_bytes,

@@ -9,8 +9,8 @@ layers are ``torch.nn.Linear`` (``[out, in]`` weights; paddle's
 ``torch.nn.Conv2d`` (OIHW in both frameworks, computed by cuDNN as the
 JAX package leaves them to ``lax.conv``).  GroupNorm, LayerNorm and
 attention go through :mod:`paddle_tpu_torch.nn.functional`: on the card
-the CUDA GroupNorm kernels (``csrc/norms.cu``), the Triton LayerNorm
-forward and CUDA backward, and the CUDA flash kernels (head dims 320/8 =
+the CUDA GroupNorm and LayerNorm kernels (``csrc/norms.cu``), forward
+and backward, and the CUDA flash kernels (head dims 320/8 =
 40, 80 and 160, self-attention and cross-attention over the context's 77
 tokens), forward and backward.
 

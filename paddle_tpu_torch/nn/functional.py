@@ -4,7 +4,7 @@
 Routing follows the JAX package with the card in the TPU's place:
 
 * :func:`layer_norm` over the last dim with 1-D weight and bias goes to
-  ``ops.layer_norm`` (the Triton kernels on CUDA tensors, their plain
+  ``ops.layer_norm`` (the CUDA kernels on CUDA tensors, their plain
   twins on CPU tensors), as ``norm.py:16-47`` routes to the Pallas kernel;
   any other form is plain torch, as JAX's jnp path.
 * :func:`group_norm` over NC* with 1-D weight and bias goes to

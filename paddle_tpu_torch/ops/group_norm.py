@@ -56,7 +56,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .layer_norm import DTYPE_CODES
+from .layer_norm import DTYPE_CODES, _on_device, _stream
 
 #: the backward's geometry (``csrc/norms.cu``): warps a CTA, CTAs a
 #: cluster at most (the portable cluster size), rows of chunks a CTA holds
@@ -231,21 +231,6 @@ def group_norm_fwd_chunks(plan, cg):
     statistics)."""
     s = plan["cluster"]
     return [(r * cg // s, (r + 1) * cg // s) for r in range(s)]
-
-
-def _stream(index):
-    """The raw handle of the current CUDA stream of device ``index`` (the
-    call Triton's launcher makes: no ``torch.cuda.Stream`` is built)."""
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
-def _on_device(index, fn, *args):
-    """``fn(*args)`` with device ``index`` current, entering its context
-    only when another device is current."""
-    if torch.cuda.current_device() == index:
-        return fn(*args)
-    with torch.cuda.device(index):
-        return fn(*args)
 
 
 def _fwd_launch(x, weight, bias, num_groups, plan=None):

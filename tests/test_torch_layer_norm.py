@@ -1,9 +1,10 @@
-"""The port's LayerNorm (the plain PyTorch twins of its Triton kernels,
+"""The port's LayerNorm (the plain PyTorch twins of its CUDA kernels,
 run on CPU tensors, and the autograd.Function over them) against the JAX
 Pallas kernel ``layer_norm`` in interpret mode and its ``jax.grad``
-(``_ln_bwd_kernel``), on numpy-seeded inputs: a row count that is not a
-multiple of the Pallas row block (JAX pads to 256 rows), one above it,
-and a 3-D input.
+(``_ln_bwd_kernel``), and the forward's saved statistics against the
+residuals of ``_ln_call_fwd``, on numpy-seeded inputs: a row count that
+is not a multiple of the Pallas row block (JAX pads to 256 rows), one
+above it, and a 3-D input.
 
 Tolerances.  f32: both sides compute the statistics and the output in
 f32 and differ only in summation order, so y agrees to 1e-5 absolute on
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 
 import paddle_tpu as paddle
 import paddle_tpu.nn.functional as PF
+from paddle_tpu.ops.pallas.norms import _ln_call_fwd, _row_block
 from paddle_tpu.ops.pallas.norms import layer_norm as pallas_layer_norm
 from paddle_tpu_torch.nn import LayerNorm
 from paddle_tpu_torch.nn import functional as F
@@ -57,6 +59,25 @@ def test_forward_matches_pallas_kernel_interpret(shape):
                                        jnp.asarray(b), 1e-5, interpret=True))
     out = layer_norm(*_t(x, w, b), 1e-5).numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+@SHAPES
+def test_forward_statistics_match_pallas_residuals(shape):
+    """y, mean and rstd of the plain twin (the kernel's saved statistics,
+    f32 [N]) against the Pallas forward's outputs and the mean and rstd
+    it saves for the backward, its rows padded as the JAX wrapper pads
+    them: 1e-5 relative (f32 on both sides, summation order apart)."""
+    x, w, b, _ = _inputs(shape, seed=6)
+    x2 = x.reshape(-1, shape[-1])
+    n = x2.shape[0]
+    xp = np.pad(x2, ((0, (-n) % _row_block(n)), (0, 0)))
+    y_ref, mean_ref, rstd_ref = (np.asarray(a) for a in _ln_call_fwd(
+        jnp.asarray(xp), jnp.asarray(w), jnp.asarray(b), 1e-5, True))
+    y, mean, rstd = layer_norm_fwd_plain(*_t(x, w, b), 1e-5)
+    np.testing.assert_allclose(mean.numpy(), mean_ref[:n, 0], rtol=1e-5)
+    np.testing.assert_allclose(rstd.numpy(), rstd_ref[:n, 0], rtol=1e-5)
+    np.testing.assert_allclose(y.numpy().reshape(n, -1), y_ref[:n],
+                               rtol=0, atol=1e-5)
 
 
 @SHAPES

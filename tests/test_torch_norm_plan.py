@@ -1,14 +1,16 @@
-"""The launch plans of the CUDA LayerNorm and GroupNorm backwards
+"""The launch plans of the CUDA LayerNorm and GroupNorm kernels
 (``csrc/norms.cu``), read on the CPU (no nvcc, no card).  The plans are
 pure Python in ``ops/layer_norm.py`` and ``ops/group_norm.py``: the
 kernels take the grid, the cluster size, the mode and the shared memory
 from them, and walk rows and channels by the same formulas as
-``layer_norm_bwd_rows``, ``group_norm_bwd_rows`` and
-``group_norm_bwd_chunks``.  Held here, at every norm shape of the SD-1.x
-UNet's train step (found by running the full-width model on the meta
-device) and of ``chip_smoke.py``'s ``norm_cases``:
+``layer_norm_fwd_rows``, ``layer_norm_bwd_rows``, ``group_norm_bwd_rows``
+and ``group_norm_bwd_chunks``.  Held here, at every norm shape of the
+SD-1.x UNet's train step (found by running the full-width model on the
+meta device) and of ``chip_smoke.py``'s ``norm_cases``:
 
-* the LayerNorm grid covers every row exactly once, in whole clusters;
+* the LayerNorm grids cover every row exactly once (the backward's in
+  whole clusters); the forward holds a row in registers exactly where
+  16-byte vectors of at most 8, 16 or 32 lanes hold it;
 * the GroupNorm plan covers every (sample, group) row exactly once and
   each row's channels exactly once, on channel boundaries; each CTA's
   chunks lie in the shared memory it asks for; the chunks are staged in
@@ -16,7 +18,9 @@ device) and of ``chip_smoke.py``'s ``norm_cases``:
   and the tensors are too large for the L2 to serve a second pass, and
   streamed everywhere else;
 * the C declarations in ``csrc/kernels.h`` match the ctypes argument
-  types the wrappers bind, and the sources' constants match the plans'.
+  types the wrappers bind, and the sources' constants match the plans';
+* a warm wrapper call reuses its checks and plan (a stub library counts
+  the C calls).
 """
 
 import ctypes
@@ -358,6 +362,70 @@ def test_layer_norm_rows_in_registers_up_to_six_vectors_a_lane(h, item,
     assert ln.layer_norm_bwd_chunks(h, item, aligned) == k
 
 
+@pytest.mark.parametrize("cap", [8, 64, 120, 240, 496])
+def test_layer_norm_fwd_grid_covers_every_row_once(unet_norm_shapes, cap):
+    """Every row once: a CTA a row where a row is a CTA's; else at most
+    the occupancy cap's CTAs, the busiest warp taking as few groups of
+    rows as the cap allows."""
+    for n, h, item, aligned in _ln_cases(unet_norm_shapes):
+        plan = ln.layer_norm_fwd_plan(n, h, item, aligned,
+                                      lambda k, t, w: cap)
+        ctas, threads = plan["ctas"], plan["threads"]
+        in_warp = 0 < threads <= 32          # rows of a warp or less
+        assert plan["warps"] == (ln.LN_WARPS if in_warp or not plan["k"]
+                                 else threads // 32)
+        walked = [r for cta in range(ctas) for w in range(plan["warps"])
+                  for r in ln.layer_norm_fwd_rows(plan, n, cta, w)]
+        assert sorted(walked) == list(range(n)), (n, h, cap, plan)
+        if not in_warp:                      # a CTA a row
+            assert ctas == n
+            continue
+        assert 0 < ctas <= cap
+        rpw = 32 // threads                  # rows a group
+        groups = [-(-len(ln.layer_norm_fwd_rows(plan, n, cta, w)) // rpw)
+                  for cta in range(ctas) for w in range(plan["warps"])]
+        assert max(groups) == -(-n // (plan["warps"] * rpw * cap))
+
+
+@pytest.mark.parametrize("h,item,aligned,layout", [
+    (320, 2, True, (3, 16)), (640, 2, True, (3, 32)),
+    (1280, 2, True, (1, 160)), (768, 2, True, (3, 32)),
+    (1536, 2, True, (3, 64)), (6144, 2, True, (3, 256)),
+    (6152, 2, True, (0, 0)), (640, 4, True, (5, 32)),
+    (768, 4, True, (6, 32)), (1024, 4, True, (4, 64)), (64, 2, True, (1, 8)),
+    (100, 2, True, (0, 0)), (3, 4, True, (0, 0)), (640, 2, False, (0, 0))])
+def test_layer_norm_fwd_rows_in_registers_where_vectors_hold_them(
+        h, item, aligned, layout):
+    """The forward holds a row in whole 16-byte vectors, at most LNF_VALUES
+    values a thread, over the thread count of LNF_THREADS that leaves the
+    fewest slots empty (the fewest threads among equals): the SD UNet's
+    H 320 and 640 in 16 and 32 lanes of a warp, its H 1280 in a CTA of 5
+    warps.  The rest take the CTA-per-row kernel."""
+    assert ln.layer_norm_fwd_layout(h, item, aligned) == layout
+    vw = 16 // item
+    fits = [(-(-h // (vw * t)), t) for t in ln.LNF_THREADS
+            if -(-h // (vw * t)) * vw <= ln.LNF_VALUES]
+    if layout != (0, 0):
+        k, threads = layout
+        assert k * vw <= ln.LNF_VALUES and h <= k * threads * vw
+        assert min((k_ * t, t) for k_, t in fits) == (k * threads, threads)
+    else:
+        assert not (aligned and h % vw == 0 and fits)
+
+
+def test_chip_smokes_ln_sweep_shapes_are_the_unet_steps(unet_norm_shapes):
+    """chip_smoke.py's LayerNorm forward sweep (UNET_LN_SHAPES) holds every
+    LayerNorm shape of the step, as [rows, H], with its number of calls."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rows = Counter()
+    for shape, k in unet_norm_shapes[1].items():
+        rows[(shape[0] * shape[1], shape[2])] += k
+    assert smoke.UNET_LN_SHAPES == dict(rows)
+
+
 def _declarations():
     """{C function: [(type, name), ...]} of csrc/kernels.h."""
     text = re.sub(r"//[^\n]*", "", (_build.CSRC / "kernels.h").read_text())
@@ -411,6 +479,21 @@ def test_norm_sources_agree_with_the_plans():
     ks = {int(k) for k in re.findall(
         r"case (\d+): return ln_bwd_warp_kernel<T, \1>;", text)}
     assert ks == set(range(1, ln.LN_KMAX + 1))
+    # the LayerNorm forward's instantiations: k vectors of at most
+    # LNF_VALUES values (k <= 3 in 2-byte types, 6 in f32), each for rows of
+    # 8, 16 and 32 lanes and of a CTA (LNF_THREADS)
+    assert int(const["LNF_VALUES"]) == ln.LNF_VALUES
+    ks = [int(k) for k in re.findall(
+        r"case (\d+): return ln_fwd_kernel_k<T, \1, SAME>\(threads\);",
+        text)]
+    assert ks == list(range(1, ln.LNF_VALUES // 4 + 1))
+    assert text.index("if constexpr (6 * (16 / sizeof(T)) <= LNF_VALUES)") \
+        < text.index("case 4: return ln_fwd_kernel_k<T, 4, SAME>(threads);")
+    lanes = [int(m) for m in re.findall(
+        r"if \(threads == (\d+)\) return ln_fwd_warp_kernel<T, K, \1, "
+        r"SAME>;", text)]
+    assert tuple(lanes) == tuple(t for t in ln.LNF_THREADS if t <= 32)
+    assert "return ln_fwd_cta_kernel<T, K, SAME>;" in text
     for fn in list(ln.ARGTYPES) + list(gn.ARGTYPES):
         assert f'extern "C" int {fn}(' in text
 
@@ -423,6 +506,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     stats = torch.zeros(4)
     with pytest.raises(ValueError):
         ln.layer_norm_bwd_kernel(x, w, stats, stats, x)
+    with pytest.raises(ValueError):
+        ln.layer_norm_kernel(x, w, w)
     x4 = torch.randn(2, 8, 3, 3)
     with pytest.raises(ValueError):
         gn.group_norm_bwd_kernel(x4, w, stats, stats, x4, 2)
@@ -517,3 +602,73 @@ def test_a_warm_backward_call_reuses_its_plan(stub_library):
     gn.group_norm_bwd_kernel(x, w, stats, stats, g, 32)
     assert len(seen["props"]) == 1
     assert len(seen["group_norm_bwd_max_clusters"]) == queries
+
+
+@pytest.fixture
+def ln_stub_library(monkeypatch):
+    """The LayerNorm wrappers on CPU tensors against a stub of the CUDA
+    library, as ``stub_library`` for GroupNorm.  Yields {"load": [...],
+    C function: [calls]}."""
+    seen = {"load": [], **{k: [] for k in ln.ARGTYPES}}
+    lib = type("Lib", (), {k: _StubFn(seen[k]) for k in ln.ARGTYPES})
+    monkeypatch.setattr(ln._build, "load",
+                        lambda name: seen["load"].append(name) or lib)
+    monkeypatch.setattr(ln._build, "_TICKETS", {})
+    monkeypatch.setattr(ln, "_check", lambda name, x, w, *rest: x.shape[-1])
+    monkeypatch.setattr(ln, "_stream", lambda index: 7)
+    monkeypatch.setattr(ln, "_FWD_LAUNCHES", {})
+    monkeypatch.setattr(ln, "_BWD_LAUNCHES", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    for fn in (ln.layer_norm, ln.layer_norm_bwd):
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    yield seen
+
+
+def test_a_warm_layer_norm_forward_call_reuses_its_plan(ln_stub_library,
+                                                        monkeypatch):
+    """The LayerNorm forward's checks, plan (with its occupancy query)
+    and library lookup run once per key; each call launches once with the
+    plan's constants, the eps it was given and the current stream."""
+    seen = ln_stub_library
+    plans = []
+    plan_of = ln.layer_norm_fwd_plan
+    monkeypatch.setattr(ln, "layer_norm_fwd_plan",
+                        lambda *a: plans.append(a) or plan_of(*a))
+    x = torch.randn(4, 16, 320, dtype=torch.bfloat16)
+    w = torch.ones(320, dtype=torch.bfloat16)
+    b = torch.zeros(320)
+    launches = ln.layer_norm.launches
+    for eps in (1e-5, 1e-6, 1e-5):
+        y, mean, rstd = ln.layer_norm_kernel(x, w, b, eps)
+    assert y.shape == x.shape and mean.shape == rstd.shape == (64,)
+    assert len(plans) == 1 and seen["load"] == ["norms"]
+    assert len(seen["layer_norm_fwd_max_ctas"]) == 1
+    calls = seen["layer_norm_fwd"]
+    assert len(calls) == 3 == ln.layer_norm.launches - launches
+    aligned = (x.data_ptr() | w.data_ptr() | b.data_ptr()) % 16 == 0
+    plan = plan_of(64, 320, 2, aligned, lambda *a: 4)
+    assert seen["layer_norm_fwd_max_ctas"][0][:3] == (1, 1, 0)
+    assert calls[0][5:14] == (64, 320, 1, 1, 0, plan["k"], plan["threads"],
+                              plan["warps"], plan["ctas"])
+    assert [c[14:] for c in calls] == [(1e-5, 7), (1e-6, 7), (1e-5, 7)]
+    ln.layer_norm_kernel(x[:2].contiguous(), w, b)          # another shape
+    assert len(plans) == 2 and len(calls) == 4
+
+
+def test_a_warm_layer_norm_backward_call_reuses_its_plan(ln_stub_library):
+    """The LayerNorm backward's plan (its occupancy queries) is made once
+    per key, as the forward's."""
+    seen = ln_stub_library
+    x, g = torch.randn(64, 320), torch.randn(64, 320)
+    w, stats = torch.ones(320), torch.zeros(64)
+    launches = ln.layer_norm_bwd.launches
+    for _ in range(3):
+        ln.layer_norm_bwd_kernel(x, w, stats, stats, g)
+    assert seen["load"] == ["norms"]
+    queries = len(seen["layer_norm_bwd_max_ctas"])
+    assert queries >= 1
+    calls = seen["layer_norm_bwd"]
+    assert len(calls) == 3 == ln.layer_norm_bwd.launches - launches
+    assert len({(c[9],) + c[11:] for c in calls}) == 1 and calls[0][-1] == 7
+    ln.layer_norm_bwd_kernel(x, w, stats, stats, g)
+    assert len(seen["layer_norm_bwd_max_ctas"]) == queries
