@@ -62,7 +62,8 @@ the script exits nonzero and prints no result:
    rms_norm must equal those of the plain forward under torch autograd;
    and a shape, dtype or head dim that no kernel takes (2-D GroupNorm,
    float64 norms, head dim 192, float16 attention) must raise through
-   nn.functional on the card.
+   nn.functional on the card, and a serving engine whose pool the paged
+   kernel cannot take (block 8, head dim 32) must raise when it is built.
 3. engine: LlamaForCausalLM(LLAMA2_7B) in bf16, all 32 layers, random
    weights from a seeded generator on the card, served by
    Engine(num_slots=8, max_seq_len=2048) for 8 requests (prompts 16..1024
@@ -75,6 +76,24 @@ the script exits nonzero and prints no result:
    which runs the flash-attention kernel: two independent kernels (paged
    and flash), both held against the uncached forward over an f32 copy
    of the weights (see PARITY_FACTOR).
+   serve_prefix, on the same model and engine geometry (SERVE_SLOTS,
+   SERVE_MAX_SEQ), three drives, each with the launch counts reset
+   before it, checked after it, and the block-leak invariant after its
+   drain: A (PREFIX_DRIVE), a 1000-token system prompt and eight
+   suffixes, request 0 alone, then 1-7 together, with a 2 GiB prefix
+   store: exactly 1000 hit tokens (62 blocks + an 8-token COW tail) for
+   each of 1-7, and against a store of 0 bytes each request's logits
+   rows within the parity tolerance of an f32 reference (greedy streams
+   up to where they may part: a top-2 gap within 2 x tol); B
+   (CHUNK_DRIVE), a 1536-token prompt joining seven decoding requests,
+   prefilled in chunks of 256 with a decode step between any two, its
+   first-token row held against whole prefill the same way; then
+   serve_rows (ROWS_DRIVE), whether a row's logits depend on the number
+   of rows in the window's products (decode at 8 lanes vs a prefill
+   window, with the shipped row-tiled products and with one F.linear,
+   and the decode rate of both); and C (PREEMPT_DRIVE), eight requests
+   in a pool of 96 blocks: at least one preemption, every request
+   complete, every resume re-sampling its token exactly.
 5. train: LLaMA-2-7B widths cut to 8 layers (TRAIN_LAYERS), bf16 params,
    the fused LM-head loss, AdamW(0.9, 0.95, eps 1e-5, decay 0.1,
    multi_precision) with ClipGradByGlobalNorm(1.0) and LinearWarmup into
@@ -1217,11 +1236,19 @@ def rms_autograd_check(torch, dev, seed):
 
 def unsupported_check(torch, dev):
     """On the card a shape, dtype or head dim that no kernel takes raises
-    through the functionals the models call: nothing falls back to plain
-    torch, a plain twin or a library call."""
+    through the functionals the models call, and a pool geometry the
+    paged kernel cannot take raises when the serving engine is built:
+    nothing falls back to plain torch, a plain twin or a library call."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.serving import Engine, EngineConfig
 
     bf, f64 = torch.bfloat16, torch.float64
+    tiny = lambda heads: GPTForCausalLM(GPTConfig(
+        vocab_size=128, hidden_size=128, intermediate_size=256,
+        num_hidden_layers=1, num_attention_heads=heads), device=dev, dtype=bf)
+    engine = lambda heads, **kw: Engine(tiny(heads), EngineConfig(
+        num_slots=2, max_seq_len=64, **kw), device=dev)
     rand = lambda *shape, dtype=bf: torch.randn(*shape, dtype=dtype,
                                                 device=dev)
     w = torch.ones(16, dtype=bf, device=dev)
@@ -1235,6 +1262,10 @@ def unsupported_check(torch, dev):
             rand(1, 8, 2, 192), rand(1, 8, 2, 192), rand(1, 8, 2, 192)),
         "sdpa/float16": lambda: F.scaled_dot_product_attention(
             *(rand(1, 8, 2, 64, dtype=torch.float16) for _ in range(3))),
+        # the serving engine checks the paged kernel's geometry when it
+        # is built: block 16, head dim 64 or 128
+        "engine/prefix_block_size_8": lambda: engine(2, prefix_block_size=8),
+        "engine/head_dim_32": lambda: engine(4),
     }
     raised = {}
     for name, fn in cases.items():
@@ -1293,18 +1324,10 @@ def engine_phase(torch, dev):
                                  f"{r.finish_reason}")
         if not all(0 <= t < cfg.vocab_size for t in r.output_ids):
             raise AssertionError(f"request {r.request_id}: id out of range")
-    if eng.pool.blocks_in_use != 0:
-        raise AssertionError(f"{eng.pool.blocks_in_use} blocks in use "
-                             "after the drain")
-    forwards = delta["prefill_calls"] + delta["decode_steps"]
+    check_drained(eng)
     layers = cfg.num_hidden_layers
-    if launches["paged_attention"] != layers * forwards:
-        raise AssertionError(f"paged_attention launches "
-                             f"{launches['paged_attention']} != {layers} x "
-                             f"{forwards} forwards")
-    if launches["rms_norm"] != (2 * layers + 1) * forwards:
-        raise AssertionError(f"rms_norm launches {launches['rms_norm']} != "
-                             f"{2 * layers + 1} x {forwards} forwards")
+    check_serving_launches(launches, layers, delta["prefill_calls"],
+                           delta["decode_steps"])
     ttft = [r.ttft for r in reqs]
     emit({"phase": "engine", "model": "LLAMA2_7B", "layers": layers,
           "dtype": "bfloat16", "num_slots": 8, "max_seq_len": 2048,
@@ -1325,16 +1348,11 @@ def engine_phase(torch, dev):
     # ---- phase 4: parity of one request against the uncached forward
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    captured = []
-    hook = model.lm_head.register_forward_hook(
-        lambda mod, inp, out: captured.append(out.detach().float()))
     prompt = torch.randint(0, cfg.vocab_size, (200,), generator=g).tolist()
-    try:
+    with logit_tap(eng) as rows:
         req = eng.submit(prompt, SamplingParams(max_new_tokens=9))
         eng.run()
-    finally:
-        hook.remove()
-    steps = [captured[0][0]] + [c[req.slot] for c in captured[1:]]
+    steps = rows[req.request_id]
     if len(steps) != 9:
         raise AssertionError(f"captured {len(steps)} logit rows, want 9")
     full = torch.tensor([prompt + req.output_ids[:8]], device=dev)
@@ -1370,7 +1388,492 @@ def engine_phase(torch, dev):
                        "and RMSNorm kernels) in bf16 and in an f32 copy of "
                        "the same weights: the paged and the flash kernel, "
                        "both held against the f32 forward"})
-    return launches
+    return launches, model
+
+
+def check_drained(eng):
+    """The block-leak invariant after a drain: no table entry is leased
+    and the prefix store's blocks are the only ones in use."""
+    held = eng.prefix.stats()["used_blocks"]
+    if eng.cache.leased_blocks or eng.pool.blocks_in_use != held:
+        raise AssertionError(
+            f"after the drain: {eng.pool.blocks_in_use} blocks in use, "
+            f"{eng.cache.leased_blocks} leased, the prefix store holds "
+            f"{held}")
+
+
+def check_serving_launches(launches, layers, prefill_calls, decode_steps):
+    """Each serving forward (a prefill, a chunk or a decode step) launches
+    the paged-attention kernel once a layer and the RMSNorm kernel twice
+    a layer plus the final norm, and nothing else of the port."""
+    forwards = prefill_calls + decode_steps
+    want = {"paged_attention": layers * forwards,
+            "rms_norm": (2 * layers + 1) * forwards}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{name} launches {n} != "
+                                 f"{want.get(name, 0)} for {forwards} "
+                                 f"forwards of {layers} layers")
+    if not forwards:
+        raise AssertionError("the drive ran no forward")
+
+
+@contextlib.contextmanager
+def logit_tap(eng):
+    """Record, on the card, each request's logits rows in the order its
+    tokens were sampled: the row its (final) prefill took the first
+    token from, then one a decode step while it is active.  Yields
+    {request_id: [rows]}.  Nothing is synchronized or copied to the
+    host, so the engine's timing is unchanged but for the copies."""
+    rows, lanes = {}, [None]
+    fwd, dispatch = eng._forward, eng._dispatch_prefill
+
+    def tapped_dispatch(entries, bucket, n_lanes):
+        lanes[0] = [e["req"] if e["final"] else None for e in entries]
+        try:
+            return dispatch(entries, bucket, n_lanes)
+        finally:
+            lanes[0] = None
+
+    def tapped_forward(ids, tables, pos, last):
+        out = fwd(ids, tables, pos, last)
+        pairs = (enumerate(lanes[0]) if lanes[0] is not None else
+                 ((s, r) for s, r in eng.scheduler.running.items()
+                  if eng._active[s]))
+        for i, r in pairs:
+            if r is not None:
+                rows.setdefault(r.request_id, []).append(
+                    out[i].detach().float().clone())
+        return out
+
+    eng._forward, eng._dispatch_prefill = tapped_forward, tapped_dispatch
+    try:
+        yield rows
+    finally:
+        eng._forward, eng._dispatch_prefill = fwd, dispatch
+
+
+# the serve_prefix drives (LLaMA-2-7B at full width, block 16, so a
+# block holds 8 MiB of KV): A, prefix reuse behind a shared system
+# prompt; B, one long prompt chunked into a running batch; C, a pool too
+# small for its rows.  serve_rows runs between B and C.
+SERVE_SLOTS, SERVE_MAX_SEQ = 8, 2048
+PREFIX_DRIVE = dict(sys_len=1000, suffixes=(16, 24, 40, 64, 100, 150, 200,
+                                            256),
+                    new_tokens=32, cache_bytes=2 << 30)
+CHUNK_DRIVE = dict(short=(64, 200), n_short=7, short_new=96, long=1536,
+                   long_new=48, chunk=256)
+PREEMPT_DRIVE = dict(pool_blocks=97, prompts=(100, 400), n=8, new_tokens=256)
+ROWS_DRIVE = dict(prompt=300, decode_prompts=100, decode_new=64)
+
+
+def serve_params(i, new_tokens):
+    """Even requests greedy, odd ones sampled (T 0.8, top-k 50, top-p
+    0.95), as the engine phase."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    if i % 2 == 0:
+        return SamplingParams(max_new_tokens=new_tokens)
+    return SamplingParams(max_new_tokens=new_tokens, temperature=0.8,
+                          top_k=50, top_p=0.95, seed=100 + i)
+
+
+def run_drive(torch, eng, submit):
+    """Drive the engine: ``submit(eng)`` queues the requests (and may
+    step it); then drain.  The launch counts are reset just before and
+    read just after, and checked against the forwards the drive ran.
+    Returns (requests, stats delta, launches, wall seconds, steps) where
+    steps lists (chunk dispatches, decode steps) each ``step()`` added."""
+    from paddle_tpu_torch.serving import kernel_launches, reset_kernel_launches
+
+    keys = ("prefill_calls", "prefill_requests", "prefill_chunk_dispatches",
+            "prefill_chunked_requests", "prompt_tokens", "prefix_hit_tokens",
+            "prefill_seconds", "decode_steps", "decode_tokens",
+            "decode_seconds", "cow_copies", "preemptions")
+    before = eng.stats()
+    steps = []
+
+    def step():
+        a = eng.stats()
+        eng.step()
+        b = eng.stats()
+        steps.append((b["prefill_chunk_dispatches"]
+                      - a["prefill_chunk_dispatches"],
+                      b["decode_steps"] - a["decode_steps"]))
+
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    reqs = submit(eng, step)
+    while eng.scheduler.has_work:
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    after = eng.stats()
+    delta = {k: after[k] - before[k] for k in keys}
+    check_serving_launches(launches, eng.model.config.num_hidden_layers,
+                           delta["prefill_calls"], delta["decode_steps"])
+    for r in reqs:
+        if (r.finish_reason != "length"
+                or len(r.output_ids) != r.sampling.max_new_tokens
+                or not all(0 <= t < eng.model.config.vocab_size
+                           for t in r.output_ids)):
+            raise AssertionError(f"request {r.request_id}: "
+                                 f"{len(r.output_ids)} tokens, "
+                                 f"{r.finish_reason}")
+    check_drained(eng)
+    return reqs, delta, launches, wall, steps
+
+
+def drive_summary(reqs, delta, wall):
+    ttft = [r.ttft for r in reqs]
+    return {"wall_s": wall, "prefill_s": delta["prefill_seconds"],
+            "prefill_calls": delta["prefill_calls"],
+            "prompt_tokens": delta["prompt_tokens"],
+            "prefix_hit_tokens": delta["prefix_hit_tokens"],
+            "computed_tokens": delta["prompt_tokens"]
+            - delta["prefix_hit_tokens"],
+            "decode_steps": delta["decode_steps"],
+            "decode_tokens_per_s":
+                delta["decode_tokens"] / delta["decode_seconds"],
+            "ttft_mean_s": sum(ttft) / len(ttft), "ttft_max_s": max(ttft)}
+
+
+@contextlib.contextmanager
+def host_timers(obj, names):
+    """Sum the wall seconds and count the calls of ``obj``'s methods
+    ``names`` while the block runs; yields {name: [seconds, calls]}."""
+    spent = {n: [0.0, 0] for n in names}
+    orig = {n: getattr(obj, n) for n in names}
+
+    def timed(name):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig[name](*a, **kw)
+            finally:
+                spent[name][0] += time.perf_counter() - t0
+                spent[name][1] += 1
+        return call
+
+    for n in names:
+        setattr(obj, n, timed(n))
+    try:
+        yield spent
+    finally:
+        for n in names:
+            setattr(obj, n, orig[n])
+
+
+def reference_rows(torch, model, model32, prompt, outputs, n):
+    """The uncached forward's logits rows that sampled ``outputs[:n]``
+    after ``prompt``, in bf16 and on the f32 copy, and each row's parity
+    tolerance (the parity phase's rule)."""
+    full = torch.tensor([list(prompt) + list(outputs[:n - 1])],
+                        device=model.device)
+    rows = slice(len(prompt) - 1, len(prompt) - 1 + n)
+    with torch.no_grad():
+        r16 = model(full)[0, rows].float()
+        r32 = model32(full)[0, rows]
+    tol = [PARITY_FACTOR * (a - b).abs().max().item()
+           + PARITY_FLOOR * b.abs().max().item() for a, b in zip(r16, r32)]
+    return r16, r32, tol
+
+
+def stream_parity(name, got, ref, got_toks, ref_toks, refs, greedy):
+    """Hold ``got``'s logits rows against the f32 reference of ``ref``'s
+    stream: every row up to the first token where the two streams part
+    within its tolerance, and the streams may part only where the
+    reference's top-2 gap is within 2 x tol (sampled streams: the first
+    row only).  Returns the report."""
+    r16, r32, tol = refs
+    n = len(r32) if greedy else 1
+    worst, parted = 0.0, None
+    for k in range(n):
+        for rows in (got, ref):
+            e = (rows[k] - r32[k]).abs().max().item()
+            if not (math.isfinite(e) and e <= tol[k]):
+                raise AssertionError(f"{name}: row {k} {e} > tol {tol[k]}")
+            worst = max(worst, e / tol[k])
+        if greedy and got_toks[k] != ref_toks[k]:
+            top = r32[k].topk(2).values
+            top2 = (top[0] - top[1]).item()
+            if top2 > 2 * tol[k]:
+                raise AssertionError(f"{name}: greedy token {k} "
+                                     f"{got_toks[k]} != {ref_toks[k]} at a "
+                                     f"top-2 gap {top2} > 2 x tol {tol[k]}")
+            parted = k
+            break
+    return {"rows_checked": k + 1, "worst_err_over_tol": worst,
+            "parted_at": parted, "first_row_bitwise":
+                bool((got[0] == ref[0]).all()),
+            "first_row_logits_differing": int((got[0] != ref[0]).sum()),
+            "stream_bitwise": list(got_toks) == list(ref_toks)}
+
+
+def serve_prefix_phase(torch, dev, model):
+    """Drives A (prefix reuse), B (chunked prefill) and C (preemption) on
+    the engine phase's model, with ``serve_rows`` between B and C; the
+    f32 references for A's and B's parity checks come from one f32 copy
+    of the weights, made after A and B free their pools."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    g = torch.Generator(device="cpu").manual_seed(4321)
+    rand = lambda n: torch.randint(0, cfg.vocab_size, (n,),
+                                   generator=g).tolist()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    engine = lambda **kw: Engine(model, EngineConfig(
+        num_slots=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ, **kw), device=dev)
+    launches = {}
+
+    # ---- A: a shared system prompt, eight suffixes with distinct first
+    # tokens; request 0 alone (cold), then 1-7 together
+    pa = PREFIX_DRIVE
+    system = rand(pa["sys_len"])
+    firsts = torch.randperm(cfg.vocab_size, generator=g)[:len(
+        pa["suffixes"])].tolist()
+    prompts_a = [system + [f] + rand(n - 1)
+                 for f, n in zip(firsts, pa["suffixes"])]
+    params_a = [serve_params(i, pa["new_tokens"]) for i in
+                range(len(prompts_a))]
+
+    def submit_a(eng, step):
+        reqs = [eng.submit(prompts_a[0], params_a[0])]
+        while eng.scheduler.has_work:
+            step()
+        return reqs + [eng.submit(p, sp) for p, sp in
+                       zip(prompts_a[1:], params_a[1:])]
+
+    drive_a = {}
+    for mode, budget in (("cache_on", pa["cache_bytes"]), ("cache_off", 0)):
+        eng = engine(prefix_cache_bytes=budget)
+        eng.generate([1, 2, 3, 4], serve_params(0, 4))      # warm-up
+        # the host's admission work: the radix walks (every queued
+        # request's lookup at every pop_batch, the acquires, the
+        # adoptions) within admit(), whose time includes the prefills
+        with logit_tap(eng) as rows, \
+                host_timers(eng.prefix, ("lookup", "acquire", "adopt")) \
+                as radix, host_timers(eng, ("admit",)) as admit:
+            reqs, delta, launches[f"A_{mode}"], wall, _ = run_drive(
+                torch, eng, submit_a)
+        hits = [r.prefix_hit_tokens for r in reqs]
+        bs = eng.cache.block_size
+        if mode == "cache_on":
+            tail = pa["sys_len"] % bs
+            want = [0] + [pa["sys_len"]] * (len(reqs) - 1)
+            if (hits != want or delta["prefix_hit_tokens"] != sum(want)
+                    or delta["cow_copies"] != (len(reqs) - 1 if tail else 0)):
+                raise AssertionError(f"drive A hits {hits}, engine "
+                                     f"{delta['prefix_hit_tokens']}, COW "
+                                     f"{delta['cow_copies']}: want {want}")
+        elif any(hits) or delta["cow_copies"]:
+            raise AssertionError(f"drive A cache off hit {hits}")
+        drive_a[mode] = dict(reqs=reqs, rows=rows, summary=dict(
+            drive_summary(reqs, delta, wall),
+            cow_copies=delta["cow_copies"], hits=hits,
+            admit_s=admit["admit"][0],
+            radix_host_s={k: v[0] for k, v in radix.items()},
+            radix_calls={k: v[1] for k, v in radix.items()},
+            prefix_store=eng.prefix.stats()))
+        del eng
+        torch.cuda.empty_cache()
+
+    # ---- B: seven short requests decoding; after the first step one
+    # long prompt joins, prefilled in chunks between decode horizons
+    pb = CHUNK_DRIVE
+    lo, hi = pb["short"]
+    prompts_b = [rand(int(n)) for n in torch.randint(
+        lo, hi + 1, (pb["n_short"],), generator=g)]
+    params_b = [serve_params(i, pb["short_new"])
+                for i in range(pb["n_short"])]
+    long_prompt = rand(pb["long"])
+
+    def submit_b(eng, step):
+        reqs = [eng.submit(p, sp) for p, sp in zip(prompts_b, params_b)]
+        step()
+        return reqs + [eng.submit(long_prompt,
+                                  serve_params(0, pb["long_new"]))]
+
+    drive_b = {}
+    for mode, chunk in (("chunked", pb["chunk"]), ("whole", 0)):
+        eng = engine(prefill_chunk_tokens=chunk)
+        with logit_tap(eng) as rows:
+            reqs, delta, launches[f"B_{mode}"], wall, steps = run_drive(
+                torch, eng, submit_b)
+        want_chunks = -(-pb["long"] // pb["chunk"]) - 1 if chunk else 0
+        if (delta["prefill_chunked_requests"] != (1 if chunk else 0)
+                or delta["prefill_chunk_dispatches"] != want_chunks):
+            raise AssertionError(
+                f"drive B {mode}: {delta['prefill_chunked_requests']} "
+                f"chunked requests, {delta['prefill_chunk_dispatches']} "
+                f"chunk dispatches; want {want_chunks}")
+        chunk_steps = [i for i, (c, _) in enumerate(steps) if c]
+        if chunk and any(steps[i][1] < 1 for i in chunk_steps[:-1]):
+            raise AssertionError(f"drive B: a chunk without a decode step "
+                                 f"before the next: {steps}")
+        drive_b[mode] = dict(reqs=reqs, rows=rows, summary=dict(
+            drive_summary(reqs, delta, wall),
+            chunk_dispatches=delta["prefill_chunk_dispatches"],
+            chunk_steps=chunk_steps,
+            decode_steps_after_each_chunk=[steps[i][1]
+                                           for i in chunk_steps],
+            interference_s=eng.stats()["prefill"]["interference_seconds"]))
+        del eng
+        torch.cuda.empty_cache()
+
+    # ---- parity of A and B against the f32 copy
+    model32 = copy.deepcopy(model).float()
+    report_a = []
+    on, off = drive_a["cache_on"], drive_a["cache_off"]
+    for i, (r_on, r_off) in enumerate(zip(on["reqs"], off["reqs"])):
+        refs = reference_rows(torch, model, model32, prompts_a[i],
+                              r_off.output_ids, pa["new_tokens"])
+        report_a.append(dict(request=i, **stream_parity(
+            f"drive A request {i}", on["rows"][r_on.request_id],
+            off["rows"][r_off.request_id], r_on.output_ids,
+            r_off.output_ids, refs, greedy=i % 2 == 0)))
+    ch, wh = drive_b["chunked"], drive_b["whole"]
+    r_ch, r_wh = ch["reqs"][-1], wh["reqs"][-1]
+    refs = reference_rows(torch, model, model32, long_prompt,
+                          r_wh.output_ids, 1)
+    report_b = stream_parity("drive B long request",
+                             ch["rows"][r_ch.request_id],
+                             wh["rows"][r_wh.request_id], r_ch.output_ids,
+                             r_wh.output_ids, refs, greedy=False)
+    del model32, refs
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_prefix", "drive": "A", "model": "LLAMA2_7B",
+          "layers": layers, "system_prompt": pa["sys_len"],
+          "suffixes": list(pa["suffixes"]),
+          "new_tokens_each": pa["new_tokens"],
+          "prefix_cache_bytes": pa["cache_bytes"],
+          "cache_on": on["summary"], "cache_off": off["summary"],
+          "streams_bitwise": all(r["stream_bitwise"] for r in report_a),
+          "first_rows_logits_differing": sum(
+              r["first_row_logits_differing"] for r in report_a),
+          "parity": report_a})
+    emit({"phase": "serve_prefix", "drive": "B", "short_requests":
+          [len(p) for p in prompts_b], "long_prompt": pb["long"],
+          "chunk_tokens": pb["chunk"], "chunked": ch["summary"],
+          "whole": wh["summary"], "long_request_parity": report_b,
+          "bitwise": report_b["first_row_bitwise"],
+          "logits_differing": report_b["first_row_logits_differing"]})
+
+    serve_rows_phase(torch, dev, model, engine, rand)
+
+    # ---- C: eight requests whose rows need ~2.6x the pool's blocks
+    pc = PREEMPT_DRIVE
+    lo, hi = pc["prompts"]
+    prompts_c = [rand(int(n)) for n in torch.randint(
+        lo, hi + 1, (pc["n"],), generator=g)]
+    eng = engine(kv_pool_blocks=pc["pool_blocks"], prefix_cache_bytes=0)
+    reqs, delta, launches["C"], wall, _ = run_drive(
+        torch, eng, lambda e, step: [
+            e.submit(p, serve_params(i, pc["new_tokens"]))
+            for i, p in enumerate(prompts_c)])
+    if delta["preemptions"] < 1 or eng.pool.blocks_in_use:
+        raise AssertionError(f"drive C: {delta['preemptions']} preemptions, "
+                             f"{eng.pool.blocks_in_use} blocks in use")
+    bs = eng.cache.block_size
+    emit({"phase": "serve_prefix", "drive": "C",
+          "kv_pool_blocks": pc["pool_blocks"],
+          "pool_gib": eng.pool.capacity * eng.pool.bytes_per_block / 2 ** 30,
+          "prompt_lengths": [len(p) for p in prompts_c],
+          "blocks_for_all_rows": sum(-(-(len(p) + pc["new_tokens"]) // bs)
+                                     for p in prompts_c),
+          "preemptions": delta["preemptions"],
+          "resumed_without_divergence": True,
+          **drive_summary(reqs, delta, wall)})
+    del eng
+    torch.cuda.empty_cache()
+    return {k: sum(run[k] for run in launches.values())
+            for k in launches["C"]}
+
+
+def serve_rows_phase(torch, dev, model, engine, rand):
+    """Does a row's result depend on how many rows its products have?
+    The logits of one request's last prompt row two ways, (i) sampled
+    by a decode step at 8 lanes after a prefill of the rest, (ii) from a
+    prefill window over the whole prompt, and layer 0's q projection of
+    that row at M = 8 and at M = the window; each with the serving
+    path's row-tiled products (``row_linear``, as shipped) and with one
+    ``F.linear`` over the whole window (``ROW_TILE = 0``).  Then the
+    decode rate of the same 8 requests both ways, in turns."""
+    from paddle_tpu_torch.models import gpt
+
+    pr = ROWS_DRIVE
+    prompt = rand(pr["prompt"])
+    eng = engine()
+    slot = eng.cache.alloc()
+    eng.cache.ensure_blocks(slot, len(prompt))
+    n = eng.config.num_slots
+    tab = lambda w: torch.from_numpy(eng.cache.tables[[slot], :w]).to(dev)
+    nb = eng._table_width(len(prompt))
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    decode_tables = torch.zeros(n, nb, dtype=torch.int32, device=dev)
+    decode_tables[0] = tab(nb)[0]
+    out, tile = {}, gpt.ROW_TILE
+    try:
+        for mode, rows in (("row_tiled", tile), ("one_linear", 0)):
+            gpt.ROW_TILE = rows
+            window = eng._forward(
+                torch.tensor([prompt], device=dev), tab(nb),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.tensor([len(prompt) - 1], device=dev))[0].float()
+            eng._forward(torch.tensor([prompt[:-1]], device=dev), tab(nb),
+                         torch.zeros(1, dtype=torch.int32, device=dev),
+                         zero)
+            ids = torch.zeros(n, 1, dtype=torch.long, device=dev)
+            ids[0, 0] = prompt[-1]
+            pos = torch.zeros(n, dtype=torch.int32, device=dev)
+            pos[0] = len(prompt) - 1
+            decode = eng._forward(ids, decode_tables, pos,
+                                  torch.zeros(n, dtype=torch.long,
+                                              device=dev))[0].float()
+            with torch.no_grad():
+                layer0 = model.model.layers[0]
+                x = layer0.input_layernorm(model.model.embed_tokens(
+                    torch.tensor([prompt], device=dev)))[0]
+                w = layer0.self_attn.q_proj.weight
+                q_window = gpt.row_linear(x, w)[-1]
+                q_m8 = gpt.row_linear(
+                    torch.cat([x[-1:], x[:n - 1]]), w)[0]
+            out[mode] = {
+                "logits_differing": int((window != decode).sum()),
+                "logits_max_abs_diff": (window - decode).abs().max().item(),
+                "greedy_equal": int(window.argmax()) == int(decode.argmax()),
+                "q_proj_differing": int((q_window != q_m8).sum()),
+                "q_proj_max_abs_diff":
+                    (q_window.float() - q_m8.float()).abs().max().item()}
+        eng.cache.release_slot_blocks(slot)
+        eng.cache.free(slot)
+        # decode rate, in turns: row-tiled, one linear, one linear, row-tiled
+        prompts = [rand(pr["decode_prompts"]) for _ in range(n)]
+        rates = {"row_tiled": [], "one_linear": []}
+        for mode in ("row_tiled", "one_linear", "one_linear", "row_tiled"):
+            gpt.ROW_TILE = tile if mode == "row_tiled" else 0
+            before = eng.stats()
+            eng.generate(prompts, serve_params(0, pr["decode_new"]))
+            torch.cuda.synchronize()
+            after = eng.stats()
+            rates[mode].append(
+                (after["decode_tokens"] - before["decode_tokens"])
+                / (after["decode_seconds"] - before["decode_seconds"]))
+    finally:
+        gpt.ROW_TILE = tile
+    emit({"phase": "serve_rows", "prompt": len(prompt), "decode_lanes": n,
+          "window_rows": len(prompt), "row_tile": tile, **out,
+          "decode_tokens_per_s": rates,
+          "note": "row_tiled is the serving path as shipped"})
+    if out["row_tiled"]["logits_differing"] or \
+            out["row_tiled"]["q_proj_differing"]:
+        raise AssertionError(f"serve_rows: the row-tiled serving path is not "
+                             f"row invariant: {out['row_tiled']}")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def profile_phase(torch, eng, prompts, params):
@@ -1904,7 +2407,10 @@ def main():
           "ptxas_spills": ptxas_spills(ptxas)})
 
     summary = kernel_phase(torch, dev)
-    serve = engine_phase(torch, dev)
+    serve, model = engine_phase(torch, dev)
+    serve_prefix = serve_prefix_phase(torch, dev, model)
+    del model
+    torch.cuda.empty_cache()
     train = train_phase(torch, dev)
     train_parity_phase(torch, dev)
     unet = unet_train_phase(torch, dev)
@@ -1936,7 +2442,8 @@ def main():
                            "paddle_tpu/ops/pallas/norms.py:424",
                            "unet_train"),
     }
-    runs = {"serve": serve, "train": train, "unet_train": unet}
+    runs = {"serve": serve, "serve_prefix": serve_prefix, "train": train,
+            "unet_train": unet}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]

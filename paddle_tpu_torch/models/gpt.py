@@ -10,7 +10,10 @@ conversion transposes paddle's ``[in, out]`` once, at load.
 
 * the paged serving path (``cache`` is a :class:`PagedKV`): rope at
   ``pos + arange(s)``, ``paged_write`` of k and v into the pool, then
-  the ragged paged-attention kernel over the block table;
+  the ragged paged-attention kernel over the block table; the window's
+  rows run zero-padded to whole tiles, and every projection of this
+  path (and the engine's LM head) multiplies tile by tile
+  (:func:`tiled_linear`), so a row's bits do not depend on the window;
 * the uncached full-sequence path (training, and the reference the
   serving parity checks compare with): rope at ``arange(s)``, then
   causal flash attention (``ops/flash_attention.py``: the hand-written
@@ -92,6 +95,51 @@ def _linear(i, o, device, dtype):
     return nn.Linear(i, o, bias=False, device=device, dtype=dtype)
 
 
+#: rows one serving-path product multiplies at once (see tiled_linear)
+ROW_TILE = 128
+
+
+def pad_rows(x):
+    """``x`` [..., K] as rows [Mp, K], zero-padded to a whole number of
+    ``ROW_TILE``-row tiles (a view when no row has to be added)."""
+    rows = x.reshape(-1, x.shape[-1])
+    if ROW_TILE and rows.shape[0] % ROW_TILE:
+        rows = F.pad(rows, (0, 0, 0, ROW_TILE - rows.shape[0] % ROW_TILE))
+    return rows
+
+
+def tiled_linear(rows, weight):
+    """``F.linear(rows, weight)`` for the paged serving path, over rows
+    [Mp, in] made by :func:`pad_rows`, with each row's bits independent
+    of how many rows the call has.
+
+    cuBLAS picks its algorithm (tile shape, split-K) from the product's
+    shape, so one row multiplied in a decode step (8 rows) and in a
+    prefill window (thousands) can round differently: a preempted
+    request's re-prefill then cannot reproduce the token it sampled in
+    decode, and a prefix hit or a chunk reads keys that an uncached,
+    whole prefill would not have written.  Here the rows are multiplied
+    as ``ROW_TILE``-row batches of one strided-batched product over the
+    same weight (batch stride 0): every call solves the same
+    ``[ROW_TILE, in] x [in, out]`` problem, whatever the window.
+    ``ROW_TILE = 0`` multiplies the whole window in one ``F.linear``
+    (how ``chip_smoke.py``'s ``serve_rows`` measures what the tiling
+    costs and what it prevents)."""
+    tile = ROW_TILE
+    if not tile:
+        return F.linear(rows, weight)
+    n = rows.shape[0] // tile
+    return torch.bmm(rows.view(n, tile, -1),
+                     weight.t().expand(n, -1, -1)).view(n * tile, -1)
+
+
+def row_linear(x, weight):
+    """:func:`tiled_linear` of any ``x`` [..., in]: pad, multiply, and
+    drop the padding rows again."""
+    m = x.numel() // x.shape[-1]
+    return tiled_linear(pad_rows(x), weight)[:m].view(*x.shape[:-1], -1)
+
+
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
@@ -109,23 +157,32 @@ class GPTAttention(nn.Module):
         self.o_proj = _linear(self.num_heads * self.head_dim, c.hidden_size,
                               device, dtype)
 
-    def forward(self, x, cache=None):
+    def forward(self, x):
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).view(b, s, self.kv_heads, self.head_dim)
         v = self.v_proj(x).view(b, s, self.kv_heads, self.head_dim)
-        if cache is not None:
-            return self._forward_paged(q, k, v, cache, b, s)
         pos = torch.arange(s, device=x.device)
         q = apply_rotary_emb(q, pos, self.rope_theta)
         k = apply_rotary_emb(k, pos, self.rope_theta)
         out = flash_attention(q, k, v, causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
-    def _forward_paged(self, q, k, v, cache, b, s):
-        """Rope at the per-row positions, write k/v into the lane's
+    def forward_paged(self, rows, cache, b, s):
+        """The serving path over the padded rows [Mp, hidden] of a
+        [b, s] window: row-tiled projections (:func:`tiled_linear`),
+        rope at the per-row positions, k/v written into the lane's
         table-mapped pool blocks (write-before-attend, so a token sees
-        its own key), then ragged paged attention over the table."""
+        its own key), then ragged paged attention over the table.
+        Returns the padded rows of the output projection (zero in the
+        padding rows) and the advanced view."""
+        m = b * s
+        q = tiled_linear(rows, self.q_proj.weight)[:m].view(
+            b, s, self.num_heads, self.head_dim)
+        k = tiled_linear(rows, self.k_proj.weight)[:m].view(
+            b, s, self.kv_heads, self.head_dim)
+        v = tiled_linear(rows, self.v_proj.weight)[:m].view(
+            b, s, self.kv_heads, self.head_dim)
         pos = cache.pos
         pos_ids = pos.long()[:, None] + torch.arange(s, device=q.device)
         q = apply_rotary_emb(q, pos_ids, self.rope_theta)
@@ -134,7 +191,7 @@ class GPTAttention(nn.Module):
         paged_write(cache.v, v, cache.tables, pos)
         out = paged_attention(q.contiguous(), cache.k, cache.v,
                               cache.tables, pos)
-        out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        out = tiled_linear(pad_rows(out.reshape(m, -1)), self.o_proj.weight)
         return out, PagedKV(cache.k, cache.v, cache.tables, pos + s)
 
 
@@ -154,6 +211,12 @@ class GPTMLP(nn.Module):
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
+    def forward_paged(self, rows):
+        """The serving path over padded rows (:func:`tiled_linear`)."""
+        h = F.silu(tiled_linear(rows, self.gate_proj.weight)) * \
+            tiled_linear(rows, self.up_proj.weight)
+        return tiled_linear(h, self.down_proj.weight)
+
 
 class GPTDecoderLayer(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
@@ -164,15 +227,19 @@ class GPTDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(h, eps, device, dtype)
         self.mlp = GPTMLP(config, device, dtype)
 
-    def forward(self, x, cache=None):
-        h = self.input_layernorm(x)
-        if cache is not None:
-            h, new_cache = self.self_attn(h, cache)
-        else:
-            h, new_cache = self.self_attn(h), None
-        x = x + h
-        x = x + self.mlp(self.post_attention_layernorm(x))
-        return x, new_cache
+    def forward(self, x):
+        x = x + self.self_attn(self.input_layernorm(x))
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+    def forward_paged(self, rows, cache, b, s):
+        """The serving path over the padded rows of a [b, s] window; the
+        padding rows stay zero through every row-wise op."""
+        h, new_cache = self.self_attn.forward_paged(
+            self.input_layernorm(rows), cache, b, s)
+        rows = rows + h
+        rows = rows + self.mlp.forward_paged(
+            self.post_attention_layernorm(rows))
+        return rows, new_cache
 
 
 class GPTModel(nn.Module):
@@ -190,17 +257,22 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, caches=None):
         """Hidden states [B, S, hidden]; with ``caches`` (one PagedKV
-        per layer) also the advanced views."""
+        per layer: the serving path) also the advanced views.  The
+        serving path carries the window's rows zero-padded to whole
+        ``ROW_TILE``-row tiles through every layer (:func:`pad_rows`),
+        so only attention sees the [B, S] window."""
         x = self.embed_tokens(input_ids)
-        new_caches = [] if caches is not None else None
-        for i, layer in enumerate(self.layers):
-            x, nc = layer(x, None if caches is None else caches[i])
-            if caches is not None:
-                new_caches.append(nc)
-        x = self.norm(x)
-        if caches is not None:
-            return x, new_caches
-        return x
+        if caches is None:
+            for layer in self.layers:
+                x = layer(x)
+            return self.norm(x)
+        b, s = input_ids.shape
+        rows = pad_rows(x)
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            rows, nc = layer.forward_paged(rows, cache, b, s)
+            new_caches.append(nc)
+        return self.norm(rows[:b * s]).view(b, s, -1), new_caches
 
 
 class GPTForCausalLM(nn.Module):
@@ -236,10 +308,16 @@ class GPTForCausalLM(nn.Module):
     def dtype(self):
         return self.model.embed_tokens.weight.dtype
 
-    def _logits(self, h):
+    def _logits(self, h, paged=False):
+        """The LM head; ``paged`` (the serving engine) multiplies through
+        :func:`row_linear`."""
+        weight = (self.lm_head.weight if self.lm_head is not None
+                  else self.model.embed_tokens.weight)
+        if paged:
+            return row_linear(h, weight)
         if self.lm_head is not None:
             return self.lm_head(h)
-        return h @ self.model.embed_tokens.weight.t()
+        return h @ weight.t()
 
     def forward(self, input_ids, labels=None):
         """Full-sequence causal logits [B, S, vocab] (the uncached path);

@@ -16,15 +16,40 @@ buckets, padding lanes with all-zero table rows (their writes land in
 scratch block 0), the first token taken from position ``lengths - 1``,
 the horizon's in-loop freezing of lanes that reach EOS or their budget
 (their later tokens harvest as -1), the adaptive horizon, and the
-auto-sized pool in which no request can starve.  The JAX horizon
-``lax.scan`` is a Python loop of ``h`` steps here; device state stays
-on the device between horizons and the host syncs once per horizon.
+auto-sized pool in which no request can starve (a full row per slot
+plus the prefix store's headroom).  The JAX horizon ``lax.scan`` is a
+Python loop of ``h`` steps here; device state stays on the device
+between horizons and the host syncs once per horizon.
 
-Not ported yet (later slices): the prefix cache, speculative decoding,
-chunked prefill, grammar-constrained decoding, the host KV tier, int8
-weights and KV, preemption, observability, degradation, fault injection
-and the gateway.  Without preemption a decode step that finds the pool
-dry raises.
+Also kept, as the JAX engine has them on by default:
+
+* **Prefix reuse** (``prefix_block_size``, ``prefix_cache_bytes``): a
+  radix store (:mod:`.prefix_cache`) over full blocks of admitted
+  prompts holds refcounted blocks of the same pool.  Admission leases
+  the matched blocks straight into the slot's table, copies a partial
+  tail match into the slot's first private block (copy-on-write, before
+  the forward), and prefills only the suffix, at ``pos`` = the hit
+  length.  After the forward the store adopts the prompt's new full
+  blocks.
+* **Chunked prefill** (``prefill_chunk_tokens``): a suffix longer than
+  the chunk prefills one chunk per step boundary, a decode horizon
+  between consecutive chunks; the lane holds its slot, decode-inactive,
+  until its final chunk samples the first token.  Every chunk boundary
+  adopts the completed blocks, so it doubles as a resume point.
+* **Preemption**: a decode step or a chunk that finds the pool dry
+  reclaims unpinned prefix blocks, then preempts the lowest-priority,
+  youngest other request (:meth:`Engine.preempt`, also public).  It
+  requeues at the front with its tokens; re-admission re-prefills
+  prompt + all but the last generated token and must re-sample that
+  last token exactly, or raises.  That check holds on the card because
+  the serving forward's rows do not depend on the window (the row-tiled
+  products of ``models.gpt.tiled_linear`` and the row-invariant paged
+  kernel).
+
+Not ported yet (later slices): speculative decoding,
+grammar-constrained decoding, the host KV tier, int8 weights and KV,
+abort/drain, deadlines and tenants, observability, degradation, fault
+injection and the gateway.
 """
 
 from __future__ import annotations
@@ -38,8 +63,10 @@ import torch
 from ..device import resolve_device
 from ..ops import kernel_launches
 from .kv_cache import PagedKVCache
+from .paged_attention import check_kernel_geometry
+from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, sample_batch
-from .scheduler import Scheduler
+from .scheduler import RUNNING, Scheduler
 
 
 @dataclass
@@ -48,15 +75,42 @@ class EngineConfig:
     max_seq_len: int = 256
     #: smallest prefill bucket; prompts pad up to the next power of two
     min_prefill_bucket: int = 8
+    #: chunked prefill: a suffix longer than this many tokens prefills
+    #: one chunk per step boundary, interleaved with decode horizons.
+    #: Normalized to a power of two in [min_prefill_bucket, max_seq_len];
+    #: 0 disables (whole-prompt prefill)
+    prefill_chunk_tokens: int = 0
     #: largest number of decode steps one horizon runs (power of two)
     max_horizon: int = 8
-    #: pool block size in tokens (the JAX engine's prefix block size)
+    #: pool block size in tokens, which is also the prefix cache's block
+    #: size (0: blocks of 16 and no prefix cache)
     prefix_block_size: int = 16
+    #: device-byte budget of the prefix store: it holds at most
+    #: budget // bytes_per_block pool blocks, LRU-evicted
+    prefix_cache_bytes: int = 8 << 20
+    #: admission reorder window: a queued request is overtaken by at most
+    #: this many later-submitted same-bucket requests
+    reorder_window: int = 8
     #: total pool blocks incl. scratch block 0; 0 = auto: every slot can
-    #: grow to a full row
+    #: grow to a full row, plus the prefix store's headroom.  A smaller
+    #: value oversubscribes the pool: admission defers, decode preempts
     kv_pool_blocks: int = 0
     #: kv cache dtype; None = the model's parameter dtype
     cache_dtype: object = None
+
+
+@dataclass
+class _ChunkProgress:
+    """Host ledger of one in-flight chunked prefill: the request holds
+    its slot (running, decode-inactive) while chunks of its admission
+    tokens dispatch one per step boundary; ``covered`` tokens are
+    already written into the lane's blocks."""
+
+    req: object
+    slot: int
+    lease: object
+    toks: list
+    covered: int
 
 
 class Engine:
@@ -70,20 +124,44 @@ class Engine:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
         self.model = model.eval()
-        self.config = config or EngineConfig()
+        self.config = cfg = config or EngineConfig()
         mc = model.config
-        n = self.config.num_slots
-        self._block_size = max(1, int(self.config.prefix_block_size) or 16)
+        n = cfg.num_slots
+        dtype = cfg.cache_dtype or model.dtype
+        self._block_size = max(1, int(cfg.prefix_block_size) or 16)
+        if self.device.type == "cuda":
+            check_kernel_geometry(self._block_size, mc.num_attention_heads,
+                                  mc.kv_heads, mc.head_dim, dtype)
+        # ONE pool backs every slot's table AND the prefix store; the
+        # auto size adds the store's capacity to a full row per slot
+        budget = cfg.prefix_cache_bytes if cfg.prefix_block_size else 0
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        bytes_per_block = (2 * mc.num_hidden_layers * self._block_size
+                           * mc.kv_heads * mc.head_dim * itemsize)
         self.cache = PagedKVCache(
             num_layers=mc.num_hidden_layers, num_slots=n,
-            max_seq_len=self.config.max_seq_len,
-            block_size=self._block_size, kv_heads=mc.kv_heads,
-            head_dim=mc.head_dim,
-            dtype=self.config.cache_dtype or model.dtype,
-            num_blocks=int(self.config.kv_pool_blocks), device=self.device)
+            max_seq_len=cfg.max_seq_len, block_size=self._block_size,
+            kv_heads=mc.kv_heads, head_dim=mc.head_dim, dtype=dtype,
+            num_blocks=int(cfg.kv_pool_blocks),
+            extra_blocks=int(budget) // bytes_per_block, device=self.device)
         self.pool = self.cache.pool
         self._max_blocks = self.cache.max_blocks_per_slot
-        self.scheduler = Scheduler(n)
+        self.scheduler = Scheduler(n, reorder_window=cfg.reorder_window)
+        self.prefix = PrefixCache(
+            num_layers=mc.num_hidden_layers, block_size=self._block_size,
+            kv_heads=mc.kv_heads, head_dim=mc.head_dim, dtype=dtype,
+            budget_bytes=budget, pool=self.pool,
+            bytes_per_block=self.pool.bytes_per_block)
+        self._leases = {}            # request_id -> PrefixLease
+
+        ct = int(cfg.prefill_chunk_tokens or 0)
+        if ct < 0:
+            raise ValueError(f"prefill_chunk_tokens must be >= 0, got {ct}")
+        if ct:
+            ct = min(self._pow2_ceil(max(ct, cfg.min_prefill_bucket)),
+                     cfg.max_seq_len)
+        self._chunk_tokens = ct
+        self._chunking = {}          # request_id -> _ChunkProgress
 
         # host mirrors of the per-slot decode state; the device copies
         # are rebuilt from them only when admission dirties them
@@ -104,8 +182,17 @@ class Engine:
 
         self._grow = 1           # adaptive-horizon growth state
         self._prefill_calls = 0
+        self._prefill_requests = 0
         self._prompt_tokens = 0
+        self._prefix_hit_tokens = 0
+        self._cow_copies = 0
+        self._preemptions = 0
+        self._chunk_dispatches = 0
+        self._chunked_requests = 0
+        self._chunk_count_total = 0
         self._prefill_s = 0.0
+        self._interference_s = 0.0
+        self._prefill_buckets = set()   # (lanes, bucket) per dispatch
         self._decode_steps = 0
         self._decode_tokens = 0
         self._decode_s = 0.0
@@ -122,16 +209,48 @@ class Engine:
         with torch.no_grad():
             h, _ = self.model.model(ids, caches=views)
             h = h[torch.arange(h.shape[0], device=h.device), last]
-            return self.model._logits(h)
+            return self.model._logits(h, paged=True)
 
     # ------------------------------------------------------------ buckets
-    def _admission_bucket(self, req):
-        """The prefill length bucket: the prompt length rounded up to a
-        power-of-two multiple of ``min_prefill_bucket``."""
+    def _bucket(self, n_tokens):
+        """``n_tokens`` rounded up to a power-of-two multiple of
+        ``min_prefill_bucket``, capped at ``max_seq_len``."""
         b = self.config.min_prefill_bucket
-        while b < req.prompt_len:
+        while b < n_tokens:
             b *= 2
         return min(b, self.config.max_seq_len)
+
+    @staticmethod
+    def _admission_tokens(req):
+        """The tokens a prefill must cover: the prompt, or on
+        re-admission after preemption prompt + all but the last
+        generated token (the prefill re-samples that one)."""
+        if req.output_ids:
+            return req.prompt_ids + req.output_ids[:-1]
+        return req.prompt_ids
+
+    def _admission_bucket(self, req):
+        """The prefill bucket a request would dispatch in now: its
+        suffix past the cached prefix, bucketed, clamped so prefix +
+        bucket fits a row, and capped at the chunk size."""
+        toks = self._admission_tokens(req)
+        matched = self.prefix.lookup(toks)
+        bucket = min(self._bucket(len(toks) - matched),
+                     self.config.max_seq_len - matched)
+        if self._chunk_tokens:
+            bucket = min(bucket, self._chunk_tokens)
+        return bucket
+
+    def _blocks_needed(self, req):
+        """Fresh blocks this request's admission would allocate: its
+        table entries out to the covered token, minus the full-block
+        hits it leases (a COW tail still needs a private block)."""
+        toks = self._admission_tokens(req)
+        matched = self.prefix.lookup(toks)
+        cover = len(toks)
+        if self._chunk_tokens:
+            cover = min(cover, matched + self._admission_bucket(req))
+        return -(-cover // self._block_size) - matched // self._block_size
 
     def _lane_bucket(self, n):
         """Lane count for an n-request prefill batch: the next power of
@@ -141,9 +260,6 @@ class Engine:
             lanes *= 2
         return min(lanes, self.config.num_slots)
 
-    def _blocks_needed(self, req):
-        return -(-req.prompt_len // self._block_size)
-
     @staticmethod
     def _pow2_floor(x):
         return 1 << (int(x).bit_length() - 1)
@@ -152,29 +268,39 @@ class Engine:
     def _pow2_ceil(x):
         return 1 << max(0, int(x) - 1).bit_length()
 
-    def _attn_blocks(self, h):
-        """The decode table width ``nb``: enough entries for the deepest
-        live row's next ``h`` positions, bucketed to a power of two."""
-        mx = max((int(self._pos[s]) for s in self.scheduler.running),
-                 default=0)
-        need = -(-(mx + h) // self._block_size)
+    def _table_width(self, n_tokens):
+        """Table columns covering ``n_tokens`` positions, bucketed to a
+        power of two (the kernel's output is bitwise invariant to it)."""
+        need = -(-int(n_tokens) // self._block_size)
         return min(self._max_blocks, max(1, self._pow2_ceil(need)))
 
-    def _resolve_horizon(self):
-        """1 while requests queue (admit at every boundary); otherwise
-        grow multiplicatively toward ``max_horizon``, capped by the
-        smallest remaining budget of a running request."""
+    def _attn_blocks(self, h):
+        """The decode table width: enough entries for the deepest live
+        row's next ``h`` positions."""
+        mx = max((int(self._pos[s]) for s in self.scheduler.running),
+                 default=0)
+        return self._table_width(mx + h)
+
+    def _resolve_horizon(self, requested=None):
+        """An explicit ``requested`` horizon is clamped to
+        ``[1, max_horizon]`` and rounded down to a power of two.
+        Otherwise: 1 while requests queue or chunks are in flight (work
+        waits at every boundary); else grow multiplicatively toward
+        ``max_horizon``, capped by the smallest remaining budget."""
         max_h = max(1, int(self.config.max_horizon))
-        if self.scheduler.queue_depth:
+        if requested is not None:
+            return self._pow2_floor(min(max(1, int(requested)), max_h))
+        if self.scheduler.queue_depth or self._chunking:
             return 1
         rem = min(r.remaining_budget
                   for r in self.scheduler.running.values())
         return self._pow2_floor(max(1, min(max_h, self._grow, rem)))
 
     # ------------------------------------------------------------ requests
-    def submit(self, prompt_ids, sampling=None):
+    def submit(self, prompt_ids, sampling=None, priority=0):
         """Queue one request; returns its ``Request`` handle, whose
-        ``output_ids`` fill in as the engine steps."""
+        ``output_ids`` fill in as the engine steps.  Under pool pressure
+        the lowest ``priority`` is preempted first."""
         prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -184,97 +310,192 @@ class Engine:
                 f"prompt_len {len(prompt_ids)} + max_new_tokens "
                 f"{sampling.max_new_tokens} exceeds max_seq_len "
                 f"{self.config.max_seq_len}")
-        return self.scheduler.submit(prompt_ids, sampling)
+        return self.scheduler.submit(prompt_ids, sampling, priority=priority)
 
     def admit(self):
-        """Admission + batched prefill of queued requests into free
-        slots: co-bucketed batches (``Scheduler.pop_batch``) prefill in
-        one forward each.  A batch whose blocks do not fit waits for
-        running requests to retire; with nothing running, the longest
-        queue-head prefix that fits is admitted."""
+        """Advance the in-flight chunked prefills by one chunk, then
+        admit queued requests into free slots: co-bucketed batches
+        (``Scheduler.pop_batch``) prefill in one forward each.  A batch
+        whose blocks do not fit first reclaims unpinned prefix blocks;
+        if still short it waits for running requests to retire, or, with
+        nothing running, the longest queue-head prefix that fits is
+        admitted."""
+        self._advance_chunks()
         while self.cache.free_slots and self.scheduler.queue_depth:
             batch = self.scheduler.pop_batch(
                 self.cache.free_slots, bucket_of=self._admission_bucket)
             if not batch:
                 break
             need = sum(self._blocks_needed(r) for r in batch)
-            if need > self.pool.free_blocks:
+            short = need - self.pool.free_blocks
+            while short > 0 and self.prefix.reclaim(short):
+                # the reclaim may have evicted blocks this batch counted
+                # as hits: re-derive the need until it stabilizes (each
+                # pass closes the gap or shrinks the unpinned set)
+                need = sum(self._blocks_needed(r) for r in batch)
+                short = need - self.pool.free_blocks
+            if short > 0:
                 self.scheduler.queue.extendleft(reversed(batch))
                 if self.scheduler.running:
                     break            # retry after retirements free blocks
                 fit, free = [], self.pool.free_blocks
                 for r in batch:
-                    if self._blocks_needed(r) > free:
+                    nb = self._blocks_needed(r)
+                    if nb > free:
                         break
-                    free -= self._blocks_needed(r)
+                    free -= nb
                     fit.append(r)
                 if not fit:
                     raise RuntimeError(
                         f"KV pool too small: the queue head alone needs "
                         f"{self._blocks_needed(batch[0])} blocks, the pool "
-                        f"has {self.pool.free_blocks} free")
+                        f"has {self.pool.free_blocks} free and nothing is "
+                        "running to retire (raise kv_pool_blocks or free "
+                        "the prefix budget)")
                 for _ in fit:
                     self.scheduler.queue.popleft()
                 batch = fit
             self._prefill_batch(batch)
 
     def _prefill_batch(self, batch):
-        """One batched prefill forward: claim slots and blocks, run the
-        padded [lanes, bucket] window at position 0, sample every
-        request's first token from its last valid position."""
-        n = len(batch)
+        """One batched prefill forward: claim slots, lease the cached
+        prefix blocks into the tables, allocate private blocks out to
+        the covered token, COW + suffix-prefill every lane, adopt the
+        new full blocks, then sample first tokens (or, for a chunked
+        lane, register its progress)."""
         bucket = max(self._admission_bucket(r) for r in batch)
-        lanes = self._lane_bucket(n)
         bs = self._block_size
-        nb = min(self._max_blocks, -(-bucket // bs))
+        entries = []
+        for req in batch:
+            slot = self.cache.alloc()
+            self.scheduler.start(req, slot)
+            toks = self._admission_tokens(req)
+            lease = self.prefix.acquire(toks)
+            self._leases[req.request_id] = lease
+            req.prefix_hit_tokens = lease.matched_tokens
+            start = lease.matched_tokens
+            take = len(toks) - start
+            if self._chunk_tokens:
+                take = min(take, bucket)
+            cover = start + take
+            full = len(lease.block_ids)
+            for j, bid in enumerate(lease.block_ids):
+                self.cache.lease_block(slot, j, bid)
+            for j in range(full, -(-cover // bs)):
+                if self.cache.alloc_entry(slot, j) is None:
+                    # a batch-mate's acquire may have evicted blocks this
+                    # lane's lookup counted; every lease taken so far is
+                    # pinned, so a reclaim drops only blocks nobody here
+                    # holds
+                    if (not self.prefix.reclaim(1)
+                            or self.cache.alloc_entry(slot, j) is None):
+                        raise RuntimeError(
+                            "KV pool exhausted mid-admission: admit()'s "
+                            "capacity check diverged from the allocation")
+            cow = None
+            if lease.tail_tokens:
+                cow = (lease.tail_block, int(self.cache.tables[slot, full]))
+                self._cow_copies += 1
+            entries.append(dict(req=req, slot=slot, lease=lease, toks=toks,
+                                start=start, take=take,
+                                final=cover == len(toks), cow=cow))
+
+        first = self._dispatch_prefill(entries, bucket,
+                                       self._lane_bucket(len(batch)))
+        self._prefill_requests += len(batch)
+        for e in entries:
+            row = self.cache.tables[e["slot"]]
+            self.prefix.adopt(e["toks"][:e["start"] + e["take"]], e["lease"],
+                              block_of=lambda j, row=row: row[j])
+        for i, e in enumerate(entries):
+            req, slot = e["req"], e["slot"]
+            self._prefix_hit_tokens += e["lease"].matched_tokens
+            self._prompt_tokens += len(e["toks"])
+            if e["final"]:
+                self._finish_prefill_lane(req, slot, e["toks"], first[i])
+                continue
+            # chunked admission: the first chunk is written and no token
+            # sampled; the lane stays decode-inactive at its cover
+            cover = e["start"] + e["take"]
+            self._chunked_requests += 1
+            self._chunk_count_total += 1
+            self._chunking[req.request_id] = _ChunkProgress(
+                req, slot, e["lease"], e["toks"], cover)
+            self._pos[slot] = cover
+            self._active[slot] = False
+            self._state_dirty = True
+
+    def _dispatch_prefill(self, entries, bucket, lanes):
+        """Build the lane arrays of a prefill (admission batches and
+        chunk continuations alike) and run its ONE forward: the COW
+        copies first, then the suffix windows at ``pos = prefix_lens``,
+        sampling each lane's token at ``lengths - 1`` under count
+        ``max(0, n_generated - 1)`` (a re-admission re-samples its last
+        token).  Padding lanes keep all-zero table rows: their writes
+        land in scratch.  Returns the sampled tokens as a list."""
         ids = np.zeros((lanes, bucket), np.int64)
         lengths = np.ones(lanes, np.int64)
-        tables = np.zeros((lanes, nb), np.int32)
+        prefix_lens = np.zeros(lanes, np.int32)
+        cow_src = np.zeros(lanes, np.int64)
+        cow_dst = np.zeros(lanes, np.int64)
+        counts = np.zeros(lanes, np.int64)
         seeds = np.zeros(lanes, np.int64)
         temps = np.zeros(lanes, np.float32)
         top_ks = np.zeros(lanes, np.int64)
         top_ps = np.ones(lanes, np.float32)
-        slots = []
-        for i, req in enumerate(batch):
-            slot = self.cache.alloc()
-            self.scheduler.start(req, slot)
-            for j in range(-(-req.prompt_len // bs)):
-                if self.cache.alloc_entry(slot, j) is None:
-                    raise RuntimeError(
-                        "KV pool exhausted mid-admission: admit()'s "
-                        "capacity check diverged from the allocation")
-            slots.append(slot)
-            ids[i, :req.prompt_len] = req.prompt_ids
-            lengths[i] = req.prompt_len
-            tables[i] = self.cache.tables[slot, :nb]
+        for i, e in enumerate(entries):
+            req = e["req"]
+            window = e["toks"][e["start"]:e["start"] + e["take"]]
+            ids[i, :len(window)] = window
+            lengths[i] = len(window)
+            prefix_lens[i] = e["start"]
+            if e["cow"] is not None:
+                cow_src[i], cow_dst[i] = e["cow"]
+            if e["final"]:
+                counts[i] = max(0, req.n_generated - 1)
             s = req.sampling
             seeds[i], temps[i] = s.seed, s.temperature
             top_ks[i], top_ps[i] = s.top_k, s.top_p
-        # padding lanes keep all-zero table rows: their writes go to
-        # scratch block 0 and their sampled tokens are dropped
+        nb = self._table_width(int(prefix_lens.max()) + bucket)
+        tables = np.zeros((lanes, nb), np.int32)
+        for i, e in enumerate(entries):
+            tables[i] = self.cache.tables[e["slot"], :nb]
         d = self.device
         t0 = time.perf_counter()
+        if cow_dst.any():
+            # on the forward's stream, ahead of it: the suffix writes then
+            # overwrite the copied block from the divergence offset on
+            self.cache.copy_blocks(torch.from_numpy(cow_src).to(d),
+                                   torch.from_numpy(cow_dst).to(d))
         logits = self._forward(
             torch.from_numpy(ids).to(d), torch.from_numpy(tables).to(d),
-            torch.zeros(lanes, dtype=torch.int32, device=d),
+            torch.from_numpy(prefix_lens).to(d),
             torch.from_numpy(lengths - 1).to(d))
-        first = sample_batch(logits, seeds, np.zeros(lanes, np.int64),
-                             temps, top_ks, top_ps).tolist()
+        first = sample_batch(logits, seeds, counts, temps, top_ks,
+                             top_ps).tolist()     # the one host sync
         self._prefill_s += time.perf_counter() - t0
         self._prefill_calls += 1
-        self._prompt_tokens += int(lengths[:n].sum())
-        for i, req in enumerate(batch):
-            self._finish_prefill_lane(req, slots[i], int(first[i]))
+        self._prefill_buckets.add((lanes, bucket))
+        return first
 
-    def _finish_prefill_lane(self, req, slot, tok):
-        """Record the first token and arm the lane's decode mirrors."""
-        self._tokens_generated += 1
-        if req.record_token(tok):
-            self._retire(req)
-            return
+    def _finish_prefill_lane(self, req, slot, toks, tok):
+        """Arm a lane whose prefill just completed (whole, or the final
+        chunk): verify a re-admission's re-sampled token or record the
+        first one, then bring the lane's decode mirrors live."""
+        if req.output_ids:
+            if tok != req.output_ids[-1]:
+                raise RuntimeError(
+                    f"preemption resume diverged for request "
+                    f"{req.request_id}: re-prefill sampled {tok}, "
+                    f"expected {req.output_ids[-1]}")
+        else:
+            self._tokens_generated += 1
+            if req.record_token(tok):
+                self._retire(req)
+                return
         s = req.sampling
         self._tokens[slot] = tok
-        self._pos[slot] = req.prompt_len
+        self._pos[slot] = len(toks)
         self._seeds[slot] = s.seed
         self._counts[slot] = req.n_generated
         self._temps[slot] = s.temperature
@@ -286,27 +507,122 @@ class Engine:
         self._active[slot] = True
         self._state_dirty = True
 
-    def _retire(self, req):
-        """Release the request's table entries and slot."""
+    def _make_room(self, req, what):
+        """One step of the pressure ladder for ``req``: reclaim an
+        unpinned prefix block, else preempt the lowest-priority,
+        youngest other running request.  Raises when neither is left."""
+        if self.prefix.reclaim(1):
+            return
+        victim = max((r for r in self.scheduler.running.values()
+                      if r is not req),
+                     key=lambda r: (-r.priority, r.request_id), default=None)
+        if victim is None:
+            raise RuntimeError(
+                f"KV pool exhausted: {what} of request {req.request_id} "
+                "needs blocks and there is nothing left to reclaim or "
+                "preempt (raise kv_pool_blocks)")
+        self.preempt(victim)
+
+    def _advance_chunks(self):
+        """One continuation chunk for every in-flight chunked prefill,
+        all in ONE forward at the chunk bucket.  Each table first grows
+        to cover its next chunk (under pressure: reclaim, then preempt
+        another request); the completed blocks are adopted at every
+        boundary; a lane's final chunk samples its first token."""
+        if not self._chunking:
+            return
+        decode_live = any(bool(self._active[s])
+                          for s in self.scheduler.running)
+        entries = []
+        for prog in list(self._chunking.values()):
+            req, slot = prog.req, prog.slot
+            if self.scheduler.running.get(slot) is not req:
+                continue             # preempted meanwhile
+            remaining = len(prog.toks) - prog.covered
+            take = min(remaining, self._chunk_tokens)
+            while not self.cache.ensure_blocks(slot, prog.covered + take):
+                self._make_room(req, "a prefill chunk")
+            entries.append(dict(req=req, slot=slot, lease=prog.lease,
+                                toks=prog.toks, start=prog.covered,
+                                take=take, final=take == remaining,
+                                cow=None, prog=prog))
+        # a later lane's pressure may have preempted an earlier entry
+        entries = [e for e in entries
+                   if self.scheduler.running.get(e["slot"]) is e["req"]]
+        if not entries:
+            return
+        t0 = time.perf_counter()
+        first = self._dispatch_prefill(entries, self._chunk_tokens,
+                                       self._lane_bucket(len(entries)))
+        if decode_live:
+            # the decode lanes' next horizon waited for this dispatch
+            self._interference_s += time.perf_counter() - t0
+        self._chunk_dispatches += 1
+        self._chunk_count_total += len(entries)
+        for i, e in enumerate(entries):
+            req, slot, prog = e["req"], e["slot"], e["prog"]
+            cover = e["start"] + e["take"]
+            row = self.cache.tables[slot]
+            self.prefix.adopt(e["toks"][:cover], e["lease"],
+                              block_of=lambda j, row=row: row[j])
+            prog.covered = cover
+            if e["final"]:
+                del self._chunking[req.request_id]
+                self._finish_prefill_lane(req, slot, e["toks"], first[i])
+            else:
+                self._pos[slot] = cover
+                self._state_dirty = True
+
+    def _release_lane(self, req):
+        """Give back a running request's table entries, prefix lease and
+        slot; the lane goes inactive."""
+        self._chunking.pop(req.request_id, None)
         self.cache.release_slot_blocks(req.slot)
-        self.cache.free(req.slot)
+        lease = self._leases.pop(req.request_id, None)
+        if lease is not None:
+            self.prefix.release(lease)   # the chain becomes evictable
+        self._active[req.slot] = False
+
+    def _retire(self, req):
+        """Release the request's blocks, lease and slot."""
+        slot = req.slot
+        self._release_lane(req)
+        self.cache.free(slot)
         self.scheduler.finish(req)
         self._finished += 1
         self._ttft_sum += req.ttft
-        self._active[req.slot] = False
+
+    def preempt(self, req):
+        """Swap a RUNNING request out: release its slot, table entries
+        and prefix lease, and requeue it at the queue front with its
+        generated tokens.  Re-admission re-prefills prompt + all but the
+        last generated token and re-samples that one under the same
+        count, so the stream goes on unchanged.  Called under pool
+        pressure; public for callers that swap requests out themselves."""
+        if req.status != RUNNING:
+            raise ValueError(
+                f"cannot preempt request {req.request_id}: {req.status}")
+        slot = req.slot
+        self._release_lane(req)
+        self._state_dirty = True
+        self.scheduler.requeue_front(req)
+        self.cache.free(slot)
+        self._preemptions += 1
 
     def _ensure_blocks(self, h):
-        """Extend every active slot's table to cover its next ``h``
-        write positions.  No preemption in this port yet: a dry pool
-        raises (the auto-sized pool never runs dry)."""
-        for slot in sorted(self.scheduler.running):
+        """Extend every decoding slot's table to cover its next ``h``
+        write positions (mid-chunk lanes grow chunk by chunk instead).
+        Under pressure: reclaim, then preempt (:meth:`_make_room`).
+        Runs before the horizon's snapshot of the active lanes, so a
+        preempted lane is never harvested."""
+        for slot, req in sorted(self.scheduler.running.items()):
+            if self.scheduler.running.get(slot) is not req:
+                continue                 # preempted earlier in this loop
             if not self._active[slot]:
                 continue
             need = min(int(self._pos[slot]) + h, self.config.max_seq_len)
-            if not self.cache.ensure_blocks(slot, need):
-                raise RuntimeError(
-                    f"KV pool exhausted: slot {slot} needs blocks for its "
-                    "decode window (raise kv_pool_blocks)")
+            while not self.cache.ensure_blocks(slot, need):
+                self._make_room(req, "the decode window")
 
     # ------------------------------------------------------------ decode
     def _sync_device_state(self):
@@ -334,8 +650,9 @@ class Engine:
         """``h`` decode steps over every slot; returns the harvested
         [h, num_slots] token array (-1 for frozen lanes) after the one
         host sync.  A lane that samples its EOS id or reaches its budget
-        freezes: its pos and count stop, its token stops changing."""
-        self._ensure_blocks(h)
+        freezes: its pos and count stop, its token stops changing.
+        Inactive lanes (free, mid-chunk) run at their frozen pos: their
+        writes land in a private block of their own or in scratch."""
         nb = self._attn_blocks(h)
         self._sync_device_state()
         self._sync_tables(nb)
@@ -387,16 +704,20 @@ class Engine:
         self._tokens_generated += harvested
         self._decode_tokens += harvested
 
-    def step(self):
-        """Admit queued requests (prefill), then run one horizon of
-        decode steps over every slot.  Returns the requests that
-        finished during the horizon."""
+    def step(self, horizon=None):
+        """Admit queued requests (chunks, then prefill), then run one
+        horizon of decode steps over every slot: ``horizon`` steps
+        (bucketed to a power of two), or the adaptive choice.  Returns
+        the requests that finished during the horizon."""
         finished = []
         self.admit()
+        if any(self._active[s] for s in self.scheduler.running):
+            h = self._resolve_horizon(horizon)
+            # block coverage (and any preemption) before the snapshot
+            self._ensure_blocks(h)
         active = {s: r for s, r in self.scheduler.running.items()
                   if self._active[s]}
         if active:
-            h = self._resolve_horizon()
             toks = self._dispatch_horizon(h)
             self._harvest(toks, active, h, finished)
             self._decode_steps += h
@@ -436,22 +757,42 @@ class Engine:
         return outs[0] if single else outs
 
     def stats(self):
-        """Counters of this engine, plus the process-wide kernel launch
-        counts (``kernel_launches``).  ``ttft_avg_s``, the mean TTFT of
-        the finished requests, is present once one has finished (the JAX
-        engine's key and rule)."""
+        """Counters of this engine under the JAX engine's key names,
+        plus the process-wide kernel launch counts (``kernel_launches``)
+        and the radix store's ``stats()`` under ``prefix``.
+        ``prompt_tokens`` counts every admitted token, prefix hits and
+        re-admissions included; ``ttft_avg_s`` is present once a request
+        has finished."""
         c = {
             "requests_finished": self._finished,
+            "active_slots": self.cache.used_slots,
             "prefill_calls": self._prefill_calls,
+            "prefill_requests": self._prefill_requests,
+            "prefill_chunk_dispatches": self._chunk_dispatches,
+            "prefill_chunked_requests": self._chunked_requests,
             "prompt_tokens": self._prompt_tokens,
+            "prefix_hit_tokens": self._prefix_hit_tokens,
+            "prefix_hit_ratio": (
+                self._prefix_hit_tokens / self._prompt_tokens
+                if self._prompt_tokens else 0.0),
             "prefill_seconds": self._prefill_s,
             "decode_steps": self._decode_steps,
             "decode_tokens": self._decode_tokens,
             "decode_seconds": self._decode_s,
             "tokens_generated": self._tokens_generated,
+            "cow_copies": self._cow_copies,
+            "preemptions": self._preemptions,
             "kv_blocks_in_use": self.pool.blocks_in_use,
             "kv_blocks_capacity": self.pool.capacity,
             "kernel_launches": kernel_launches(),
+            "prefill": {
+                "chunk_tokens": self._chunk_tokens,
+                "chunks_in_flight": len(self._chunking),
+                "chunk_count_total": self._chunk_count_total,
+                "interference_seconds": self._interference_s,
+                "buckets": sorted(self._prefill_buckets),
+            },
+            "prefix": self.prefix.stats(),
         }
         if self._finished:
             c["ttft_avg_s"] = self._ttft_sum / self._finished

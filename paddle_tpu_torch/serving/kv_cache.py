@@ -152,21 +152,26 @@ class PagedKVPool:
 class PagedKVCache:
     """Engine-side owner of the paged cache: the pool, the per-slot
     block tables (host ``np.int32``, authoritative) and the slot
-    free-list.  Entries are filled lazily: admission covers the prompt,
-    :meth:`ensure_blocks` extends coverage to each horizon's write
-    window, retirement releases every entry back to the pool."""
+    free-list.  Entries are filled lazily: admission covers the prompt
+    (leasing prefix-cache hits, allocating the rest), :meth:`ensure_blocks`
+    extends coverage to each horizon's write window, retirement and
+    preemption release every entry back to the pool.  The auto-sized
+    pool (``num_blocks=0``) holds a full row per slot plus
+    ``extra_blocks`` of prefix-store headroom."""
 
     def __init__(self, num_layers, num_slots, max_seq_len, block_size,
                  kv_heads, head_dim, dtype=torch.float32, num_blocks=0,
-                 device=None):
+                 extra_blocks=0, device=None):
         self.num_layers = num_layers
         self.num_slots = num_slots
         self.max_seq_len = max_seq_len
         self.block_size = block_size
         self.max_blocks_per_slot = -(-max_seq_len // block_size)
         if num_blocks <= 0:
-            # auto: every slot can grow to a full row, plus scratch
-            num_blocks = 1 + num_slots * self.max_blocks_per_slot
+            # auto: every slot can grow to a full row, plus headroom for
+            # the prefix store, plus the scratch block
+            num_blocks = (1 + num_slots * self.max_blocks_per_slot
+                          + extra_blocks)
         self.pool = PagedKVPool(num_layers, num_blocks, block_size,
                                 kv_heads, head_dim, dtype, device)
         self.tables = np.zeros((num_slots, self.max_blocks_per_slot),
@@ -188,7 +193,18 @@ class PagedKVCache:
     def free_slots(self):
         return len(self._free)
 
+    @property
+    def used_slots(self):
+        return self.num_slots - len(self._free)
+
     # ---------------- block-table bookkeeping (host side)
+    def lease_block(self, slot, index, block_id):
+        """Map a SHARED pool block (a prefix-cache hit) into a slot's
+        table: the table entry takes its own reference."""
+        self.pool.share(block_id)
+        self.tables[slot, index] = block_id
+        self.tables_dirty = True
+
     def alloc_entry(self, slot, index):
         """Fill one table entry with a fresh private block; returns the
         block id or None when the pool is exhausted."""
@@ -212,8 +228,10 @@ class PagedKVCache:
         return True
 
     def release_slot_blocks(self, slot):
-        """Release every table entry of a slot; the zeroed row routes
-        any later masked-lane writes to scratch."""
+        """Release every table entry of a slot (retirement, preemption):
+        shared blocks live on while other holders remain, private ones
+        return to the pool.  The zeroed row routes any later masked-lane
+        writes to scratch."""
         row = self.tables[slot]
         for j in np.nonzero(row)[0]:
             self.pool.release(int(row[j]))
@@ -224,6 +242,16 @@ class PagedKVCache:
     def leased_blocks(self):
         """Live (slot, entry) references across all block tables."""
         return int(np.count_nonzero(self.tables))
+
+    def copy_blocks(self, src, dst):
+        """Copy-on-write: ``pool[dst[i]] = pool[src[i]]`` in every
+        layer's k and v pool, one indexed assignment per buffer, for
+        the device index vectors ``src``/``dst``.  Pairs 0/0 copy
+        scratch onto itself (duplicate destinations then write equal
+        values).  The gather materialises before the scatter, and both
+        run on the current stream ahead of whatever is queued next."""
+        for buf in self.pool.k + self.pool.v:
+            buf[dst] = buf[src]
 
     def layer_views(self, tables, pos):
         """Per-layer PagedKV views over device tensors ``tables``/``pos``."""

@@ -92,6 +92,28 @@ def paged_attention_plain(q, k_pool, v_pool, tables, pos,
     return out.reshape(b, s, qh, d).to(q.dtype)
 
 
+def check_kernel_geometry(block_size, num_heads, kv_heads, head_dim,
+                          dtype):
+    """Raise if the CUDA kernel cannot take a pool of this geometry.  The
+    kernel wrapper checks every call with it, and the serving engine
+    when it is built on the card, so a block size, head dim, GQA group
+    or dtype outside the kernel's range fails there and not at the
+    first forward (nothing falls back)."""
+    if block_size != _KERNEL_BLOCK_SIZE:
+        raise ValueError(f"paged_attention kernel: block_size {block_size} "
+                         f"(supported: {_KERNEL_BLOCK_SIZE})")
+    if head_dim not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged_attention kernel: head_dim {head_dim} "
+                         f"(supported: {_KERNEL_HEAD_DIMS})")
+    if num_heads % kv_heads or num_heads // kv_heads > _KERNEL_MAX_GROUP:
+        raise ValueError(f"paged_attention kernel: {num_heads} query heads "
+                         f"over {kv_heads} kv heads (a group of at most "
+                         f"{_KERNEL_MAX_GROUP})")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"paged_attention kernel: dtype {dtype} "
+                        "(float32 or bfloat16)")
+
+
 def _lib():
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_fwd
@@ -120,9 +142,6 @@ def paged_attention_kernel(q, k_pool, v_pool, tables, pos,
         if not t.is_contiguous():
             raise ValueError("paged_attention kernel: inputs must be "
                              "contiguous")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"paged_attention kernel: q dtype {q.dtype} "
-                        "(float32 or bfloat16)")
     pool_dtype = torch.int8 if quant else q.dtype
     if k_pool.dtype != pool_dtype or v_pool.dtype != pool_dtype:
         raise TypeError(f"paged_attention kernel: pools must be "
@@ -133,16 +152,10 @@ def paged_attention_kernel(q, k_pool, v_pool, tables, pos,
                          "pools [NB,bs,KH,D]")
     b, s, qh, d = q.shape
     num_blocks, bs, kh, dk = k_pool.shape
-    if dk != d or d not in _KERNEL_HEAD_DIMS:
+    if dk != d:
         raise ValueError(f"paged_attention kernel: head_dim {d} / pool "
-                         f"{dk} (supported: {_KERNEL_HEAD_DIMS})")
-    if bs != _KERNEL_BLOCK_SIZE:
-        raise ValueError(f"paged_attention kernel: block_size {bs} "
-                         f"(supported: {_KERNEL_BLOCK_SIZE})")
-    if qh % kh or qh // kh > _KERNEL_MAX_GROUP:
-        raise ValueError(f"paged_attention kernel: {qh} query heads over "
-                         f"{kh} kv heads (a group of at most "
-                         f"{_KERNEL_MAX_GROUP})")
+                         f"{dk}")
+    check_kernel_geometry(bs, qh, kh, d, q.dtype)
     if (tables.dtype != torch.int32 or tables.dim() != 2
             or tables.shape[0] != b or tables.shape[1] < 1):
         raise ValueError("paged_attention kernel: tables must be int32 "
