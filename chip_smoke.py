@@ -14,11 +14,13 @@ the script exits nonzero and prints no result:
 2. kernels: each kernel against its plain PyTorch twin on the same card
    inputs — ragged paged attention at the LLaMA-2-7B (32/32/128) and
    LLaMA-3-8B GQA (32/8/128) head layouts, decode (s=1, 8 lanes, ragged
-   pos 0..2000) and prefill windows (s=128, s=512), bf16, f32 and an int8
-   pool with per-token scales, and the engine's own prefill geometry (8
-   lanes x 1024 at pos 0, bf16); then the bf16 paged kernel's row
-   invariance, bit for bit (tables widened by scratch columns; one
-   s=512 window against 8 windows of 64 and 512 one-row decode lanes);
+   pos 0..2000), spec verify windows (s=5 at the decode lanes' pos) and
+   prefill windows (s=128, s=512), bf16, f32 and an int8 pool with
+   per-token scales, and the engine's own prefill geometry (8 lanes x
+   1024 at pos 0, bf16); then the paged kernels' row invariance for
+   bf16, f32 and int8 pools, bit for bit (tables widened by scratch
+   columns; one s=512 window against 8 windows of 64, 512 one-row decode
+   lanes and 103 s=5 verify windows);
    RMSNorm forward at [8,4096], [4096,4096]
    and [8192,4096]; RMSNorm backward at [8192,4096] (bf16, f32) and
    [8,4096]; flash attention forward, dQ and dK/dV at the train phase's
@@ -94,6 +96,18 @@ the script exits nonzero and prints no result:
    and the decode rate of both); and C (PREEMPT_DRIVE), eight requests
    in a pool of 96 blocks: at least one preemption, every request
    complete, every resume re-sampling its token exactly.
+   serve_spec (SPEC_DRIVE), same model and geometry: 8 requests of 64
+   new tokens, half greedy, half sampled, four prompts repeating one
+   48-token span, four random; spec K = 0, K = 4, K = 4 adaptive, K = 4
+   with the oracle drafter (oracle_drafter: drafts the K = 0 stream, so
+   windows accept), K = 4, K = 0, every run's streams bitwise equal to
+   the first; the accept counters and decode rates of each.
+   serve_quant: the same requests with weight_dtype = kv_cache_dtype =
+   "int8" (bf16 K = 0, int8 K = 0, int8 K = 4, int8 K = 4 oracle, int8
+   K = 0, bf16 K = 0): int8 K = 4 and oracle equal int8 K = 0 bitwise;
+   drive A in int8 (cache on equals off) and drive C in int8 (at least
+   one preemption, every resume exact); the greedy streams' mean LCP
+   against bf16, weight bytes and pool bytes a block recorded.
 5. train: LLaMA-2-7B widths cut to 8 layers (TRAIN_LAYERS), bf16 params,
    the fused LM-head loss, AdamW(0.9, 0.95, eps 1e-5, decay 0.1,
    multi_precision) with ClipGradByGlobalNorm(1.0) and LinearWarmup into
@@ -332,17 +346,24 @@ def paged_case(torch, qh, kh, s, pos_list, dtype, quant, seed, dev):
     return tuple(mv(t) for t in (q, k, v, tables, pos, ks, vs)), need
 
 
-def paged_library_fn(torch, q, k, v, tables, pos):
-    """SDPA over K/V gathered to contiguous memory with the same
-    visibility mask: the library yardstick (set-up not timed)."""
+def paged_library_fn(torch, q, k, v, tables, pos, ks=None, vs=None):
+    """SDPA over K/V gathered to contiguous memory (an int8 pool
+    dequantized to q's dtype in advance) with the same visibility mask:
+    the library yardstick (set-up not timed)."""
     import torch.nn.functional as F
 
     b, s, qh, d = q.shape
     kh = k.shape[2]
     length = int(pos.max().item()) + s
     nbl = -(-length // k.shape[1])
-    kg = k[tables[:, :nbl].long()].reshape(b, -1, kh, d)[:, :length]
-    vg = v[tables[:, :nbl].long()].reshape(b, -1, kh, d)[:, :length]
+    tab = tables[:, :nbl].long()
+    if ks is not None:
+        k = (k[tab].float() * ks[tab][..., None, None]).to(q.dtype)
+        v = (v[tab].float() * vs[tab][..., None, None]).to(q.dtype)
+        k, v = k.flatten(0, 1), v.flatten(0, 1)
+        tab = torch.arange(b * nbl, device=q.device).view(b, nbl)
+    kg = k[tab].reshape(b, -1, kh, d)[:, :length]
+    vg = v[tab].reshape(b, -1, kh, d)[:, :length]
     kg = kg.repeat_interleave(qh // kh, dim=2).transpose(1, 2).contiguous()
     vg = vg.repeat_interleave(qh // kh, dim=2).transpose(1, 2).contiguous()
     qt = q.transpose(1, 2).contiguous()
@@ -363,48 +384,64 @@ def rates(case, ops):
 
 
 def paged_invariance_check(torch, dev):
-    """Row invariance of the bf16 paged kernel, bit for bit on the card,
-    for both layouts: (a) nb: the decode and prefill512 inputs with 7
-    scratch columns appended to every table give equal outputs; (b) the
-    window: the rows of one s = 512 window at pos 0 equal the same rows
-    computed as 8 windows of 64 at pos 0, 64, ... and as 512 one-row
-    decode lanes (lane r at pos r), over the same pool."""
+    """Row invariance of the paged kernels, bit for bit on the card, for
+    the bf16 pool (tensor-core kernel) and the f32 and int8 pools (FMA
+    kernel, the int8 one with per-token scales), both layouts: (a) nb:
+    the decode and prefill512 inputs with 7 scratch columns appended to
+    every table give equal outputs; (b) the window: the rows of one
+    s = 512 window at pos 0 equal the same rows computed as 8 windows of
+    64 at pos 0, 64, ..., as 512 one-row decode lanes (lane r at pos r),
+    and as 103 lanes of s = 5 spec verify windows at pos 0, 5, ..., 510
+    (the last one ragged: its rows past 511 are dropped), over the same
+    pool.  Raises on any differing element."""
     from paddle_tpu_torch.serving.paged_attention import paged_attention
 
     report = {}
-    for lname, qh, kh in (("llama2_7b", 32, 32), ("llama3_8b_gqa", 32, 8)):
-        for wname, s, pos_list in (("decode", 1, [0, 17, 130, 511, 777,
-                                                  1024, 1500, 2000]),
-                                   ("prefill512", 512, [0, 700])):
-            (q, k, v, tables, pos, _, _), _ = paged_case(
-                torch, qh, kh, s, pos_list, torch.bfloat16, False, 77, dev)
-            wide = torch.cat([tables, torch.zeros_like(tables[:, :7])], 1)
-            a = paged_attention(q, k, v, tables, pos)
-            b = paged_attention(q, k, v, wide.contiguous(), pos)
-            if not torch.equal(a, b):
-                raise AssertionError(f"paged nb invariance {lname}/{wname}: "
-                                     f"{(a != b).sum().item()} elements differ")
-            report[f"{lname}/{wname}/nb+7"] = "equal"
-        (q, k, v, tables, pos, _, _), _ = paged_case(
-            torch, qh, kh, 512, [0], torch.bfloat16, False, 78, dev)
-        whole = paged_attention(q, k, v, tables, pos)[0]
-        pos64 = torch.arange(0, 512, 64, dtype=torch.int32, device=dev)
-        win = torch.cat([paged_attention(q[:, w:w + 64].contiguous(), k, v,
-                                         tables, pos64[i:i + 1])[0]
-                         for i, w in enumerate(range(0, 512, 64))])
-        rows = paged_attention(
-            q[0][:, None].contiguous(), k, v,
-            tables.expand(512, -1).contiguous(),
-            torch.arange(512, dtype=torch.int32, device=dev))[:, 0]
-        for form, got in (("8 windows of 64", win), ("512 decode rows", rows)):
-            if not torch.equal(whole, got):
-                raise AssertionError(
-                    f"paged window invariance {lname}: {form} differ from "
-                    f"one s=512 window in {(whole != got).sum().item()} "
-                    "elements")
-            report[f"{lname}/s512 vs {form}"] = "equal"
-    emit({"phase": "paged_invariance", "dtype": "bfloat16",
-          "checks": report})
+    for pname, quant in (("bfloat16", False), ("float32", False),
+                         ("int8", True)):
+        dtype = torch.float32 if pname == "float32" else torch.bfloat16
+        for lname, qh, kh in (("llama2_7b", 32, 32),
+                              ("llama3_8b_gqa", 32, 8)):
+            for wname, s, pos_list in (("decode", 1, [0, 17, 130, 511, 777,
+                                                      1024, 1500, 2000]),
+                                       ("prefill512", 512, [0, 700])):
+                (q, k, v, tables, pos, ks, vs), _ = paged_case(
+                    torch, qh, kh, s, pos_list, dtype, quant, 77, dev)
+                wide = torch.cat([tables, torch.zeros_like(tables[:, :7])], 1)
+                a = paged_attention(q, k, v, tables, pos, ks, vs)
+                b = paged_attention(q, k, v, wide.contiguous(), pos, ks, vs)
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"paged nb invariance {pname}/{lname}/{wname}: "
+                        f"{(a != b).sum().item()} elements differ")
+                report[f"{pname}/{lname}/{wname}/nb+7"] = "equal"
+            (q, k, v, tables, pos, ks, vs), _ = paged_case(
+                torch, qh, kh, 512, [0], dtype, quant, 78, dev)
+            call = lambda qq, tt, pp: paged_attention(
+                qq.contiguous(), k, v, tt.contiguous(), pp, ks, vs)
+            whole = call(q, tables, pos)[0]
+            pos64 = torch.arange(0, 512, 64, dtype=torch.int32, device=dev)
+            win = torch.cat([call(q[:, w:w + 64], tables, pos64[i:i + 1])[0]
+                             for i, w in enumerate(range(0, 512, 64))])
+            rows = call(q[0][:, None], tables.expand(512, -1),
+                        torch.arange(512, dtype=torch.int32, device=dev))[:, 0]
+            q5 = torch.zeros(103 * 5, qh, q.shape[-1], dtype=dtype,
+                             device=dev)
+            q5[:512] = q[0]
+            verify = call(q5.view(103, 5, qh, -1), tables.expand(103, -1),
+                          torch.arange(0, 515, 5, dtype=torch.int32,
+                                       device=dev)).reshape(515, qh, -1)[:512]
+            for form, got in (("8 windows of 64", win),
+                              ("512 decode rows", rows),
+                              ("103 verify windows of 5", verify)):
+                if not torch.equal(whole, got):
+                    raise AssertionError(
+                        f"paged window invariance {pname}/{lname}: {form} "
+                        f"differ from one s=512 window in "
+                        f"{(whole != got).sum().item()} elements")
+                report[f"{pname}/{lname}/s512 vs {form}"] = "equal"
+    emit({"phase": "paged_invariance", "pools": ["bfloat16", "float32",
+                                                 "int8"], "checks": report})
 
 
 def kernel_phase(torch, dev):
@@ -415,7 +452,9 @@ def kernel_phase(torch, dev):
 
     summary = {}
     decode_pos = [0, 17, 130, 511, 777, 1024, 1500, 2000]
-    windows = [("decode", 1, decode_pos), ("prefill128", 128, [0, 700]),
+    # verify5: a spec K = 4 window at the decode lanes' positions
+    windows = [("decode", 1, decode_pos), ("verify5", 5, decode_pos),
+               ("prefill128", 128, [0, 700]),
                ("prefill512", 512, [0, 700]),
                ("prefill8x1024", 1024, [0] * 8)]   # the engine's prefill
     layouts = [("llama2_7b", 32, 32), ("llama3_8b_gqa", 32, 8)]
@@ -424,8 +463,9 @@ def kernel_phase(torch, dev):
     for lname, qh, kh in layouts:
         for wname, s, pos_list in windows:
             for dname, quant in variants:
-                if wname == "prefill8x1024" and (dname, quant) != (
-                        "bfloat16", False):
+                if (wname == "prefill8x1024" and (dname, quant) != (
+                        "bfloat16", False)) or (wname == "verify5"
+                                                and dname == "float32"):
                     continue
                 seed += 1
                 dtype = getattr(torch, dname)
@@ -443,11 +483,9 @@ def kernel_phase(torch, dev):
                 plain_ms = cuda_ms(
                     lambda: paged_attention_plain(q, k, v, tables, pos,
                                                   ks, vs), 3)
-                lib_ms = lib_dev = None
-                if not quant:
-                    lib = paged_library_fn(torch, q, k, v, tables, pos)
-                    lib_ms, lib_dev = cuda_ms(lib, 10), device_ms(torch, lib, 3)
-                    del lib
+                lib = paged_library_fn(torch, q, k, v, tables, pos, ks, vs)
+                lib_ms, lib_dev = cuda_ms(lib, 10), device_ms(torch, lib, 3)
+                del lib
                 item = k.element_size()
                 d = q.shape[-1]
                 kv_tokens = sum(need) * 16
@@ -467,9 +505,10 @@ def kernel_phase(torch, dev):
                               "bound_ms": b_ms, "bound_by": b_by,
                               "bytes": nbytes, "ops": ops}, ops)
                 emit(case)
-                if (lname, wname, dname, quant) == (
-                        "llama2_7b", "decode", "bfloat16", False):
-                    summary["paged_attention"] = case
+                if (lname, wname, dname) == ("llama2_7b", "decode",
+                                             "bfloat16"):
+                    summary["paged_attention_int8" if quant
+                            else "paged_attention"] = case
                 del q, k, v, tables, pos, ks, vs
     paged_invariance_check(torch, dev)
     for shape in ((8, 4096), (4096, 4096), (8192, 4096)):
@@ -1402,12 +1441,15 @@ def check_drained(eng):
             f"{held}")
 
 
-def check_serving_launches(launches, layers, prefill_calls, decode_steps):
-    """Each serving forward (a prefill, a chunk or a decode step) launches
-    the paged-attention kernel once a layer and the RMSNorm kernel twice
-    a layer plus the final norm, and nothing else of the port."""
+def check_serving_launches(launches, layers, prefill_calls, decode_steps,
+                           attn="paged_attention"):
+    """Each serving forward (a prefill, a chunk or a decode step, a spec
+    verify window included) launches the paged-attention kernel once a
+    layer (``attn``: its int8-pool variant under
+    ``kv_cache_dtype="int8"``) and the RMSNorm kernel twice a layer plus
+    the final norm, and nothing else of the port."""
     forwards = prefill_calls + decode_steps
-    want = {"paged_attention": layers * forwards,
+    want = {attn: layers * forwards,
             "rms_norm": (2 * layers + 1) * forwards}
     for name, n in launches.items():
         if n != want.get(name, 0):
@@ -1435,15 +1477,17 @@ def logit_tap(eng):
         finally:
             lanes[0] = None
 
-    def tapped_forward(ids, tables, pos, last):
+    def tapped_forward(ids, tables, pos, last=None):
         out = fwd(ids, tables, pos, last)
         pairs = (enumerate(lanes[0]) if lanes[0] is not None else
                  ((s, r) for s, r in eng.scheduler.running.items()
                   if eng._active[s]))
         for i, r in pairs:
             if r is not None:
+                # a decode step's one-position window: [1, vocab]
+                row = out[i] if last is not None else out[i, 0]
                 rows.setdefault(r.request_id, []).append(
-                    out[i].detach().float().clone())
+                    row.detach().float().clone())
         return out
 
     eng._forward, eng._dispatch_prefill = tapped_forward, tapped_dispatch
@@ -1476,6 +1520,29 @@ def serve_params(i, new_tokens):
         return SamplingParams(max_new_tokens=new_tokens)
     return SamplingParams(max_new_tokens=new_tokens, temperature=0.8,
                           top_k=50, top_p=0.95, seed=100 + i)
+
+
+def drive_a(torch, cfg, rand, g):
+    """PREFIX_DRIVE's requests: a shared system prompt and suffixes with
+    distinct first tokens.  Returns (prompts, params, submit), where
+    ``submit`` (for :func:`run_drive`) runs request 0 alone (cold), then
+    queues 1-7 together."""
+    pa = PREFIX_DRIVE
+    system = rand(pa["sys_len"])
+    firsts = torch.randperm(cfg.vocab_size, generator=g)[:len(
+        pa["suffixes"])].tolist()
+    prompts = [system + [f] + rand(n - 1)
+               for f, n in zip(firsts, pa["suffixes"])]
+    params = [serve_params(i, pa["new_tokens"]) for i in range(len(prompts))]
+
+    def submit(eng, step):
+        reqs = [eng.submit(prompts[0], params[0])]
+        while eng.scheduler.has_work:
+            step()
+        return reqs + [eng.submit(p, sp) for p, sp in
+                       zip(prompts[1:], params[1:])]
+
+    return prompts, params, submit
 
 
 def run_drive(torch, eng, submit):
@@ -1512,8 +1579,10 @@ def run_drive(torch, eng, submit):
     launches = kernel_launches()
     after = eng.stats()
     delta = {k: after[k] - before[k] for k in keys}
-    check_serving_launches(launches, eng.model.config.num_hidden_layers,
-                           delta["prefill_calls"], delta["decode_steps"])
+    check_serving_launches(
+        launches, eng.model.config.num_hidden_layers, delta["prefill_calls"],
+        delta["decode_steps"], "paged_attention_int8"
+        if eng.pool.quant_dtype else "paged_attention")
     for r in reqs:
         if (r.finish_reason != "length"
                 or len(r.output_ids) != r.sampling.max_new_tokens
@@ -1632,22 +1701,8 @@ def serve_prefix_phase(torch, dev, model):
     # ---- A: a shared system prompt, eight suffixes with distinct first
     # tokens; request 0 alone (cold), then 1-7 together
     pa = PREFIX_DRIVE
-    system = rand(pa["sys_len"])
-    firsts = torch.randperm(cfg.vocab_size, generator=g)[:len(
-        pa["suffixes"])].tolist()
-    prompts_a = [system + [f] + rand(n - 1)
-                 for f, n in zip(firsts, pa["suffixes"])]
-    params_a = [serve_params(i, pa["new_tokens"]) for i in
-                range(len(prompts_a))]
-
-    def submit_a(eng, step):
-        reqs = [eng.submit(prompts_a[0], params_a[0])]
-        while eng.scheduler.has_work:
-            step()
-        return reqs + [eng.submit(p, sp) for p, sp in
-                       zip(prompts_a[1:], params_a[1:])]
-
-    drive_a = {}
+    prompts_a, _, submit_a = drive_a(torch, cfg, rand, g)
+    runs_a = {}
     for mode, budget in (("cache_on", pa["cache_bytes"]), ("cache_off", 0)):
         eng = engine(prefix_cache_bytes=budget)
         eng.generate([1, 2, 3, 4], serve_params(0, 4))      # warm-up
@@ -1671,7 +1726,7 @@ def serve_prefix_phase(torch, dev, model):
                                      f"{delta['cow_copies']}: want {want}")
         elif any(hits) or delta["cow_copies"]:
             raise AssertionError(f"drive A cache off hit {hits}")
-        drive_a[mode] = dict(reqs=reqs, rows=rows, summary=dict(
+        runs_a[mode] = dict(reqs=reqs, rows=rows, summary=dict(
             drive_summary(reqs, delta, wall),
             cow_copies=delta["cow_copies"], hits=hits,
             admit_s=admit["admit"][0],
@@ -1727,7 +1782,7 @@ def serve_prefix_phase(torch, dev, model):
     # ---- parity of A and B against the f32 copy
     model32 = copy.deepcopy(model).float()
     report_a = []
-    on, off = drive_a["cache_on"], drive_a["cache_off"]
+    on, off = runs_a["cache_on"], runs_a["cache_off"]
     for i, (r_on, r_off) in enumerate(zip(on["reqs"], off["reqs"])):
         refs = reference_rows(torch, model, model32, prompts_a[i],
                               r_off.output_ids, pa["new_tokens"])
@@ -1874,6 +1929,261 @@ def serve_rows_phase(torch, dev, model, engine, rand):
                              f"row invariant: {out['row_tiled']}")
     del eng
     torch.cuda.empty_cache()
+
+
+# serve_spec and serve_quant: the serve workload's model and engine
+# geometry (SERVE_SLOTS, SERVE_MAX_SEQ); 8 requests, half greedy, half
+# sampled; four prompts repeat one 48-token span (the edit / summarize
+# pattern, where the output copies the input and the drafter finds
+# matches), four are random
+SPEC_DRIVE = dict(n=8, new_tokens=64, span=48, repeat_len=(256, 512),
+                  random_len=(64, 512), k=4, seed=2024)
+
+
+def spec_workload(torch, cfg):
+    """SPEC_DRIVE's prompts and sampling params (serve_params)."""
+    sd = SPEC_DRIVE
+    g = torch.Generator(device="cpu").manual_seed(sd["seed"])
+    length = lambda lo_hi: int(torch.randint(lo_hi[0], lo_hi[1] + 1, (1,),
+                                             generator=g))
+    rand = lambda n: torch.randint(0, cfg.vocab_size, (n,),
+                                   generator=g).tolist()
+    prompts = []
+    for i in range(sd["n"]):
+        if i < sd["n"] // 2:
+            n = length(sd["repeat_len"])
+            prompts.append((rand(sd["span"]) * (n // sd["span"] + 1))[:n])
+        else:
+            prompts.append(rand(length(sd["random_len"])))
+    return prompts, [serve_params(i, sd["new_tokens"])
+                     for i in range(sd["n"])]
+
+
+@contextlib.contextmanager
+def oracle_drafter(torch, eng, streams):
+    """Replace the engine's n-gram drafter, while the block runs, by one
+    that proposes each running request's known K = 0 continuation
+    (``streams``: prompt tuple -> its K = 0 output ids): on random
+    weights the n-gram drafter's guesses never land, and this is what
+    makes verify windows accept drafts, emit up to K + 1 tokens a step
+    and still have to equal the K = 0 stream bit for bit."""
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    orig = engine_mod.draft_tokens
+
+    def draft(hist, lengths, k, ngram):
+        truth = torch.zeros(hist.shape[0], hist.shape[1] + k,
+                            dtype=torch.long)
+        for slot, req in eng.scheduler.running.items():
+            seq = req.prompt_ids + streams[tuple(req.prompt_ids)]
+            truth[slot, :len(seq)] = torch.tensor(seq)
+        idx = lengths.long()[:, None] + torch.arange(k, device=hist.device)
+        return torch.gather(truth.to(hist.device), 1, idx)
+
+    engine_mod.draft_tokens = draft
+    try:
+        yield
+    finally:
+        engine_mod.draft_tokens = orig
+
+
+def workload_run(torch, dev, model, prompts, params, oracle=None, **kw):
+    """The workload through a fresh engine of the serve geometry (one
+    warm-up request first), launch counts checked (run_drive); with
+    ``oracle`` (prompt tuple -> K = 0 stream) under
+    :func:`oracle_drafter`.  Returns (streams, summary, launches); the
+    summary holds the drive's rates, the spec counters of the run, and
+    the host time and count of the horizons' uniform draws (sampled
+    lanes)."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    eng = Engine(model, EngineConfig(num_slots=SERVE_SLOTS,
+                                     max_seq_len=SERVE_MAX_SEQ, **kw),
+                 device=dev)
+    eng.generate([1, 2, 3, 4], serve_params(0, 4))          # warm-up
+    before = eng.stats()["spec"]
+    with host_timers(engine_mod, ("draw_uniforms",)) as drawn, (
+            oracle_drafter(torch, eng, oracle) if oracle
+            else contextlib.nullcontext()):
+        reqs, delta, launches, wall, _ = run_drive(
+            torch, eng, lambda e, step: [e.submit(p, sp)
+                                         for p, sp in zip(prompts, params)])
+    st = eng.stats()
+    spec = st["spec"]
+    hist = {n: c - before["accept_len_hist"].get(n, 0)
+            for n, c in spec["accept_len_hist"].items()}
+    hist = {n: c for n, c in hist.items() if c}
+    drafted = spec["draft_tokens"] - before["draft_tokens"]
+    accepted = spec["accepted_tokens"] - before["accepted_tokens"]
+    windows = sum(hist.values())
+    summary = dict(
+        drive_summary(reqs, delta, wall), decode_tokens=delta["decode_tokens"],
+        decode_seconds=delta["decode_seconds"], draft_tokens=drafted,
+        accepted_tokens=accepted,
+        accept_rate=accepted / drafted if drafted else 0.0,
+        accept_len_hist=hist,
+        mean_accept_len=(sum(n * c for n, c in hist.items()) / windows
+                         if windows else 0.0),
+        uniform_draw_s=drawn["draw_uniforms"][0],
+        uniform_draw_calls=drawn["draw_uniforms"][1],
+        weight_bytes=st["quant"]["weight_bytes"],
+        bytes_per_block=st["kv_pool"]["bytes_per_block"],
+        kv_dtype=st["kv_pool"]["dtype"])
+    streams = [list(r.output_ids) for r in reqs]
+    del eng
+    torch.cuda.empty_cache()
+    return streams, summary, launches
+
+
+def streams_equal(name, got, ref):
+    """Raise unless ``got`` equals ``ref`` lane by lane."""
+    bad = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    if bad or len(got) != len(ref):
+        raise AssertionError(f"{name}: lanes {bad} differ")
+
+
+def serve_spec_phase(torch, dev, model):
+    """spec K = 0, K = 4, K = 4 adaptive and K = 4 with the oracle
+    drafter over SPEC_DRIVE: all streams bitwise equal lane by lane; the
+    decode rates of K = 0 and K = 4 in turns (0, 4, 4a, 4 oracle, 4,
+    0)."""
+    prompts, params = spec_workload(torch, model.config)
+    k = SPEC_DRIVE["k"]
+    runs, launches, ref = [], {}, None
+    for i, (name, kk, adaptive) in enumerate((
+            ("K0", 0, False), ("K4", k, False), ("K4_adaptive", k, True),
+            ("K4_oracle", k, False), ("K4", k, False), ("K0", 0, False))):
+        oracle = ({tuple(p): s for p, s in zip(prompts, ref)}
+                  if name == "K4_oracle" else None)
+        got, summary, launches[i] = workload_run(
+            torch, dev, model, prompts, params, oracle=oracle, spec_k=kk,
+            spec_adaptive=adaptive)
+        ref = ref or got
+        streams_equal(f"serve_spec {name} (run {i}) vs K0", got, ref)
+        runs.append(dict(run=name, **summary))
+    emit({"phase": "serve_spec", "model": "LLAMA2_7B",
+          "layers": model.config.num_hidden_layers,
+          "prompt_lengths": [len(p) for p in prompts],
+          "repeated_span": SPEC_DRIVE["span"],
+          "new_tokens_each": SPEC_DRIVE["new_tokens"], "k": k,
+          "streams_bitwise": True, "runs": runs,
+          "decode_tokens_per_s_in_turns": {
+              n: [r["decode_tokens_per_s"] for r in runs if r["run"] == n]
+              for n in ("K0", "K4", "K4_oracle")}})
+    return {name: sum(run[name] for run in launches.values())
+            for name in launches[0]}
+
+
+def serve_quant_phase(torch, dev, model):
+    """SPEC_DRIVE's requests through weight_dtype = kv_cache_dtype =
+    "int8": K = 4 (n-gram and oracle drafter) equals K = 0 bitwise;
+    decode rates against bf16 in turns (bf16, int8, int8 K = 4, int8
+    K = 4 oracle, int8, bf16); drive A's shared prompt
+    with the prefix cache on equals off; drive C's undersized pool
+    preempts and every resume re-samples its token.  Records the greedy
+    streams' mean LCP fraction against bf16, the weight bytes a forward
+    reads and the pool's bytes a block."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+
+    cfg = model.config
+    prompts, params = spec_workload(torch, cfg)
+    q8 = dict(weight_dtype="int8", kv_cache_dtype="int8")
+    runs, launches, streams = [], {}, {}
+    k4 = dict(q8, spec_k=SPEC_DRIVE["k"], spec_adaptive=False)
+    for i, (name, kw) in enumerate((
+            ("bf16_K0", {}), ("int8_K0", q8), ("int8_K4", k4),
+            ("int8_K4_oracle", k4), ("int8_K0", q8), ("bf16_K0", {}))):
+        oracle = ({tuple(p): s for p, s in zip(prompts, streams["int8_K0"])}
+                  if name == "int8_K4_oracle" else None)
+        got, summary, launches[f"run{i}"] = workload_run(
+            torch, dev, model, prompts, params, oracle=oracle, **kw)
+        ref = streams.setdefault(name, got)
+        streams_equal(f"serve_quant {name} (run {i})", got, ref)
+        runs.append(dict(run=name, **summary))
+    for name in ("int8_K4", "int8_K4_oracle"):
+        streams_equal(f"serve_quant {name} vs int8_K0", streams[name],
+                      streams["int8_K0"])
+
+    def lcp(a, b):
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        return n / max(1, len(a))
+
+    greedy = [i for i, sp in enumerate(params) if sp.temperature <= 0]
+    lcp_frac = sum(lcp(streams["bf16_K0"][i], streams["int8_K0"][i])
+                   for i in greedy) / len(greedy)
+
+    # drive A under int8: a 1000-token shared prompt, cache on vs off
+    pa = PREFIX_DRIVE
+    g = torch.Generator(device="cpu").manual_seed(4242)
+    rand = lambda n: torch.randint(0, cfg.vocab_size, (n,),
+                                   generator=g).tolist()
+    _, _, submit_a = drive_a(torch, cfg, rand, g)
+    runs_a = {}
+    for mode, budget in (("cache_on", pa["cache_bytes"]), ("cache_off", 0)):
+        eng = Engine(model, EngineConfig(
+            num_slots=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ,
+            prefix_cache_bytes=budget, **q8), device=dev)
+        reqs, delta, launches[f"A_{mode}"], wall, _ = run_drive(
+            torch, eng, submit_a)
+        hits = [r.prefix_hit_tokens for r in reqs]
+        want = ([0] + [pa["sys_len"]] * (len(reqs) - 1)
+                if mode == "cache_on" else [0] * len(reqs))
+        if hits != want:
+            raise AssertionError(f"serve_quant drive A {mode}: hits {hits}, "
+                                 f"want {want}")
+        runs_a[mode] = dict(streams=[list(r.output_ids) for r in reqs],
+                             summary=dict(drive_summary(reqs, delta, wall),
+                                          hits=hits))
+        del eng
+        torch.cuda.empty_cache()
+    streams_equal("serve_quant drive A cache on vs off",
+                  runs_a["cache_on"]["streams"],
+                  runs_a["cache_off"]["streams"])
+
+    # drive C under int8: the undersized pool; the engine raises if a
+    # resume re-samples another token
+    pc = PREEMPT_DRIVE
+    lo, hi = pc["prompts"]
+    prompts_c = [rand(int(n)) for n in torch.randint(
+        lo, hi + 1, (pc["n"],), generator=g)]
+    eng = Engine(model, EngineConfig(
+        num_slots=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ,
+        kv_pool_blocks=pc["pool_blocks"], prefix_cache_bytes=0, **q8),
+        device=dev)
+    reqs, delta, launches["C"], wall, _ = run_drive(
+        torch, eng, lambda e, step: [
+            e.submit(p, serve_params(i, pc["new_tokens"]))
+            for i, p in enumerate(prompts_c)])
+    if delta["preemptions"] < 1 or eng.pool.blocks_in_use:
+        raise AssertionError(f"serve_quant drive C: {delta['preemptions']} "
+                             f"preemptions, {eng.pool.blocks_in_use} blocks "
+                             "in use")
+    pool_gib = eng.pool.capacity * eng.pool.bytes_per_block / 2 ** 30
+    del eng
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_quant", "model": "LLAMA2_7B",
+          "layers": cfg.num_hidden_layers, "weight_dtype": "int8",
+          "kv_cache_dtype": "int8", "k4_equals_k0": True,
+          "greedy_mean_lcp_vs_bf16": lcp_frac,
+          "weight_bytes": {"bf16": runs[0]["weight_bytes"],
+                           "int8": runs[1]["weight_bytes"]},
+          "bytes_per_block": {"bf16": runs[0]["bytes_per_block"],
+                              "int8": runs[1]["bytes_per_block"]},
+          "runs": runs,
+          "decode_tokens_per_s_in_turns": {
+              n: [r["decode_tokens_per_s"] for r in runs if r["run"] == n]
+              for n in ("bf16_K0", "int8_K0")},
+          "drive_A": {"prefix_on_equals_off": True,
+                      **{m: d["summary"] for m, d in runs_a.items()}},
+          "drive_C": {"kv_pool_blocks": pc["pool_blocks"],
+                      "pool_gib": pool_gib,
+                      "preemptions": delta["preemptions"],
+                      "resumed_without_divergence": True,
+                      **drive_summary(reqs, delta, wall)}})
+    return {name: sum(run[name] for run in launches.values())
+            for name in launches["C"]}
 
 
 def profile_phase(torch, eng, prompts, params):
@@ -2409,6 +2719,8 @@ def main():
     summary = kernel_phase(torch, dev)
     serve, model = engine_phase(torch, dev)
     serve_prefix = serve_prefix_phase(torch, dev, model)
+    serve_spec = serve_spec_phase(torch, dev, model)
+    serve_quant = serve_quant_phase(torch, dev, model)
     del model
     torch.cuda.empty_cache()
     train = train_phase(torch, dev)
@@ -2420,6 +2732,10 @@ def main():
         "paged_attention": ("cuda", "paddle_tpu_torch/csrc/attention_sm90.cuh",
                             "paddle_tpu/serving/paged_attention.py:284",
                             "serve"),
+        "paged_attention_int8": ("cuda",
+                                 "paddle_tpu_torch/csrc/paged_attention.cu",
+                                 "paddle_tpu/serving/paged_attention.py:284",
+                                 "serve_quant"),
         "rms_norm": ("triton", "paddle_tpu_torch/ops/rms_norm.py",
                      "paddle_tpu/ops/pallas/norms.py:220", "serve"),
         "rms_norm_bwd": ("triton", "paddle_tpu_torch/ops/rms_norm.py",
@@ -2442,8 +2758,9 @@ def main():
                            "paddle_tpu/ops/pallas/norms.py:424",
                            "unet_train"),
     }
-    runs = {"serve": serve, "serve_prefix": serve_prefix, "train": train,
-            "unet_train": unet}
+    runs = {"serve": serve, "serve_prefix": serve_prefix,
+            "serve_spec": serve_spec, "serve_quant": serve_quant,
+            "train": train, "unet_train": unet}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]

@@ -33,15 +33,23 @@
 //   vector and its visible keys: not on s, the lane count, nb, or the
 //   row's place in its tile (no split-KV).
 // f32 and int8 pools: plain f32 FMA on the CUDA cores (f32 is the
-//   precision check; the int8 pool waits for its engine knob).  A block
-//   owns up to 16 query vectors; each warp takes up to 4 vectors and, when
-//   the tile has fewer than 16 vectors, the warps also split the columns
-//   round robin and merge their (m, l, acc) in fixed warp order at the end.
-//   A warp stages one pool block of K and V (bs = 16 tokens x D) in its own
-//   shared memory with 16-byte loads, then scores its vectors against it:
-//   each lane holds D/32 dimensions of q and acc in registers, the dot
-//   products are warp-shuffle sums, and m, l, acc stay in registers across
-//   columns.
+//   precision check; int8 is the engine's kv_cache_dtype="int8" pool).  A
+//   block owns a tile of up to 8 query vectors, and all four warps hold
+//   every vector of the tile: table column c goes to warp c % 4, for every
+//   window alike, and a warp skips, vector by vector, the columns past that
+//   vector's last visible key.  At the end the four partial (m, l, acc)
+//   states of each vector merge in warp order.  So a row is always summed
+//   as the same four column classes, each in ascending column order, and
+//   its bits depend only on its q vector and its visible keys: not on s,
+//   the lane count, nb, or its place in the tile (a decode row, a spec
+//   verify window and a prefill window give the same bits).  The products
+//   are explicit fmaf, so no contraction choice of the compiler differs
+//   between the unrolled copies of a vector's code.  A warp stages one pool
+//   block of K and V (bs = 16 tokens x D, plus the 16 + 16 scales of an
+//   int8 pool) in its own shared memory with 16-byte loads, then scores
+//   the tile's vectors against it: each lane holds D/32 dimensions of q and
+//   acc in registers, the dot products are warp-shuffle sums, and m, l, acc
+//   stay in registers across columns.
 //
 // Bound.  The function must read, for every lane, the table-mapped blocks
 // up to its last visible key, for every kv head, k and v:
@@ -67,9 +75,8 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;  // the masking floor of the reference
 constexpr int BS = 16;             // pool block size (tokens)
-constexpr int NW = 4;              // warps per thread block
-constexpr int VPW = 4;             // query vectors per warp
-constexpr int TILE = NW * VPW;     // query vectors per thread block
+constexpr int NW = 4;              // warps per thread block (FMA kernel)
+constexpr int TILE = 8;            // query vectors per thread block (FMA)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -111,38 +118,31 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int v_begin = tile * TILE;
   const int tile_n = min(TILE, S * G - v_begin);
-  const int WQ = (tile_n + VPW - 1) / VPW;      // warps over vectors
-  const int WC = NW / WQ;                       // warps over columns
-  const int wq = warp / WC, wc = warp % WC;
-  const bool working = wq < WQ;                 // WQ == 3 idles one warp
-  const int wv0 = v_begin + wq * VPW;
-  const int wn = working ? max(0, min(VPW, v_begin + tile_n - wv0)) : 0;
   const int p_b = pos[b];
 
-  float qr[VPW][DPL], acc[VPW][DPL], m[VPW], l[VPW];
-  int row[VPW];
+  float qr[TILE][DPL], acc[TILE][DPL], m[TILE], l[TILE];
+  int last_key[TILE];                           // vector i sees keys <= this
 #pragma unroll
-  for (int i = 0; i < VPW; ++i) {
+  for (int i = 0; i < TILE; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
-    row[i] = 0;
+    last_key[i] = -1;
 #pragma unroll
     for (int t = 0; t < DPL; ++t) {
       qr[i][t] = 0.f;
       acc[i][t] = 0.f;
     }
-    if (i < wn) {
-      const int v = wv0 + i, r = v / G, h = kh * G + v % G;
-      row[i] = r;
+    if (i < tile_n) {
+      const int v = v_begin + i, r = v / G, h = kh * G + v % G;
+      last_key[i] = p_b + r;
       const QT* qp = q + ((size_t)(b * S + r) * QH + h) * D + lane * DPL;
 #pragma unroll
       for (int t = 0; t < DPL; ++t) qr[i][t] = to_f(qp[t]) * scale;
     }
   }
 
-  // vectors are ordered by row, so the warp's deepest row is its last
-  const int r_last = wn ? (wv0 + wn - 1) / G : 0;
-  const int n_cols = wn ? min(nb, (p_b + r_last) / BS + 1) : 0;
+  // vectors are ordered by row, so the tile's deepest row is its last
+  const int n_cols = min(nb, (p_b + (v_begin + tile_n - 1) / G) / BS + 1);
 
   PT* ks = reinterpret_cast<PT*>(smem) + (size_t)warp * 2 * BS * D;
   PT* vs = ks + BS * D;
@@ -151,7 +151,7 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
   const int* trow = tables + (size_t)b * nb;
   const size_t tok_stride = (size_t)KH * D;     // elements between tokens
 
-  for (int c = wc; c < n_cols; c += WC) {
+  for (int c = warp; c < n_cols; c += NW) {
     const int blk = trow[c];
     const PT* kb = k_pool + ((size_t)blk * BS * KH + kh) * D;
     const PT* vb = v_pool + ((size_t)blk * BS * KH + kh) * D;
@@ -170,8 +170,10 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
 
     const int key0 = c * BS;
 #pragma unroll
-    for (int i = 0; i < VPW; ++i) {
-      if (i < wn) {
+    for (int i = 0; i < TILE; ++i) {
+      // a column wholly past the vector's last key is skipped, not
+      // applied as a no-op: the vector's ops never depend on the tile
+      if (key0 <= last_key[i]) {
         float s[BS];
 #pragma unroll
         for (int j = 0; j < BS; ++j) {
@@ -179,31 +181,31 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
           const float ksc = QUANT ? scs[j] : 1.f;
           float part = 0.f;
 #pragma unroll
-          for (int t = 0; t < DPL; ++t) part += qr[i][t] * (to_f(kr[t]) * ksc);
+          for (int t = 0; t < DPL; ++t)
+            part = fmaf(qr[i][t], to_f(kr[t]) * ksc, part);
           s[j] = warp_sum(part);
         }
-        const int last_key = p_b + row[i];     // row i sees keys <= this
         float mx = m[i];
 #pragma unroll
         for (int j = 0; j < BS; ++j)
-          if (key0 + j <= last_key) mx = fmaxf(mx, s[j]);
+          if (key0 + j <= last_key[i]) mx = fmaxf(mx, s[j]);
         const float alpha = expf(m[i] - mx);
         float psum = 0.f;
 #pragma unroll
         for (int j = 0; j < BS; ++j) {
-          s[j] = key0 + j <= last_key ? expf(s[j] - mx) : 0.f;
+          s[j] = key0 + j <= last_key[i] ? expf(s[j] - mx) : 0.f;
           psum += s[j];
         }
-        l[i] = l[i] * alpha + psum;
+        l[i] = fmaf(l[i], alpha, psum);
 #pragma unroll
         for (int t = 0; t < DPL; ++t) {
           float a = 0.f;
 #pragma unroll
           for (int j = 0; j < BS; ++j) {
             const float vsc = QUANT ? scs[BS + j] : 1.f;
-            a += s[j] * (to_f(vs[j * D + lane * DPL + t]) * vsc);
+            a = fmaf(s[j], to_f(vs[j * D + lane * DPL + t]) * vsc, a);
           }
-          acc[i][t] = acc[i][t] * alpha + a;
+          acc[i][t] = fmaf(acc[i][t], alpha, a);
         }
         m[i] = mx;
       }
@@ -211,60 +213,42 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
     __syncwarp();
   }
 
-  if (WC > 1) {
-    // merge the column-split partial states in fixed warp order; the
-    // merge area reuses the staging memory once every warp is done
-    float* mg = reinterpret_cast<float*>(smem);
-    __syncthreads();
-    if (working) {
+  // merge the four column classes of each vector in warp order; the merge
+  // area reuses the staging memory once every warp is done
+  float* mg = reinterpret_cast<float*>(smem);
+  __syncthreads();
 #pragma unroll
-      for (int i = 0; i < VPW; ++i) {
-        float* slot = mg + (size_t)(warp * VPW + i) * (D + 2);
+  for (int i = 0; i < TILE; ++i) {
+    if (i < tile_n) {
+      float* slot = mg + (size_t)(warp * TILE + i) * (D + 2);
 #pragma unroll
-        for (int t = 0; t < DPL; ++t) slot[lane * DPL + t] = acc[i][t];
-        if (lane == 0) {
-          slot[D] = m[i];
-          slot[D + 1] = l[i];
-        }
-      }
-    }
-    __syncthreads();
-    if (working && wc == 0) {
-#pragma unroll
-      for (int i = 0; i < VPW; ++i) {
-        if (i < wn) {
-          float mx = NEG_INF;
-          for (int w = 0; w < WC; ++w)
-            mx = fmaxf(mx, mg[(size_t)((wq * WC + w) * VPW + i) * (D + 2) + D]);
-          float lt = 0.f, at[DPL];
-#pragma unroll
-          for (int t = 0; t < DPL; ++t) at[t] = 0.f;
-          for (int w = 0; w < WC; ++w) {
-            const float* slot = mg + (size_t)((wq * WC + w) * VPW + i) * (D + 2);
-            const float f = expf(slot[D] - mx);
-            lt += slot[D + 1] * f;
-#pragma unroll
-            for (int t = 0; t < DPL; ++t) at[t] += slot[lane * DPL + t] * f;
-          }
-          l[i] = lt;
-#pragma unroll
-          for (int t = 0; t < DPL; ++t) acc[i][t] = at[t];
-        }
+      for (int t = 0; t < DPL; ++t) slot[lane * DPL + t] = acc[i][t];
+      if (lane == 0) {
+        slot[D] = m[i];
+        slot[D + 1] = l[i];
       }
     }
   }
-
-  if (working && wc == 0) {
+  __syncthreads();
+  for (int i = warp; i < tile_n; i += NW) {
+    float mx = NEG_INF;
+    for (int w = 0; w < NW; ++w)
+      mx = fmaxf(mx, mg[(size_t)(w * TILE + i) * (D + 2) + D]);
+    float lt = 0.f, at[DPL];
 #pragma unroll
-    for (int i = 0; i < VPW; ++i) {
-      if (i < wn) {
-        const int v = wv0 + i, r = v / G, h = kh * G + v % G;
-        QT* op = out + ((size_t)(b * S + r) * QH + h) * D + lane * DPL;
-        // every row sees key 0, so l > 0
+    for (int t = 0; t < DPL; ++t) at[t] = 0.f;
+    for (int w = 0; w < NW; ++w) {
+      const float* slot = mg + (size_t)(w * TILE + i) * (D + 2);
+      const float f = expf(slot[D] - mx);
+      lt = fmaf(slot[D + 1], f, lt);
 #pragma unroll
-        for (int t = 0; t < DPL; ++t) op[t] = from_f<QT>(acc[i][t] / l[i]);
-      }
+      for (int t = 0; t < DPL; ++t) at[t] = fmaf(slot[lane * DPL + t], f, at[t]);
     }
+    const int v = v_begin + i, r = v / G, h = kh * G + v % G;
+    QT* op = out + ((size_t)(b * S + r) * QH + h) * D + lane * DPL;
+    // every row sees key 0 (warp 0's first column), so lt > 0
+#pragma unroll
+    for (int t = 0; t < DPL; ++t) op[t] = from_f<QT>(at[t] / lt);
   }
 }
 
@@ -385,7 +369,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const int tiles = (q_len * groups + TILE - 1) / TILE;
   const size_t stage =
       (size_t)NW * (2 * BS * D * sizeof(PT) + (QUANT ? 2 * BS * sizeof(float) : 0));
-  const size_t merge = (size_t)NW * VPW * (D + 2) * sizeof(float);
+  const size_t merge = (size_t)NW * TILE * (D + 2) * sizeof(float);
   const size_t smem = stage > merge ? stage : merge;
   auto kernel = paged_attn_kernel<QT, PT, D, QUANT>;
   if (smem > 48 * 1024) {

@@ -9,11 +9,14 @@ conversion transposes paddle's ``[in, out]`` once, at load.
 ``GPTAttention`` has two forward paths:
 
 * the paged serving path (``cache`` is a :class:`PagedKV`): rope at
-  ``pos + arange(s)``, ``paged_write`` of k and v into the pool, then
-  the ragged paged-attention kernel over the block table; the window's
-  rows run zero-padded to whole tiles, and every projection of this
-  path (and the engine's LM head) multiplies tile by tile
-  (:func:`tiled_linear`), so a row's bits do not depend on the window;
+  ``pos + arange(s)``, ``paged_write`` of k and v into the pool (or
+  ``paged_write_quant`` into an int8 pool), then the ragged
+  paged-attention kernel over the block table; the window's rows run
+  zero-padded to whole tiles, and every projection of this path (and the
+  engine's LM head) multiplies tile by tile (:func:`tiled_linear`), so a
+  row's bits do not depend on the window.  Under the engine's
+  ``weight_dtype="int8"`` each projection's weight is rebuilt from its
+  int8 payload first (:func:`serving_weight`);
 * the uncached full-sequence path (training, and the reference the
   serving parity checks compare with): rope at ``arange(s)``, then
   causal flash attention (``ops/flash_attention.py``: the hand-written
@@ -40,7 +43,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.rms_norm import rms_norm
 from ..ops.rope import apply_rotary_emb
-from ..serving.kv_cache import PagedKV, paged_write
+from ..serving.kv_cache import PagedKV, paged_write, paged_write_quant
 from ..serving.paged_attention import paged_attention
 
 
@@ -133,6 +136,14 @@ def tiled_linear(rows, weight):
                      weight.t().expand(n, -1, -1)).view(n * tile, -1)
 
 
+def serving_weight(linear, wq):
+    """``linear``'s weight on the serving path: with ``wq`` (the engine's
+    ``{nn.Linear: QuantizedWeight}`` under ``weight_dtype="int8"``) the
+    int8 weight dequantized to the model's dtype, else the weight."""
+    qw = wq.get(linear) if wq else None
+    return linear.weight if qw is None else qw.dequantize()
+
+
 def row_linear(x, weight):
     """:func:`tiled_linear` of any ``x`` [..., in]: pad, multiply, and
     drop the padding rows again."""
@@ -168,31 +179,39 @@ class GPTAttention(nn.Module):
         out = flash_attention(q, k, v, causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
-    def forward_paged(self, rows, cache, b, s):
+    def forward_paged(self, rows, cache, b, s, wq=None):
         """The serving path over the padded rows [Mp, hidden] of a
-        [b, s] window: row-tiled projections (:func:`tiled_linear`),
-        rope at the per-row positions, k/v written into the lane's
-        table-mapped pool blocks (write-before-attend, so a token sees
-        its own key), then ragged paged attention over the table.
-        Returns the padded rows of the output projection (zero in the
-        padding rows) and the advanced view."""
+        [b, s] window: row-tiled projections (:func:`tiled_linear`,
+        weights from :func:`serving_weight`), rope at the per-row
+        positions, k/v written into the lane's table-mapped pool blocks
+        (write-before-attend, so a token sees its own key; quantized per
+        token into an int8 pool), then ragged paged attention over the
+        table.  Returns the padded rows of the output projection (zero in
+        the padding rows) and the advanced view."""
         m = b * s
-        q = tiled_linear(rows, self.q_proj.weight)[:m].view(
+        w = lambda lin: serving_weight(lin, wq)
+        q = tiled_linear(rows, w(self.q_proj))[:m].view(
             b, s, self.num_heads, self.head_dim)
-        k = tiled_linear(rows, self.k_proj.weight)[:m].view(
+        k = tiled_linear(rows, w(self.k_proj))[:m].view(
             b, s, self.kv_heads, self.head_dim)
-        v = tiled_linear(rows, self.v_proj.weight)[:m].view(
+        v = tiled_linear(rows, w(self.v_proj))[:m].view(
             b, s, self.kv_heads, self.head_dim)
         pos = cache.pos
         pos_ids = pos.long()[:, None] + torch.arange(s, device=q.device)
         q = apply_rotary_emb(q, pos_ids, self.rope_theta)
         k = apply_rotary_emb(k, pos_ids, self.rope_theta)
-        paged_write(cache.k, k, cache.tables, pos)
-        paged_write(cache.v, v, cache.tables, pos)
+        if cache.k_scale is None:
+            paged_write(cache.k, k, cache.tables, pos)
+            paged_write(cache.v, v, cache.tables, pos)
+        else:
+            paged_write_quant(cache.k, cache.k_scale, k, cache.tables, pos)
+            paged_write_quant(cache.v, cache.v_scale, v, cache.tables, pos)
         out = paged_attention(q.contiguous(), cache.k, cache.v,
-                              cache.tables, pos)
-        out = tiled_linear(pad_rows(out.reshape(m, -1)), self.o_proj.weight)
-        return out, PagedKV(cache.k, cache.v, cache.tables, pos + s)
+                              cache.tables, pos, cache.k_scale,
+                              cache.v_scale)
+        out = tiled_linear(pad_rows(out.reshape(m, -1)), w(self.o_proj))
+        return out, PagedKV(cache.k, cache.v, cache.tables, pos + s,
+                            cache.k_scale, cache.v_scale)
 
 
 class GPTMLP(nn.Module):
@@ -211,11 +230,12 @@ class GPTMLP(nn.Module):
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
-    def forward_paged(self, rows):
+    def forward_paged(self, rows, wq=None):
         """The serving path over padded rows (:func:`tiled_linear`)."""
-        h = F.silu(tiled_linear(rows, self.gate_proj.weight)) * \
-            tiled_linear(rows, self.up_proj.weight)
-        return tiled_linear(h, self.down_proj.weight)
+        w = lambda lin: serving_weight(lin, wq)
+        h = F.silu(tiled_linear(rows, w(self.gate_proj))) * \
+            tiled_linear(rows, w(self.up_proj))
+        return tiled_linear(h, w(self.down_proj))
 
 
 class GPTDecoderLayer(nn.Module):
@@ -231,14 +251,14 @@ class GPTDecoderLayer(nn.Module):
         x = x + self.self_attn(self.input_layernorm(x))
         return x + self.mlp(self.post_attention_layernorm(x))
 
-    def forward_paged(self, rows, cache, b, s):
+    def forward_paged(self, rows, cache, b, s, wq=None):
         """The serving path over the padded rows of a [b, s] window; the
         padding rows stay zero through every row-wise op."""
         h, new_cache = self.self_attn.forward_paged(
-            self.input_layernorm(rows), cache, b, s)
+            self.input_layernorm(rows), cache, b, s, wq)
         rows = rows + h
         rows = rows + self.mlp.forward_paged(
-            self.post_attention_layernorm(rows))
+            self.post_attention_layernorm(rows), wq)
         return rows, new_cache
 
 
@@ -255,12 +275,13 @@ class GPTModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device, dtype)
 
-    def forward(self, input_ids, caches=None):
+    def forward(self, input_ids, caches=None, wq=None):
         """Hidden states [B, S, hidden]; with ``caches`` (one PagedKV
         per layer: the serving path) also the advanced views.  The
         serving path carries the window's rows zero-padded to whole
         ``ROW_TILE``-row tiles through every layer (:func:`pad_rows`),
-        so only attention sees the [B, S] window."""
+        so only attention sees the [B, S] window; ``wq`` maps its int8
+        weights (:func:`serving_weight`)."""
         x = self.embed_tokens(input_ids)
         if caches is None:
             for layer in self.layers:
@@ -270,7 +291,7 @@ class GPTModel(nn.Module):
         rows = pad_rows(x)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
-            rows, nc = layer.forward_paged(rows, cache, b, s)
+            rows, nc = layer.forward_paged(rows, cache, b, s, wq)
             new_caches.append(nc)
         return self.norm(rows[:b * s]).view(b, s, -1), new_caches
 
@@ -308,12 +329,14 @@ class GPTForCausalLM(nn.Module):
     def dtype(self):
         return self.model.embed_tokens.weight.dtype
 
-    def _logits(self, h, paged=False):
+    def _logits(self, h, paged=False, wq=None):
         """The LM head; ``paged`` (the serving engine) multiplies through
-        :func:`row_linear`."""
+        :func:`row_linear`, with ``wq``'s int8 head if it has one."""
         weight = (self.lm_head.weight if self.lm_head is not None
                   else self.model.embed_tokens.weight)
         if paged:
+            if self.lm_head is not None:
+                weight = serving_weight(self.lm_head, wq)
             return row_linear(h, weight)
         if self.lm_head is not None:
             return self.lm_head(h)

@@ -10,9 +10,10 @@ from .rope import apply_rotary_emb
 
 
 def _counters():
-    from ..serving.paged_attention import paged_attention
+    from ..serving.paged_attention import int8_pool, paged_attention
 
-    return {"paged_attention": paged_attention, "rms_norm": rms_norm,
+    return {"paged_attention": paged_attention,
+            "paged_attention_int8": int8_pool, "rms_norm": rms_norm,
             "rms_norm_bwd": rms_norm_bwd, "flash_fwd": flash_fwd_kernel,
             "flash_bwd_dq": flash_bwd_dq_kernel,
             "flash_bwd_dkv": flash_bwd_dkv_kernel,

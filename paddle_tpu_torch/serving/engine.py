@@ -45,11 +45,31 @@ Also kept, as the JAX engine has them on by default:
   the serving forward's rows do not depend on the window (the row-tiled
   products of ``models.gpt.tiled_linear`` and the row-invariant paged
   kernel).
+* **Speculative decoding** (``spec_k``, ``spec_adaptive``,
+  ``spec_ngram``, ``spec_accept_floor``): with K > 0 each decode step is
+  a window of W = K + 1 positions per lane: the n-gram drafter
+  (:mod:`.drafter`) proposes K tokens from the lane's device history
+  buffer, ONE paged forward scores all W positions, position j is
+  sampled as token ``count + j`` of its request (:func:`.sampling.
+  sample_window`'s rule), and the lane emits the longest accepted draft
+  prefix plus one, cut at EOS or its budget.  The streams equal K = 0
+  bitwise.  A lane's acceptance EMA gates its drafting; with every
+  running lane gated off the dispatch itself runs K = 0.  Rejected
+  positions write KV at ``pos + n_emit .. pos + K``, in the lane's own
+  decode blocks (or scratch), which the next step overwrites before
+  anything reads them.
+* **int8 serving knobs**: ``kv_cache_dtype="int8"`` stores the pool in
+  int8 with one f32 scale per token (quantized at append,
+  ``kv_cache.paged_write_quant``; the paged kernel's int8-pool variant
+  reads it); ``weight_dtype="int8"`` quantizes every ``nn.Linear`` per
+  output channel (:mod:`..quantization.serving`) and the serving forward
+  rebuilds each weight before its product.  Within one such config every
+  bitwise guarantee above still holds.
 
-Not ported yet (later slices): speculative decoding,
-grammar-constrained decoding, the host KV tier, int8 weights and KV,
-abort/drain, deadlines and tenants, observability, degradation, fault
-injection and the gateway.
+Not ported yet (later slices): grammar-constrained decoding (and the
+drafter's grammar ``forced_chain``), the host KV tier, abort/drain,
+deadlines and tenants, observability, degradation, fault injection and
+the gateway.
 """
 
 from __future__ import annotations
@@ -62,10 +82,15 @@ import torch
 
 from ..device import resolve_device
 from ..ops import kernel_launches
-from .kv_cache import PagedKVCache
+from ..quantization import quantize_for_serving
+from .drafter import draft_tokens
+from .kv_cache import PagedKVCache, token_bytes
 from .paged_attention import check_kernel_geometry
 from .prefix_cache import PrefixCache
-from .sampling import SamplingParams, sample_batch
+from .sampling import (
+    SamplingParams, draw_uniforms, row_params, sample_batch, sample_rows,
+    sampled_rows,
+)
 from .scheduler import RUNNING, Scheduler
 
 
@@ -97,6 +122,26 @@ class EngineConfig:
     kv_pool_blocks: int = 0
     #: kv cache dtype; None = the model's parameter dtype
     cache_dtype: object = None
+    #: speculative decoding: draft tokens per lane per decode step
+    #: (0 = plain decode).  K > 0 self-drafts K tokens from the lane's
+    #: prompt+output history, verifies all K+1 positions in one forward
+    #: and emits the longest matching prefix plus one; greedy and seeded
+    #: streams stay bitwise equal to spec_k=0
+    spec_k: int = 0
+    #: shrink the dispatch to K=0 when no running lane's acceptance EMA
+    #: clears spec_accept_floor; below-floor lanes also draft nothing
+    #: inside a K-wide dispatch
+    spec_adaptive: bool = True
+    #: trailing-suffix length the drafter matches on
+    spec_ngram: int = 2
+    #: per-lane acceptance floor (EMA of accepted/K per verify window)
+    spec_accept_floor: float = 0.125
+    #: "int8": per-output-channel int8 weights for every nn.Linear,
+    #: rebuilt before each product; None keeps the model's weights
+    weight_dtype: object = None
+    #: "int8": int8 pool with one f32 scale per token; None keeps the
+    #: fp pool (cache_dtype)
+    kv_cache_dtype: object = None
 
 
 @dataclass
@@ -128,22 +173,36 @@ class Engine:
         mc = model.config
         n = cfg.num_slots
         dtype = cfg.cache_dtype or model.dtype
+        self._weight_dtype = self._norm_quant_knob(cfg.weight_dtype,
+                                                   "weight_dtype")
+        self._kv_quant = self._norm_quant_knob(cfg.kv_cache_dtype,
+                                               "kv_cache_dtype")
+        # weight-only int8: {nn.Linear: QuantizedWeight}, rebuilt before
+        # each product of the serving forward (models.gpt.serving_weight)
+        qmap = quantize_for_serving(model) if self._weight_dtype else {}
+        self._wq = {model.get_submodule(name.rsplit(".", 1)[0]): qw
+                    for name, qw in qmap.items()}
+        self._weight_bytes = sum(qw.nbytes for qw in qmap.values()) + sum(
+            t.numel() * t.element_size()
+            for name, t in model.state_dict().items() if name not in qmap)
         self._block_size = max(1, int(cfg.prefix_block_size) or 16)
         if self.device.type == "cuda":
             check_kernel_geometry(self._block_size, mc.num_attention_heads,
                                   mc.kv_heads, mc.head_dim, dtype)
         # ONE pool backs every slot's table AND the prefix store; the
-        # auto size adds the store's capacity to a full row per slot
+        # auto size adds the store's capacity to a full row per slot,
+        # counted at the stored block size (int8 + scales when quantized)
         budget = cfg.prefix_cache_bytes if cfg.prefix_block_size else 0
-        itemsize = torch.empty((), dtype=dtype).element_size()
         bytes_per_block = (2 * mc.num_hidden_layers * self._block_size
-                           * mc.kv_heads * mc.head_dim * itemsize)
+                           * token_bytes(mc.kv_heads, mc.head_dim, dtype,
+                                         self._kv_quant))
         self.cache = PagedKVCache(
             num_layers=mc.num_hidden_layers, num_slots=n,
             max_seq_len=cfg.max_seq_len, block_size=self._block_size,
             kv_heads=mc.kv_heads, head_dim=mc.head_dim, dtype=dtype,
             num_blocks=int(cfg.kv_pool_blocks),
-            extra_blocks=int(budget) // bytes_per_block, device=self.device)
+            extra_blocks=int(budget) // bytes_per_block, device=self.device,
+            quant_dtype=self._kv_quant)
         self.pool = self.cache.pool
         self._max_blocks = self.cache.max_blocks_per_slot
         self.scheduler = Scheduler(n, reorder_window=cfg.reorder_window)
@@ -175,8 +234,17 @@ class Engine:
         self._eos_ids = np.full(n, -1, np.int64)    # -1 = no EOS token
         self._limits = np.zeros(n, np.int64)        # max_new_tokens
         self._active = np.zeros(n, bool)
+        # speculative decoding: the drafter's corpus per slot (prompt +
+        # emitted tokens; column max_seq_len is the drop target of
+        # unemitted window positions), the acceptance EMA and gate
+        self._spec_k = max(0, int(cfg.spec_k))
+        self._hist = (np.zeros((n, cfg.max_seq_len + 1), np.int64)
+                      if self._spec_k else None)
+        self._spec_ema = np.ones(n, np.float32)
+        self._spec_gates = np.ones(n, bool)
         self._state_dirty = True
-        self._d_state = None     # (tokens, pos, counts, active, eos, limits)
+        # (tokens, pos, counts, active, eos, limits, hist, gates)
+        self._d_state = None
         self._d_tables = None
         self._d_tables_nb = -1
 
@@ -196,20 +264,38 @@ class Engine:
         self._decode_steps = 0
         self._decode_tokens = 0
         self._decode_s = 0.0
+        self._decode_buckets = set()    # (horizon, nb, K) per dispatch
+        self._spec_draft_tokens = 0
+        self._spec_accepted_tokens = 0
+        self._spec_windows = 0          # verify windows of drafting lanes
+        self._spec_accept_hist = {}     # tokens emitted per window -> n
         self._tokens_generated = 0
         self._finished = 0
         self._ttft_sum = 0.0
 
+    @staticmethod
+    def _norm_quant_knob(value, name):
+        """A serving quant knob as None or "int8" (case-insensitive)."""
+        key = value if value is None else str(value).lower()
+        if key in (None, "", "none"):
+            return None
+        if key in ("int8", "i8"):
+            return "int8"
+        raise ValueError(
+            f"unsupported {name} {value!r} (supported: None, 'int8')")
+
     # ------------------------------------------------------------ model
-    def _forward(self, ids, tables, pos, last):
+    def _forward(self, ids, tables, pos, last=None):
         """Paged forward of ``ids`` [B, s] at ``pos`` [B] through
         ``tables`` [B, nb]; returns the logits [B, vocab] at positions
-        ``last`` [B] of the window."""
+        ``last`` [B] of the window, or with ``last=None`` (a decode
+        window) the logits [B, s, vocab] of every position."""
         views = self.cache.layer_views(tables, pos)
         with torch.no_grad():
-            h, _ = self.model.model(ids, caches=views)
-            h = h[torch.arange(h.shape[0], device=h.device), last]
-            return self.model._logits(h, paged=True)
+            h, _ = self.model.model(ids, caches=views, wq=self._wq)
+            if last is not None:
+                h = h[torch.arange(h.shape[0], device=h.device), last]
+            return self.model._logits(h, paged=True, wq=self._wq)
 
     # ------------------------------------------------------------ buckets
     def _bucket(self, n_tokens):
@@ -274,12 +360,24 @@ class Engine:
         need = -(-int(n_tokens) // self._block_size)
         return min(self._max_blocks, max(1, self._pow2_ceil(need)))
 
-    def _attn_blocks(self, h):
+    def _attn_blocks(self, h, w=1):
         """The decode table width: enough entries for the deepest live
-        row's next ``h`` positions."""
+        row's next ``h * w`` positions (``w = K + 1`` when drafting: a
+        fully accepted horizon)."""
         mx = max((int(self._pos[s]) for s in self.scheduler.running),
                  default=0)
-        return self._table_width(mx + h)
+        return self._table_width(mx + h * w)
+
+    def _resolve_spec_k(self):
+        """The draft width of the next decode dispatch: ``spec_k``, or
+        with ``spec_adaptive`` 0 once no running lane's gate is on
+        (below-floor lanes draft nothing inside a K-wide dispatch)."""
+        k = self._spec_k
+        if not k or not self.config.spec_adaptive:
+            return k
+        if any(self._spec_gates[s] for s in self.scheduler.running):
+            return k
+        return 0
 
     def _resolve_horizon(self, requested=None):
         """An explicit ``requested`` horizon is clamped to
@@ -496,6 +594,15 @@ class Engine:
         s = req.sampling
         self._tokens[slot] = tok
         self._pos[slot] = len(toks)
+        if self._hist is not None:
+            # the drafter's corpus: prompt (plus the regenerated tokens of
+            # a resume), then the sampled token; the tail is zeroed so a
+            # reused slot keeps nothing of its previous tenant
+            self._hist[slot, :len(toks)] = toks
+            self._hist[slot, len(toks)] = tok
+            self._hist[slot, len(toks) + 1:] = 0
+        self._spec_ema[slot] = 1.0       # optimistic: draft until shown
+        self._spec_gates[slot] = True    # not to pay off
         self._seeds[slot] = s.seed
         self._counts[slot] = req.n_generated
         self._temps[slot] = s.temperature
@@ -609,9 +716,10 @@ class Engine:
         self.cache.free(slot)
         self._preemptions += 1
 
-    def _ensure_blocks(self, h):
-        """Extend every decoding slot's table to cover its next ``h``
-        write positions (mid-chunk lanes grow chunk by chunk instead).
+    def _ensure_blocks(self, h, w=1):
+        """Extend every decoding slot's table to cover its next ``h * w``
+        write positions (``w = K + 1`` when drafting; mid-chunk lanes
+        grow chunk by chunk instead).
         Under pressure: reclaim, then preempt (:meth:`_make_room`).
         Runs before the horizon's snapshot of the active lanes, so a
         preempted lane is never harvested."""
@@ -620,7 +728,8 @@ class Engine:
                 continue                 # preempted earlier in this loop
             if not self._active[slot]:
                 continue
-            need = min(int(self._pos[slot]) + h, self.config.max_seq_len)
+            need = min(int(self._pos[slot]) + h * w,
+                       self.config.max_seq_len)
             while not self.cache.ensure_blocks(slot, need):
                 self._make_room(req, "the decode window")
 
@@ -629,13 +738,11 @@ class Engine:
         if not self._state_dirty:
             return
         d = self.device
-        self._d_state = (
-            torch.from_numpy(self._tokens).to(d),
-            torch.from_numpy(self._pos).to(d),
-            torch.from_numpy(self._counts).to(d),
-            torch.from_numpy(self._active).to(d),
-            torch.from_numpy(self._eos_ids).to(d),
-            torch.from_numpy(self._limits).to(d))
+        up = lambda a: None if a is None else torch.from_numpy(a).to(d)
+        self._d_state = tuple(up(a) for a in (
+            self._tokens, self._pos, self._counts, self._active,
+            self._eos_ids, self._limits, self._hist,
+            self._spec_gates if self._spec_k else None))
         self._state_dirty = False
 
     def _sync_tables(self, nb):
@@ -646,63 +753,146 @@ class Engine:
             self._d_tables_nb = nb
             self.cache.tables_dirty = False
 
-    def _dispatch_horizon(self, h):
-        """``h`` decode steps over every slot; returns the harvested
-        [h, num_slots] token array (-1 for frozen lanes) after the one
-        host sync.  A lane that samples its EOS id or reaches its budget
-        freezes: its pos and count stop, its token stops changing.
-        Inactive lanes (free, mid-chunk) run at their frozen pos: their
-        writes land in a private block of their own or in scratch."""
-        nb = self._attn_blocks(h)
+    def _dispatch_horizon(self, h, k):
+        """``h`` decode steps over every slot, each a window of ``W = k+1``
+        positions (draft, verify, accept); returns the harvested
+        [h, num_slots, W] token array (-1 where nothing was emitted)
+        after the one host sync.  A lane that emits its EOS id or
+        reaches its budget freezes: its pos and count stop, its token
+        stops changing.  Inactive lanes (free, mid-chunk) run at their
+        frozen pos: their writes land in a private block of their own or
+        in scratch.
+
+        Sampled lanes draw by their device counts: the uniforms of
+        tokens ``count .. count + h*W - 1`` of each sampled lane are
+        drawn once, here (:func:`.sampling.draw_uniforms`), and a step
+        takes those of ``cnt .. cnt + W - 1``, so no count comes back to
+        the host mid-horizon and token ``c`` of a request sees the draw
+        it sees at K = 0.  Greedy lanes draw nothing."""
+        w = k + 1
+        nb = self._attn_blocks(h, w)
+        self._decode_buckets.add((h, nb, k))
         self._sync_device_state()
         self._sync_tables(nb)
-        tok, p, cnt, act, eos, limits = self._d_state
+        tok, p, cnt, act, eos, limits, hist, gates = self._d_state
+        d, n = self.device, self.config.num_slots
+        vocab = self.model.config.vocab_size
         # only lanes active at dispatch can emit; the others sample
         # greedily (discarded) so they cost no generator work
-        temps = np.where(self._active, self._temps, 0.0)
-        zeros = torch.zeros_like(tok)
+        rows = sampled_rows(np.where(self._active, self._temps, 0.0))
+        j_idx = torch.arange(w, device=d)[None, :]
         t0 = time.perf_counter()
+        if rows:
+            u_all = draw_uniforms(self._seeds, self._counts, rows, h * w,
+                                  vocab, d)
+            ridx = torch.tensor(rows, device=d)
+            c0 = cnt[ridx]
+            win = [i * w + j for i in rows for j in range(w)]
+            params = row_params(win, np.repeat(self._temps, w),
+                                np.repeat(self._top_ks, w),
+                                np.repeat(self._top_ps, w), d)
+            win = torch.tensor(win, device=d)
+            lanes = torch.arange(len(rows), device=d)[:, None]
         harvest = []
-        for step in range(h):
-            logits = self._forward(tok[:, None], self._d_tables, p, zeros)
-            e = sample_batch(logits, self._seeds, self._counts + step,
-                             temps, self._top_ks, self._top_ps)
-            stop = (e == eos) | (cnt + 1 >= limits)
-            harvest.append(torch.where(act, e, -1))
-            tok = torch.where(act, e, tok)
-            cnt = cnt + act
-            p = p + act.to(p.dtype)
-            act = act & ~stop
+        for _ in range(h):
+            if k:
+                drafts = draft_tokens(hist[:, :-1], p.long() + 1, k,
+                                      self.config.spec_ngram)
+                drafts = torch.where(gates[:, None], drafts, -1)
+                ids = torch.cat([tok[:, None], drafts.clamp_min(0)], 1)
+            else:
+                ids = tok[:, None]
+            logits = self._forward(ids, self._d_tables, p).view(n * w, vocab)
+            if rows:
+                u = u_all[lanes, (cnt[ridx] - c0)[:, None] + j_idx]
+                e = sample_rows(logits, win, params, u.view(-1, vocab))
+            else:
+                e = torch.argmax(logits, dim=-1)
+            e = e.view(n, w)
+            n_acc = (torch.cumprod((drafts == e[:, :k]).long(), 1).sum(1)
+                     if k else torch.zeros_like(cnt))
+            # emit the accepted prefix plus the bonus token, cut at the
+            # first position that retires the lane (EOS or budget)
+            stop = (e == eos[:, None]) | \
+                (cnt[:, None] + j_idx + 1 >= limits[:, None])
+            keep = torch.cumprod((~stop).long(), 1)
+            prev_ok = torch.cat([torch.ones_like(keep[:, :1]),
+                                 keep[:, :-1]], 1) > 0
+            emitted = (j_idx <= n_acc[:, None]) & prev_ok & act[:, None]
+            n_emit = emitted.sum(1)
+            done = act & (emitted & stop).any(1)
+            last = e.gather(1, (n_emit - 1).clamp_min(0)[:, None])[:, 0]
+            if hist is not None:
+                # unemitted positions go to the drop column
+                cols = torch.where(emitted, p.long()[:, None] + 1 + j_idx,
+                                   hist.shape[1] - 1)
+                hist.scatter_(1, cols, e)
+            harvest.append(torch.where(emitted, e, -1))
+            tok = torch.where(act, last, tok)
+            cnt = cnt + n_emit
+            p = p + n_emit.to(p.dtype)
+            act = act & ~done
         toks = torch.stack(harvest).cpu().numpy()   # the one host sync
         self._decode_s += time.perf_counter() - t0
-        self._d_state = (tok, p, cnt, act, eos, limits)
+        self._d_state = (tok, p, cnt, act, eos, limits, hist, gates)
         return toks
 
-    def _harvest(self, toks, active, h, finished):
-        """Replay the [h, num_slots] harvested tokens into the running
-        requests, keep the host mirrors equal to the frozen device state,
-        and retire (appending to ``finished``) the requests that ended."""
-        harvested = 0
+    def _harvest(self, toks, active, h, k, finished):
+        """Replay the [h, num_slots, k+1] harvested windows into the
+        running requests (each window emits 1..k+1 tokens, its -1 tail
+        unemitted), keep the host mirrors (token, row length, count,
+        history) equal to the frozen device state, update each drafting
+        lane's acceptance EMA and gate (a flip dirties the device
+        state), and retire (appending to ``finished``) the requests that
+        ended."""
+        harvested = drafted = accepted = 0
+        floor = float(self.config.spec_accept_floor)
+        gated = self._spec_gates.copy()      # the gates the dispatch ran
         for slot, req in active.items():
             done = False
             for step_i in range(h):
                 if done:
                     break
-                t = int(toks[step_i, slot])
-                if t < 0:
+                row = toks[step_i, slot]
+                if row[0] < 0:
                     raise RuntimeError(
                         f"horizon froze slot {slot} at step {step_i} but "
                         "the scheduler still runs its request")
-                harvested += 1
-                self._tokens[slot] = t
-                self._pos[slot] += 1
-                done = req.record_token(t)
+                n_emit = 0
+                for t in row:
+                    t = int(t)
+                    if t < 0:
+                        break                # rejected / unemitted tail
+                    n_emit += 1
+                    self._tokens[slot] = t
+                    self._pos[slot] += 1
+                    if self._hist is not None:
+                        self._hist[slot, self._pos[slot]] = t
+                    if req.record_token(t):
+                        done = True
+                        break
+                harvested += n_emit
+                if k and gated[slot]:
+                    drafted += k
+                    accepted += n_emit - 1
+                    self._spec_windows += 1
+                    self._spec_accept_hist[n_emit] = \
+                        self._spec_accept_hist.get(n_emit, 0) + 1
+                    ema = 0.5 * float(self._spec_ema[slot]) \
+                        + 0.5 * (n_emit - 1) / k
+                    self._spec_ema[slot] = ema
+                    if self.config.spec_adaptive and \
+                            (ema >= floor) != bool(self._spec_gates[slot]):
+                        self._spec_gates[slot] = ema >= floor
+                        self._state_dirty = True
             self._counts[slot] = req.n_generated
             if done:
                 self._retire(req)
                 finished.append(req)
         self._tokens_generated += harvested
         self._decode_tokens += harvested
+        self._spec_draft_tokens += drafted
+        self._spec_accepted_tokens += accepted
 
     def step(self, horizon=None):
         """Admit queued requests (chunks, then prefill), then run one
@@ -713,13 +903,14 @@ class Engine:
         self.admit()
         if any(self._active[s] for s in self.scheduler.running):
             h = self._resolve_horizon(horizon)
+            k = self._resolve_spec_k()
             # block coverage (and any preemption) before the snapshot
-            self._ensure_blocks(h)
+            self._ensure_blocks(h, k + 1)
         active = {s: r for s, r in self.scheduler.running.items()
                   if self._active[s]}
         if active:
-            toks = self._dispatch_horizon(h)
-            self._harvest(toks, active, h, finished)
+            toks = self._dispatch_horizon(h, k)
+            self._harvest(toks, active, h, k, finished)
             self._decode_steps += h
             # a stable horizon (nothing retired, nothing waiting) doubles
             # the next one; churn resets it to 1
@@ -758,8 +949,9 @@ class Engine:
 
     def stats(self):
         """Counters of this engine under the JAX engine's key names,
-        plus the process-wide kernel launch counts (``kernel_launches``)
-        and the radix store's ``stats()`` under ``prefix``.
+        plus the process-wide kernel launch counts (``kernel_launches``),
+        the radix store's ``stats()`` under ``prefix`` and JAX's
+        ``kv_pool``, ``quant`` and ``spec`` blocks.
         ``prompt_tokens`` counts every admitted token, prefix hits and
         re-admissions included; ``ttft_avg_s`` is present once a request
         has finished."""
@@ -784,6 +976,12 @@ class Engine:
             "preemptions": self._preemptions,
             "kv_blocks_in_use": self.pool.blocks_in_use,
             "kv_blocks_capacity": self.pool.capacity,
+            "spec_draft_tokens": self._spec_draft_tokens,
+            "spec_accepted_tokens": self._spec_accepted_tokens,
+            "spec_accept_rate": self._accept_rate(),
+            # grammar-forced drafts: no grammar in the port yet
+            "spec_forced_tokens": 0,
+            "decode_buckets": sorted(self._decode_buckets),
             "kernel_launches": kernel_launches(),
             "prefill": {
                 "chunk_tokens": self._chunk_tokens,
@@ -793,7 +991,46 @@ class Engine:
                 "buckets": sorted(self._prefill_buckets),
             },
             "prefix": self.prefix.stats(),
+            "kv_pool": {
+                "block_size": self._block_size,
+                "capacity_blocks": self.pool.capacity,
+                "free_blocks": self.pool.free_blocks,
+                "blocks_in_use": self.pool.blocks_in_use,
+                "leased_blocks": self.cache.leased_blocks,
+                "bytes_per_block": self.pool.bytes_per_block,
+                "dtype": str(self.pool.store_dtype).replace("torch.", ""),
+                "quant_dtype": self.pool.quant_dtype,
+            },
+            "quant": {
+                "weight_dtype": self._weight_dtype,
+                "kv_cache_dtype": self._kv_quant,
+                "quantized_weights": len(self._wq),
+                # the parameter bytes a forward reads: int8 payload and
+                # scales of the quantized weights, the rest as stored
+                "weight_bytes": self._weight_bytes,
+            },
+            "spec": {
+                "k": self._spec_k,
+                "adaptive": bool(self.config.spec_adaptive),
+                "ngram": int(self.config.spec_ngram),
+                "draft_tokens": self._spec_draft_tokens,
+                "accepted_tokens": self._spec_accepted_tokens,
+                "accept_rate": self._accept_rate(),
+                # tokens emitted per verify window (accepted prefix + the
+                # bonus token) -> windows, drafting lanes only
+                "accept_len_hist": dict(sorted(
+                    self._spec_accept_hist.items())),
+                "mean_accept_len": (
+                    sum(n * c for n, c in self._spec_accept_hist.items())
+                    / self._spec_windows if self._spec_windows else 0.0),
+                "lane_accept_ema": [round(float(x), 4)
+                                    for x in self._spec_ema],
+            },
         }
         if self._finished:
             c["ttft_avg_s"] = self._ttft_sum / self._finished
         return c
+
+    def _accept_rate(self):
+        return (self._spec_accepted_tokens / self._spec_draft_tokens
+                if self._spec_draft_tokens else 0.0)

@@ -29,13 +29,16 @@ columns ``nb``.
 
 ``k_scale``/``v_scale`` ([NB, bs] f32, or None) mark an int8 pool: each
 gathered block is dequantized token-wise (``block.float() * scale``)
-before the softmax math.
+before the softmax math.  On the card an int8 pool's launches count on
+:data:`int8_pool` (``kernel_launches()["paged_attention_int8"]``), the
+others on ``paged_attention.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -186,7 +189,7 @@ def paged_attention_kernel(q, k_pool, v_pool, tables, pos,
         if rc != 0:
             raise RuntimeError(f"paged_attention kernel launch failed: "
                                f"CUDA error {rc}")
-        paged_attention.launches += 1
+        (int8_pool if quant else paged_attention).launches += 1
     return out
 
 
@@ -204,3 +207,6 @@ def paged_attention(q, k_pool, v_pool, tables, pos,
 
 
 paged_attention.launches = 0
+#: launch count of the int8-pool variant (the FMA kernel over an int8
+#: pool with per-token scales)
+int8_pool = SimpleNamespace(launches=0)

@@ -93,6 +93,50 @@ def filter_logits(logits, temperatures, top_ks, top_ps):
     return scaled.masked_fill(drop, float("-inf"))
 
 
+def sampled_rows(temperatures):
+    """Indices of the rows that sample (temperature > 0); the others
+    are greedy."""
+    return [i for i, t in enumerate(temperatures) if float(t) > 0]
+
+
+def draw_uniforms(seeds, counts, rows, n, vocab, device):
+    """The uniform draws [len(rows), n, vocab] f32 of ``n`` consecutive
+    tokens of each sampled row: entry ``[a, j]`` is the draw of row
+    ``rows[a]``'s token ``counts[rows[a]] + j``, from a generator seeded
+    by :func:`request_seed` (host ``seeds``/``counts``)."""
+    u = torch.empty((len(rows), n, vocab), dtype=torch.float32,
+                    device=device)
+    for a, i in enumerate(rows):
+        for j in range(n):
+            g = torch.Generator(device=device)
+            g.manual_seed(request_seed(seeds[i], int(counts[i]) + j))
+            u[a, j].uniform_(generator=g)
+    return u
+
+
+def row_params(rows, temperatures, top_ks, top_ps, device):
+    """The filter controls of the sampled ``rows`` as device tensors
+    (``filter_logits``'s arguments)."""
+    return (torch.tensor([float(temperatures[i]) for i in rows],
+                         dtype=torch.float32, device=device),
+            torch.tensor([int(top_ks[i]) for i in rows], device=device),
+            torch.tensor([float(top_ps[i]) for i in rows],
+                         dtype=torch.float32, device=device))
+
+
+def sample_rows(logits, idx, params, u):
+    """Token ids [N] for ``logits`` [N, vocab]: the argmax, except at the
+    sampled rows ``idx`` (a device index tensor), which draw by
+    Gumbel-max over their filtered logits (``params`` from
+    :func:`row_params`) with the uniforms ``u`` [len(idx), vocab]."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not len(idx):
+        return greedy
+    filtered = filter_logits(logits[idx], *params)
+    gumbel = -torch.log(-torch.log(u))
+    return greedy.index_copy(0, idx, torch.argmax(filtered + gumbel, dim=-1))
+
+
 def sample_batch(logits, seeds, counts, temperatures, top_ks, top_ps):
     """Token ids [N] (int64, on the logits' device) for ``logits``
     [N, vocab].  The per-row parameters are host sequences of length N:
@@ -102,26 +146,36 @@ def sample_batch(logits, seeds, counts, temperatures, top_ks, top_ps):
     when every row is greedy nothing else runs.  A sampled row draws by
     Gumbel-max over its filtered logits, with the uniforms from its own
     generator."""
-    greedy = torch.argmax(logits, dim=-1)
-    temps = [float(t) for t in temperatures]
-    rows = [i for i, t in enumerate(temps) if t > 0]
+    rows = sampled_rows(temperatures)
     if not rows:
-        return greedy
+        return torch.argmax(logits, dim=-1)
     dev = logits.device
-    idx = torch.tensor(rows, device=dev)
-    filtered = filter_logits(
-        logits[idx],
-        torch.tensor([temps[i] for i in rows], dtype=torch.float32,
-                     device=dev),
-        torch.tensor([int(top_ks[i]) for i in rows], device=dev),
-        torch.tensor([float(top_ps[i]) for i in rows], dtype=torch.float32,
-                     device=dev))
-    vocab = logits.shape[-1]
-    u = torch.empty((len(rows), vocab), dtype=torch.float32, device=dev)
-    for j, i in enumerate(rows):
-        g = torch.Generator(device=dev)
-        g.manual_seed(request_seed(seeds[i], counts[i]))
-        u[j].uniform_(generator=g)
-    gumbel = -torch.log(-torch.log(u))
-    sampled = torch.argmax(filtered + gumbel, dim=-1)
-    return greedy.index_copy(0, idx, sampled)
+    u = draw_uniforms(seeds, counts, rows, 1, logits.shape[-1], dev)[:, 0]
+    return sample_rows(logits, torch.tensor(rows, device=dev),
+                       row_params(rows, temperatures, top_ks, top_ps, dev),
+                       u)
+
+
+def sample_window(logits, seeds, counts, temperatures, top_ks, top_ps):
+    """Sampling across a speculative verify window: logits [N, W, vocab]
+    -> token ids [N, W], where window position j of lane i draws as
+    token ``counts[i] + j`` of its request: the uniforms of
+    ``request_seed(seeds[i], counts[i] + j)``, the draw
+    :func:`sample_batch` makes for that token at K = 0.  So the token a
+    request emits at index k is the same whatever window verified it.
+    (The engine's horizon draws its uniforms once, at its start, with
+    :func:`draw_uniforms`, and indexes them by the lanes' device
+    counts.)"""
+    n, w, vocab = logits.shape
+    rows = sampled_rows(temperatures)
+    flat = logits.reshape(n * w, vocab)
+    if not rows:
+        return torch.argmax(flat, dim=-1).view(n, w)
+    dev = logits.device
+    u = draw_uniforms(seeds, counts, rows, w, vocab, dev)
+    win = [i * w + j for i in rows for j in range(w)]
+    rep = lambda a: [a[i] for i in range(n) for _ in range(w)]
+    params = row_params(win, rep(list(temperatures)), rep(list(top_ks)),
+                        rep(list(top_ps)), dev)
+    return sample_rows(flat, torch.tensor(win, device=dev), params,
+                       u.reshape(-1, vocab)).view(n, w)
