@@ -17,7 +17,8 @@ the script exits nonzero and prints no result:
    pos 0..2000), spec verify windows (s=5 at the decode lanes' pos) and
    prefill windows (s=128, s=512), bf16, f32 and an int8 pool with
    per-token scales, and the engine's own prefill geometry (8 lanes x
-   1024 at pos 0, bf16); then the paged kernels' row invariance for
+   1024 at pos 0, bf16 and the int8 pool); then the paged kernels' row
+   invariance for
    bf16, f32 and int8 pools, bit for bit (tables widened by scratch
    columns; one s=512 window against 8 windows of 64, 512 one-row decode
    lanes and 103 s=5 verify windows);
@@ -95,7 +96,9 @@ the script exits nonzero and prints no result:
    window, with the shipped row-tiled products and with one F.linear,
    and the decode rate of both); and C (PREEMPT_DRIVE), eight requests
    in a pool of 96 blocks: at least one preemption, every request
-   complete, every resume re-sampling its token exactly.
+   complete, every resume re-sampling its token exactly, the engine's
+   degradation ladder on (JAX's default; its ``stats()["degradation"]``
+   printed).
    serve_spec (SPEC_DRIVE), same model and geometry: 8 requests of 64
    new tokens, half greedy, half sampled, four prompts repeating one
    48-token span, four random; spec K = 0, K = 4, K = 4 adaptive, K = 4
@@ -106,7 +109,8 @@ the script exits nonzero and prints no result:
    "int8" (bf16 K = 0, int8 K = 0, int8 K = 4, int8 K = 4 oracle, int8
    K = 0, bf16 K = 0): int8 K = 4 and oracle equal int8 K = 0 bitwise;
    drive A in int8 (cache on equals off) and drive C in int8 (at least
-   one preemption, every resume exact); the greedy streams' mean LCP
+   one preemption, every resume exact, the ladder's stats printed); the
+   greedy streams' mean LCP
    against bf16, weight bytes and pool bytes a block recorded.
 5. train: LLaMA-2-7B widths cut to 8 layers (TRAIN_LAYERS), bf16 params,
    the fused LM-head loss, AdamW(0.9, 0.95, eps 1e-5, decay 0.1,
@@ -139,8 +143,10 @@ summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
 
     python3 chip_smoke.py --gn-fwd-sweep [--variants] [--tree DIR]
     python3 chip_smoke.py --ln-fwd-sweep [--variants] [--tree DIR]
+    python3 chip_smoke.py --paged-sweep [--tree DIR]
 
-runs the GroupNorm or the LayerNorm forward sweep alone: with
+runs the GroupNorm or the LayerNorm forward sweep alone (or the paged
+attention cases and their row-invariance checks): with
 ``--variants`` also every launch the kernel takes at each shape
 (GroupNorm: mode x cluster size x hold; LayerNorm: threads a row x
 vectors a thread x grid), and with ``--tree DIR`` the
@@ -385,8 +391,9 @@ def rates(case, ops):
 
 def paged_invariance_check(torch, dev):
     """Row invariance of the paged kernels, bit for bit on the card, for
-    the bf16 pool (tensor-core kernel) and the f32 and int8 pools (FMA
-    kernel, the int8 one with per-token scales), both layouts: (a) nb:
+    the bf16 and int8 pools under a bf16 query (the tensor-core kernel,
+    the int8 one with per-token scales) and the f32 pool (the FMA
+    kernel), both layouts: (a) nb:
     the decode and prefill512 inputs with 7 scratch columns appended to
     every table give equal outputs; (b) the window: the rows of one
     s = 512 window at pos 0 equal the same rows computed as 8 windows of
@@ -444,13 +451,13 @@ def paged_invariance_check(torch, dev):
                                                  "int8"], "checks": report})
 
 
-def kernel_phase(torch, dev):
-    from paddle_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
+def paged_cases(torch, dev, summary, seed):
+    """The paged kernel against its plain twin, timed beside its bound and
+    SDPA, at every window and pool of the kernel phase."""
     from paddle_tpu_torch.serving.paged_attention import (
         paged_attention, paged_attention_plain,
     )
 
-    summary = {}
     decode_pos = [0, 17, 130, 511, 777, 1024, 1500, 2000]
     # verify5: a spec K = 4 window at the decode lanes' positions
     windows = [("decode", 1, decode_pos), ("verify5", 5, decode_pos),
@@ -459,13 +466,11 @@ def kernel_phase(torch, dev):
                ("prefill8x1024", 1024, [0] * 8)]   # the engine's prefill
     layouts = [("llama2_7b", 32, 32), ("llama3_8b_gqa", 32, 8)]
     variants = [("bfloat16", False), ("float32", False), ("bfloat16", True)]
-    seed = 0
     for lname, qh, kh in layouts:
         for wname, s, pos_list in windows:
             for dname, quant in variants:
-                if (wname == "prefill8x1024" and (dname, quant) != (
-                        "bfloat16", False)) or (wname == "verify5"
-                                                and dname == "float32"):
+                if (wname == "prefill8x1024" or wname == "verify5") and (
+                        dname == "float32"):
                     continue
                 seed += 1
                 dtype = getattr(torch, dname)
@@ -510,6 +515,14 @@ def kernel_phase(torch, dev):
                     summary["paged_attention_int8" if quant
                             else "paged_attention"] = case
                 del q, k, v, tables, pos, ks, vs
+    return seed
+
+
+def kernel_phase(torch, dev):
+    from paddle_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
+
+    summary = {}
+    seed = paged_cases(torch, dev, summary, 0)
     paged_invariance_check(torch, dev)
     for shape in ((8, 4096), (4096, 4096), (8192, 4096)):
         for dname in ("bfloat16", "float32"):
@@ -1835,6 +1848,7 @@ def serve_prefix_phase(torch, dev, model):
     bs = eng.cache.block_size
     emit({"phase": "serve_prefix", "drive": "C",
           "kv_pool_blocks": pc["pool_blocks"],
+          "degradation": eng.stats()["degradation"],
           "pool_gib": eng.pool.capacity * eng.pool.bytes_per_block / 2 ** 30,
           "prompt_lengths": [len(p) for p in prompts_c],
           "blocks_for_all_rows": sum(-(-(len(p) + pc["new_tokens"]) // bs)
@@ -2161,6 +2175,7 @@ def serve_quant_phase(torch, dev, model):
                              f"preemptions, {eng.pool.blocks_in_use} blocks "
                              "in use")
     pool_gib = eng.pool.capacity * eng.pool.bytes_per_block / 2 ** 30
+    degradation = eng.stats()["degradation"]
     del eng
     torch.cuda.empty_cache()
     emit({"phase": "serve_quant", "model": "LLAMA2_7B",
@@ -2178,7 +2193,7 @@ def serve_quant_phase(torch, dev, model):
           "drive_A": {"prefix_on_equals_off": True,
                       **{m: d["summary"] for m, d in runs_a.items()}},
           "drive_C": {"kv_pool_blocks": pc["pool_blocks"],
-                      "pool_gib": pool_gib,
+                      "pool_gib": pool_gib, "degradation": degradation,
                       "preemptions": delta["preemptions"],
                       "resumed_without_divergence": True,
                       **drive_summary(reqs, delta, wall)}})
@@ -2201,7 +2216,7 @@ def profile_phase(torch, eng, prompts, params):
 # functions); every other kernel is a library's (cuBLAS, cuDNN, PyTorch)
 PORT_KERNELS = (
     ("flash", ("flash_fwd", "flash_bwd", "FlashProblem")),
-    ("paged_attention", ("paged_attn", "PagedProblem")),
+    ("paged_attention", ("paged_attn", "PagedProblem", "PagedInt8Problem")),
     ("group_norm", ("gn_fwd_kernel", "gn_bwd_kernel")),
     ("layer_norm", ("ln_fwd_warp_kernel", "ln_fwd_row_kernel",
                     "ln_bwd_warp_kernel", "ln_bwd_row_kernel")),
@@ -2665,10 +2680,12 @@ def unet_train_parity_phase(torch, dev):
 def sweep_main(torch, args):
     """``--gn-fwd-sweep`` or ``--ln-fwd-sweep``, ``[--variants] [--tree
     DIR]``: the GroupNorm or LayerNorm forward sweep alone
-    (:func:`gn_fwd_sweep`, :func:`ln_fwd_sweep`), of the
-    ``paddle_tpu_torch`` under DIR (another checkout, e.g. a parent
-    commit's) if given.  Builds the kernels first (the ptxas report's
-    spills printed)."""
+    (:func:`gn_fwd_sweep`, :func:`ln_fwd_sweep`), or with
+    ``--paged-sweep`` the paged-attention cases and the row-invariance
+    checks of the kernel phase (:func:`paged_cases`,
+    :func:`paged_invariance_check`), of the ``paddle_tpu_torch`` under DIR
+    (another checkout, e.g. a parent commit's) if given.  Builds the
+    kernels first (the ptxas report's spills printed)."""
     if "--tree" in args:
         sys.path.insert(0, os.path.abspath(args[args.index("--tree") + 1]))
     import paddle_tpu_torch
@@ -2678,13 +2695,20 @@ def sweep_main(torch, args):
     built = _build.build_all(verbose=True)
     ptxas = [ln.strip() for info in built.values()
              for ln in info["log"].splitlines()
-             if "Function properties for" in ln or "spill" in ln]
+             if "Function properties for" in ln or "registers" in ln
+             or "spill" in ln]
     emit({"phase": "environment", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "package": os.path.dirname(paddle_tpu_torch.__file__),
-          "built": sorted(built), "ptxas_spills": ptxas_spills(ptxas)})
-    sweep = gn_fwd_sweep if "--gn-fwd-sweep" in args else ln_fwd_sweep
-    sweep(torch, torch.device("cuda"), 0, "--variants" in args)
+          "built": sorted(built), "ptxas": ptxas,
+          "ptxas_spills": ptxas_spills(ptxas)})
+    dev = torch.device("cuda")
+    if "--paged-sweep" in args:
+        paged_cases(torch, dev, {}, 0)
+        paged_invariance_check(torch, dev)
+    else:
+        sweep = gn_fwd_sweep if "--gn-fwd-sweep" in args else ln_fwd_sweep
+        sweep(torch, dev, 0, "--variants" in args)
     print(smi)
     return 0
 
@@ -2696,7 +2720,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "kernels need a CUDA device", file=sys.stderr)
         return 1
-    if {"--gn-fwd-sweep", "--ln-fwd-sweep"} & set(sys.argv[1:]):
+    if {"--gn-fwd-sweep", "--ln-fwd-sweep",
+            "--paged-sweep"} & set(sys.argv[1:]):
         return sweep_main(torch, sys.argv[1:])
     from paddle_tpu_torch import _build, resolve_device
 
@@ -2728,12 +2753,15 @@ def main():
     unet = unet_train_phase(torch, dev)
     unet_train_parity_phase(torch, dev)
 
+    # the first source is the kernel's; the int8 pool's loader and
+    # conversion hooks live in both files
     sources = {
         "paged_attention": ("cuda", "paddle_tpu_torch/csrc/attention_sm90.cuh",
                             "paddle_tpu/serving/paged_attention.py:284",
                             "serve"),
         "paged_attention_int8": ("cuda",
-                                 "paddle_tpu_torch/csrc/paged_attention.cu",
+                                 ("paddle_tpu_torch/csrc/attention_sm90.cuh",
+                                  "paddle_tpu_torch/csrc/paged_attention.cu"),
                                  "paddle_tpu/serving/paged_attention.py:284",
                                  "serve_quant"),
         "rms_norm": ("triton", "paddle_tpu_torch/ops/rms_norm.py",
@@ -2764,7 +2792,9 @@ def main():
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]
-        kernels.append({"name": name, "route": route, "source": source,
+        files = (source,) if isinstance(source, str) else source
+        kernels.append({"name": name, "route": route, "source": files[0],
+                        "source_files": list(files),
                         "replaces": replaces, "launches": runs[path][name],
                         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                         "device_ms": c.get("device_ms"),

@@ -46,6 +46,36 @@
 // visible keys, taken in fixed 64-key tiles from key 0: not on its place in
 // the tile, the tile count, NC, or how many keys the CTA's other rows see.
 //
+// int8 K/V (P::kInt8, the int8 pool with one f32 scale per token).  A
+// third loader policy: the producer warp's TMA boxes bring int8 K and V
+// (half the bf16 bytes) and their per-token scales into a ring of S8
+// staging slots, and the producer warpgroup's three other warps (idle
+// for bf16) convert each arrived slot into the bf16 K/V stage, in the
+// swizzled atom layout below.  int8 values in [-128, 127] are exact in
+// bf16, so K and V reach wgmma as unscaled integers: S = Q K^T is exact
+// products summed in f32 and the scales stay out of the tensor cores.
+// The K scale multiplies S's column j in f32 (S_ij = (q_i . k_j) s_kj,
+// before the log2 scaling and the mask), the V scale multiplies
+// probability p_ij after l has taken it and before the hi/lo split (O =
+// sum_j (p_ij s_vj) v_j, l = sum_j p_ij): two per-element multiplies, so
+// row invariance holds as for bf16.  A converter thread writes its
+// chunks, then fence.proxy.async (its generic stores become visible to
+// wgmma's async-proxy reads), then arrives on a barrier of the stage (96
+// arrivals, no bytes).  K and V have a barrier pair each, so the
+// converters write K of tile k + 1 while the consumers' P V of tile k
+// runs, and V of k + 1 during their Q K^T and softmax of k + 1.  Each
+// half is converted whole (any int8 byte is a finite bf16) and the
+// staging scales start at 0, so slots that a tail tile loads in part
+// stay finite.  The ring is one stage deep at NC = 1 (decode: S8 = 3
+// slots of int8 in flight, two CTAs a multiprocessor) and as bf16 at
+// NC = 2; the converters get 56 registers (the consumers 200 or 224).
+// The conversion's cost is shared-memory traffic and converter time: a
+// 64-key tile moves ~128 KB through shared memory (Q K^T reads 32 KB,
+// the two P V terms 32 KB, TMA writes 16.5 KB, the conversion reads
+// 16 KB and writes 32 KB) against bf16's ~96 KB, and at decode the
+// converters' work on a tile outlasts the consumers', so the path runs
+// slower than bf16's for all its halved HBM bytes.
+//
 // Shared memory.  Tiles are stored as 128-byte-swizzled atoms of
 // [64 rows x 64 bf16 columns] (8 KB), the layout TMA's SWIZZLE_128B writes
 // and wgmma's 128B descriptors read.  A head dim that is not a multiple of
@@ -93,9 +123,32 @@ __host__ __device__ constexpr int stages() {
   return NC == 1 || Dims<D>::DA >= 3 ? 2 : 3;
 }
 
-template <int D, int NC>
+// int8 K/V: converter threads (warps 1..3 of the producer warpgroup), and
+// one staging slot: K [64 keys][D] and V int8, then the 64 K and 64 V
+// scales (f32)
+constexpr int CONVERTERS = 96;
+template <int D>
+struct Staged {
+  static constexpr int KV = BN * D;
+  static constexpr int BYTES = 2 * KV + 2 * BN * 4;
+};
+
+// the bf16 K/V ring's depth and the int8 staging slots (0 for bf16 K/V)
+template <int D, int NC, class P>
+__host__ __device__ constexpr int ring_stages() {
+  return P::kInt8 && NC == 1 ? 1 : stages<D, NC>();
+}
+template <int D, int NC, class P>
+__host__ __device__ constexpr int staged_slots() {
+  return !P::kInt8 ? 0 : NC == 1 ? 3 : 2;
+}
+
+template <int D, int NC, class P>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return 1024 + (size_t)(NC + 2 * stages<D, NC>()) * Dims<D>::TILE + 64 * 8;
+  constexpr int ST = ring_stages<D, NC, P>(), S8 = staged_slots<D, NC, P>();
+  return 1024 + (size_t)(NC + 2 * ST) * Dims<D>::TILE +
+         (S8 ? (size_t)ST * 2 * BN * 4 + (size_t)S8 * Staged<D>::BYTES : 0) +
+         64 * 8;
 }
 
 // ------------------------------------------------------------ PTX helpers
@@ -153,6 +206,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a contiguous global range into shared memory, completing on bar
+// (bytes, addresses 16-byte aligned)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -457,6 +521,72 @@ __device__ __forceinline__ void to_hi_lo(const float (&s)[8 * NKK],
       split_hi_lo(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
 }
 
+// int8 bytes b0..b3 of w -> the exact bf16 pairs (b0, b1) and (b2, b3):
+// bf16 0x43mm is 128 + m for the low seven bits m, 0x4300 / 0x4380 are
+// 128 / 256 for sign bit 0 / 1, and their difference is the two's
+// complement value, exact in one bf16 subtraction
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                             uint32_t& hi) {
+  const uint32_t mag = w & 0x7F7F7F7Fu, sgn = w & 0x80808080u;
+  uint32_t a[2] = {__byte_perm(mag, 0x43434343u, 0x4140),
+                   __byte_perm(mag, 0x43434343u, 0x4342)};
+  uint32_t b[2] = {__byte_perm(sgn, 0x43434343u, 0x4140),
+                   __byte_perm(sgn, 0x43434343u, 0x4342)};
+  lo = bf16x2_bits(__hsub2(*reinterpret_cast<__nv_bfloat162*>(&a[0]),
+                           *reinterpret_cast<__nv_bfloat162*>(&b[0])));
+  hi = bf16x2_bits(__hsub2(*reinterpret_cast<__nv_bfloat162*>(&a[1]),
+                           *reinterpret_cast<__nv_bfloat162*>(&b[1])));
+}
+
+// One half of a staging slot (int8 K or V [64 keys][D] at src, its 64
+// scales at ssc) into the bf16 tile (swizzled atoms) and the stage's
+// scales, by converter thread tid of CONVERTERS.  A thread takes one
+// 16-byte chunk (16 values of a key row) at a time; the 8 lanes of a
+// shared-memory phase read 8 distinct bank groups and write 8 distinct
+// ones (at D = 128 the key row of the chunks past column 63 alternates,
+// r ^ 1, so the two atoms' writes land in the two halves of the
+// swizzle's bank groups).
+template <int D>
+__device__ __forceinline__ void convert_half(const uint8_t* src,
+                                             const float* ssc, uint8_t* dst,
+                                             float* sc, int tid) {
+  constexpr int CPR = D / 16;  // 16-byte int8 chunks a key row
+  static_assert(CPR == 4 || CPR == 8, "int8 K/V: head dim 64 or 128");
+#pragma unroll 2
+  for (int q = tid; q < BN * CPR; q += CONVERTERS) {
+    const int c8 = q % CPR;
+    int r = q / CPR;
+    if constexpr (CPR == 8) r ^= c8 >> 2;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + r * D + c8 * 16);
+    uint4 x, y;
+    i8x4_to_bf16(w.x, x.x, x.y);
+    i8x4_to_bf16(w.y, x.z, x.w);
+    i8x4_to_bf16(w.z, y.x, y.y);
+    i8x4_to_bf16(w.w, y.z, y.w);
+    uint8_t* row = dst + (c8 * 16 / ATOM) * ATOM_BYTES + r * 128;
+    const int c = (c8 * 16 % ATOM) / 8;  // the first of its two 16-byte chunks
+    *reinterpret_cast<uint4*>(row + ((c ^ (r & 7)) << 4)) = x;
+    *reinterpret_cast<uint4*>(row + (((c + 1) ^ (r & 7)) << 4)) = y;
+  }
+  if (tid < BN / 4)
+    reinterpret_cast<float4*>(sc)[tid] = reinterpret_cast<const float4*>(ssc)[tid];
+}
+
+// s[n] *= the scale of its key column: this thread's 16 columns are 8 q +
+// 2 t and 8 q + 2 t + 1 (q = 0 .. 7), for both of its rows
+__device__ __forceinline__ void scale_cols(float (&s)[32], const float* sc,
+                                           int t) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float2 f = *reinterpret_cast<const float2*>(sc + 8 * q + 2 * t);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      s[4 * q + 2 * hf] = __fmul_rn(s[4 * q + 2 * hf], f.x);
+      s[4 * q + 2 * hf + 1] = __fmul_rn(s[4 * q + 2 * hf + 1], f.y);
+    }
+  }
+}
+
 // keys visible to one consumer warpgroup's tile: none when it has no valid
 // vector, else up to its deepest row's last visible key, capped at klim
 template <class P>
@@ -474,23 +604,38 @@ __device__ __forceinline__ int tiles_of(const P& p, const typename P::Cta& c,
 // tile and whatever its loads need), n_valid / diag / klim (which vectors
 // exist and the last key each sees), q_box_bytes / load_q, load_kv (one
 // K/V tile, called by the whole producer warp), out_row and store_lse, and
-// two choices: kOverlap (the consumers' loop, see Math above) and
+// three choices: kOverlap (the consumers' loop, see Math above),
 // kZeroRing (zero the K/V ring first, for a loader that fills stages in
-// part).
+// part) and kInt8 (int8 K/V, see above: load_kv then fills a staging slot
+// of Staged<D> layout, K and V at 0 and KV, the scales after them).
 template <int D, int NC, class P>
 __global__ void __launch_bounds__(128 * (NC + 1), NC == 1 ? 2 : 1)
 attention_fwd_kernel(const __grid_constant__ P p) {
   using T = Dims<D>;
-  constexpr int ST = stages<D, NC>();
+  constexpr int ST = ring_stages<D, NC, P>();
+  constexpr int S8 = staged_slots<D, NC, P>();
+  static_assert(!(S8 && P::kOverlap), "int8 K/V: one tile at a time");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* sQ = base;                       // NC tiles
   uint8_t* sK = sQ + NC * T::TILE;          // ST tiles
   uint8_t* sV = sK + ST * T::TILE;          // ST tiles
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + ST * T::TILE);
+  // int8 K/V only: ST x [64 K scales, 64 V scales], S8 staging slots
+  float* sSc = reinterpret_cast<float*>(sV + ST * T::TILE);
+  uint8_t* s8 = reinterpret_cast<uint8_t*>(sSc + (S8 ? ST * 2 * BN : 0));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(s8 + S8 * Staged<D>::BYTES);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + ST;
+  // int8 K/V: full marks the stage's K converted and empty its V
+  // released; fullV and emptyK are the other two, so that the
+  // converters' work on one half overlaps the consumers' on the other
+  uint64_t* full8 = empty + ST;             // S8 each
+  uint64_t* empty8 = full8 + S8;
+  uint64_t* fullV = empty8 + S8;            // ST each (int8 K/V only)
+  uint64_t* emptyK = fullV + (S8 ? ST : 0);
+  constexpr int kProducerRegs = S8 ? 56 : 40;
+  constexpr int kConsumerRegs = NC == 1 ? (S8 ? 200 : 216) : (S8 ? 224 : 232);
 
   // warp and warpgroup indices broadcast from lane 0, so the compiler
   // knows them warp-uniform and the role branch is not divergent (a
@@ -510,11 +655,26 @@ attention_fwd_kernel(const __grid_constant__ P p) {
       z[i] = make_uint4(0u, 0u, 0u, 0u);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
+  if constexpr (S8 > 0) {
+    // the staging scales of columns a tail tile does not load stay 0
+    for (int i = threadIdx.x; i < S8 * 2 * BN; i += blockDim.x)
+      reinterpret_cast<float*>(s8 + (i / (2 * BN)) * Staged<D>::BYTES +
+                               2 * Staged<D>::KV)[i % (2 * BN)] = 0.f;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], S8 ? CONVERTERS : 1);
       mbar_init(&empty[s], 4 * NC);
+    }
+    for (int s = 0; s < S8; ++s) {
+      mbar_init(&full8[s], 1);
+      mbar_init(&empty8[s], CONVERTERS);
+    }
+    for (int s = 0; s < (S8 ? ST : 0); ++s) {
+      mbar_init(&fullV[s], CONVERTERS);
+      mbar_init(&emptyK[s], 4 * NC);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -522,7 +682,8 @@ attention_fwd_kernel(const __grid_constant__ P p) {
 
   if (wg == NC) {
     // ------------------------------------------------------- producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs)
+                 : "memory");
     if (warp == 4 * NC) {
       if (lane == 0) {
         uint32_t bytes = 0;
@@ -536,15 +697,44 @@ attention_fwd_kernel(const __grid_constant__ P p) {
       }
       int state = 0;
       for (int kt = 0; kt < n_tiles; ++kt) {
-        const int st = kt % ST;
-        mbar_wait(&empty[st], ((kt / ST) & 1) ^ 1);
-        p.template load_kv<T::DA>(c, kt, sK + st * T::TILE, sV + st * T::TILE,
-                                  &full[st], lane, state);
+        if constexpr (S8 > 0) {
+          const int ss = kt % S8;
+          mbar_wait(&empty8[ss], ((kt / S8) & 1) ^ 1);
+          p.template load_kv<T::DA>(c, kt, s8 + ss * Staged<D>::BYTES,
+                                    &full8[ss], lane, state);
+        } else {
+          const int st = kt % ST;
+          mbar_wait(&empty[st], ((kt / ST) & 1) ^ 1);
+          p.template load_kv<T::DA>(c, kt, sK + st * T::TILE,
+                                    sV + st * T::TILE, &full[st], lane, state);
+        }
+      }
+    } else if constexpr (S8 > 0) {
+      // converters: staging slot -> bf16 stage, K once the consumers'
+      // Q K^T has released the stage's K, V once their P V has released
+      // its V
+      const int tid = threadIdx.x - 128 * NC - 32;
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int ss = kt % S8, st = kt % ST, ph = (kt / ST) & 1;
+        const uint8_t* src = s8 + ss * Staged<D>::BYTES;
+        const float* ssc = reinterpret_cast<const float*>(src + 2 * Staged<D>::KV);
+        float* sc = sSc + st * 2 * BN;
+        mbar_wait(&full8[ss], (kt / S8) & 1);
+        mbar_wait(&emptyK[st], ph ^ 1);
+        convert_half<D>(src, ssc, sK + st * T::TILE, sc, tid);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&full[st]);
+        mbar_wait(&empty[st], ph ^ 1);
+        convert_half<D>(src + Staged<D>::KV, ssc + BN, sV + st * T::TILE,
+                        sc + BN, tid);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&empty8[ss]);
+        mbar_arrive(&fullV[st]);
       }
     }
   } else {
     // ------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(NC == 1 ? 216 : 232)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs)
                  : "memory");
     const int tile = c.tile0 + wg;
     const int my = tiles_of(p, c, tile);
@@ -634,8 +824,17 @@ attention_fwd_kernel(const __grid_constant__ P p) {
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
+        if constexpr (S8 > 0) {
+          scale_cols(s, sSc + st * 2 * BN, t);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&emptyK[st]);
+        }
         softmax(kt);
         rescale<T::DP>(o, alpha);
+        if constexpr (S8 > 0) {
+          mbar_wait(&fullV[st], (kt / ST) & 1);
+          scale_cols(s, sSc + st * 2 * BN + BN, t);
+        }
         to_hi_lo(s, ph, pl);
         fence_regs(o);
         wgmma_fence();
@@ -651,6 +850,11 @@ attention_fwd_kernel(const __grid_constant__ P p) {
     for (int kt = my; kt < n_tiles; ++kt) {
       const int st = kt % ST;
       mbar_wait(&full[st], (kt / ST) & 1);
+      if constexpr (S8 > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&emptyK[st]);
+        mbar_wait(&fullV[st], (kt / ST) & 1);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[st]);
     }
@@ -703,13 +907,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D bf16 tensor [d3][d2][d1][d0] (d0 contiguous; s1..s3 the byte
-// strides of d1..d3) read in boxes of {64, b1, b2, b3} elements into
-// 128-byte-swizzled shared memory; elements out of bounds read as 0.
-inline bool make_map(CUtensorMap* map, const void* ptr, uint64_t d0,
-                     uint64_t d1, uint64_t d2, uint64_t d3, uint64_t s1,
-                     uint64_t s2, uint64_t s3, uint32_t b1, uint32_t b2,
-                     uint32_t b3) {
+// A 4-D tensor [d3][d2][d1][d0] of `type` (d0 contiguous; s1..s3 the
+// byte strides of d1..d3) read in boxes of {b0, b1, b2, b3} elements into
+// shared memory under `swizzle`; elements out of bounds read as 0.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
+                       uint64_t d3, uint64_t s1, uint64_t s2, uint64_t s3,
+                       uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3,
+                       CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) {
     fprintf(stderr, "attention_sm90: cuTensorMapEncodeTiled not found\n");
@@ -717,11 +922,10 @@ inline bool make_map(CUtensorMap* map, const void* ptr, uint64_t d0,
   }
   const cuuint64_t dims[4] = {d0, d1 ? d1 : 1, d2 ? d2 : 1, d3 ? d3 : 1};
   const cuuint64_t strides[3] = {s1, s2, s3};
-  const cuuint32_t box[4] = {(cuuint32_t)ATOM, b1, b2, b3};
+  const cuuint32_t box[4] = {b0, b1, b2, b3};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, 4, const_cast<void*>(ptr), dims, strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) {
@@ -731,10 +935,19 @@ inline bool make_map(CUtensorMap* map, const void* ptr, uint64_t d0,
   return true;
 }
 
+// bf16 in boxes of {64, b1, b2, b3} into 128-byte-swizzled atoms
+inline bool make_map(CUtensorMap* map, const void* ptr, uint64_t d0,
+                     uint64_t d1, uint64_t d2, uint64_t d3, uint64_t s1,
+                     uint64_t s2, uint64_t s3, uint32_t b1, uint32_t b2,
+                     uint32_t b3) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, d0, d1, d2, d3,
+                    s1, s2, s3, ATOM, b1, b2, b3, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <int D, int NC, class P>
 cudaError_t launch(const P& p, dim3 grid, cudaStream_t stream) {
   auto kernel = attention_fwd_kernel<D, NC, P>;
-  constexpr size_t smem = smem_bytes<D, NC>();
+  constexpr size_t smem = smem_bytes<D, NC, P>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;

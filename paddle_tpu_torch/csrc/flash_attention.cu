@@ -503,6 +503,7 @@ struct FlashProblem {
   float sl2;  // scale * log2 e
   static constexpr bool kOverlap = true;  // see attention_sm90.cuh
   static constexpr bool kZeroRing = false;
+  static constexpr bool kInt8 = false;
 
   struct Cta {
     int b, h, kh, tile0;

@@ -14,8 +14,9 @@ extern "C" {
 //             the q dtype, or int8 when quantized != 0
 //   k/v_scale [num_blocks, block_size] f32, read only when quantized
 //   tables    [batch, nb] int32,  pos [batch] int32
-// bf16 runs the wgmma kernel (head_dim 64 or 128, q_heads / kv_heads <= 64),
-// f32 and int8 pools the FMA kernel.
+// A bf16 q runs the wgmma kernel over a bf16 or an int8 pool (head_dim 64 or
+// 128, q_heads / kv_heads <= 64; the scales 16-byte aligned), an f32 q the
+// FMA kernel.
 int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool,
                         const float* k_scale, const float* v_scale,
                         const int* tables, const int* pos, void* out,

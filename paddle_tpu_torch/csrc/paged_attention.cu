@@ -6,8 +6,10 @@
 // query row r of lane b (absolute position pos[b] + r) attends over the
 // keys 0 .. pos[b] + r that the lane's block table maps, with query head h
 // reading kv head h / G (GQA), an f32 online softmax, and the output in
-// q's dtype.  An int8 pool carries one f32 scale per token ([NB, bs]) and
-// is dequantized right after each block load.
+// q's dtype.  An int8 pool carries one f32 scale per token ([NB, bs]); the
+// TPU kernel dequantizes each block right after its DMA (:199-203, k =
+// k.astype(f32) * k_scale), and the kernels here fold the scales into the
+// f32 softmax instead (below).
 //
 // The TPU kernel walks grid axis i (table columns) in order and carries m,
 // l and acc in VMEM scratch across it.  Here the column walk runs inside a
@@ -21,23 +23,31 @@
 // masked probabilities are a literal 0 (never exp(NEG_INF - m)), and acc
 // is divided by l once, at the end.  Two kernels:
 //
-// bf16 pools: the Hopper mainloop of attention_sm90.cuh (wgmma on the
-//   tensor cores, K/V by TMA) with the paged loader below.  A tile is 64
-//   query vectors; a block owns one tile (decode: one tile holds every
-//   vector of a (lane, kv head)) or two.  The loader views the pool as
+// bf16 q over a bf16 or an int8 pool: the Hopper mainloop of
+//   attention_sm90.cuh (wgmma on the tensor cores, K/V by TMA) with the
+//   paged loaders below.  A tile is 64 query vectors; a block owns one
+//   tile (decode: one tile holds every vector of a (lane, kv head)) or
+//   two.  The loader views the pool as
 //   rows of KH * D elements and issues one TMA box of 16 tokens per table
 //   column, four columns per 64-key tile; the producer warp reads the
 //   table, 32 columns at a time, itself.  Every bf16 window (decode, spec
 //   verify, prefill) takes this one path and walks the same fixed 64-key
 //   tiles from key 0, so each output row's bits depend only on its q
 //   vector and its visible keys: not on s, the lane count, nb, or the
-//   row's place in its tile (no split-KV).
-// f32 and int8 pools: plain f32 FMA on the CUDA cores (f32 is the
-//   precision check; int8 is the engine's kv_cache_dtype="int8" pool).  A
-//   block owns a tile of up to 8 query vectors, and all four warps hold
-//   every vector of the tile: table column c goes to warp c % 4, for every
-//   window alike, and a warp skips, vector by vector, the columns past that
-//   vector's last visible key.  At the end the four partial (m, l, acc)
+//   row's place in its tile (no split-KV).  An int8 pool (the engine's
+//   kv_cache_dtype="int8") takes the mainloop's int8 policy: per table
+//   column the producer warp issues two TMA boxes of 16 tokens x D int8
+//   bytes and two 64-byte bulk copies of the 16 + 16 scales into a
+//   staging slot, three converter warps turn the slot into the bf16 K/V
+//   stage (exact: int8 values are bf16 integers), and the consumers
+//   multiply S's columns by the K scales and P's by the V scales in f32.
+//   So int8 decode, verify, chunk and prefill windows run on the tensor
+//   cores along the same fixed tiles, and keep the row invariance above.
+// f32 pools, and f32 q over an int8 pool: plain f32 FMA on the CUDA cores
+//   (the precision check).  A block owns a tile of up to 8 query vectors,
+//   and all four warps hold every vector of the tile: table column c goes
+//   to warp c % 4, for every window alike, and a warp skips, vector by
+//   vector, the columns past that vector's last visible key.  At the end the four partial (m, l, acc)
 //   states of each vector merge in warp order.  So a row is always summed
 //   as the same four column classes, each in ascending column order, and
 //   its bits depend only on its q vector and its visible keys: not on s,
@@ -62,7 +72,14 @@
 // whichever is larger: decode is bounded by bytes, long prefill windows by
 // operations.  A block re-reads its lane's blocks once per tile, from L2
 // for all but the first; the bf16 kernel's P V product runs twice (hi and
-// lo terms of P), 1.5x the bound's tensor work.
+// lo terms of P), 1.5x the bound's tensor work.  An int8 pool halves the
+// K/V bytes (plus 8 bytes of scale a token), so int8 decode is bounded by
+// half of bf16's bytes; the design keeps HBM reads int8 (the conversion
+// happens in shared memory, never in HBM), keeps three slots of int8
+// tiles in flight a CTA with two CTAs a multiprocessor at decode, and
+// leaves the consumers' tensor work that of bf16, which bounds long
+// prefill windows; the conversion (~2 integer / bf16 instructions a value
+// in otherwise idle warps) and its shared-memory traffic are the cost.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,19 +96,7 @@ constexpr int NW = 4;              // warps per thread block (FMA kernel)
 constexpr int TILE = 8;            // query vectors per thread block (FMA)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -99,7 +104,8 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// QT: q/out type; PT: pool type (QT, or int8_t when QUANT); D: head dim.
+// QT: q/out type (f32); PT: pool type (QT, or int8_t when QUANT); D: head
+// dim.
 template <typename QT, typename PT, int D, bool QUANT>
 __global__ void __launch_bounds__(NW * 32)
 paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
@@ -248,7 +254,7 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
     QT* op = out + ((size_t)(b * S + r) * QH + h) * D + lane * DPL;
     // every row sees key 0 (warp 0's first column), so lt > 0
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) op[t] = from_f<QT>(at[t] / lt);
+    for (int t = 0; t < DPL; ++t) op[t] = at[t] / lt;
   }
 }
 
@@ -268,6 +274,7 @@ struct PagedProblem {
   float sl2;  // log2 e / sqrt(D)
   static constexpr bool kOverlap = false;  // see attention_sm90.cuh
   static constexpr bool kZeroRing = true;
+  static constexpr bool kInt8 = false;
 
   struct Cta {
     int b, kh, tile0, pos, ncols;
@@ -328,23 +335,79 @@ struct PagedProblem {
   __device__ void store_lse(const Cta&, int, int, float) const {}
 };
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k_pool, const void* v_pool,
-                        const int* tables, const int* pos, void* out, int batch,
-                        int q_len, int q_heads, int kv_heads, int nb,
-                        int num_blocks, cudaStream_t stream) {
-  PagedProblem p;
+// The int8 pool's loader (the mainloop's kInt8 policy): the same Cta,
+// tiles and table walk, but a K/V tile lands in a staging slot
+// (sm90::Staged): per table column j one TMA box of 16 tokens x D int8
+// bytes of K at j 16 D and of V at KV + j 16 D (unswizzled rows: the
+// converters read them), and the column's 16 K and 16 V scales, 64 bytes
+// each, by bulk copy after them.
+struct PagedInt8Problem : PagedProblem {
+  const float* k_scale;  // [NB, 16]
+  const float* v_scale;
+  static constexpr bool kZeroRing = false;  // every stage is converted whole
+  static constexpr bool kInt8 = true;
+
+  template <int DA>
+  __device__ void load_kv(const Cta& c, int kt, uint8_t* stage, uint64_t* bar,
+                          int lane, int& tab) const {
+    constexpr int D = DA * sm90::ATOM, KV = sm90::Staged<D>::KV;
+    if ((kt & 7) == 0) {
+      const int col = kt * 4 + lane;
+      tab = col < c.ncols ? tables[(size_t)c.b * nb + col] : 0;
+    }
+    int blk[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      blk[j] = __shfl_sync(0xffffffffu, tab, (kt & 7) * 4 + j);
+    if (lane == 0) {
+      const int n = min(4, c.ncols - kt * 4);
+      sm90::mbar_expect_tx(bar, n * (2 * BS * D + 2 * BS * 4));
+      for (int j = 0; j < n; ++j) {
+        sm90::tma_load_4d(stage + j * BS * D, &tk, bar, 0, c.kh, 0, blk[j]);
+        sm90::tma_load_4d(stage + KV + j * BS * D, &tv, bar, 0, c.kh, 0, blk[j]);
+        sm90::bulk_load(stage + 2 * KV + j * BS * 4, k_scale + (size_t)blk[j] * BS,
+                        BS * 4, bar);
+        sm90::bulk_load(stage + 2 * KV + (sm90::BN + j * BS) * 4,
+                        v_scale + (size_t)blk[j] * BS, BS * 4, bar);
+      }
+    }
+    __syncwarp();
+  }
+};
+
+// bf16 q over a bf16 pool (Prob = PagedProblem) or an int8 pool
+// (PagedInt8Problem, whose scales the caller has set)
+template <int D, class Prob>
+cudaError_t launch_paged(Prob& p, const void* q, const void* k_pool,
+                         const void* v_pool, const int* tables, const int* pos,
+                         void* out, int batch, int q_len, int q_heads,
+                         int kv_heads, int nb, int num_blocks,
+                         cudaStream_t stream) {
   p.G = q_heads / kv_heads;
   p.TR = sm90::BM / p.G;
   if (p.TR < 1) return cudaErrorInvalidValue;
   const uint64_t row = (uint64_t)D * sizeof(sm90::bf16);
-  if (!sm90::make_map(&p.tq, q, D, q_heads, q_len, batch, row, row * q_heads,
-                      row * q_heads * q_len, p.G, p.TR, 1) ||
-      !sm90::make_map(&p.tk, k_pool, D, kv_heads, BS, num_blocks, row,
-                      row * kv_heads, row * kv_heads * BS, 1, BS, 1) ||
-      !sm90::make_map(&p.tv, v_pool, D, kv_heads, BS, num_blocks, row,
-                      row * kv_heads, row * kv_heads * BS, 1, BS, 1))
-    return cudaErrorInvalidValue;
+  bool ok = sm90::make_map(&p.tq, q, D, q_heads, q_len, batch, row,
+                           row * q_heads, row * q_heads * q_len, p.G, p.TR, 1);
+  if constexpr (Prob::kInt8) {
+    const uint64_t r8 = D;  // an int8 pool row: D bytes
+    ok = ok &&
+         sm90::encode_map(&p.tk, CU_TENSOR_MAP_DATA_TYPE_UINT8, k_pool, D,
+                          kv_heads, BS, num_blocks, r8, r8 * kv_heads,
+                          r8 * kv_heads * BS, D, 1, BS, 1,
+                          CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         sm90::encode_map(&p.tv, CU_TENSOR_MAP_DATA_TYPE_UINT8, v_pool, D,
+                          kv_heads, BS, num_blocks, r8, r8 * kv_heads,
+                          r8 * kv_heads * BS, D, 1, BS, 1,
+                          CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    ok = ok &&
+         sm90::make_map(&p.tk, k_pool, D, kv_heads, BS, num_blocks, row,
+                        row * kv_heads, row * kv_heads * BS, 1, BS, 1) &&
+         sm90::make_map(&p.tv, v_pool, D, kv_heads, BS, num_blocks, row,
+                        row * kv_heads, row * kv_heads * BS, 1, BS, 1);
+  }
+  if (!ok) return cudaErrorInvalidValue;
   p.tables = tables;
   p.pos = pos;
   p.out = static_cast<sm90::bf16*>(out);
@@ -396,12 +459,20 @@ cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
 #define PA_ARGS q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, batch, \
                 q_len, q_heads, kv_heads, nb, stream
   if (dtype == 0 && !quantized) return launch<float, float, D, false>(PA_ARGS);
-  if (dtype == 1 && !quantized)
-    return launch_bf16<D>(q, k_pool, v_pool, tables, pos, out, batch, q_len,
-                          q_heads, kv_heads, nb, num_blocks, stream);
+#define PAGED_ARGS q, k_pool, v_pool, tables, pos, out, batch, q_len, \
+                   q_heads, kv_heads, nb, num_blocks, stream
+  if (dtype == 1 && !quantized) {
+    PagedProblem p;
+    return launch_paged<D>(p, PAGED_ARGS);
+  }
   if (dtype == 0 && quantized) return launch<float, int8_t, D, true>(PA_ARGS);
-  if (dtype == 1 && quantized)
-    return launch<__nv_bfloat16, int8_t, D, true>(PA_ARGS);
+  if (dtype == 1 && quantized) {
+    PagedInt8Problem p;
+    p.k_scale = k_scale;
+    p.v_scale = v_scale;
+    return launch_paged<D>(p, PAGED_ARGS);
+  }
+#undef PAGED_ARGS
 #undef PA_ARGS
   return cudaErrorInvalidValue;
 }

@@ -66,10 +66,22 @@ Also kept, as the JAX engine has them on by default:
   rebuilds each weight before its product.  Within one such config every
   bitwise guarantee above still holds.
 
+* **Degradation ladder** (``degrade_enabled``, ``degrade_pool_ratio``,
+  ``degrade_patience``, ``degrade_recover_patience``): pool occupancy
+  at or above the ratio for ``degrade_patience`` consecutive steps
+  climbs one level (:data:`DEGRADE_LEVELS`): 1 turns speculative
+  decoding off, 2 pins the decode horizon to 1, 3 sheds queued requests
+  (lowest priority, newest first, never a resumed one) down to
+  ``num_slots`` through :meth:`Engine.abort`;
+  ``degrade_recover_patience`` calm steps step back down one level.
+  :meth:`Engine.abort` is public, as the JAX engine's: a queued request
+  leaves the queue, a running one gets the preemption teardown without
+  the requeue.
+
 Not ported yet (later slices): grammar-constrained decoding (and the
-drafter's grammar ``forced_chain``), the host KV tier, abort/drain,
-deadlines and tenants, observability, degradation, fault injection and
-the gateway.
+drafter's grammar ``forced_chain``), the host KV tier, drain, deadlines
+and tenants, observability (and with it the ladder's SLO signal), fault
+injection and the gateway.
 """
 
 from __future__ import annotations
@@ -91,7 +103,11 @@ from .sampling import (
     SamplingParams, draw_uniforms, row_params, sample_batch, sample_rows,
     sampled_rows,
 )
-from .scheduler import RUNNING, Scheduler
+from .scheduler import FINISH_ABORT, FINISHED, RUNNING, WAITING, Scheduler
+
+#: degradation-ladder level names, indexed by level (the JAX package keeps
+#: them in ``serving/faults.py``)
+DEGRADE_LEVELS = ("normal", "no_spec", "horizon_1", "shed")
 
 
 @dataclass
@@ -142,6 +158,19 @@ class EngineConfig:
     #: "int8": int8 pool with one f32 scale per token; None keeps the
     #: fp pool (cache_dtype)
     kv_cache_dtype: object = None
+    #: graceful-degradation ladder: under sustained pool pressure the
+    #: engine steps down one level per ``degrade_patience`` consecutive
+    #: burning steps — 1 disables speculative decoding, 2 shrinks the
+    #: decode horizon to 1 (admission at every boundary), 3 sheds
+    #: lowest-priority queued requests down to ``num_slots`` queued — and
+    #: recovers one level per ``degrade_recover_patience`` consecutive
+    #: calm steps (hysteresis: recovery is deliberately slower than
+    #: escalation, so the ladder can't flap)
+    degrade_enabled: bool = True
+    #: pool occupancy fraction that counts as block-pool pressure
+    degrade_pool_ratio: float = 0.92
+    degrade_patience: int = 4
+    degrade_recover_patience: int = 16
 
 
 @dataclass
@@ -262,6 +291,7 @@ class Engine:
         self._interference_s = 0.0
         self._prefill_buckets = set()   # (lanes, bucket) per dispatch
         self._decode_steps = 0
+        self._decode_horizons = 0
         self._decode_tokens = 0
         self._decode_s = 0.0
         self._decode_buckets = set()    # (horizon, nb, K) per dispatch
@@ -271,7 +301,15 @@ class Engine:
         self._spec_accept_hist = {}     # tokens emitted per window -> n
         self._tokens_generated = 0
         self._finished = 0
+        self._aborted = 0
         self._ttft_sum = 0.0
+        # degradation ladder
+        self._degrade_level = 0
+        self._burn_streak = 0            # consecutive burning steps
+        self._calm_streak = 0            # consecutive calm steps
+        self._degrade_transitions = 0
+        self._degrade_history = []       # last 64 transitions
+        self._degrade_sheds = 0
 
     @staticmethod
     def _norm_quant_knob(value, name):
@@ -372,6 +410,8 @@ class Engine:
         """The draft width of the next decode dispatch: ``spec_k``, or
         with ``spec_adaptive`` 0 once no running lane's gate is on
         (below-floor lanes draft nothing inside a K-wide dispatch)."""
+        if self._degrade_level >= 1:
+            return 0                 # ladder level 1+: spec decoding off
         k = self._spec_k
         if not k or not self.config.spec_adaptive:
             return k
@@ -384,7 +424,10 @@ class Engine:
         ``[1, max_horizon]`` and rounded down to a power of two.
         Otherwise: 1 while requests queue or chunks are in flight (work
         waits at every boundary); else grow multiplicatively toward
-        ``max_horizon``, capped by the smallest remaining budget."""
+        ``max_horizon``, capped by the smallest remaining budget.  Ladder
+        level 2 and above: always 1."""
+        if self._degrade_level >= 2:
+            return 1                 # admit at every boundary
         max_h = max(1, int(self.config.max_horizon))
         if requested is not None:
             return self._pow2_floor(min(max(1, int(requested)), max_h))
@@ -417,7 +460,14 @@ class Engine:
         whose blocks do not fit first reclaims unpinned prefix blocks;
         if still short it waits for running requests to retire, or, with
         nothing running, the longest queue-head prefix that fits is
-        admitted."""
+        admitted.  At ladder level 3 the queue is first shed down to
+        ``num_slots`` requests."""
+        if self.scheduler.queue_depth and self._degrade_level >= 3:
+            # resumed requests are never shed: their tokens are already
+            # streamed
+            for req in self.scheduler.shed_victims(self.cache.num_slots):
+                self._degrade_sheds += 1
+                self.abort(req, cause="shed")
         self._advance_chunks()
         while self.cache.free_slots and self.scheduler.queue_depth:
             batch = self.scheduler.pop_batch(
@@ -716,6 +766,35 @@ class Engine:
         self.cache.free(slot)
         self._preemptions += 1
 
+    def abort(self, req, cause=None):
+        """Cancel a request: a QUEUED one leaves the queue, a RUNNING one
+        releases its slot, table entries and prefix lease (the
+        preemption teardown) without requeueing.  The request finishes
+        with ``finish_reason="abort"`` and keeps the tokens it has
+        generated.  ``cause`` (``"shed"`` from the degradation ladder)
+        goes on the JAX engine's trace events; the port has none yet."""
+        del cause
+        if req.status == FINISHED:
+            raise ValueError(
+                f"cannot abort request {req.request_id}: already "
+                f"finished ({req.finish_reason})")
+        if req.status == WAITING:
+            try:
+                self.scheduler.queue.remove(req)
+            except ValueError:
+                raise ValueError(
+                    f"cannot abort request {req.request_id}: waiting "
+                    "but not queued on this engine") from None
+            req.status = FINISHED
+        else:
+            slot = req.slot
+            self._release_lane(req)
+            self._state_dirty = True
+            self.scheduler.finish(req)
+            self.cache.free(slot)
+        req.finish_reason = FINISH_ABORT
+        self._aborted += 1
+
     def _ensure_blocks(self, h, w=1):
         """Extend every decoding slot's table to cover its next ``h * w``
         write positions (``w = K + 1`` when drafting; mid-chunk lanes
@@ -900,6 +979,7 @@ class Engine:
         (bucketed to a power of two), or the adaptive choice.  Returns
         the requests that finished during the horizon."""
         finished = []
+        self._update_degradation()
         self.admit()
         if any(self._active[s] for s in self.scheduler.running):
             h = self._resolve_horizon(horizon)
@@ -912,6 +992,7 @@ class Engine:
             toks = self._dispatch_horizon(h, k)
             self._harvest(toks, active, h, k, finished)
             self._decode_steps += h
+            self._decode_horizons += 1
             # a stable horizon (nothing retired, nothing waiting) doubles
             # the next one; churn resets it to 1
             if finished or self.scheduler.queue_depth:
@@ -920,6 +1001,56 @@ class Engine:
                 self._grow = min(max(1, int(self.config.max_horizon)),
                                  max(self._grow, h) * 2)
         return finished
+
+    # ------------------------------------------------- degradation ladder
+    def _degrade_signal(self):
+        """The pressure signal driving the ladder: the reason string
+        while the engine is burning (pool occupancy at/above
+        ``degrade_pool_ratio``), else None."""
+        # the JAX engine's "slo_burn" goes first here once the port has
+        # an SLO tracker
+        if (self.pool.blocks_in_use / self.pool.capacity
+                >= float(self.config.degrade_pool_ratio)):
+            return "pool_pressure"
+        return None
+
+    def _update_degradation(self):
+        """One ladder tick (called every step): ``degrade_patience``
+        consecutive burning steps escalate one level,
+        ``degrade_recover_patience`` consecutive calm steps step back
+        down one level — asymmetric on purpose (hysteresis), so a
+        marginal signal can't flap the ladder."""
+        if not self.config.degrade_enabled:
+            return
+        reason = self._degrade_signal()
+        if reason is not None:
+            self._calm_streak = 0
+            self._burn_streak += 1
+            if (self._degrade_level < len(DEGRADE_LEVELS) - 1
+                    and self._burn_streak
+                    >= int(self.config.degrade_patience)):
+                self._set_degrade_level(self._degrade_level + 1, reason)
+                self._burn_streak = 0
+        else:
+            self._burn_streak = 0
+            if self._degrade_level == 0:
+                return
+            self._calm_streak += 1
+            if (self._calm_streak
+                    >= int(self.config.degrade_recover_patience)):
+                self._set_degrade_level(self._degrade_level - 1,
+                                        "recovered")
+                self._calm_streak = 0
+
+    def _set_degrade_level(self, level, reason):
+        prev, level = self._degrade_level, int(level)
+        self._degrade_level = level
+        self._degrade_transitions += 1
+        self._degrade_history.append(
+            {"from": prev, "to": level,
+             "level": DEGRADE_LEVELS[level], "reason": reason,
+             "decode_horizons": self._decode_horizons})
+        del self._degrade_history[:-64]
 
     def run(self):
         """Step until every submitted request finished; returns the
@@ -951,7 +1082,7 @@ class Engine:
         """Counters of this engine under the JAX engine's key names,
         plus the process-wide kernel launch counts (``kernel_launches``),
         the radix store's ``stats()`` under ``prefix`` and JAX's
-        ``kv_pool``, ``quant`` and ``spec`` blocks.
+        ``degradation``, ``kv_pool``, ``quant`` and ``spec`` blocks.
         ``prompt_tokens`` counts every admitted token, prefix hits and
         re-admissions included; ``ttft_avg_s`` is present once a request
         has finished."""
@@ -969,6 +1100,7 @@ class Engine:
                 if self._prompt_tokens else 0.0),
             "prefill_seconds": self._prefill_s,
             "decode_steps": self._decode_steps,
+            "decode_horizons": self._decode_horizons,
             "decode_tokens": self._decode_tokens,
             "decode_seconds": self._decode_s,
             "tokens_generated": self._tokens_generated,
@@ -976,11 +1108,14 @@ class Engine:
             "preemptions": self._preemptions,
             "kv_blocks_in_use": self.pool.blocks_in_use,
             "kv_blocks_capacity": self.pool.capacity,
+            "requests_aborted": self._aborted,
             "spec_draft_tokens": self._spec_draft_tokens,
             "spec_accepted_tokens": self._spec_accepted_tokens,
             "spec_accept_rate": self._accept_rate(),
             # grammar-forced drafts: no grammar in the port yet
             "spec_forced_tokens": 0,
+            "degradation_level": self._degrade_level,
+            "degradation_sheds": self._degrade_sheds,
             "decode_buckets": sorted(self._decode_buckets),
             "kernel_launches": kernel_launches(),
             "prefill": {
@@ -991,6 +1126,13 @@ class Engine:
                 "buckets": sorted(self._prefill_buckets),
             },
             "prefix": self.prefix.stats(),
+            "degradation": {
+                "level": self._degrade_level,
+                "level_name": DEGRADE_LEVELS[self._degrade_level],
+                "transitions": self._degrade_transitions,
+                "sheds": self._degrade_sheds,
+                "history": list(self._degrade_history[-8:]),
+            },
             "kv_pool": {
                 "block_size": self._block_size,
                 "capacity_blocks": self.pool.capacity,

@@ -11,13 +11,17 @@ positions ``<= pos[b] + r`` (write-before-attend).  Returns
 :func:`paged_attention` runs the hand-written CUDA kernels of
 ``csrc/paged_attention.cu`` (which replace the Pallas kernel
 ``_paged_attn_kernel``) for CUDA tensors and the plain PyTorch version
-for CPU tensors; anything else raises.  A bf16 pool runs the Hopper
+for CPU tensors; anything else raises.  A bf16 query runs the Hopper
 tensor-core kernel (the wgmma + TMA mainloop of
-``csrc/attention_sm90.cuh``) for every window, decode and prefill alike:
-it walks fixed 64-key tiles from key 0, so an output row's bits depend
-only on its q vector and its visible keys, not on the window length, the
-lane count, ``nb`` or the row's place in its tile.  f32 and int8 pools
-run the FMA kernel.
+``csrc/attention_sm90.cuh``) over a bf16 pool and over an int8 pool
+alike, for every window, decode and prefill: it walks fixed 64-key
+tiles from key 0, so an output row's bits depend only on its q vector
+and its visible keys, not on the window length, the lane count, ``nb``
+or the row's place in its tile.  Over an int8 pool its TMA boxes bring
+int8 K/V and the scales, idle producer warps convert them to bf16
+(exactly: they are integers) and the scales multiply the scores and the
+probabilities in f32.  An f32 query (over an f32 or an int8 pool) runs
+the FMA kernel, the precision check.
 
 The plain version is the same per-table-column online-softmax recurrence
 as the JAX reference ``_xla_paged_attention``, not a dense masked
@@ -29,7 +33,8 @@ columns ``nb``.
 
 ``k_scale``/``v_scale`` ([NB, bs] f32, or None) mark an int8 pool: each
 gathered block is dequantized token-wise (``block.float() * scale``)
-before the softmax math.  On the card an int8 pool's launches count on
+before the softmax math (the CUDA kernel folds the scales into the
+softmax instead, see above).  On the card an int8 pool's launches count on
 :data:`int8_pool` (``kernel_launches()["paged_attention_int8"]``), the
 others on ``paged_attention.launches``.
 """
@@ -172,9 +177,9 @@ def paged_attention_kernel(q, k_pool, v_pool, tables, pos,
                   or v_scale.dtype != torch.float32):
         raise ValueError("paged_attention kernel: scales must be float32 "
                          f"[{num_blocks}, {bs}]")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_attention kernel: pools must be 16-byte "
-                         "aligned")
+    if any(t.data_ptr() % 16 for t in tensors[1:3] + tensors[5:]):
+        raise ValueError("paged_attention kernel: pools and scales must be "
+                         "16-byte aligned")
     out = torch.empty_like(q)
     if b and s:
         with torch.cuda.device(dev):
@@ -207,6 +212,7 @@ def paged_attention(q, k_pool, v_pool, tables, pos,
 
 
 paged_attention.launches = 0
-#: launch count of the int8-pool variant (the FMA kernel over an int8
-#: pool with per-token scales)
+#: launch count of the int8-pool variants (the tensor-core kernel for a
+#: bf16 query, the FMA kernel for an f32 one, over an int8 pool with
+#: per-token scales)
 int8_pool = SimpleNamespace(launches=0)

@@ -8,6 +8,7 @@ absolute (outputs are O(1)).  bf16 outputs round the same f32 value:
 one bf16 step (relative 2**-7)."""
 
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -199,3 +200,82 @@ def test_engine_prefill_geometry_matches_xla_reference(cfg, monkeypatch):
     np.testing.assert_allclose(
         paged_attention_plain(q, k, v, tables, pos).numpy(),
         _jax(_xla_paged_attention, *arrays), rtol=0, atol=ATOL)
+
+
+def _int8_tensor_core_model(q, k8, v8, ks, vs, tables, pos):
+    """The arithmetic of the CUDA kernel's int8-pool path (the kInt8
+    policy of ``csrc/attention_sm90.cuh``), in torch on the CPU: for each
+    (lane, query head), fixed 64-key tiles from key 0; S = q . bf16(k) in
+    f32 (int8 values are exact bf16 integers, q is bf16), times the K
+    scale of each column; the online softmax in log2 units (scale
+    log2 e / sqrt(D)); l takes p, then p is multiplied by the V scale
+    and enters P V as its bf16 hi and lo terms over the unscaled V; out
+    = O / l in bf16."""
+    b, s, qh, d = q.shape
+    bs, kh = k8.shape[1], k8.shape[2]
+    g = qh // kh
+    sl2 = math.log2(math.e) / math.sqrt(d)
+    out = torch.empty(b, s, qh, d)
+    last = torch.arange(s)[:, None]
+    for lane in range(b):
+        p0 = int(pos[lane])
+        cols = tables[lane, :-(-(p0 + s) // bs)].long()
+        keys = len(cols) * bs
+        kk = k8[cols].to(torch.bfloat16).float().reshape(keys, kh, d)
+        vv = v8[cols].to(torch.bfloat16).float().reshape(keys, kh, d)
+        sk, sv = ks[cols].reshape(keys), vs[cols].reshape(keys)
+        for h in range(qh):
+            qv = q[lane, :, h].float()
+            m = torch.full((s,), NEG_INF)
+            l = torch.zeros(s)
+            o = torch.zeros(s, d)
+            for t0 in range(0, keys, 64):
+                t = slice(t0, min(keys, t0 + 64))
+                key = torch.arange(t.start, t.stop)[None, :]
+                vis = key <= p0 + last
+                sc = (qv @ kk[t, h // g].T) * sk[t]
+                mr = torch.where(vis, sc, -math.inf).amax(1)
+                mn = torch.where(mr == -math.inf, m,
+                                 torch.maximum(m, mr * sl2))
+                alpha = torch.exp2(m - mn)
+                p = torch.where(vis, torch.exp2(sc * sl2 - mn[:, None]), 0.0)
+                l = l * alpha + p.sum(1)
+                p = p * sv[t]
+                hi = p.to(torch.bfloat16).float()
+                lo = (p - hi).to(torch.bfloat16).float()
+                vt = vv[t, h // g]
+                o = o * alpha[:, None] + hi @ vt + lo @ vt
+                m = mn
+            out[lane, :, h] = o / l[:, None]
+    return out.to(torch.bfloat16)
+
+
+@LAYOUTS
+@pytest.mark.parametrize("s", [1, 5, 64])
+def test_int8_tensor_core_formulation_matches_xla_reference(s, qh, kh):
+    """The CUDA kernel's int8 formulation (int8 K/V converted exactly to
+    bf16, the K scale on S's columns, the V scale on p after l and
+    before the hi/lo split) against ``_xla_paged_attention`` (blocks
+    dequantized token-wise before the math), at the card's bf16
+    tolerance (chip_smoke.py ``TOLERANCES["bfloat16"]``: 2**-7 of each
+    value plus 1e-3 of the largest): it holds the fold before the kernel
+    runs on the card."""
+    d, bs, b = 16, 16, 2
+    r = np.random.RandomState(20 + s)
+    pos = np.array([70, 3], np.int32)
+    nb = -(-(int(pos.max()) + s) // bs)
+    num_blocks = 1 + b * nb
+    tables = (1 + r.permutation(b * nb)).astype(np.int32).reshape(b, nb)
+    q = torch.from_numpy(r.randn(b, s, qh, d).astype(np.float32)).to(
+        torch.bfloat16)
+    k = r.randint(-127, 128, (num_blocks, bs, kh, d)).astype(np.int8)
+    v = r.randint(-127, 128, (num_blocks, bs, kh, d)).astype(np.int8)
+    ks = r.uniform(0.005, 0.025, (num_blocks, bs)).astype(np.float32)
+    vs = r.uniform(0.005, 0.025, (num_blocks, bs)).astype(np.float32)
+    got = _int8_tensor_core_model(q, *(torch.from_numpy(a) for a in (
+        k, v, ks, vs, tables, pos))).float().numpy()
+    ref = _jax(_xla_paged_attention, q.float().numpy(), k, v, tables, pos,
+               ks, vs)
+    np.testing.assert_array_less(
+        np.abs(got - ref), 2.0 ** -7 * np.abs(ref) + 1e-3 * np.abs(ref).max()
+        + 1e-12)
