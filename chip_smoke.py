@@ -112,6 +112,25 @@ the script exits nonzero and prints no result:
    one preemption, every resume exact, the ladder's stats printed); the
    greedy streams' mean LCP
    against bf16, weight bytes and pool bytes a block recorded.
+   serve_gateway, on the same model: the engine phase's 8 requests as
+   concurrent SSE ``POST /v1/completions`` streams (client threads)
+   through a ``Gateway`` over two ``EngineWorker`` replicas, each
+   Engine(num_slots=8, max_seq_len=2048) on the one model object, the
+   server on 127.0.0.1 at port 0: every stream equal bit for bit to the
+   same request's in-process run, the launch totals over both replicas
+   equal to the forwards both ran (the counts are process-wide), no
+   replica condemned; a capped tenant's second request answers 429 with
+   Retry-After, a request whose deadline_s passed in the queue finishes
+   "abort", ``/metrics`` passes validate_exposition, and drain() leaves
+   no pool block in use on either replica.  Then GATEWAY_DRIVE's crash
+   failover, greedy and then seeded, each on a fresh pair of replicas: a
+   FAULT_CRASH at SITE_WORKER_DISPATCH (at=2) on the replica a
+   1000-token prompt routes to, the stream bitwise equal to its
+   uninterrupted run with one failover, the seam in the adopting
+   engine's RequestTrace (resumed + emitted tokens = the stream), both
+   replicas holding no block afterwards.  Printed: TTFT mean and max
+   and decode tokens/s through HTTP beside the same requests' in-process
+   run and the engine phase's figures, and each failover's seam gap.
 5. train: LLaMA-2-7B widths cut to 8 layers (TRAIN_LAYERS), bf16 params,
    the fused LM-head loss, AdamW(0.9, 0.95, eps 1e-5, decay 0.1,
    multi_precision) with ClipGradByGlobalNorm(1.0) and LinearWarmup into
@@ -164,8 +183,11 @@ import json
 import math
 import os
 import re
+import itertools
+import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
@@ -268,7 +290,6 @@ def device_ms(torch, fn, reps):
     of another's time), so a mean over all events would undercount; the
     median of those that arrived does not; a window in which none arrived
     is profiled again, up to four windows."""
-    import statistics
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1381,7 +1402,7 @@ def engine_phase(torch, dev):
     check_serving_launches(launches, layers, delta["prefill_calls"],
                            delta["decode_steps"])
     ttft = [r.ttft for r in reqs]
-    emit({"phase": "engine", "model": "LLAMA2_7B", "layers": layers,
+    figures = {"phase": "engine", "model": "LLAMA2_7B", "layers": layers,
           "dtype": "bfloat16", "num_slots": 8, "max_seq_len": 2048,
           "requests": len(reqs), "prompt_lengths": lengths,
           "new_tokens_each": 32, "setup_s": setup_s, "wall_s": wall,
@@ -1393,7 +1414,8 @@ def engine_phase(torch, dev):
               delta["decode_tokens"] / delta["decode_seconds"],
           "ttft_mean_s": sum(ttft) / len(ttft), "ttft_max_s": max(ttft),
           "kernel_launches": launches,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(figures)
 
     profile_phase(torch, eng, prompts, params)
 
@@ -1440,7 +1462,7 @@ def engine_phase(torch, dev):
                        "and RMSNorm kernels) in bf16 and in an f32 copy of "
                        "the same weights: the paged and the flash kernel, "
                        "both held against the f32 forward"})
-    return launches, model
+    return launches, model, figures
 
 
 def check_drained(eng):
@@ -2201,6 +2223,386 @@ def serve_quant_phase(torch, dev, model):
             for name in launches["C"]}
 
 
+# the serve_gateway phase: the engine phase's requests through the HTTP
+# gateway over two replicas that share the engine phase's model, then a
+# crash failover of a 1000-token-prompt stream (greedy, then seeded, each
+# on a fresh pair of replicas)
+GATEWAY_DRIVE = dict(fail_prompt=1000, fail_new=32, quota=(30, 1.0),
+                     capped_prompt=16, capped_new=8)
+
+
+def sse_stream(port, payload, timeout=600):
+    """POST a streaming completion; returns (tokens, finish_reason,
+    [(seconds since the send, tokens of the chunk)], the send's
+    perf_counter time)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/completions",
+                     json.dumps(dict(payload, stream=True)),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if r.status != 200:
+            raise AssertionError(f"stream answered {r.status}: {r.read()}")
+        toks, chunks, reason = [], [], None
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                break
+            choice = json.loads(line[6:])["choices"][0]
+            if choice["token_ids"]:
+                chunks.append((time.perf_counter() - t0,
+                               len(choice["token_ids"])))
+                toks += choice["token_ids"]
+            reason = choice["finish_reason"] or reason
+        return toks, reason, chunks, t0
+    finally:
+        conn.close()
+
+
+def http_json(port, method, path, payload=None, timeout=600):
+    """(status, headers, body) of one request."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     None if payload is None else json.dumps(payload),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def wire_params(sp):
+    """A SamplingParams as /v1/completions fields."""
+    return {"max_tokens": sp.max_new_tokens, "temperature": sp.temperature,
+            "top_k": sp.top_k, "top_p": sp.top_p, "seed": sp.seed}
+
+
+def gateway_streams(port, prompts, params, model_id):
+    """Every request as an SSE stream from a client thread of its own,
+    all started together; returns ([(tokens, finish_reason, chunks,
+    send time)], wall seconds).  Raises what a client raised."""
+    results = [None] * len(prompts)
+
+    def client(i):
+        try:
+            results[i] = sse_stream(port, dict(
+                wire_params(params[i]), prompt=prompts[i], model=model_id))
+        except Exception as e:               # raised below
+            results[i] = e
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an SSE client did not finish")
+    for res in results:
+        if isinstance(res, Exception):
+            raise res
+    return results, wall
+
+
+def http_figures(results, wall):
+    """TTFT (client send to first chunk) mean and max, and the decode
+    rate of :func:`decode_rate`, of a batch of streams."""
+    ttft = [r[2][0][0] for r in results]
+    return {"wall_s": wall, "ttft_mean_s": sum(ttft) / len(ttft),
+            "ttft_max_s": max(ttft),
+            "decode_tokens_per_s": decode_rate(
+                [len(r[0]) for r in results],
+                [r[3] + r[2][0][0] for r in results],
+                max(r[3] + r[2][-1][0] for r in results))}
+
+
+def check_streams(results, refs):
+    for i, res in enumerate(results):
+        if res[0] != refs[i] or res[1] != "length":
+            raise AssertionError(f"stream {i} ({res[1]}) differs from its "
+                                 "in-process run")
+
+
+def gateway_forwards(engines, before):
+    """(prefill calls, decode steps) the engines ran since ``before``
+    (their counters() then), summed over the replicas."""
+    now = [e.counters() for e in engines]
+    return (sum(a["prefill_calls"] - b["prefill_calls"]
+                for a, b in zip(now, before)),
+            sum(a["decode_steps"] - b["decode_steps"]
+                for a, b in zip(now, before)))
+
+
+def decode_rate(tokens, firsts, end):
+    """Aggregate decode tokens/s of a batch of streams: the tokens after
+    each stream's first, over the wall from the earliest first token to
+    the end of the last stream."""
+    return sum(n - 1 for n in tokens) / (end - min(firsts))
+
+
+def failover_run(torch, model, cfg, prompt, sp, ref, ref_wall):
+    """One crash failover: a fresh gateway over two replicas, a crash
+    armed at the third dispatch of the replica the prompt routes to, the
+    stream through SSE.  Checks the stream against ``ref`` bit for bit,
+    one failover with the seam in the adopting engine's flight record,
+    nothing leaked after the drain, and the launch totals over both
+    replicas.  Returns the seam figures."""
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.serving import (
+        Engine, kernel_launches, reset_kernel_launches,
+    )
+    from paddle_tpu_torch.serving.faults import (
+        FAULT_CRASH, SITE_WORKER_DISPATCH, FaultInjector, FaultPlan,
+        FaultSpec,
+    )
+    from paddle_tpu_torch.serving.gateway import Gateway
+
+    engines = [Engine(model, cfg, device=model.device) for _ in range(2)]
+    gw = Gateway(engines).start()
+    try:
+        target, how = gw.router.route(prompt)
+        inj = FaultInjector(FaultPlan([
+            FaultSpec(SITE_WORKER_DISPATCH, FAULT_CRASH, at=2)]))
+        target.set_faults(inj)
+        before = [e.counters() for e in engines]
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        toks, reason, chunks, _ = sse_stream(gw.port,
+                                          dict(wire_params(sp),
+                                               prompt=prompt))
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        check_serving_launches(launches, model.config.num_hidden_layers,
+                               *gateway_forwards(engines, before))
+        if toks != ref or reason != "length":
+            raise AssertionError(f"failover stream diverged ({reason}): "
+                                 f"{toks} != {ref}")
+        sup = gw.supervisor.stats()
+        if (sup["failovers"] != 1 or sup["failover_failures"]
+                or sup["condemned"] != [(target.name, "crash")]
+                or inj.counts() != {FAULT_CRASH: 1}):
+            raise AssertionError(f"failover: {sup}, fired {inj.counts()}")
+        survivor = next(w for w in gw.workers if w is not target)
+        seam = [t for t in survivor.engine.recorder.recent()
+                if any(k == tracing.FAILOVER for k, _, _ in t.events)]
+        if len(seam) != 1:
+            raise AssertionError(f"{len(seam)} adopted traces")
+        counts = seam[0].counts()
+        resumed = counts["resumed_tokens"]
+        if not (counts["failovers"] == 1 and 0 < resumed < len(ref)
+                and resumed + counts["tokens_emitted"] == len(ref)):
+            raise AssertionError(f"failover trace counts {counts}")
+        target._thread.join(60)
+        if not target.crashed or target.engine.pool.blocks_in_use:
+            raise AssertionError("the crashed replica kept pool blocks")
+        survivor.drain()
+        if survivor.engine.pool.blocks_in_use:
+            raise AssertionError("the survivor kept pool blocks")
+    finally:
+        gw.shutdown()
+    # the chunk holding token `resumed` arrived from the adopting replica
+    ends = list(itertools.accumulate(n for _, n in chunks))
+    k = next(i for i, e in enumerate(ends) if e > resumed)
+    gaps = [b[0] - a[0] for a, b in zip(chunks, chunks[1:])]
+    return {"prompt_len": len(prompt), "routed": how,
+            "resumed_tokens": resumed, "stream_wall_s": chunks[-1][0],
+            "uninterrupted_wall_s": ref_wall,
+            "seam_gap_s": chunks[k][0] - chunks[k - 1][0],
+            "median_other_gap_s": statistics.median(
+                g for i, g in enumerate(gaps) if i != k - 1),
+            "launches": launches}
+
+
+def serve_gateway_phase(torch, dev, model, engine_figures):
+    """The engine phase's 8 requests as concurrent SSE streams through a
+    ``Gateway`` over two replicas (``Engine(num_slots=8,
+    max_seq_len=2048)`` each, both on ``model``): every stream equal bit
+    for bit to the same request's in-process run, the launch totals over
+    both replicas equal to the forwards they ran; a capped tenant's
+    second request answers 429 with Retry-After and a request whose
+    deadline passed in the queue finishes "abort"; ``/metrics`` passes
+    validate_exposition; drain() leaves no pool block in use on either
+    replica.  The 8 streams run once more under torch.profiler (the
+    device's idle share behind the gateway) and once through a gateway
+    over one replica (the HTTP and thread cost without a second engine).
+    Then a crash failover (GATEWAY_DRIVE) greedy and seeded.  Prints TTFT
+    and decode tokens/s through HTTP beside the in-process run's and the
+    engine phase's, and the failover seams.  Returns the launches of the
+    8-stream drive."""
+    from paddle_tpu_torch.models.llama import LLAMA2_7B
+    from paddle_tpu_torch.observability.metrics import validate_exposition
+    from paddle_tpu_torch.serving import (
+        Engine, EngineConfig, SamplingParams, kernel_launches,
+        reset_kernel_launches,
+    )
+    from paddle_tpu_torch.serving.gateway import (
+        Gateway, GatewayConfig, TenantQuotas,
+    )
+
+    cfg = EngineConfig(num_slots=8, max_seq_len=2048)
+    g = torch.Generator(device="cpu").manual_seed(1234)
+    lengths = [16, 40, 100, 200, 350, 500, 750, 1024]
+    prompts = [torch.randint(0, LLAMA2_7B.vocab_size, (n,),
+                             generator=g).tolist() for n in lengths]
+    params = [serve_params(i, 32) for i in range(len(prompts))]
+    gd = GATEWAY_DRIVE
+    fail_prompt = torch.randint(
+        0, LLAMA2_7B.vocab_size, (gd["fail_prompt"],),
+        generator=torch.Generator(device="cpu").manual_seed(4321)).tolist()
+    fail_params = [SamplingParams(max_new_tokens=gd["fail_new"]),
+                   SamplingParams(max_new_tokens=gd["fail_new"],
+                                  temperature=0.8, top_k=50, top_p=0.95,
+                                  seed=7)]
+
+    # the in-process references (submit + run, Engine.generate's path)
+    ref_eng = Engine(model, cfg, device=dev, register_profiler=False)
+    torch.cuda.synchronize()
+    t0, t0_wall = time.perf_counter(), time.time()
+    reqs = [ref_eng.submit(p, sp) for p, sp in zip(prompts, params)]
+    ref_eng.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    refs = [list(r.output_ids) for r in reqs]
+    in_process = {
+        "wall_s": t_end - t0,
+        "ttft_mean_s": sum(r.ttft for r in reqs) / len(reqs),
+        "ttft_max_s": max(r.ttft for r in reqs),
+        "decode_tokens_per_s": decode_rate(
+            [len(o) for o in refs],
+            [r.first_token_time - t0_wall for r in reqs], t_end - t0)}
+    fail_refs, fail_walls = [], []
+    for sp in fail_params:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fail_refs.append(ref_eng.generate(fail_prompt, sp))
+        torch.cuda.synchronize()
+        fail_walls.append(time.perf_counter() - t1)
+    del ref_eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 1-6: one gateway over two replicas
+    quotas = TenantQuotas()
+    quotas.set_quota("capped", *gd["quota"])
+    engines = [Engine(model, cfg, device=dev) for _ in range(2)]
+    gw = Gateway(engines, GatewayConfig(model_id="llama-2-7b"),
+                 quotas=quotas).start()
+    try:
+        before = [e.counters() for e in engines]
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        results, wall = gateway_streams(gw.port, prompts, params,
+                                        "llama-2-7b")
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        forwards = gateway_forwards(engines, before)
+        check_serving_launches(launches, model.config.num_hidden_layers,
+                               *forwards)
+        check_streams(results, refs)
+        sup = gw.supervisor.stats()
+        if sup["condemned"] or any(w.crashed for w in gw.workers):
+            raise AssertionError(f"a replica failed: {sup}")
+        http = dict(http_figures(results, wall), prefill_calls=forwards[0],
+                    decode_steps=forwards[1],
+                    requests_per_replica=[e.counters()["prefill_requests"]
+                                          for e in engines])
+        # the same streams under torch.profiler: the device's idle share
+        # behind the gateway
+        profile = profiled(torch, lambda: check_streams(gateway_streams(
+            gw.port, prompts, params, "llama-2-7b")[0], refs))
+
+        # ---- 3: admission
+        capped = {"prompt": prompts[0][:gd["capped_prompt"]],
+                  "max_tokens": gd["capped_new"], "tenant": "capped"}
+        ok = http_json(gw.port, "POST", "/v1/completions", capped)
+        denied = http_json(gw.port, "POST", "/v1/completions", capped)
+        err = json.loads(denied[2])["error"]
+        if (ok[0] != 200 or denied[0] != 429
+                or err["code"] != "quota_exhausted"
+                or int(denied[1].get("Retry-After", 0)) < 1):
+            raise AssertionError(f"quota: {ok[0]}, {denied[0]} {err} "
+                                 f"{denied[1]}")
+        late = http_json(gw.port, "POST", "/v1/completions",
+                         {"prompt": prompts[1], "max_tokens": 4,
+                          "deadline_s": 1e-6})
+        reason = json.loads(late[2])["choices"][0]["finish_reason"]
+        if late[0] != 200 or reason != "abort":
+            raise AssertionError(f"expired deadline: {late[0]} {reason}")
+        expired = sum(e.counters()["deadline_expired"] for e in engines)
+
+        # ---- 4: metrics
+        status, _, body = http_json(gw.port, "GET", "/metrics")
+        text = body.decode()
+        if status != 200:
+            raise AssertionError(f"/metrics answered {status}")
+        samples = validate_exposition(text)
+        for fam in ("gateway_requests", "gateway_streams",
+                    "gateway_ttft_seconds", "gateway_rejections",
+                    "serving_tokens_generated", "serving_ttft_seconds"):
+            if fam not in text:
+                raise AssertionError(f"/metrics lacks {fam}")
+
+        # ---- 5: drain both replicas
+        for w in gw.workers:
+            w.drain()
+            if w.engine.pool.blocks_in_use:
+                raise AssertionError(f"{w.name} kept "
+                                     f"{w.engine.pool.blocks_in_use} blocks")
+    finally:
+        gw.shutdown()
+    del gw, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same streams through a gateway over ONE replica: the HTTP and
+    # thread cost alone, without a second engine on the GIL and stream
+    gw = Gateway([Engine(model, cfg, device=dev)]).start()
+    try:
+        results, wall = gateway_streams(gw.port, prompts, params,
+                                        "paddle-tpu")
+        check_streams(results, refs)
+        one_replica = http_figures(results, wall)
+    finally:
+        gw.shutdown()
+    del gw
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 2: crash failover, greedy then seeded
+    failovers = []
+    for sp, ref, ref_wall in zip(fail_params, fail_refs, fail_walls):
+        failovers.append(dict(failover_run(torch, model, cfg, fail_prompt,
+                                           sp, ref, ref_wall),
+                              greedy=sp.temperature == 0))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    emit({"phase": "serve_gateway", "model": "LLAMA2_7B",
+          "replicas": 2, "num_slots": 8, "max_seq_len": 2048,
+          "requests": len(prompts), "prompt_lengths": lengths,
+          "new_tokens_each": 32, "streams_bitwise": True,
+          "http": http, "http_one_replica": one_replica,
+          "in_process": in_process,
+          "engine_phase": {k: engine_figures[k] for k in (
+              "wall_s", "ttft_mean_s", "ttft_max_s", "decode_tokens_per_s")},
+          "quota_429_retry_after": denied[1].get("Retry-After"),
+          "deadline_expired": expired, "metrics_samples": samples,
+          "failover": failovers, "kernel_launches": launches,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    emit(dict(profile, phase="serve_gateway_profile"))
+    return launches
+
+
 def profile_phase(torch, eng, prompts, params):
     """The engine workload once more under torch.profiler (see
     :func:`profiled`)."""
@@ -2239,7 +2641,14 @@ def profiled(torch, run):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the serving engine's spans (torch.profiler.record_function) also
+    # appear on the device timeline, as user annotations spanning whole
+    # steps: only kernels count as busy
+    events = prof.events()
+    annotations = {e.name for e in events
+                   if getattr(e, "is_user_annotation", False)}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in annotations]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, -math.inf
     for a, b in spans:
@@ -2742,10 +3151,11 @@ def main():
           "ptxas_spills": ptxas_spills(ptxas)})
 
     summary = kernel_phase(torch, dev)
-    serve, model = engine_phase(torch, dev)
+    serve, model, engine_figures = engine_phase(torch, dev)
     serve_prefix = serve_prefix_phase(torch, dev, model)
     serve_spec = serve_spec_phase(torch, dev, model)
     serve_quant = serve_quant_phase(torch, dev, model)
+    serve_gateway = serve_gateway_phase(torch, dev, model, engine_figures)
     del model
     torch.cuda.empty_cache()
     train = train_phase(torch, dev)
@@ -2758,14 +3168,14 @@ def main():
     sources = {
         "paged_attention": ("cuda", "paddle_tpu_torch/csrc/attention_sm90.cuh",
                             "paddle_tpu/serving/paged_attention.py:284",
-                            "serve"),
+                            "serve_gateway"),
         "paged_attention_int8": ("cuda",
                                  ("paddle_tpu_torch/csrc/attention_sm90.cuh",
                                   "paddle_tpu_torch/csrc/paged_attention.cu"),
                                  "paddle_tpu/serving/paged_attention.py:284",
                                  "serve_quant"),
         "rms_norm": ("triton", "paddle_tpu_torch/ops/rms_norm.py",
-                     "paddle_tpu/ops/pallas/norms.py:220", "serve"),
+                     "paddle_tpu/ops/pallas/norms.py:220", "serve_gateway"),
         "rms_norm_bwd": ("triton", "paddle_tpu_torch/ops/rms_norm.py",
                          "paddle_tpu/ops/pallas/norms.py:257", "train"),
         "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/attention_sm90.cuh",
@@ -2788,6 +3198,7 @@ def main():
     }
     runs = {"serve": serve, "serve_prefix": serve_prefix,
             "serve_spec": serve_spec, "serve_quant": serve_quant,
+            "serve_gateway": serve_gateway,
             "train": train, "unet_train": unet}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():

@@ -6,12 +6,13 @@ kernels that the JAX package wrote in Pallas for the TPU are written by
 hand for Hopper (``csrc/`` for CUDA C++, Triton beside its module);
 each has a plain PyTorch twin that runs for CPU tensors.
 
-Three slices so far:
+Three paths so far:
 
 * serving a GPT / LLaMA decoder through the continuous-batching engine
-  (``serving.Engine``): ragged paged attention
-  (``csrc/paged_attention.cu``) and the RMSNorm forward
-  (``ops/rms_norm.py``, Triton);
+  (``serving.Engine``), reached over HTTP through the gateway
+  (``serving.gateway``, with ``observability`` and ``serving.faults``):
+  ragged paged attention (``csrc/paged_attention.cu``) and the RMSNorm
+  forward (``ops/rms_norm.py``, Triton);
 * training that decoder (``jit.TrainStep``, ``optimizer.AdamW``): flash
   attention forward, dQ and dK/dV (``csrc/flash_attention.cu``) and the
   RMSNorm backward;

@@ -67,10 +67,11 @@ Also kept, as the JAX engine has them on by default:
   bitwise guarantee above still holds.
 
 * **Degradation ladder** (``degrade_enabled``, ``degrade_pool_ratio``,
-  ``degrade_patience``, ``degrade_recover_patience``): pool occupancy
-  at or above the ratio for ``degrade_patience`` consecutive steps
-  climbs one level (:data:`DEGRADE_LEVELS`): 1 turns speculative
-  decoding off, 2 pins the decode horizon to 1, 3 sheds queued requests
+  ``degrade_patience``, ``degrade_recover_patience``): an unhealthy SLO
+  tracker (``slo_burn``) or pool occupancy at or above the ratio for
+  ``degrade_patience`` consecutive steps climbs one level
+  (:data:`DEGRADE_LEVELS`): 1 turns speculative decoding off, 2 pins the
+  decode horizon to 1, 3 sheds queued requests
   (lowest priority, newest first, never a resumed one) down to
   ``num_slots`` through :meth:`Engine.abort`;
   ``degrade_recover_patience`` calm steps step back down one level.
@@ -78,24 +79,65 @@ Also kept, as the JAX engine has them on by default:
   leaves the queue, a running one gets the preemption teardown without
   the requeue.
 
+* **Request lifecycle** (the gateway's engine surface):
+  :meth:`Engine.submit` takes ``deadline_s`` (a request still queued
+  when it passes is aborted at the top of the next admission pass,
+  :meth:`_expire_deadlines`), ``tenant`` (billed in
+  :meth:`Engine.tenant_ledger` and ``stats()["tenants"]``) and
+  ``resume_ids`` (failover: the tokens another replica already streamed;
+  admission takes the preemption-resume path and checks the re-sampled
+  boundary token bit for bit).  :meth:`Engine.drain` refuses new work,
+  aborts the queue, finishes the running lanes and asserts that no pool
+  block stays referenced; :meth:`Engine.close` stops the telemetry
+  server and unregisters the counter provider.
+* **Observability**: the ``serving.*`` metric families (labelled
+  ``engine=<name>``, the name JAX's ``_profiler_name``), a
+  :class:`~..observability.tracing.RequestTrace` on every request
+  (``request_tracing``), the spans ``serving.prefill_pass`` and
+  ``serving.decode_step`` (``torch.profiler`` ranges), an
+  :class:`~..observability.slo.SLOTracker` from the ``slo_*`` knobs
+  (``engine.slo``; its burn is the ladder's first signal) and a
+  :class:`~..observability.server.TelemetryServer` on
+  ``telemetry_port``.  Every family and counter is a host number: an
+  HTTP thread reading them touches no device tensor.
+* **Fault injection** (:meth:`Engine.install_faults`): the
+  ``engine.admit`` site; a ``pool_exhausted`` fault defers the whole
+  admission pass, as a dry pool does.
+
+Left out of the JAX engine's ``serving.*`` families: the host-tier
+ones (``kv_swap_out_bytes``, ``kv_swap_in_bytes``,
+``kv_swaps_averted_flops``, ``host_arena_occupancy_ratio``), the
+grammar ones (``spec_forced_tokens``, ``grammar_masked_fraction``) and
+the shared ``jit.*`` compile families.
+
 Not ported yet (later slices): grammar-constrained decoding (and the
-drafter's grammar ``forced_chain``), the host KV tier, drain, deadlines
-and tenants, observability (and with it the ladder's SLO signal), fault
-injection and the gateway.
+drafter's grammar ``forced_chain``; ``submit(grammar=...)`` raises
+``NotImplementedError``), the host KV tier (and with it the host-tier
+branch of :meth:`Engine.drain`), the device-memory ledger and program
+cards.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability import events as _obs_events
+from ..observability import metrics as _obs_metrics
+from ..observability import tracing as _obs_tracing
+from ..observability.server import TelemetryServer
+from ..observability.slo import SLOTracker
+from ..observability.span import span as _obs_span
 from ..ops import kernel_launches
 from ..quantization import quantize_for_serving
 from .drafter import draft_tokens
+from .faults import (DEGRADE_LEVELS, FAULT_POOL_EXHAUSTED,
+                     SITE_ENGINE_ADMIT, _SRV_DEGRADATION, _SRV_SHED)
 from .kv_cache import PagedKVCache, token_bytes
 from .paged_attention import check_kernel_geometry
 from .prefix_cache import PrefixCache
@@ -105,9 +147,97 @@ from .sampling import (
 )
 from .scheduler import FINISH_ABORT, FINISHED, RUNNING, WAITING, Scheduler
 
-#: degradation-ladder level names, indexed by level (the JAX package keeps
-#: them in ``serving/faults.py``)
-DEGRADE_LEVELS = ("normal", "no_spec", "horizon_1", "shed")
+# typed registry families the engine publishes into, labelled by engine
+# instance so two engines in one process stay distinguishable (names and
+# help strings are the JAX engine's)
+_SRV_TOKENS = _obs_metrics.counter(
+    "serving.tokens_generated", "tokens sampled across prefill+decode")
+_SRV_REQS = _obs_metrics.counter(
+    "serving.requests_finished", "requests retired (EOS or max-tokens)")
+_SRV_DECODE_STEPS = _obs_metrics.counter(
+    "serving.decode_steps", "fused decode steps executed")
+_SRV_PREFILL = _obs_metrics.counter(
+    "serving.prefill_calls", "batched prefill dispatches")
+_SRV_PREFILL_REQS = _obs_metrics.counter(
+    "serving.prefill_requests", "requests prefilled (across batches)")
+_SRV_PREFIX_HIT = _obs_metrics.counter(
+    "serving.prefix_hit_tokens",
+    "prompt tokens served from the prefix KV cache instead of recomputed")
+_SRV_PREFIX_RATIO = _obs_metrics.gauge(
+    "serving.prefix_hit_ratio",
+    "cumulative prefix-cache hit tokens / admitted prompt tokens")
+_SRV_PREFILL_BATCH = _obs_metrics.histogram(
+    "serving.prefill_batch_size", "requests co-prefilled per dispatch",
+    buckets=(1, 2, 4, 8, 16, 32))
+_SRV_WASTED = _obs_metrics.counter(
+    "serving.wasted_lane_tokens",
+    "masked tokens scanned for lanes that retired mid-horizon")
+_SRV_QUEUE = _obs_metrics.gauge(
+    "serving.queue_depth", "requests waiting for a slot")
+_SRV_ACTIVE = _obs_metrics.gauge(
+    "serving.active_slots", "slots currently decoding")
+_SRV_UTIL = _obs_metrics.gauge(
+    "serving.slot_utilization", "mean active/total slots over decode steps")
+_SRV_TPS = _obs_metrics.gauge(
+    "serving.tokens_per_s", "generated tokens per engine-busy second")
+_SRV_TTFT = _obs_metrics.histogram(
+    "serving.ttft_seconds", "submit-to-first-token wall seconds")
+_SRV_STEP = _obs_metrics.histogram(
+    "serving.step_seconds", "wall seconds per engine step()")
+_SRV_HORIZON = _obs_metrics.histogram(
+    "serving.horizon", "fused decode steps per compiled horizon dispatch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128))
+_SRV_KV_BLOCKS = _obs_metrics.gauge(
+    "serving.kv_blocks_in_use",
+    "unified-pool KV blocks currently referenced (tables + prefix store)")
+_SRV_KV_BYTES = _obs_metrics.counter(
+    "serving.kv_bytes_read",
+    "KV bytes gathered by decode attention (table-mapped blocks only)")
+_SRV_PREEMPTIONS = _obs_metrics.counter(
+    "serving.preemptions",
+    "running requests swapped out under KV block pressure")
+_SRV_SPEC_ACCEPT = _obs_metrics.histogram(
+    "serving.spec_accept_len",
+    "tokens emitted per speculative verify window (accepted prefix + 1)",
+    buckets=(1, 2, 3, 4, 5, 6, 8, 12, 17))
+_SRV_SPEC_DRAFTED = _obs_metrics.counter(
+    "serving.spec_draft_tokens",
+    "draft tokens proposed to the verify forward")
+_SRV_SPEC_ACCEPTED = _obs_metrics.counter(
+    "serving.spec_accepted_tokens",
+    "draft tokens whose sampled verification matched")
+_SRV_SPEC_RATE = _obs_metrics.gauge(
+    "serving.spec_accept_rate",
+    "cumulative accepted / drafted speculative tokens")
+_SRV_SPEC_EMA = _obs_metrics.gauge(
+    "serving.spec_lane_accept_ema",
+    "per-lane speculative acceptance EMA driving the adaptive gates")
+_SRV_KV_OCC = _obs_metrics.gauge(
+    "serving.kv_pool_occupancy_ratio",
+    "unified KV pool blocks in use / pool capacity")
+_SRV_BUCKETS = _obs_metrics.gauge(
+    "serving.decode_bucket_count",
+    "distinct compiled decode programs ((horizon, nb, K) triples)")
+_SRV_ABORTS = _obs_metrics.counter(
+    "serving.requests_aborted", "requests cancelled by the caller")
+_SRV_DEADLINE = _obs_metrics.counter(
+    "serving.deadline_expired",
+    "queued requests aborted because their admission deadline passed "
+    "(a subset of serving.requests_aborted)")
+_SRV_QUEUE_WAIT = _obs_metrics.histogram(
+    "serving.queue_wait_seconds",
+    "submit-to-admission wall seconds, observed when a request claims "
+    "a slot (re-admissions after preemption observe again)")
+_SRV_PREFILL_CHUNKS = _obs_metrics.histogram(
+    "serving.prefill_chunks",
+    "chunk dispatches per chunked-prefill request, observed when its "
+    "final chunk samples the first token",
+    buckets=(1, 2, 4, 8, 16, 32, 64))
+_SRV_PREFILL_INTERFERE = _obs_metrics.counter(
+    "serving.prefill_interference_seconds",
+    "wall seconds decode horizons were delayed by interleaved prefill "
+    "chunk dispatches (chunk dispatches issued while decode lanes were "
+    "active)")
 
 
 @dataclass
@@ -158,9 +288,34 @@ class EngineConfig:
     #: "int8": int8 pool with one f32 scale per token; None keeps the
     #: fp pool (cache_dtype)
     kv_cache_dtype: object = None
-    #: graceful-degradation ladder: under sustained pool pressure the
-    #: engine steps down one level per ``degrade_patience`` consecutive
-    #: burning steps — 1 disables speculative decoding, 2 shrinks the
+    #: request-scoped tracing: attach a RequestTrace flight record to
+    #: every request at submit, retained by a bounded FlightRecorder
+    #: (all live traces + the last ``flight_recorder_capacity``
+    #: finished ones) and served at /debug/requests
+    request_tracing: bool = True
+    flight_recorder_capacity: int = 256
+    #: start a TelemetryServer on this port at engine construction,
+    #: stopped by close().  0 binds an ephemeral port
+    #: (engine.telemetry.port reports it); None disables
+    telemetry_port: int | None = None
+    #: SLO objectives over observation-count windows: per-request TTFT
+    #: seconds, per-request mean TPOT seconds, and abort rate.  None
+    #: disables an objective; with all three None no tracker is created
+    #: and /readyz is always ready
+    slo_ttft_s: float | None = None
+    slo_tpot_s: float | None = None
+    slo_abort_rate: float | None = None
+    #: compliance target shared by the latency objectives and the
+    #: burn-rate denominator
+    slo_target: float = 0.95
+    #: rolling window sizes in OBSERVATIONS (retired requests), not
+    #: wall-clock; unhealthy requires both windows burning above 1x
+    slo_fast_window: int = 64
+    slo_slow_window: int = 640
+    #: graceful-degradation ladder: under sustained SLO burn or pool
+    #: pressure the engine steps down one level per ``degrade_patience``
+    #: consecutive burning steps — 1 disables speculative decoding, 2
+    #: shrinks the
     #: decode horizon to 1 (admission at every boundary), 3 sheds
     #: lowest-priority queued requests down to ``num_slots`` queued — and
     #: recovers one level per ``degrade_recover_patience`` consecutive
@@ -185,6 +340,7 @@ class _ChunkProgress:
     lease: object
     toks: list
     covered: int
+    chunks: int = 1
 
 
 class Engine:
@@ -192,7 +348,10 @@ class Engine:
     ``LlamaForCausalLM``) that lives on ``device`` (``cuda`` unless the
     caller passes ``"cpu"``)."""
 
-    def __init__(self, model, config=None, device=None):
+    _instances = 0
+
+    def __init__(self, model, config=None, device=None,
+                 register_profiler=True):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -310,6 +469,81 @@ class Engine:
         self._degrade_transitions = 0
         self._degrade_history = []       # last 64 transitions
         self._degrade_sheds = 0
+        # request lifecycle, fault injection, and the counters of JAX's
+        # counters() the port had no use for before
+        self._draining = False
+        self._deadline_expired = 0
+        self._tenants = {}               # tenant -> ledger counts
+        self.faults = None               # FaultInjector or None
+        self._fault_scope = ""
+        self._admit_deferred = False     # injected pool-exhaustion pass
+        self._busy_s = 0.0
+        self._slot_busy_integral = 0.0   # sum over steps of used/num
+        self._wasted_lane_tokens = 0
+        self._kv_bytes_read = 0
+        self._host_syncs = 0
+        self._horizon_buckets = set()
+
+        Engine._instances += 1
+        self._profiler_name = f"serving.engine{Engine._instances}"
+        self._finalizer = None
+        if register_profiler:
+            # a weakref-backed provider: a bound method in the process
+            # registry would pin the engine (and its pool) forever
+            ref = weakref.ref(self)
+
+            def _provider():
+                eng = ref()
+                return eng.counters() if eng is not None else {}
+
+            _obs_metrics.register_provider(self._profiler_name, _provider)
+            self._finalizer = weakref.finalize(
+                self, _obs_metrics.unregister_provider, self._profiler_name)
+        # per-request flight records, declared SLOs over the retirement
+        # stream, and the HTTP telemetry endpoint (which holds the
+        # recorder and tracker, not the engine)
+        self.recorder = (
+            _obs_tracing.FlightRecorder(cfg.flight_recorder_capacity)
+            if cfg.request_tracing else None)
+        self.slo = None
+        if (cfg.slo_ttft_s is not None or cfg.slo_tpot_s is not None
+                or cfg.slo_abort_rate is not None):
+            self.slo = SLOTracker(self._profiler_name)
+            windows = dict(fast_window=cfg.slo_fast_window,
+                           slow_window=cfg.slo_slow_window)
+            if cfg.slo_ttft_s is not None:
+                self.slo.declare("ttft", cfg.slo_ttft_s,
+                                 target=cfg.slo_target, **windows)
+            if cfg.slo_tpot_s is not None:
+                self.slo.declare("tpot", cfg.slo_tpot_s,
+                                 target=cfg.slo_target, **windows)
+            if cfg.slo_abort_rate is not None:
+                # 0/1 observations per retirement; "abort rate < Z" is
+                # "1 - Z of observations must be 0"
+                self.slo.declare("abort", 0.5,
+                                 target=1.0 - cfg.slo_abort_rate,
+                                 unit="bool", **windows)
+        self.telemetry = None
+        if cfg.telemetry_port is not None:
+            self.telemetry = TelemetryServer(
+                port=cfg.telemetry_port, recorder=self.recorder,
+                slo=self.slo).start()
+
+    def close(self):
+        """Stop the telemetry server and unregister this engine's
+        counter provider (idempotent; the provider unregistration also
+        runs when the engine is garbage-collected)."""
+        if self.telemetry is not None:
+            self.telemetry.stop()
+        if self._finalizer is not None:
+            self._finalizer()
+
+    def install_faults(self, injector, scope=""):
+        """Arm deterministic fault injection (``faults.FaultInjector``)
+        on this engine's ``engine.admit`` site; None disarms.  ``scope``
+        names this engine in the plan (usually the worker name)."""
+        self.faults = injector
+        self._fault_scope = scope or self._profiler_name
 
     @staticmethod
     def _norm_quant_knob(value, name):
@@ -438,20 +672,80 @@ class Engine:
         return self._pow2_floor(max(1, min(max_h, self._grow, rem)))
 
     # ------------------------------------------------------------ requests
-    def submit(self, prompt_ids, sampling=None, priority=0):
+    def submit(self, prompt_ids, sampling=None, priority=0,
+               deadline_s=None, tenant=None, resume_ids=None,
+               grammar=None):
         """Queue one request; returns its ``Request`` handle, whose
-        ``output_ids`` fill in as the engine steps.  Under pool pressure
-        the lowest ``priority`` is preempted first."""
+        ``output_ids`` fill in as the engine steps.
+
+        ``priority`` widens the scheduler's overtake budget (negative:
+        the offline batch lane, shed and preempted first); ``deadline_s``
+        bounds queue wait — a request still QUEUED when it passes is
+        aborted at the next admission pass (``finish_reason="abort"``);
+        ``tenant`` tags the request for :meth:`tenant_ledger`.
+
+        ``resume_ids`` is the failover entry point: tokens this request
+        already generated on another engine over the same weights.  The
+        request queues as ``resumed`` and admission takes the
+        preemption-resume path — re-prefill ``prompt + resume_ids[:-1]``,
+        re-sample token ``len(resume_ids) - 1`` and check it bit for bit
+        against ``resume_ids[-1]`` — then decode continues the stream.
+        Requires ``len(resume_ids) < max_new_tokens``.
+
+        ``grammar`` (structured generation) is not ported yet and
+        raises ``NotImplementedError``."""
+        if grammar is not None:
+            raise NotImplementedError(
+                "grammar-constrained decoding is not ported yet "
+                "(ROADMAP Queue 1 item 3)")
+        if self._draining:
+            raise RuntimeError("engine is draining; submissions refused")
         prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt_ids:
             raise ValueError("empty prompt")
+        if deadline_s is not None and not float(deadline_s) > 0:
+            raise ValueError(
+                f"deadline_s must be > 0 or None, got {deadline_s}")
         sampling = sampling or SamplingParams()
         if len(prompt_ids) + sampling.max_new_tokens > self.config.max_seq_len:
             raise ValueError(
                 f"prompt_len {len(prompt_ids)} + max_new_tokens "
                 f"{sampling.max_new_tokens} exceeds max_seq_len "
                 f"{self.config.max_seq_len}")
-        return self.scheduler.submit(prompt_ids, sampling, priority=priority)
+        resume_ids = [int(t) for t in resume_ids] if resume_ids else None
+        if resume_ids and len(resume_ids) >= sampling.max_new_tokens:
+            raise ValueError(
+                f"resume_ids already holds {len(resume_ids)} tokens, "
+                f">= max_new_tokens {sampling.max_new_tokens}: nothing "
+                "left to generate")
+        req = self.scheduler.submit(prompt_ids, sampling, priority=priority,
+                                    deadline_s=deadline_s, tenant=tenant)
+        if resume_ids:
+            req.output_ids = list(resume_ids)
+            req.resumed = True
+        t = self._tenants.setdefault(
+            tenant if tenant is not None else "",
+            {"submitted": 0, "finished": 0, "aborted": 0,
+             "tokens_generated": 0})
+        t["submitted"] += 1
+        if self.recorder is not None:
+            req.trace = _obs_tracing.RequestTrace(
+                req.request_id, engine=self._profiler_name)
+            gw = {}
+            if req.priority:
+                gw["priority"] = req.priority
+            if req.deadline_s is not None:
+                gw["deadline_s"] = req.deadline_s
+            if req.tenant is not None:
+                gw["tenant"] = req.tenant
+            if resume_ids:
+                gw["resumed_tokens"] = len(resume_ids)
+            req.trace.add(_obs_tracing.QUEUED, prompt_len=req.prompt_len,
+                          max_new_tokens=sampling.max_new_tokens, **gw)
+            self.recorder.attach(req.trace)
+        _SRV_QUEUE.set(self.scheduler.queue_depth,
+                       engine=self._profiler_name)
+        return req
 
     def admit(self):
         """Advance the in-flight chunked prefills by one chunk, then
@@ -460,14 +754,28 @@ class Engine:
         whose blocks do not fit first reclaims unpinned prefix blocks;
         if still short it waits for running requests to retire, or, with
         nothing running, the longest queue-head prefix that fits is
-        admitted.  At ladder level 3 the queue is first shed down to
-        ``num_slots`` requests."""
-        if self.scheduler.queue_depth and self._degrade_level >= 3:
-            # resumed requests are never shed: their tokens are already
-            # streamed
-            for req in self.scheduler.shed_victims(self.cache.num_slots):
-                self._degrade_sheds += 1
-                self.abort(req, cause="shed")
+        admitted.  Expired deadlines abort first; at ladder level 3 the
+        queue is then shed down to ``num_slots`` requests, and an armed
+        ``pool_exhausted`` fault defers the whole pass."""
+        self._expire_deadlines()
+        self._admit_deferred = False
+        if self.scheduler.queue_depth:
+            if self._degrade_level >= 3:
+                # resumed requests are never shed: their tokens are
+                # already streamed
+                for req in self.scheduler.shed_victims(
+                        self.cache.num_slots):
+                    self._degrade_sheds += 1
+                    _SRV_SHED.inc(engine=self._profiler_name)
+                    self.abort(req, cause="shed")
+            if self.faults is not None:
+                spec = self.faults.fire(SITE_ENGINE_ADMIT,
+                                        scope=self._fault_scope)
+                if spec is not None and spec.kind == FAULT_POOL_EXHAUSTED:
+                    # behave exactly like a dry pool: defer this whole
+                    # admission pass to the next horizon boundary
+                    self._admit_deferred = True
+                    return
         self._advance_chunks()
         while self.cache.free_slots and self.scheduler.queue_depth:
             batch = self.scheduler.pop_batch(
@@ -505,6 +813,16 @@ class Engine:
                 batch = fit
             self._prefill_batch(batch)
 
+    def _expire_deadlines(self):
+        """Abort every still-QUEUED request whose admission deadline
+        passed (deadlines bound queue wait: a request that already
+        claimed a slot runs to completion).  Counted in both
+        ``serving.requests_aborted`` and ``serving.deadline_expired``."""
+        for req in [r for r in self.scheduler.queue if r.deadline_expired]:
+            self._deadline_expired += 1
+            _SRV_DEADLINE.inc(engine=self._profiler_name)
+            self.abort(req, cause="deadline")
+
     def _prefill_batch(self, batch):
         """One batched prefill forward: claim slots, lease the cached
         prefix blocks into the tables, allocate private blocks out to
@@ -514,9 +832,12 @@ class Engine:
         bucket = max(self._admission_bucket(r) for r in batch)
         bs = self._block_size
         entries = []
+        name = self._profiler_name
         for req in batch:
             slot = self.cache.alloc()
+            was_resumed = req.resumed
             self.scheduler.start(req, slot)
+            _SRV_QUEUE_WAIT.observe(req.queue_seconds, engine=name)
             toks = self._admission_tokens(req)
             lease = self.prefix.acquire(toks)
             self._leases[req.request_id] = lease
@@ -547,18 +868,42 @@ class Engine:
             entries.append(dict(req=req, slot=slot, lease=lease, toks=toks,
                                 start=start, take=take,
                                 final=cover == len(toks), cow=cow))
+            _obs_events.instant("serving.slot_alloc", cat="serving",
+                                slot=slot, request=req.request_id,
+                                prompt_len=req.prompt_len, bucket=bucket,
+                                prefix_hit=lease.matched_tokens)
+            if req.trace is not None:
+                req.trace.add(
+                    _obs_tracing.RESUME if (req.output_ids or was_resumed)
+                    else _obs_tracing.PREFILL,
+                    slot=slot, bucket=bucket, prefill_tokens=len(toks),
+                    prefix_hit_tokens=lease.matched_tokens)
+            if not req.output_ids and not was_resumed:
+                # async span: a request's life overlaps other requests
+                # on this thread, so it pairs by id (a preempted
+                # request's span is already open)
+                _obs_events.record(
+                    "serving.request", phase=_obs_events.ASYNC_BEGIN,
+                    cat="serving", id=req.request_id,
+                    args={"slot": slot, "prompt_len": req.prompt_len,
+                          "prefix_hit_tokens": lease.matched_tokens})
 
         first = self._dispatch_prefill(entries, bucket,
                                        self._lane_bucket(len(batch)))
         self._prefill_requests += len(batch)
+        _SRV_PREFILL_REQS.inc(len(batch), engine=name)
+        _SRV_PREFILL_BATCH.observe(len(batch), engine=name)
         for e in entries:
             row = self.cache.tables[e["slot"]]
             self.prefix.adopt(e["toks"][:e["start"] + e["take"]], e["lease"],
                               block_of=lambda j, row=row: row[j])
         for i, e in enumerate(entries):
             req, slot = e["req"], e["slot"]
-            self._prefix_hit_tokens += e["lease"].matched_tokens
+            hit = e["lease"].matched_tokens
+            self._prefix_hit_tokens += hit
             self._prompt_tokens += len(e["toks"])
+            if hit:
+                _SRV_PREFIX_HIT.inc(hit, engine=name)
             if e["final"]:
                 self._finish_prefill_lane(req, slot, e["toks"], first[i])
                 continue
@@ -610,20 +955,26 @@ class Engine:
             tables[i] = self.cache.tables[e["slot"], :nb]
         d = self.device
         t0 = time.perf_counter()
-        if cow_dst.any():
-            # on the forward's stream, ahead of it: the suffix writes then
-            # overwrite the copied block from the divergence offset on
-            self.cache.copy_blocks(torch.from_numpy(cow_src).to(d),
-                                   torch.from_numpy(cow_dst).to(d))
-        logits = self._forward(
-            torch.from_numpy(ids).to(d), torch.from_numpy(tables).to(d),
-            torch.from_numpy(prefix_lens).to(d),
-            torch.from_numpy(lengths - 1).to(d))
-        first = sample_batch(logits, seeds, counts, temps, top_ks,
-                             top_ps).tolist()     # the one host sync
+        with _obs_span("serving.prefill_pass", cat="serving",
+                       engine=self._profiler_name,
+                       event_args={"batch_size": len(entries),
+                                   "lanes": lanes, "bucket": bucket}):
+            if cow_dst.any():
+                # on the forward's stream, ahead of it: the suffix writes
+                # then overwrite the copied block from the divergence
+                # offset on
+                self.cache.copy_blocks(torch.from_numpy(cow_src).to(d),
+                                       torch.from_numpy(cow_dst).to(d))
+            logits = self._forward(
+                torch.from_numpy(ids).to(d), torch.from_numpy(tables).to(d),
+                torch.from_numpy(prefix_lens).to(d),
+                torch.from_numpy(lengths - 1).to(d))
+            first = sample_batch(logits, seeds, counts, temps, top_ks,
+                                 top_ps).tolist()     # the one host sync
         self._prefill_s += time.perf_counter() - t0
         self._prefill_calls += 1
         self._prefill_buckets.add((lanes, bucket))
+        _SRV_PREFILL.inc(engine=self._profiler_name)
         return first
 
     def _finish_prefill_lane(self, req, slot, toks, tok):
@@ -638,7 +989,12 @@ class Engine:
                     f"expected {req.output_ids[-1]}")
         else:
             self._tokens_generated += 1
-            if req.record_token(tok):
+            _SRV_TOKENS.inc(engine=self._profiler_name)
+            done = req.record_token(tok)
+            if req.trace is not None:
+                req.trace.add(_obs_tracing.FIRST_TOKEN, token=tok,
+                              ttft_s=round(req.ttft, 6))
+            if done:
                 self._retire(req)
                 return
         s = req.sampling
@@ -711,9 +1067,12 @@ class Engine:
         t0 = time.perf_counter()
         first = self._dispatch_prefill(entries, self._chunk_tokens,
                                        self._lane_bucket(len(entries)))
+        name = self._profiler_name
         if decode_live:
             # the decode lanes' next horizon waited for this dispatch
-            self._interference_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self._interference_s += dt
+            _SRV_PREFILL_INTERFERE.inc(dt, engine=name)
         self._chunk_dispatches += 1
         self._chunk_count_total += len(entries)
         for i, e in enumerate(entries):
@@ -723,8 +1082,17 @@ class Engine:
             self.prefix.adopt(e["toks"][:cover], e["lease"],
                               block_of=lambda j, row=row: row[j])
             prog.covered = cover
+            prog.chunks += 1
+            _obs_events.instant("serving.prefill_chunk", cat="serving",
+                                slot=slot, request=req.request_id,
+                                chunk=prog.chunks, covered=cover,
+                                total=len(prog.toks))
             if e["final"]:
                 del self._chunking[req.request_id]
+                _SRV_PREFILL_CHUNKS.observe(prog.chunks, engine=name)
+                if req.trace is not None:
+                    req.trace.add("prefill_chunked", chunks=prog.chunks,
+                                  prefill_tokens=len(prog.toks))
                 self._finish_prefill_lane(req, slot, e["toks"], first[i])
             else:
                 self._pos[slot] = cover
@@ -748,6 +1116,36 @@ class Engine:
         self.scheduler.finish(req)
         self._finished += 1
         self._ttft_sum += req.ttft
+        tn = self._tenants.get(req.tenant if req.tenant is not None
+                               else "")
+        if tn is not None:
+            tn["finished"] += 1
+            tn["tokens_generated"] += req.n_generated
+        name = self._profiler_name
+        _SRV_REQS.inc(engine=name)
+        _SRV_TTFT.observe(req.ttft, engine=name)
+        _obs_events.instant("serving.slot_retire", cat="serving",
+                            slot=slot, request=req.request_id,
+                            reason=req.finish_reason,
+                            n_generated=req.n_generated)
+        _obs_events.record(
+            "serving.request", phase=_obs_events.ASYNC_END,
+            cat="serving", id=req.request_id,
+            args={"reason": req.finish_reason,
+                  "n_generated": req.n_generated,
+                  "ttft_s": round(req.ttft, 6)})
+        if req.trace is not None:
+            req.trace.add(_obs_tracing.FINISH, reason=req.finish_reason,
+                          n_generated=req.n_generated,
+                          ttft_s=round(req.ttft, 6))
+            self.recorder.finish(req.trace)
+        if self.slo is not None:
+            self.slo.observe("ttft", req.ttft)
+            if req.n_generated > 1:
+                self.slo.observe(
+                    "tpot", (time.time() - req.first_token_time)
+                    / (req.n_generated - 1))
+            self.slo.observe("abort", 0.0)
 
     def preempt(self, req):
         """Swap a RUNNING request out: release its slot, table entries
@@ -765,15 +1163,24 @@ class Engine:
         self.scheduler.requeue_front(req)
         self.cache.free(slot)
         self._preemptions += 1
+        _SRV_PREEMPTIONS.inc(engine=self._profiler_name)
+        _obs_events.instant("serving.preempt", cat="serving", slot=slot,
+                            request=req.request_id,
+                            n_generated=req.n_generated)
+        if req.trace is not None:
+            req.trace.add(_obs_tracing.PREEMPT, slot=slot,
+                          n_generated=req.n_generated)
 
     def abort(self, req, cause=None):
         """Cancel a request: a QUEUED one leaves the queue, a RUNNING one
         releases its slot, table entries and prefix lease (the
         preemption teardown) without requeueing.  The request finishes
         with ``finish_reason="abort"`` and keeps the tokens it has
-        generated.  ``cause`` (``"shed"`` from the degradation ladder)
-        goes on the JAX engine's trace events; the port has none yet."""
-        del cause
+        generated; aborts feed the ``abort`` SLO objective and the flight
+        record ends with an ``abort`` event.  ``cause`` (``"deadline"``,
+        ``"drain"``, ``"shed"``, ``"client_disconnect"``, ...) is
+        recorded on the trace event and the process event ring.
+        Returns the request."""
         if req.status == FINISHED:
             raise ValueError(
                 f"cannot abort request {req.request_id}: already "
@@ -794,6 +1201,29 @@ class Engine:
             self.cache.free(slot)
         req.finish_reason = FINISH_ABORT
         self._aborted += 1
+        tn = self._tenants.get(req.tenant if req.tenant is not None
+                               else "")
+        if tn is not None:
+            tn["aborted"] += 1
+            tn["tokens_generated"] += req.n_generated
+        name = self._profiler_name
+        _SRV_ABORTS.inc(engine=name)
+        _SRV_QUEUE.set(self.scheduler.queue_depth, engine=name)
+        if req.admit_time is not None:
+            # only requests that prefilled opened an async span
+            _obs_events.record(
+                "serving.request", phase=_obs_events.ASYNC_END,
+                cat="serving", id=req.request_id,
+                args={"reason": FINISH_ABORT, "cause": cause,
+                      "n_generated": req.n_generated})
+        if req.trace is not None:
+            extra = {} if cause is None else {"cause": cause}
+            req.trace.add(_obs_tracing.ABORT,
+                          n_generated=req.n_generated, **extra)
+            self.recorder.finish(req.trace)
+        if self.slo is not None:
+            self.slo.observe("abort", 1.0)
+        return req
 
     def _ensure_blocks(self, h, w=1):
         """Extend every decoding slot's table to cover its next ``h * w``
@@ -912,7 +1342,13 @@ class Engine:
             p = p + n_emit.to(p.dtype)
             act = act & ~done
         toks = torch.stack(harvest).cpu().numpy()   # the one host sync
+        self._host_syncs += 1
         self._decode_s += time.perf_counter() - t0
+        # KV traffic of the horizon: every lane reads its nb table-mapped
+        # blocks (k + v, all layers) per step, at the pool's stored size
+        step_bytes = n * nb * self.pool.bytes_per_block
+        self._kv_bytes_read += step_bytes * h
+        _SRV_KV_BYTES.inc(step_bytes * h, engine=self._profiler_name)
         self._d_state = (tok, p, cnt, act, eos, limits, hist, gates)
         return toks
 
@@ -923,15 +1359,19 @@ class Engine:
         history) equal to the frozen device state, update each drafting
         lane's acceptance EMA and gate (a flip dirties the device
         state), and retire (appending to ``finished``) the requests that
-        ended."""
-        harvested = drafted = accepted = 0
+        ended.  Returns (tokens harvested, lane steps scanned after their
+        lane retired)."""
+        harvested = wasted = drafted = accepted = 0
+        name = self._profiler_name
         floor = float(self.config.spec_accept_floor)
         gated = self._spec_gates.copy()      # the gates the dispatch ran
         for slot, req in active.items():
             done = False
+            lane_tokens = lane_accept = 0
             for step_i in range(h):
                 if done:
-                    break
+                    wasted += 1
+                    continue
                 row = toks[step_i, slot]
                 if row[0] < 0:
                     raise RuntimeError(
@@ -951,10 +1391,13 @@ class Engine:
                         done = True
                         break
                 harvested += n_emit
+                lane_tokens += n_emit
                 if k and gated[slot]:
                     drafted += k
                     accepted += n_emit - 1
+                    lane_accept += n_emit - 1
                     self._spec_windows += 1
+                    _SRV_SPEC_ACCEPT.observe(n_emit, engine=name)
                     self._spec_accept_hist[n_emit] = \
                         self._spec_accept_hist.get(n_emit, 0) + 1
                     ema = 0.5 * float(self._spec_ema[slot]) \
@@ -965,19 +1408,29 @@ class Engine:
                         self._spec_gates[slot] = ema >= floor
                         self._state_dirty = True
             self._counts[slot] = req.n_generated
+            if req.trace is not None and lane_tokens:
+                req.trace.add(_obs_tracing.DECODE, horizon=h, spec_k=k,
+                              tokens=lane_tokens, accepted=lane_accept)
             if done:
                 self._retire(req)
                 finished.append(req)
         self._tokens_generated += harvested
         self._decode_tokens += harvested
-        self._spec_draft_tokens += drafted
-        self._spec_accepted_tokens += accepted
+        self._wasted_lane_tokens += wasted
+        if drafted:
+            self._spec_draft_tokens += drafted
+            self._spec_accepted_tokens += accepted
+            _SRV_SPEC_DRAFTED.inc(drafted, engine=name)
+            _SRV_SPEC_ACCEPTED.inc(accepted, engine=name)
+            _SRV_SPEC_RATE.set(self._accept_rate(), engine=name)
+        return harvested, wasted
 
     def step(self, horizon=None):
         """Admit queued requests (chunks, then prefill), then run one
         horizon of decode steps over every slot: ``horizon`` steps
         (bucketed to a power of two), or the adaptive choice.  Returns
         the requests that finished during the horizon."""
+        t0 = time.time()
         finished = []
         self._update_degradation()
         self.admit()
@@ -989,10 +1442,24 @@ class Engine:
         active = {s: r for s, r in self.scheduler.running.items()
                   if self._active[s]}
         if active:
-            toks = self._dispatch_horizon(h, k)
-            self._harvest(toks, active, h, k, finished)
+            self._horizon_buckets.add(h)
+            with _obs_span("serving.decode_step", cat="serving",
+                           engine=self._profiler_name,
+                           event_args={"horizon": h, "spec_k": k}) as sp:
+                toks = self._dispatch_horizon(h, k)
+                harvested, wasted = self._harvest(toks, active, h, k,
+                                                  finished)
+                sp.event_args["tokens_harvested"] = harvested
             self._decode_steps += h
             self._decode_horizons += 1
+            self._slot_busy_integral += (h * len(active)
+                                         / self.cache.num_slots)
+            name = self._profiler_name
+            _SRV_DECODE_STEPS.inc(h, engine=name)
+            _SRV_HORIZON.observe(h, engine=name)
+            _SRV_TOKENS.inc(harvested, engine=name)
+            if wasted:
+                _SRV_WASTED.inc(wasted, engine=name)
             # a stable horizon (nothing retired, nothing waiting) doubles
             # the next one; churn resets it to 1
             if finished or self.scheduler.queue_depth:
@@ -1000,15 +1467,19 @@ class Engine:
             else:
                 self._grow = min(max(1, int(self.config.max_horizon)),
                                  max(self._grow, h) * 2)
+        dt = time.time() - t0
+        self._busy_s += dt
+        _SRV_STEP.observe(dt, engine=self._profiler_name)
+        self._publish_gauges()
         return finished
 
     # ------------------------------------------------- degradation ladder
     def _degrade_signal(self):
         """The pressure signal driving the ladder: the reason string
-        while the engine is burning (pool occupancy at/above
-        ``degrade_pool_ratio``), else None."""
-        # the JAX engine's "slo_burn" goes first here once the port has
-        # an SLO tracker
+        while the engine is burning (any SLO objective unhealthy, or
+        pool occupancy at/above ``degrade_pool_ratio``), else None."""
+        if self.slo is not None and not self.slo.healthy:
+            return "slo_burn"
         if (self.pool.blocks_in_use / self.pool.capacity
                 >= float(self.config.degrade_pool_ratio)):
             return "pool_pressure"
@@ -1051,6 +1522,37 @@ class Engine:
              "level": DEGRADE_LEVELS[level], "reason": reason,
              "decode_horizons": self._decode_horizons})
         del self._degrade_history[:-64]
+        name = self._profiler_name
+        _SRV_DEGRADATION.set(level, engine=name)
+        _obs_events.instant("serving.degrade", cat="serving",
+                            engine=name, level=level,
+                            level_name=DEGRADE_LEVELS[level],
+                            from_level=prev, reason=reason)
+
+    def _publish_gauges(self):
+        """Refresh the point-in-time typed gauges (once per step; the
+        counters and histograms accumulate incrementally)."""
+        name = self._profiler_name
+        _SRV_DEGRADATION.set(self._degrade_level, engine=name)
+        _SRV_QUEUE.set(self.scheduler.queue_depth, engine=name)
+        _SRV_ACTIVE.set(self.cache.used_slots, engine=name)
+        _SRV_KV_BLOCKS.set(self.pool.blocks_in_use, engine=name)
+        _SRV_KV_OCC.set(self.pool.blocks_in_use / self.pool.capacity,
+                        engine=name)
+        _SRV_BUCKETS.set(len(self._decode_buckets), engine=name)
+        if self._spec_k:
+            for slot in range(self.cache.num_slots):
+                _SRV_SPEC_EMA.set(float(self._spec_ema[slot]),
+                                  engine=name, lane=slot)
+        if self._decode_steps:
+            _SRV_UTIL.set(self._slot_busy_integral / self._decode_steps,
+                          engine=name)
+        if self._busy_s > 0:
+            _SRV_TPS.set(self._tokens_generated / self._busy_s,
+                         engine=name)
+        if self._prompt_tokens:
+            _SRV_PREFIX_RATIO.set(
+                self._prefix_hit_tokens / self._prompt_tokens, engine=name)
 
     def run(self):
         """Step until every submitted request finished; returns the
@@ -1060,8 +1562,42 @@ class Engine:
             before = self._finished
             out.extend(self.step())
             if (self._finished == before and not self.scheduler.running
-                    and self.scheduler.queue_depth):
+                    and self.scheduler.queue_depth
+                    and not self._admit_deferred):
                 raise RuntimeError("engine stalled with queued work")
+        return out
+
+    def drain(self):
+        """Graceful shutdown of admission: refuse new submissions, abort
+        every still-QUEUED request (cause ``"drain"``), run the in-flight
+        lanes to completion, then reclaim the prefix store's (now
+        unpinned) blocks and check ``kv_blocks_in_use == 0`` — the
+        block-leak invariant a replica must satisfy before the router
+        removes it.  Returns every request retired during the drain
+        (aborted queued requests first).  The engine is usable again
+        afterwards.  (The JAX engine's host-tier branch waits for the
+        host KV tier.)"""
+        self._draining = True
+        try:
+            out = [self.abort(req, cause="drain")
+                   for req in list(self.scheduler.queue)]
+            # every running lane progresses each step (preempted lanes
+            # requeue as resumed and re-admit as slots free), so this
+            # ends within the remaining token budget
+            while self.scheduler.has_work:
+                out.extend(self.step())
+        finally:
+            self._draining = False
+        # every lease is back, so every prefix chain is unpinned and
+        # reclaimable; a block the reclaim cannot free is a leak
+        self.prefix.reclaim(self.prefix._held)
+        if self.pool.blocks_in_use != 0:
+            raise RuntimeError(
+                f"drain() left {self.pool.blocks_in_use} KV pool blocks "
+                f"referenced ({self.cache.leased_blocks} leased by slot "
+                f"tables, {self.prefix._held} pinned by the prefix "
+                "store): block-leak invariant violated")
+        self._publish_gauges()
         return out
 
     def generate(self, prompts, sampling=None):
@@ -1078,44 +1614,83 @@ class Engine:
         outs = [r.output_ids for r in reqs]
         return outs[0] if single else outs
 
-    def stats(self):
-        """Counters of this engine under the JAX engine's key names,
-        plus the process-wide kernel launch counts (``kernel_launches``),
-        the radix store's ``stats()`` under ``prefix`` and JAX's
-        ``degradation``, ``kv_pool``, ``quant`` and ``spec`` blocks.
-        ``prompt_tokens`` counts every admitted token, prefix hits and
-        re-admissions included; ``ttft_avg_s`` is present once a request
-        has finished."""
+    def counters(self):
+        """The JAX engine's ``counters()`` under its key names (host
+        numbers only; also this engine's counter provider).  Left out:
+        the XLA-only ``decode_calls`` and the compile counts
+        (``decode_compiles``, ``decode_cache_hits``,
+        ``prefill_compiles``, ``prefill_cache_hits``), and the host-tier
+        ``kv_swap_ins``, ``kv_swap_outs``, ``kv_swap_in_bytes`` and
+        ``kv_swap_out_bytes``.  ``spec_forced_tokens`` (grammar-forced
+        drafts) and ``prefix_insert_calls`` stay 0, as the JAX engine
+        without a grammar."""
         c = {
-            "requests_finished": self._finished,
+            "queue_depth": self.scheduler.queue_depth,
             "active_slots": self.cache.used_slots,
+            "num_slots": self.cache.num_slots,
+            "requests_finished": self._finished,
+            "tokens_generated": self._tokens_generated,
+            "decode_steps": self._decode_steps,
+            "decode_horizons": self._decode_horizons,
+            "decode_host_syncs": self._host_syncs,
+            "wasted_lane_tokens": self._wasted_lane_tokens,
             "prefill_calls": self._prefill_calls,
             "prefill_requests": self._prefill_requests,
             "prefill_chunk_dispatches": self._chunk_dispatches,
             "prefill_chunked_requests": self._chunked_requests,
-            "prompt_tokens": self._prompt_tokens,
             "prefix_hit_tokens": self._prefix_hit_tokens,
+            "prompt_tokens": self._prompt_tokens,
             "prefix_hit_ratio": (
                 self._prefix_hit_tokens / self._prompt_tokens
                 if self._prompt_tokens else 0.0),
-            "prefill_seconds": self._prefill_s,
-            "decode_steps": self._decode_steps,
-            "decode_horizons": self._decode_horizons,
-            "decode_tokens": self._decode_tokens,
-            "decode_seconds": self._decode_s,
-            "tokens_generated": self._tokens_generated,
+            "prefix_insert_calls": 0,
+            "kv_blocks_in_use": self.pool.blocks_in_use,
+            "kv_bytes_read": self._kv_bytes_read,
             "cow_copies": self._cow_copies,
             "preemptions": self._preemptions,
-            "kv_blocks_in_use": self.pool.blocks_in_use,
-            "kv_blocks_capacity": self.pool.capacity,
             "requests_aborted": self._aborted,
+            "deadline_expired": self._deadline_expired,
             "spec_draft_tokens": self._spec_draft_tokens,
             "spec_accepted_tokens": self._spec_accepted_tokens,
             "spec_accept_rate": self._accept_rate(),
-            # grammar-forced drafts: no grammar in the port yet
             "spec_forced_tokens": 0,
             "degradation_level": self._degrade_level,
             "degradation_sheds": self._degrade_sheds,
+        }
+        if self._decode_steps:
+            c["slot_utilization"] = (self._slot_busy_integral
+                                     / self._decode_steps)
+        if self._finished:
+            c["ttft_avg_s"] = self._ttft_sum / self._finished
+        if self._busy_s > 0:
+            c["tokens_per_s"] = self._tokens_generated / self._busy_s
+        return c
+
+    def tenant_ledger(self):
+        """The per-tenant accounting ledger (tenant None bills to "") as
+        a copy: submitted, finished, aborted and tokens generated."""
+        return {k: dict(v) for k, v in self._tenants.items()}
+
+    def stats(self):
+        """:meth:`counters` plus the port's own timers
+        (``prefill_seconds``, ``decode_seconds``, ``decode_tokens``), the
+        pool's capacity, the process-wide kernel launch counts
+        (``kernel_launches``), the radix store's ``stats()`` under
+        ``prefix``, and JAX's ``tenants``, ``draining``, ``degradation``,
+        ``kv_pool``, ``quant``, ``spec``, ``slo`` and ``tracing``
+        blocks.  ``prompt_tokens`` counts every admitted token, prefix
+        hits and re-admissions included.  Host numbers only: safe to
+        read from another thread."""
+        c = self.counters()
+        lane_steps = self._decode_tokens + self._wasted_lane_tokens
+        c.update({
+            "prefill_seconds": self._prefill_s,
+            "decode_tokens": self._decode_tokens,
+            "decode_seconds": self._decode_s,
+            "kv_blocks_capacity": self.pool.capacity,
+            "wasted_lane_fraction": (self._wasted_lane_tokens / lane_steps
+                                     if lane_steps else 0.0),
+            "horizon_buckets": sorted(self._horizon_buckets),
             "decode_buckets": sorted(self._decode_buckets),
             "kernel_launches": kernel_launches(),
             "prefill": {
@@ -1126,6 +1701,8 @@ class Engine:
                 "buckets": sorted(self._prefill_buckets),
             },
             "prefix": self.prefix.stats(),
+            "tenants": self.tenant_ledger(),
+            "draining": self._draining,
             "degradation": {
                 "level": self._degrade_level,
                 "level_name": DEGRADE_LEVELS[self._degrade_level],
@@ -1168,9 +1745,18 @@ class Engine:
                 "lane_accept_ema": [round(float(x), 4)
                                     for x in self._spec_ema],
             },
-        }
-        if self._finished:
-            c["ttft_avg_s"] = self._ttft_sum / self._finished
+        })
+        if self.slo is not None:
+            c["slo"] = self.slo.snapshot()
+        if self.recorder is not None:
+            c["tracing"] = {
+                "live_traces": len(self.recorder.live()),
+                "finished_retained": len(self.recorder.recent()),
+                "dropped_finished": self.recorder.dropped,
+                "capacity": self.recorder.capacity,
+            }
+        if self.telemetry is not None:
+            c["telemetry_port"] = self.telemetry.port
         return c
 
     def _accept_rate(self):
