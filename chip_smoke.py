@@ -131,6 +131,31 @@ the script exits nonzero and prints no result:
    replicas holding no block afterwards.  Printed: TTFT mean and max
    and decode tokens/s through HTTP beside the same requests' in-process
    run and the engine phase's figures, and each failover's seam gap.
+   serve_structured (STRUCT_DRIVE), same model and geometry: a seeded
+   32,000-token vocabulary of strings (EOS at id 2, the printable ASCII
+   characters, JSON pieces, random 2-6-letter pieces) and a finite JSON
+   schema (STRUCT_SCHEMA); 8 constrained requests of at most 64 new
+   tokens, half sampled, at K = 0, at K = 4 with forced drafting, then
+   unconstrained on an engine without the grammar knobs, then both once
+   more (decode rates in turns); 4 constrained and 4 free requests in
+   one batch against their separate runs; one request through a
+   one-replica Gateway as a json_schema response_format.  Every
+   constrained output parses, keeps the schema and ends at EOS; K = 4 =
+   K = 0, mixed = separate and HTTP = in-process bit for bit; every
+   forced draft a window could emit accepted.  Printed: the grammar's
+   compile seconds cold and on a cache hit, the slab's device bytes,
+   decode rates, the spec and forced counters.
+   serve_tier (TIER_DRIVE), same model: drive C with a 2 GiB pinned host
+   arena under kv_swap_policy "auto" and without one, in turns, both
+   with a 48-block radix store (a swap-in lands as a prefix hit): the
+   streams bitwise equal, swap-outs and swap-ins above 0, the arena
+   pinned, no host block after drain; drive C under int8 KV with the
+   arena against its recompute run, bitwise; drive A with a 40-block
+   store: request 0 alone, a 700-token request that evicts (demotes)
+   the system prompt's blocks, then 1-7 together, promoted back from
+   the arena, against the drop.  Printed: host->device GB/s, swap bytes
+   and synchronized seconds, the resumed lanes' prefill seconds and
+   TTFT, and the memory ledger against torch.cuda.memory_allocated.
 5. train: LLaMA-2-7B widths cut to 8 layers (TRAIN_LAYERS), bf16 params,
    the fused LM-head loss, AdamW(0.9, 0.95, eps 1e-5, decay 0.1,
    multi_precision) with ClipGradByGlobalNorm(1.0) and LinearWarmup into
@@ -163,10 +188,13 @@ summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
     python3 chip_smoke.py --gn-fwd-sweep [--variants] [--tree DIR]
     python3 chip_smoke.py --ln-fwd-sweep [--variants] [--tree DIR]
     python3 chip_smoke.py --paged-sweep [--tree DIR]
+    python3 chip_smoke.py --serve-phases serve_structured,serve_tier
 
-runs the GroupNorm or the LayerNorm forward sweep alone (or the paged
-attention cases and their row-invariance checks): with
-``--variants`` also every launch the kernel takes at each shape
+The last runs the named serve phases alone on the engine phase's model
+(no other phase and no kernels line).  The sweeps run the GroupNorm or
+the LayerNorm forward sweep alone (or the paged attention cases and
+their row-invariance checks): with ``--variants`` also every launch the
+kernel takes at each shape
 (GroupNorm: mode x cluster size x hold; LayerNorm: threads a row x
 vectors a thread x grid), and with ``--tree DIR`` the
 ``paddle_tpu_torch`` of another checkout (a parent commit's, to compare
@@ -1525,11 +1553,18 @@ def logit_tap(eng):
                     row.detach().float().clone())
         return out
 
+    own = {n for n in ("_forward", "_dispatch_prefill") if n in vars(eng)}
     eng._forward, eng._dispatch_prefill = tapped_forward, tapped_dispatch
     try:
         yield rows
     finally:
-        eng._forward, eng._dispatch_prefill = fwd, dispatch
+        # deleted again rather than set to the bound methods, which
+        # would keep the engine in a reference cycle
+        for n, orig in (("_forward", fwd), ("_dispatch_prefill", dispatch)):
+            if n in own:
+                setattr(eng, n, orig)
+            else:
+                delattr(eng, n)
 
 
 # the serve_prefix drives (LLaMA-2-7B at full width, block 16, so a
@@ -1580,12 +1615,14 @@ def drive_a(torch, cfg, rand, g):
     return prompts, params, submit
 
 
-def run_drive(torch, eng, submit):
+def run_drive(torch, eng, submit, stop_ok=False):
     """Drive the engine: ``submit(eng)`` queues the requests (and may
     step it); then drain.  The launch counts are reset just before and
     read just after, and checked against the forwards the drive ran.
-    Returns (requests, stats delta, launches, wall seconds, steps) where
-    steps lists (chunk dispatches, decode steps) each ``step()`` added."""
+    Every request must run to its budget (``stop_ok``: or end at its
+    EOS).  Returns (requests, stats delta, launches, wall seconds,
+    steps) where steps lists (chunk dispatches, decode steps) each
+    ``step()`` added."""
     from paddle_tpu_torch.serving import kernel_launches, reset_kernel_launches
 
     keys = ("prefill_calls", "prefill_requests", "prefill_chunk_dispatches",
@@ -1619,8 +1656,11 @@ def run_drive(torch, eng, submit):
         delta["decode_steps"], "paged_attention_int8"
         if eng.pool.quant_dtype else "paged_attention")
     for r in reqs:
-        if (r.finish_reason != "length"
-                or len(r.output_ids) != r.sampling.max_new_tokens
+        full = (r.finish_reason == "length"
+                and len(r.output_ids) == r.sampling.max_new_tokens)
+        stopped = (stop_ok and r.finish_reason == "eos"
+                   and r.output_ids[-1] == r.sampling.eos_token_id)
+        if (not (full or stopped)
                 or not all(0 <= t < eng.model.config.vocab_size
                            for t in r.output_ids)):
             raise AssertionError(f"request {r.request_id}: "
@@ -1650,6 +1690,7 @@ def host_timers(obj, names):
     ``names`` while the block runs; yields {name: [seconds, calls]}."""
     spent = {n: [0.0, 0] for n in names}
     orig = {n: getattr(obj, n) for n in names}
+    own = {n for n in names if n in vars(obj)}
 
     def timed(name):
         def call(*a, **kw):
@@ -1666,8 +1707,49 @@ def host_timers(obj, names):
     try:
         yield spent
     finally:
+        # a method wrapped on an instance is deleted again, not set to
+        # the bound method (which would keep the instance in a cycle)
         for n in names:
-            setattr(obj, n, orig[n])
+            if n in own:
+                setattr(obj, n, orig[n])
+            else:
+                delattr(obj, n)
+
+
+@contextlib.contextmanager
+def call_timer(obj, name, sync=None, keep=lambda result: True, tag=None):
+    """Record the wall seconds of each call of ``obj.name`` while the
+    block runs (with ``sync``, called on both sides, so device work the
+    call queued is included; ``keep`` filters by the call's result;
+    with ``tag``, each entry is ``(seconds, tag(*args))``); yields the
+    list.  The instance attribute is removed afterwards, so no
+    reference cycle keeps ``obj`` alive."""
+    orig, spent = getattr(obj, name), []
+
+    def call(*a, **kw):
+        if sync:
+            sync()
+        t = time.perf_counter()
+        r = orig(*a, **kw)
+        if sync:
+            sync()
+        if keep(r):
+            dt = time.perf_counter() - t
+            spent.append((dt, tag(*a, **kw)) if tag else dt)
+        return r
+
+    setattr(obj, name, call)
+    try:
+        yield spent
+    finally:
+        delattr(obj, name)
+
+
+def free_device_memory(torch):
+    """Hand the memory of dropped engines back now: collect what a
+    reference cycle still holds, then empty the allocator's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def reference_rows(torch, model, model32, prompt, outputs, n):
@@ -2603,6 +2685,425 @@ def serve_gateway_phase(torch, dev, model, engine_figures):
     return launches
 
 
+# the serve_structured phase: grammar-constrained decoding over a seeded
+# 32,000-token vocabulary, EOS at LLaMA's id 2
+STRUCT_DRIVE = dict(n=8, prompt=(50, 200), new_tokens=64, k=4, eos=2,
+                    vocab_seed=13, seed=77)
+STRUCT_SCHEMA = {"type": "object",
+                 "properties": {"name": {"enum": ["alpha", "beta",
+                                                  "gamma"]},
+                                "ok": {"type": "boolean"},
+                                "level": {"enum": [1, 2, 3]}},
+                 "required": ["name", "ok", "level"]}
+# tests/test_structured.py's multi-character JSON and word pieces
+JSON_PIECES = ['{"', '":', '",', '"}', 'true', 'false', 'null', '": "',
+               '", "', 'ab', 'abc', '0', '12']
+
+
+def struct_vocab(size, seed):
+    """A 32,000-token vocabulary as strings: ids 0 and 1 empty (never
+    legal), EOS "</s>" at 2, the 95 printable ASCII characters, the JSON
+    pieces, then random lowercase pieces of 2-6 letters from ``seed``."""
+    import random
+
+    rng = random.Random(seed)
+    vocab = ["", "", "</s>"] + [chr(32 + i) for i in range(95)]
+    vocab += JSON_PIECES
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    while len(vocab) < size:
+        vocab.append("".join(rng.choice(letters)
+                             for _ in range(rng.randint(2, 6))))
+    return vocab
+
+
+def check_schema_output(req, vocab, eos):
+    """A constrained output: ends at EOS, and its text parses as JSON
+    that holds STRUCT_SCHEMA's keys with legal values."""
+    if req.finish_reason != "eos" or req.output_ids[-1] != eos:
+        raise AssertionError(f"request {req.request_id} did not end at "
+                             f"EOS: {req.finish_reason}")
+    text = "".join(vocab[t] for t in req.output_ids[:-1])
+    obj = json.loads(text)
+    props = STRUCT_SCHEMA["properties"]
+    if (set(obj) != set(props) or obj["name"] not in props["name"]["enum"]
+            or not isinstance(obj["ok"], bool)
+            or obj["level"] not in props["level"]["enum"]):
+        raise AssertionError(f"request {req.request_id}: {text!r} breaks "
+                             "the schema")
+    return text
+
+
+def serve_structured_phase(torch, dev, model):
+    """STRUCT_DRIVE on the engine phase's model: 8 constrained requests
+    (half greedy, half sampled) at K = 0, at K = 4 with forced drafting,
+    then unconstrained at K = 0 (the mask's cost), then the constrained
+    and the free runs once more (rates in turns); 4 constrained and 4
+    free requests in one batch against their separate runs; one
+    constrained request through a one-replica Gateway against its
+    in-process run.  Every constrained output parses and keeps the
+    schema and ends at EOS; K = 4 = K = 0, mixed = separate and HTTP =
+    in-process bit for bit; every forced draft a window could emit is
+    accepted.  Launch counts checked per drive (run_drive).  Prints the
+    grammar's compile seconds cold and on a cache hit, the slab's device
+    bytes, the decode rates and the spec counters."""
+    from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
+    from paddle_tpu_torch.serving.gateway import Gateway, GatewayConfig
+    from paddle_tpu_torch.serving.structured import compile_grammar
+
+    free_device_memory(torch)
+    cfg = model.config
+    sd = STRUCT_DRIVE
+    t0 = time.perf_counter()
+    vocab = struct_vocab(cfg.vocab_size, sd["vocab_seed"])
+    vocab_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dfa = compile_grammar(STRUCT_SCHEMA, vocab, sd["eos"],
+                          vocab_size=cfg.vocab_size)
+    compile_cold_s = time.perf_counter() - t0
+    g = torch.Generator(device="cpu").manual_seed(sd["seed"])
+    lo, hi = sd["prompt"]
+    prompts = [torch.randint(3, cfg.vocab_size, (int(n),),
+                             generator=g).tolist()
+               for n in torch.randint(lo, hi + 1, (sd["n"],), generator=g)]
+    params = [SamplingParams(max_new_tokens=sd["new_tokens"],
+                             eos_token_id=sd["eos"]) if i % 2 == 0 else
+              SamplingParams(max_new_tokens=sd["new_tokens"],
+                             eos_token_id=sd["eos"], temperature=0.8,
+                             top_k=50, top_p=0.95, seed=300 + i)
+              for i in range(sd["n"])]
+
+    def drive(grammars, k=0, which=None):
+        """The requests ``which`` (all by default) through a fresh
+        engine; ``grammars[i]`` constrains request i or not.  With no
+        grammar at all the engine has the knobs off, so the free runs
+        pay nothing of the mask."""
+        which = range(sd["n"]) if which is None else which
+        knobs = {} if all(grammars[i] is None for i in which) else dict(
+            grammar_max_states=256, grammar_vocab=vocab)
+        eng = Engine(model, EngineConfig(
+            num_slots=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ, spec_k=k,
+            spec_adaptive=False, **knobs), device=dev)
+        eng.generate([5, 6, 7, 8], SamplingParams(max_new_tokens=4))
+        with call_timer(eng, "_norm_grammar") as hits:
+            reqs, delta, launches, wall, _ = run_drive(
+                torch, eng, lambda e, step: [
+                    e.submit(prompts[i], params[i], grammar=grammars[i])
+                    for i in which], stop_ok=True)
+        st = eng.stats()
+        out = dict(drive_summary(reqs, delta, wall),
+                   decode_tokens=delta["decode_tokens"],
+                   spec_k=k, structured=st["structured"],
+                   spec={key: st["spec"][key] for key in (
+                       "draft_tokens", "accepted_tokens", "accept_rate",
+                       "mean_accept_len")},
+                   spec_forced_tokens=st["spec_forced_tokens"],
+                   grammar_masked_fraction=st["grammar_masked_fraction"],
+                   norm_grammar_s=hits)
+        streams = [list(r.output_ids) for r in reqs]
+        del eng
+        free_device_memory(torch)
+        return reqs, streams, out, launches
+
+    constrained = [STRUCT_SCHEMA] * sd["n"]
+    free = [None] * sd["n"]
+    runs, launches, streams = [], {}, {}
+    for i, (name, grammars, k) in enumerate((
+            ("constrained_K0", constrained, 0),
+            ("constrained_K4", constrained, sd["k"]),
+            ("free_K0", free, 0), ("constrained_K0", constrained, 0),
+            ("free_K0", free, 0))):
+        reqs, got, summary, launches[f"run{i}"] = drive(grammars, k)
+        if grammars is constrained:
+            for r in reqs:
+                check_schema_output(r, vocab, sd["eos"])
+            st = summary["structured"]
+            if st["forced_tokens"] != st["forced_drafted"]:
+                raise AssertionError(f"serve_structured {name}: "
+                                     f"{st['forced_tokens']} of "
+                                     f"{st['forced_drafted']} forced drafts "
+                                     "accepted")
+            if k and not st["forced_tokens"]:
+                raise AssertionError("serve_structured: K = 4 accepted no "
+                                     "forced draft")
+        streams_equal(f"serve_structured {name} (run {i})", got,
+                      streams.setdefault(name, got))
+        runs.append(dict(run=name, **summary))
+    streams_equal("serve_structured constrained K4 vs K0",
+                  streams["constrained_K4"], streams["constrained_K0"])
+
+    # 4 constrained + 4 free in one batch against their separate runs
+    mixed_g = [STRUCT_SCHEMA if i < sd["n"] // 2 else None
+               for i in range(sd["n"])]
+    _, mixed, mixed_summary, launches["mixed"] = drive(mixed_g)
+    half = sd["n"] // 2
+    _, sep_c, _, launches["sep_c"] = drive(mixed_g, which=range(half))
+    _, sep_f, _, launches["sep_f"] = drive(mixed_g,
+                                           which=range(half, sd["n"]))
+    streams_equal("serve_structured mixed vs separate", mixed,
+                  sep_c + sep_f)
+    streams_equal("serve_structured mixed constrained vs K0",
+                  mixed[:half], streams["constrained_K0"][:half])
+
+    # one constrained request through a one-replica gateway
+    eng = Engine(model, EngineConfig(
+        num_slots=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ,
+        grammar_max_states=256, grammar_vocab=vocab), device=dev)
+    ref = eng.submit(prompts[0], params[0], grammar=STRUCT_SCHEMA)
+    eng.run()
+    gw = Gateway([eng], GatewayConfig(model_id="llama-2-7b")).start()
+    try:
+        toks, reason, chunks, _ = sse_stream(gw.port, dict(
+            wire_params(params[0]), prompt=prompts[0], model="llama-2-7b",
+            eos_token_id=sd["eos"], response_format={
+                "type": "json_schema",
+                "json_schema": {"schema": STRUCT_SCHEMA}}))
+        status, _, body = http_json(gw.port, "POST", "/v1/completions", {
+            "prompt": prompts[0], "eos_token_id": sd["eos"],
+            "grammar": "(a"})
+    finally:
+        gw.shutdown()
+    if toks != ref.output_ids or reason != "stop":
+        raise AssertionError(f"serve_structured HTTP stream {toks} "
+                             f"({reason}) != in-process {ref.output_ids}")
+    if status != 400 or json.loads(body)["error"]["code"] != \
+            "invalid_grammar":
+        raise AssertionError(f"malformed grammar answered {status} {body}")
+    slab_bytes = eng.stats()["structured"]["table_bytes"]
+    del eng
+    free_device_memory(torch)
+    by = {n: [r for r in runs if r["run"] == n]
+          for n in ("constrained_K0", "constrained_K4", "free_K0")}
+    emit({"phase": "serve_structured", "model": "LLAMA2_7B",
+          "layers": cfg.num_hidden_layers, "vocab_size": cfg.vocab_size,
+          "schema": STRUCT_SCHEMA, "dfa_states": dfa.n_states,
+          "prompt_lengths": [len(p) for p in prompts],
+          "new_tokens_max": sd["new_tokens"], "k": sd["k"],
+          "vocab_build_s": vocab_s, "compile_cold_s": compile_cold_s,
+          "engine_norm_grammar_s": {
+              "first": by["constrained_K0"][0]["norm_grammar_s"][0],
+              "cache_hits_max": max(by["constrained_K0"][0][
+                  "norm_grammar_s"][1:])},
+          "slab_device_bytes": slab_bytes,
+          "outputs": ["".join(vocab[t] for t in o[:-1])
+                      for o in streams["constrained_K0"]],
+          "k4_equals_k0": True, "mixed_equals_separate": True,
+          "http_equals_in_process": True,
+          "forced_accept": {r["run"]: [r["structured"]["forced_tokens"],
+                                       r["structured"]["forced_drafted"]]
+                            for r in runs if r["spec_k"]},
+          "decode_tokens_per_s_in_turns": {
+              n: [r["decode_tokens_per_s"] for r in rs]
+              for n, rs in by.items()},
+          "runs": runs, "mixed": mixed_summary})
+    return {name: sum(run.get(name, 0) for run in launches.values())
+            for name in set().union(*launches.values())}
+
+
+# the serve_tier phase: drive C's geometry with the host KV tier (a
+# swap-in lands as a prefix hit, so drive C gets a radix store of
+# c_store_blocks, with and without the arena alike), new tokens cut from
+# 256 to 128 to fit the whole script in its limit; drive A's store of
+# a_store_blocks is smaller than the 1000-token prompt's 63 blocks
+TIER_DRIVE = dict(host_bytes=2 << 30, new_tokens=128, seed=8642,
+                  c_store_blocks=48, a_store_blocks=40, churn=700)
+
+
+def resume_times(req):
+    """(queue wait, first token) seconds of each preemption of ``req``
+    from its flight record: PREEMPT to the RESUME re-admission, and the
+    RESUME to the first DECODE event after it (the resumed lane's time
+    to its next token, re-prefill or swap-in included)."""
+    from paddle_tpu_torch.observability import tracing
+
+    out, preempt, resume = [], None, None
+    for kind, t, _ in req.trace.events:
+        if kind == tracing.PREEMPT:
+            preempt, resume = t, None
+        elif kind == tracing.RESUME and preempt is not None:
+            resume = t
+        elif (kind == tracing.DECODE and resume is not None):
+            out.append((resume - preempt, t - resume))
+            preempt = resume = None
+    return out
+
+
+def serve_tier_phase(torch, dev, model):
+    """The host KV tier on the engine phase's model: drive C (8 requests
+    of 100-400 tokens, TIER_DRIVE's new tokens, a 96-block pool) with a
+    2 GiB arena under the "auto" policy and with none, in turns: the
+    streams bitwise equal, swap-outs and swap-ins above 0, the arena
+    pinned, no host block after drain.  Drive A with a 40-block device
+    store: request 0 alone, a 700-token request that evicts the system
+    prompt's blocks (demoted to the arena), then 1-7 together, whose
+    admission promotes them back; against the same drive without the
+    arena (computed prompt tokens and prefill seconds).  Drive C under
+    kv_cache_dtype="int8" with the arena against its recompute run,
+    bitwise.  Prints the host->device GB/s, the swaps' bytes and
+    seconds (synchronized), the resumed lanes' prefill seconds, TTFT,
+    and the memory ledger against torch.cuda.memory_allocated with the
+    leak delta across the phase."""
+    from paddle_tpu_torch.observability.memory import (
+        host_device_bandwidth_gbs,
+    )
+    from paddle_tpu_torch.serving import Engine, EngineConfig
+    from paddle_tpu_torch.serving.kv_cache import token_bytes
+
+    free_device_memory(torch)
+    cfg = model.config
+    td, pc, pa = TIER_DRIVE, PREEMPT_DRIVE, PREFIX_DRIVE
+    bw = host_device_bandwidth_gbs(dev)
+    g = torch.Generator(device="cpu").manual_seed(td["seed"])
+    rand = lambda n: torch.randint(0, cfg.vocab_size, (n,),
+                                   generator=g).tolist()
+    lo, hi = pc["prompts"]
+    prompts_c = [rand(int(n)) for n in torch.randint(
+        lo, hi + 1, (pc["n"],), generator=g)]
+    engine = lambda **kw: Engine(model, EngineConfig(
+        num_slots=SERVE_SLOTS, max_seq_len=SERVE_MAX_SEQ, **kw), device=dev)
+    launches, streams, summaries, ledger = {}, {}, {}, None
+    bpb = 2 * cfg.num_hidden_layers * 16 * token_bytes(
+        cfg.kv_heads, cfg.head_dim, torch.bfloat16)    # a 16-token block
+
+    def drive_c(name, **kw):
+        nonlocal ledger
+        eng = engine(kv_pool_blocks=pc["pool_blocks"],
+                     prefix_cache_bytes=td["c_store_blocks"] * bpb, **kw)
+        tier = eng.host_tier
+        if tier is not None and not tier.is_pinned():
+            raise AssertionError("serve_tier: the host arena is not pinned")
+        first = eng.stats()["memory"] if tier is not None else None
+        sync = torch.cuda.synchronize
+        # the tokens a prefill re-computes for resumed lanes
+        resumed = lambda entries, *_: sum(
+            e["take"] for e in entries
+            if e["final"] and e["req"].output_ids)
+        with call_timer(eng, "_swap_out_lane", sync, bool) as out_s, \
+                call_timer(eng, "_swap_in", sync,
+                           lambda r: r is True) as in_s, \
+                call_timer(eng, "_dispatch_prefill", tag=resumed) as pre:
+            reqs, delta, launches[name], wall, _ = run_drive(
+                torch, eng, lambda e, step: [
+                    e.submit(p, serve_params(i, td["new_tokens"]))
+                    for i, p in enumerate(prompts_c)])
+        pre = [(t, n) for t, n in pre if n]
+        eng.drain()
+        st = eng.stats()
+        kv = st["kv_pool"]
+        if delta["preemptions"] < 1:
+            raise AssertionError(f"serve_tier {name}: no preemption")
+        if tier is not None:
+            if not (kv["kv_swap_outs"] > 0 and kv["kv_swap_ins"] > 0):
+                raise AssertionError(f"serve_tier {name}: swaps out "
+                                     f"{kv['kv_swap_outs']}, in "
+                                     f"{kv['kv_swap_ins']}")
+            if kv["host_blocks_in_use"] or tier.blocks_in_use:
+                raise AssertionError(f"serve_tier {name}: drain left "
+                                     f"{tier.blocks_in_use} host blocks")
+            mem = st["memory"]
+            if ledger is None:
+                ledger = {"first": first, "last": mem,
+                          "memory_allocated": torch.cuda.memory_allocated(
+                              dev)}
+        streams[name] = [list(r.output_ids) for r in reqs]
+        summaries[name] = dict(
+            drive_summary(reqs, delta, wall),
+            preemptions=delta["preemptions"],
+            swap_decisions=kv["swap_decisions"],
+            kv_swap_outs=kv["kv_swap_outs"], kv_swap_ins=kv["kv_swap_ins"],
+            kv_swap_out_bytes=kv["kv_swap_out_bytes"],
+            kv_swap_in_bytes=kv["kv_swap_in_bytes"],
+            kv_swaps_averted_tokens=kv["kv_swaps_averted_tokens"],
+            swap_uploads=kv["swap_uploads"],
+            swap_out_s=out_s, swap_in_s=in_s,
+            resume_prefill_s=[t for t, _ in pre],
+            resume_prefill_tokens=[n for _, n in pre],
+            resume_wait_and_first_token_s=[
+                x for r in reqs for x in resume_times(r)],
+            host_tier=kv.get("host_tier"))
+        del eng, tier
+        free_device_memory(torch)
+
+    arena = dict(kv_host_bytes=td["host_bytes"], kv_swap_policy="auto")
+    drive_c("tier", **arena)
+    drive_c("recompute")
+    streams_equal("serve_tier drive C tier vs recompute",
+                  streams["tier"], streams["recompute"])
+    q8 = dict(kv_cache_dtype="int8")
+    drive_c("int8_tier", **arena, **q8)
+    drive_c("int8_recompute", **q8)
+    streams_equal("serve_tier int8 drive C tier vs recompute",
+                  streams["int8_tier"], streams["int8_recompute"])
+
+    # drive A: the system prompt's blocks demoted by a churn request and
+    # promoted back from the arena
+    system = rand(pa["sys_len"])
+    firsts = torch.randperm(cfg.vocab_size, generator=g)[:len(
+        pa["suffixes"])].tolist()
+    prompts_a = [system + [f] + rand(n - 1)
+                 for f, n in zip(firsts, pa["suffixes"])]
+    churn = rand(td["churn"])
+    runs_a = {}
+    for mode, kw in (("arena", dict(kv_host_bytes=td["host_bytes"],
+                                    kv_swap_policy="always")),
+                     ("drop", {})):
+        eng = engine(prefix_cache_bytes=td["a_store_blocks"] * bpb, **kw)
+
+        def submit(e, step, prompts=prompts_a):
+            params = [serve_params(i, pa["new_tokens"])
+                      for i in range(len(prompts))]
+            for p, sp in ((prompts[0], params[0]),
+                          (churn, serve_params(0, 8))):
+                e.submit(p, sp)
+                while e.scheduler.has_work:
+                    step()
+            return [e.submit(p, sp) for p, sp in zip(prompts[1:],
+                                                     params[1:])]
+
+        reqs, delta, launches[f"A_{mode}"], wall, _ = run_drive(
+            torch, eng, submit)
+        st = eng.stats()
+        runs_a[mode] = dict(
+            streams=[list(r.output_ids) for r in reqs],
+            summary=dict(drive_summary(reqs, delta, wall),
+                         hits=[r.prefix_hit_tokens for r in reqs],
+                         prefix=st["prefix"],
+                         host_tier=st["kv_pool"].get("host_tier"),
+                         kv_swap_ins=st["kv_pool"]["kv_swap_ins"],
+                         kv_swap_in_bytes=st["kv_pool"][
+                             "kv_swap_in_bytes"]))
+        eng.drain()
+        del eng
+        free_device_memory(torch)
+    streams_equal("serve_tier drive A arena vs drop",
+                  runs_a["arena"]["streams"], runs_a["drop"]["streams"])
+    sa = runs_a["arena"]["summary"]
+    if not (sa["prefix"]["evictions_demoted"] > 0
+            and sa["host_tier"]["promotions"] > 0
+            and sum(sa["hits"]) > sum(runs_a["drop"]["summary"]["hits"])):
+        raise AssertionError(f"serve_tier drive A: no promotion {sa}")
+    mem = ledger["last"]
+    emit({"phase": "serve_tier", "model": "LLAMA2_7B",
+          "layers": cfg.num_hidden_layers,
+          "host_device_gbs": bw, "kv_host_bytes": td["host_bytes"],
+          "kv_pool_blocks": pc["pool_blocks"],
+          "new_tokens_each": td["new_tokens"],
+          "prompt_lengths": [len(p) for p in prompts_c],
+          "streams_bitwise": True, "int8_bitwise": True,
+          "drive_C": summaries,
+          "drive_A": {"store_blocks": td["a_store_blocks"],
+                      "churn_prompt": td["churn"],
+                      **{m: d["summary"] for m, d in runs_a.items()}},
+          "memory": {"components": mem["components"],
+                     "accounted_total_bytes": mem["accounted_total_bytes"],
+                     "memory_allocated": ledger["memory_allocated"],
+                     "unaccounted_bytes": mem["unaccounted_bytes"],
+                     "leak_delta_bytes": mem["leak_delta_bytes"],
+                     "host_components": mem.get("host_components"),
+                     "first_snapshot": ledger["first"]}})
+    return {name: sum(run.get(name, 0) for run in launches.values())
+            for name in set().union(*launches.values())}
+
+
 def profile_phase(torch, eng, prompts, params):
     """The engine workload once more under torch.profiler (see
     :func:`profiled`)."""
@@ -3122,6 +3623,34 @@ def sweep_main(torch, args):
     return 0
 
 
+def serve_phases_main(torch, args):
+    """``--serve-phases NAME[,NAME...]``: build the kernels, make the
+    engine phase's LLaMA-2-7B model and run only the named serve phases
+    (``serve_structured``, ``serve_tier``), each with its own checks;
+    for iterating on a phase without the whole script."""
+    from paddle_tpu_torch import _build, resolve_device
+    from paddle_tpu_torch.models.llama import LLAMA2_7B, LlamaForCausalLM
+
+    names = args[args.index("--serve-phases") + 1].split(",")
+    smi = nvidia_smi()
+    built = _build.build_all(verbose=False)
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "built": sorted(built)})
+    dev = resolve_device()
+    model = LlamaForCausalLM(LLAMA2_7B, device=dev, dtype=torch.bfloat16,
+                             seed=0)
+    phases = {"serve_structured": serve_structured_phase,
+              "serve_tier": serve_tier_phase}
+    for name in names:
+        t0 = time.perf_counter()
+        launches = phases[name](torch, dev, model)
+        emit({"phase": name, "seconds": time.perf_counter() - t0,
+              "launches": launches})
+    print(smi)
+    return 0
+
+
 def main():
     import torch
 
@@ -3132,6 +3661,8 @@ def main():
     if {"--gn-fwd-sweep", "--ln-fwd-sweep",
             "--paged-sweep"} & set(sys.argv[1:]):
         return sweep_main(torch, sys.argv[1:])
+    if "--serve-phases" in sys.argv[1:]:
+        return serve_phases_main(torch, sys.argv[1:])
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
@@ -3156,6 +3687,8 @@ def main():
     serve_spec = serve_spec_phase(torch, dev, model)
     serve_quant = serve_quant_phase(torch, dev, model)
     serve_gateway = serve_gateway_phase(torch, dev, model, engine_figures)
+    serve_structured = serve_structured_phase(torch, dev, model)
+    serve_tier = serve_tier_phase(torch, dev, model)
     del model
     torch.cuda.empty_cache()
     train = train_phase(torch, dev)
@@ -3199,6 +3732,7 @@ def main():
     runs = {"serve": serve, "serve_prefix": serve_prefix,
             "serve_spec": serve_spec, "serve_quant": serve_quant,
             "serve_gateway": serve_gateway,
+            "serve_structured": serve_structured, "serve_tier": serve_tier,
             "train": train, "unet_train": unet}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
@@ -3213,7 +3747,7 @@ def main():
                         "bound_by": c["bound_by"],
                         "library_ms": c["library_ms"], "case": c["name"],
                         "path": path,
-                        "launches_by_path": {p: r[name]
+                        "launches_by_path": {p: r.get(name, 0)
                                              for p, r in runs.items()}})
     print(smi)
     emit({"kernels": kernels})

@@ -18,13 +18,16 @@ device tensor, so engine worker threads and HTTP threads share it).
   compliance, multi-window burn rate, ``healthy``.
 * :mod:`.server` — stdlib HTTP exporter (``/metrics``, ``/healthz``,
   ``/readyz``, ``/debug/requests``, ``/debug/slo``, ``/trace``).
+* :mod:`.memory` — the device-memory ledger (components reconciled
+  against ``torch.cuda.memory_allocated``) and the host->device
+  bandwidth probe of the host KV tier's swap policy.
 
-Not ported: ``profiling`` (XLA program cards), ``memory`` (reads
-``jax.live_arrays()``), ``comms`` (a jaxpr walker), ``regression``,
+Not ported: ``profiling`` (XLA program cards, and with them the
+ledger's roofline gauges), ``comms`` (a jaxpr walker), ``regression``,
 ``loadgen``, ``fleetsim`` and the CLI.
 """
 
-from . import events, metrics, slo, tracing
+from . import events, memory, metrics, slo, tracing
 from .events import export_chrome_trace
 from .metrics import (
     Counter,

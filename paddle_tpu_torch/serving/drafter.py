@@ -1,5 +1,6 @@
 """Self-drafting token proposal for speculative decoding (counterpart of
-``paddle_tpu/serving/drafter.py`` ``draft_tokens``).
+``paddle_tpu/serving/drafter.py``: ``draft_tokens`` and the grammar's
+``forced_chain``).
 
 Prompt-lookup / n-gram drafting: a lane's guess for its next K tokens is
 what followed the best earlier occurrence of its current
@@ -66,3 +67,36 @@ def draft_tokens(hist, lengths, k, ngram=2):
     cand = torch.gather(hist, 1, cont.clamp(0, s - 1))
     valid = (best >= 0)[:, None] & (cont < lengths[:, None])
     return torch.where(valid, cand, torch.full_like(cand, -1))
+
+
+def forced_chain(states, next_table, forced, k):
+    """Constraint-aware draft proposals: chain the grammar's FORCED
+    tokens from each lane's DFA state.
+
+    When a lane's DFA state admits exactly one legal token (closing
+    braces, quoted keys, commas: the skeleton of a JSON output)
+    ``forced[state]`` names it and the verify forward must agree, since
+    every other logit sits at the mask floor, so proposing it is a
+    draft that lands.  Chains extend while each successor state stays
+    forced, up to ``k``; the first non-forced state ends the chain with
+    ``-1`` from there on, and the engine overlays these proposals on
+    the n-gram drafter's (forced wins where present).  Unconstrained
+    lanes sit in the accept-all sentinel state, whose ``forced`` entry
+    is ``-1``, so they never chain.
+
+    states [N] int         per-lane DFA state ids (slab-global rows)
+    next_table [S, V] int  dense transition table (slab rows)
+    forced [S] int         the state's sole legal token, or -1
+    k                      chain length (the draft width)
+
+    Returns [N, k] int64 proposals, ``-1`` where not forced: ``k``
+    gathers into ``forced`` and ``next_table`` on the tables' device."""
+    cols = []
+    st = states.long()
+    ok = None
+    for _ in range(k):
+        f = forced[st].long()
+        ok = (f >= 0) if ok is None else (ok & (f >= 0))
+        cols.append(torch.where(ok, f, torch.full_like(f, -1)))
+        st = torch.where(ok, next_table[st, f.clamp_min(0)].long(), st)
+    return torch.stack(cols, dim=1)

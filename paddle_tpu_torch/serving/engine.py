@@ -103,18 +103,36 @@ Also kept, as the JAX engine has them on by default:
 * **Fault injection** (:meth:`Engine.install_faults`): the
   ``engine.admit`` site; a ``pool_exhausted`` fault defers the whole
   admission pass, as a dry pool does.
+* **Structured generation** (``grammar_max_states``, ``grammar_vocab``,
+  ``grammar_forced_drafting``, ``grammar_cache_keep``): ``submit(
+  grammar=...)`` compiles a regex or JSON schema to a token DFA
+  (:mod:`.structured`, cached per (grammar, EOS), LRU-bounded once
+  retired) and installs it, refcounted, into a fixed-capacity slab
+  whose row 0 is the accept-all state free lanes ride.  Each lane's DFA
+  state lives in the device state; every sampled position is masked to
+  its state's legal tokens (the first token at prefill; verify-window
+  position j by the state reached by walking ``drafts[:j]``), the state
+  advances by emitted tokens only, and with K > 0 the grammar's forced
+  chains overlay the n-gram drafts.  Admission after preemption and
+  ``resume_ids`` walk the grammar over the tokens already emitted.
+  With ``grammar_max_states=0`` none of this runs.
+* **Host KV tier** (``kv_host_bytes``, ``kv_swap_policy``): a pinned
+  host arena (:mod:`.kv_host_tier`) under the pool.  Evicted prefix
+  blocks demote into it (the store's spill hooks), a preempted lane's
+  block chain is saved into it, and admission swaps matching host
+  blocks back into the radix store with one batched upload a pass, so
+  the resume is an ordinary prefix hit.  ``auto`` swaps when the
+  upload (bytes over the measured host->device rate) beats re-prefill
+  at this engine's measured prefill rate.
+* **Device-memory ledger** (``engine.ledger``, ``stats()["memory"]``):
+  the pool, the weights and the device decode state reconciled against
+  the allocator's live bytes, the host arena beside them.
 
-Left out of the JAX engine's ``serving.*`` families: the host-tier
-ones (``kv_swap_out_bytes``, ``kv_swap_in_bytes``,
-``kv_swaps_averted_flops``, ``host_arena_occupancy_ratio``), the
-grammar ones (``spec_forced_tokens``, ``grammar_masked_fraction``) and
-the shared ``jit.*`` compile families.
+Left out of the JAX engine's ``serving.*`` families: the shared
+``jit.*`` compile families and ``kv_swaps_averted_flops`` (both read
+program cards).
 
-Not ported yet (later slices): grammar-constrained decoding (and the
-drafter's grammar ``forced_chain``; ``submit(grammar=...)`` raises
-``NotImplementedError``), the host KV tier (and with it the host-tier
-branch of :meth:`Engine.drain`), the device-memory ledger and program
-cards.
+Not ported yet: program cards (and with them ``stats()["cost"]``).
 """
 
 from __future__ import annotations
@@ -128,6 +146,7 @@ import torch
 
 from ..device import resolve_device
 from ..observability import events as _obs_events
+from ..observability import memory as _obs_memory
 from ..observability import metrics as _obs_metrics
 from ..observability import tracing as _obs_tracing
 from ..observability.server import TelemetryServer
@@ -135,17 +154,19 @@ from ..observability.slo import SLOTracker
 from ..observability.span import span as _obs_span
 from ..ops import kernel_launches
 from ..quantization import quantize_for_serving
-from .drafter import draft_tokens
+from .drafter import draft_tokens, forced_chain
 from .faults import (DEGRADE_LEVELS, FAULT_POOL_EXHAUSTED,
                      SITE_ENGINE_ADMIT, _SRV_DEGRADATION, _SRV_SHED)
 from .kv_cache import PagedKVCache, token_bytes
+from .kv_host_tier import HostKVTier
 from .paged_attention import check_kernel_geometry
 from .prefix_cache import PrefixCache
 from .sampling import (
-    SamplingParams, draw_uniforms, row_params, sample_batch, sample_rows,
-    sampled_rows,
+    SamplingParams, _unpack_mask, apply_mask, draw_uniforms, row_params,
+    sample_batch, sample_rows, sampled_rows,
 )
 from .scheduler import FINISH_ABORT, FINISHED, RUNNING, WAITING, Scheduler
+from .structured.grammar import GrammarSlab, as_grammar_spec, compile_grammar
 
 # typed registry families the engine publishes into, labelled by engine
 # instance so two engines in one process stay distinguishable (names and
@@ -196,6 +217,17 @@ _SRV_KV_BYTES = _obs_metrics.counter(
 _SRV_PREEMPTIONS = _obs_metrics.counter(
     "serving.preemptions",
     "running requests swapped out under KV block pressure")
+_SRV_SWAP_OUT_BYTES = _obs_metrics.counter(
+    "serving.kv_swap_out_bytes",
+    "KV bytes moved device->host by the tiered cache (kind=\"lane\" "
+    "preempted-lane chains, kind=\"demote\" evicted prefix blocks)")
+_SRV_SWAP_IN_BYTES = _obs_metrics.counter(
+    "serving.kv_swap_in_bytes",
+    "KV bytes uploaded host->device by tiered-cache swap-ins instead "
+    "of being recomputed")
+_SRV_HOST_OCC = _obs_metrics.gauge(
+    "serving.host_arena_occupancy_ratio",
+    "host spill-arena blocks in use / arena capacity")
 _SRV_SPEC_ACCEPT = _obs_metrics.histogram(
     "serving.spec_accept_len",
     "tokens emitted per speculative verify window (accepted prefix + 1)",
@@ -212,6 +244,14 @@ _SRV_SPEC_RATE = _obs_metrics.gauge(
 _SRV_SPEC_EMA = _obs_metrics.gauge(
     "serving.spec_lane_accept_ema",
     "per-lane speculative acceptance EMA driving the adaptive gates")
+_SRV_SPEC_FORCED = _obs_metrics.counter(
+    "serving.spec_forced_tokens",
+    "accepted draft tokens proposed by the grammar's forced-token "
+    "chains (a subset of serving.spec_accepted_tokens)")
+_SRV_GRAMMAR_MASKED = _obs_metrics.histogram(
+    "serving.grammar_masked_fraction",
+    "fraction of the vocab masked per constrained emitted token",
+    buckets=(0.5, 0.9, 0.99, 0.999, 0.9999, 1.0))
 _SRV_KV_OCC = _obs_metrics.gauge(
     "serving.kv_pool_occupancy_ratio",
     "unified KV pool blocks in use / pool capacity")
@@ -326,6 +366,29 @@ class EngineConfig:
     degrade_pool_ratio: float = 0.92
     degrade_patience: int = 4
     degrade_recover_patience: int = 16
+    #: tiered KV: host-RAM byte budget of the spill arena under the
+    #: pool (pinned when the pool is on the card).  Evicted prefix
+    #: blocks demote into it, preempted lanes save their block chain,
+    #: and re-admission swaps state back in with one batched upload
+    #: instead of re-prefilling.  0 disables the tier
+    kv_host_bytes: int = 0
+    #: swap-vs-recompute policy: "auto" swaps when the estimated upload
+    #: seconds (bytes / measured host->device GB/s) beat the estimated
+    #: re-prefill seconds (this engine's measured prefill seconds a
+    #: token); "always"/"never" pin the decision
+    kv_swap_policy: str = "auto"
+    #: structured generation: capacity of the token-DFA slab in states
+    #: (row 0 is the accept-all state free lanes ride).  0 disables it
+    grammar_max_states: int = 0
+    #: the vocabulary as token STRINGS indexed by token id (ids >= len()
+    #: are unreachable); required to compile grammars
+    grammar_vocab: object = None
+    #: propose the grammar's forced-token chains (states with exactly
+    #: one legal token) ahead of the n-gram drafter's guesses
+    grammar_forced_drafting: bool = True
+    #: compiled token DFAs stay cached per (grammar, eos) while a live
+    #: request references them, plus up to this many retired ones (LRU)
+    grammar_cache_keep: int = 8
 
 
 @dataclass
@@ -401,6 +464,48 @@ class Engine:
             bytes_per_block=self.pool.bytes_per_block)
         self._leases = {}            # request_id -> PrefixLease
 
+        # tiered KV: the host spill arena under the pool.  Prefix
+        # eviction demotes into it (the spill hooks run while the
+        # victim's pool block is still live), preemption saves lane
+        # images, and admission promotes matching host blocks back into
+        # the radix store (_swap_in), so a swap-in IS a prefix hit
+        policy = str(cfg.kv_swap_policy)
+        if policy not in ("auto", "always", "never"):
+            raise ValueError(
+                f"unsupported kv_swap_policy {policy!r} "
+                "(supported: 'auto', 'always', 'never')")
+        self._swap_policy = policy
+        host_budget = int(cfg.kv_host_bytes or 0)
+        if host_budget < 0:
+            raise ValueError(
+                f"kv_host_bytes must be >= 0, got {host_budget}")
+        self.host_tier = None
+        if host_budget:
+            self.host_tier = HostKVTier(
+                num_layers=mc.num_hidden_layers,
+                block_size=self._block_size, kv_heads=mc.kv_heads,
+                head_dim=mc.head_dim, store_dtype=self.pool.store_dtype,
+                budget_bytes=host_budget,
+                bytes_per_block=self.pool.bytes_per_block,
+                quantized=bool(self._kv_quant),
+                pin_memory=self.device.type == "cuda")
+            self.prefix.spill = self._weak_call(self._demote_block)
+            self.prefix.spill_batch = self._weak_call(self._demote_blocks)
+        self._swap_ins = 0               # lane/prefix swap-in passes
+        self._swap_outs = 0              # lane images saved at preempt
+        self._swap_in_blocks = 0
+        self._swap_out_blocks = 0
+        self._swap_in_bytes = 0
+        self._swap_out_bytes = 0         # lane-save bytes
+        self._demote_bytes = 0           # prefix-demotion bytes
+        self._swaps_averted_tokens = 0
+        self._swap_uploads = 0           # batched host->device copies
+        self._swap_decisions = {"swap": 0, "recompute": 0}
+        # measured input of the "auto" policy: prefill seconds (up to the
+        # host sync of the sampled tokens) over the tokens dispatched
+        self._prefill_dispatch_s = 0.0
+        self._prefill_tokens_dispatched = 0
+
         ct = int(cfg.prefill_chunk_tokens or 0)
         if ct < 0:
             raise ValueError(f"prefill_chunk_tokens must be >= 0, got {ct}")
@@ -430,8 +535,30 @@ class Engine:
                       if self._spec_k else None)
         self._spec_ema = np.ones(n, np.float32)
         self._spec_gates = np.ones(n, bool)
+        # structured generation: per-lane DFA state (0 = the accept-all
+        # row free lanes ride) and the host master of the token-DFA
+        # slab; the device copies of its tables are re-uploaded only
+        # when an install or release dirties them
+        cap = int(cfg.grammar_max_states or 0)
+        if cap < 0:
+            raise ValueError(f"grammar_max_states must be >= 0, got {cap}")
+        self._structured = cap > 0
+        self._grammar_slab = (GrammarSlab(cap, mc.vocab_size)
+                              if self._structured else None)
+        self._dfa_state = np.zeros(n, np.int64)
+        self._d_dfa = None           # (next, mask as int32, forced)
+        self._grammar_cache = {}     # (spec key, eos id) -> TokenDFA;
+                                     # pinned while slab-installed, then
+                                     # LRU-bounded (grammar_cache_keep)
+        self._grammar_keys = {}      # request_id -> slab segment key
+        self._grammar_cache_hits = 0
+        self._grammar_cache_misses = 0
+        self._spec_forced_tokens = 0
+        self._spec_forced_drafted = 0  # forced drafts that could emit
+        self._masked_sum = 0.0       # masked vocab fraction, summed over
+        self._masked_n = 0           # constrained emitted tokens
         self._state_dirty = True
-        # (tokens, pos, counts, active, eos, limits, hist, gates)
+        # (tokens, pos, counts, active, eos, limits, hist, gates, dfa)
         self._d_state = None
         self._d_tables = None
         self._d_tables_nb = -1
@@ -486,6 +613,7 @@ class Engine:
 
         Engine._instances += 1
         self._profiler_name = f"serving.engine{Engine._instances}"
+        self.prefix.metric_label = self._profiler_name
         self._finalizer = None
         if register_profiler:
             # a weakref-backed provider: a bound method in the process
@@ -499,6 +627,19 @@ class Engine:
             _obs_metrics.register_provider(self._profiler_name, _provider)
             self._finalizer = weakref.finalize(
                 self, _obs_metrics.unregister_provider, self._profiler_name)
+        # the device-memory ledger: what the engine knows it holds (the
+        # pool, the weights, the device decode state) reconciled against
+        # the allocator's live bytes at stats() time; the host arena is
+        # a host component, reported beside the reconciliation
+        self.ledger = _obs_memory.MemoryLedger(self._profiler_name,
+                                               device=self.device)
+        for name, fn in (("kv_pool", self._kv_pool_bytes),
+                         ("weights", self._weight_device_bytes),
+                         ("engine_state", self._state_device_bytes)):
+            self.ledger.register(name, self._weak_call(fn, 0))
+        if self.host_tier is not None:
+            self.ledger.register_host(
+                "kv_host_arena", self._weak_call(self._host_arena_bytes, 0))
         # per-request flight records, declared SLOs over the retirement
         # stream, and the HTTP telemetry endpoint (which holds the
         # recorder and tracker, not the engine)
@@ -544,6 +685,20 @@ class Engine:
         names this engine in the plan (usually the worker name)."""
         self.faults = injector
         self._fault_scope = scope or self._profiler_name
+
+    @staticmethod
+    def _weak_call(method, default=None):
+        """``method`` behind a weak reference to its engine.  The ledger
+        and the prefix store hold these: a bound method would close a
+        reference cycle, and the engine (and its pool) would then live
+        on after its last reference until the cycle collector ran."""
+        ref = weakref.WeakMethod(method)
+
+        def call(*args):
+            bound = ref()
+            return default if bound is None else bound(*args)
+
+        return call
 
     @staticmethod
     def _norm_quant_knob(value, name):
@@ -671,6 +826,139 @@ class Engine:
                   for r in self.scheduler.running.values())
         return self._pow2_floor(max(1, min(max_h, self._grow, rem)))
 
+    # ------------------------------------------------ structured decoding
+    def _norm_grammar(self, grammar, sampling):
+        """Validate and eagerly compile a request grammar; returns the
+        ``GrammarSpec`` or None.  Every failure surfaces here, at
+        submit(), before anything queues: ``GrammarError`` for an
+        unsupported grammar (naming the feature), ``ValueError`` for an
+        engine configured without structured generation."""
+        if grammar is None:
+            return None
+        spec = as_grammar_spec(grammar)
+        if not self._structured:
+            raise ValueError(
+                "grammar-constrained request on an engine without "
+                "structured generation (set "
+                "EngineConfig.grammar_max_states > 0 and grammar_vocab)")
+        if sampling.eos_token_id is None:
+            raise ValueError(
+                "grammar-constrained requests require "
+                "sampling.eos_token_id: EOS is legal exactly in the "
+                "grammar's accept states, so without one the lane "
+                "could never legally stop")
+        key = (spec.key, int(sampling.eos_token_id))
+        if key in self._grammar_cache:
+            # LRU touch: re-insertion order is the eviction order of
+            # retired entries in _trim_grammar_cache
+            self._grammar_cache[key] = self._grammar_cache.pop(key)
+            self._grammar_cache_hits += 1
+        else:
+            if self.config.grammar_vocab is None:
+                raise ValueError(
+                    "EngineConfig.grammar_vocab is required for "
+                    "structured generation: the compiler walks every "
+                    "vocab token's characters through the grammar")
+            self._grammar_cache[key] = compile_grammar(
+                spec, self.config.grammar_vocab,
+                int(sampling.eos_token_id),
+                vocab_size=self.model.config.vocab_size)
+            self._grammar_cache_misses += 1
+        return spec
+
+    @staticmethod
+    def _walk_grammar(dfa, tokens):
+        """Advance the compiled ``TokenDFA`` through ``tokens`` from its
+        start state; returns the grammar-local state.  Walks the cached
+        TokenDFA, whose REJECT is -1, never the slab, which stores
+        REJECT as row 0 (the accept-all state) and so would silently
+        un-constrain the lane.  Raises ``ValueError`` naming the first
+        illegal transition."""
+        st = 0
+        for i, t in enumerate(tokens):
+            t = int(t)
+            nxt = (int(dfa.next_state[st, t])
+                   if 0 <= t < dfa.vocab_size else -1)
+            if nxt < 0:
+                raise ValueError(
+                    f"token {t} at output position {i} is illegal "
+                    f"under the request grammar (DFA state {st})")
+            st = nxt
+        return st
+
+    def _dfa_admission_state(self, req):
+        """The slab-global DFA state a (re-)admitted constrained lane
+        samples its next token from: the start state advanced by every
+        token already emitted EXCEPT the last, which the prefill
+        re-samples under the mask (and checks bit for bit)."""
+        key = self._grammar_keys[req.request_id]
+        try:
+            st = self._walk_grammar(self._grammar_cache[key],
+                                    req.output_ids[:-1])
+        except ValueError as e:
+            raise RuntimeError(
+                f"request {req.request_id} diverged from its grammar "
+                f"mid-admission: {e}") from None
+        return self._grammar_slab.offset(key) + st
+
+    def _release_grammar(self, req):
+        """Drop a finished or aborted request's slab reference and park
+        its lane on the accept-all row."""
+        key = self._grammar_keys.pop(req.request_id, None)
+        if key is not None:
+            self._grammar_slab.release(key)
+            self._trim_grammar_cache()
+        if req.slot is not None:
+            self._dfa_state[req.slot] = 0
+
+    def _trim_grammar_cache(self):
+        """Bound the host compile cache: entries whose slab segment is
+        live stay (admission walks through them), retired ones survive
+        as an LRU of ``grammar_cache_keep``."""
+        keep = max(0, int(self.config.grammar_cache_keep))
+        retired = [k for k in self._grammar_cache
+                   if not self._grammar_slab.installed(k)]
+        for k in retired[:len(retired) - keep]:
+            del self._grammar_cache[k]
+
+    def _sync_grammar_tables(self):
+        """Upload the slab's tables, only when an install or release
+        dirtied them: the dense next-state table, the packed mask (its
+        uint32 words as int32) and the forced tokens."""
+        if not self._structured or not self._grammar_slab.dirty:
+            return
+        slab, d = self._grammar_slab, self.device
+        self._d_dfa = (torch.from_numpy(slab.next).to(d),
+                       torch.from_numpy(slab.mask.view(np.int32)).to(d),
+                       torch.from_numpy(slab.forced).to(d))
+        slab.dirty = False
+
+    def _forced_run(self, st, k, budget, eos):
+        """How many of the forced chain's ``k`` drafts from slab state
+        ``st`` a window could emit: the chain up to its first state that
+        is not forced, cut after EOS and at the lane's remaining
+        ``budget``.  Each of them must be accepted (the mask leaves its
+        position one legal token), which ``stats()["structured"]``
+        shows as ``forced_tokens == forced_drafted``."""
+        slab, n = self._grammar_slab, 0
+        while n < min(k, budget):
+            f = int(slab.forced[st])
+            if f < 0:
+                break
+            n += 1
+            if f == eos:
+                break
+            st = int(slab.next[st, f])
+        return n
+
+    def _observe_masked(self, st):
+        """One constrained emitted token's masked vocab fraction."""
+        frac = 1.0 - float(self._grammar_slab.popcount[st]) \
+            / int(self.model.config.vocab_size)
+        self._masked_sum += frac
+        self._masked_n += 1
+        _SRV_GRAMMAR_MASKED.observe(frac, engine=self._profiler_name)
+
     # ------------------------------------------------------------ requests
     def submit(self, prompt_ids, sampling=None, priority=0,
                deadline_s=None, tenant=None, resume_ids=None,
@@ -692,12 +980,14 @@ class Engine:
         against ``resume_ids[-1]`` — then decode continues the stream.
         Requires ``len(resume_ids) < max_new_tokens``.
 
-        ``grammar`` (structured generation) is not ported yet and
-        raises ``NotImplementedError``."""
-        if grammar is not None:
-            raise NotImplementedError(
-                "grammar-constrained decoding is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
+        ``grammar`` constrains the output: a regex string, a JSON-schema
+        dict or a ``GrammarSpec``.  It is validated and compiled here,
+        eagerly: an unsupported grammar raises ``GrammarError`` (the
+        gateway's 400 ``invalid_grammar``) before anything queues.  It
+        requires ``grammar_max_states > 0``, ``grammar_vocab`` and a
+        ``sampling.eos_token_id``.  Slab exhaustion raises
+        ``RuntimeError`` here, with nothing queued, and ``resume_ids``
+        that do not walk the grammar raise ``ValueError``."""
         if self._draining:
             raise RuntimeError("engine is draining; submissions refused")
         prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
@@ -718,8 +1008,38 @@ class Engine:
                 f"resume_ids already holds {len(resume_ids)} tokens, "
                 f">= max_new_tokens {sampling.max_new_tokens}: nothing "
                 "left to generate")
-        req = self.scheduler.submit(prompt_ids, sampling, priority=priority,
-                                    deadline_s=deadline_s, tenant=tenant)
+        grammar = self._norm_grammar(grammar, sampling)
+        key = None
+        if grammar is not None:
+            key = (grammar.key, int(sampling.eos_token_id))
+            if resume_ids:
+                # the other replica generated these under the same mask:
+                # an illegal transition means corrupt resume data
+                try:
+                    self._walk_grammar(self._grammar_cache[key], resume_ids)
+                except ValueError as e:
+                    raise ValueError(
+                        f"resume_ids diverged from the request "
+                        f"grammar: {e}") from None
+            # install BEFORE the scheduler sees the request: slab
+            # exhaustion must leave nothing queued
+            try:
+                self._grammar_slab.install(key, self._grammar_cache[key])
+            except Exception:
+                self._trim_grammar_cache()
+                raise
+        try:
+            req = self.scheduler.submit(prompt_ids, sampling,
+                                        priority=priority,
+                                        deadline_s=deadline_s,
+                                        tenant=tenant, grammar=grammar)
+        except BaseException:
+            if key is not None:
+                self._grammar_slab.release(key)
+                self._trim_grammar_cache()
+            raise
+        if key is not None:
+            self._grammar_keys[req.request_id] = key
         if resume_ids:
             req.output_ids = list(resume_ids)
             req.resumed = True
@@ -740,6 +1060,8 @@ class Engine:
                 gw["tenant"] = req.tenant
             if resume_ids:
                 gw["resumed_tokens"] = len(resume_ids)
+            if grammar is not None:
+                gw["grammar"] = grammar.kind
             req.trace.add(_obs_tracing.QUEUED, prompt_len=req.prompt_len,
                           max_new_tokens=sampling.max_new_tokens, **gw)
             self.recorder.attach(req.trace)
@@ -777,6 +1099,16 @@ class Engine:
                     self._admit_deferred = True
                     return
         self._advance_chunks()
+        # tiered KV: promote host-arena state for the requests this pass
+        # could pop (the free slots plus the reorder window), so their
+        # admission is a prefix hit instead of a re-prefill
+        if self.host_tier is not None and self.scheduler.queue_depth:
+            window = self.cache.free_slots + self.config.reorder_window
+            for req in list(self.scheduler.queue)[:window]:
+                if self._swap_in(req) is None:
+                    # pool dry even after a reclaim: a later request
+                    # cannot fare better; no host state was consumed
+                    break
         while self.cache.free_slots and self.scheduler.queue_depth:
             batch = self.scheduler.pop_batch(
                 self.cache.free_slots, bucket_of=self._admission_bucket)
@@ -888,8 +1220,8 @@ class Engine:
                     args={"slot": slot, "prompt_len": req.prompt_len,
                           "prefix_hit_tokens": lease.matched_tokens})
 
-        first = self._dispatch_prefill(entries, bucket,
-                                       self._lane_bucket(len(batch)))
+        first, dfa = self._dispatch_prefill(entries, bucket,
+                                            self._lane_bucket(len(batch)))
         self._prefill_requests += len(batch)
         _SRV_PREFILL_REQS.inc(len(batch), engine=name)
         _SRV_PREFILL_BATCH.observe(len(batch), engine=name)
@@ -905,7 +1237,8 @@ class Engine:
             if hit:
                 _SRV_PREFIX_HIT.inc(hit, engine=name)
             if e["final"]:
-                self._finish_prefill_lane(req, slot, e["toks"], first[i])
+                self._finish_prefill_lane(req, slot, e["toks"], first[i],
+                                          int(dfa[i]))
                 continue
             # chunked admission: the first chunk is written and no token
             # sampled; the lane stays decode-inactive at its cover
@@ -924,8 +1257,11 @@ class Engine:
         copies first, then the suffix windows at ``pos = prefix_lens``,
         sampling each lane's token at ``lengths - 1`` under count
         ``max(0, n_generated - 1)`` (a re-admission re-samples its last
-        token).  Padding lanes keep all-zero table rows: their writes
-        land in scratch.  Returns the sampled tokens as a list."""
+        token), a constrained final lane masked to its DFA admission
+        state's legal tokens.  Padding lanes keep all-zero table rows:
+        their writes land in scratch.  Returns the sampled tokens as a
+        list and the lanes' DFA admission states (0, the accept-all
+        row, for free, padding and non-final chunk lanes)."""
         ids = np.zeros((lanes, bucket), np.int64)
         lengths = np.ones(lanes, np.int64)
         prefix_lens = np.zeros(lanes, np.int32)
@@ -936,8 +1272,11 @@ class Engine:
         temps = np.zeros(lanes, np.float32)
         top_ks = np.zeros(lanes, np.int64)
         top_ps = np.ones(lanes, np.float32)
+        dfa = np.zeros(lanes, np.int64)
         for i, e in enumerate(entries):
             req = e["req"]
+            if e["final"] and req.grammar is not None:
+                dfa[i] = self._dfa_admission_state(req)
             window = e["toks"][e["start"]:e["start"] + e["take"]]
             ids[i, :len(window)] = window
             lengths[i] = len(window)
@@ -969,18 +1308,31 @@ class Engine:
                 torch.from_numpy(ids).to(d), torch.from_numpy(tables).to(d),
                 torch.from_numpy(prefix_lens).to(d),
                 torch.from_numpy(lengths - 1).to(d))
+            if self._structured:
+                self._sync_grammar_tables()
+                allowed = _unpack_mask(
+                    self._d_dfa[1][torch.from_numpy(dfa).to(d)],
+                    logits.shape[-1])
+                logits = apply_mask(logits, allowed)
             first = sample_batch(logits, seeds, counts, temps, top_ks,
                                  top_ps).tolist()     # the one host sync
-        self._prefill_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self._prefill_s += dt
+        # the "auto" swap policy's recompute estimate: seconds up to the
+        # host sync of the sampled tokens, over the tokens dispatched
+        self._prefill_dispatch_s += dt
+        self._prefill_tokens_dispatched += int(lengths[:len(entries)].sum())
         self._prefill_calls += 1
         self._prefill_buckets.add((lanes, bucket))
         _SRV_PREFILL.inc(engine=self._profiler_name)
-        return first
+        return first, dfa
 
-    def _finish_prefill_lane(self, req, slot, toks, tok):
+    def _finish_prefill_lane(self, req, slot, toks, tok, dfa_i):
         """Arm a lane whose prefill just completed (whole, or the final
         chunk): verify a re-admission's re-sampled token or record the
-        first one, then bring the lane's decode mirrors live."""
+        first one, then bring the lane's decode mirrors live (a
+        constrained lane's DFA state: its admission state ``dfa_i``
+        advanced by ``tok``)."""
         if req.output_ids:
             if tok != req.output_ids[-1]:
                 raise RuntimeError(
@@ -1009,6 +1361,8 @@ class Engine:
             self._hist[slot, len(toks) + 1:] = 0
         self._spec_ema[slot] = 1.0       # optimistic: draft until shown
         self._spec_gates[slot] = True    # not to pay off
+        self._dfa_state[slot] = (int(self._grammar_slab.next[dfa_i, tok])
+                                 if req.grammar is not None else 0)
         self._seeds[slot] = s.seed
         self._counts[slot] = req.n_generated
         self._temps[slot] = s.temperature
@@ -1065,8 +1419,8 @@ class Engine:
         if not entries:
             return
         t0 = time.perf_counter()
-        first = self._dispatch_prefill(entries, self._chunk_tokens,
-                                       self._lane_bucket(len(entries)))
+        first, dfa = self._dispatch_prefill(entries, self._chunk_tokens,
+                                            self._lane_bucket(len(entries)))
         name = self._profiler_name
         if decode_live:
             # the decode lanes' next horizon waited for this dispatch
@@ -1093,7 +1447,8 @@ class Engine:
                 if req.trace is not None:
                     req.trace.add("prefill_chunked", chunks=prog.chunks,
                                   prefill_tokens=len(prog.toks))
-                self._finish_prefill_lane(req, slot, e["toks"], first[i])
+                self._finish_prefill_lane(req, slot, e["toks"], first[i],
+                                          int(dfa[i]))
             else:
                 self._pos[slot] = cover
                 self._state_dirty = True
@@ -1109,8 +1464,13 @@ class Engine:
         self._active[req.slot] = False
 
     def _retire(self, req):
-        """Release the request's blocks, lease and slot."""
+        """Release the request's blocks, lease, slot, grammar reference
+        and any unconsumed lane image."""
         slot = req.slot
+        if self._structured:
+            self._release_grammar(req)
+        if self.host_tier is not None:
+            self.host_tier.drop_lane(req.request_id)
         self._release_lane(req)
         self.cache.free(slot)
         self.scheduler.finish(req)
@@ -1158,7 +1518,13 @@ class Engine:
             raise ValueError(
                 f"cannot preempt request {req.request_id}: {req.status}")
         slot = req.slot
+        # tiered KV: save the lane's block chain into the host arena
+        # BEFORE its pool references drop
+        self._swap_out_lane(req, slot)
         self._release_lane(req)
+        # the vacated lane rides the accept-all row; the request keeps
+        # its slab reference (it re-admits), so its tables stay
+        self._dfa_state[slot] = 0
         self._state_dirty = True
         self.scheduler.requeue_front(req)
         self.cache.free(slot)
@@ -1185,6 +1551,8 @@ class Engine:
             raise ValueError(
                 f"cannot abort request {req.request_id}: already "
                 f"finished ({req.finish_reason})")
+        if self.host_tier is not None:
+            self.host_tier.drop_lane(req.request_id)
         if req.status == WAITING:
             try:
                 self.scheduler.queue.remove(req)
@@ -1193,8 +1561,12 @@ class Engine:
                     f"cannot abort request {req.request_id}: waiting "
                     "but not queued on this engine") from None
             req.status = FINISHED
+            if self._structured:
+                self._release_grammar(req)
         else:
             slot = req.slot
+            if self._structured:
+                self._release_grammar(req)
             self._release_lane(req)
             self._state_dirty = True
             self.scheduler.finish(req)
@@ -1242,6 +1614,287 @@ class Engine:
             while not self.cache.ensure_blocks(slot, need):
                 self._make_room(req, "the decode window")
 
+    # ---------------------------------------------------------- tiered KV
+    def _fetch_blocks(self, bids):
+        """Device copies of pool blocks ``bids`` gathered on the engine's
+        stream: ``[n, L, bs, kvh, hd]`` k and v plus ``[n, L, bs]`` scale
+        planes (None on fp pools).  The host tier copies them into its
+        pinned rows on the same stream, so a later kernel that rewrites
+        a source block is ordered after the gather."""
+        p = self.pool
+        idx = torch.tensor([int(b) for b in bids], dtype=torch.long,
+                           device=self.device)
+        gather = lambda bufs: torch.stack([b[idx] for b in bufs], dim=1)
+        if not self._kv_quant:
+            return gather(p.k), gather(p.v), None, None
+        return (gather(p.k), gather(p.v), gather(p.k_scale),
+                gather(p.v_scale))
+
+    def _demote_block(self, path, block_id):
+        """``PrefixCache.spill`` hook: copy one evicted radix block into
+        the host arena (called BEFORE the pool block is released).  True
+        means the arena kept it: the eviction is a demotion."""
+        return self._demote_blocks([path], [block_id])[0]
+
+    def _demote_blocks(self, paths, bids):
+        """``PrefixCache.spill_batch`` hook: demote a whole eviction
+        pass's victims with ONE batched gather (called BEFORE the pool
+        blocks are released).  One bool per block: True when the arena
+        kept it."""
+        tier = self.host_tier
+        if tier is None or not tier.capacity:
+            return [False] * len(bids)
+        k, v, ks, vs = self._fetch_blocks(bids)
+        name = self._profiler_name
+        nbytes = self.pool.bytes_per_block
+        out = []
+        for i, path in enumerate(paths):
+            ok = tier.store_prefix(path, k[i], v[i],
+                                   None if ks is None else ks[i],
+                                   None if vs is None else vs[i])
+            if ok:
+                self._demote_bytes += nbytes
+                _SRV_SWAP_OUT_BYTES.inc(nbytes, engine=name, kind="demote")
+            out.append(ok)
+        return out
+
+    def _swap_worthwhile(self, n_blocks, n_tokens):
+        """The swap-vs-recompute model: estimated upload seconds (bytes
+        over the measured host->device GB/s) against estimated
+        re-prefill seconds (this engine's measured prefill seconds a
+        token).  ``always``/``never`` pin the decision; ``auto`` with
+        no prefill measured yet swaps.  Every decision is counted in
+        ``stats()["kv_pool"]["swap_decisions"]``."""
+        if self._swap_policy == "always":
+            ok = True
+        elif self._swap_policy == "never" or n_blocks <= 0 \
+                or n_tokens <= 0:
+            ok = False
+        elif not self._prefill_tokens_dispatched:
+            ok = True
+        else:
+            recompute_s = (self._prefill_dispatch_s
+                           / self._prefill_tokens_dispatched) * n_tokens
+            bw = _obs_memory.host_device_bandwidth_gbs(self.device)
+            upload_s = n_blocks * self.pool.bytes_per_block / (bw * 1e9)
+            ok = upload_s < recompute_s
+        self._swap_decisions["swap" if ok else "recompute"] += 1
+        return ok
+
+    def _swap_out_lane(self, req, slot):
+        """Tiered KV at preempt: save the lane's whole block chain into
+        the host arena BEFORE its pool blocks are released, so
+        re-admission can swap it back in instead of re-prefilling.
+        Skipped for mid-chunk lanes (their chunks live in the radix
+        store and resume as a prefix hit) and when the policy prefers
+        recompute; an arena full of pinned images falls back to
+        recompute."""
+        tier = self.host_tier
+        if tier is None or not tier.capacity:
+            return False
+        if req.request_id in self._chunking or not self._active[slot]:
+            return False
+        pos = int(self._pos[slot])
+        nb = -(-pos // self._block_size)
+        if pos <= 0 or not self._swap_worthwhile(nb, pos):
+            return False
+        bids = [int(b) for b in self.cache.tables[slot, :nb]]
+        if any(b == 0 for b in bids):
+            return False             # defensive: the chain has a hole
+        k, v, ks, vs = self._fetch_blocks(bids)
+        blocks = [(k[i], v[i], None if ks is None else ks[i],
+                   None if vs is None else vs[i]) for i in range(nb)]
+        if not tier.save_lane(req.request_id, pos, blocks):
+            return False
+        nbytes = nb * self.pool.bytes_per_block
+        self._swap_outs += 1
+        self._swap_out_blocks += nb
+        self._swap_out_bytes += nbytes
+        name = self._profiler_name
+        _SRV_SWAP_OUT_BYTES.inc(nbytes, engine=name, kind="lane")
+        _obs_events.instant("serving.swap_out", cat="serving", slot=slot,
+                            request=req.request_id, blocks=nb,
+                            bytes=nbytes, n_tokens=pos)
+        if req.trace is not None:
+            req.trace.add(_obs_tracing.SWAP_OUT, blocks=nb, bytes=nbytes,
+                          n_tokens=pos)
+        return True
+
+    def _swap_in(self, req):
+        """Promote a QUEUED request's host-arena KV into the radix store,
+        so its coming admission is an ordinary prefix hit.  A lane image
+        restores the full chain, its partial tail block grafted under
+        its short token key that only copy-on-write matching can hit
+        (the resume prefill still computes >= 1 token, and the resume
+        check stays the parity gate); without one, demoted prefix blocks
+        extending the device-side match are promoted.  Any failure
+        degrades to recompute.  Returns True on a landed swap-in, None
+        when the pool was dry (the admission loop stops; no host state
+        was consumed), False otherwise."""
+        tier = self.host_tier
+        if tier is None:
+            return False
+        toks = self._admission_tokens(req)
+        before = self.prefix.lookup(toks)
+        chain = self.prefix._walk(toks, len(toks) - 1)
+        # pin the matched parent chain: the reclaim fallback below must
+        # not evict the parents every graft needs
+        for node in chain:
+            node.refcount += 1
+        try:
+            return self._swap_in_pinned(req, tier, toks, before,
+                                        len(chain))
+        finally:
+            for node in chain:
+                if node.refcount > 0:
+                    node.refcount -= 1
+
+    def _swap_in_pinned(self, req, tier, toks, before, have):
+        bs = self._block_size
+        img = tier.peek_lane(req.request_id)
+        lane = img is not None and img.n_tokens == len(toks)
+        if img is not None and not lane:
+            tier.drop_lane(req.request_id)   # stale: the tokens moved on
+        paths = []
+        if lane:
+            idxs = list(range(have, -(-len(toks) // bs)))
+            if not idxs or not self._swap_worthwhile(
+                    len(idxs), len(toks) - have * bs):
+                return False
+        else:
+            paths = tier.match_prefix(toks, have)
+            if not paths or not self._swap_worthwhile(
+                    len(paths), len(paths) * bs):
+                return False
+            idxs = [have + j for j in range(len(paths))]
+        # allocate the device blocks BEFORE consuming any host state (a
+        # dry pool leaves the image / entries for the next pass); the
+        # matched entries are pinned, since the reclaim fallback spills
+        # new victims into the arena
+        tier.pin_prefix(paths)
+        try:
+            dev_ids = []
+            for _ in idxs:
+                bid = self.pool.alloc()
+                if bid is None and self.prefix.reclaim(1):
+                    bid = self.pool.alloc()
+                if bid is None:
+                    for b in dev_ids:
+                        self.pool.release(b)
+                    return None
+                dev_ids.append(bid)
+            if lane:
+                img = tier.take_lane(req.request_id)
+                plan = [(i, img.hbs[i]) for i in idxs]
+                consumed = list(img.hbs)
+            else:
+                plan = []
+                for i, path in zip(idxs, paths):
+                    hb = tier.pop_prefix(path)
+                    if hb is None:
+                        break
+                    plan.append((i, hb))
+                for b in dev_ids[len(plan):]:
+                    self.pool.release(b)
+                dev_ids = dev_ids[:len(plan)]
+                if not plan:
+                    return False
+                consumed = [hb for _, hb in plan]
+        finally:
+            tier.unpin_prefix(paths)
+        n = len(plan)
+        # upload in host-row order: demoted blocks sit in the arena in
+        # eviction order (leaf first), and rows that form a run upload
+        # straight from the arena (HostKVTier.gather); the grafts below
+        # keep path order
+        order = sorted(range(n), key=lambda i: plan[i][1])
+        payload = tier.gather([plan[i][1] for i in order])
+        for hb in consumed:
+            tier.release(hb)
+        self._upload_blocks([dev_ids[i] for i in order], *payload)
+        grafted = 0
+        for (idx, _), bid in zip(plan, dev_ids):
+            if self.prefix.graft(toks, idx, bid):
+                grafted += 1
+            else:
+                self.pool.release(bid)   # chain broke: recompute covers
+        if not grafted:
+            return False
+        averted = max(0, self.prefix.lookup(toks) - before)
+        nbytes = n * self.pool.bytes_per_block
+        name = self._profiler_name
+        self._swap_ins += 1
+        self._swap_in_blocks += n
+        self._swap_in_bytes += nbytes
+        _SRV_SWAP_IN_BYTES.inc(nbytes, engine=name)
+        self._swaps_averted_tokens += averted
+        source = "lane" if lane else "prefix"
+        _obs_events.instant("serving.swap_in", cat="serving",
+                            request=req.request_id, blocks=n, bytes=nbytes,
+                            averted_tokens=averted, source=source)
+        if req.trace is not None:
+            req.trace.add(_obs_tracing.SWAP_IN, blocks=n, bytes=nbytes,
+                          averted_tokens=averted, source=source)
+        return True
+
+    def _upload_blocks(self, ids, kd, vd, ksd, vsd):
+        """A swap-in's upload: ONE host->device copy of each stacked
+        host payload (``[n, L, ...]``, page-locked on the card: arena
+        rows or a staged copy of them), then one indexed write a layer
+        and buffer into the pool at the freshly allocated ``ids``, all
+        on the engine's stream, so a later write into the same arena
+        rows is ordered after the read.  The uploaded bytes ARE the
+        bytes the pool once held."""
+        d, p = self.device, self.pool
+        idx = torch.tensor([int(b) for b in ids], dtype=torch.long,
+                           device=d)
+        pairs = [(p.k, kd), (p.v, vd)]
+        if ksd is not None:
+            pairs += [(p.k_scale, ksd), (p.v_scale, vsd)]
+        for bufs, host in pairs:
+            dev = host.to(d, non_blocking=True)
+            for layer, buf in enumerate(bufs):
+                buf[idx] = dev[:, layer]
+        self._swap_uploads += 1
+
+    def _host_arena_bytes(self):
+        """Host bytes of the spill arena (allocated in full at
+        construction, so constant while the tier lives)."""
+        return 0 if self.host_tier is None else self.host_tier.nbytes
+
+    # ------------------------------------------------- memory accounting
+    @staticmethod
+    def _tensor_bytes(tensors):
+        """Bytes of the distinct storages among ``tensors`` (None
+        entries skipped)."""
+        seen, total = set(), 0
+        for t in tensors:
+            if t is None:
+                continue
+            key = (t.device, t.untyped_storage().data_ptr())
+            if key not in seen:
+                seen.add(key)
+                total += t.untyped_storage().nbytes()
+        return total
+
+    def _kv_pool_bytes(self):
+        p = self.pool
+        return self._tensor_bytes(p.k + p.v + (p.k_scale or [])
+                                  + (p.v_scale or []))
+
+    def _weight_device_bytes(self):
+        """The model's parameters and buffers as stored, plus the int8
+        payloads and scales of a weight-quantized engine (which keeps
+        the model's own weights too)."""
+        quant = [t for qw in self._wq.values() for t in (qw.q, qw.scale)]
+        return self._tensor_bytes(list(self.model.state_dict().values())
+                                  + quant)
+
+    def _state_device_bytes(self):
+        return self._tensor_bytes(list(self._d_state or ())
+                                  + [self._d_tables]
+                                  + list(self._d_dfa or ()))
+
     # ------------------------------------------------------------ decode
     def _sync_device_state(self):
         if not self._state_dirty:
@@ -1251,7 +1904,8 @@ class Engine:
         self._d_state = tuple(up(a) for a in (
             self._tokens, self._pos, self._counts, self._active,
             self._eos_ids, self._limits, self._hist,
-            self._spec_gates if self._spec_k else None))
+            self._spec_gates if self._spec_k else None,
+            self._dfa_state if self._structured else None))
         self._state_dirty = False
 
     def _sync_tables(self, nb):
@@ -1277,13 +1931,27 @@ class Engine:
         drawn once, here (:func:`.sampling.draw_uniforms`), and a step
         takes those of ``cnt .. cnt + W - 1``, so no count comes back to
         the host mid-horizon and token ``c`` of a request sees the draw
-        it sees at K = 0.  Greedy lanes draw nothing."""
+        it sees at K = 0.  Greedy lanes draw nothing.
+
+        Structured generation: the lane's DFA state ``ds`` rides the
+        device state.  With K > 0 the grammar's forced chains overlay
+        the n-gram drafts before the gate mask; window position j is
+        masked by the state reached by walking ``drafts[:j]`` (for an
+        emitted position that walk is the true state: the acceptance
+        chain only reaches j when every earlier draft matched its
+        masked sample), and the state advances by emitted tokens only.
+        Free lanes ride the accept-all row, whose mask is the
+        identity."""
         w = k + 1
         nb = self._attn_blocks(h, w)
         self._decode_buckets.add((h, nb, k))
         self._sync_device_state()
         self._sync_tables(nb)
-        tok, p, cnt, act, eos, limits, hist, gates = self._d_state
+        self._sync_grammar_tables()
+        tok, p, cnt, act, eos, limits, hist, gates, ds = self._d_state
+        if ds is not None:
+            d_next, d_mask, d_forced = self._d_dfa
+            forced_on = bool(self.config.grammar_forced_drafting)
         d, n = self.device, self.config.num_slots
         vocab = self.model.config.vocab_size
         # only lanes active at dispatch can emit; the others sample
@@ -1307,11 +1975,21 @@ class Engine:
             if k:
                 drafts = draft_tokens(hist[:, :-1], p.long() + 1, k,
                                       self.config.spec_ngram)
+                if ds is not None and forced_on:
+                    fd = forced_chain(ds, d_next, d_forced, k)
+                    drafts = torch.where(fd >= 0, fd, drafts)
                 drafts = torch.where(gates[:, None], drafts, -1)
                 ids = torch.cat([tok[:, None], drafts.clamp_min(0)], 1)
             else:
                 ids = tok[:, None]
             logits = self._forward(ids, self._d_tables, p).view(n * w, vocab)
+            if ds is not None:
+                sts = [ds]
+                for j in range(k):
+                    sts.append(d_next[sts[-1],
+                                      drafts[:, j].clamp_min(0)].long())
+                allowed = _unpack_mask(d_mask[torch.stack(sts, 1)], vocab)
+                logits = apply_mask(logits, allowed.view(n * w, vocab))
             if rows:
                 u = u_all[lanes, (cnt[ridx] - c0)[:, None] + j_idx]
                 e = sample_rows(logits, win, params, u.view(-1, vocab))
@@ -1330,6 +2008,10 @@ class Engine:
             emitted = (j_idx <= n_acc[:, None]) & prev_ok & act[:, None]
             n_emit = emitted.sum(1)
             done = act & (emitted & stop).any(1)
+            if ds is not None:
+                for j in range(w):
+                    ds = torch.where(emitted[:, j],
+                                     d_next[ds, e[:, j]].long(), ds)
             last = e.gather(1, (n_emit - 1).clamp_min(0)[:, None])[:, 0]
             if hist is not None:
                 # unemitted positions go to the drop column
@@ -1349,7 +2031,7 @@ class Engine:
         step_bytes = n * nb * self.pool.bytes_per_block
         self._kv_bytes_read += step_bytes * h
         _SRV_KV_BYTES.inc(step_bytes * h, engine=self._profiler_name)
-        self._d_state = (tok, p, cnt, act, eos, limits, hist, gates)
+        self._d_state = (tok, p, cnt, act, eos, limits, hist, gates, ds)
         return toks
 
     def _harvest(self, toks, active, h, k, finished):
@@ -1361,13 +2043,20 @@ class Engine:
         state), and retire (appending to ``finished``) the requests that
         ended.  Returns (tokens harvested, lane steps scanned after their
         lane retired)."""
-        harvested = wasted = drafted = accepted = 0
+        harvested = wasted = drafted = accepted = forced_total = 0
         name = self._profiler_name
         floor = float(self.config.spec_accept_floor)
         gated = self._spec_gates.copy()      # the gates the dispatch ran
+        slab = self._grammar_slab
         for slot, req in active.items():
             done = False
-            lane_tokens = lane_accept = 0
+            lane_tokens = lane_accept = lane_forced = 0
+            # replay the lane's DFA walk on the host mirror over the
+            # same slab tables and emitted tokens the device walked
+            st = int(self._dfa_state[slot]) if self._structured else 0
+            constrained = st != 0
+            fd_on = (constrained and k
+                     and bool(self.config.grammar_forced_drafting))
             for step_i in range(h):
                 if done:
                     wasted += 1
@@ -1378,7 +2067,15 @@ class Engine:
                         f"horizon froze slot {slot} at step {step_i} but "
                         "the scheduler still runs its request")
                 n_emit = 0
-                for t in row:
+                # a forced draft counts only while the window's chain
+                # from its start state held (forced_chain breaks at the
+                # first state that is not forced)
+                win_chain = fd_on and bool(gated[slot])
+                if win_chain:
+                    self._spec_forced_drafted += self._forced_run(
+                        st, k, int(self._limits[slot]) - req.n_generated,
+                        int(self._eos_ids[slot]))
+                for j, t in enumerate(row):
                     t = int(t)
                     if t < 0:
                         break                # rejected / unemitted tail
@@ -1387,6 +2084,14 @@ class Engine:
                     self._pos[slot] += 1
                     if self._hist is not None:
                         self._hist[slot, self._pos[slot]] = t
+                    if constrained:
+                        self._observe_masked(st)
+                        if (win_chain and j < k
+                                and int(slab.forced[st]) == t):
+                            lane_forced += 1
+                        else:
+                            win_chain = False
+                        st = int(slab.next[st, t])
                     if req.record_token(t):
                         done = True
                         break
@@ -1408,15 +2113,23 @@ class Engine:
                         self._spec_gates[slot] = ema >= floor
                         self._state_dirty = True
             self._counts[slot] = req.n_generated
+            if constrained:
+                self._dfa_state[slot] = st
+                forced_total += lane_forced
             if req.trace is not None and lane_tokens:
+                extra = {"forced": lane_forced} if constrained else {}
                 req.trace.add(_obs_tracing.DECODE, horizon=h, spec_k=k,
-                              tokens=lane_tokens, accepted=lane_accept)
+                              tokens=lane_tokens, accepted=lane_accept,
+                              **extra)
             if done:
                 self._retire(req)
                 finished.append(req)
         self._tokens_generated += harvested
         self._decode_tokens += harvested
         self._wasted_lane_tokens += wasted
+        if forced_total:
+            self._spec_forced_tokens += forced_total
+            _SRV_SPEC_FORCED.inc(forced_total, engine=name)
         if drafted:
             self._spec_draft_tokens += drafted
             self._spec_accepted_tokens += accepted
@@ -1539,6 +2252,8 @@ class Engine:
         _SRV_KV_BLOCKS.set(self.pool.blocks_in_use, engine=name)
         _SRV_KV_OCC.set(self.pool.blocks_in_use / self.pool.capacity,
                         engine=name)
+        if self.host_tier is not None:
+            _SRV_HOST_OCC.set(self.host_tier.occupancy, engine=name)
         _SRV_BUCKETS.set(len(self._decode_buckets), engine=name)
         if self._spec_k:
             for slot in range(self.cache.num_slots):
@@ -1575,8 +2290,9 @@ class Engine:
         block-leak invariant a replica must satisfy before the router
         removes it.  Returns every request retired during the drain
         (aborted queued requests first).  The engine is usable again
-        afterwards.  (The JAX engine's host-tier branch waits for the
-        host KV tier.)"""
+        afterwards.  With the host tier, the demoted prefix entries are
+        dropped too and no host block may stay referenced (a leaked
+        lane image)."""
         self._draining = True
         try:
             out = [self.abort(req, cause="drain")
@@ -1589,14 +2305,29 @@ class Engine:
         finally:
             self._draining = False
         # every lease is back, so every prefix chain is unpinned and
-        # reclaimable; a block the reclaim cannot free is a leak
-        self.prefix.reclaim(self.prefix._held)
+        # reclaimable; a block the reclaim cannot free is a leak.  The
+        # spill hooks are off for this sweep: shutdown eviction is
+        # disposal, not demotion
+        spill, spill_batch = self.prefix.spill, self.prefix.spill_batch
+        self.prefix.spill = self.prefix.spill_batch = None
+        try:
+            self.prefix.reclaim(self.prefix._held)
+        finally:
+            self.prefix.spill, self.prefix.spill_batch = spill, spill_batch
         if self.pool.blocks_in_use != 0:
             raise RuntimeError(
                 f"drain() left {self.pool.blocks_in_use} KV pool blocks "
                 f"referenced ({self.cache.leased_blocks} leased by slot "
                 f"tables, {self.prefix._held} pinned by the prefix "
                 "store): block-leak invariant violated")
+        if self.host_tier is not None:
+            self.host_tier.clear_prefixes()
+            if self.host_tier.blocks_in_use != 0:
+                raise RuntimeError(
+                    f"drain() left {self.host_tier.blocks_in_use} host "
+                    f"arena blocks referenced "
+                    f"({len(self.host_tier._lanes)} lane images): host "
+                    "block-leak invariant violated")
         self._publish_gauges()
         return out
 
@@ -1616,14 +2347,14 @@ class Engine:
 
     def counters(self):
         """The JAX engine's ``counters()`` under its key names (host
-        numbers only; also this engine's counter provider).  Left out:
+        numbers only; also this engine's counter provider), plus
+        ``grammar_masked_fraction``: the mean over constrained emitted
+        tokens of the vocab fraction their mask excluded (the mean of
+        the ``serving.grammar_masked_fraction`` histogram).  Left out:
         the XLA-only ``decode_calls`` and the compile counts
         (``decode_compiles``, ``decode_cache_hits``,
-        ``prefill_compiles``, ``prefill_cache_hits``), and the host-tier
-        ``kv_swap_ins``, ``kv_swap_outs``, ``kv_swap_in_bytes`` and
-        ``kv_swap_out_bytes``.  ``spec_forced_tokens`` (grammar-forced
-        drafts) and ``prefix_insert_calls`` stay 0, as the JAX engine
-        without a grammar."""
+        ``prefill_compiles``, ``prefill_cache_hits``).
+        ``prefix_insert_calls`` stays 0, as in the JAX engine."""
         c = {
             "queue_depth": self.scheduler.queue_depth,
             "active_slots": self.cache.used_slots,
@@ -1648,12 +2379,18 @@ class Engine:
             "kv_bytes_read": self._kv_bytes_read,
             "cow_copies": self._cow_copies,
             "preemptions": self._preemptions,
+            "kv_swap_ins": self._swap_ins,
+            "kv_swap_outs": self._swap_outs,
+            "kv_swap_in_bytes": self._swap_in_bytes,
+            "kv_swap_out_bytes": self._swap_out_bytes,
             "requests_aborted": self._aborted,
             "deadline_expired": self._deadline_expired,
             "spec_draft_tokens": self._spec_draft_tokens,
             "spec_accepted_tokens": self._spec_accepted_tokens,
             "spec_accept_rate": self._accept_rate(),
-            "spec_forced_tokens": 0,
+            "spec_forced_tokens": self._spec_forced_tokens,
+            "grammar_masked_fraction": (self._masked_sum / self._masked_n
+                                        if self._masked_n else 0.0),
             "degradation_level": self._degrade_level,
             "degradation_sheds": self._degrade_sheds,
         }
@@ -1677,11 +2414,13 @@ class Engine:
         pool's capacity, the process-wide kernel launch counts
         (``kernel_launches``), the radix store's ``stats()`` under
         ``prefix``, and JAX's ``tenants``, ``draining``, ``degradation``,
-        ``kv_pool``, ``quant``, ``spec``, ``slo`` and ``tracing``
-        blocks.  ``prompt_tokens`` counts every admitted token, prefix
+        ``kv_pool`` (with the host tier's keys), ``quant``, ``spec``,
+        ``structured``, ``memory`` (the ledger's snapshot), ``slo`` and
+        ``tracing`` blocks.  ``prompt_tokens`` counts every admitted token, prefix
         hits and re-admissions included.  Host numbers only: safe to
         read from another thread."""
         c = self.counters()
+        slab = self._grammar_slab
         lane_steps = self._decode_tokens + self._wasted_lane_tokens
         c.update({
             "prefill_seconds": self._prefill_s,
@@ -1720,6 +2459,23 @@ class Engine:
                 "dtype": str(self.pool.store_dtype).replace("torch.", ""),
                 "quant_dtype": self.pool.quant_dtype,
             },
+            "structured": {
+                "enabled": self._structured,
+                "constrained_lanes": int(sum(
+                    1 for slot in range(self.cache.num_slots)
+                    if self._active[slot] and self._dfa_state[slot] != 0)),
+                "capacity_states": slab.capacity if slab else 0,
+                "states_used": slab.states_used if slab else 0,
+                "grammars_installed": slab.grammars_installed
+                if slab else 0,
+                "table_bytes": slab.device_bytes if slab else 0,
+                "compile_cache_hits": self._grammar_cache_hits,
+                "compile_cache_misses": self._grammar_cache_misses,
+                "compile_cache_entries": len(self._grammar_cache),
+                "forced_tokens": self._spec_forced_tokens,
+                "forced_drafted": self._spec_forced_drafted,
+                "masked_fraction_mean": c["grammar_masked_fraction"],
+            },
             "quant": {
                 "weight_dtype": self._weight_dtype,
                 "kv_cache_dtype": self._kv_quant,
@@ -1746,6 +2502,30 @@ class Engine:
                                     for x in self._spec_ema],
             },
         })
+        # tiered KV: lane saves in kv_swap_out_bytes, prefix demotions
+        # in kv_demote_bytes
+        tier = self.host_tier
+        c["kv_pool"].update({
+            "cached_blocks": self.prefix._held,
+            "host_capacity_blocks": tier.capacity if tier else 0,
+            "host_blocks_in_use": tier.blocks_in_use if tier else 0,
+            "host_arena_bytes": self._host_arena_bytes(),
+            "host_occupancy_ratio": tier.occupancy if tier else 0.0,
+            "kv_swap_ins": self._swap_ins,
+            "kv_swap_outs": self._swap_outs,
+            "kv_swap_in_blocks": self._swap_in_blocks,
+            "kv_swap_out_blocks": self._swap_out_blocks,
+            "kv_swap_in_bytes": self._swap_in_bytes,
+            "kv_swap_out_bytes": self._swap_out_bytes,
+            "kv_demote_bytes": self._demote_bytes,
+            "kv_swaps_averted_tokens": self._swaps_averted_tokens,
+            "swap_policy": self._swap_policy,
+            "swap_decisions": dict(self._swap_decisions),
+            "swap_uploads": self._swap_uploads,
+        })
+        if tier is not None:
+            c["kv_pool"]["host_tier"] = tier.stats()
+        c["memory"] = self.ledger.snapshot()
         if self.slo is not None:
             c["slo"] = self.slo.snapshot()
         if self.recorder is not None:

@@ -46,11 +46,6 @@ deterministic per ``(seed, token index)``, a streamed completion is
 token-for-token identical to in-process ``Engine.run()`` for the same
 request — tested both greedy and seeded-stochastic.
 
-Structured generation is not ported yet (ROADMAP Queue 1 item 3): a
-request carrying ``response_format`` (other than ``{"type": "text"}``)
-or ``grammar`` answers **400** with code ``grammar_not_ported`` before
-anything queues, where the JAX gateway compiles the grammar.
-
 Deliberately NOT built (out of scope for an in-process fleet front
 door): TLS termination, authentication/authorization, multi-host
 routing, request body compression.  Terminate TLS and authenticate in
@@ -73,6 +68,7 @@ from ..faults import (_SRV_RETRIES, RetryPolicy, TransientSubmitError,
                       WorkerDeadError)
 from ..sampling import SamplingParams
 from ..scheduler import FINISH_EOS
+from ..structured.grammar import GrammarError, GrammarSpec
 from .admission import TenantQuotas
 from .router import EngineWorker, FleetSupervisor, PrefixAffinityRouter
 
@@ -470,21 +466,65 @@ class Gateway:
         if not isinstance(stream, bool):
             raise bad("'stream' must be a boolean")
         # structured generation: OpenAI ``response_format`` (json_schema)
-        # or the ``grammar`` extension (regex) need the grammar compiler
-        # and the engine's constrained decode, which the port has not
-        # yet: refused eagerly, before anything queues
+        # or the ``grammar`` extension (regex).  Validation is EAGER —
+        # an unsupported grammar 400s HERE (code ``invalid_grammar``,
+        # message naming the feature), before anything queues.
+        grammar = None
         rf = payload.get("response_format")
-        if rf is not None and not (isinstance(rf, dict)
-                                   and rf.get("type") == "text"):
-            raise bad("'response_format' other than {'type': 'text'} needs "
-                      "structured generation, which is not ported yet",
-                      "grammar_not_ported")
-        if payload.get("grammar") is not None:
-            raise bad("'grammar' needs structured generation, which is "
-                      "not ported yet", "grammar_not_ported")
+        if rf is not None:
+            if not isinstance(rf, dict) or not isinstance(
+                    rf.get("type"), str):
+                raise bad("'response_format' must be an object with a "
+                          "string 'type'", "invalid_grammar")
+            kind = rf["type"]
+            if kind == "json_schema":
+                js = rf.get("json_schema")
+                if not isinstance(js, dict):
+                    raise bad("'response_format.json_schema' must be an "
+                              "object", "invalid_grammar")
+                # OpenAI nests the schema under "schema"; a bare schema
+                # object is accepted too
+                schema = js.get("schema", js) if "schema" in js else js
+                if not isinstance(schema, dict):
+                    raise bad("'response_format.json_schema.schema' "
+                              "must be a JSON-schema object",
+                              "invalid_grammar")
+                try:
+                    grammar = GrammarSpec.json_schema(schema)
+                except GrammarError as e:
+                    raise bad(str(e), "invalid_grammar") from None
+            elif kind != "text":
+                raise bad(
+                    f"unsupported response_format type {kind!r} "
+                    "(supported: 'text', 'json_schema')",
+                    "invalid_grammar")
+        gr = payload.get("grammar")
+        if gr is not None:
+            if grammar is not None:
+                raise bad("'grammar' and a json_schema "
+                          "'response_format' are mutually exclusive",
+                          "invalid_grammar")
+            if isinstance(gr, str):
+                pattern = gr
+            elif (isinstance(gr, dict) and gr.get("type") == "regex"
+                    and isinstance(gr.get("pattern"), str)):
+                pattern = gr["pattern"]
+            else:
+                raise bad("'grammar' must be a regex string or "
+                          "{'type': 'regex', 'pattern': '...'}",
+                          "invalid_grammar")
+            try:
+                grammar = GrammarSpec.regex(pattern)
+            except GrammarError as e:
+                raise bad(str(e), "invalid_grammar") from None
+        if grammar is not None and sampling.eos_token_id is None:
+            raise bad("grammar-constrained requests require "
+                      "'eos_token_id' (or 'stop_token_id'): EOS is "
+                      "legal exactly in the grammar's accept states",
+                      "invalid_grammar")
         return {"prompt_ids": list(prompt), "sampling": sampling,
                 "priority": priority, "deadline_s": deadline,
-                "tenant": tenant, "stream": stream}
+                "tenant": tenant, "stream": stream, "grammar": grammar}
 
     def admit_and_route(self, parsed, t_recv):
         """Quota gate then replica routing; returns a submitted
@@ -525,6 +565,7 @@ class Gateway:
                     priority=parsed["priority"],
                     deadline_s=parsed["deadline_s"],
                     tenant=parsed["tenant"],
+                    grammar=parsed.get("grammar"),
                     trace_args={"tenant": parsed["tenant"],
                                 "priority": parsed["priority"],
                                 "hop_s": round(

@@ -24,13 +24,26 @@ unified-pool mode, the only mode the JAX engine uses).
   ``acquire()`` pins the matched chain while a slot borrows it and
   ``release()`` unpins it on retirement or preemption.
 
+* **Demotion hooks** (the host KV tier): ``spill``/``spill_batch``
+  are called with each evicted full block's token path and pool block
+  BEFORE the block is released, so its bytes can be copied into the
+  host arena; a reclaim pass makes ONE batched ``spill_batch`` call.
+  :meth:`graft` hangs a block swapped back in from the arena onto the
+  tree.
+
 Everything here is host bookkeeping over small Python dicts; the only
-device state is the pool.  Not ported yet: the standalone-buffer mode
-(``pool=None``: ``insert`` into buffers of the store's own), ``graft``
-and the ``spill``/``spill_batch`` demotion hooks of the host KV tier.
+device state is the pool.  Not ported: the standalone-buffer mode
+(``pool=None``: ``insert`` into buffers of the store's own).
 """
 
 from __future__ import annotations
+
+from ..observability import metrics as _obs_metrics
+
+_SRV_PREFIX_EVICT = _obs_metrics.counter(
+    "serving.prefix_evictions",
+    "radix-store evictions by destination: dest=\"host\" demoted into "
+    "the host spill arena, dest=\"dropped\" lost and recomputable only")
 
 
 class _Node:
@@ -98,10 +111,26 @@ class PrefixCache:
         self._held = 0               # pool blocks the radix store holds
         self._root = _Node((), 0, None)
         self._clock = 0
+        #: demotion hook (host KV tier): ``spill(path_tokens, block_id)
+        #: -> bool`` is called with an evicted block's FULL token path
+        #: and its still-live pool block BEFORE the block is released; a
+        #: True return means its bytes now live in the host arena
+        #: (dest="host"), False/None that the eviction is a drop.  None
+        #: keeps drop-on-evict.
+        self.spill = None
+        #: batched demotion hook: ``spill_batch(paths, block_ids) ->
+        #: [bool, ...]``, the same contract over a whole eviction pass,
+        #: so a bulk ``reclaim()`` copies all its victims in one call.
+        #: Preferred over ``spill`` wherever it is installed.
+        self.spill_batch = None
+        #: label of the eviction counter (the engine's profiler name)
+        self.metric_label = ""
         # counters (the engine surfaces them through stats())
         self.hit_tokens = 0
         self.miss_tokens = 0
         self.evictions = 0
+        self.evictions_demoted = 0
+        self.evictions_dropped = 0
         self.inserted_blocks = 0
 
     # ------------------------------------------------------------ match
@@ -223,18 +252,72 @@ class PrefixCache:
             node = child
         return adopted
 
+    def graft(self, tokens, index, block):
+        """Promotion from the host tier: hang an engine-allocated pool
+        block, freshly uploaded from the arena, onto the tree at
+        full-block ``index`` of ``tokens``.  Ownership of the block's
+        reference TRANSFERS to the new node (the caller ``pool.alloc``ed
+        it and must not release it on success).  The node's key is
+        ``tokens[index*bs : (index+1)*bs]``, shorter than a block for a
+        partial tail, which only ever matches copy-on-write.  Returns
+        False (the caller keeps ownership) when the parent chain is
+        missing (promotions land in path order) or when the budget is
+        spent and nothing is evictable."""
+        bs = self.block_size
+        if not bs or self.capacity == 0:
+            return False
+        node = self._root
+        for i in range(index):
+            node = node.children.get(tuple(tokens[i * bs:(i + 1) * bs]))
+            if node is None:
+                return False
+        key = tuple(tokens[index * bs:(index + 1) * bs])
+        if not key or key in node.children:
+            return False
+        if self._held >= self.capacity:
+            if self.reclaim(1) == 0:
+                return False
+            # the reclaim may have evicted the parent itself (an
+            # unpinned leaf, e.g. the block grafted just before): a
+            # child hung under a detached node could never be evicted
+            # and would leak its block, so the graft is refused
+            if not self._attached(node):
+                return False
+        self._clock += 1
+        self._held += 1
+        child = _Node(key, int(block), node)
+        node.children[key] = child
+        child.last_used = self._clock
+        self.inserted_blocks += 1
+        return True
+
+    def _attached(self, node):
+        """True while ``node`` is reachable from the root."""
+        while node is not self._root:
+            parent = node.parent
+            if parent.children.get(node.tokens) is not node:
+                return False
+            node = parent
+        return True
+
     def reclaim(self, n_blocks):
         """Evict up to ``n_blocks`` LRU unpinned leaves, returning their
         blocks to the pool's free list.  Returns how many were freed (0
-        when everything held is pinned)."""
-        freed = 0
-        while freed < n_blocks:
+        when everything held is pinned).  Victims are detached first and
+        demoted in ONE batched spill pass, then released."""
+        victims = []
+        while len(victims) < n_blocks:
             victim = self._lru_evictable()
             if victim is None:
                 break
-            self._evict(victim)
-            freed += 1
-        return freed
+            # detach now (so the parent can become the next leaf) but
+            # defer spill and release: the blocks' bytes must stay live
+            # for the batched copy below
+            del victim.parent.children[victim.tokens]
+            victims.append(victim)
+        for node, demoted in zip(victims, self._spill_nodes(victims)):
+            self._release_evicted(node, demoted)
+        return len(victims)
 
     def _lru_evictable(self):
         """Oldest unpinned leaf, or None.  Leaves only: interior nodes
@@ -250,12 +333,62 @@ class PrefixCache:
                 best = node
         return best
 
+    def _node_path(self, node):
+        """The full token path from the root through ``node``: the key a
+        demoted block re-matches under."""
+        parts = []
+        while node is not self._root:
+            parts.append(node.tokens)
+            node = node.parent
+        out = ()
+        for tokens in reversed(parts):
+            out += tokens
+        return out
+
     def _evict(self, node):
-        """Detach a leaf and drop the store's reference on its block."""
+        """Detach a leaf, offer it to the spill hook, and drop the
+        store's reference on its block."""
         del node.parent.children[node.tokens]
+        self._release_evicted(node, self._spill_nodes([node])[0])
+
+    def _spill_nodes(self, nodes):
+        """Demote-instead-of-drop for a pass of detached victims: one
+        bool per node, True when its bytes now live in the host tier.
+        Runs BEFORE the victims' pool blocks are released.  Full-block
+        victims go through ``spill_batch`` when installed (one call for
+        the pass), else per-node ``spill``; partial-tail graft nodes
+        (a key shorter than a block) are dropped."""
+        out = [False] * len(nodes)
+        if self.spill is None and self.spill_batch is None:
+            return out
+        full = [i for i, n in enumerate(nodes)
+                if len(n.tokens) == self.block_size]
+        if not full:
+            return out
+        if self.spill_batch is not None:
+            kept = self.spill_batch(
+                [self._node_path(nodes[i]) for i in full],
+                [nodes[i].block for i in full])
+            for i, ok in zip(full, kept):
+                out[i] = bool(ok)
+        else:
+            for i in full:
+                out[i] = bool(self.spill(self._node_path(nodes[i]),
+                                         nodes[i].block))
+        return out
+
+    def _release_evicted(self, node, demoted):
+        """Return a detached victim's block to the pool and settle the
+        eviction counters."""
         self.pool.release(node.block)
         self._held -= 1
         self.evictions += 1
+        if demoted:
+            self.evictions_demoted += 1
+        else:
+            self.evictions_dropped += 1
+        _SRV_PREFIX_EVICT.inc(engine=self.metric_label,
+                              dest="host" if demoted else "dropped")
 
     # ------------------------------------------------------------ stats
     def _count_nodes(self):
@@ -267,8 +400,7 @@ class PrefixCache:
         return n
 
     def stats(self):
-        """The JAX store's keys.  Without the host tier no eviction is a
-        demotion: ``evictions_dropped == evictions``."""
+        """The JAX store's keys."""
         total = self.hit_tokens + self.miss_tokens
         return {
             "block_size": self.block_size,
@@ -279,7 +411,7 @@ class PrefixCache:
             "miss_tokens": self.miss_tokens,
             "hit_ratio": (self.hit_tokens / total) if total else 0.0,
             "evictions": self.evictions,
-            "evictions_demoted": 0,
-            "evictions_dropped": self.evictions,
+            "evictions_demoted": self.evictions_demoted,
+            "evictions_dropped": self.evictions_dropped,
             "inserted_blocks": self.inserted_blocks,
         }

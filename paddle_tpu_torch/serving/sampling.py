@@ -28,6 +28,14 @@ import torch
 
 _MASK64 = (1 << 64) - 1
 
+#: logit floor for grammar-masked (disallowed) tokens: finite, so the
+#: temperature divide and softmax stay NaN-free at any temperature, but
+#: far below every real logit, so neither argmax nor a draw can pick a
+#: masked token.  Exact in bf16 and f32 (in f16 it would be -inf, and an
+#: all--inf row turns softmax into NaN), so the mask is applied to f32
+#: logits.
+MASK_FLOOR = -1.0e30
+
 
 @dataclass
 class SamplingParams:
@@ -156,7 +164,32 @@ def sample_batch(logits, seeds, counts, temperatures, top_ks, top_ps):
                        u)
 
 
-def sample_window(logits, seeds, counts, temperatures, top_ks, top_ps):
+def _unpack_mask(rows, vocab):
+    """Unpack packed legality-bitmask rows to a boolean mask.
+
+    rows [..., W32] int32   bit ``t % 32`` of word ``t // 32`` set means
+                            token ``t`` is legal (the grammar slab's
+                            uint32 words viewed as int32: CUDA has few
+                            uint32 ops, and an arithmetic shift's sign
+                            fill is cut off by the ``& 1``)
+    Returns [..., vocab] bool."""
+    bits = torch.arange(32, dtype=rows.dtype, device=rows.device)
+    b = (rows[..., :, None] >> bits) & 1
+    return b.reshape(rows.shape[:-1] + (rows.shape[-1] * 32,))[
+        ..., :vocab].bool()
+
+
+def apply_mask(logits, allowed):
+    """``logits`` as f32 with the disallowed entries at
+    :data:`MASK_FLOOR`.  An all-True row is the identity on its values
+    (the upcast is exact), so an unconstrained lane samples as it would
+    unmasked."""
+    return torch.where(allowed, logits.float(),
+                       torch.full((), MASK_FLOOR, device=logits.device))
+
+
+def sample_window(logits, seeds, counts, temperatures, top_ks, top_ps,
+                  allowed=None):
     """Sampling across a speculative verify window: logits [N, W, vocab]
     -> token ids [N, W], where window position j of lane i draws as
     token ``counts[i] + j`` of its request: the uniforms of
@@ -165,8 +198,15 @@ def sample_window(logits, seeds, counts, temperatures, top_ks, top_ps):
     request emits at index k is the same whatever window verified it.
     (The engine's horizon draws its uniforms once, at its start, with
     :func:`draw_uniforms`, and indexes them by the lanes' device
-    counts.)"""
+    counts.)
+
+    ``allowed`` (optional, [N, W, vocab] bool) is the grammar mask:
+    disallowed logits drop to :data:`MASK_FLOOR` before the all-greedy
+    fast path and before the draw, so constrained sampling keeps the
+    same key discipline."""
     n, w, vocab = logits.shape
+    if allowed is not None:
+        logits = apply_mask(logits, allowed)
     rows = sampled_rows(temperatures)
     flat = logits.reshape(n * w, vocab)
     if not rows:

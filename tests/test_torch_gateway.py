@@ -3,7 +3,7 @@ on the CPU: an HTTP/SSE front door over two port engines that share one
 model, whose greedy streams equal the JAX engine's ``generate`` on the
 same weights and whose seeded streams equal the port's own in-process
 run; the OpenAI-style errors, quotas (429), SLO shedding (503), the
-``grammar_not_ported`` 400, ``/metrics``; and mid-stream failover (an
+``invalid_grammar`` 400, ``/metrics``; and mid-stream failover (an
 injected crash, greedy and seeded, and a watchdog-condemned stall),
 bitwise, with nothing leaked after drain.  Exact throughout: every
 compared quantity is a token id, a status or a count.  Every wait
@@ -231,12 +231,14 @@ def test_sync_completion_shape_usage_and_tokens(gw, weights):
     ({"prompt": [1, 2], "tenant": 5}, 400, None),
     ({"prompt": [1, 2], "stream": "yes"}, 400, None),
     ({"prompt": [1] * 100, "max_tokens": 10}, 400, None),
-    ({"prompt": [1, 2], "grammar": "[0-9]+"}, 400, "grammar_not_ported"),
+    # a constrained request without an EOS id, and a response_format
+    # that is not an object: the JAX gateway's invalid_grammar
+    ({"prompt": [1, 2], "grammar": "[0-9]+"}, 400, "invalid_grammar"),
     ({"prompt": [1, 2], "response_format": {
         "type": "json_schema", "json_schema": {"schema": {
-            "type": "object"}}}}, 400, "grammar_not_ported"),
+            "type": "object"}}}}, 400, "invalid_grammar"),
     ({"prompt": [1, 2], "response_format": "json"}, 400,
-     "grammar_not_ported"),
+     "invalid_grammar"),
 ], ids=lambda v: str(v)[:40])
 def test_validation_errors(gw, payload, status, code):
     r = _post(gw.port, payload)
