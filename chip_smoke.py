@@ -31,12 +31,15 @@ the script exits nonzero and prints no result:
    key, so their dQ must be exactly 0 and the visible rows alone must
    give the same dK/dV); and at the SD UNet's attention calls (batch 4, 8
    heads, self over 4096/1024/256/64 tokens and cross over 77, head dims
-   40/80/160/160), each case with the dK/dV kernel's query split
+   40/80/160/160), and at BERT-base's (b=32, 12 heads of 64, not causal,
+   s=128 in bf16 and f32, s=512 in bf16), each case with the dK/dV
+   kernel's query split
    (dkv_splits); then the bf16 backward's determinism, dQ, dK and dV bit
    for bit over two calls at the LM shape (one query range) and the
    UNet's level-0 cross-attention (16 ranges summed by a second kernel);
    LayerNorm forward and backward at [16384,320], [4096,640], [1024,1280],
-   [256,1280] (bf16), [4096,640] (f32), [4096,768] (BERT's width) and
+   [256,1280] (bf16), [4096,640] (f32), [4096,768] and [16384,768]
+   (BERT's width: bert_train's 32 x 128 rows, and 32 x 512) and
    [4096,100] (rows not in whole 16-byte vectors: the CTA-per-row
    kernels); GroupNorm forward and backward at [4,320,64,64],
    [4,960,64,64], [4,2560,8,8] (bf16, 32 groups), [4,320,64,64] (f32),
@@ -181,6 +184,36 @@ the script exits nonzero and prints no result:
    GroupNorm all occur), b=2, 32x32 latents: one step's loss and every
    parameter's gradient through the kernels in bf16, against the plain
    functions in bf16 and on an f32 copy (see GRAD_PARITY_FACTOR).
+9. bert_train: BASELINE config 2 as bench_bert: BertForMaskedLM(BERT_BASE)
+   in bf16 from seeded weights made on the card, b32 x s128, MLM labels
+   at 15 % of positions (-100 elsewhere; 80/10/10 [MASK]/random/kept),
+   dropout 0.1 (so attention drops and runs the plain f32 path), AdamW
+   (1e-4, 0.9, 0.999, 1e-8, decay 0.01 off biases and LayerNorms,
+   multi_precision), LinearWarmup into PolynomialDecay(power 1) to 0,
+   clip 1.0, through jit.TrainStep: 3 warm-up and 4 timed steps,
+   LayerNorm 26 + 26 and flash 0 launches asserted a step, 49 dropout
+   keys a step, a finite loss whose last timed value is below the first
+   (a bf16 value: a late step can leave it unchanged); sequences and tokens
+   a second, model FLOP/s and its share of 989 TFLOP/s, peak memory,
+   the host time of a step's generators; then one step under
+   torch.profiler.
+10. bert_train_flash: the same with attention dropout 0: flash 12 + 12
+   + 12 launches a step, 37 keys; its step time beside bert_train's
+   (bert_attention_dropout_cost).
+11. bert_parity: BERT-base, bf16, dropout 0: one step's loss and every
+   gradient through the kernels against their plain twins in bf16
+   (twin_path) and the plain functions on an f32 copy, the dense plain
+   path's q/k errors printed beside; an eval forward at s=512 with a
+   ragged padding mask
+   (8 sequences of 512 down to 1 visible tokens), the visible logits
+   likewise; bert_train's first step twice from the same seeds, loss and
+   every gradient bit for bit.
+12. train_recompute: the train phase's model with hidden dropout 0.1, two
+   AdamW steps with use_recompute against the same two without: losses,
+   gradients and updated parameters bit for bit; each step's
+   forward+backward peak memory above the resident state and its time.
+13. optimizers: each of the 13 optimizers 3 steps on BERT-base-shaped f32
+   parameters on the card against the CPU (OPTIMIZER_CASES).
 
 The last three lines are the card's nvidia-smi line, the per-kernel JSON
 summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
@@ -264,6 +297,14 @@ UNET_GN_SHAPES = {
 # traces them)
 UNET_LN_SHAPES = {(16384, 320): 15, (4096, 640): 15, (1024, 1280): 15,
                   (256, 1280): 3}
+# BERT-base MLM pretraining as bench_bert (benchmarks/bench_models.py:
+# 154-187): b32 x s128, 3 warm-up and 4 timed steps, 15 % of positions
+# scored (Devlin et al. 2019, sec. 3.1)
+BERT_BATCH, BERT_SEQ = 32, 128
+BERT_WARMUP, BERT_TIMED = 3, 4
+BERT_MLM_RATE = 0.15
+BERT_LR = 1e-4
+BERT_FLASH_CASE = f"bert_base/s{BERT_SEQ}/full"
 
 
 def emit(obj):
@@ -704,7 +745,8 @@ def flash_cases(torch, dev, summary, seed):
               "bfloat16"),
              ("llama2_7b/q1024_k256/causal", 32, 32, 1024, 256, True,
               "bfloat16")]
-    cases = [c + (b, d) for c in cases] + unet_flash_shapes()
+    cases = [c + (b, d) for c in cases] + unet_flash_shapes() + \
+        bert_flash_shapes()
     for cname, qh, kh, sq, sk, causal, dname, b, d in cases:
         dtype = getattr(torch, dname)
         g = torch.Generator(device="cpu").manual_seed(seed)
@@ -803,6 +845,8 @@ def flash_cases(torch, dev, summary, seed):
             emit(case)
             if (cname, dname) == ("llama2_7b/s4096/causal", "bfloat16"):
                 summary[kname] = case
+            if (cname, dname) == (BERT_FLASH_CASE, "bfloat16"):
+                summary["bert/" + kname] = case
         del out_p, dq_p, dk_p, dv_p
     return seed
 
@@ -867,6 +911,16 @@ def unet_flash_shapes():
     return out
 
 
+def bert_flash_shapes():
+    """BERT-base's attention calls (12 heads of 64, not causal) at the
+    bert_train batch: s = 128 in bf16 and f32, and s = 512 (the
+    bert_parity eval length) in bf16."""
+    return [(f"bert_base/s{s}/full", 12, 12, s, s, False, dname,
+             BERT_BATCH, 64)
+            for s, dname in ((BERT_SEQ, "bfloat16"), (BERT_SEQ, "float32"),
+                             (512, "bfloat16"))]
+
+
 def kernel_names(torch, fn):
     """The names of the kernels one ``fn()`` call launches (after one
     warm-up call), from torch.profiler over three calls; profiled again
@@ -918,6 +972,7 @@ def norm_cases(torch, dev, summary, seed):
     ln = [((16384, 320), "bfloat16", None), ((4096, 640), "bfloat16", None),
           ((1024, 1280), "bfloat16", None), ((256, 1280), "bfloat16", None),
           ((4096, 640), "float32", None), ((4096, 768), "bfloat16", None),
+          ((16384, 768), "bfloat16", None),
           ((4096, 100), "bfloat16", None)]
     gn = [((4, 320, 64, 64), "bfloat16", 32), ((4, 960, 64, 64), "bfloat16", 32),
           ((4, 2560, 8, 8), "bfloat16", 32), ((4, 320, 64, 64), "float32", 32),
@@ -1010,6 +1065,9 @@ def norm_cases(torch, dev, summary, seed):
                 if dname == "bfloat16" and shape in ((4096, 640),
                                                      (4, 960, 64, 64)):
                     summary[kname] = case
+                if (dname, shape) == ("bfloat16",
+                                      (BERT_BATCH * BERT_SEQ, 768)):
+                    summary["bert/" + kname] = case     # bert_train's rows
     return seed
 
 
@@ -3279,6 +3337,41 @@ def train_phase(torch, dev):
     return launches
 
 
+def grad_parity(tag, kern, plain, f32, loss_floor=0.0, zero_truth=()):
+    """Each ``(loss, {name: f32 grad})`` of the kernel path and the plain
+    path in bf16 against the f32 plain truth: every gradient's relative
+    error within GRAD_PARITY_FACTOR times the plain bf16 path's own plus
+    GRAD_PARITY_FLOOR, the loss within GRAD_PARITY_FACTOR times the plain
+    path's loss error plus GRAD_PARITY_FLOOR of the loss and
+    ``loss_floor``.  A gradient that is 0 in exact arithmetic (names
+    ending in one of ``zero_truth``) is rounding noise on every path, so
+    its error is taken relative to the global norm of the f32 gradients
+    instead of its own.  Returns (the worst error over its tolerance,
+    {name: [kernel err, plain err]})."""
+    (loss_k, g_k), (loss_p, g_p), (loss_32, g_32) = kern, plain, f32
+    worst, report, failed = 0.0, {}, []
+    total = math.sqrt(sum(g.norm().item() ** 2 for g in g_32.values()))
+    for n, ref in g_32.items():
+        norm = total if n.endswith(zero_truth) else ref.norm().item()
+        e_k = (g_k[n] - ref).norm().item() / norm
+        e_p = (g_p[n] - ref).norm().item() / norm
+        tol = GRAD_PARITY_FACTOR * e_p + GRAD_PARITY_FLOOR
+        report[n] = [e_k, e_p]
+        worst = max(worst, e_k / tol)
+        if not (math.isfinite(e_k) and e_k <= tol):
+            failed.append(f"{n}: kernel grad rel err {e_k:.3e} > {tol:.3e} "
+                          f"(plain bf16 {e_p:.3e})")
+    if failed:
+        raise AssertionError(f"{tag}: {len(failed)} of {len(report)} "
+                             f"gradients out of tolerance: {failed[:12]}")
+    l_tol = (GRAD_PARITY_FACTOR * abs(loss_p - loss_32)
+             + GRAD_PARITY_FLOOR * abs(loss_32) + loss_floor)
+    if not abs(loss_k - loss_32) <= l_tol:
+        raise AssertionError(f"{tag} loss: kernel {loss_k} plain bf16 "
+                             f"{loss_p} f32 {loss_32}")
+    return worst, report
+
+
 @contextlib.contextmanager
 def plain_path(torch):
     """The model's attention and norms through the plain twins (torch
@@ -3330,23 +3423,8 @@ def train_parity_phase(torch, dev):
         model32 = copy.deepcopy(model).float()
         loss_32, g_32 = grads_of(model32)
     del model32, model
-    worst, report = 0.0, {}
-    for n, ref in g_32.items():
-        norm = ref.norm().item()
-        e_k = (g_k[n] - ref).norm().item() / norm
-        e_p = (g_p[n] - ref).norm().item() / norm
-        tol = GRAD_PARITY_FACTOR * e_p + GRAD_PARITY_FLOOR
-        report[n] = [e_k, e_p]
-        worst = max(worst, e_k / tol)
-        if not (math.isfinite(e_k) and e_k <= tol):
-            raise AssertionError(f"train parity {n}: kernel grad rel err "
-                                 f"{e_k:.3e} > {tol:.3e} (plain bf16 "
-                                 f"{e_p:.3e})")
-    l_tol = (GRAD_PARITY_FACTOR * abs(loss_p - loss_32)
-             + GRAD_PARITY_FLOOR * abs(loss_32))
-    if not abs(loss_k - loss_32) <= l_tol:
-        raise AssertionError(f"train parity loss: kernel {loss_k} plain "
-                             f"bf16 {loss_p} f32 {loss_32}")
+    worst, report = grad_parity("train parity", (loss_k, g_k),
+                                (loss_p, g_p), (loss_32, g_32))
     emit({"phase": "train_parity", "layers": 2, "batch": TRAIN_BATCH,
           "seq": 2048,
           "loss_kernel_bf16": loss_k, "loss_plain_bf16": loss_p,
@@ -3502,9 +3580,10 @@ def unet_train_phase(torch, dev):
 
 
 @contextlib.contextmanager
-def unet_plain_path(torch):
-    """The UNet's norms and attention through the plain twins (torch
-    autograd over the plain forwards), for the reference passes."""
+def functional_plain_path(torch):
+    """``nn.functional``'s norms and attention (the UNet's and BERT's)
+    through the plain twins (torch autograd over the plain forwards),
+    for the reference passes."""
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops.flash_attention import flash_attention_plain
     from paddle_tpu_torch.ops.group_norm import group_norm_plain
@@ -3554,28 +3633,13 @@ def unet_train_parity_phase(torch, dev):
                                  "layer_norm_bwd", "group_norm",
                                  "group_norm_bwd")) == 0:
         raise AssertionError(f"unet parity: a kernel did not run {launches}")
-    with unet_plain_path(torch):
+    with functional_plain_path(torch):
         loss_p, g_p = grads_of(model, torch.bfloat16)
         model32 = copy.deepcopy(model).float()
         loss_32, g_32 = grads_of(model32, torch.float32)
     del model32, model
-    worst, report = 0.0, {}
-    for n, ref in g_32.items():
-        norm = ref.norm().item()
-        e_k = (g_k[n] - ref).norm().item() / norm
-        e_p = (g_p[n] - ref).norm().item() / norm
-        tol = GRAD_PARITY_FACTOR * e_p + GRAD_PARITY_FLOOR
-        report[n] = [e_k, e_p]
-        worst = max(worst, e_k / tol)
-        if not (math.isfinite(e_k) and e_k <= tol):
-            raise AssertionError(f"unet parity {n}: kernel grad rel err "
-                                 f"{e_k:.3e} > {tol:.3e} (plain bf16 "
-                                 f"{e_p:.3e})")
-    l_tol = (GRAD_PARITY_FACTOR * abs(loss_p - loss_32)
-             + GRAD_PARITY_FLOOR * abs(loss_32))
-    if not abs(loss_k - loss_32) <= l_tol:
-        raise AssertionError(f"unet parity loss: kernel {loss_k} plain "
-                             f"bf16 {loss_p} f32 {loss_32}")
+    worst, report = grad_parity("unet parity", (loss_k, g_k), (loss_p, g_p),
+                                (loss_32, g_32))
     top = sorted(report.items(), key=lambda kv: -kv[1][0])[:8]
     emit({"phase": "unet_train_parity", "block_out_channels": [320, 640,
                                                                1280],
@@ -3585,6 +3649,514 @@ def unet_train_parity_phase(torch, dev):
           "params_checked": len(report),
           "largest_grad_rel_err_kernel_vs_plain_bf16": top,
           "launches": launches})
+
+
+# ---------------------------------------------------------- phases 9-13
+#: the kernel launches of one BertForMaskedLM step: LayerNorm forward and
+#: backward 26 each (the embeddings', 2 a layer, the MLM head's); flash
+#: 12 each (one a layer) only where attention takes no dropout
+BERT_PER_STEP = {"layer_norm": 26, "layer_norm_bwd": 26, "flash_fwd": 0,
+                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+BERT_FLASH_PER_STEP = dict(BERT_PER_STEP, flash_fwd=12, flash_bwd_dq=12,
+                           flash_bwd_dkv=12)
+BERT_MASK_ID = 103      # [MASK] in BERT-base's uncased WordPiece vocabulary
+
+
+def bert_batch(torch, cfg, b, s, dev, seed):
+    """One seeded MLM batch: random ids, sentence B from a random split
+    on (token type 1), BERT_MLM_RATE of the positions picked and scored
+    (labels -100 elsewhere), the picked inputs 80 % [MASK], 10 % a random
+    id, 10 % unchanged (Devlin et al. 2019, sec. 3.1)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    split = torch.randint(s // 4, 3 * s // 4, (b, 1), generator=g)
+    types = (torch.arange(s)[None, :] >= split).long()
+    pick = torch.rand(b, s, generator=g) < BERT_MLM_RATE
+    labels = torch.where(pick, ids, -100)
+    r = torch.rand(b, s, generator=g)
+    rnd = torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+    inputs = torch.where(pick & (r < 0.8), BERT_MASK_ID, ids)
+    inputs = torch.where(pick & (r >= 0.8) & (r < 0.9), rnd, inputs)
+    return inputs.to(dev), types.to(dev), labels.to(dev)
+
+
+def bert_loss(net, ids, types, labels):
+    loss, _ = net(ids, types, labels=labels)
+    return loss
+
+
+def bert_flops(cfg, model, b, s):
+    """Model FLOPs of one step: 6 a matmul weight per token (forward and
+    backward; the MLM decoder multiplies every position by the tied
+    [vocab, hidden] embedding) plus attention's 4 D forward and 8 D
+    backward a (query, key) pair and head, in every layer."""
+    n_matmul = sum(p.numel() for n, p in model.named_parameters()
+                   if p.dim() == 2 and "embeddings" not in n)
+    n_matmul += cfg.vocab_size * cfg.hidden_size
+    d = cfg.hidden_size // cfg.num_attention_heads
+    pairs = s * s * b * cfg.num_attention_heads
+    return 6 * n_matmul * b * s + 12 * d * pairs * cfg.num_hidden_layers
+
+
+def bert_train_run(torch, dev, phase, cfg, per_step, keys_per_step,
+                   turns=False):
+    """BERT-base MLM pretraining steps through jit.TrainStep (see the
+    module docstring), launch counts and the counter stream's keys
+    asserted per step; then one step under torch.profiler.  With
+    ``turns``, then the same model's steps with attention dropout 0.1
+    (the plain path) and 0 (flash) in turns, 4 steps a turn, the order
+    0.1, 0, 0, 0.1, 0.1, 0 (the schedule has decayed to 0 by then, so
+    the weights stay; the step's work is the same): host-clock step
+    times swing by tens of percent between steps, so the two are only
+    compared in one process, in turns."""
+    from paddle_tpu_torch import random as prandom
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertForMaskedLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup, PolynomialDecay
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prandom.seed(2019)
+    model = BertForMaskedLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    model.train()
+    # BERT's recipe (Devlin et al. 2019, appendix A.2): AdamW(1e-4, 0.9,
+    # 0.999), decay 0.01 off biases and LayerNorms, warm-up then linear
+    # decay to 0 (both over this run's own steps), clip 1.0
+    sched = LinearWarmup(PolynomialDecay(BERT_LR, BERT_TIMED, end_lr=0.0,
+                                         power=1.0), BERT_WARMUP, 0.0,
+                         BERT_LR)
+    opt = AdamW(learning_rate=sched, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                parameters=model.named_parameters(), weight_decay=0.01,
+                apply_decay_param_fun=lambda n: not (
+                    n.endswith("bias") or "norm" in n),
+                grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True,
+                device=dev)
+    step = TrainStep(model, bert_loss, opt, device=dev)
+    batch = bert_batch(torch, cfg, BERT_BATCH, BERT_SEQ, dev, 1234)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, lrs = [], []
+    for _ in range(BERT_WARMUP):
+        lrs.append(opt.get_lr())
+        losses.append(step(*batch).item())
+        sched.step()
+    step_s = []
+    reset_kernel_launches()
+    key0 = prandom.get_rng_state()[1]
+    for _ in range(BERT_TIMED):
+        lrs.append(opt.get_lr())
+        t1 = time.perf_counter()
+        losses.append(step(*batch).item())        # .item() synchronises
+        step_s.append(time.perf_counter() - t1)
+        sched.step()
+    launches = kernel_launches()
+    keys = (prandom.get_rng_state()[1] - key0) / BERT_TIMED
+    for name, n in per_step.items():
+        if launches[name] != n * BERT_TIMED:
+            raise AssertionError(f"{phase}: {name} launched {launches[name]}"
+                                 f" times in {BERT_TIMED} steps, want {n} a "
+                                 "step")
+    if keys != keys_per_step:
+        raise AssertionError(f"{phase}: {keys} dropout keys a step, want "
+                             f"{keys_per_step}")
+    timed = losses[BERT_WARMUP:]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{phase}: non-finite loss {losses}")
+    # the loss is one bf16 value (spacing 0.0625 near 10), so a step whose
+    # learning rate has decayed can leave it where it was: held to fall
+    # over the timed steps, as unet_train's
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"{phase}: loss did not fall {timed}")
+    mean_s = sum(step_s) / len(step_s)
+    flops = bert_flops(cfg, model, BERT_BATCH, BERT_SEQ)
+    # host time of the generators the step makes (one a dropout call)
+    t1 = time.perf_counter()
+    for _ in range(keys_per_step):
+        prandom.next_generator(dev)
+    gen_s = time.perf_counter() - t1
+    out = {"phase": phase, "model": "BERT_BASE", "dtype": "bfloat16",
+           "hidden_dropout": cfg.hidden_dropout_prob,
+           "attention_dropout": cfg.attention_probs_dropout_prob,
+           "batch": BERT_BATCH, "seq": BERT_SEQ,
+           "params": sum(p.numel() for p in model.parameters()),
+           "scored_tokens": int((batch[2] != -100).sum().item()),
+           "setup_s": setup_s, "lr": lrs, "losses": losses,
+           "step_s": step_s, "step_s_mean": mean_s,
+           "seqs_per_s": BERT_BATCH / mean_s,
+           "tokens_per_s": BERT_BATCH * BERT_SEQ / mean_s,
+           "model_flops_per_step": flops,
+           "model_tflops_per_s": flops / mean_s / 1e12,
+           "mfu_of_989": flops / mean_s / 989e12,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "dropout_keys_per_step": keys,
+           "generator_host_ms_per_step": gen_s * 1e3,
+           "kernel_launches": launches, "launches_per_step": per_step}
+    emit(out)
+    prof = profiled(torch, lambda: step(*batch).item())
+    emit(dict(prof, phase=phase + "_profile", steps=1))
+    if turns:
+        times = {0.1: [], 0.0: []}
+        for p in (0.1, 0.0, 0.0, 0.1, 0.1, 0.0):
+            for layer in model.bert.encoder.layers:
+                layer.self_attn.dropout = p
+            for _ in range(4):
+                t1 = time.perf_counter()
+                step(*batch).item()
+                times[p].append(time.perf_counter() - t1)
+        out["turns_step_s"] = {"attention_dropout_0.1": times[0.1],
+                               "attention_dropout_0": times[0.0]}
+        out["turns_median_ratio"] = (statistics.median(times[0.1])
+                                     / statistics.median(times[0.0]))
+        emit({"phase": phase + "_turns", "step_s": out["turns_step_s"],
+              "median_ratio_dropout_over_flash": out["turns_median_ratio"]})
+    del step, opt, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def bert_train_phase(torch, dev):
+    """BASELINE config 2: BERT-base MLM at its default dropout 0.1, so
+    attention drops and runs the plain f32 path; 49 keys a step (the
+    embeddings' dropout, and 4 a layer)."""
+    from paddle_tpu_torch.models.bert import BERT_BASE
+
+    return bert_train_run(torch, dev, "bert_train", BERT_BASE,
+                          BERT_PER_STEP, 1 + 4 * BERT_BASE.num_hidden_layers)
+
+
+def bert_train_flash_phase(torch, dev):
+    """The same with attention_probs_dropout_prob = 0: attention runs the
+    flash kernels, 12 launches a step each; 37 keys a step."""
+    from paddle_tpu_torch.models.bert import BERT_BASE
+
+    cfg = dataclasses.replace(BERT_BASE, attention_probs_dropout_prob=0.0)
+    return bert_train_run(torch, dev, "bert_train_flash", cfg,
+                          BERT_FLASH_PER_STEP,
+                          1 + 3 * cfg.num_hidden_layers, turns=True)
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at ``x``."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+@contextlib.contextmanager
+def twin_path(torch):
+    """Every kernel of BERT's path replaced by its plain twin on CUDA
+    tensors: the LayerNorm pair, and attention through the flash
+    autograd function with ``flash_fwd_plain`` and ``flash_bwd_plain``,
+    the kernels' own recompute form (``delta`` from the bf16 output, as
+    the JAX kernel's ``paddle_tpu/ops/pallas/flash.py:251-253``)."""
+    import importlib
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.layer_norm import layer_norm_plain
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    saved = fa.flash_fwd, fa.flash_bwd, F._layer_norm_op
+    fa.flash_fwd, fa.flash_bwd = fa.flash_fwd_plain, fa.flash_bwd_plain
+    F._layer_norm_op = layer_norm_plain
+    try:
+        yield
+    finally:
+        fa.flash_fwd, fa.flash_bwd, F._layer_norm_op = saved
+
+
+def bert_parity_phase(torch, dev):
+    """BERT-base, bf16, dropout 0: (1) one step's loss and every
+    parameter's gradient through the kernels against their plain twins
+    in bf16 (twin_path) and the plain functions on an f32 copy
+    (grad_parity; the bf16 loss is one bf16 value, as JAX's, so its
+    tolerance adds a bf16 step of it).  The yardstick is the twins, not
+    torch autograd over the dense forward (train_parity's): at BERT's
+    initial weights the attention is near uniform and the keys share a
+    large common component, so the q and k gradients are a small
+    difference that ``delta``'s rounding (from the bf16 output, as in
+    JAX's kernel) swamps; the dense path's q/k errors are printed
+    beside (PERF.md, findings); (2) an
+    eval forward at s = 512 with a ragged padding mask, the logits of the
+    unpadded positions likewise; (3) bert_train's first step (dropout
+    0.1) twice from the same seeds: loss and gradients bit for bit."""
+    from paddle_tpu_torch import random as prandom
+    from paddle_tpu_torch.models.bert import BERT_BASE, BertForMaskedLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(BERT_BASE, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    model = BertForMaskedLM(cfg, device=dev, dtype=torch.bfloat16, seed=7)
+    model.train()
+    batch = bert_batch(torch, cfg, BERT_BATCH, BERT_SEQ, dev, 99)
+
+    def grads_of(m):
+        m.zero_grad(set_to_none=True)
+        loss = bert_loss(m, *batch)
+        loss.backward()
+        out = {n: p.grad.float() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.item(), out
+
+    reset_kernel_launches()
+    kern = grads_of(model)
+    launches = kernel_launches()
+    if {k: launches[k] for k in BERT_FLASH_PER_STEP} != BERT_FLASH_PER_STEP:
+        raise AssertionError(f"bert parity: launches {launches}, want "
+                             f"{BERT_FLASH_PER_STEP}")
+    model32 = copy.deepcopy(model).float()
+    with twin_path(torch):
+        plain = grads_of(model)
+    with functional_plain_path(torch):
+        dense = grads_of(model)
+        f32 = grads_of(model32)
+    # the key bias's gradient is 0: softmax is invariant to adding q.b_k
+    # to a whole row of scores
+    worst, report = grad_parity("bert parity", kern, plain, f32,
+                                loss_floor=bf16_ulp(f32[0]),
+                                zero_truth=("self_attn.k_proj.bias",))
+    dense_err = {n: ((dense[1][n] - ref).norm() / ref.norm()).item()
+                 for n, ref in f32[1].items()
+                 if n.endswith(("q_proj.weight", "k_proj.weight"))}
+    del kern, plain, dense, f32
+    # (2) eval at s = 512, ragged padding: 8 sequences of 512 positions,
+    # the first `lengths[i]` visible
+    model.eval()
+    model32.eval()
+    g = torch.Generator(device="cpu").manual_seed(512)
+    lengths = [512, 497, 384, 300, 257, 128, 65, 1]
+    ids = torch.randint(0, cfg.vocab_size, (len(lengths), 512),
+                        generator=g).to(dev)
+    mask = (torch.arange(512)[None, :] < torch.tensor(lengths)[:, None]) \
+        .long().to(dev)
+    visible = mask.bool()
+    with torch.no_grad():
+        reset_kernel_launches()
+        lk = model(ids, attention_mask=mask)[visible].float()
+        eval_launches = kernel_launches()
+        with functional_plain_path(torch):
+            lp = model(ids, attention_mask=mask)[visible].float()
+            l32 = model32(ids, attention_mask=mask)[visible]
+    if eval_launches["layer_norm"] != BERT_PER_STEP["layer_norm"] or \
+            eval_launches["flash_fwd"]:
+        raise AssertionError(f"bert parity eval: launches {eval_launches}")
+    e_k = ((lk - l32).norm() / l32.norm()).item()
+    e_p = ((lp - l32).norm() / l32.norm()).item()
+    tol = GRAD_PARITY_FACTOR * e_p + GRAD_PARITY_FLOOR
+    if not e_k <= tol:
+        raise AssertionError(f"bert parity eval s512: kernel logits rel err "
+                             f"{e_k:.3e} > {tol:.3e} (plain bf16 {e_p:.3e})")
+    del lk, lp, l32, model32, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (3) the same first step twice: same seeds, same masks, same bits
+    runs = []
+    for _ in range(2):
+        prandom.seed(2019)
+        m = BertForMaskedLM(BERT_BASE, device=dev, dtype=torch.bfloat16,
+                            seed=0)
+        m.train()
+        b = bert_batch(torch, BERT_BASE, BERT_BATCH, BERT_SEQ, dev, 1234)
+        loss = bert_loss(m, *b)
+        loss.backward()
+        runs.append((loss.detach(), {n: p.grad for n, p in
+                                     m.named_parameters()}))
+        del m, b, loss
+    (la, ga), (lb, gb) = runs
+    differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
+    if not torch.equal(la, lb) or differ:
+        raise AssertionError(f"bert parity: the same seed gave another step "
+                             f"(loss {la.item()} / {lb.item()}, gradients "
+                             f"that differ: {differ[:5]})")
+    del runs, ga, gb
+    gc.collect()
+    torch.cuda.empty_cache()
+    top = sorted(report.items(), key=lambda kv: -kv[1][0])[:8]
+    emit({"phase": "bert_parity", "batch": BERT_BATCH, "seq": BERT_SEQ,
+          "dropout": 0.0, "worst_err_over_tol": worst,
+          "params_checked": len(report),
+          "largest_grad_rel_err_kernel_vs_plain_bf16": top,
+          "q_k_weight_grad_rel_err_dense_plain_bf16": dense_err,
+          "launches": launches,
+          "eval_s512": {"lengths": lengths, "logit_rel_err_kernel": e_k,
+                        "logit_rel_err_plain_bf16": e_p,
+                        "launches": eval_launches},
+          "same_seed_step": "loss and every gradient bitwise equal",
+          "loss_bf16": la.item()})
+
+
+def train_recompute_phase(torch, dev):
+    """The train phase's model (TRAIN_LAYERS of LLaMA-2-7B, bf16, fused
+    LM loss, AdamW multi_precision) with hidden_dropout_prob 0.1: two
+    steps with use_recompute against the same two steps without, from
+    the same weights and stream: losses, every gradient and the updated
+    parameters bit for bit.  Measured on both: each step's forward and
+    backward (host clock, synchronized) and its peak of allocated memory
+    above what was allocated before it (activations, the gradients and
+    what autograd keeps), and the optimizer step's time."""
+    from paddle_tpu_torch import random as prandom
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.optimizer import AdamW
+
+    g = torch.Generator(device="cpu").manual_seed(4321)
+    base = train_config(TRAIN_LAYERS)
+    ids = torch.randint(0, base.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g).to(dev)
+    runs = {}
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(base, hidden_dropout_prob=0.1,
+                                  use_recompute=remat)
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=0)
+        model.train()
+        opt = AdamW(learning_rate=3e-4, beta1=0.9, beta2=0.95, epsilon=1e-5,
+                    parameters=model.named_parameters(), weight_decay=0.1,
+                    multi_precision=True, device=dev)
+        prandom.seed(77)
+        reset_kernel_launches()
+        losses, grads, fb_s, opt_s, fb_gb = [], [], [], [], []
+        for _ in range(2):
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            loss = loss_fn(model, ids, ids)
+            loss.backward()
+            torch.cuda.synchronize()
+            fb_s.append(time.perf_counter() - t1)
+            fb_gb.append((torch.cuda.max_memory_allocated() - before) / 1e9)
+            grads.append({n: p.grad.clone() for n, p in
+                          model.named_parameters()})
+            t1 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            opt_s.append(time.perf_counter() - t1)
+            losses.append(loss.detach())
+        opt.clear_grad()
+        runs[remat] = {
+            "losses": losses, "grads": grads,
+            "params": {n: p.detach() for n, p in model.named_parameters()},
+            "fwd_bwd_s": fb_s, "opt_s": opt_s, "fwd_bwd_peak_gb": fb_gb,
+            "keys": prandom.get_rng_state(), "launches": kernel_launches()}
+        del opt, model, loss
+    a, b = runs[False], runs[True]
+    differ = [f"step {i} {n}" for i in range(2) for n in a["grads"][i]
+              if not torch.equal(a["grads"][i][n], b["grads"][i][n])]
+    differ += [n for n in a["params"]
+               if not torch.equal(a["params"][n], b["params"][n])]
+    if not all(torch.equal(x, y) for x, y in zip(a["losses"], b["losses"])) \
+            or differ or a["keys"] != b["keys"]:
+        raise AssertionError(f"train_recompute: recompute changed the step: "
+                             f"losses {[x.item() for x in a['losses']]} / "
+                             f"{[x.item() for x in b['losses']]}, keys "
+                             f"{a['keys']} / {b['keys']}, differ "
+                             f"{differ[:5]}")
+    emit({"phase": "train_recompute", "model": "LLAMA2_7B widths",
+          "layers": TRAIN_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "hidden_dropout": 0.1,
+          "losses": [x.item() for x in a["losses"]],
+          "bitwise": "losses, every gradient of both steps, the updated "
+                     "parameters",
+          "fwd_bwd_peak_gb_above_resident": {
+              "plain": a["fwd_bwd_peak_gb"],
+              "recompute": b["fwd_bwd_peak_gb"]},
+          "fwd_bwd_s": {"plain": a["fwd_bwd_s"], "recompute": b["fwd_bwd_s"]},
+          "optimizer_s": {"plain": a["opt_s"], "recompute": b["opt_s"]},
+          "step2_memory_ratio": b["fwd_bwd_peak_gb"][1]
+          / a["fwd_bwd_peak_gb"][1],
+          "step2_time_ratio": (b["fwd_bwd_s"][1] + b["opt_s"][1])
+          / (a["fwd_bwd_s"][1] + a["opt_s"][1]),
+          "launches": {"plain": a["launches"], "recompute": b["launches"]}})
+    del runs, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: the optimizers phase's parameters: BERT-base's word embedding, an FFN
+#: matrix and a LayerNorm vector
+OPTIMIZER_SHAPES = {"word_embeddings": (30522, 768), "linear1": (768, 3072),
+                    "norm": (768,)}
+#: the optimizers phase: each with coupled L2 where it takes one
+OPTIMIZER_CASES = {
+    "SGD": dict(weight_decay=0.01), "Momentum": dict(weight_decay=0.01),
+    "Adagrad": dict(weight_decay=0.01), "Adadelta": dict(weight_decay=0.01),
+    "RMSProp": dict(weight_decay=0.01), "Adam": dict(weight_decay=0.01),
+    "AdamW": dict(weight_decay=0.01), "Adamax": dict(weight_decay=0.01),
+    "Lamb": dict(lamb_weight_decay=0.01), "Rprop": dict(),
+    "ASGD": dict(batch_num=2, weight_decay=0.01),
+    "NAdam": dict(weight_decay=0.01), "RAdam": dict(weight_decay=0.01)}
+
+
+def optimizers_phase(torch, dev):
+    """Each of the 13 optimizers takes 3 steps on BERT-base-shaped f32
+    parameters ([30522, 768], [768, 3072], [768]) on the card and the
+    same steps on the CPU, from the same seeded values and gradients.
+    Tolerance: every parameter and accumulator within 1e-5 of its
+    largest magnitude (f32 elementwise ops round alike on both; the
+    norms of Lamb and NAdam's powers may differ by ulps).  Also the
+    card's step time (host clock, synchronized)."""
+    from paddle_tpu_torch import optimizer as popt
+
+    shapes = OPTIMIZER_SHAPES
+    g = torch.Generator(device="cpu").manual_seed(13)
+    init = {n: torch.randn(*s, generator=g) * 0.02 for n, s in
+            shapes.items()}
+    grads = [{n: torch.randn(*s, generator=g) * 1e-3 for n, s in
+              shapes.items()} for _ in range(3)]
+    report = {}
+    for name, kw in OPTIMIZER_CASES.items():
+        sides = {}
+        for where in ("cpu", dev):
+            params = {n: torch.nn.Parameter(t.clone().to(where))
+                      for n, t in init.items()}
+            opt = getattr(popt, name)(learning_rate=1e-3,
+                                      parameters=list(params.items()),
+                                      device=where, **kw)
+            times = []
+            for step_grads in grads:
+                for n, p in params.items():
+                    p.grad = step_grads[n].to(where)
+                t1 = time.perf_counter()
+                opt.step()
+                if where != "cpu":
+                    torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                opt.clear_grad()
+            sides[str(where)] = (params, opt, times)
+        (cp, copt, _), (dp, dopt, dtimes) = sides["cpu"], sides[str(dev)]
+        worst = 0.0
+        for n in shapes:
+            pairs = [(f"{n}", dp[n].detach(), cp[n].detach())] + [
+                (f"{n}.{k}", v, copt._accumulators[id(cp[n])][k])
+                for k, v in dopt._accumulators[id(dp[n])].items()]
+            for label, got, want in pairs:
+                got, want = got.cpu().float(), want.float()
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                if not (math.isfinite(err) and err <= 1e-5 * scale + 1e-30):
+                    raise AssertionError(f"optimizers {name} {label}: card "
+                                         f"vs CPU max err {err:.3e}, scale "
+                                         f"{scale:.3e}")
+                worst = max(worst, err / max(scale, 1e-30))
+            if torch.equal(dp[n].detach().cpu(), init[n]):
+                raise AssertionError(f"optimizers {name}: {n} did not move")
+        report[name] = {"worst_rel_err": worst, "card_step_ms": [
+            t * 1e3 for t in dtimes]}
+        del sides, cp, dp, copt, dopt
+    emit({"phase": "optimizers", "steps": 3, "shapes": shapes,
+          "tolerance": "1e-5 of each tensor's largest magnitude",
+          "optimizers": report})
 
 
 def sweep_main(torch, args):
@@ -3695,6 +4267,22 @@ def main():
     train_parity_phase(torch, dev)
     unet = unet_train_phase(torch, dev)
     unet_train_parity_phase(torch, dev)
+    t_bert = time.perf_counter()
+    bert, bert_figures = bert_train_phase(torch, dev)
+    bert_flash, flash_figures = bert_train_flash_phase(torch, dev)
+    emit({"phase": "bert_attention_dropout_cost",
+          "step_s_mean": {"bert_train": bert_figures["step_s_mean"],
+                          "bert_train_flash": flash_figures["step_s_mean"]},
+          "turns_step_s": flash_figures["turns_step_s"],
+          "turns_median_ratio": flash_figures["turns_median_ratio"],
+          "peak_memory_gb": {
+              "bert_train": bert_figures["peak_memory_gb"],
+              "bert_train_flash": flash_figures["peak_memory_gb"]}})
+    bert_parity_phase(torch, dev)
+    train_recompute_phase(torch, dev)
+    optimizers_phase(torch, dev)
+    emit({"phase": "bert_recompute_optimizers_seconds",
+          "seconds": time.perf_counter() - t_bert})
 
     # the first source is the kernel's; the int8 pool's loader and
     # conversion hooks live in both files
@@ -3733,22 +4321,28 @@ def main():
             "serve_spec": serve_spec, "serve_quant": serve_quant,
             "serve_gateway": serve_gateway,
             "serve_structured": serve_structured, "serve_tier": serve_tier,
-            "train": train, "unet_train": unet}
+            "train": train, "unet_train": unet, "bert_train": bert,
+            "bert_train_flash": bert_flash}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]
         files = (source,) if isinstance(source, str) else source
-        kernels.append({"name": name, "route": route, "source": files[0],
-                        "source_files": list(files),
-                        "replaces": replaces, "launches": runs[path][name],
-                        "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                        "device_ms": c.get("device_ms"),
-                        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                        "bound_by": c["bound_by"],
-                        "library_ms": c["library_ms"], "case": c["name"],
-                        "path": path,
-                        "launches_by_path": {p: r.get(name, 0)
-                                             for p, r in runs.items()}})
+        entry = {"name": name, "route": route, "source": files[0],
+                 "source_files": list(files), "replaces": replaces,
+                 "launches": runs[path][name],
+                 "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                 "device_ms": c.get("device_ms"), "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                 "library_ms": c["library_ms"], "case": c["name"],
+                 "path": path,
+                 "launches_by_path": {p: r.get(name, 0)
+                                      for p, r in runs.items()}}
+        bc = summary.get("bert/" + name)
+        if bc is not None:          # the same kernel at BERT's shape
+            entry["bert_case"] = {k: bc.get(k) for k in (
+                "name", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_device_ms")}
+        kernels.append(entry)
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

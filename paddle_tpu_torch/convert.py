@@ -14,6 +14,13 @@ norm weights keep their layout.  With tied embeddings the JAX model has
 no ``lm_head.weight`` and neither has the port: both compute the logits
 against the embedding matrix.
 
+``bert_state_dict_from_jax`` does the same for ``BertForMaskedLM`` or
+``BertForSequenceClassification`` (``models/bert.py``): the attention
+projections, ``linear1``/``linear2``, the MLM head's ``transform``, the
+pooler's ``dense`` and the classifier transpose; embeddings (the MLM
+decoder's tied weight among them, listed once by both frameworks),
+biases and LayerNorms keep their layout.
+
 ``unet_state_dict_from_jax`` does the same for the SD UNet
 (``models/unet.py``): the weights of its linear layers transpose
 (``time_mlp1``, ``time_mlp2``, each ResnetBlock's ``time_emb_proj``, each
@@ -64,13 +71,13 @@ def _is_linear(key):
         key.rsplit(".", 2)[-2] in _PROJECTIONS
 
 
-def state_dict_from_jax(np_state, config, device=None, dtype=None):
-    """``dict[str, np.ndarray]`` (the JAX ``state_dict``) ->
-    ``dict[str, torch.Tensor]`` on ``device`` (``cuda`` unless asked
-    otherwise), in ``dtype`` (default: the arrays' own).  Raises on a
-    missing, unexpected or misshaped key."""
+def _from_jax(np_state, want, is_linear, device, dtype):
+    """Tensors of the keys ``want`` ({key: torch-layout shape}) from the
+    numpy ``np_state``, the keys for which ``is_linear`` holds transposed
+    (paddle ``[in, out]`` -> ``[out, in]``), on ``device`` in ``dtype``
+    (default: the arrays' own).  Raises on a missing, unexpected or
+    misshaped key."""
     dev = resolve_device(device)
-    want = expected_shapes(config)
     missing = sorted(set(want) - set(np_state))
     extra = sorted(set(np_state) - set(want))
     if missing or extra:
@@ -79,14 +86,23 @@ def state_dict_from_jax(np_state, config, device=None, dtype=None):
     out = {}
     for key, shape in want.items():
         a = np.asarray(np_state[key])
-        if _is_linear(key):
-            a = a.T                       # paddle [in, out] -> [out, in]
+        if is_linear(key):
+            a = a.T
         if tuple(a.shape) != shape:
             raise ValueError(f"{key}: shape {tuple(a.shape)} after layout "
                              f"conversion, expected {shape}")
         t = torch.tensor(a)              # a copy: the state stays the caller's
         out[key] = t.to(device=dev, dtype=dtype or t.dtype)
     return out
+
+
+def state_dict_from_jax(np_state, config, device=None, dtype=None):
+    """``dict[str, np.ndarray]`` (the JAX ``state_dict``) ->
+    ``dict[str, torch.Tensor]`` on ``device`` (``cuda`` unless asked
+    otherwise), in ``dtype`` (default: the arrays' own).  Raises on a
+    missing, unexpected or misshaped key."""
+    return _from_jax(np_state, expected_shapes(config), _is_linear, device,
+                     dtype)
 
 
 _ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow",
@@ -217,22 +233,65 @@ def unet_state_dict_from_jax(np_state, config, device=None, dtype=None):
     unless asked otherwise) in ``dtype`` (default: the arrays' own).
     Linear weights are transposed (see the module docstring).  Raises on
     a missing, unexpected or misshaped key."""
-    dev = resolve_device(device)
-    want = unet_expected_shapes(config)
-    missing = sorted(set(want) - set(np_state))
-    extra = sorted(set(np_state) - set(want))
-    if missing or extra:
-        raise KeyError(f"state dict mismatch: missing {missing[:4]}, "
-                       f"unexpected {extra[:4]}")
-    out = {}
-    for key, shape in want.items():
-        a = np.asarray(np_state[key])
-        if key.endswith(".weight") and \
-                key.rsplit(".", 2)[-2] in _UNET_LINEARS:
-            a = a.T                       # paddle [in, out] -> [out, in]
-        if tuple(a.shape) != shape:
-            raise ValueError(f"{key}: shape {tuple(a.shape)} after layout "
-                             f"conversion, expected {shape}")
-        t = torch.tensor(a)
-        out[key] = t.to(device=dev, dtype=dtype or t.dtype)
-    return out
+    return _from_jax(
+        np_state, unet_expected_shapes(config),
+        lambda key: key.endswith(".weight") and
+        key.rsplit(".", 2)[-2] in _UNET_LINEARS, device, dtype)
+
+
+_BERT_LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj", "linear1",
+                 "linear2", "transform", "dense", "classifier")
+
+
+def bert_expected_shapes(config, num_classes=None):
+    """``{key: torch-layout shape}`` of a ``BertForMaskedLM(config)``, or
+    with ``num_classes`` of a ``BertForSequenceClassification``.  The
+    tied MLM decoder weight is the word embedding and has no key of its
+    own."""
+    c = config
+    h, f = c.hidden_size, c.intermediate_size
+    shapes = {}
+
+    def linear(p, i, o):
+        shapes[p + ".weight"] = (o, i)
+        shapes[p + ".bias"] = (o,)
+
+    def norm(p):
+        shapes[p + ".weight"] = (h,)
+        shapes[p + ".bias"] = (h,)
+
+    e = "bert.embeddings."
+    shapes[e + "word_embeddings.weight"] = (c.vocab_size, h)
+    shapes[e + "position_embeddings.weight"] = (c.max_position_embeddings, h)
+    shapes[e + "token_type_embeddings.weight"] = (c.type_vocab_size, h)
+    norm(e + "layer_norm")
+    for i in range(c.num_hidden_layers):
+        p = f"bert.encoder.layers.{i}."
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(p + "self_attn." + proj, h, h)
+        linear(p + "linear1", h, f)
+        linear(p + "linear2", f, h)
+        norm(p + "norm1")
+        norm(p + "norm2")
+    if num_classes is None:
+        linear("cls.transform", h, h)
+        norm("cls.layer_norm")
+        shapes["cls.decoder_bias"] = (c.vocab_size,)
+    else:
+        linear("bert.pooler.dense", h, h)
+        linear("classifier", h, num_classes)
+    return shapes
+
+
+def bert_state_dict_from_jax(np_state, config, num_classes=None, device=None,
+                             dtype=None):
+    """The JAX BERT's ``state_dict`` (as numpy) -> tensors for the port's
+    ``load_state_dict``, on ``device`` (``cuda`` unless asked otherwise)
+    in ``dtype`` (default: the arrays' own); ``num_classes`` as in
+    :func:`bert_expected_shapes`.  Linear weights are transposed (see the
+    module docstring).  Raises on a missing, unexpected or misshaped
+    key."""
+    return _from_jax(
+        np_state, bert_expected_shapes(config, num_classes),
+        lambda key: key.endswith(".weight") and
+        key.rsplit(".", 2)[-2] in _BERT_LINEARS, device, dtype)

@@ -1,0 +1,3 @@
+from .recompute import recompute, recompute_sequential
+
+__all__ = ["recompute", "recompute_sequential"]

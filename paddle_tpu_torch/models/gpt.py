@@ -21,7 +21,14 @@ conversion transposes paddle's ``[in, out]`` once, at load.
   serving parity checks compare with): rope at ``arange(s)``, then
   causal flash attention (``ops/flash_attention.py``: the hand-written
   forward and backward kernels on the card), as the JAX model's SDPA
-  routes to its Pallas flash kernel.
+  routes to its Pallas flash kernel.  Training (``model.train()``)
+  drops each layer's two residual branches with
+  ``hidden_dropout_prob`` (``nn.Dropout``), and with ``use_recompute``
+  runs each layer under ``distributed.recompute`` (its activations
+  rebuilt in the backward, the same dropout masks replayed), as
+  ``paddle_tpu/models/gpt.py:229-265``.  The serving path runs no
+  dropout (the engine runs the model in ``eval()``, where JAX's dropout
+  is the identity).
 
 ``GPTForCausalLM.forward(input_ids, labels)`` returns the mean token
 cross-entropy beside the logits, or beside None with
@@ -39,6 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed.recompute import recompute
+from ..nn import functional as port_F
+from ..nn.common import Dropout
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.rms_norm import rms_norm
@@ -58,8 +68,10 @@ class GPTConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
+    hidden_dropout_prob: float = 0.0
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
+    use_recompute: bool = False
     # fused chunked LM-head CE: never materialises [B*S, vocab] f32 logits
     # (forward(labels=...) then returns (loss, None))
     fused_lm_loss: bool = False
@@ -246,10 +258,11 @@ class GPTDecoderLayer(nn.Module):
         self.self_attn = GPTAttention(config, device, dtype)
         self.post_attention_layernorm = RMSNorm(h, eps, device, dtype)
         self.mlp = GPTMLP(config, device, dtype)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, x):
-        x = x + self.self_attn(self.input_layernorm(x))
-        return x + self.mlp(self.post_attention_layernorm(x))
+        x = x + self.dropout(self.self_attn(self.input_layernorm(x)))
+        return x + self.dropout(self.mlp(self.post_attention_layernorm(x)))
 
     def forward_paged(self, rows, cache, b, s, wq=None):
         """The serving path over the padded rows of a [b, s] window; the
@@ -282,10 +295,12 @@ class GPTModel(nn.Module):
         ``ROW_TILE``-row tiles through every layer (:func:`pad_rows`),
         so only attention sees the [B, S] window; ``wq`` maps its int8
         weights (:func:`serving_weight`)."""
-        x = self.embed_tokens(input_ids)
+        # the port's embedding: its backward is deterministic on the card
+        x = port_F.embedding(input_ids, self.embed_tokens.weight)
         if caches is None:
+            remat = self.config.use_recompute and self.training
             for layer in self.layers:
-                x = layer(x)
+                x = recompute(layer, x) if remat else layer(x)
             return self.norm(x)
         b, s = input_ids.shape
         rows = pad_rows(x)

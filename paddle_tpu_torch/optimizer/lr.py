@@ -1,8 +1,11 @@
 """Learning-rate schedulers, as ``paddle_tpu/optimizer/lr.py``: the base
 ``LRScheduler`` (``step()`` advances ``last_epoch`` and caches
 ``last_lr``), ``LinearWarmup`` (a linear ramp that hands over to a wrapped
-scheduler or a constant) and ``CosineAnnealingDecay``.  Plain Python
-floats; the optimizer reads ``get_lr()`` once per step."""
+scheduler or a constant) and the JAX package's fifteen others, each
+``get_lr`` copied term for term.  Plain Python floats; the optimizer
+reads ``get_lr()`` once per step.  BERT's recipe is
+``LinearWarmup(PolynomialDecay(power=1.0))``; ``ReduceOnPlateau`` steps
+on a metric (``step(metrics)``)."""
 
 from __future__ import annotations
 
@@ -72,3 +75,255 @@ class CosineAnnealingDecay(LRScheduler):
     def get_lr(self):
         return self.eta_min + (self.base_lr - self.eta_min) * (
             1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0,
+                 last_epoch=-1):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return self.base_lr * (self.d_model ** -0.5) * min(
+            step ** -0.5, step * self.warmup_steps ** -1.5)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch)
+
+    def get_lr(self):
+        step = self.last_epoch
+        decay_steps = self.decay_steps
+        if self.cycle:
+            div = math.ceil(step / decay_steps) if step > 0 else 1
+            decay_steps = decay_steps * max(div, 1)
+        else:
+            step = min(step, decay_steps)
+        return (self.base_lr - self.end_lr) * (
+            (1 - step / decay_steps) ** self.power) + self.end_lr
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch)
+
+    def get_lr(self):
+        return self.base_lr * (self.gamma ** self.last_epoch)
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * (self.gamma ** n)
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch)
+
+    def get_lr(self):
+        return self.base_lr * (
+            self.gamma ** (self.last_epoch // self.step_size))
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch)
+
+    def get_lr(self):
+        lr = self.base_lr
+        for e in range(1, self.last_epoch + 1):
+            lr *= self.lr_lambda(e)
+        return lr
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch)
+
+    def get_lr(self):
+        t = self.last_epoch
+        t_i = self.T_0
+        while t >= t_i:
+            t -= t_i
+            t_i *= self.T_mult
+        return self.eta_min + (self.base_lr - self.eta_min) * (
+            1 + math.cos(math.pi * t / t_i)) / 2
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate,
+                 step_size_up=2000,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1):
+        self.max_lr = max_learning_rate
+        self.step_up = step_size_up
+        self.step_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        self.scale_fn = scale_fn
+        self.scale_mode = scale_mode
+        super().__init__(base_learning_rate, last_epoch)
+
+    def get_lr(self):
+        total = self.step_up + self.step_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x < self.step_up:
+            pct = x / self.step_up
+        else:
+            pct = 1 - (x - self.step_up) / self.step_down
+        lr = self.base_lr + (self.max_lr - self.base_lr) * pct
+        if self.scale_fn is not None:
+            arg = cycle if self.scale_mode == "cycle" else self.last_epoch
+            return self.base_lr + (lr - self.base_lr) * self.scale_fn(arg)
+        if self.mode == "triangular2":
+            return self.base_lr + (lr - self.base_lr) / (2 ** (cycle - 1))
+        if self.mode == "exp_range":
+            return self.base_lr + (lr - self.base_lr) * (
+                self.exp_gamma ** self.last_epoch)
+        return lr
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos",
+                 three_phase=False, last_epoch=-1):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        self.three_phase = three_phase
+        super().__init__(self.initial_lr, last_epoch)
+
+    def _anneal(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) * (1 + math.cos(math.pi * pct)) / 2
+        return start + (end - start) * pct
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up_steps = self.phase_pct * self.total_steps
+        if step <= up_steps:
+            return self._anneal(self.initial_lr, self.max_lr,
+                                step / max(up_steps, 1))
+        return self._anneal(self.max_lr, self.end_lr,
+                            (step - up_steps)
+                            / max(self.total_steps - up_steps, 1))
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self._current = float(learning_rate)
+        super().__init__(learning_rate, -1)
+
+    def get_lr(self):
+        return self._current
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            self.last_epoch += 1
+            self.last_lr = self._current
+            return
+        m = float(metrics)
+        self.last_epoch += 1
+        if self.best is None or self._is_better(m):
+            self.best = m
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        elif self.num_bad_epochs > self.patience:
+            new_lr = max(self._current * self.factor, self.min_lr)
+            if self._current - new_lr > self.epsilon:
+                self._current = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+        self.last_lr = self._current
+
+    def _is_better(self, m):
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return m < self.best * (1 - self.threshold)
+            return m < self.best - self.threshold
+        if self.threshold_mode == "rel":
+            return m > self.best * (1 + self.threshold)
+        return m > self.best + self.threshold

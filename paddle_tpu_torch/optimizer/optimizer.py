@@ -5,8 +5,8 @@ Every optimizer's math is one array function,
 package's design carried over: :meth:`Optimizer.step` (which
 ``jit.TrainStep`` calls) applies it parameter by parameter.  The results
 are written back in place (``param.copy_``), so the parameters keep
-their storage; the per-parameter state is a dict of tensors on the
-parameter's device.
+their storage and their dtype; the per-parameter state is a dict of
+tensors on the parameter's device, each keeping its dtype.
 
 The optimizer lives on ``device`` (``cuda`` unless the caller passes
 ``"cpu"``) and refuses parameters elsewhere.  ``parameters`` may be
@@ -128,10 +128,13 @@ class Optimizer:
                     continue
                 self._cur_wd = (0.0 if self._decay_exempt(p)
                                 else self._weight_decay)
-                new_p, new_state = self._update_raw(
-                    p, p.detach(), g, self._state_for(p), lr)
+                state = self._state_for(p)
+                new_p, new_state = self._update_raw(p, p.detach(), g, state,
+                                                    lr)
                 p.copy_(new_p)
-                self._accumulators[id(p)] = new_state
+                # each accumulator keeps its dtype, as JAX's _update_for
+                self._accumulators[id(p)] = {
+                    k: v.to(state[k].dtype) for k, v in new_state.items()}
 
     def step(self):
         params_grads = [(p, p.grad) for p in self._parameter_list

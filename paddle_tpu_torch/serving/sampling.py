@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
-_MASK64 = (1 << 64) - 1
+from ..random import key_seed
 
 #: logit floor for grammar-masked (disallowed) tokens: finite, so the
 #: temperature divide and softmax stay NaN-free at any temperature, but
@@ -61,14 +61,10 @@ class SamplingParams:
 
 
 def request_seed(seed, n_sampled):
-    """The generator seed of a request's ``n_sampled``-th token: the
-    splitmix64 finalizer over ``(seed, n_sampled)`` packed into 64 bits,
-    so neighbouring (seed, k) pairs give unrelated streams."""
-    z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(n_sampled) & 0xFFFFFFFF))
-    z = (z + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
+    """The generator seed of a request's ``n_sampled``-th token:
+    ``random.key_seed(seed, n_sampled)``, so neighbouring (seed, k)
+    pairs give unrelated streams."""
+    return key_seed(seed, n_sampled)
 
 
 def filter_logits(logits, temperatures, top_ks, top_ps):

@@ -272,23 +272,55 @@ def test_pad_and_slice_keeps_the_true_scale(d, dp):
         torch.testing.assert_close(g[..., :d], w, rtol=0, atol=1e-6)
 
 
-def test_functional_sdpa_is_flash_and_refuses_masks_and_dropout():
-    """nn.functional.scaled_dot_product_attention routes every query
-    length (here 16, under JAX's TPU threshold of 128) to flash
-    attention, which matches _sdpa_ref; a mask or training dropout has
-    no port yet and raises."""
+def test_functional_sdpa_routes_to_flash_and_matches_sdpa_ref_with_masks_and_dropout(
+        monkeypatch):
+    """nn.functional.scaled_dot_product_attention with no mask and no
+    training dropout routes every query length (here 16, under JAX's
+    TPU threshold of 128) to flash attention, which matches _sdpa_ref;
+    a bool or an additive mask (some rows with no visible key) runs the
+    plain f32 path, which matches _sdpa_ref with the same mask to 2e-6 of
+    its largest value (the same f32 terms, summed in another order), and
+    so does training dropout with p = 0.1 on average: the mean of 48
+    draws lies within 6 standard deviations of _sdpa_ref without
+    dropout, elementwise."""
+    from paddle_tpu_torch import random as prandom
     from paddle_tpu_torch.nn import functional as F
 
+    calls = []
+    flash = F.flash_attention
+    monkeypatch.setattr(F, "flash_attention",
+                        lambda *a, **kw: calls.append(1) or flash(*a, **kw))
     (jq, jk, jv), (q, k, v) = _as("float32", *_inputs(1, 16, 77, 2, 2, 40,
                                                       seed=6)[:3])
     out = F.scaled_dot_product_attention(q, k, v)
     _close(out.numpy(), _sdpa_ref(jq, jk, jv), "float32")
-    with pytest.raises(NotImplementedError):
-        F.scaled_dot_product_attention(q, k, v, attn_mask=torch.ones(
-            16, 77, dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
-        F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
     F.scaled_dot_product_attention(q, k, v, dropout_p=0.1, training=False)
+    assert len(calls) == 2
+    r = np.random.RandomState(7)
+    bool_mask = r.rand(1, 2, 16, 77) > 0.4
+    bool_mask[0, 1, 3] = False                   # a row with no key
+    add_mask = np.where(r.rand(1, 1, 1, 77) > 0.3, 0.0, -1e30).astype(
+        np.float32) + r.randn(1, 1, 1, 77).astype(np.float32)
+    for m in (bool_mask, add_mask):
+        got = F.scaled_dot_product_attention(q, k, v,
+                                             attn_mask=torch.from_numpy(m))
+        want = np.asarray(_sdpa_ref(jq, jk, jv, jnp.asarray(m)))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=2e-6 * np.abs(want).max())
+    assert len(calls) == 2
+    assert not got.isnan().any()
+    p, n = 0.1, 48
+    prandom.seed(0)
+    draws = torch.stack([F.scaled_dot_product_attention(q, k, v,
+                                                        dropout_p=p)
+                         for _ in range(n)])
+    assert len(calls) == 2 and prandom.get_rng_state() == (0, n)
+    probs = torch.softmax(torch.einsum("bshd,bthd->bhst", q, k)
+                          / math.sqrt(40), -1)
+    var = p / (1 - p) * torch.einsum("bhst,bthd->bshd", probs.square(),
+                                     v.square())
+    ref = torch.from_numpy(np.array(_sdpa_ref(jq, jk, jv)))
+    assert ((draws.mean(0) - ref).abs() <= 6 * (var / n).sqrt() + 1e-6).all()
 
 
 # (b, sq, sk, kh, d) -> the query split of the bf16 dK/dV kernel: the

@@ -2,9 +2,12 @@
 numpy-seeded arrays: AdamW (decoupled decay, ``apply_decay_param_fun``,
 the ``multi_precision`` master weight), Adam (coupled L2),
 ``ClipGradByGlobalNorm``, and the ``LinearWarmup`` /
-``CosineAnnealingDecay`` schedules, over 20 steps; and
-``convert.optimizer_state_from_jax``, which resumes a JAX AdamW run in
-the port.
+``CosineAnnealingDecay`` schedules, over 20 steps; every other
+optimizer (SGD, Momentum, Adagrad, Adadelta, RMSProp, Adamax, Lamb,
+Rprop, ASGD, NAdam, RAdam) over 3 steps, parameters and every
+accumulator, with coupled L2 and the options that take other branches;
+and ``convert.optimizer_state_from_jax``, which resumes a JAX AdamW run
+in the port.
 
 Tolerances.  The schedules are the same Python float arithmetic: equal.
 The updates are the same f32 operations in the same order; XLA may fuse
@@ -29,6 +32,7 @@ from paddle_tpu_torch.convert import (
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import GPTForCausalLM as TGPTForCausalLM
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch import optimizer as topt_mod
 from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.optimizer import lr as tlr
 
@@ -66,7 +70,8 @@ def _grads(step, scale):
             for n, s in SHAPES.items()}
 
 
-def _run(make_jax, make_port, dtype_name, clip, grad_scale=1.0):
+def _run(make_jax, make_port, dtype_name, clip, grad_scale=1.0,
+         steps=STEPS):
     jp, tp = _params(dtype_name)
     jsched, tsched = _schedules()
     jopt = make_jax(jsched, list(jp.values()),
@@ -74,7 +79,7 @@ def _run(make_jax, make_port, dtype_name, clip, grad_scale=1.0):
     topt = make_port(tsched, list(tp.items()),
                      ClipGradByGlobalNorm(1.0) if clip else None)
     jdt, tdt = getattr(jnp, dtype_name), getattr(torch, dtype_name)
-    for step in range(STEPS):
+    for step in range(steps):
         for n, g in _grads(step, grad_scale).items():
             jp[n].grad = Tensor(jnp.asarray(g).astype(jdt))
             tp[n].grad = torch.from_numpy(g).to(tdt)
@@ -175,6 +180,90 @@ def test_adamw_bf16_multi_precision_master_weight_matches_jax():
             atol=0)
         assert tp[n].dtype == torch.bfloat16
     _check_state(jp, tp, jopt, topt, SHAPES)
+
+
+def _ndim1(p):
+    """An ``exclude_from_weight_decay_fn``: exempt vectors (norms,
+    biases)."""
+    return len(p.shape) == 1
+
+
+# name -> (class name, kwargs, dtype, gradient scale): each optimizer
+# with coupled L2 where it takes one, and the options with other branches
+OTHERS = {
+    "sgd": ("SGD", dict(weight_decay=0.01), "float32", 1.0),
+    "sgd_bf16": ("SGD", dict(), "bfloat16", 1.0),
+    "momentum": ("Momentum", dict(momentum=0.9, weight_decay=0.01),
+                 "float32", 1.0),
+    "momentum_nesterov": ("Momentum", dict(momentum=0.8,
+                                           use_nesterov=True),
+                          "float32", 1.0),
+    "adagrad": ("Adagrad", dict(epsilon=1e-6, weight_decay=0.01,
+                                initial_accumulator_value=0.1),
+                "float32", 1.0),
+    "adadelta": ("Adadelta", dict(rho=0.9, weight_decay=0.01), "float32",
+                 1.0),
+    "adadelta_bf16_master": ("Adadelta", dict(multi_precision=True,
+                                              weight_decay=0.01),
+                             "bfloat16", 1.0),
+    "rmsprop": ("RMSProp", dict(rho=0.9, momentum=0.5, weight_decay=0.01),
+                "float32", 1.0),
+    "rmsprop_centered": ("RMSProp", dict(centered=True), "float32", 1.0),
+    "adamax": ("Adamax", dict(weight_decay=0.01), "float32", 1.0),
+    "lamb": ("Lamb", dict(lamb_weight_decay=0.01), "float32", 1.0),
+    "lamb_exclude": ("Lamb", dict(lamb_weight_decay=0.1,
+                                  exclude_from_weight_decay_fn=_ndim1),
+                     "float32", 1.0),
+    "rprop": ("Rprop", dict(learning_rate_range=(1e-4, 0.5)), "float32",
+              1.0),
+    "asgd": ("ASGD", dict(batch_num=2, weight_decay=0.01), "float32", 1.0),
+    "nadam": ("NAdam", dict(weight_decay=0.01), "float32", 1.0),
+    "nadam_bf16_master": ("NAdam", dict(multi_precision=True), "bfloat16",
+                          1.0),
+    "radam": ("RAdam", dict(weight_decay=0.01), "float32", 1.0),
+    "radam_bf16_master": ("RAdam", dict(multi_precision=True), "bfloat16",
+                          1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(OTHERS))
+def test_other_optimizers_match_jax_over_3_steps(case):
+    """Each update copies JAX's term for term: f32 parameters and
+    accumulators agree to 1e-6 of their scale after 3 steps (an f32 ulp
+    a step, as above); bf16 parameters to one bf16 step, their f32
+    master weights (where JAX keeps one) to 1e-6.  The schedule is the
+    warm-up into cosine of the other tests; Rprop's first step sizes are
+    the learning rate at its first step (0 here, clipped up to the
+    range's floor) on both sides."""
+    name, kw, dtype, scale = OTHERS[case]
+    jp, tp, jopt, topt = _run(
+        lambda s, ps, c: getattr(paddle.optimizer, name)(
+            learning_rate=s, parameters=ps, grad_clip=c, **kw),
+        lambda s, ps, c: getattr(topt_mod, name)(
+            learning_rate=s, parameters=ps, grad_clip=c, device="cpu",
+            **kw),
+        dtype, clip=True, grad_scale=scale, steps=3)
+    for n in SHAPES:
+        want = np.asarray(jp[n].numpy(), np.float32)
+        got = tp[n].detach().float().numpy()
+        assert tp[n].dtype == getattr(torch, dtype)
+        if dtype == "float32":
+            _close(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=0)
+        jst = jopt._accumulators[id(jp[n])]
+        tst = topt._accumulators[id(tp[n])]
+        assert set(jst) == set(tst)
+        for k in jst:
+            assert tst[k].dtype == getattr(torch, str(jst[k].dtype))
+            if tst[k].dtype == torch.float32:
+                _close(tst[k].numpy(), jst[k])
+    # every parameter moved (its master weight, where a bf16 step is too
+    # small to show)
+    start = _params(dtype)[1]
+    for n in SHAPES:
+        now = topt._accumulators[id(tp[n])].get("master_weight", tp[n])
+        assert not torch.equal(now.detach().float(), start[n].float()), n
 
 
 def test_adam_coupled_l2_matches_jax():
