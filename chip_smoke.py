@@ -214,6 +214,38 @@ the script exits nonzero and prints no result:
    forward+backward peak memory above the resident state and its time.
 13. optimizers: each of the 13 optimizers 3 steps on BERT-base-shaped f32
    parameters on the card against the CPU (OPTIMIZER_CASES).
+14. resnet_train: bench_resnet50 (benchmarks/bench_models.py:116-152):
+   resnet50(num_classes=1000) in bf16 from seeded weights made on the
+   card, Momentum(0.025, 0.9) (RESNET_LR: the bench's 0.1 for 256
+   images, scaled to 64), cross-entropy on f32 logits, through
+   jit.TrainStep on one numpy-seeded batch of 64 x 3 x 224 x 224 with
+   cudnn.benchmark on: 2 warm-up and 4 timed steps (host clock, each
+   ending in loss.item()), the loss falling over them, no port kernel
+   launched (none lies on this path), every BatchNorm buffer moved and
+   finite; an eval pass whose finite logits give metric.Accuracy top-1
+   and top-5 equal to a direct topk count.  Printed: images/s, step
+   seconds (mean, range), model FLOP/s (hooks on every Conv2D and
+   Linear, 3 x forward) and its share of 989 TFLOP/s, peak memory, one
+   profiled step (busy against wall, kernel launches, device ms by kind:
+   cuDNN's convolutions, the elementwise and reduction passes, and
+   Momentum's loop told apart by its record_function span on the
+   device), and the device time of a step's BatchNorm forwards and
+   backwards run alone.
+15. resnet_amp: the same ResNet-50 in f32 under amp.auto_cast O1
+   float16 with amp.GradScaler through TrainStep(scaler=): 4 timed
+   steps beside resnet_train's images/s, the scale's path, a dtype
+   census of one forward (conv and Linear float16, BatchNorm and the
+   loss float32); a step forced to overflow (scale 2**40) leaves every
+   parameter and velocity bit for bit, moves the buffers and halves
+   the scale; steps until one fits, then two that train.
+16. resnet_parity: ResNet-50, b4 x 224 px, weights from one numpy seed
+   through convert.resnet_state_dict_from_jax (each bottleneck's
+   bn3.weight at RESNET_BRANCH_SCALE): one Momentum TrainStep on the
+   card and the CPU in f32 (TF32 off) and bf16 against the CPU in f64:
+   the logits, the loss, every gradient, parameter and buffer, the card
+   within GRAD_PARITY_FACTOR of the CPU's error plus GRAD_PARITY_FLOOR;
+   the same seed's bf16 step twice with cudnn.deterministic, bit for
+   bit.
 
 The last three lines are the card's nvidia-smi line, the per-kernel JSON
 summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
@@ -222,9 +254,11 @@ summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
     python3 chip_smoke.py --ln-fwd-sweep [--variants] [--tree DIR]
     python3 chip_smoke.py --paged-sweep [--tree DIR]
     python3 chip_smoke.py --serve-phases serve_structured,serve_tier
+    python3 chip_smoke.py --resnet-phases
 
 The last runs the named serve phases alone on the engine phase's model
-(no other phase and no kernels line).  The sweeps run the GroupNorm or
+(no other phase and no kernels line); ``--resnet-phases`` likewise runs
+phases 14-16 alone.  The sweeps run the GroupNorm or
 the LayerNorm forward sweep alone (or the paged attention cases and
 their row-invariance checks): with ``--variants`` also every launch the
 kernel takes at each shape
@@ -305,6 +339,21 @@ BERT_WARMUP, BERT_TIMED = 3, 4
 BERT_MLM_RATE = 0.15
 BERT_LR = 1e-4
 BERT_FLASH_CASE = f"bert_base/s{BERT_SEQ}/full"
+# ResNet-50 as bench_resnet50 (benchmarks/bench_models.py:116-152): bf16,
+# Momentum(lr, 0.9), cross-entropy on f32 logits, b64 at 3 x 224 x 224.
+# The learning rate is bench_resnet50's 0.1 scaled to the batch by the
+# linear rule of Goyal et al. 2017 (0.1 a 256 images): at 0.1, b64 and no
+# warm-up the loss of the first steps swings and rose over the timed steps
+# on the card (PERF.md, PR 15); the rate leaves a step's work unchanged
+RESNET_BATCH, RESNET_PX, RESNET_CLASSES = 64, 224, 1000
+RESNET_WARMUP, RESNET_TIMED = 2, 4
+RESNET_LR, RESNET_MOMENTUM = 0.1 * RESNET_BATCH / 256, 0.9
+RESNET_PARITY_BATCH = 4
+# each bottleneck's bn3.weight in resnet_parity's weights: at 1 (JAX's
+# init) a ResNet-50 training step is ill conditioned in f32 (gradients 2 %
+# apart norm-wise between f32 and f64 of one implementation), at 0.25 it
+# is not (2e-5); see tests/test_torch_resnet.py
+RESNET_BRANCH_SCALE = 0.25
 
 
 def emit(obj):
@@ -3185,11 +3234,12 @@ PORT_KERNELS = (
 )
 
 
-def profiled(torch, run):
+def profiled(torch, run, classify=None):
     """``run()`` under torch.profiler: the device's busy share of the
     wall time (union of kernel intervals) and the kernel time by name.
     The profiler slows the host, so the idle share is an upper bound of
-    the unprofiled run's."""
+    the unprofiled run's.  ``classify(kernels, events)``, if given,
+    returns more fields from the kernel events and all events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3223,13 +3273,16 @@ def profiled(torch, run):
         kind = next((k for k, keys in PORT_KERNELS if any(
             key in n for key in keys)), "library")
         by_kind[kind] = by_kind.get(kind, 0.0) + t / 1e3
-    return {"wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy / 1e3 if kernels else "not measured",
-            "device_idle_share": 1 - busy / wall_us if kernels
-            else "not measured",
-            "kernel_events": len(kernels),
-            "device_ms_by_kind": by_kind,
-            "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
+    out = {"wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy / 1e3 if kernels else "not measured",
+           "device_idle_share": 1 - busy / wall_us if kernels
+           else "not measured",
+           "kernel_events": len(kernels),
+           "device_ms_by_kind": by_kind,
+           "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
+    if classify is not None:
+        out.update(classify(kernels, events))
+    return out
 
 
 # ------------------------------------------------------------ phase 5/6
@@ -3461,6 +3514,7 @@ def unet_forward_flops(torch, model, batch):
     from torch import nn
 
     from paddle_tpu_torch.models.unet import CrossAttention
+    from paddle_tpu_torch.nn import Conv2D
 
     total = [0]
 
@@ -3481,7 +3535,7 @@ def unet_forward_flops(torch, model, batch):
 
     hooks = []
     for m in model.modules():
-        fn = (conv if isinstance(m, nn.Conv2d) else
+        fn = (conv if isinstance(m, Conv2D) else
               linear if isinstance(m, nn.Linear) else
               attn if isinstance(m, CrossAttention) else None)
         if fn is not None:
@@ -4159,6 +4213,562 @@ def optimizers_phase(torch, dev):
           "optimizers": report})
 
 
+# ---------------------------------------------------------- phases 14-16
+def resnet_batch(torch, b, seed, dev, dtype):
+    """bench_resnet50's batch: numpy-seeded N(0, 1) images [b, 3, 224,
+    224] in ``dtype`` and int64 labels in [0, 1000), on ``dev``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, 3, RESNET_PX, RESNET_PX).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (b,)).astype(np.int64)
+    return (torch.from_numpy(x).to(dev, dtype), torch.from_numpy(y).to(dev))
+
+
+def resnet_loss(net, x, y):
+    """bench_resnet50's loss: cross-entropy on the f32 logits."""
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(net(x).float(), y)
+
+
+def resnet_amp_loss(net, x, y):
+    """The forward and the loss under ``amp.auto_cast`` O1 float16."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+
+    with amp.auto_cast(level="O1", dtype="float16"):
+        return F.cross_entropy(net(x), y)
+
+
+@contextlib.contextmanager
+def backend_flags(torch, **flags):
+    """``torch.backends`` flags inside the block, restored after:
+    ``benchmark`` and ``deterministic`` (cuDNN), ``tf32`` (cuDNN's
+    convolutions and cuBLAS's matmuls).  Yields all four as set."""
+    b = torch.backends
+    saved = (b.cudnn.benchmark, b.cudnn.deterministic, b.cudnn.allow_tf32,
+             b.cuda.matmul.allow_tf32)
+    if "benchmark" in flags:
+        b.cudnn.benchmark = flags["benchmark"]
+    if "deterministic" in flags:
+        b.cudnn.deterministic = flags["deterministic"]
+    if "tf32" in flags:
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = flags["tf32"]
+    try:
+        yield {"cudnn.benchmark": b.cudnn.benchmark,
+               "cudnn.deterministic": b.cudnn.deterministic,
+               "cudnn.allow_tf32": b.cudnn.allow_tf32,
+               "cuda.matmul.allow_tf32": b.cuda.matmul.allow_tf32}
+    finally:
+        (b.cudnn.benchmark, b.cudnn.deterministic, b.cudnn.allow_tf32,
+         b.cuda.matmul.allow_tf32) = saved
+
+
+def resnet_forward_flops(torch, model, x):
+    """Model FLOPs of one forward, by hooks on every Conv2D (2 Cin/groups
+    k^2 an output element) and Linear (2 in an output element), over an
+    eval forward (which leaves the running buffers alone)."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+
+    total = [0]
+
+    def count(m, inp, out):
+        per = m.weight[0].numel() if isinstance(m, Conv2D) else \
+            m.weight.shape[1]
+        total[0] += 2 * per * out.numel()
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (Conv2D, Linear))]
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        model.train(was)
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def batch_norm_alone_ms(torch, model, x):
+    """Device ms of every BatchNorm forward and backward of one training
+    step, run alone: the shapes from hooks on an eval forward, then each
+    call of the step as the training-mode ``F.batch_norm`` forward and
+    backward on random tensors of the model's dtype, once to warm up and
+    once under torch.profiler, whose kernel durations are summed (the
+    profiler can drop a kernel event, so this is a lower bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.nn import BatchNorm2D
+    from paddle_tpu_torch.nn import functional as F
+
+    calls = []
+
+    def record(m, inp, out):
+        calls.append((tuple(inp[0].shape), inp[0].dtype))
+
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if isinstance(m, BatchNorm2D)]
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        model.train()
+        for h in hooks:
+            h.remove()
+    inputs = {}
+    for shape, dtype in set(calls):
+        kw = dict(device=x.device, dtype=dtype)
+        c = shape[1]
+        inputs[shape, dtype] = (
+            torch.randn(shape, **kw).requires_grad_(),
+            torch.ones(c, **kw).requires_grad_(),
+            torch.zeros(c, **kw).requires_grad_(), torch.zeros(c, **kw),
+            torch.ones(c, **kw), torch.randn(shape, **kw))
+
+    def step():
+        for key in calls:
+            a, w, b, rm, rv, cot = inputs[key]
+            out = F.batch_norm(a, rm, rv, w, b, training=True)
+            torch.autograd.backward(out, cot, inputs=[a, w, b])
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return "not measured", len(calls)
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(calls)
+
+
+#: kernel kinds of a ResNet step, by name (the first kind whose keys
+#: match); Momentum's loop is told apart by the time window of its
+#: ``record_function`` range on the device
+RESNET_KERNEL_KINDS = (
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "implicit",
+                             "nchw", "nhwc", "cudnn")),
+    ("gemm (cuBLAS)", ("gemm", "nvjet", "cublas")),
+    ("pooling", ("pool",)),
+    ("reduction (BatchNorm statistics and their backward)",
+     ("reduce_kernel",)),
+    ("elementwise (BatchNorm passes, ReLU, adds, casts)",
+     ("elementwise", "unrolled", "copy", "fill")),
+)
+RESNET_OPTIMIZER_SPAN = "resnet.optimizer"
+
+
+def resnet_classify(kernels, events):
+    """Device ms of a ResNet step's kernels by kind (see
+    RESNET_KERNEL_KINDS): those inside the device-side span of the
+    optimizer's step are Momentum's loop, whatever their names."""
+    from torch.autograd import DeviceType
+
+    windows = [(e.time_range.start, e.time_range.end) for e in events
+               if e.name == RESNET_OPTIMIZER_SPAN
+               and e.device_type == DeviceType.CUDA]
+    kinds, launches = {}, {}
+    for e in kernels:
+        t0 = e.time_range.start
+        if any(a <= t0 <= b for a, b in windows):
+            kind = "optimizer (Momentum's loop)"
+        else:
+            low = e.name.lower()
+            kind = next((k for k, keys in RESNET_KERNEL_KINDS
+                         if any(key in low for key in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+        launches[kind] = launches.get(kind, 0) + 1
+    return {"device_ms_by_resnet_kind": kinds,
+            "kernel_launches_by_resnet_kind": launches,
+            "optimizer_span_on_device": bool(windows)}
+
+
+def resnet_profile(torch, step, opt, batch):
+    """One step under torch.profiler, Momentum's ``step`` inside a
+    ``record_function`` span (resnet_classify)."""
+    plain_step = opt.step
+
+    def spanned(*a, **kw):
+        with torch.profiler.record_function(RESNET_OPTIMIZER_SPAN):
+            return plain_step(*a, **kw)
+
+    opt.step = spanned
+    try:
+        return profiled(torch, lambda: step(*batch).item(),
+                        classify=resnet_classify)
+    finally:
+        del opt.step
+
+
+def resnet_train_phase(torch, dev):
+    """ResNet-50 training as bench_resnet50 (see the module docstring):
+    2 warm-up and 4 timed steps, the loss falling over them, every
+    BatchNorm buffer moved and finite, an eval pass whose top-1/top-5
+    Accuracy equals a direct topk count; images/s, FLOP share, peak
+    memory, one profiled step by kernel kind and BatchNorm's device time
+    alone.  Returns the port kernels' launches (none lies on this path)
+    and the figures resnet_amp compares with."""
+    from paddle_tpu_torch import metric
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = resnet50(num_classes=RESNET_CLASSES, device=dev, seed=0).to(
+        torch.bfloat16)
+    model.train()
+    opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+                   parameters=model.named_parameters(), device=dev)
+    step = TrainStep(model, resnet_loss, opt, device=dev)
+    batch = resnet_batch(torch, RESNET_BATCH, 0, dev, torch.bfloat16)
+    flops = 3 * resnet_forward_flops(torch, model, batch[0])
+    buffers0 = {n: b.clone() for n, b in model.named_buffers()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    with backend_flags(torch, benchmark=True) as flags:
+        losses = [step(*batch).item() for _ in range(RESNET_WARMUP)]
+        step_s = []
+        reset_kernel_launches()
+        for _ in range(RESNET_TIMED):
+            t1 = time.perf_counter()
+            losses.append(step(*batch).item())    # .item() synchronises
+            step_s.append(time.perf_counter() - t1)
+        launches = kernel_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prof = resnet_profile(torch, step, opt, batch)
+        bn_ms, bn_calls = batch_norm_alone_ms(torch, model, batch[0])
+    if any(launches.values()):
+        raise AssertionError(f"resnet_train: a port kernel ran on a path "
+                             f"that reaches none {launches}")
+    timed = losses[RESNET_WARMUP:]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"resnet_train: non-finite loss {losses}")
+    if not timed[-1] < timed[0]:
+        raise AssertionError(f"resnet_train: loss did not fall {timed}")
+    for n, b in model.named_buffers():
+        if torch.equal(b, buffers0[n]) or not torch.isfinite(b).all():
+            raise AssertionError(f"resnet_train: buffer {n} did not move "
+                                 "or is not finite")
+    model.eval()
+    with torch.no_grad():
+        logits = model(batch[0]).float()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("resnet_train: non-finite eval logits")
+    acc = metric.Accuracy(topk=(1, 5))
+    acc.update(acc.compute(logits, batch[1]))
+    top5 = logits.topk(5, dim=-1).indices
+    direct = [(top5[:, :k] == batch[1][:, None]).any(-1).sum().item()
+              / RESNET_BATCH for k in (1, 5)]
+    if acc.accumulate() != direct:
+        raise AssertionError(f"resnet_train: Accuracy {acc.accumulate()} "
+                             f"vs topk count {direct}")
+    mean_s = sum(step_s) / len(step_s)
+    busy = prof["device_busy_ms"]
+    figures = {"images_per_s": RESNET_BATCH / mean_s, "step_s_mean": mean_s}
+    emit({"phase": "resnet_train", "model": "resnet50(num_classes=1000)",
+          "dtype": "bfloat16", "batch": RESNET_BATCH,
+          "image": [3, RESNET_PX, RESNET_PX], "optimizer":
+          f"Momentum({RESNET_LR}, {RESNET_MOMENTUM})", "backend_flags": flags,
+          "params": sum(p.numel() for p in model.parameters()),
+          "setup_s": setup_s, "losses": losses, "step_s": step_s,
+          "step_s_mean": mean_s, "step_s_range": [min(step_s), max(step_s)],
+          "images_per_s": figures["images_per_s"],
+          "model_flops_per_step": flops,
+          "model_flops_formula": "3 x forward: conv 2 Cin/groups k^2 an "
+                                 "output element, linear 2 in an output "
+                                 "element",
+          "model_flops_per_image": flops / RESNET_BATCH,
+          "model_tflops_per_s": flops / mean_s / 1e12,
+          "mfu_of_989": flops / mean_s / 989e12,
+          "peak_memory_gb": peak_gb, "kernel_launches": launches,
+          "eval_accuracy_top1_top5": acc.accumulate(),
+          "batch_norm_alone_device_ms_per_step": bn_ms,
+          "batch_norm_calls_per_step": bn_calls,
+          "batch_norm_share_of_device_busy": (
+              bn_ms / busy if isinstance(busy, float)
+              and isinstance(bn_ms, float) else "not measured")})
+    emit(dict(prof, phase="resnet_train_profile", steps=1))
+    del step, opt, model, batch, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
+def resnet_amp_phase(torch, dev, bf16_figures):
+    """The same ResNet-50 in f32 under amp.auto_cast O1 float16, with a
+    GradScaler through TrainStep(scaler=): 2 warm-up and 4 timed steps
+    beside resnet_train's bf16; a dtype census of one forward (conv and
+    Linear outputs float16, BatchNorm and the loss float32, as JAX's
+    lists); then one step forced to overflow (the scale set to 2**40):
+    the parameters and the Momentum velocities bit for bit unchanged over
+    it, the BatchNorm buffers moved, the scale halved; then steps until
+    one does not overflow (each bad step halves the scale), and two more
+    that train."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import BatchNorm2D, Conv2D, Linear
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = resnet50(num_classes=RESNET_CLASSES, device=dev, seed=0)
+    model.train()
+    opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+                   parameters=model.named_parameters(), device=dev)
+    scaler = amp.GradScaler(device=dev)
+    step = TrainStep(model, resnet_amp_loss, opt, scaler=scaler, device=dev)
+    batch = resnet_batch(torch, RESNET_BATCH, 0, dev, torch.float32)
+    census = {}
+
+    def record(m, inp, out):
+        census.setdefault(type(m).__name__, set()).add(str(out.dtype))
+
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if isinstance(m, (Conv2D, Linear, BatchNorm2D))]
+    model.eval()
+    with torch.no_grad():
+        loss = resnet_amp_loss(model, *batch)
+    model.train()
+    for h in hooks:
+        h.remove()
+    census = {k: sorted(v) for k, v in census.items()}
+    census["cross_entropy"] = [str(loss.dtype)]
+    want = {"Conv2D": ["torch.float16"], "Linear": ["torch.float16"],
+            "BatchNorm2D": ["torch.float32"],
+            "cross_entropy": ["torch.float32"]}
+    if census != want:
+        raise AssertionError(f"resnet_amp: dtype census {census}, want "
+                             f"{want}")
+    scales = [scaler.get_loss_scaling().item()]
+    with backend_flags(torch, benchmark=True) as flags:
+        losses = []
+        for _ in range(RESNET_WARMUP):
+            losses.append(step(*batch).item())
+            scales.append(scaler.get_loss_scaling().item())
+        step_s = []
+        for _ in range(RESNET_TIMED):
+            t1 = time.perf_counter()
+            losses.append(step(*batch).item())    # .item() synchronises
+            step_s.append(time.perf_counter() - t1)
+            scales.append(scaler.get_loss_scaling().item())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # one step forced to overflow: fp16 gradients times 2**40
+        scaler.set_init_loss_scaling(2.0 ** 40)
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        velocity = {k: v.clone() for k, v in opt.state_dict().items()
+                    if k.endswith("velocity")}
+        buffers = {n: b.clone() for n, b in model.named_buffers()}
+        forced_loss = step(*batch).item()
+        forced_scale = scaler.get_loss_scaling().item()
+        if forced_scale != 2.0 ** 39:
+            raise AssertionError(f"resnet_amp: scale {forced_scale} after "
+                                 "the forced overflow, want 2**39")
+        for n, p in model.named_parameters():
+            if not torch.equal(p, params[n]):
+                raise AssertionError(f"resnet_amp: {n} moved over the "
+                                     "overflowing step")
+        for k, v in opt.state_dict().items():
+            if k in velocity and not torch.equal(v, velocity[k]):
+                raise AssertionError(f"resnet_amp: {k} moved over the "
+                                     "overflowing step")
+        if not any(not torch.equal(b, buffers[n])
+                   for n, b in model.named_buffers()):
+            raise AssertionError("resnet_amp: no BatchNorm buffer moved "
+                                 "over the overflowing step")
+        recovery = [forced_scale]
+        while True:
+            before = scaler.get_loss_scaling().item()
+            step(*batch).item()
+            recovery.append(scaler.get_loss_scaling().item())
+            if recovery[-1] >= before or len(recovery) > 40:
+                break
+        if recovery[-1] < recovery[-2]:
+            raise AssertionError(f"resnet_amp: still overflowing at scale "
+                                 f"{recovery[-1]}")
+        trained = []
+        for _ in range(2):
+            before = {n: p.detach().clone()
+                      for n, p in model.named_parameters()}
+            trained.append(step(*batch).item())
+            moved = sum(not torch.equal(p, before[n])
+                        for n, p in model.named_parameters())
+            if moved == 0:
+                raise AssertionError("resnet_amp: a step after the "
+                                     "recovery did not train")
+    if not all(math.isfinite(v) for v in losses + trained):
+        raise AssertionError(f"resnet_amp: non-finite loss {losses}")
+    mean_s = sum(step_s) / len(step_s)
+    emit({"phase": "resnet_amp", "model": "resnet50(num_classes=1000), "
+          "float32 parameters", "auto_cast": "O1 float16",
+          "scaler": "GradScaler() through TrainStep(scaler=)",
+          "backend_flags": flags, "batch": RESNET_BATCH, "losses": losses,
+          "step_s": step_s, "step_s_mean": mean_s,
+          "images_per_s": RESNET_BATCH / mean_s,
+          "bf16_images_per_s": bf16_figures["images_per_s"],
+          "amp_over_bf16_images_per_s": (RESNET_BATCH / mean_s)
+          / bf16_figures["images_per_s"],
+          "peak_memory_gb": peak_gb, "dtype_census": census,
+          "scale_path": scales, "forced_overflow": {
+              "scale_set": 2.0 ** 40, "loss": forced_loss,
+              "scale_after": forced_scale,
+              "scale_until_a_step_fits": recovery,
+              "losses_after": trained}})
+    del step, opt, model, batch, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resnet_numpy_state(seed):
+    """A ResNet-50 (1,000 classes) ``state_dict`` in the JAX model's
+    layout (``fc.weight`` [in, out]) from one numpy seed, with JAX's
+    initial distributions: convolutions U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)), the fc Xavier-normal, BatchNorm weight 1 (each
+    bottleneck's bn3 RESNET_BRANCH_SCALE) and bias 0, running mean 0 and
+    variance 1."""
+    import numpy as np
+
+    from paddle_tpu_torch.convert import resnet_expected_shapes
+
+    rng = np.random.RandomState(seed)
+    state = {}
+    for key, shape in resnet_expected_shapes(
+            50, num_classes=RESNET_CLASSES).items():
+        if key == "fc.weight":
+            fan_out, fan_in = shape
+            a = rng.randn(fan_in, fan_out) * math.sqrt(2.0 / (fan_in
+                                                              + fan_out))
+        elif len(shape) == 4:
+            bound = 1.0 / math.sqrt(math.prod(shape[1:]))
+            a = rng.uniform(-bound, bound, shape)
+        elif key.endswith(("_variance", ".weight")):
+            scale = RESNET_BRANCH_SCALE if key.endswith("bn3.weight") else 1
+            a = np.full(shape, scale)
+        else:
+            a = np.zeros(shape)
+        state[key] = a.astype(np.float32)
+    return state
+
+
+def resnet_parity_phase(torch, dev):
+    """ResNet-50 at full width, b4 x 224 px, weights from one numpy seed
+    through convert.resnet_state_dict_from_jax (resnet_numpy_state), one
+    TrainStep with Momentum on each of: the card in f32, the CPU in f32
+    and in f64 (the truth), with TF32 off; the card in bf16 and the CPU
+    in bf16.  The logits, the loss, every gradient, every parameter and
+    both running buffers after the step: the card's f32 error within
+    GRAD_PARITY_FACTOR of the CPU f32's plus GRAD_PARITY_FLOOR
+    (grad_parity's rule, norm-wise), and likewise the card's bf16 error
+    against the CPU's bf16.  Then the same seed's bf16 step twice on the
+    card with cuDNN's deterministic algorithms: every tensor bit for
+    bit."""
+    from paddle_tpu_torch.convert import resnet_state_dict_from_jax
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    state = resnet_numpy_state(1234)
+    x32, y = resnet_batch(torch, RESNET_PARITY_BATCH, 7, "cpu",
+                          torch.float32)
+
+    def run(where, dtype):
+        """One TrainStep: {tensor name: f32 CPU copy} of the logits, the
+        loss, the gradients (captured as they land), the parameters and
+        buffers after the update."""
+        model = resnet50(num_classes=RESNET_CLASSES, device=where,
+                         dtype=dtype)
+        model.load_state_dict(resnet_state_dict_from_jax(
+            state, 50, num_classes=RESNET_CLASSES, device=where,
+            dtype=dtype))
+        model.train()
+        opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+                       parameters=model.named_parameters(), device=where)
+        grads = {}
+        for n, p in model.named_parameters():
+            p.register_post_accumulate_grad_hook(
+                lambda p, n=n: grads.__setitem__(n, p.grad.detach().clone()))
+
+        def loss_aux(net, x, lbl):
+            logits = net(x).float()
+            return F.cross_entropy(logits, lbl), logits
+
+        step = TrainStep(model, loss_aux, opt, has_aux=True, device=where)
+        loss, logits = step(x32.to(where, dtype), y.to(where))
+        out = {"loss": loss, "logits": logits}
+        out.update({"grad." + n: g for n, g in grads.items()})
+        out.update(model.state_dict())
+        return {k: v.detach().to("cpu", torch.float64)
+                for k, v in out.items()}
+
+    with backend_flags(torch, tf32=False, benchmark=False) as flags:
+        truth = run("cpu", torch.float64)
+        cpu32 = run("cpu", torch.float32)
+        card32 = run(dev, torch.float32)
+        cpu16 = run("cpu", torch.bfloat16)
+        card16 = run(dev, torch.bfloat16)
+
+    def errors(got):
+        return {k: ((got[k] - ref).norm() / max(ref.norm().item(), 1e-30)
+                    ).item() for k, ref in truth.items()}
+
+    e_card32, e_cpu32 = errors(card32), errors(cpu32)
+    e_card16, e_cpu16 = errors(card16), errors(cpu16)
+    failed = []
+    for name, card, cpu in (("f32", e_card32, e_cpu32),
+                            ("bf16", e_card16, e_cpu16)):
+        for k in truth:
+            tol = GRAD_PARITY_FACTOR * cpu[k] + GRAD_PARITY_FLOOR
+            if not (math.isfinite(card[k]) and card[k] <= tol):
+                failed.append(f"{name} {k}: card {card[k]:.3e} > "
+                              f"{tol:.3e} (CPU {cpu[k]:.3e})")
+    if failed:
+        raise AssertionError(f"resnet_parity: {len(failed)} tensors out of "
+                             f"tolerance: {failed[:12]}")
+    # the same seed's bf16 step twice on the card, bit for bit
+    with backend_flags(torch, deterministic=True, benchmark=False) as det:
+        first, second = run(dev, torch.bfloat16), run(dev, torch.bfloat16)
+    differ = [k for k in first if not torch.equal(first[k], second[k])]
+    if differ:
+        raise AssertionError(f"resnet_parity: the same seed's bf16 step "
+                             f"differs in {len(differ)} tensors "
+                             f"{differ[:8]}")
+    grads = [k for k in truth if k.startswith("grad.")]
+    top = sorted(grads, key=lambda k: -e_card16[k])[:8]
+    emit({"phase": "resnet_parity", "model": "resnet50(num_classes=1000)",
+          "batch": RESNET_PARITY_BATCH, "image": [3, RESNET_PX, RESNET_PX],
+          "bn3_weight": RESNET_BRANCH_SCALE, "backend_flags": flags,
+          "deterministic_flags": det, "tensors_checked": len(truth),
+          "rule": f"card err <= {GRAD_PARITY_FACTOR} x CPU err + "
+                  f"{GRAD_PARITY_FLOOR}, norm-wise against the CPU f64",
+          "loss": {"f64": truth["loss"].item(), "card_f32":
+                   card32["loss"].item(), "card_bf16":
+                   card16["loss"].item()},
+          "worst_f32": max(e_card32.items(), key=lambda kv: kv[1]),
+          "worst_cpu_f32": max(e_cpu32.items(), key=lambda kv: kv[1]),
+          "logits_err": {"card_f32": e_card32["logits"],
+                         "cpu_f32": e_cpu32["logits"],
+                         "card_bf16": e_card16["logits"],
+                         "cpu_bf16": e_cpu16["logits"]},
+          "grad_rel_err_bf16_card_vs_cpu": {
+              k[5:]: [e_card16[k], e_cpu16[k]] for k in top},
+          "grad_rel_err_bf16_median": [
+              statistics.median(e_card16[k] for k in grads),
+              statistics.median(e_cpu16[k] for k in grads)],
+          "same_seed_bitwise": True})
+
+
 def sweep_main(torch, args):
     """``--gn-fwd-sweep`` or ``--ln-fwd-sweep``, ``[--variants] [--tree
     DIR]``: the GroupNorm or LayerNorm forward sweep alone
@@ -4223,6 +4833,26 @@ def serve_phases_main(torch, args):
     return 0
 
 
+def resnet_phases_main(torch):
+    """``--resnet-phases``: resnet_train, resnet_amp and resnet_parity
+    alone (no CUDA kernel of the port lies on their path, so none is
+    built), each with its own checks."""
+    from paddle_tpu_torch import resolve_device
+
+    smi = nvidia_smi()
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "cudnn": torch.backends.cudnn.version()})
+    dev = resolve_device()
+    t0 = time.perf_counter()
+    _, figures = resnet_train_phase(torch, dev)
+    resnet_amp_phase(torch, dev, figures)
+    resnet_parity_phase(torch, dev)
+    emit({"phase": "resnet_seconds", "seconds": time.perf_counter() - t0})
+    print(smi)
+    return 0
+
+
 def main():
     import torch
 
@@ -4235,6 +4865,8 @@ def main():
         return sweep_main(torch, sys.argv[1:])
     if "--serve-phases" in sys.argv[1:]:
         return serve_phases_main(torch, sys.argv[1:])
+    if "--resnet-phases" in sys.argv[1:]:
+        return resnet_phases_main(torch)
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
@@ -4283,6 +4915,12 @@ def main():
     optimizers_phase(torch, dev)
     emit({"phase": "bert_recompute_optimizers_seconds",
           "seconds": time.perf_counter() - t_bert})
+    t_resnet = time.perf_counter()
+    resnet, resnet_figures = resnet_train_phase(torch, dev)
+    resnet_amp_phase(torch, dev, resnet_figures)
+    resnet_parity_phase(torch, dev)
+    emit({"phase": "resnet_seconds",
+          "seconds": time.perf_counter() - t_resnet})
 
     # the first source is the kernel's; the int8 pool's loader and
     # conversion hooks live in both files
@@ -4322,7 +4960,7 @@ def main():
             "serve_gateway": serve_gateway,
             "serve_structured": serve_structured, "serve_tier": serve_tier,
             "train": train, "unet_train": unet, "bert_train": bert,
-            "bert_train_flash": bert_flash}
+            "bert_train_flash": bert_flash, "resnet_train": resnet}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]

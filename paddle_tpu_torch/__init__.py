@@ -6,7 +6,7 @@ kernels that the JAX package wrote in Pallas for the TPU are written by
 hand for Hopper (``csrc/`` for CUDA C++, Triton beside its module);
 each has a plain PyTorch twin that runs for CPU tensors.
 
-Four paths so far:
+Five paths so far:
 
 * serving a GPT / LLaMA decoder through the continuous-batching engine
   (``serving.Engine``), reached over HTTP through the gateway
@@ -25,7 +25,13 @@ Four paths so far:
   of ``random``, the optimizers and schedules of ``optimizer``, and
   ``distributed.recompute``): the LayerNorm kernels at H 768 and flash
   at head dim 64 (without a mask and attention dropout; with either,
-  attention runs JAX's plain f32 path, ``nn.functional.sdpa_plain``).
+  attention runs JAX's plain f32 path, ``nn.functional.sdpa_plain``);
+* ResNet image classification (``vision.models.resnet50`` and the rest
+  of the family, over ``nn``'s convolution, pooling and BatchNorm
+  layers, ``metric.Accuracy``, and ``amp.auto_cast`` with
+  ``amp.GradScaler`` through ``jit.TrainStep(scaler=)``): no Pallas
+  kernel lies on it, so convolutions are cuDNN's and the rest plain
+  torch, as the JAX package computes them outside Pallas.
 
 On the CPU the UNet runs at a tiny size with ``device="cpu"``, e.g.
 ``UNet2DConditionModel(UNetConfig(block_out_channels=(16, 32),
@@ -34,9 +40,14 @@ norm_num_groups=4), device="cpu")``, its norms and attention through the
 plain twins.  On the card, ``chip_smoke.py``'s kernel cases, its
 ``unet_train`` (full SD-1.x width) and ``unet_train_parity`` phases
 cover it; ``bert_train``, ``bert_train_flash``, ``bert_parity``,
-``train_recompute`` and ``optimizers`` cover the fourth path.
+``train_recompute`` and ``optimizers`` cover the fourth path.  ResNet
+runs on the CPU at a tiny size, e.g. ``resnet18(num_classes=10,
+device="cpu")`` on 32 px images; ``resnet_train``, ``resnet_amp`` and
+``resnet_parity`` drive ResNet-50 at 224 px on the card.
 """
 
+from . import amp, metric, vision
 from .device import resolve_device
+from .tensor import flatten, matmul
 
-__all__ = ["resolve_device"]
+__all__ = ["amp", "flatten", "matmul", "metric", "resolve_device", "vision"]

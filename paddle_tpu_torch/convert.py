@@ -28,6 +28,11 @@ attention's ``to_q``, ``to_k``, ``to_v`` and ``to_out``, each
 TransformerBlock's ``ff1`` and ``ff2``); convolution weights are OIHW in
 both frameworks (in either ``channels_last`` layout) and keep theirs, as
 do biases and the GroupNorm / LayerNorm weights and biases.
+
+``resnet_state_dict_from_jax`` does the same for the vision ResNet family
+(``vision/models/resnet.py``): only the ``fc`` Linear's weight
+transposes; convolutions (OIHW), BatchNorm weights and biases and both
+running buffers (``_mean``, ``_variance``) keep their layout.
 """
 
 from __future__ import annotations
@@ -295,3 +300,67 @@ def bert_state_dict_from_jax(np_state, config, num_classes=None, device=None,
         np_state, bert_expected_shapes(config, num_classes),
         lambda key: key.endswith(".weight") and
         key.rsplit(".", 2)[-2] in _BERT_LINEARS, device, dtype)
+
+
+def resnet_expected_shapes(depth=50, width=64, num_classes=1000, groups=1):
+    """``{key: torch-layout shape}`` of ``vision.models.ResNet`` at
+    ``depth`` (18 and 34 of BasicBlocks, 50, 101 and 152 of
+    BottleneckBlocks) with ``width`` (the bottleneck's base width),
+    ``num_classes`` (0: no ``fc``) and ``groups``, BatchNorm buffers
+    included."""
+    from .vision.models.resnet import LAYERS
+
+    shapes = {}
+    bottleneck = depth >= 50
+    expansion = 4 if bottleneck else 1
+
+    def conv(p, i, o, k, g=1):
+        shapes[p + ".weight"] = (o, i // g, k, k)
+
+    def bn(p, c):
+        for name in ("weight", "bias", "_mean", "_variance"):
+            shapes[f"{p}.{name}"] = (c,)
+
+    conv("conv1", 3, 64, 7)
+    bn("bn1", 64)
+    inplanes = 64
+    for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
+                                                 LAYERS[depth])):
+        for b in range(blocks):
+            p = f"layer{stage + 1}.{b}"
+            out = planes * expansion
+            if bottleneck:
+                mid = int(planes * (width / 64.0)) * groups
+                conv(p + ".conv1", inplanes, mid, 1)
+                bn(p + ".bn1", mid)
+                conv(p + ".conv2", mid, mid, 3, groups)
+                bn(p + ".bn2", mid)
+                conv(p + ".conv3", mid, out, 1)
+                bn(p + ".bn3", out)
+            else:
+                conv(p + ".conv1", inplanes, planes, 3)
+                bn(p + ".bn1", planes)
+                conv(p + ".conv2", planes, planes, 3)
+                bn(p + ".bn2", planes)
+            if b == 0 and (stage > 0 or inplanes != out):
+                conv(p + ".downsample.0", inplanes, out, 1)
+                bn(p + ".downsample.1", out)
+            inplanes = out
+    if num_classes > 0:
+        shapes["fc.weight"] = (num_classes, 512 * expansion)
+        shapes["fc.bias"] = (num_classes,)
+    return shapes
+
+
+def resnet_state_dict_from_jax(np_state, depth=50, width=64,
+                               num_classes=1000, groups=1, device=None,
+                               dtype=None):
+    """The JAX ResNet's ``state_dict`` (as numpy, BatchNorm buffers
+    included) -> tensors for the port's ``load_state_dict``, on
+    ``device`` (``cuda`` unless asked otherwise) in ``dtype`` (default:
+    the arrays' own); the model's arguments as in
+    :func:`resnet_expected_shapes`.  ``fc.weight`` is transposed.
+    Raises on a missing, unexpected or misshaped key."""
+    return _from_jax(np_state, resnet_expected_shapes(depth, width,
+                                                      num_classes, groups),
+                     lambda key: key == "fc.weight", device, dtype)

@@ -5,9 +5,9 @@ parameters at ``block_out_channels=(320, 640, 1280, 1280)``).
 Parameter names match the JAX model's ``state_dict()`` key for key, so
 ``convert.unet_state_dict_from_jax`` maps one onto the other: linear
 layers are ``torch.nn.Linear`` (``[out, in]`` weights; paddle's
-``[in, out]`` is transposed once, at load), convolutions
-``torch.nn.Conv2d`` (OIHW in both frameworks, computed by cuDNN as the
-JAX package leaves them to ``lax.conv``).  GroupNorm, LayerNorm and
+``[in, out]`` is transposed once, at load), convolutions the port's
+``nn.Conv2D`` (OIHW in both frameworks, computed by cuDNN as the JAX
+package leaves them to ``lax.conv``).  GroupNorm, LayerNorm and
 attention go through :mod:`paddle_tpu_torch.nn.functional`: on the card
 the CUDA GroupNorm and LayerNorm kernels (``csrc/norms.cu``), forward
 and backward, and the CUDA flash kernels (head dims 320/8 =
@@ -37,6 +37,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
+from ..nn.conv import Conv2D
 from ..nn.norm import GroupNorm, LayerNorm
 
 
@@ -62,21 +63,11 @@ def timestep_embedding(t, dim, max_period=10000):
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 
 
-class _Conv2D(nn.Conv2d):
-    """``nn.Conv2d`` that takes NHWC tensors when ``channels_last``: the
-    permuted view is an NCHW tensor in channels-last memory, which cuDNN
-    reads as it is, and the output is permuted back."""
-
-    def __init__(self, in_c, out_c, k, stride=1, padding=0,
-                 channels_last=False, **kw):
-        super().__init__(in_c, out_c, k, stride=stride, padding=padding,
-                         **kw)
-        self._nhwc = channels_last
-
-    def forward(self, x):
-        if self._nhwc:
-            return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        return super().forward(x)
+def _conv(in_c, out_c, k, stride=1, padding=0, channels_last=False, **kw):
+    """The public ``nn.Conv2D``, NHWC when ``channels_last`` (cuDNN reads
+    the NCHW view of the channels-last memory as it is)."""
+    return Conv2D(in_c, out_c, k, stride=stride, padding=padding,
+                  data_format="NHWC" if channels_last else "NCHW", **kw)
 
 
 class ResnetBlock2D(nn.Module):
@@ -86,14 +77,14 @@ class ResnetBlock2D(nn.Module):
         df = "NHWC" if channels_last else "NCHW"
         self._nhwc = channels_last
         self.norm1 = GroupNorm(min(groups, in_c), in_c, data_format=df, **kw)
-        self.conv1 = _Conv2D(in_c, out_c, 3, padding=1,
+        self.conv1 = _conv(in_c, out_c, 3, padding=1,
                              channels_last=channels_last, **kw)
         self.time_emb_proj = nn.Linear(temb_c, out_c, **kw)
         self.norm2 = GroupNorm(min(groups, out_c), out_c, data_format=df,
                                **kw)
-        self.conv2 = _Conv2D(out_c, out_c, 3, padding=1,
+        self.conv2 = _conv(out_c, out_c, 3, padding=1,
                              channels_last=channels_last, **kw)
-        self.shortcut = _Conv2D(in_c, out_c, 1, channels_last=channels_last,
+        self.shortcut = _conv(in_c, out_c, 1, channels_last=channels_last,
                                 **kw) if in_c != out_c else None
 
     def forward(self, x, temb):
@@ -143,7 +134,7 @@ class TransformerBlock2D(nn.Module):
         self.norm_in = GroupNorm(min(groups, dim), dim,
                                  data_format="NHWC" if channels_last
                                  else "NCHW", **kw)
-        self.proj_in = _Conv2D(dim, dim, 1, channels_last=channels_last,
+        self.proj_in = _conv(dim, dim, 1, channels_last=channels_last,
                                **kw)
         self.norm1 = LayerNorm(dim, **kw)
         self.attn1 = CrossAttention(dim, dim, heads, **kw)
@@ -152,7 +143,7 @@ class TransformerBlock2D(nn.Module):
         self.norm3 = LayerNorm(dim, **kw)
         self.ff1 = nn.Linear(dim, dim * 4, **kw)
         self.ff2 = nn.Linear(dim * 4, dim, **kw)
-        self.proj_out = _Conv2D(dim, dim, 1, channels_last=channels_last,
+        self.proj_out = _conv(dim, dim, 1, channels_last=channels_last,
                                 **kw)
 
     def forward(self, x, context):
@@ -177,7 +168,7 @@ class TransformerBlock2D(nn.Module):
 class Downsample2D(nn.Module):
     def __init__(self, c, channels_last=False, **kw):
         super().__init__()
-        self.conv = _Conv2D(c, c, 3, stride=2, padding=1,
+        self.conv = _conv(c, c, 3, stride=2, padding=1,
                             channels_last=channels_last, **kw)
 
     def forward(self, x):
@@ -188,7 +179,7 @@ class Upsample2D(nn.Module):
     def __init__(self, c, channels_last=False, **kw):
         super().__init__()
         self._nhwc = channels_last
-        self.conv = _Conv2D(c, c, 3, padding=1, channels_last=channels_last,
+        self.conv = _conv(c, c, 3, padding=1, channels_last=channels_last,
                             **kw)
 
     def forward(self, x):
@@ -222,7 +213,7 @@ class UNet2DConditionModel(nn.Module):
         self._nhwc = cl
         ch = c.block_out_channels
         temb_c = ch[0] * 4
-        self.conv_in = _Conv2D(c.in_channels, ch[0], 3, padding=1,
+        self.conv_in = _conv(c.in_channels, ch[0], 3, padding=1,
                                channels_last=cl, **kw)
         self.time_proj_dim = ch[0]
         self.time_mlp1 = nn.Linear(ch[0], temb_c, **kw)
@@ -278,7 +269,7 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = GroupNorm(groups, ch[0],
                                        data_format="NHWC" if cl else "NCHW",
                                        **kw)
-        self.conv_out = _Conv2D(ch[0], c.out_channels, 3, padding=1,
+        self.conv_out = _conv(ch[0], c.out_channels, 3, padding=1,
                                 channels_last=cl, **kw)
         self._init_weights(dev, seed)
 
@@ -290,7 +281,7 @@ class UNet2DConditionModel(nn.Module):
                 if isinstance(mod, (GroupNorm, LayerNorm)):
                     mod.weight.fill_(1.0)
                     mod.bias.zero_()
-                elif isinstance(mod, (nn.Linear, nn.Conv2d)):
+                elif isinstance(mod, (nn.Linear, Conv2D)):
                     bound = 1.0 / math.sqrt(mod.weight[0].numel())
                     mod.weight.uniform_(-bound, bound, generator=gen)
                     if mod.bias is not None:

@@ -1,4 +1,4 @@
-"""``GELU`` and ``Tanh``, the counterparts of
+"""``GELU``, ``ReLU`` and ``Tanh``, the counterparts of
 ``paddle_tpu/nn/layer/activation.py``."""
 
 from __future__ import annotations
@@ -15,6 +15,11 @@ class GELU(nn.Module):
 
     def forward(self, x):
         return F.gelu(x, self._approximate)
+
+
+class ReLU(nn.Module):
+    def forward(self, x):
+        return F.relu(x)
 
 
 class Tanh(nn.Module):

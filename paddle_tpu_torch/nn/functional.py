@@ -1,6 +1,6 @@
 """Functionals of the port's model slices, the counterparts of
 ``paddle_tpu/nn/functional/norm.py``, ``attention.py``, ``common.py``,
-``activation.py`` and ``loss.py``.
+``activation.py``, ``loss.py``, ``conv.py`` and ``pooling.py``.
 
 Routing follows the JAX package with the card in the TPU's place:
 
@@ -26,6 +26,22 @@ Routing follows the JAX package with the card in the TPU's place:
 ``convert`` transposes paddle's ``[in, out]`` once, at load).
 :func:`dropout` and the attention dropout draw their masks from the
 port's counter stream (:mod:`paddle_tpu_torch.random`), one key a call.
+
+Convolution, pooling, BatchNorm and InstanceNorm are plain torch, as the
+JAX package leaves them to ``lax.conv_general_dilated``,
+``lax.reduce_window`` and jnp outside any Pallas kernel: cuDNN's
+convolutions and pools on the card.  Each takes every padding form of
+JAX's ``_norm_padding`` and gives JAX's windows: asymmetric (lo, hi)
+padding and the lax ``"SAME"`` rule (torch's ``"same"`` refuses a
+stride) are padded explicitly.  Channels-last layouts (``NLC``,
+``NHWC``, ``NDHWC``) keep the OIHW weight and hand cuDNN the NC* view of
+the channels-last memory, its native NHWC path.  BatchNorm copies
+JAX's arithmetic (``torch.batch_norm`` rounds in another order and
+takes torch's momentum).
+
+Every function the JAX package names as an op asks
+:func:`paddle_tpu_torch.amp.auto_cast.cast_inputs` for its inputs' dtype
+under an ``amp.auto_cast`` scope, with JAX's op name.
 """
 
 from __future__ import annotations
@@ -36,12 +52,14 @@ import torch
 import torch.nn.functional as TF
 
 from .. import random as _random
+from ..amp.auto_cast import cast_inputs
 from ..ops.flash_attention import flash_attention
 from ..ops.group_norm import group_norm as _group_norm_op
 from ..ops.layer_norm import layer_norm as _layer_norm_op
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     n_axes = len(list(normalized_shape))
@@ -61,6 +79,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
 
 def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
                data_format="NCHW"):
+    x, weight, bias = cast_inputs("group_norm", x, weight, bias)
     channels_first = data_format.startswith("NC")
     if (channels_first and weight is not None and bias is not None
             and weight.dim() == 1 and bias.dim() == 1):
@@ -89,6 +108,7 @@ def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
 
 def linear(x, weight, bias=None):
     """``x @ weight.T + bias`` with ``weight`` ``[out, in]``."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
     return TF.linear(x, weight, bias)
 
 
@@ -103,6 +123,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
     passes the gradient through the forward's mask."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout mode {mode!r}")
+    (x,) = cast_inputs("dropout", x)
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
@@ -128,6 +149,7 @@ def embedding(x, weight, padding_idx=None):
     ``index_put_``), where ``torch.nn.functional.embedding``'s CUDA
     backward gave another gradient from run to run for ids repeated
     thousands of times (BERT's two token types, H100)."""
+    (weight,) = cast_inputs("embedding", weight)
     out = weight[x]
     if padding_idx is not None:
         out = torch.where((x == padding_idx)[..., None], 0.0, out)
@@ -136,14 +158,17 @@ def embedding(x, weight, padding_idx=None):
 
 def gelu(x, approximate=False):
     """Exact (erf) GELU, or the tanh approximation with ``approximate``."""
+    (x,) = cast_inputs("gelu", x)
     return TF.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def relu(x):
+    (x,) = cast_inputs("relu", x)
     return torch.relu(x)
 
 
 def tanh(x):
+    (x,) = cast_inputs("tanh", x)
     return torch.tanh(x)
 
 
@@ -194,6 +219,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     No mask and no training dropout: the flash kernels.  Otherwise
     :func:`sdpa_plain`, drawing one key of the port's stream when it
     drops (``attention.py:77-91``)."""
+    query, key, value = cast_inputs("scaled_dot_product_attention", query,
+                                    key, value)
     drop = dropout_p > 0.0 and training
     if attn_mask is None and not drop:
         return flash_attention(query, key, value, causal=is_causal)
@@ -213,6 +240,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     ``"mean"`` over integer labels divides by ``max(valid rows, 1)``, or
     with ``weight`` by ``max(sum of the valid rows' weights, 1e-12)``;
     soft labels take the plain mean."""
+    input, label, weight = cast_inputs("cross_entropy", input, label, weight)
     logits = input
     if use_softmax:
         logp = torch.log_softmax(logits, dim=axis)
@@ -260,4 +288,392 @@ def mse_loss(input, label):
     """The mean of ``square(input - label)`` in the input's dtype, as
     ``paddle_tpu/nn/functional/loss.py:102`` with its default
     ``reduction="mean"``."""
+    input, label = cast_inputs("mse_loss", input, label)
     return (input - label).square().mean()
+
+
+# ------------------------------------------------------------ convolution
+_CHANNELS_LAST = ("NLC", "NWC", "NHWC", "NDHWC")
+_CONV = {1: TF.conv1d, 2: TF.conv2d, 3: TF.conv3d}
+_CONV_T = {1: TF.conv_transpose1d, 2: TF.conv_transpose2d,
+           3: TF.conv_transpose3d}
+
+
+def _ntuple(v, n):
+    """An int, or a list of 1 or ``n`` ints, as ``n`` ints."""
+    if isinstance(v, (list, tuple)):
+        out = [int(x) for x in v]
+        return tuple(out * n if len(out) == 1 else out)
+    return (int(v),) * n
+
+
+def _norm_padding(padding, n):
+    """``"SAME"`` / ``"VALID"``, or ``(lo, hi)`` for each of the ``n``
+    spatial dims from: an int; ``n`` ints; ``2n`` ints, (lo, hi) of each
+    dim in turn; or (lo, hi) pairs of which the last ``n`` are the
+    spatial dims (the NCHW-style ``[[0, 0], [0, 0], [1, 1], [2, 2]]``).
+    JAX's ``_norm_padding`` (``conv.py:25-39``) reads the pairs only
+    where their count is neither ``n`` nor ``2n``."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, (list, tuple)):
+        flat = list(padding)
+        if flat and all(isinstance(p, (list, tuple)) for p in flat):
+            return [(int(lo), int(hi)) for lo, hi in flat[-n:]]
+        if len(flat) == n:
+            return [(int(p), int(p)) for p in flat]
+        if len(flat) == 2 * n:
+            return [(int(flat[2 * i]), int(flat[2 * i + 1]))
+                    for i in range(n)]
+    return [(int(padding), int(padding))] * n
+
+
+def _same_pads(spatial, window, stride):
+    """lax's ``"SAME"``: ``ceil(L / s)`` windows and the padding they
+    need, the odd element at the end."""
+    pads = []
+    for size, k, s in zip(spatial, window, stride):
+        total = max((-(-size // s) - 1) * s + k - size, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _pad_arg(pads):
+    """``TF.pad``'s argument for (lo, hi) of each spatial dim."""
+    return [v for lo, hi in reversed(pads) for v in (lo, hi)]
+
+
+def _conv(x, weight, bias, stride, padding, dilation, groups, n,
+          data_format, op):
+    """``conv.py:50-81``: ``weight`` ``[O, I/groups, *k]``."""
+    x, weight, bias = cast_inputs(op, x, weight, bias)
+    channels_last = data_format in _CHANNELS_LAST
+    if channels_last:
+        x = x.movedim(-1, 1)
+    stride, dilation = _ntuple(stride, n), _ntuple(dilation, n)
+    pads = _norm_padding(padding, n)
+    if pads == "VALID":
+        pads = [(0, 0)] * n
+    elif pads == "SAME":
+        window = [d * (k - 1) + 1 for d, k in zip(dilation, weight.shape[2:])]
+        pads = _same_pads(x.shape[2:], window, stride)
+    if all(lo == hi for lo, hi in pads):
+        pad = tuple(lo for lo, _ in pads)
+    else:
+        x, pad = TF.pad(x, _pad_arg(pads)), 0
+    out = _CONV[n](x, weight, bias, stride, pad, dilation, groups)
+    return out.movedim(1, -1) if channels_last else out
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL"):
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 1,
+                 data_format, "conv1d")
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 2,
+                 data_format, "conv2d")
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW"):
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 3,
+                 data_format, "conv3d")
+
+
+def _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                    dilation, groups, n, data_format, output_size, op):
+    """``conv.py:97-173``: ``weight`` ``[I, O/groups, *k]``.  With (lo,
+    hi) padding the output is the unpadded transposed convolution,
+    ``(L - 1) s + d (k - 1) + 1`` long, less ``lo`` at the start and
+    ``hi - output_padding`` at the end (zeros where that is negative),
+    then the bias; ``"SAME"`` pads ``max(d (k - 1) + 1 - s, 0)`` in all.
+    ``output_size`` (which JAX ignores) sets ``output_padding`` to reach
+    it."""
+    x, weight, bias = cast_inputs(op, x, weight, bias)
+    channels_last = data_format in _CHANNELS_LAST
+    if channels_last:
+        x = x.movedim(-1, 1)
+    stride, dilation = _ntuple(stride, n), _ntuple(dilation, n)
+    window = [d * (k - 1) + 1 for d, k in zip(dilation, weight.shape[2:])]
+    pads = _norm_padding(padding, n)
+    if pads == "VALID":
+        pads = [(0, 0)] * n
+    elif pads == "SAME":
+        pads = [(t // 2, t - t // 2) for t in
+                (max(w - s, 0) for w, s in zip(window, stride))]
+    opad = _ntuple(output_padding, n) if output_padding else (0,) * n
+    if output_size is not None:
+        opad = [o - ((size - 1) * s + w - lo - hi) for o, size, s, w, (lo, hi)
+                in zip(_ntuple(output_size, n)[-n:], x.shape[2:], stride,
+                       window, pads)]
+    out = _CONV_T[n](x, weight, None, stride, 0, 0, groups, dilation)
+    edges = [(-lo, op_ - hi) for (lo, hi), op_ in zip(pads, opad)]
+    if any(e != (0, 0) for e in edges):
+        out = TF.pad(out, _pad_arg(edges))
+    if bias is not None:
+        out = out + bias.reshape((-1,) + (1,) * n)
+    return out.movedim(1, -1) if channels_last else out
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL"):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, 1, data_format, output_size,
+                           "conv1d_transpose")
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCHW"):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, 2, data_format, output_size,
+                           "conv2d_transpose")
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW"):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, 3, data_format, output_size,
+                           "conv3d_transpose")
+
+
+# ---------------------------------------------------------------- pooling
+_MAX_POOL = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
+_AVG_POOL = {1: TF.avg_pool1d, 2: TF.avg_pool2d, 3: TF.avg_pool3d}
+
+
+def _window_sum(x, kernel, stride):
+    if len(kernel) == 1:
+        return TF.avg_pool2d(x.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                             divisor_override=1).squeeze(-2)
+    return _AVG_POOL[len(kernel)](x, kernel, stride, divisor_override=1)
+
+
+def _pool(x, kernel, stride, padding, n, data_format, op, ceil_mode=False,
+          average=False, exclusive=True):
+    """``pooling.py:14-72``.  With (lo, hi) padding there are
+    ``floor((L + lo + hi - k) / s) + 1`` windows, or with ``ceil_mode``
+    ``ceil(...) + 1`` less one where the last would start in the right
+    padding; the right padding is cut or extended to what they need.
+    Max pools pad with -inf.  An exclusive average divides by the real
+    elements of its window where there is padding; any other by
+    ``prod(kernel)``, even over the ceil-mode overhang.  ``"SAME"`` and
+    ``"VALID"`` are lax's (never exclusive).  Where the padding is even
+    and at most half the window, torch's pool pads in place."""
+    (x,) = cast_inputs(op, x)
+    channels_last = data_format in _CHANNELS_LAST
+    if channels_last:
+        x = x.movedim(-1, 1)
+    kernel = _ntuple(kernel, n)
+    stride = _ntuple(stride if stride is not None else kernel, n)
+    pads = _norm_padding(padding, n)
+    spatial = tuple(x.shape[2:])
+    sizes = None
+    if pads == "VALID":
+        pads = [(0, 0)] * n
+    elif pads == "SAME":
+        pads = _same_pads(spatial, kernel, stride)
+    else:
+        sizes, need = [], []
+        for size, k, s, (lo, hi) in zip(spatial, kernel, stride, pads):
+            num = size + lo + hi - k
+            o = -(-num // s) + 1 if ceil_mode else num // s + 1
+            if ceil_mode and (o - 1) * s >= size + lo:
+                o -= 1
+            sizes.append(o)
+            need.append((lo, max(0, (o - 1) * s + k - size - lo)))
+        pads = need
+    counts = (average and exclusive and sizes is not None
+              and any(p != (0, 0) for p in pads))
+    if all(lo == hi and lo <= k // 2 for (lo, hi), k in zip(pads, kernel)):
+        pad = tuple(lo for lo, _ in pads)
+        out = (_AVG_POOL[n](x, kernel, stride, pad,
+                            count_include_pad=not counts) if average
+               else _MAX_POOL[n](x, kernel, stride, pad))
+    elif average:
+        divisor = math.prod(kernel)
+        if counts:
+            ones = torch.ones((1, 1) + spatial, dtype=x.dtype,
+                              device=x.device)
+            divisor = _window_sum(TF.pad(ones, _pad_arg(pads)), kernel,
+                                  stride)
+        out = _window_sum(TF.pad(x, _pad_arg(pads)), kernel,
+                          stride) / divisor
+    else:
+        out = _MAX_POOL[n](TF.pad(x, _pad_arg(pads), value=-math.inf),
+                           kernel, stride)
+    for i, o in enumerate(sizes or ()):
+        if out.shape[2 + i] != o:
+            out = out.narrow(2 + i, 0, o)
+    return out.movedim(1, -1) if channels_last else out
+
+
+def _no_mask(return_mask):
+    if return_mask:
+        raise NotImplementedError("return_mask (and max_unpool) is not "
+                                  "ported yet (ROADMAP.md Queue 1)")
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCL"):
+    _no_mask(return_mask)
+    return _pool(x, kernel_size, stride, padding, 1, data_format,
+                 "max_pool1d", ceil_mode)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCHW"):
+    _no_mask(return_mask)
+    return _pool(x, kernel_size, stride, padding, 2, data_format,
+                 "max_pool2d", ceil_mode)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCDHW"):
+    _no_mask(return_mask)
+    return _pool(x, kernel_size, stride, padding, 3, data_format,
+                 "max_pool3d", ceil_mode)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, data_format="NCL"):
+    return _pool(x, kernel_size, stride, padding, 1, data_format,
+                 "avg_pool1d", ceil_mode, True, exclusive)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW"):
+    return _pool(x, kernel_size, stride, padding, 2, data_format,
+                 "avg_pool2d", ceil_mode, True, exclusive)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW"):
+    return _pool(x, kernel_size, stride, padding, 3, data_format,
+                 "avg_pool3d", ceil_mode, True, exclusive)
+
+
+def _adaptive_pool(x, output_size, n, data_format, mode):
+    """``pooling.py:112-134``, one spatial dim at a time: output ``j`` of
+    ``o`` over ``L`` reduces ``[floor(j L / o), ceil((j + 1) L / o))``
+    (a mean, or a max whose gradient splits among ties).  Slices and
+    means, so the backward is deterministic on the card (the CUDA
+    backward of ``F.adaptive_avg_pool2d`` is not)."""
+    (x,) = cast_inputs(f"adaptive_{mode}_pool{n}d", x)
+    first = 1 if data_format in _CHANNELS_LAST else 2
+    sizes = (list(output_size) if isinstance(output_size, (list, tuple))
+             else [output_size] * n)
+    out = x
+    for i, o in enumerate(sizes):
+        ax, size = first + i, out.shape[first + i]
+        if o is None or o == size:
+            continue
+        segs = []
+        for j in range(o):
+            lo, hi = j * size // o, -(-(j + 1) * size // o)
+            seg = out.narrow(ax, lo, hi - lo)
+            segs.append(seg.mean(ax, keepdim=True) if mode == "avg"
+                        else seg.amax(ax, keepdim=True))
+        out = segs[0] if len(segs) == 1 else torch.cat(segs, ax)
+    return out
+
+
+def adaptive_avg_pool1d(x, output_size):
+    return _adaptive_pool(x, output_size, 1, "NCL", "avg")
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    return _adaptive_pool(x, output_size, 2, data_format, "avg")
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
+    return _adaptive_pool(x, output_size, 3, data_format, "avg")
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False):
+    _no_mask(return_mask)
+    return _adaptive_pool(x, output_size, 1, "NCL", "max")
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False):
+    _no_mask(return_mask)
+    return _adaptive_pool(x, output_size, 2, "NCHW", "max")
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False):
+    _no_mask(return_mask)
+    return _adaptive_pool(x, output_size, 3, "NCDHW", "max")
+
+
+# ----------------------------------------------------- batch / instance norm
+def _weak(v, t):
+    """The Python float ``v`` as JAX's weak-typed constant beside the
+    tensor ``t``: rounded to ``t``'s dtype first (0.9 is 0.8984375
+    beside bf16), where torch would keep it in f32."""
+    return torch.tensor(v, dtype=t.dtype).item()
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None):
+    """``norm.py:50-110`` term for term.  In training (unless
+    ``use_global_stats``) the batch's mean and population variance over
+    every dim but the channel's (f32 sums rounded to the input's dtype,
+    as ``jnp.mean``/``jnp.var``), then ``(x - mean) * rsqrt(var + eps)
+    * weight + bias`` in the input's dtype; the running buffers update
+    in place with Paddle's momentum, ``running * momentum + batch * (1 -
+    momentum)``, the variance unbiased by ``n / (n - 1)``.  Otherwise the
+    running buffers normalise.  Python constants round to the dtype of
+    the tensor they meet first, as JAX's weak types."""
+    channel = 1 if data_format.startswith("NC") else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != channel)
+    shape = [1] * x.dim()
+    shape[channel] = -1
+    if training and not use_global_stats:
+        x, weight, bias = cast_inputs("batch_norm", x, weight, bias)
+        var, mean = torch.var_mean(x, axes, correction=0)
+        out = (x - mean.reshape(shape)) * torch.rsqrt(
+            var.reshape(shape) + _weak(epsilon, var))
+        if running_mean is not None:
+            n = math.prod(x.shape[i] for i in axes)
+            with torch.no_grad():
+                unbiased = var * _weak(n / max(n - 1, 1), var)
+                running_mean.copy_(running_mean * _weak(momentum, running_mean)
+                                   + mean * _weak(1 - momentum, mean))
+                running_var.copy_(running_var * _weak(momentum, running_var)
+                                  + unbiased * _weak(1 - momentum, unbiased))
+    else:
+        x, mean, var, weight, bias = cast_inputs(
+            "batch_norm", x, running_mean, running_var, weight, bias)
+        out = (x - mean.reshape(shape)) * torch.rsqrt(
+            var.reshape(shape) + _weak(epsilon, var))
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW"):
+    """``norm.py:160-183``: each sample's channels normalised over their
+    spatial dims (population variance); the running buffers are not
+    used, as in JAX."""
+    x, weight, bias = cast_inputs("instance_norm", x, weight, bias)
+    first = data_format.startswith("NC")
+    axes = tuple(range(2, x.dim())) if first else tuple(range(1, x.dim() - 1))
+    var, mean = torch.var_mean(x, axes, correction=0, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + _weak(eps, var))
+    shape = [1] * x.dim()
+    shape[1 if first else -1] = -1
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out

@@ -1,7 +1,14 @@
-"""``LayerNorm`` and ``GroupNorm`` layers, the counterparts of
-``paddle_tpu/nn/layer/norm.py:98-158``: parameters ``weight`` (ones) and
-``bias`` (zeros), default eps 1e-5, the forward through
-:mod:`paddle_tpu_torch.nn.functional` (the Triton kernels on the card)."""
+"""Norm layers, the counterparts of ``paddle_tpu/nn/layer/norm.py``:
+``LayerNorm`` and ``GroupNorm`` (``:98-158``; the CUDA kernels on the
+card), ``BatchNorm``/``BatchNorm1D/2D/3D`` (``:13-61``) and
+``InstanceNorm1D/2D/3D`` (``:161-189``), each with parameters
+``weight`` (ones) and ``bias`` (zeros), default eps 1e-5, the forward
+through :mod:`paddle_tpu_torch.nn.functional`.  ``weight_attr=False`` /
+``bias_attr=False`` leave a BatchNorm or InstanceNorm parameter out.
+BatchNorm keeps its running statistics in the buffers ``_mean`` (zeros)
+and ``_variance`` (ones), JAX's ``state_dict`` keys; ``Module.to(dtype)``
+casts them with the parameters, as JAX's ``Layer.to``.  ``SyncBatchNorm``
+waits for distributed training (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -42,3 +49,89 @@ class GroupNorm(nn.Module):
     def forward(self, x):
         return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
                             self.bias, self._data_format)
+
+
+class _BatchNormBase(nn.Module):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, device=None, dtype=None):
+        super().__init__()
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        kw = dict(device=device, dtype=dtype)
+        self.weight = (None if weight_attr is False else
+                       nn.Parameter(torch.ones(num_features, **kw)))
+        self.bias = (None if bias_attr is False else
+                     nn.Parameter(torch.zeros(num_features, **kw)))
+        self.register_buffer("_mean", torch.zeros(num_features, **kw))
+        self.register_buffer("_variance", torch.ones(num_features, **kw))
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight,
+                            self.bias, training=self.training,
+                            momentum=self._momentum, epsilon=self._epsilon,
+                            data_format=self._data_format,
+                            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return (f"num_features={self._num_features}, "
+                f"momentum={self._momentum}, epsilon={self._epsilon}")
+
+
+class BatchNorm(_BatchNormBase):
+    pass
+
+
+class BatchNorm1D(_BatchNormBase):
+    pass
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class BatchNorm3D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 use_global_stats=None, device=None, dtype=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats, device,
+                         dtype)
+
+
+class InstanceNorm1D(nn.Module):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 device=None, dtype=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self._data_format = data_format
+        kw = dict(device=device, dtype=dtype)
+        self.weight = (None if weight_attr is False else
+                       nn.Parameter(torch.ones(num_features, **kw)))
+        self.bias = (None if bias_attr is False else
+                     nn.Parameter(torch.zeros(num_features, **kw)))
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self._epsilon,
+                               data_format=self._data_format)
+
+
+class InstanceNorm2D(InstanceNorm1D):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 device=None, dtype=None):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format, device, dtype)
+
+
+class InstanceNorm3D(InstanceNorm1D):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 device=None, dtype=None):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format, device, dtype)

@@ -52,6 +52,7 @@ import math
 import torch
 
 from .. import _build
+from ..amp.auto_cast import cast_inputs
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims csrc/flash_attention.cu instantiates, per dtype
@@ -344,7 +345,10 @@ def _scale_of(q, k, scale):
 
 def flash_attention(q, k, v, causal=False, scale=None):
     """Attention over ``[B, S, H, D]`` (k/v may carry fewer heads), the
-    flash kernels on CUDA and the plain twins on the CPU; differentiable."""
+    flash kernels on CUDA and the plain twins on the CPU; differentiable.
+    Under an ``amp.auto_cast`` scope the inputs take its dtype (float16
+    raises: not ported)."""
+    q, k, v = cast_inputs("flash_attention", q, k, v)
     scale = _scale_of(q, k, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -34,6 +34,8 @@ from __future__ import annotations
 
 import torch
 
+from ..amp.auto_cast import cast_inputs
+
 #: ``triton.language``, bound at the first launch (triton is imported
 #: only when a kernel is launched, so this module imports without it)
 tl = None
@@ -214,7 +216,10 @@ class _RMSNorm(torch.autograd.Function):
 
 def rms_norm(x, weight, eps=1e-6):
     """RMSNorm over the last dim, differentiable in x and the weight.
-    With no gradient to record (serving), the forward runs alone."""
+    With no gradient to record (serving), the forward runs alone.  Under
+    an ``amp.auto_cast`` scope the inputs are cast as JAX's ``rms_norm``
+    op's."""
+    x, weight = cast_inputs("rms_norm", x, weight)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return _RMSNorm.apply(x, weight, eps)
     return rms_norm_fwd(x, weight, eps)[0]

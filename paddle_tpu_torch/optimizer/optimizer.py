@@ -117,9 +117,13 @@ class Optimizer:
         """Decay skips a parameter flagged ``no_weight_decay``."""
         return getattr(p, "no_weight_decay", False)
 
-    def _apply(self, params_grads):
+    def _apply(self, params_grads, skip=None):
         """Update each parameter in place from its (clipped) gradient at
-        this step's learning rate, an f32 scalar as in the JAX step."""
+        this step's learning rate, an f32 scalar as in the JAX step.
+        Where the bool tensor ``skip`` holds, each parameter and its
+        state keep their values (a loss-scaled step whose gradients
+        overflowed, ``paddle_tpu/jit/train_step.py:335-341``), decided on
+        the device."""
         lr = torch.tensor(self.get_lr(), dtype=torch.float32,
                           device=self.device)
         with torch.no_grad():
@@ -131,18 +135,24 @@ class Optimizer:
                 state = self._state_for(p)
                 new_p, new_state = self._update_raw(p, p.detach(), g, state,
                                                     lr)
+                if skip is not None:
+                    new_p = torch.where(skip, p, new_p)
+                    new_state = {k: torch.where(skip, state[k], v)
+                                 for k, v in new_state.items()}
                 p.copy_(new_p)
                 # each accumulator keeps its dtype, as JAX's _update_for
                 self._accumulators[id(p)] = {
                     k: v.to(state[k].dtype) for k, v in new_state.items()}
 
-    def step(self):
+    def step(self, skip=None):
+        """Clip, count the step and update (see :meth:`_apply` for
+        ``skip``, which ``jit.TrainStep`` passes under a loss scaler)."""
         params_grads = [(p, p.grad) for p in self._parameter_list
                         if p.requires_grad and p.grad is not None]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._step_count += 1
-        self._apply(params_grads)
+        self._apply(params_grads, skip)
 
     def clear_grad(self):
         for p in self._parameter_list:

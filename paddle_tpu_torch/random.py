@@ -88,7 +88,10 @@ def fork_rng(s):
 
 
 def generator(key, device):
-    """A ``torch.Generator`` on ``device`` seeded by ``key``."""
+    """A ``torch.Generator`` on ``device`` seeded by ``key`` (None on the
+    meta device, whose tensors hold no values to draw)."""
+    if torch.device(device).type == "meta":
+        return None
     g = torch.Generator(device=device)
     g.manual_seed(key_seed(*key))
     return g

@@ -1,0 +1,28 @@
+"""Tensor functions of ``paddle_tpu/tensor/`` that the port's models use:
+``flatten`` (``manipulation.py:57-67``) and ``matmul`` (``math.py``),
+each asking ``amp`` for its inputs' dtype under JAX's op name."""
+
+from __future__ import annotations
+
+import torch
+
+from .amp.auto_cast import cast_inputs
+
+
+def flatten(x, start_axis=0, stop_axis=-1):
+    """Dims ``start_axis`` through ``stop_axis`` merged into one."""
+    (x,) = cast_inputs("flatten", x)
+    if x.dim() == 0:
+        return x.reshape(1)
+    return torch.flatten(x, start_axis, stop_axis)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False):
+    """``x @ y``, with the last two dims of either transposed first (a
+    1-D operand is not transposed)."""
+    x, y = cast_inputs("matmul", x, y)
+    if transpose_x and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if transpose_y and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    return torch.matmul(x, y)

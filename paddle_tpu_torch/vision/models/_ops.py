@@ -1,0 +1,34 @@
+"""Building blocks of the vision model zoo, the counterparts of
+``paddle_tpu/vision/models/_ops.py``."""
+
+from __future__ import annotations
+
+from torch import nn
+
+from ...nn import BatchNorm2D, Conv2D, ReLU
+
+
+def make_divisible(v, divisor=8, min_value=None):
+    """``v`` rounded to a multiple of ``divisor``, not below
+    ``min_value`` (default ``divisor``) and not below 0.9 v."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+class ConvBNReLU(nn.Module):
+    def __init__(self, in_ch, out_ch, kernel, stride=1, padding=0, groups=1,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.conv = Conv2D(in_ch, out_ch, kernel, stride=stride,
+                           padding=padding, groups=groups, bias_attr=False,
+                           **kw)
+        self.bn = BatchNorm2D(out_ch, **kw)
+        self.relu = ReLU()
+
+    def forward(self, x):
+        return self.relu(self.bn(self.conv(x)))

@@ -1,0 +1,212 @@
+"""The ResNet family, the counterpart of
+``paddle_tpu/vision/models/resnet.py``: ``BasicBlock``,
+``BottleneckBlock``, ``ResNet`` and its nine constructors, with the JAX
+model's layer names (``conv1``, ``bn1``, ``layer1.0.conv1``,
+``layer1.0.downsample.0``, ``fc``), so ``convert.resnet_state_dict_from_jax``
+maps one ``state_dict`` onto the other key for key.
+
+Convolutions run through cuDNN (``nn.functional.conv2d``), BatchNorm,
+pooling and ReLU as plain torch: the JAX package computes all of them
+outside any Pallas kernel.  The model is built on ``device`` (``cuda``
+unless the caller passes ``"cpu"``) in ``dtype``; initial values come
+from the port's counter stream (with ``seed`` from a private stream
+seeded by it), with JAX's initialisers: convolutions U(-1/sqrt(fan_in),
+1/sqrt(fan_in)), BatchNorm weight 1 and bias 0 (running mean 0 and
+variance 1), the ``fc`` Linear Xavier-normal with bias 0.
+``model.to(torch.bfloat16)`` casts the running buffers too, as JAX's
+``model.to(dtype="bfloat16")``.  Pretrained weights raise.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+from torch import nn
+
+from ... import random as _random
+from ...device import resolve_device
+from ...nn import (
+    AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear, MaxPool2D, ReLU,
+    Sequential,
+)
+from ...tensor import flatten
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, device=None,
+                 dtype=None):
+        super().__init__()
+        norm_layer = norm_layer or BatchNorm2D
+        kw = dict(device=device, dtype=dtype)
+        self.conv1 = Conv2D(inplanes, planes, 3, stride=stride, padding=1,
+                            bias_attr=False, **kw)
+        self.bn1 = norm_layer(planes, **kw)
+        self.relu = ReLU()
+        self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False,
+                            **kw)
+        self.bn2 = norm_layer(planes, **kw)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class BottleneckBlock(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, device=None,
+                 dtype=None):
+        super().__init__()
+        norm_layer = norm_layer or BatchNorm2D
+        kw = dict(device=device, dtype=dtype)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False, **kw)
+        self.bn1 = norm_layer(width, **kw)
+        self.conv2 = Conv2D(width, width, 3, padding=dilation, stride=stride,
+                            groups=groups, dilation=dilation,
+                            bias_attr=False, **kw)
+        self.bn2 = norm_layer(width, **kw)
+        self.conv3 = Conv2D(width, planes * self.expansion, 1,
+                            bias_attr=False, **kw)
+        self.bn3 = norm_layer(planes * self.expansion, **kw)
+        self.relu = ReLU()
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+#: blocks a stage of each depth
+LAYERS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+          101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+
+
+class ResNet(nn.Module):
+    def __init__(self, block, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1, device=None, dtype=None,
+                 seed=None):
+        super().__init__()
+        layers = LAYERS[depth]
+        self.groups = groups
+        self.base_width = width
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self._norm_layer = BatchNorm2D
+        self.inplanes = 64
+        self.dilation = 1
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        with (contextlib.nullcontext() if seed is None
+              else _random.fork_rng(seed)):
+            self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                                bias_attr=False, **kw)
+            self.bn1 = self._norm_layer(self.inplanes, **kw)
+            self.relu = ReLU()
+            self.maxpool = MaxPool2D(kernel_size=3, stride=2, padding=1)
+            self.layer1 = self._make_layer(block, 64, layers[0], **kw)
+            self.layer2 = self._make_layer(block, 128, layers[1], 2,
+                                          **kw)
+            self.layer3 = self._make_layer(block, 256, layers[2], 2,
+                                          **kw)
+            self.layer4 = self._make_layer(block, 512, layers[3], 2,
+                                          **kw)
+            if with_pool:
+                self.avgpool = AdaptiveAvgPool2D((1, 1))
+            if num_classes > 0:
+                self.fc = Linear(512 * block.expansion, num_classes, **kw)
+
+    def _make_layer(self, block, planes, blocks, stride=1, **kw):
+        norm_layer = self._norm_layer
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = Sequential(
+                Conv2D(self.inplanes, planes * block.expansion, 1,
+                       stride=stride, bias_attr=False, **kw),
+                norm_layer(planes * block.expansion, **kw))
+        layers = [block(self.inplanes, planes, stride, downsample,
+                        self.groups, self.base_width, self.dilation,
+                        norm_layer, **kw)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes, groups=self.groups,
+                                base_width=self.base_width,
+                                norm_layer=norm_layer, **kw))
+        return Sequential(*layers)
+
+    def forward(self, x):
+        x = self.relu(self.bn1(self.conv1(x)))
+        x = self.maxpool(x)
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            x = self.fc(flatten(x, 1))
+        return x
+
+
+def _resnet(block, depth, pretrained=False, **kwargs):
+    if pretrained:
+        raise NotImplementedError("pretrained weights are not in the "
+                                  "repository")
+    return ResNet(block, depth, **kwargs)
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 18, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 34, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    kwargs["width"] = 128
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def wide_resnet101_2(pretrained=False, **kwargs):
+    kwargs["width"] = 128
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def resnext50_32x4d(pretrained=False, **kwargs):
+    kwargs["groups"] = 32
+    kwargs["width"] = 4
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def resnext101_64x4d(pretrained=False, **kwargs):
+    kwargs["groups"] = 64
+    kwargs["width"] = 4
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
