@@ -246,6 +246,33 @@ the script exits nonzero and prints no result:
    within GRAD_PARITY_FACTOR of the CPU's error plus GRAD_PARITY_FLOOR;
    the same seed's bf16 step twice with cudnn.deterministic, bit for
    bit.
+17. hapi_fit: the high-level API over ResNet-50 (resnet50(num_classes=
+   1000) in f32, cudnn.benchmark on, TF32 off in cuDNN and cuBLAS, as
+   the phases before it leave them): FakeData
+   (HAPI_TRAIN images of 3 x 224 x 224, 1,000 classes, seed 0) through
+   RandomHorizontalFlip and ImageNet's Normalize, an io.DataLoader of 64
+   (shuffled, drop_last, HAPI_WORKERS thread workers, batches pinned and
+   copied to the card), Model.prepare(Momentum, nn.CrossEntropyLoss,
+   Accuracy top-1/top-5).fit for one epoch with eval_data (HAPI_EVAL
+   images, seed 1), evaluate, predict on one batch: no port kernel
+   launched, finite figures of the right shape.  Model.save, then
+   Model.load into a fresh model: every parameter, buffer and velocity,
+   evaluate and a predict_batch bit for bit (cuDNN deterministic).
+   Wiring: HAPI_WIRING_STEPS steps of fit and of a plain TrainStep over
+   the same unshuffled batches from one initial state leave every
+   parameter, buffer and velocity bit for bit equal.  Printed: fit's
+   step seconds after HAPI_WARM warm steps (host clock between batch
+   ends: the loader's wait, the copy and the step), each batch's loader
+   stall (dataloader.stall_seconds), fit and a TrainStep loop on batches
+   already on the card in turns (fit, loop, loop, fit) and their ratio,
+   one profiled fit step (the loader's wait included) and peak memory.
+18. hapi_fit_bert: benchmarks/ab_hapi_fit.py on the card:
+   BertForMaskedLM(BERT_BASE) at bert_train_flash's config (attention
+   dropout 0) in bf16, AdamW(1e-4, multi_precision) and MLMLoss through
+   Model.fit over a TensorDataset of HAPI_BERT_STEPS x 32 seeded MLM
+   sequences of 128: LayerNorm 26 + 26 and flash 12 + 12 + 12 launches a
+   step asserted; fit and a TrainStep loop on one batch on the card in
+   turns, their sequences a second beside bert_train_flash's.
 
 The last three lines are the card's nvidia-smi line, the per-kernel JSON
 summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
@@ -255,10 +282,12 @@ summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
     python3 chip_smoke.py --paged-sweep [--tree DIR]
     python3 chip_smoke.py --serve-phases serve_structured,serve_tier
     python3 chip_smoke.py --resnet-phases
+    python3 chip_smoke.py --hapi-phases
 
-The last runs the named serve phases alone on the engine phase's model
-(no other phase and no kernels line); ``--resnet-phases`` likewise runs
-phases 14-16 alone.  The sweeps run the GroupNorm or
+``--serve-phases`` runs the named serve phases alone on the engine
+phase's model (no other phase and no kernels line); ``--resnet-phases``
+likewise runs phases 14-16 alone and ``--hapi-phases`` phases 17-18
+(the kernels built for hapi_fit_bert).  The sweeps run the GroupNorm or
 the LayerNorm forward sweep alone (or the paged attention cases and
 their row-invariance checks): with ``--variants`` also every launch the
 kernel takes at each shape
@@ -354,6 +383,13 @@ RESNET_PARITY_BATCH = 4
 # apart norm-wise between f32 and f64 of one implementation), at 0.25 it
 # is not (2e-5); see tests/test_torch_resnet.py
 RESNET_BRANCH_SCALE = 0.25
+# hapi_fit: ResNet-50 through Model.fit from FakeData (ImageNet's shape)
+# through the threaded DataLoader; hapi_fit_bert: BERT-base MLM at
+# bert_train_flash's config through Model.fit over a TensorDataset
+HAPI_TRAIN, HAPI_EVAL, HAPI_WORKERS, HAPI_WARM = 512, 128, 4, 2
+IMAGENET_MEAN, IMAGENET_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+HAPI_WIRING_STEPS = 3
+HAPI_BERT_STEPS = 8
 
 
 def emit(obj):
@@ -3240,7 +3276,6 @@ def profiled(torch, run, classify=None):
     The profiler slows the host, so the idle share is an upper bound of
     the unprofiled run's.  ``classify(kernels, events)``, if given,
     returns more fields from the kernel events and all events."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -3250,6 +3285,14 @@ def profiled(torch, run, classify=None):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_figures(prof, wall_us, classify)
+
+
+def profile_figures(prof, wall_us, classify=None):
+    """:func:`profiled`'s figures from a finished profile and the wall
+    time it covered."""
+    from torch.autograd import DeviceType
+
     # the serving engine's spans (torch.profiler.record_function) also
     # appear on the device timeline, as user annotations spanning whole
     # steps: only kernels count as busy
@@ -4769,6 +4812,378 @@ def resnet_parity_phase(torch, dev):
           "same_seed_bitwise": True})
 
 
+# ---------------------------------------------------------- phases 17-18
+def step_clock(torch, profile_step=None, stall=None):
+    """A ``Model.fit`` callback: the host clock at the end of each train
+    batch (the loader's wait, the copy to the card and the step lie
+    between two of them); with ``stall`` (the loader's
+    ``dataloader.stall_seconds`` histogram) each batch's stall; and with
+    ``profile_step`` that batch under torch.profiler, from the end of the
+    batch before it to its own end (:func:`profile_figures` in
+    ``.profile``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            super().__init__()
+            self.ends = []
+            self.stalls = []
+            self.profile = None
+            self._prof = None
+            self._t0 = None
+            self._stall_sum = 0.0
+
+        def on_train_batch_begin(self, step, logs=None):
+            if stall is not None:      # the loader observed this batch
+                total = stall.stats(workers="threads")["sum"]
+                self.stalls.append(total - self._stall_sum)
+                self._stall_sum = total
+
+        def on_train_batch_end(self, step, logs=None):
+            self.ends.append(time.perf_counter())
+            if self._prof is not None:
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - self._t0) * 1e6
+                self._prof.__exit__(None, None, None)
+                self.profile = profile_figures(self._prof, wall_us)
+                self._prof = None
+            if profile_step is not None and step == profile_step - 1:
+                torch.cuda.synchronize()
+                self._prof = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+                self._prof.__enter__()
+                self._t0 = time.perf_counter()
+
+        def timed(self, warm):
+            """Seconds of each batch after the first ``warm``."""
+            return [b - a for a, b in zip(self.ends[warm - 1:],
+                                          self.ends[warm:])]
+
+    return StepClock()
+
+
+def hapi_images(torch, size, seed, flip):
+    """FakeData at ImageNet's shape through hapi_fit's transforms."""
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import FakeData
+
+    norm = T.Normalize(IMAGENET_MEAN, IMAGENET_STD, data_format="CHW")
+    return FakeData(size=size, image_shape=(3, RESNET_PX, RESNET_PX),
+                    num_classes=RESNET_CLASSES, seed=seed, transform=(
+                        T.Compose([T.RandomHorizontalFlip(), norm]) if flip
+                        else norm))
+
+
+def hapi_model(torch, dev, net):
+    """``Model(net)`` prepared as hapi_fit's: Momentum, CrossEntropyLoss,
+    top-1/top-5 Accuracy."""
+    from paddle_tpu_torch import Model, metric, nn
+    from paddle_tpu_torch.optimizer import Momentum
+
+    opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+                   parameters=net.named_parameters(), device=dev)
+    return Model(net).prepare(opt, nn.CrossEntropyLoss(),
+                              metric.Accuracy(topk=(1, 5)))
+
+
+def state_equal(torch, a, b):
+    """Names of the tensors of two state dicts that differ."""
+    return [k for k, v in a.items() if isinstance(v, torch.Tensor)
+            and not torch.equal(v, b[k])]
+
+
+def hapi_fit_phase(torch, dev):
+    """ResNet-50 through the high-level API (see the module docstring):
+    Model.fit from FakeData through the threaded DataLoader with eval
+    data, evaluate, predict, save and load into a fresh model (evaluate
+    bit for bit), fit = TrainStep bit for bit over the same batches; fit
+    in turns with a TrainStep loop on batches already on the card."""
+    import random
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch import io, nn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    stall = obs_metrics.histogram("dataloader.stall_seconds")
+    train = hapi_images(torch, HAPI_TRAIN, 0, flip=True)
+    evalset = hapi_images(torch, HAPI_EVAL, 1, flip=False)
+
+    def loader(ds, shuffle):
+        return io.DataLoader(ds, places=dev, batch_size=RESNET_BATCH,
+                             shuffle=shuffle, drop_last=True,
+                             num_workers=HAPI_WORKERS)
+
+    net = resnet50(num_classes=RESNET_CLASSES, device=dev, seed=0)
+    twin = copy.deepcopy(net)          # the wiring check's initial state
+    model = hapi_model(torch, dev, net)
+    steps = HAPI_TRAIN // RESNET_BATCH
+    with backend_flags(torch, benchmark=True, tf32=False) as flags:
+        random.seed(0)
+        np.random.seed(0)
+        stall.clear()
+        reset_kernel_launches()
+        clock = step_clock(torch, stall=stall)
+        t0 = time.perf_counter()
+        model.fit(loader(train, True), eval_data=evalset,
+                  batch_size=RESNET_BATCH, epochs=1, verbose=0,
+                  callbacks=[clock])
+        fit_s = time.perf_counter() - t0
+        launches = kernel_launches()
+        fit_step_s = clock.timed(HAPI_WARM)
+        stalls = clock.stalls
+        ev = model.evaluate(evalset, batch_size=RESNET_BATCH, verbose=0)
+        pred = model.predict(io.Subset(evalset, range(RESNET_BATCH)),
+                             batch_size=RESNET_BATCH)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(launches.values()):
+        raise AssertionError(f"hapi_fit: a port kernel ran on a path that "
+                             f"reaches none {launches}")
+    if len(clock.ends) != steps or len(stalls) != steps:
+        raise AssertionError(f"hapi_fit: {len(clock.ends)} of {steps} "
+                             "train batches")
+    for k in ("loss", "acc_top1", "acc_top5"):
+        if not (math.isfinite(ev[k]) and (k == "loss" or 0 <= ev[k] <= 1)):
+            raise AssertionError(f"hapi_fit: evaluate {k} = {ev[k]}")
+    logits = pred[0][0]
+    if logits.shape != (RESNET_BATCH, RESNET_CLASSES) or \
+            not np.isfinite(logits).all():
+        raise AssertionError(f"hapi_fit: predict gave {logits.shape}")
+
+    # save, then load into a fresh model: its evaluate bit for bit
+    with tempfile.TemporaryDirectory() as tmp, backend_flags(
+            torch, deterministic=True, benchmark=False, tf32=False):
+        path = os.path.join(tmp, "resnet50")
+        model.save(path)
+        fresh = hapi_model(torch, dev, resnet50(
+            num_classes=RESNET_CLASSES, device=dev, seed=1))
+        fresh.load(path)
+        differ = state_equal(torch, net.state_dict(),
+                             fresh.network.state_dict())
+        differ += state_equal(torch, model._optimizer.state_dict(),
+                              fresh._optimizer.state_dict())
+        ev1 = model.evaluate(evalset, batch_size=RESNET_BATCH, verbose=0)
+        ev2 = fresh.evaluate(evalset, batch_size=RESNET_BATCH, verbose=0)
+        p1 = model.predict_batch([torch.from_numpy(np.stack(
+            [evalset[i][0] for i in range(8)]))])[0]
+        p2 = fresh.predict_batch([torch.from_numpy(np.stack(
+            [evalset[i][0] for i in range(8)]))])[0]
+    if differ or ev1 != ev2 or not np.array_equal(p1, p2):
+        raise AssertionError(f"hapi_fit: the loaded model differs: "
+                             f"{differ[:8]} {ev1} {ev2}")
+    del fresh
+
+    # fit = TrainStep over the same batches from one initial state
+    def ce_loss(m, x, y):
+        return nn.CrossEntropyLoss()(m(x), y)
+
+    with backend_flags(torch, deterministic=True, benchmark=False,
+                       tf32=False):
+        wired = hapi_model(torch, dev, copy.deepcopy(twin))
+        wired.fit(loader(hapi_images(torch, HAPI_TRAIN, 0, flip=False),
+                         False), epochs=1, verbose=0,
+                  num_iters=HAPI_WIRING_STEPS)
+        plain_opt = hapi_model(torch, dev, twin)._optimizer
+        step = TrainStep(twin, ce_loss, plain_opt, device=dev)
+        for i, (x, y) in enumerate(loader(hapi_images(
+                torch, HAPI_TRAIN, 0, flip=False), False)):
+            if i == HAPI_WIRING_STEPS:
+                break
+            step(x, y)
+    differ = state_equal(torch, wired.network.state_dict(),
+                         twin.state_dict())
+    differ += state_equal(torch, wired._optimizer.state_dict(),
+                          plain_opt.state_dict())
+    if differ:
+        raise AssertionError(f"hapi_fit: fit and TrainStep differ in "
+                             f"{len(differ)} tensors {differ[:8]}")
+    del wired, step, plain_opt
+
+    # fit in turns with a TrainStep loop on batches already on the card
+    step = TrainStep(net, ce_loss, model._optimizer, device=dev)
+    on_card = []
+    for x, y in loader(train, False):
+        on_card.append((x, y))
+    turns = {"fit": [], "train_step": []}
+    with backend_flags(torch, benchmark=True, tf32=False):
+        for kind in ("fit", "train_step", "train_step", "fit"):
+            if kind == "fit":
+                clock = step_clock(torch)
+                model.fit(loader(train, True), epochs=1, verbose=0,
+                          callbacks=[clock])
+                turns["fit"] += clock.timed(HAPI_WARM)
+            else:
+                ends = []
+                for x, y in on_card:
+                    step(x, y).item()
+                    ends.append(time.perf_counter())
+                turns["train_step"] += [b - a for a, b in zip(
+                    ends[HAPI_WARM - 1:], ends[HAPI_WARM:])]
+        # one fit step under the profiler, the loader's wait included
+        clock = step_clock(torch, profile_step=HAPI_WARM + 2)
+        model.fit(loader(train, True), epochs=1, verbose=0,
+                  num_iters=HAPI_WARM + 3, callbacks=[clock])
+    if clock.profile is None:
+        raise AssertionError("hapi_fit: the profiled fit step was not "
+                             "reached")
+    fit_ips = RESNET_BATCH / statistics.mean(turns["fit"])
+    step_ips = RESNET_BATCH / statistics.mean(turns["train_step"])
+    out = {"phase": "hapi_fit", "model": "resnet50(num_classes=1000)",
+           "dtype": "float32", "backend_flags": flags,
+           "data": f"FakeData({HAPI_TRAIN}, (3, {RESNET_PX}, {RESNET_PX}), "
+                   f"1000) RandomHorizontalFlip + Normalize(ImageNet)",
+           "loader": {"batch_size": RESNET_BATCH, "num_workers":
+                      HAPI_WORKERS, "workers": "threads", "shuffle": True,
+                      "drop_last": True},
+           "optimizer": f"Momentum({RESNET_LR}, {RESNET_MOMENTUM})",
+           "fit_s": fit_s, "fit_step_s": fit_step_s,
+           "fit_step_s_mean": statistics.mean(fit_step_s),
+           "fit_step_s_range": [min(fit_step_s), max(fit_step_s)],
+           "fit_images_per_s": RESNET_BATCH / statistics.mean(fit_step_s),
+           "loader_stall_s": stalls,
+           "loader_stall_after_warm_s": {
+               "mean": statistics.mean(stalls[HAPI_WARM:]),
+               "max": max(stalls[HAPI_WARM:])},
+           "loader_stall_first_s": stalls[0],
+           "fit_step_profile": clock.profile,
+           "evaluate": ev, "predict_shape": list(logits.shape),
+           "peak_memory_gb": peak_gb, "kernel_launches": launches,
+           "save_load_bitwise": True, "fit_equals_train_step_bitwise": True,
+           "wiring_steps": HAPI_WIRING_STEPS,
+           "turns_step_s": turns,
+           "turns_images_per_s": {"fit": fit_ips, "train_step": step_ips},
+           "fit_over_train_step": fit_ips / step_ips,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    del step, model, net, twin, on_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+class MLMLoss:
+    """``benchmarks/ab_hapi_fit.py``'s MLMLoss: cross-entropy of the MLM
+    logits over every scored position (labels -100 elsewhere)."""
+
+    def __call__(self, logits, labels):
+        from paddle_tpu_torch.nn import functional as F
+
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1))
+
+
+def hapi_fit_bert_phase(torch, dev, flash_figures=None):
+    """BERT-base MLM through Model.fit as ``benchmarks/ab_hapi_fit.py``
+    (see the module docstring): the five kernels' launches asserted per
+    step; fit in turns with a TrainStep loop on one batch on the card."""
+    from paddle_tpu_torch import Model, io
+    from paddle_tpu_torch import random as prandom
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BERT_BASE, BertForMaskedLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(BERT_BASE, attention_probs_dropout_prob=0.0)
+    prandom.seed(2019)
+    net = BertForMaskedLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=net.named_parameters(),
+                multi_precision=True, device=dev)
+    model = Model(net).prepare(opt, MLMLoss())
+    n = BERT_BATCH * HAPI_BERT_STEPS
+    ids, _, labels = bert_batch(torch, cfg, n, BERT_SEQ, "cpu", 4321)
+    data = io.TensorDataset([ids, labels])
+    clock = step_clock(torch)
+    losses = []
+    reset_kernel_launches()
+    model.fit(data, batch_size=BERT_BATCH, epochs=1, shuffle=True,
+              verbose=0, callbacks=[clock])
+    launches = kernel_launches()
+    for name, per in BERT_FLASH_PER_STEP.items():
+        if launches[name] != per * HAPI_BERT_STEPS:
+            raise AssertionError(f"hapi_fit_bert: {name} launched "
+                                 f"{launches[name]} times in "
+                                 f"{HAPI_BERT_STEPS} steps, want {per} a step")
+    fit_step_s = clock.timed(HAPI_WARM)
+    batch = (ids[:BERT_BATCH].to(dev), labels[:BERT_BATCH].to(dev))
+    step = TrainStep(net, lambda m, x, y: MLMLoss()(m(x), y), opt,
+                     device=dev)
+    turns = {"fit": [], "train_step": []}
+    for kind in ("fit", "train_step", "train_step", "fit"):
+        if kind == "fit":
+            clock = step_clock(torch)
+            model.fit(data, batch_size=BERT_BATCH, epochs=1, shuffle=True,
+                      verbose=0, callbacks=[clock])
+            turns["fit"] += clock.timed(HAPI_WARM)
+        else:
+            ends = []
+            for _ in range(HAPI_BERT_STEPS):
+                losses.append(step(*batch).item())
+                ends.append(time.perf_counter())
+            turns["train_step"] += [b - a for a, b in zip(
+                ends[HAPI_WARM - 1:], ends[HAPI_WARM:])]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"hapi_fit_bert: non-finite loss {losses}")
+    fit_sps = BERT_BATCH / statistics.mean(turns["fit"])
+    step_sps = BERT_BATCH / statistics.mean(turns["train_step"])
+    out = {"phase": "hapi_fit_bert", "model": "BERT_BASE MLM",
+           "dtype": "bfloat16", "attention_dropout": 0.0,
+           "batch": BERT_BATCH, "seq": BERT_SEQ, "optimizer":
+           "AdamW(1e-4, multi_precision)", "steps": HAPI_BERT_STEPS,
+           "fit_step_s": fit_step_s,
+           "fit_seqs_per_s": BERT_BATCH / statistics.mean(fit_step_s),
+           "turns_step_s": turns,
+           "turns_seqs_per_s": {"fit": fit_sps, "train_step": step_sps},
+           "fit_over_train_step": fit_sps / step_sps,
+           "bert_train_flash_seqs_per_s": (
+               flash_figures["seqs_per_s"] if flash_figures else None),
+           "train_step_losses": losses,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "kernel_launches": launches,
+           "launches_per_step": BERT_FLASH_PER_STEP,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    del step, model, net, opt, data, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hapi_phases_main(torch):
+    """``--hapi-phases``: hapi_fit and hapi_fit_bert alone; the kernels
+    are built because hapi_fit_bert's BERT runs the LayerNorm and flash
+    kernels."""
+    from paddle_tpu_torch import _build, resolve_device
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    built = _build.build_all(verbose=False)
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "cudnn": torch.backends.cudnn.version(),
+          "build_s": time.perf_counter() - t0, "built": sorted(built)})
+    dev = resolve_device()
+    t0 = time.perf_counter()
+    hapi_fit_phase(torch, dev)
+    hapi_fit_bert_phase(torch, dev)
+    emit({"phase": "hapi_seconds", "seconds": time.perf_counter() - t0})
+    print(smi)
+    return 0
+
+
 def sweep_main(torch, args):
     """``--gn-fwd-sweep`` or ``--ln-fwd-sweep``, ``[--variants] [--tree
     DIR]``: the GroupNorm or LayerNorm forward sweep alone
@@ -4867,6 +5282,8 @@ def main():
         return serve_phases_main(torch, sys.argv[1:])
     if "--resnet-phases" in sys.argv[1:]:
         return resnet_phases_main(torch)
+    if "--hapi-phases" in sys.argv[1:]:
+        return hapi_phases_main(torch)
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
@@ -4921,6 +5338,10 @@ def main():
     resnet_parity_phase(torch, dev)
     emit({"phase": "resnet_seconds",
           "seconds": time.perf_counter() - t_resnet})
+    t_hapi = time.perf_counter()
+    hapi_fit = hapi_fit_phase(torch, dev)
+    hapi_fit_bert = hapi_fit_bert_phase(torch, dev, flash_figures)
+    emit({"phase": "hapi_seconds", "seconds": time.perf_counter() - t_hapi})
 
     # the first source is the kernel's; the int8 pool's loader and
     # conversion hooks live in both files
@@ -4960,7 +5381,8 @@ def main():
             "serve_gateway": serve_gateway,
             "serve_structured": serve_structured, "serve_tier": serve_tier,
             "train": train, "unet_train": unet, "bert_train": bert,
-            "bert_train_flash": bert_flash, "resnet_train": resnet}
+            "bert_train_flash": bert_flash, "resnet_train": resnet,
+            "hapi_fit": hapi_fit, "hapi_fit_bert": hapi_fit_bert}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]

@@ -6,7 +6,7 @@ kernels that the JAX package wrote in Pallas for the TPU are written by
 hand for Hopper (``csrc/`` for CUDA C++, Triton beside its module);
 each has a plain PyTorch twin that runs for CPU tensors.
 
-Five paths so far:
+Six paths so far:
 
 * serving a GPT / LLaMA decoder through the continuous-batching engine
   (``serving.Engine``), reached over HTTP through the gateway
@@ -31,7 +31,16 @@ Five paths so far:
   layers, ``metric.Accuracy``, and ``amp.auto_cast`` with
   ``amp.GradScaler`` through ``jit.TrainStep(scaler=)``): no Pallas
   kernel lies on it, so convolutions are cuDNN's and the rest plain
-  torch, as the JAX package computes them outside Pallas.
+  torch, as the JAX package computes them outside Pallas;
+* the high-level training API over those models: ``Model``
+  (``hapi``: ``prepare``, ``fit``, ``evaluate``, ``predict``, ``save``
+  and ``load``, the callbacks, ``summary`` and ``flops``) fed by ``io``
+  (datasets, samplers and a ``DataLoader`` that lands batches on the
+  card through pinned host memory) from ``vision.datasets`` and
+  ``vision.transforms``, with the loss layers of ``nn`` and
+  ``save``/``load`` (``framework``), which also read the JAX package's
+  files.  It adds no kernel: a BERT model fitted through it runs the
+  LayerNorm and flash kernels as its ``TrainStep`` does.
 
 On the CPU the UNet runs at a tiny size with ``device="cpu"``, e.g.
 ``UNet2DConditionModel(UNetConfig(block_out_channels=(16, 32),
@@ -43,11 +52,18 @@ cover it; ``bert_train``, ``bert_train_flash``, ``bert_parity``,
 ``train_recompute`` and ``optimizers`` cover the fourth path.  ResNet
 runs on the CPU at a tiny size, e.g. ``resnet18(num_classes=10,
 device="cpu")`` on 32 px images; ``resnet_train``, ``resnet_amp`` and
-``resnet_parity`` drive ResNet-50 at 224 px on the card.
+``resnet_parity`` drive ResNet-50 at 224 px on the card.  ``Model.fit``
+runs on the CPU with ``device="cpu"`` models and ``places="cpu"``
+loaders; ``hapi_fit`` (ResNet-50 from ``FakeData`` through the threaded
+loader) and ``hapi_fit_bert`` (BERT-base) drive it on the card.
 """
 
-from . import amp, metric, vision
+from . import amp, framework, hapi, io, metric, vision
 from .device import resolve_device
+from .framework import load, save
+from .hapi import Model, flops, summary
 from .tensor import flatten, matmul
 
-__all__ = ["amp", "flatten", "matmul", "metric", "resolve_device", "vision"]
+__all__ = ["Model", "amp", "flatten", "flops", "framework", "hapi", "io",
+           "load", "matmul", "metric", "resolve_device", "save", "summary",
+           "vision"]

@@ -3,6 +3,13 @@ from .activation import GELU, ReLU, Tanh
 from .clip import ClipGradByGlobalNorm
 from .common import Dropout, Embedding, Linear
 from .container import LayerList, Sequential
+from .loss import (
+    BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,
+    CTCLoss, GaussianNLLLoss, HingeEmbeddingLoss, HSigmoidLoss, KLDivLoss,
+    L1Loss, MarginRankingLoss, MSELoss, MultiLabelSoftMarginLoss,
+    MultiMarginLoss, NLLLoss, PoissonNLLLoss, SmoothL1Loss, SoftMarginLoss,
+    TripletMarginLoss, TripletMarginWithDistanceLoss,
+)
 from .conv import (
     Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
     Conv3DTranspose,
@@ -22,11 +29,19 @@ from .transformer import (
 
 __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
-           "AvgPool1D", "AvgPool2D", "AvgPool3D", "BatchNorm", "BatchNorm1D",
-           "BatchNorm2D", "BatchNorm3D", "ClipGradByGlobalNorm", "Conv1D",
+           "AvgPool1D", "AvgPool2D", "AvgPool3D", "BCELoss",
+           "BCEWithLogitsLoss", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "CTCLoss", "ClipGradByGlobalNorm", "Conv1D",
            "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D",
-           "Conv3DTranspose", "Dropout", "Embedding", "GELU", "GroupNorm",
-           "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "LayerList",
-           "LayerNorm", "Linear", "MaxPool1D", "MaxPool2D", "MaxPool3D",
-           "MultiHeadAttention", "ReLU", "Sequential", "Tanh",
-           "TransformerEncoder", "TransformerEncoderLayer", "functional"]
+           "Conv3DTranspose", "CosineEmbeddingLoss", "CrossEntropyLoss",
+           "Dropout", "Embedding", "GELU", "GaussianNLLLoss", "GroupNorm",
+           "HSigmoidLoss", "HingeEmbeddingLoss", "InstanceNorm1D",
+           "InstanceNorm2D", "InstanceNorm3D", "KLDivLoss", "L1Loss",
+           "LayerList", "LayerNorm", "Linear", "MSELoss",
+           "MarginRankingLoss", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+           "MultiHeadAttention", "MultiLabelSoftMarginLoss",
+           "MultiMarginLoss", "NLLLoss", "PoissonNLLLoss", "ReLU",
+           "Sequential", "SmoothL1Loss", "SoftMarginLoss", "Tanh",
+           "TransformerEncoder", "TransformerEncoderLayer",
+           "TripletMarginLoss", "TripletMarginWithDistanceLoss",
+           "functional"]

@@ -1,6 +1,7 @@
 """Functionals of the port's model slices, the counterparts of
 ``paddle_tpu/nn/functional/norm.py``, ``attention.py``, ``common.py``,
-``activation.py``, ``loss.py``, ``conv.py`` and ``pooling.py``.
+``activation.py``, ``conv.py`` and ``pooling.py``; the losses of
+``loss.py`` live in :mod:`.functional_loss` and are re-exported here.
 
 Routing follows the JAX package with the card in the TPU's place:
 
@@ -56,6 +57,7 @@ from ..amp.auto_cast import cast_inputs
 from ..ops.flash_attention import flash_attention
 from ..ops.group_norm import group_norm as _group_norm_op
 from ..ops.layer_norm import layer_norm as _layer_norm_op
+from .functional_loss import *  # noqa: F401,F403  (the loss functionals)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
@@ -228,68 +230,6 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return sdpa_plain(query, key, value, attn_mask,
                       dropout_p if drop else 0.0, is_causal,
                       generator=gen)
-
-
-def cross_entropy(input, label, weight=None, ignore_index=-100,
-                  reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0):
-    """``paddle_tpu/nn/functional/loss.py:26-63`` term for term, in the
-    logits' dtype (as JAX's ``log_softmax``): integer labels (``axis``
-    is the class dim; ``ignore_index`` rows count for nothing), per-class
-    ``weight``, ``label_smoothing``, or soft labels of the logits' shape.
-    ``"mean"`` over integer labels divides by ``max(valid rows, 1)``, or
-    with ``weight`` by ``max(sum of the valid rows' weights, 1e-12)``;
-    soft labels take the plain mean."""
-    input, label, weight = cast_inputs("cross_entropy", input, label, weight)
-    logits = input
-    if use_softmax:
-        logp = torch.log_softmax(logits, dim=axis)
-    else:
-        logp = torch.log(torch.clamp(logits, min=1e-30))
-    n_class = logits.shape[axis]
-    if soft_label or (label.dim() == logits.dim()
-                      and label.shape == logits.shape):
-        soft = label
-        if label_smoothing > 0:
-            soft = soft * (1 - label_smoothing) + label_smoothing / n_class
-        loss = -(soft * logp).sum(dim=axis)
-    else:
-        lbl = label.long()
-        if lbl.dim() == logits.dim():
-            lbl = lbl.squeeze(axis)
-        valid = lbl != ignore_index
-        safe = torch.where(valid, lbl, 0)
-        if label_smoothing > 0:
-            oh = TF.one_hot(safe, n_class).to(logp.dtype).movedim(-1, axis)
-            oh = oh * (1 - label_smoothing) + label_smoothing / n_class
-            nll = -(oh * logp).sum(dim=axis)
-        else:
-            nll = -torch.gather(logp, axis, safe.unsqueeze(axis)).squeeze(
-                axis)
-        if weight is not None:
-            cw = weight[safe]
-            nll = nll * cw
-            if reduction == "mean":
-                denom = torch.where(valid, cw, 0.0).sum()
-                return torch.where(valid, nll, 0.0).sum() / torch.clamp(
-                    denom, min=1e-12)
-        loss = torch.where(valid, nll, 0.0)
-        if reduction == "mean":
-            return loss.sum() / torch.clamp(valid.to(logp.dtype).sum(),
-                                            min=1.0)
-    if reduction == "mean":
-        return loss.mean()
-    if reduction == "sum":
-        return loss.sum()
-    return loss
-
-
-def mse_loss(input, label):
-    """The mean of ``square(input - label)`` in the input's dtype, as
-    ``paddle_tpu/nn/functional/loss.py:102`` with its default
-    ``reduction="mean"``."""
-    input, label = cast_inputs("mse_loss", input, label)
-    return (input - label).square().mean()
 
 
 # ------------------------------------------------------------ convolution
