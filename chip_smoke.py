@@ -67,9 +67,15 @@ the script exits nonzero and prints no result:
    RMSNorm autograd repair: gradients through the kernel path's
    rms_norm must equal those of the plain forward under torch autograd;
    and a shape, dtype or head dim that no kernel takes (2-D GroupNorm,
-   float64 norms, head dim 192, float16 attention) must raise through
+   float64 norms, head dim 192 in bf16 and in float16) must raise through
    nn.functional on the card, and a serving engine whose pool the paged
    kernel cannot take (block 8, head dim 32) must raise when it is built.
+   float16: the paged kernel over a float16 pool (decode, s = 5, the
+   engine's 8 x 1024 prefill) and under an int8 pool (decode), its row
+   invariance; flash forward, dQ and dK/dV at the LM shapes (7B and 8B
+   GQA, s = 4096, causal), BERT-base's s = 128 and 512 and the UNet's
+   level-1 self-attention (D 80); the float16 backward bit for bit over
+   two calls, as the bf16 one.
 3. engine: LlamaForCausalLM(LLAMA2_7B) in bf16, all 32 layers, random
    weights from a seeded generator on the card, served by
    Engine(num_slots=8, max_seq_len=2048) for 8 requests (prompts 16..1024
@@ -82,7 +88,10 @@ the script exits nonzero and prints no result:
    which runs the flash-attention kernel: two independent kernels (paged
    and flash), both held against the uncached forward over an f32 copy
    of the weights (see PARITY_FACTOR).
-   serve_prefix, on the same model and engine geometry (SERVE_SLOTS,
+   The serving phases after it run LLaMA-2-7B's widths at SERVE_LAYERS
+   = 8 layers (serve_model; the engine phase alone keeps 32), with every
+   check and bitwise comparison they held at 32.
+   serve_prefix, on that model and the engine geometry (SERVE_SLOTS,
    SERVE_MAX_SEQ), three drives, each with the launch counts reset
    before it, checked after it, and the block-leak invariant after its
    drain: A (PREFIX_DRIVE), a 1000-token system prompt and eight
@@ -266,7 +275,22 @@ the script exits nonzero and prints no result:
    stall (dataloader.stall_seconds), fit and a TrainStep loop on batches
    already on the card in turns (fit, loop, loop, fit) and their ratio,
    one profiled fit step (the loader's wait included) and peak memory.
-18. hapi_fit_bert: benchmarks/ab_hapi_fit.py on the card:
+18. serve_fp16 (after serve_tier): a float16 LLaMA (SERVE_LAYERS layers)
+   served with no cache dtype, so the pool follows the model into
+   float16: 8 greedy requests batched and one at a time, bitwise equal.
+19. bert_amp (after bert_train_flash): BERT-base at bert_train_flash's
+   config under amp.decorate O2 float16 (f32 master weights, GradScaler,
+   the flash kernels in float16), and in f32 under O1 float16 with
+   attention dropout 0.1: finite, falling losses, the scale path
+   matching the skipped steps, sequences a second in turns with the
+   bf16 step.
+20. lbfgs and transformer_mt (after optimizers): LBFGS on the card
+   against the CPU's iterates; Transformer-base translation from a
+   PTRECD01 record file through RecordDataset and the DataLoader,
+   TrainStep.many under O1 float16 with a GradScaler, then greedy decoding
+   through the incremental caches (the flash forward at q_len 1), each
+   step's logits against the full forward's.
+21. hapi_fit_bert: benchmarks/ab_hapi_fit.py on the card:
    BertForMaskedLM(BERT_BASE) at bert_train_flash's config (attention
    dropout 0) in bf16, AdamW(1e-4, multi_precision) and MLMLoss through
    Model.fit over a TensorDataset of HAPI_BERT_STEPS x 32 seeded MLM
@@ -274,8 +298,11 @@ the script exits nonzero and prints no result:
    step asserted; fit and a TrainStep loop on one batch on the card in
    turns, their sequences a second beside bert_train_flash's.
 
-The last three lines are the card's nvidia-smi line, the per-kernel JSON
-summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
+Every phase prints its wall seconds ({"phase_seconds": name, ...}), and
+a "seconds" line sums them.  The last three lines are the card's
+nvidia-smi line, the per-kernel JSON summary (the float16 variants as
+entries of their own) and {"ok": true, "device": {...}}.  Exits 1
+without a CUDA device.
 
     python3 chip_smoke.py --gn-fwd-sweep [--variants] [--tree DIR]
     python3 chip_smoke.py --ln-fwd-sweep [--variants] [--tree DIR]
@@ -283,11 +310,14 @@ summary and {"ok": true, "device": {...}}.  Exits 1 without a CUDA device.
     python3 chip_smoke.py --serve-phases serve_structured,serve_tier
     python3 chip_smoke.py --resnet-phases
     python3 chip_smoke.py --hapi-phases
+    python3 chip_smoke.py --fp16-phases
 
 ``--serve-phases`` runs the named serve phases alone on the engine
 phase's model (no other phase and no kernels line); ``--resnet-phases``
-likewise runs phases 14-16 alone and ``--hapi-phases`` phases 17-18
-(the kernels built for hapi_fit_bert).  The sweeps run the GroupNorm or
+likewise runs phases 14-16 alone and ``--hapi-phases`` phases 17 and
+21 (the kernels built for hapi_fit_bert); ``--fp16-phases`` the float16
+checks of phase 2 that need no plain twin at full size (the backward's
+determinism, row invariance, the raises) and phases 18-20.  The sweeps run the GroupNorm or
 the LayerNorm forward sweep alone (or the paged attention cases and
 their row-invariance checks): with ``--variants`` also every launch the
 kernel takes at each shape
@@ -315,7 +345,8 @@ import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, no TF32
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12,
+                  "float32": 67e12}                     # dense, no TF32
 
 # (rtol, fraction of max |plain|) of every kernel vs its plain twin on
 # identical inputs: elementwise |kernel - plain| <= rtol |plain| + frac
@@ -567,7 +598,8 @@ def rates(case, ops):
 def paged_invariance_check(torch, dev):
     """Row invariance of the paged kernels, bit for bit on the card, for
     the bf16 and int8 pools under a bf16 query (the tensor-core kernel,
-    the int8 one with per-token scales) and the f32 pool (the FMA
+    the int8 one with per-token scales), the float16 pool under a
+    float16 query (the same kernel in float16) and the f32 pool (the FMA
     kernel), both layouts: (a) nb:
     the decode and prefill512 inputs with 7 scratch columns appended to
     every table give equal outputs; (b) the window: the rows of one
@@ -580,8 +612,8 @@ def paged_invariance_check(torch, dev):
 
     report = {}
     for pname, quant in (("bfloat16", False), ("float32", False),
-                         ("int8", True)):
-        dtype = torch.float32 if pname == "float32" else torch.bfloat16
+                         ("int8", True), ("float16", False)):
+        dtype = getattr(torch, pname) if not quant else torch.bfloat16
         for lname, qh, kh in (("llama2_7b", 32, 32),
                               ("llama3_8b_gqa", 32, 8)):
             for wname, s, pos_list in (("decode", 1, [0, 17, 130, 511, 777,
@@ -623,7 +655,8 @@ def paged_invariance_check(torch, dev):
                         f"{(whole != got).sum().item()} elements")
                 report[f"{pname}/{lname}/s512 vs {form}"] = "equal"
     emit({"phase": "paged_invariance", "pools": ["bfloat16", "float32",
-                                                 "int8"], "checks": report})
+                                                 "int8", "float16"],
+          "checks": report})
 
 
 def paged_cases(torch, dev, summary, seed):
@@ -640,12 +673,19 @@ def paged_cases(torch, dev, summary, seed):
                ("prefill512", 512, [0, 700]),
                ("prefill8x1024", 1024, [0] * 8)]   # the engine's prefill
     layouts = [("llama2_7b", 32, 32), ("llama3_8b_gqa", 32, 8)]
-    variants = [("bfloat16", False), ("float32", False), ("bfloat16", True)]
+    variants = [("bfloat16", False), ("float32", False), ("bfloat16", True),
+                ("float16", False), ("float16", True)]
+    # float16: its pool at decode, s = 5 and the engine's prefill; an
+    # int8 pool under a float16 query at decode
+    fp16_windows = {(False, "decode"), (False, "verify5"),
+                    (False, "prefill8x1024"), (True, "decode")}
     for lname, qh, kh in layouts:
         for wname, s, pos_list in windows:
             for dname, quant in variants:
                 if (wname == "prefill8x1024" or wname == "verify5") and (
                         dname == "float32"):
+                    continue
+                if dname == "float16" and (quant, wname) not in fp16_windows:
                     continue
                 seed += 1
                 dtype = getattr(torch, dname)
@@ -685,20 +725,44 @@ def paged_cases(torch, dev, summary, seed):
                               "bound_ms": b_ms, "bound_by": b_by,
                               "bytes": nbytes, "ops": ops}, ops)
                 emit(case)
-                if (lname, wname, dname) == ("llama2_7b", "decode",
-                                             "bfloat16"):
-                    summary["paged_attention_int8" if quant
-                            else "paged_attention"] = case
+                if (lname, wname) == ("llama2_7b", "decode") and \
+                        dname != "float32":
+                    summary[("paged_attention_int8" if quant
+                             else "paged_attention")
+                            + ("/float16" if dname == "float16" else "")] = \
+                        case
                 del q, k, v, tables, pos, ks, vs
     return seed
 
 
-def kernel_phase(torch, dev):
+def kernel_phase(torch, dev, phase):
+    """Every kernel case and check of phase 2, each step timed through
+    ``phase(name, fn, *args)``; returns the summary cases by kernel."""
+    summary = {}
+    seed = phase("paged_cases", paged_cases, torch, dev, summary, 0)
+    phase("paged_invariance", paged_invariance_check, torch, dev)
+    seed = phase("rms_norm_cases", rms_fwd_cases, torch, dev, summary, seed)
+    seed = phase("rms_norm_bwd_cases", rms_bwd_cases, torch, dev, summary,
+                 seed)
+    seed = phase("flash_cases", flash_cases, torch, dev, summary, seed)
+    seed = phase("flash_bwd_determinism", flash_bwd_determinism_check,
+                 torch, dev, seed)
+    seed = phase("norm_cases", norm_cases, torch, dev, summary, seed)
+    seed = phase("ln_fwd_dtypes", ln_fwd_dtype_check, torch, dev, seed)
+    seed = phase("norm_bwd_determinism", norm_bwd_determinism_check, torch,
+                 dev, seed)
+    seed = phase("gn_fwd_sweep", gn_fwd_sweep, torch, dev, seed)
+    seed = phase("ln_fwd_sweep", ln_fwd_sweep, torch, dev, seed)
+    phase("rms_autograd", rms_autograd_check, torch, dev, seed)
+    phase("unsupported_raises", unsupported_check, torch, dev)
+    return summary
+
+
+def rms_fwd_cases(torch, dev, summary, seed):
+    """The RMSNorm forward kernel against its plain twin, timed beside
+    its bound and F.rms_norm."""
     from paddle_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
 
-    summary = {}
-    seed = paged_cases(torch, dev, summary, 0)
-    paged_invariance_check(torch, dev)
     for shape in ((8, 4096), (4096, 4096), (8192, 4096)):
         for dname in ("bfloat16", "float32"):
             dtype = getattr(torch, dname)
@@ -731,17 +795,7 @@ def kernel_phase(torch, dev):
             emit(case)
             if (shape, dname) == ((8192, 4096), "bfloat16"):
                 summary["rms_norm"] = case
-    seed = rms_bwd_cases(torch, dev, summary, seed)
-    seed = flash_cases(torch, dev, summary, seed)
-    seed = flash_bwd_determinism_check(torch, dev, seed)
-    seed = norm_cases(torch, dev, summary, seed)
-    seed = ln_fwd_dtype_check(torch, dev, seed)
-    seed = norm_bwd_determinism_check(torch, dev, seed)
-    seed = gn_fwd_sweep(torch, dev, seed)
-    seed = ln_fwd_sweep(torch, dev, seed)
-    rms_autograd_check(torch, dev, seed)
-    unsupported_check(torch, dev)
-    return summary
+    return seed
 
 
 def rms_bwd_cases(torch, dev, summary, seed):
@@ -829,7 +883,10 @@ def flash_cases(torch, dev, summary, seed):
              ("llama2_7b/q256_k1024/causal", 32, 32, 256, 1024, True,
               "bfloat16"),
              ("llama2_7b/q1024_k256/causal", 32, 32, 1024, 256, True,
-              "bfloat16")]
+              "bfloat16"),
+             ("llama2_7b/s4096/causal", 32, 32, 4096, 4096, True, "float16"),
+             ("llama3_8b_gqa/s4096/causal", 32, 8, 4096, 4096, True,
+              "float16")]
     cases = [c + (b, d) for c in cases] + unet_flash_shapes() + \
         bert_flash_shapes()
     for cname, qh, kh, sq, sk, causal, dname, b, d in cases:
@@ -913,7 +970,7 @@ def flash_cases(torch, dev, summary, seed):
                      dname)
         b_dkv = bound(2 * qbytes + 4 * kbytes + 2 * rows, 8 * d * pairs,
                       dname)
-        ns = dkv_splits(b, sq, sk, kh, d) if dname == "bfloat16" else 1
+        ns = dkv_splits(b, sq, sk, kh, d) if dname != "float32" else 1
         base = {"phase": "kernel", "q": list(q.shape), "k": list(k.shape),
                 "causal": causal, "pairs": pairs, "dkv_splits": ns}
         per = {"flash_fwd": (err_fwd, plain_fwd_ms, b_fwd, lib_fwd),
@@ -928,35 +985,36 @@ def flash_cases(torch, dev, summary, seed):
                               library_ms=lms, library_device_ms=lib_dev,
                               bound_ms=b_ms, bound_by=b_by), flops[kname])
             emit(case)
-            if (cname, dname) == ("llama2_7b/s4096/causal", "bfloat16"):
-                summary[kname] = case
-            if (cname, dname) == (BERT_FLASH_CASE, "bfloat16"):
-                summary["bert/" + kname] = case
+            tag = "" if dname != "float16" else "/float16"
+            if cname == "llama2_7b/s4096/causal" and dname != "float32":
+                summary[kname + tag] = case
+            if cname == BERT_FLASH_CASE and dname != "float32":
+                summary["bert/" + kname + tag] = case
         del out_p, dq_p, dk_p, dv_p
     return seed
 
 
 def flash_bwd_determinism_check(torch, dev, seed):
-    """The bf16 backward kernels give bitwise equal dQ, dK and dV over
-    two calls on the same inputs: at the LM shape (one query range) and
-    at the UNet's level-0 cross-attention (dkv_splits > 1: f32 partials
-    summed in index order by the second kernel)."""
+    """The bf16 and float16 backward kernels give bitwise equal dQ, dK
+    and dV over two calls on the same inputs: at the LM shape (one query
+    range) and at the UNet's level-0 cross-attention (dkv_splits > 1:
+    f32 partials summed in index order by the second kernel)."""
     from paddle_tpu_torch.ops.flash_attention import (
         dkv_splits, flash_bwd_dkv_kernel, flash_bwd_dq_kernel,
         flash_fwd_plain,
     )
 
     report = {}
-    for cname, b, qh, kh, sq, sk, d, causal in (
+    for (cname, b, qh, kh, sq, sk, d, causal), dname in itertools.product((
             ("llama2_7b/s4096/causal", TRAIN_BATCH, 32, 32, 4096, 4096, 128,
              True),
             ("unet_level0_d40/cross", UNET_BATCH, 8, 8, 4096, UNET_CONTEXT,
-             40, False)):
+             40, False)), ("bfloat16", "float16")):
         g = torch.Generator(device="cpu").manual_seed(seed)
         seed += 1
         q, k, v, do = (torch.randn(b, s, h, d, generator=g).to(
-            torch.bfloat16).to(dev) for s, h in ((sq, qh), (sk, kh),
-                                                 (sk, kh), (sq, qh)))
+            getattr(torch, dname)).to(dev) for s, h in ((sq, qh), (sk, kh),
+                                                         (sk, kh), (sq, qh)))
         scale = 1.0 / math.sqrt(d)
         out, lse = flash_fwd_plain(q, k, v, scale, causal)
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
@@ -968,17 +1026,19 @@ def flash_bwd_determinism_check(torch, dev, seed):
         ns = dkv_splits(b, sq, sk, kh, d)
         for n, a, c in zip(("dq", "dk", "dv"), *runs):
             if not torch.equal(a, c):
-                raise AssertionError(f"flash_bwd_determinism {cname}/{n}: "
+                raise AssertionError(f"flash_bwd_determinism {cname}/"
+                                     f"{dname}/{n}: "
                                      f"{(a != c).sum().item()} elements "
                                      f"differ between two calls (NS {ns})")
-        report[cname] = {"dkv_splits": ns, "dq_dk_dv": "bitwise equal"}
+        report[f"{cname}/{dname}"] = {"dkv_splits": ns,
+                                      "dq_dk_dv": "bitwise equal"}
         del q, k, v, do, out, lse, delta, runs
     if min(r["dkv_splits"] for r in report.values()) != 1 or \
             max(r["dkv_splits"] for r in report.values()) <= 1:
         raise AssertionError(f"flash_bwd_determinism: want NS = 1 and NS > 1 "
                              f"{report}")
-    emit({"phase": "flash_bwd_determinism", "dtype": "bfloat16",
-          "checks": report})
+    emit({"phase": "flash_bwd_determinism",
+          "dtypes": ["bfloat16", "float16"], "checks": report})
     return seed
 
 
@@ -986,24 +1046,28 @@ def unet_flash_shapes():
     """The SD UNet's attention calls at UNET_BATCH and 64x64 latents, 8
     heads, not causal: self-attention over the level's HW tokens and
     cross-attention over the context's 77, at head dims 320/8 = 40,
-    80 and 160 (40 runs padded to the kernel's 48)."""
+    80 and 160 (40 runs padded to the kernel's 48); and level 1's
+    self-attention (D 80) in float16."""
     out = []
     for level, d, hw in (("level0", 40, 4096), ("level1", 80, 1024),
                          ("level2", 160, 256), ("mid", 160, 64)):
         for kind, sk in (("self", hw), ("cross", UNET_CONTEXT)):
             out.append((f"unet_{level}_d{d}/{kind}", 8, 8, hw, sk, False,
                         "bfloat16", UNET_BATCH, d))
+    out.append(("unet_level1_d80/self", 8, 8, 1024, 1024, False, "float16",
+                UNET_BATCH, 80))
     return out
 
 
 def bert_flash_shapes():
     """BERT-base's attention calls (12 heads of 64, not causal) at the
-    bert_train batch: s = 128 in bf16 and f32, and s = 512 (the
-    bert_parity eval length) in bf16."""
+    bert_train batch: s = 128 in bf16, f32 and float16 (bert_amp's), and
+    s = 512 (the bert_parity eval length) in bf16 and float16."""
     return [(f"bert_base/s{s}/full", 12, 12, s, s, False, dname,
              BERT_BATCH, 64)
             for s, dname in ((BERT_SEQ, "bfloat16"), (BERT_SEQ, "float32"),
-                             (512, "bfloat16"))]
+                             (BERT_SEQ, "float16"), (512, "bfloat16"),
+                             (512, "float16"))]
 
 
 def kernel_names(torch, fn):
@@ -1504,8 +1568,8 @@ def unsupported_check(torch, dev):
             rand(8, 16, dtype=f64), 16, w.double(), w.double()),
         "sdpa/head_dim_192": lambda: F.scaled_dot_product_attention(
             rand(1, 8, 2, 192), rand(1, 8, 2, 192), rand(1, 8, 2, 192)),
-        "sdpa/float16": lambda: F.scaled_dot_product_attention(
-            *(rand(1, 8, 2, 64, dtype=torch.float16) for _ in range(3))),
+        "sdpa/float16_head_dim_192": lambda: F.scaled_dot_product_attention(
+            *(rand(1, 8, 2, 192, dtype=torch.float16) for _ in range(3))),
         # the serving engine checks the paged kernel's geometry when it
         # is built: block 16, head dim 64 or 128
         "engine/prefix_block_size_8": lambda: engine(2, prefix_block_size=8),
@@ -1715,6 +1779,10 @@ def logit_tap(eng):
 # prompt; B, one long prompt chunked into a running batch; C, a pool too
 # small for its rows.  serve_rows runs between B and C.
 SERVE_SLOTS, SERVE_MAX_SEQ = 8, 2048
+# the serving phases after the engine phase run LLaMA-2-7B's widths at
+# this depth (the engine phase keeps all 32 layers): every check holds
+# per layer, and the script keeps inside its time limit
+SERVE_LAYERS = 8
 PREFIX_DRIVE = dict(sys_len=1000, suffixes=(16, 24, 40, 64, 100, 150, 200,
                                             256),
                     new_tokens=32, cache_bytes=2 << 30)
@@ -1939,6 +2007,15 @@ def stream_parity(name, got, ref, got_toks, ref_toks, refs, greedy):
                 bool((got[0] == ref[0]).all()),
             "first_row_logits_differing": int((got[0] != ref[0]).sum()),
             "stream_bitwise": list(got_toks) == list(ref_toks)}
+
+
+def serve_model(torch, dev):
+    """The model of the serving phases after the engine phase: LLaMA-2-7B
+    widths at SERVE_LAYERS layers, bf16, the engine phase's seed."""
+    from paddle_tpu_torch.models.llama import LLAMA2_7B, LlamaForCausalLM
+
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=SERVE_LAYERS)
+    return LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
 
 
 def serve_prefix_phase(torch, dev, model):
@@ -5162,6 +5239,575 @@ def hapi_fit_bert_phase(torch, dev, flash_figures=None):
     return launches
 
 
+# ------------------------------------------------ float16 and the MT slice
+# bert_amp: BERT-base MLM at bert_train_flash's config in float16 AMP: O2
+# (amp.decorate, f32 master weights) and O1 with attention dropout 0.1
+BERT_AMP_TURNS = ("float16", "bfloat16", "bfloat16", "float16", "float16",
+                  "bfloat16")
+BERT_AMP_STEPS_A_TURN = 3
+# serve_fp16: LLaMA-2-7B widths at SERVE_LAYERS layers in float16
+SERVE_FP16_DRIVE = dict(lengths=(16, 40, 100, 200, 350, 500, 750, 1024),
+                        new_tokens=32)
+# transformer_mt: Transformer-base (Vaswani et al. 2017, sec. 3 and 5):
+# nn.Transformer's defaults, a 37,000-token shared vocabulary (the
+# paper's BPE vocabulary for WMT14 en-de), label smoothing 0.1,
+# Adam(0.9, 0.98, 1e-9) under NoamDecay(512, 4000); 32 pairs of 64-128
+# tokens a batch, padded to 128
+MT_CONFIG = dict(d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1)
+MT_VOCAB, MT_SEQ, MT_BATCH = 37000, 128, 32
+MT_PAD, MT_BOS, MT_EOS = 0, 1, 2
+MT_WARM_PACK, MT_TIMED_PACK = 2, 4
+MT_DECODE_SOURCES, MT_DECODE_TOKENS = 8, 32
+# a cached decode step's logits against the full forward's row over the
+# same prefix: both run float16 AMP (their products round in float16 at
+# other points: q_len 1 against a masked window of up to 32 rows, flash
+# against the plain path), so a row may move by a few float16 ulps of
+# its largest logit through 6 layers; a wrong cache (a shifted position,
+# a missing key) moves it by the logits' whole spread
+MT_DECODE_TOL = 2.0 ** -6
+# lbfgs: a least-squares MLP on the card against the CPU, f32, TF32 off
+LBFGS_DIMS, LBFGS_ROWS, LBFGS_STEPS = (64, 32, 1), 512, 3
+
+
+def scale_path_check(phase, records):
+    """Each step of a GradScaler run (scale before and after, bad-step
+    count before and after, whether any parameter moved, the learning
+    rate): a skipped step (the bad count rose) halves the scale and moves
+    no parameter; any other keeps the scale (no 2000-step growth in a
+    short run) and, at a learning rate above 0, trains."""
+    for i, (s0, s1, b0, b1, moved, lr) in enumerate(records):
+        skipped = b1 > b0
+        if skipped and (s1 != s0 / 2 or moved):
+            raise AssertionError(f"{phase}: skipped step {i} moved the "
+                                 f"parameters or the scale {s0} -> {s1}")
+        if not skipped and (s1 != s0 or (lr > 0 and not moved)):
+            raise AssertionError(f"{phase}: step {i} at scale {s0} -> {s1}, "
+                                 f"lr {lr}, moved parameters: {moved}")
+
+
+def scaled_step(torch, step, batch, records, losses, times=None):
+    """One step of ``step`` (a TrainStep with a scaler) on ``batch``: its
+    loss, host seconds (when ``times`` is a list) and scale record (see
+    scale_path_check) appended."""
+    scaler, model = step.scaler, step.model
+    before = [p.detach().clone() for p in model.parameters()]
+    lr = step.optimizer.get_lr()
+    s0, b0 = scaler.get_loss_scaling().item(), int(scaler._bad_steps)
+    t1 = time.perf_counter()
+    losses.append(step(*batch).item())             # .item() synchronises
+    if times is not None:
+        times.append(time.perf_counter() - t1)
+    moved = any(not torch.equal(p, q)
+                for p, q in zip(model.parameters(), before))
+    records.append((s0, scaler.get_loss_scaling().item(), b0,
+                    int(scaler._bad_steps), moved, lr))
+
+
+def bert_amp_phase(torch, dev, flash_figures):
+    """BERT-base MLM at bert_train_flash's config (b32 x s128, attention
+    dropout 0, hidden dropout 0.1) under amp.decorate(level="O2",
+    dtype="float16"): float16 parameters, AdamW's f32 master weights, a
+    GradScaler through TrainStep(scaler=), the flash kernels in float16
+    (12 + 12 + 12 launches a step) and LayerNorm in f32 (26 + 26);
+    BERT_WARMUP warm-up and BERT_TIMED timed steps, the loss finite and
+    falling over the timed steps, the scale path matching the skipped
+    steps; then its steps and bert_train_flash's bf16 steps in turns on
+    one seed's weights (BERT_AMP_TURNS), sequences a second of each.
+    Then the same model in f32 under O1 float16 with attention dropout
+    0.1 (the plain float16 path: no flash launch), the same checks."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import random as prandom
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BERT_BASE, BertForMaskedLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup, PolynomialDecay
+
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+
+    def build(cfg, dtype, level):
+        """(schedule, step) as bert_train_run's, in ``dtype`` (bfloat16:
+        no AMP; float16: O2 through decorate; float32: O1)."""
+        prandom.seed(2019)
+        model = BertForMaskedLM(cfg, device=dev, dtype=(
+            torch.bfloat16 if dtype == "bfloat16" else torch.float32),
+            seed=0)
+        model.train()
+        sched = LinearWarmup(PolynomialDecay(
+            BERT_LR, BERT_TIMED, end_lr=0.0, power=1.0), BERT_WARMUP, 0.0,
+            BERT_LR)
+        opt = AdamW(learning_rate=sched, beta1=0.9, beta2=0.999,
+                    epsilon=1e-8, parameters=model.named_parameters(),
+                    weight_decay=0.01,
+                    apply_decay_param_fun=lambda n: not (
+                        n.endswith("bias") or "norm" in n),
+                    grad_clip=ClipGradByGlobalNorm(1.0),
+                    multi_precision=True, device=dev)
+        if level is None:
+            return sched, TrainStep(model, bert_loss, opt, device=dev)
+        if level == "O2":
+            model, opt = amp.decorate(model, opt, level="O2",
+                                      dtype="float16")
+
+        def loss(net, *batch):
+            with amp.auto_cast(level=level, dtype="float16"):
+                return bert_loss(net, *batch)
+
+        return sched, TrainStep(model, loss, opt,
+                                scaler=amp.GradScaler(device=dev),
+                                device=dev)
+
+    cfg = dataclasses.replace(BERT_BASE, attention_probs_dropout_prob=0.0)
+    batch = bert_batch(torch, cfg, BERT_BATCH, BERT_SEQ, dev, 1234)
+    runs = {}
+    for name, run_cfg, level, per_step in (
+            ("O2", cfg, "O2", BERT_FLASH_PER_STEP),
+            ("O1_attention_dropout", BERT_BASE, "O1", BERT_PER_STEP)):
+        sched, step = build(run_cfg, "float16" if level == "O2"
+                            else "float32", level)
+        records, losses, step_s = [], [], []
+        for _ in range(BERT_WARMUP):
+            scaled_step(torch, step, batch, records, losses)
+            sched.step()
+        reset_kernel_launches()
+        for _ in range(BERT_TIMED):
+            scaled_step(torch, step, batch, records, losses, step_s)
+            sched.step()
+        launches = kernel_launches()
+        for k, n in per_step.items():
+            if launches[k] != n * BERT_TIMED:
+                raise AssertionError(f"bert_amp {name}: {k} launched "
+                                     f"{launches[k]} times in {BERT_TIMED} "
+                                     f"steps, want {n} a step")
+        timed = losses[BERT_WARMUP:]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"bert_amp {name}: non-finite loss {losses}")
+        if not timed[-1] < timed[0]:
+            raise AssertionError(f"bert_amp {name}: loss did not fall "
+                                 f"{timed}")
+        scale_path_check(f"bert_amp {name}", records)
+        dtypes = sorted({str(p.dtype) for p in step.model.parameters()})
+        masters = sorted({str(st["master_weight"].dtype) for st in
+                          step.optimizer._accumulators.values()
+                          if "master_weight" in st})
+        mean_s = statistics.mean(step_s)
+        runs[name] = {"level": level, "param_dtypes": dtypes,
+                      "master_weight_dtypes": masters,
+                      "attention_dropout":
+                          run_cfg.attention_probs_dropout_prob,
+                      "losses": losses, "step_s": step_s,
+                      "step_s_mean": mean_s,
+                      "seqs_per_s": BERT_BATCH / mean_s,
+                      "scale_path": [r[0] for r in records]
+                      + [records[-1][1]],
+                      "skipped_steps": sum(r[3] > r[2] for r in records),
+                      "kernel_launches": launches}
+        if name == "O2":
+            fp16_step, amp_launches = step, launches
+        del step
+    # the float16 O2 step and bert_train_flash's bf16 step in turns, on
+    # one seed's weights (the bf16 model built as bert_train_run's)
+    _, bf16_step = build(cfg, "bfloat16", None)
+    for _ in range(BERT_WARMUP):
+        bf16_step(*batch).item()
+    turns = {"float16": [], "bfloat16": []}
+    for dname in BERT_AMP_TURNS:
+        stepper = fp16_step if dname == "float16" else bf16_step
+        for _ in range(BERT_AMP_STEPS_A_TURN):
+            t1 = time.perf_counter()
+            stepper(*batch).item()
+            turns[dname].append(time.perf_counter() - t1)
+    ratio = statistics.median(turns["bfloat16"]) / statistics.median(
+        turns["float16"])
+    emit({"phase": "bert_amp", "model": "BERT_BASE", "batch": BERT_BATCH,
+          "seq": BERT_SEQ, "runs": runs,
+          "turns_step_s": turns,
+          "turns_fp16_over_bf16_seqs_per_s": ratio,
+          "bert_train_flash_seqs_per_s": flash_figures["seqs_per_s"],
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del fp16_step, bf16_step, batch
+    free_device_memory(torch)
+    return amp_launches
+
+
+def serve_fp16_phase(torch, dev):
+    """A float16 LLaMA (LLaMA-2-7B widths at SERVE_LAYERS layers, seeded
+    random weights made on the card) served by Engine(num_slots=8,
+    max_seq_len=2048) with no cache dtype given: the pool follows the
+    model into float16 and the paged kernel runs its float16 variant.
+    SERVE_FP16_DRIVE's 8 greedy requests together, then each alone on
+    the same engine: the streams bitwise equal, the launch counts of
+    each drive equal to its forwards, no block leased after either."""
+    from paddle_tpu_torch.models.llama import LLAMA2_7B, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (
+        Engine, EngineConfig, SamplingParams, kernel_launches,
+        reset_kernel_launches,
+    )
+
+    free_device_memory(torch)
+    cfg = dataclasses.replace(LLAMA2_7B, num_hidden_layers=SERVE_LAYERS)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float16, seed=0)
+    eng = Engine(model, EngineConfig(num_slots=SERVE_SLOTS,
+                                     max_seq_len=SERVE_MAX_SEQ,
+                                     prefix_cache_bytes=0), device=dev)
+    if eng.pool.store_dtype != torch.float16:
+        raise AssertionError(f"serve_fp16: pool {eng.pool.store_dtype}, "
+                             "want the model's float16")
+    eng.generate([1, 2, 3, 4], SamplingParams(max_new_tokens=4))  # warm-up
+    g = torch.Generator(device="cpu").manual_seed(1717)
+    sd = SERVE_FP16_DRIVE
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in sd["lengths"]]
+    sp = SamplingParams(max_new_tokens=sd["new_tokens"])
+    figures = {}
+    streams = {}
+    for mode in ("batched", "sequential"):
+        before = eng.stats()
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        if mode == "batched":
+            reqs = [eng.submit(p, sp) for p in prompts]
+            eng.run()
+        else:
+            reqs = []
+            for p in prompts:
+                reqs.append(eng.submit(p, sp))
+                eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        after = eng.stats()
+        delta = {k: after[k] - before[k] for k in (
+            "prefill_calls", "decode_steps", "decode_tokens",
+            "decode_seconds")}
+        check_drained(eng)
+        check_serving_launches(launches, SERVE_LAYERS,
+                               delta["prefill_calls"], delta["decode_steps"])
+        streams[mode] = [list(r.output_ids) for r in reqs]
+        for r in reqs:
+            if len(r.output_ids) != sd["new_tokens"]:
+                raise AssertionError(f"serve_fp16: request "
+                                     f"{r.request_id} gave "
+                                     f"{len(r.output_ids)} tokens")
+        figures[mode] = {"wall_s": wall, "decode_tokens_per_s":
+                         delta["decode_tokens"] / delta["decode_seconds"],
+                         "prefill_dispatches": delta["prefill_calls"],
+                         "decode_steps": delta["decode_steps"],
+                         "kernel_launches": launches}
+    if streams["batched"] != streams["sequential"]:
+        bad = [i for i, (a, b) in enumerate(zip(*streams.values()))
+               if a != b]
+        raise AssertionError(f"serve_fp16: batched and sequential greedy "
+                             f"streams differ for requests {bad}")
+    emit({"phase": "serve_fp16", "model": "LLAMA2_7B widths",
+          "layers": SERVE_LAYERS, "dtype": "float16",
+          "pool_dtype": str(eng.pool.store_dtype), "requests": len(prompts),
+          "prompt_lengths": list(sd["lengths"]),
+          "new_tokens_each": sd["new_tokens"],
+          "batched_equals_sequential": "bitwise", **figures})
+    launches = figures["batched"]["kernel_launches"]
+    del eng, model
+    free_device_memory(torch)
+    return launches
+
+
+def mt_pairs(torch, n, seed):
+    """``n`` seeded (source, target) pairs as int32 [n, 2, MT_SEQ]: each
+    side a length in 64..128, BOS, random ids in [3, MT_VOCAB), EOS, then
+    MT_PAD."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = torch.full((n, 2, MT_SEQ), MT_PAD, dtype=torch.int32)
+    lens = torch.randint(64, MT_SEQ + 1, (n, 2), generator=g)
+    for i in range(n):
+        for side in range(2):
+            m = int(lens[i, side])
+            out[i, side, 0] = MT_BOS
+            out[i, side, 1:m - 1] = torch.randint(3, MT_VOCAB, (m - 2,),
+                                                  generator=g)
+            out[i, side, m - 1] = MT_EOS
+    return out
+
+
+def mt_model(torch, dev):
+    """Transformer-base with a shared source/target embedding (scaled by
+    sqrt(d_model), sinusoidal positions, dropout 0.1 on the sum) and the
+    output projection tied to it, composed here over nn.Transformer."""
+    from torch import nn as tnn
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch import random as prandom
+    from paddle_tpu_torch.tensor import matmul
+
+    d = MT_CONFIG["d_model"]
+
+    class MTModel(tnn.Module):
+        def __init__(self):
+            super().__init__()
+            self.transformer = nn.Transformer(**MT_CONFIG, device=dev)
+            self.embedding = nn.Embedding(MT_VOCAB, d, device=dev)
+            with torch.no_grad():   # N(0, d^-1/2): unit variance once scaled
+                self.embedding.weight.normal_(
+                    0.0, d ** -0.5, generator=prandom.next_generator(dev))
+            pos = torch.arange(4 * MT_SEQ, dtype=torch.float32)[:, None]
+            div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32)
+                            * (-math.log(10000.0) / d))
+            pe = torch.zeros(4 * MT_SEQ, d)
+            pe[:, 0::2], pe[:, 1::2] = torch.sin(pos * div), torch.cos(
+                pos * div)
+            self.register_buffer("pe", pe.to(dev))
+            self.dropout = nn.Dropout(MT_CONFIG["dropout"])
+
+        def embed(self, ids, start=0):
+            x = self.embedding(ids) * math.sqrt(d)
+            return self.dropout(x + self.pe[start:start + ids.shape[1]])
+
+        def logits(self, h):
+            return matmul(h, self.embedding.weight.t())
+
+        def forward(self, src, tgt_in, src_mask=None):
+            t = self.transformer
+            causal = t.generate_square_subsequent_mask(tgt_in.shape[1], dev)
+            memory = t.encoder(self.embed(src), src_mask)
+            return self.logits(t.decoder(self.embed(tgt_in), memory, causal,
+                                         src_mask))
+
+    prandom.seed(1706)
+    return MTModel()
+
+
+def mt_loss(net, batch):
+    """Label-smoothed (0.1) cross entropy of the next target token under
+    O1 float16 AMP, the source's padding masked in the encoder and the
+    cross-attention, the targets' padding ignored."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+
+    src, tgt = batch[:, 0].long(), batch[:, 1].long()
+    src_mask = (src != MT_PAD)[:, None, None, :]
+    with amp.auto_cast(dtype="float16"):
+        logits = net(src, tgt[:, :-1], src_mask)
+        return F.cross_entropy(logits.reshape(-1, MT_VOCAB),
+                               tgt[:, 1:].reshape(-1), ignore_index=MT_PAD,
+                               label_smoothing=0.1)
+
+
+def transformer_mt_phase(torch, dev):
+    """Transformer-base translation training and decoding (see MT_*):
+    (MT_WARM_PACK + MT_TIMED_PACK) x MT_BATCH seeded pairs written with
+    io.RecordWriter, read back through io.RecordDataset and an
+    io.DataLoader onto the card; TrainStep.many over a pack of
+    MT_WARM_PACK batches, then over MT_TIMED_PACK timed ones, under O1
+    float16 AMP with a GradScaler (every loss finite, the parameters
+    moved, the scale path matching the skipped steps); then greedy
+    decoding of MT_DECODE_SOURCES sources (each alone at its own length:
+    no mask, so both attentions run the flash forward at q_len 1) for
+    MT_DECODE_TOKENS tokens through decoder.gen_cache: each step's logits
+    against the full forward over the same prefix within MT_DECODE_TOL
+    of the row's largest logit, the flash forward launched twice a layer
+    a step."""
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch import amp, io
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer.lr import NoamDecay
+
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = mt_model(torch, dev)
+    model.train()
+    sched = NoamDecay(MT_CONFIG["d_model"], 4000)
+    opt = Adam(learning_rate=sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+               parameters=model.named_parameters(), device=dev)
+    scaler = amp.GradScaler(device=dev)
+    step = TrainStep(model, mt_loss, opt, scaler=scaler, device=dev)
+    n_batches = MT_WARM_PACK + MT_TIMED_PACK
+    pairs = mt_pairs(torch, n_batches * MT_BATCH, 31)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "paddle_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "wmt_pairs.ptrec")
+        with io.RecordWriter(path) as w:
+            for p in pairs.numpy():
+                w.write(p)
+        ds = io.RecordDataset(path, ndarray_spec=(np.int32, (2, MT_SEQ)))
+        t1 = time.perf_counter()
+        batches = [(b,) for b in io.DataLoader(ds, places=dev,
+                                               batch_size=MT_BATCH,
+                                               num_workers=2)]
+        load_s = time.perf_counter() - t1
+        ds._rf.close()
+    if len(batches) != n_batches or not torch.equal(
+            torch.cat([b[0] for b in batches]).cpu(), pairs):
+        raise AssertionError("transformer_mt: the record file's batches "
+                             "differ from the pairs written")
+    setup_s = time.perf_counter() - t0
+    records = []
+
+    def pack(bs):
+        s0, b0 = scaler.get_loss_scaling().item(), int(scaler._bad_steps)
+        before = [p.detach().clone() for p in model.parameters()]
+        t1 = time.perf_counter()
+        losses = step.many(bs).tolist()           # synchronises
+        secs = time.perf_counter() - t1
+        records.append((s0, scaler.get_loss_scaling().item(), b0,
+                        int(scaler._bad_steps),
+                        any(not torch.equal(p, q)
+                            for p, q in zip(model.parameters(), before))))
+        for _ in bs:
+            sched.step()
+        return losses, secs
+
+    warm_losses, _ = pack(batches[:MT_WARM_PACK])
+    lr_timed = opt.get_lr()
+    timed_losses, pack_s = pack(batches[MT_WARM_PACK:])
+    losses = warm_losses + timed_losses
+    if len(timed_losses) != MT_TIMED_PACK or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"transformer_mt: losses {losses}")
+    # a pack moves the parameters unless every step in it was skipped
+    for i, (s0, s1, b0, b1, moved) in enumerate(records):
+        k = (MT_WARM_PACK, MT_TIMED_PACK)[i]
+        if moved != (b1 - b0 < k) or s1 != s0 / 2 ** (b1 - b0):
+            raise AssertionError(f"transformer_mt: pack {i} scale {s0} -> "
+                                 f"{s1}, {b1 - b0} skipped of {k}, moved "
+                                 f"{moved}")
+    tokens = sum(int((b[0][:, 1, 1:] != MT_PAD).sum()) for b in
+                 batches[MT_WARM_PACK:])
+    train = {"pack_s": pack_s, "steps_per_s": MT_TIMED_PACK / pack_s,
+             "target_tokens_per_s": tokens / pack_s, "losses": losses,
+             "lr_after_warm_pack": lr_timed,
+             "scale_packs": [(r[0], r[1], r[3] - r[2]) for r in records],
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "record_load_s": load_s, "setup_s": setup_s}
+    del batches, step
+
+    # greedy decoding through the incremental caches
+    model.eval()
+    t = model.transformer
+    worst, steps_checked = 0.0, 0
+    reset_kernel_launches()
+    decode_s = 0.0
+    sources = [p[0][:int((p[0] != MT_PAD).sum())].long().to(dev)
+               for p in pairs[:MT_DECODE_SOURCES]]
+    with torch.no_grad(), amp.auto_cast(dtype="float16"):
+        for src in sources:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            memory = t.encoder(model.embed(src[None]))
+            cache = t.decoder.gen_cache(memory)
+            out_ids, rows = [MT_BOS], []
+            for i in range(MT_DECODE_TOKENS):
+                x = model.embed(torch.tensor([[out_ids[-1]]], device=dev),
+                                start=i)
+                h, cache = t.decoder(x, memory, None, None, cache)
+                row = model.logits(h)[0, 0].float()
+                rows.append(row)
+                out_ids.append(int(row.argmax()))
+            torch.cuda.synchronize()
+            decode_s += time.perf_counter() - t1
+            prefix = torch.tensor([out_ids[:-1]], device=dev)
+            full = model.logits(t.decoder(
+                model.embed(prefix), memory,
+                t.generate_square_subsequent_mask(MT_DECODE_TOKENS, dev)))
+            full = full[0].float()
+            for i, row in enumerate(rows):
+                err = (row - full[i]).abs().max().item()
+                lim = MT_DECODE_TOL * full[i].abs().max().item()
+                worst = max(worst, err / full[i].abs().max().item())
+                if not (math.isfinite(err) and err <= lim):
+                    raise AssertionError(
+                        f"transformer_mt: cached step {i} logits differ "
+                        f"from the full forward by {err:.4e} > {lim:.4e}")
+                steps_checked += 1
+    launches = kernel_launches()
+    layers = len(t.decoder.layers)
+    # decode steps: 2 flash forwards a decoder layer; encoders and the
+    # full forwards' cross-attention add one a layer each
+    want = MT_DECODE_SOURCES * (MT_DECODE_TOKENS * 2 * layers
+                                + len(t.encoder.layers) + layers)
+    if launches["flash_fwd"] != want:
+        raise AssertionError(f"transformer_mt: flash_fwd launched "
+                             f"{launches['flash_fwd']} times, want {want}")
+    emit({"phase": "transformer_mt", "model": "Transformer-base",
+          "vocab": MT_VOCAB, "batch": MT_BATCH, "seq": MT_SEQ,
+          "params": sum(p.numel() for p in model.parameters()),
+          "auto_cast": "O1 float16", "many_packs": [MT_WARM_PACK,
+                                                     MT_TIMED_PACK],
+          "train": train, "decode": {
+              "sources": MT_DECODE_SOURCES, "tokens": MT_DECODE_TOKENS,
+              "steps_checked": steps_checked,
+              "worst_rel_err_vs_full": worst, "tol": MT_DECODE_TOL,
+              "tokens_per_s": MT_DECODE_SOURCES * MT_DECODE_TOKENS
+              / decode_s, "flash_fwd_launches": launches["flash_fwd"]}})
+    del model, opt, scaler
+    free_device_memory(torch)
+    return {"flash_fwd": launches["flash_fwd"]}
+
+
+def lbfgs_phase(torch, dev):
+    """optimizer.LBFGS (strong-Wolfe line search) on a least-squares MLP
+    (LBFGS_DIMS, tanh, LBFGS_ROWS seeded rows) on the card in f32 with
+    TF32 off, against the same start on the CPU: every parameter after
+    each of LBFGS_STEPS steps within 1e-4 of its largest magnitude, the
+    losses within 1e-4 relative, and the loss falling."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch import random as prandom
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import LBFGS
+
+    i, h, o = LBFGS_DIMS
+    g = torch.Generator(device="cpu").manual_seed(77)
+    x = torch.randn(LBFGS_ROWS, i, generator=g)
+    y = torch.randn(LBFGS_ROWS, o, generator=g)
+    prandom.seed(5)        # one start for both: made on the CPU, copied
+    start = nn.Sequential(nn.Linear(i, h, device="cpu"), nn.Tanh(),
+                          nn.Linear(h, o, device="cpu"))
+    runs = {}
+    with backend_flags(torch, tf32=False):
+        for where in ("cpu", dev):
+            net = copy.deepcopy(start).to(where)
+            opt = LBFGS(learning_rate=1.0, max_iter=10, history_size=10,
+                        line_search_fn="strong_wolfe",
+                        parameters=net.parameters(), device=where)
+            xd, yd = x.to(where), y.to(where)
+
+            def closure():
+                loss = F.mse_loss(net(xd), yd)
+                loss.backward()
+                return loss
+
+            losses, iterates = [], []
+            for _ in range(LBFGS_STEPS):
+                losses.append(opt.step(closure).item())
+                iterates.append([p.detach().cpu().clone()
+                                 for p in net.parameters()])
+            runs[str(where)] = (losses, iterates)
+    (cl, ci), (dl, di) = runs["cpu"], runs[str(dev)]
+    for k in range(LBFGS_STEPS):
+        for a, b in zip(di[k], ci[k]):
+            if (a - b).abs().max() > 1e-4 * b.abs().max():
+                raise AssertionError(f"lbfgs: step {k} iterate differs "
+                                     f"from the CPU's by "
+                                     f"{(a - b).abs().max().item():.3e}")
+        if abs(dl[k] - cl[k]) > 1e-4 * abs(cl[k]):
+            raise AssertionError(f"lbfgs: step {k} loss {dl[k]} vs the "
+                                 f"CPU's {cl[k]}")
+    if not dl[-1] < dl[0]:
+        raise AssertionError(f"lbfgs: loss did not fall {dl}")
+    emit({"phase": "lbfgs", "dims": list(LBFGS_DIMS), "rows": LBFGS_ROWS,
+          "line_search": "strong_wolfe", "losses_card": dl,
+          "losses_cpu": cl})
+
+
 def hapi_phases_main(torch):
     """``--hapi-phases``: hapi_fit and hapi_fit_bert alone; the kernels
     are built because hapi_fit_bert's BERT runs the LayerNorm and flash
@@ -5222,11 +5868,10 @@ def sweep_main(torch, args):
 
 def serve_phases_main(torch, args):
     """``--serve-phases NAME[,NAME...]``: build the kernels, make the
-    engine phase's LLaMA-2-7B model and run only the named serve phases
-    (``serve_structured``, ``serve_tier``), each with its own checks;
-    for iterating on a phase without the whole script."""
+    serving phases' model (:func:`serve_model`) and run only the named
+    serve phases (``serve_structured``, ``serve_tier``), each with its
+    own checks; for iterating on a phase without the whole script."""
     from paddle_tpu_torch import _build, resolve_device
-    from paddle_tpu_torch.models.llama import LLAMA2_7B, LlamaForCausalLM
 
     names = args[args.index("--serve-phases") + 1].split(",")
     smi = nvidia_smi()
@@ -5235,8 +5880,7 @@ def serve_phases_main(torch, args):
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "built": sorted(built)})
     dev = resolve_device()
-    model = LlamaForCausalLM(LLAMA2_7B, device=dev, dtype=torch.bfloat16,
-                             seed=0)
+    model = serve_model(torch, dev)
     phases = {"serve_structured": serve_structured_phase,
               "serve_tier": serve_tier_phase}
     for name in names:
@@ -5268,6 +5912,39 @@ def resnet_phases_main(torch):
     return 0
 
 
+def fp16_phases_main(torch):
+    """``--fp16-phases``: the float16 checks alone: the flash backward's
+    determinism and the paged row invariance (both 16-bit types),
+    unsupported_raises, then bert_train_flash (bert_amp's yardstick),
+    bert_amp, serve_fp16, transformer_mt and lbfgs."""
+    from paddle_tpu_torch import _build, resolve_device
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    built = _build.build_all(verbose=False)
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": time.perf_counter() - t0, "built": sorted(built)})
+    dev = resolve_device()
+    seconds = {}
+    for name, fn in (
+            ("flash_bwd_determinism",
+             lambda: flash_bwd_determinism_check(torch, dev, 0)),
+            ("paged_invariance", lambda: paged_invariance_check(torch, dev)),
+            ("unsupported_raises", lambda: unsupported_check(torch, dev)),
+            ("bert_amp", lambda: bert_amp_phase(
+                torch, dev, bert_train_flash_phase(torch, dev)[1])),
+            ("serve_fp16", lambda: serve_fp16_phase(torch, dev)),
+            ("transformer_mt", lambda: transformer_mt_phase(torch, dev)),
+            ("lbfgs", lambda: lbfgs_phase(torch, dev))):
+        t1 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t1
+        emit({"phase_seconds": name, "seconds": seconds[name]})
+    print(smi)
+    return 0
+
+
 def main():
     import torch
 
@@ -5284,11 +5961,13 @@ def main():
         return resnet_phases_main(torch)
     if "--hapi-phases" in sys.argv[1:]:
         return hapi_phases_main(torch)
+    if "--fp16-phases" in sys.argv[1:]:
+        return fp16_phases_main(torch)
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
     smi = nvidia_smi()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for info in built.values()
@@ -5302,23 +5981,40 @@ def main():
           "build_s": build_s, "built": sorted(built), "ptxas": ptxas,
           "ptxas_spills": ptxas_spills(ptxas)})
 
-    summary = kernel_phase(torch, dev)
-    serve, model, engine_figures = engine_phase(torch, dev)
-    serve_prefix = serve_prefix_phase(torch, dev, model)
-    serve_spec = serve_spec_phase(torch, dev, model)
-    serve_quant = serve_quant_phase(torch, dev, model)
-    serve_gateway = serve_gateway_phase(torch, dev, model, engine_figures)
-    serve_structured = serve_structured_phase(torch, dev, model)
-    serve_tier = serve_tier_phase(torch, dev, model)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase_seconds": name, "seconds": seconds[name]})
+        return out
+
+    seconds["build"] = build_s
+    summary = kernel_phase(torch, dev, phase)
+    serve, model, engine_figures = phase("engine", engine_phase, torch, dev)
+    del model
+    free_device_memory(torch)
+    model = phase("serve_model", serve_model, torch, dev)
+    serve_prefix = phase("serve_prefix", serve_prefix_phase, torch, dev,
+                         model)
+    serve_spec = phase("serve_spec", serve_spec_phase, torch, dev, model)
+    serve_quant = phase("serve_quant", serve_quant_phase, torch, dev, model)
+    serve_gateway = phase("serve_gateway", serve_gateway_phase, torch, dev,
+                          model, engine_figures)
+    serve_structured = phase("serve_structured", serve_structured_phase,
+                             torch, dev, model)
+    serve_tier = phase("serve_tier", serve_tier_phase, torch, dev, model)
     del model
     torch.cuda.empty_cache()
-    train = train_phase(torch, dev)
-    train_parity_phase(torch, dev)
-    unet = unet_train_phase(torch, dev)
-    unet_train_parity_phase(torch, dev)
-    t_bert = time.perf_counter()
-    bert, bert_figures = bert_train_phase(torch, dev)
-    bert_flash, flash_figures = bert_train_flash_phase(torch, dev)
+    serve_fp16 = phase("serve_fp16", serve_fp16_phase, torch, dev)
+    train = phase("train", train_phase, torch, dev)
+    phase("train_parity", train_parity_phase, torch, dev)
+    unet = phase("unet_train", unet_train_phase, torch, dev)
+    phase("unet_train_parity", unet_train_parity_phase, torch, dev)
+    bert, bert_figures = phase("bert_train", bert_train_phase, torch, dev)
+    bert_flash, flash_figures = phase("bert_train_flash",
+                                      bert_train_flash_phase, torch, dev)
     emit({"phase": "bert_attention_dropout_cost",
           "step_s_mean": {"bert_train": bert_figures["step_s_mean"],
                           "bert_train_flash": flash_figures["step_s_mean"]},
@@ -5327,21 +6023,22 @@ def main():
           "peak_memory_gb": {
               "bert_train": bert_figures["peak_memory_gb"],
               "bert_train_flash": flash_figures["peak_memory_gb"]}})
-    bert_parity_phase(torch, dev)
-    train_recompute_phase(torch, dev)
-    optimizers_phase(torch, dev)
-    emit({"phase": "bert_recompute_optimizers_seconds",
-          "seconds": time.perf_counter() - t_bert})
-    t_resnet = time.perf_counter()
-    resnet, resnet_figures = resnet_train_phase(torch, dev)
-    resnet_amp_phase(torch, dev, resnet_figures)
-    resnet_parity_phase(torch, dev)
-    emit({"phase": "resnet_seconds",
-          "seconds": time.perf_counter() - t_resnet})
-    t_hapi = time.perf_counter()
-    hapi_fit = hapi_fit_phase(torch, dev)
-    hapi_fit_bert = hapi_fit_bert_phase(torch, dev, flash_figures)
-    emit({"phase": "hapi_seconds", "seconds": time.perf_counter() - t_hapi})
+    bert_amp = phase("bert_amp", bert_amp_phase, torch, dev, flash_figures)
+    phase("bert_parity", bert_parity_phase, torch, dev)
+    phase("train_recompute", train_recompute_phase, torch, dev)
+    phase("optimizers", optimizers_phase, torch, dev)
+    phase("lbfgs", lbfgs_phase, torch, dev)
+    transformer_mt = phase("transformer_mt", transformer_mt_phase, torch,
+                           dev)
+    resnet, resnet_figures = phase("resnet_train", resnet_train_phase,
+                                   torch, dev)
+    phase("resnet_amp", resnet_amp_phase, torch, dev, resnet_figures)
+    phase("resnet_parity", resnet_parity_phase, torch, dev)
+    hapi_fit = phase("hapi_fit", hapi_fit_phase, torch, dev)
+    hapi_fit_bert = phase("hapi_fit_bert", hapi_fit_bert_phase, torch, dev,
+                          flash_figures)
+    emit({"phase": "seconds", "by_phase": seconds,
+          "total": time.perf_counter() - t_start})
 
     # the first source is the kernel's; the int8 pool's loader and
     # conversion hooks live in both files
@@ -5375,6 +6072,23 @@ def main():
         "group_norm_bwd": ("cuda", "paddle_tpu_torch/csrc/norms.cu",
                            "paddle_tpu/ops/pallas/norms.py:424",
                            "unet_train"),
+        # the float16 variants: the same sources at E = F16
+        "paged_attention/float16": ("cuda",
+                                    "paddle_tpu_torch/csrc/attention_sm90.cuh",
+                                    "paddle_tpu/serving/paged_attention.py"
+                                    ":284", "serve_fp16"),
+        "flash_fwd/float16": ("cuda",
+                              "paddle_tpu_torch/csrc/attention_sm90.cuh",
+                              "paddle_tpu/ops/pallas/flash.py:132",
+                              "bert_amp"),
+        "flash_bwd_dq/float16": ("cuda",
+                                 "paddle_tpu_torch/csrc/flash_bwd_sm90.cuh",
+                                 "paddle_tpu/ops/pallas/flash.py:255",
+                                 "bert_amp"),
+        "flash_bwd_dkv/float16": ("cuda",
+                                  "paddle_tpu_torch/csrc/flash_bwd_sm90.cuh",
+                                  "paddle_tpu/ops/pallas/flash.py:277",
+                                  "bert_amp"),
     }
     runs = {"serve": serve, "serve_prefix": serve_prefix,
             "serve_spec": serve_spec, "serve_quant": serve_quant,
@@ -5382,20 +6096,23 @@ def main():
             "serve_structured": serve_structured, "serve_tier": serve_tier,
             "train": train, "unet_train": unet, "bert_train": bert,
             "bert_train_flash": bert_flash, "resnet_train": resnet,
-            "hapi_fit": hapi_fit, "hapi_fit_bert": hapi_fit_bert}
+            "hapi_fit": hapi_fit, "hapi_fit_bert": hapi_fit_bert,
+            "serve_fp16": serve_fp16, "bert_amp": bert_amp,
+            "transformer_mt": transformer_mt}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]
+        counter = name.split("/")[0]     # a dtype variant's kernel counter
         files = (source,) if isinstance(source, str) else source
         entry = {"name": name, "route": route, "source": files[0],
                  "source_files": list(files), "replaces": replaces,
-                 "launches": runs[path][name],
+                 "launches": runs[path][counter],
                  "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                  "device_ms": c.get("device_ms"), "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                  "library_ms": c["library_ms"], "case": c["name"],
                  "path": path,
-                 "launches_by_path": {p: r.get(name, 0)
+                 "launches_by_path": {p: r.get(counter, 0)
                                       for p, r in runs.items()}}
         bc = summary.get("bert/" + name)
         if bc is not None:          # the same kernel at BERT's shape

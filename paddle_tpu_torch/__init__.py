@@ -62,8 +62,10 @@ from . import amp, framework, hapi, io, metric, vision
 from .device import resolve_device
 from .framework import load, save
 from .hapi import Model, flops, summary
+from .io.reader_compat import batch
 from .tensor import flatten, matmul
 
-__all__ = ["Model", "amp", "flatten", "flops", "framework", "hapi", "io",
+__all__ = ["Model", "amp", "batch", "flatten", "flops", "framework", "hapi",
+           "io",
            "load", "matmul", "metric", "resolve_device", "save", "summary",
            "vision"]

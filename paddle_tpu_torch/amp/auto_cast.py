@@ -15,10 +15,8 @@ are not JAX's.
 O1 casts the white list to the scope's dtype and the black list to f32
 and leaves every other op as it is; O2 casts every named op to the
 scope's dtype but the black list.  The scope is per thread, as JAX's.
-
-Float16 attention is not ported (ROADMAP.md Queue 1, "The rest of the
-training path"): an fp16 scope that would cast attention inputs to
-float16 raises.
+A float16 scope casts attention inputs to float16 too: the flash kernels
+take them.
 """
 
 from __future__ import annotations
@@ -41,7 +39,6 @@ BLACK_LIST = {
     "rms_norm", "logsumexp", "erf", "erfinv", "pow", "log_softmax",
     "sync_batch_norm", "norm", "var", "std",
 }
-_ATTENTION = ("flash_attention", "scaled_dot_product_attention")
 _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
            "float32": torch.float32}
 
@@ -98,10 +95,6 @@ def cast_inputs(op_name, *tensors):
     dt = amp_dtype_for(op_name)
     if dt is None:
         return tensors
-    if dt == torch.float16 and op_name in _ATTENTION:
-        raise TypeError(f"{op_name} under a float16 auto_cast scope: float16 "
-                        "attention is not ported (ROADMAP.md Queue 1, 'The "
-                        "rest of the training path')")
     return tuple(t.to(dt) if isinstance(t, torch.Tensor)
                  and t.is_floating_point() and t.dtype != dt else t
                  for t in tensors)

@@ -364,3 +364,59 @@ def resnet_state_dict_from_jax(np_state, depth=50, width=64,
     return _from_jax(np_state, resnet_expected_shapes(depth, width,
                                                       num_classes, groups),
                      lambda key: key == "fc.weight", device, dtype)
+
+
+_TRANSFORMER_LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj", "linear1",
+                        "linear2")
+
+
+def transformer_expected_shapes(d_model=512, num_encoder_layers=6,
+                                num_decoder_layers=6, dim_feedforward=2048,
+                                normalize_before=False):
+    """``{key: torch-layout shape}`` of an ``nn.Transformer`` with these
+    arguments (its default encoder and decoder stacks; a final LayerNorm
+    on each only with ``normalize_before``)."""
+    shapes = {}
+
+    def linear(p, i, o):
+        shapes[p + ".weight"] = (o, i)
+        shapes[p + ".bias"] = (o,)
+
+    def norm(p):
+        shapes[p + ".weight"] = (d_model,)
+        shapes[p + ".bias"] = (d_model,)
+
+    for stack, n, attns, norms in (
+            ("encoder", num_encoder_layers, ("self_attn",), 2),
+            ("decoder", num_decoder_layers, ("self_attn", "cross_attn"), 3)):
+        for i in range(n):
+            p = f"{stack}.layers.{i}."
+            for a in attns:
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    linear(p + a + "." + proj, d_model, d_model)
+            linear(p + "linear1", d_model, dim_feedforward)
+            linear(p + "linear2", dim_feedforward, d_model)
+            for j in range(1, norms + 1):
+                norm(f"{p}norm{j}")
+        if normalize_before:
+            norm(stack + ".norm")
+    return shapes
+
+
+def transformer_state_dict_from_jax(np_state, d_model=512,
+                                    num_encoder_layers=6,
+                                    num_decoder_layers=6,
+                                    dim_feedforward=2048,
+                                    normalize_before=False, device=None,
+                                    dtype=None):
+    """The JAX ``nn.Transformer``'s ``state_dict`` (as numpy) -> tensors
+    for the port's ``load_state_dict``, on ``device`` (``cuda`` unless
+    asked otherwise) in ``dtype`` (default: the arrays' own); the model's
+    arguments as in :func:`transformer_expected_shapes`.  Linear weights
+    are transposed.  Raises on a missing, unexpected or misshaped key."""
+    return _from_jax(
+        np_state, transformer_expected_shapes(
+            d_model, num_encoder_layers, num_decoder_layers,
+            dim_feedforward, normalize_before),
+        lambda key: key.endswith(".weight") and
+        key.rsplit(".", 2)[-2] in _TRANSFORMER_LINEARS, device, dtype)

@@ -38,6 +38,16 @@
 // bytes bound it (paged decode) one tile at a time keeps a stage free for
 // the next load.
 //
+// Element type.  The operands are bf16 or fp16 (E = BF16 or F16 below:
+// the problem's P::E); only the wgmma operand type, the TMA data type and
+// the conversions of P and of the output differ.  fp16 keeps the hi + lo
+// split of P: one fp16 term rounds a probability by up to 2^-11 of
+// itself, as much as the output's own fp16 rounding, against a kernel
+// tolerance of 2^-10 (chip_smoke.py), and one code path serves both
+// types.  The lo term of a probability below 2^-3 falls into fp16's
+// subnormals and, below ~2^-13, to 0: an absolute error under 2^-25 a
+// probability, far under the output's rounding.
+//
 // Row invariance.  Every f32 step of the softmax is an explicit
 // round-to-nearest intrinsic or a single fixed instruction (no contraction
 // can differ between code paths), a tile with no visible key for a row
@@ -89,6 +99,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -99,9 +110,47 @@ namespace sm90 {
 
 typedef __nv_bfloat16 bf16;
 
+// The two 16-bit element types of the tensor-core kernels.  Each names
+// its wgmma operand type (kHalf), its TMA data type and its conversions
+// from f32, all by intrinsics (a build that defines
+// __CUDA_NO_HALF_CONVERSIONS__ refuses the implicit ones).  Only the
+// operands are E: scores, softmax and accumulators stay f32.
+struct BF16 {
+  typedef __nv_bfloat16 T;
+  typedef __nv_bfloat162 T2;
+  static constexpr bool kHalf = false;
+  static constexpr uint32_t kMagic = 0x43434343u;  // see i8x4_to
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ static __forceinline__ T2 pack(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+  __device__ static __forceinline__ float2 unpack(T2 v) {
+    return __bfloat1622float2(v);
+  }
+  __device__ static __forceinline__ T one(float x) { return __float2bfloat16_rn(x); }
+  __device__ static __forceinline__ T2 sub2(uint32_t a, uint32_t b) {
+    return __hsub2(*reinterpret_cast<T2*>(&a), *reinterpret_cast<T2*>(&b));
+  }
+};
+struct F16 {
+  typedef __half T;
+  typedef __half2 T2;
+  static constexpr bool kHalf = true;
+  static constexpr uint32_t kMagic = 0x64646464u;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  __device__ static __forceinline__ T2 pack(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+  __device__ static __forceinline__ float2 unpack(T2 v) { return __half22float2(v); }
+  __device__ static __forceinline__ T one(float x) { return __float2half_rn(x); }
+  __device__ static __forceinline__ T2 sub2(uint32_t a, uint32_t b) {
+    return __hsub2(*reinterpret_cast<T2*>(&a), *reinterpret_cast<T2*>(&b));
+  }
+};
+
 constexpr int BM = 64;                  // query vectors per consumer warpgroup
 constexpr int BN = 64;                  // keys per K/V tile
-constexpr int ATOM = 64;                // bf16 columns of one 128-byte swizzle atom
+constexpr int ATOM = 64;                // 16-bit columns of one 128-byte swizzle atom
 constexpr int ATOM_BYTES = BN * 128;    // one [64 rows x 64 columns] atom
 constexpr int NO_LIMIT = INT_MAX / 2;   // last visible key of a row without a causal bound
 constexpr float NEG_INF = -1e30f;       // running-max floor: exp2(m - m_new) stays finite
@@ -250,159 +299,194 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
 }
 
 // S (64 x 64, f32) {+}= A (64 x 16, smem) . B (16 x 64, smem), both K-major
+#define SM90_WGMMA_SS_N64(TY)                                                          \
+  asm volatile(                                                                        \
+      "{\n.reg .pred p;\n"                                                             \
+      "setp.ne.b32 p, %34, 0;\n"                                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                      \
+      "{"                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                         \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                                       \
+      : "l"(da), "l"(db), "r"(accumulate))
+template <class E>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (E::kHalf)
+    SM90_WGMMA_SS_N64("f16");
+  else
+    SM90_WGMMA_SS_N64("bf16");
 }
 
 // S (64 x 32, f32) {+}= A (64 x 16, smem) . B (16 x 32, smem), both K-major
+#define SM90_WGMMA_SS_N32(TY)                                                      \
+  asm volatile(                                                                    \
+      "{\n.reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %18, 0;\n"                                                   \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                  \
+      "{"                                                                          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                           \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                                       \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])                         \
+      : "l"(da), "l"(db), "r"(accumulate))
+template <class E>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (E::kHalf)
+    SM90_WGMMA_SS_N32("f16");
+  else
+    SM90_WGMMA_SS_N32("bf16");
 }
 
 // O (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
+#define SM90_WGMMA_RS_N64(TY)                                                          \
+  asm volatile(                                                                        \
+      "{\n.reg .pred p;\n"                                                             \
+      "setp.ne.b32 p, %37, 0;\n"                                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                      \
+      "{"                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                         \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <class E>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (E::kHalf)
+    SM90_WGMMA_RS_N64("f16");
+  else
+    SM90_WGMMA_RS_N64("bf16");
 }
 
 // O (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, smem, MN-major)
+#define SM90_WGMMA_RS_N128(TY)                                                         \
+  asm volatile(                                                                        \
+      "{\n.reg .pred p;\n"                                                             \
+      "setp.ne.b32 p, %69, 0;\n"                                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                     \
+      "{"                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                                       \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                                       \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                                       \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                                       \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                                         \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),  \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                             \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <class E>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (E::kHalf)
+    SM90_WGMMA_RS_N128("f16");
+  else
+    SM90_WGMMA_RS_N128("bf16");
 }
 
 // O (64 x 192, f32) += A (64 x 16, registers) . B (16 x 192, smem, MN-major)
+#define SM90_WGMMA_RS_N192(TY)                                                         \
+  asm volatile(                                                                        \
+      "{\n.reg .pred p;\n"                                                             \
+      "setp.ne.b32 p, %101, 0;\n"                                                      \
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " "                     \
+      "{"                                                                              \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                                       \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                                       \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                                       \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                                       \
+      "%56, %57, %58, %59, %60, %61, %62, %63, "                                       \
+      "%64, %65, %66, %67, %68, %69, %70, %71, "                                       \
+      "%72, %73, %74, %75, %76, %77, %78, %79, "                                       \
+      "%80, %81, %82, %83, %84, %85, %86, %87, "                                       \
+      "%88, %89, %90, %91, %92, %93, %94, %95"                                         \
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"                                \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),        \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),  \
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),  \
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),  \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),  \
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),  \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),  \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <class E>
 __device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
                                            const uint32_t (&a)[4],
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (E::kHalf)
+    SM90_WGMMA_RS_N192("f16");
+  else
+    SM90_WGMMA_RS_N192("bf16");
 }
-template <int N>
+template <class E, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-  if constexpr (N == 192) wgmma_rs_n192(d, a, db);
+  if constexpr (N == 64) wgmma_rs_n64<E>(d, a, db);
+  if constexpr (N == 128) wgmma_rs_n128<E>(d, a, db);
+  if constexpr (N == 192) wgmma_rs_n192<E>(d, a, db);
 }
 
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+template <class V>
+__device__ __forceinline__ uint32_t pair_bits(V v) {
+  static_assert(sizeof(V) == 4, "a pair of 16-bit values");
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// x0 (lower column) and x1 -> the hi and lo bf16x2 terms
+// x0 (lower column) and x1 -> the hi and lo E pairs.  An fp16 value past
+// 65504 (a dS under a large loss scale) rounds to inf, its lo term to
+// -inf, and the product that takes both is not finite: the gradient
+// comes out inf or NaN, which a GradScaler reads as an overflow.
+template <class E>
 __device__ __forceinline__ void split_hi_lo(float x0, float x1, uint32_t& hi,
                                             uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(
-      __floats2bfloat162_rn(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y)));
+  const typename E::T2 h = E::pack(x0, x1);
+  const float2 hf = E::unpack(h);
+  hi = pair_bits(h);
+  lo = pair_bits(E::pack(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y)));
 }
 
 // 2^x in one MUFU op (flushes subnormal results to 0)
@@ -432,7 +516,7 @@ __device__ __forceinline__ float sum16(const float (&v)[16]) {
 
 // S = Q K^T of one K tile (64 keys, or 32 for a 16-register S) into f32
 // registers (issued, not waited)
-template <int KS, int N>
+template <class E, int KS, int N>
 __device__ __forceinline__ void issue_qk(float (&s)[N], uint32_t qa,
                                          uint32_t ka) {
 #pragma unroll
@@ -440,14 +524,14 @@ __device__ __forceinline__ void issue_qk(float (&s)[N], uint32_t qa,
     const uint32_t off = (kk / 4) * ATOM_BYTES + (kk % 4) * 32;
     const uint64_t da = desc_sw128(qa + off, 16, 1024);
     const uint64_t db = desc_sw128(ka + off, 16, 1024);
-    if constexpr (N == 32) wgmma_ss_n64(s, da, db, kk > 0);
-    if constexpr (N == 16) wgmma_ss_n32(s, da, db, kk > 0);
+    if constexpr (N == 32) wgmma_ss_n64<E>(s, da, db, kk > 0);
+    if constexpr (N == 16) wgmma_ss_n32<E>(s, da, db, kk > 0);
   }
 }
 
 // O += P V over NKK k16 steps (the 16 NKK rows of V from va), P as its hi
 // and lo terms (issued, not waited)
-template <int DP, int NKK>
+template <class E, int DP, int NKK>
 __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
                                          const uint32_t (&ph)[NKK][4],
                                          const uint32_t (&pl)[NKK][4],
@@ -455,8 +539,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
 #pragma unroll
   for (int kk = 0; kk < NKK; ++kk) {
     const uint64_t dv = desc_sw128(va + kk * 16 * 128, ATOM_BYTES, 1024);
-    wgmma_rs<DP>(o, ph[kk], dv);
-    wgmma_rs<DP>(o, pl[kk], dv);
+    wgmma_rs<E, DP>(o, ph[kk], dv);
+    wgmma_rs<E, DP>(o, pl[kk], dv);
   }
 }
 
@@ -510,7 +594,7 @@ __device__ __forceinline__ void rescale(float (&o)[DP / 2],
 }
 
 // P as hi + lo A fragments: k16 step kk holds key blocks 2kk, 2kk + 1
-template <int NKK>
+template <class E, int NKK>
 __device__ __forceinline__ void to_hi_lo(const float (&s)[8 * NKK],
                                          uint32_t (&ph)[NKK][4],
                                          uint32_t (&pl)[NKK][4]) {
@@ -518,24 +602,23 @@ __device__ __forceinline__ void to_hi_lo(const float (&s)[8 * NKK],
   for (int kk = 0; kk < NKK; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      split_hi_lo(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
+      split_hi_lo<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], ph[kk][r],
+                     pl[kk][r]);
 }
 
-// int8 bytes b0..b3 of w -> the exact bf16 pairs (b0, b1) and (b2, b3):
-// bf16 0x43mm is 128 + m for the low seven bits m, 0x4300 / 0x4380 are
-// 128 / 256 for sign bit 0 / 1, and their difference is the two's
-// complement value, exact in one bf16 subtraction
-__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
-                                             uint32_t& hi) {
+// int8 bytes b0..b3 of w -> the exact E pairs (b0, b1) and (b2, b3).
+// With kMagic's byte X (bf16 0x43, fp16 0x64), 0xXXmm is B + m for the
+// low seven bits m and 0xXX80 is B + 128 (bf16 B = 128, fp16 B = 1024),
+// so (B + m) - (B + 128 s) for sign bit s is the two's complement value,
+// exact in one subtraction
+template <class E>
+__device__ __forceinline__ void i8x4_to(uint32_t w, uint32_t& lo,
+                                        uint32_t& hi) {
   const uint32_t mag = w & 0x7F7F7F7Fu, sgn = w & 0x80808080u;
-  uint32_t a[2] = {__byte_perm(mag, 0x43434343u, 0x4140),
-                   __byte_perm(mag, 0x43434343u, 0x4342)};
-  uint32_t b[2] = {__byte_perm(sgn, 0x43434343u, 0x4140),
-                   __byte_perm(sgn, 0x43434343u, 0x4342)};
-  lo = bf16x2_bits(__hsub2(*reinterpret_cast<__nv_bfloat162*>(&a[0]),
-                           *reinterpret_cast<__nv_bfloat162*>(&b[0])));
-  hi = bf16x2_bits(__hsub2(*reinterpret_cast<__nv_bfloat162*>(&a[1]),
-                           *reinterpret_cast<__nv_bfloat162*>(&b[1])));
+  lo = pair_bits(E::sub2(__byte_perm(mag, E::kMagic, 0x4140),
+                         __byte_perm(sgn, E::kMagic, 0x4140)));
+  hi = pair_bits(E::sub2(__byte_perm(mag, E::kMagic, 0x4342),
+                         __byte_perm(sgn, E::kMagic, 0x4342)));
 }
 
 // One half of a staging slot (int8 K or V [64 keys][D] at src, its 64
@@ -546,7 +629,7 @@ __device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
 // ones (at D = 128 the key row of the chunks past column 63 alternates,
 // r ^ 1, so the two atoms' writes land in the two halves of the
 // swizzle's bank groups).
-template <int D>
+template <class E, int D>
 __device__ __forceinline__ void convert_half(const uint8_t* src,
                                              const float* ssc, uint8_t* dst,
                                              float* sc, int tid) {
@@ -559,10 +642,10 @@ __device__ __forceinline__ void convert_half(const uint8_t* src,
     if constexpr (CPR == 8) r ^= c8 >> 2;
     const uint4 w = *reinterpret_cast<const uint4*>(src + r * D + c8 * 16);
     uint4 x, y;
-    i8x4_to_bf16(w.x, x.x, x.y);
-    i8x4_to_bf16(w.y, x.z, x.w);
-    i8x4_to_bf16(w.z, y.x, y.y);
-    i8x4_to_bf16(w.w, y.z, y.w);
+    i8x4_to<E>(w.x, x.x, x.y);
+    i8x4_to<E>(w.y, x.z, x.w);
+    i8x4_to<E>(w.z, y.x, y.y);
+    i8x4_to<E>(w.w, y.z, y.w);
     uint8_t* row = dst + (c8 * 16 / ATOM) * ATOM_BYTES + r * 128;
     const int c = (c8 * 16 % ATOM) / 8;  // the first of its two 16-byte chunks
     *reinterpret_cast<uint4*>(row + ((c ^ (r & 7)) << 4)) = x;
@@ -612,6 +695,7 @@ template <int D, int NC, class P>
 __global__ void __launch_bounds__(128 * (NC + 1), NC == 1 ? 2 : 1)
 attention_fwd_kernel(const __grid_constant__ P p) {
   using T = Dims<D>;
+  using E = typename P::E;
   constexpr int ST = ring_stages<D, NC, P>();
   constexpr int S8 = staged_slots<D, NC, P>();
   static_assert(!(S8 && P::kOverlap), "int8 K/V: one tile at a time");
@@ -721,11 +805,11 @@ attention_fwd_kernel(const __grid_constant__ P p) {
         float* sc = sSc + st * 2 * BN;
         mbar_wait(&full8[ss], (kt / S8) & 1);
         mbar_wait(&emptyK[st], ph ^ 1);
-        convert_half<D>(src, ssc, sK + st * T::TILE, sc, tid);
+        convert_half<E, D>(src, ssc, sK + st * T::TILE, sc, tid);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         mbar_arrive(&full[st]);
         mbar_wait(&empty[st], ph ^ 1);
-        convert_half<D>(src + Staged<D>::KV, ssc + BN, sV + st * T::TILE,
+        convert_half<E, D>(src + Staged<D>::KV, ssc + BN, sV + st * T::TILE,
                         sc + BN, tid);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         mbar_arrive(&empty8[ss]);
@@ -777,21 +861,21 @@ attention_fwd_kernel(const __grid_constant__ P p) {
       if (my > 0) {
         mbar_wait(&full[0], 0);
         wgmma_fence();
-        issue_qk<T::KS>(s, qa, smem_u32(sK));
+        issue_qk<E, T::KS>(s, qa, smem_u32(sK));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
         softmax(0);  // O is still 0: no rescale
-        to_hi_lo(s, ph, pl);
+        to_hi_lo<E>(s, ph, pl);
       }
       for (int kt = 0; kt + 1 < my; ++kt) {
         const int st = kt % ST, sn = (kt + 1) % ST;
         mbar_wait(&full[sn], ((kt + 1) / ST) & 1);
         fence_regs(o);
         wgmma_fence();
-        issue_qk<T::KS>(s, qa, smem_u32(sK + sn * T::TILE));
+        issue_qk<E, T::KS>(s, qa, smem_u32(sK + sn * T::TILE));
         wgmma_commit();
-        issue_pv<T::DP>(o, ph, pl, smem_u32(sV + st * T::TILE));
+        issue_pv<E, T::DP>(o, ph, pl, smem_u32(sV + st * T::TILE));
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
@@ -801,13 +885,13 @@ attention_fwd_kernel(const __grid_constant__ P p) {
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[st]);
         rescale<T::DP>(o, alpha);
-        to_hi_lo(s, ph, pl);
+        to_hi_lo<E>(s, ph, pl);
       }
       if (my > 0) {
         const int st = (my - 1) % ST;
         fence_regs(o);
         wgmma_fence();
-        issue_pv<T::DP>(o, ph, pl, smem_u32(sV + st * T::TILE));
+        issue_pv<E, T::DP>(o, ph, pl, smem_u32(sV + st * T::TILE));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o);
@@ -820,7 +904,7 @@ attention_fwd_kernel(const __grid_constant__ P p) {
         const int st = kt % ST;
         mbar_wait(&full[st], (kt / ST) & 1);
         wgmma_fence();
-        issue_qk<T::KS>(s, qa, smem_u32(sK + st * T::TILE));
+        issue_qk<E, T::KS>(s, qa, smem_u32(sK + st * T::TILE));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
@@ -835,10 +919,10 @@ attention_fwd_kernel(const __grid_constant__ P p) {
           mbar_wait(&fullV[st], (kt / ST) & 1);
           scale_cols(s, sSc + st * 2 * BN + BN, t);
         }
-        to_hi_lo(s, ph, pl);
+        to_hi_lo<E>(s, ph, pl);
         fence_regs(o);
         wgmma_fence();
-        issue_pv<T::DP>(o, ph, pl, smem_u32(sV + st * T::TILE));
+        issue_pv<E, T::DP>(o, ph, pl, smem_u32(sV + st * T::TILE));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o);
@@ -859,18 +943,18 @@ attention_fwd_kernel(const __grid_constant__ P p) {
       if (lane == 0) mbar_arrive(&empty[st]);
     }
 
-    // epilogue: O / l in bf16; a row that saw no key outputs 0
+    // epilogue: O / l in E; a row that saw no key outputs 0
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int i = i0 + 8 * hf;
       if (i >= nv) continue;
       const bool any = l[hf] > 0.f;
-      bf16* op = p.template out_row<D>(c, tile, i) + 2 * t;
+      typename E::T* op = p.template out_row<D>(c, tile, i) + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         const float x0 = any ? __fdiv_rn(o[4 * n + 2 * hf], l[hf]) : 0.f;
         const float x1 = any ? __fdiv_rn(o[4 * n + 2 * hf + 1], l[hf]) : 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(op + 8 * n) = __floats2bfloat162_rn(x0, x1);
+        *reinterpret_cast<typename E::T2*>(op + 8 * n) = E::pack(x0, x1);
       }
       if (t == 0)
         p.store_lse(c, tile, i,
@@ -935,12 +1019,13 @@ inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
   return true;
 }
 
-// bf16 in boxes of {64, b1, b2, b3} into 128-byte-swizzled atoms
+// E in boxes of {64, b1, b2, b3} into 128-byte-swizzled atoms
+template <class E>
 inline bool make_map(CUtensorMap* map, const void* ptr, uint64_t d0,
                      uint64_t d1, uint64_t d2, uint64_t d3, uint64_t s1,
                      uint64_t s2, uint64_t s3, uint32_t b1, uint32_t b2,
                      uint32_t b3) {
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, d0, d1, d2, d3,
+  return encode_map(map, E::kMap, ptr, d0, d1, d2, d3,
                     s1, s2, s3, ATOM, b1, b2, b3, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 

@@ -20,8 +20,8 @@
 // axis and carry m, l and acc (or dq, dk, dv) in VMEM scratch.  Here a
 // thread block owns its output tiles and loops over the other axis itself,
 // so there are no atomics and the result is deterministic:
-//   bf16 forward: the Hopper mainloop of attention_sm90.cuh (TMA-fed K/V
-//     ring, wgmma, warp-specialised), with the contiguous loader below: a
+//   bf16 and fp16 forward: the Hopper mainloop of attention_sm90.cuh
+//     (TMA-fed K/V ring, wgmma, warp-specialised), with the contiguous loader below: a
 //     block owns 128 query rows (two 64-row tiles) of one (q head, batch);
 //   f32 forward and dq: one block per (64-row q tile, q head, batch),
 //     looping over the k tiles in order, m/l/acc (or dq) in f32 registers;
@@ -29,8 +29,10 @@
 //     q_per_kv query heads of its group and their q tiles (the sum that
 //     _dkv_kernel accumulates over grid axes), dk/dv in f32 registers.
 // Three arithmetic paths:
-//   the bf16 forward on the tensor cores with wgmma (attention_sm90.cuh);
-//   the bf16 backward on the tensor cores with wgmma (flash_bwd_sm90.cuh):
+//   the bf16 and fp16 forward on the tensor cores with wgmma
+//     (attention_sm90.cuh; the element type is a template parameter);
+//   the bf16 and fp16 backward on the tensor cores with wgmma
+//     (flash_bwd_sm90.cuh):
 //     dQ as the forward, a block of two 64-row query tiles with a TMA-fed
 //     K/V ring; dK/dV a block of 128 keys (64 at D 160) with a TMA-fed
 //     ring of Q / dO tiles, split over query ranges into f32 partials
@@ -55,9 +57,9 @@
 // Bound.  Each kernel is bounded by operations at these sizes: per visible
 // (q, k) pair and query head, 4 D flops forward (QK^T, PV) and 10 D
 // backward (five products; the dq and dkv kernels each recompute QK^T and
-// dO V^T, so they do 14 D together), over 989 TFLOP/s for bf16 (tensor
-// cores) or 67 TFLOP/s for f32 (CUDA cores) on an H100 SXM.  The bf16
-// kernels' second products take P (and dS) as hi and lo bf16 terms (see
+// dO V^T, so they do 14 D together), over 989 TFLOP/s for bf16 and fp16
+// (tensor cores) or 67 TFLOP/s for f32 (CUDA cores) on an H100 SXM.  The
+// 16-bit kernels' second products take P (and dS) as hi and lo terms (see
 // attention_sm90.cuh and flash_bwd_sm90.cuh): the forward issues 1.5x its
 // bound's tensor work, dQ 4/3 and dK/dV 3/2.
 #include <cuda_bf16.h>
@@ -489,15 +491,15 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-using sm90::bf16;
-
 // The contiguous K/V loader of the Hopper mainloop: a block owns the 64-row
 // q tiles tile0, tile0 + 1 of one (q head h, batch b), K/V tiles are TMA
 // boxes of 64 keys of kv head h / (H / KH), and rows past Sk (and columns
-// past D) arrive as zeros.
+// past D) arrive as zeros.  E: bf16 or fp16 (sm90::BF16, sm90::F16).
+template <class E_>
 struct FlashProblem {
+  typedef E_ E;
   CUtensorMap tq, tk, tv;  // q [B, Sq, H, D]; k, v [B, Sk, KH, D]
-  bf16* out;
+  typename E::T* out;
   float* lse;
   int Sq, Sk, H, KH, causal;
   float sl2;  // scale * log2 e
@@ -541,7 +543,7 @@ struct FlashProblem {
     }
   }
   template <int D>
-  __device__ bf16* out_row(const Cta& c, int tile, int i) const {
+  __device__ typename E::T* out_row(const Cta& c, int tile, int i) const {
     return out + (((size_t)c.b * Sq + tile * sm90::BM + i) * H + c.h) * D;
   }
   __device__ void store_lse(const Cta& c, int tile, int i, float x) const {
@@ -549,22 +551,22 @@ struct FlashProblem {
   }
 };
 
-template <int D>
+template <class E, int D>
 cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* out,
                      float* lse, int B, int Sq, int Sk, int H, int KH,
                      float scale, int causal, cudaStream_t st) {
   constexpr int NC = 2;
-  FlashProblem p;
-  const uint64_t row = (uint64_t)D * sizeof(bf16);
+  FlashProblem<E> p;
+  const uint64_t row = (uint64_t)D * sizeof(typename E::T);
   const uint64_t sk = Sk > 0 ? Sk : 1;
-  if (!sm90::make_map(&p.tq, q, D, H, Sq, B, row, row * H, row * H * Sq, 1,
+  if (!sm90::make_map<E>(&p.tq, q, D, H, Sq, B, row, row * H, row * H * Sq, 1,
                       sm90::BM, 1) ||
-      !sm90::make_map(&p.tk, k, D, KH, sk, B, row, row * KH, row * KH * sk, 1,
+      !sm90::make_map<E>(&p.tk, k, D, KH, sk, B, row, row * KH, row * KH * sk, 1,
                       sm90::BN, 1) ||
-      !sm90::make_map(&p.tv, v, D, KH, sk, B, row, row * KH, row * KH * sk, 1,
+      !sm90::make_map<E>(&p.tv, v, D, KH, sk, B, row, row * KH, row * KH * sk, 1,
                       sm90::BN, 1))
     return cudaErrorInvalidValue;
-  p.out = static_cast<bf16*>(out);
+  p.out = static_cast<typename E::T*>(out);
   p.lse = lse;
   p.Sq = Sq;
   p.Sk = Sk;
@@ -576,7 +578,7 @@ cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* out,
   return sm90::launch<D, NC>(p, grid, st);
 }
 
-template <int D>
+template <class E, int D>
 cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* delta,
                         void* dq, int B, int Sq, int Sk, int H, int KH,
@@ -584,7 +586,7 @@ cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v,
   sm90::BwdArgs a{};
   a.lse = lse;
   a.delta = delta;
-  a.dq = static_cast<bf16*>(dq);
+  a.dq = dq;
   a.B = B;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -594,11 +596,11 @@ cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v,
   a.splits = 1;
   a.scale = scale;
   a.sl2 = scale * sm90::LOG2E;
-  if (!sm90::bwd_maps(a, q, k, v, dout, D)) return cudaErrorInvalidValue;
-  return sm90::launch_bwd_dq<D>(a, st);
+  if (!sm90::bwd_maps<E>(a, q, k, v, dout, D)) return cudaErrorInvalidValue;
+  return sm90::launch_bwd_dq<E, D>(a, st);
 }
 
-template <int D>
+template <class E, int D>
 cudaError_t bwd_dkv_sm90(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
                          const float* delta, void* dk, void* dv, int B, int Sq,
@@ -608,8 +610,8 @@ cudaError_t bwd_dkv_sm90(const void* q, const void* k, const void* v,
   sm90::BwdArgs a{};
   a.lse = lse;
   a.delta = delta;
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
+  a.dk = dk;
+  a.dv = dv;
   a.ws = ws;
   a.B = B;
   a.Sq = Sq;
@@ -620,8 +622,8 @@ cudaError_t bwd_dkv_sm90(const void* q, const void* k, const void* v,
   a.splits = splits;
   a.scale = scale;
   a.sl2 = scale * sm90::LOG2E;
-  if (!sm90::bwd_maps(a, q, k, v, dout, D)) return cudaErrorInvalidValue;
-  return sm90::launch_bwd_dkv<D>(a, st);
+  if (!sm90::bwd_maps<E>(a, q, k, v, dout, D)) return cudaErrorInvalidValue;
+  return sm90::launch_bwd_dkv<E, D>(a, st);
 }
 
 bool bad_shape(int B, int Sq, int Sk, int H, int KH) {
@@ -630,18 +632,21 @@ bool bad_shape(int B, int Sq, int Sk, int H, int KH) {
 
 }  // namespace
 
-// f32 inputs take the FMA kernels (head dims 64 and 128), bf16 inputs the
-// tensor-core kernels (48, 64, 80, 128 and 160: the LLaMA head and the SD
-// UNet's 40 (padded to 48 by the caller), 80 and 160), forward and
-// backward on wgmma.  Any other (dtype, head_dim) is refused.
+// f32 inputs take the FMA kernels (head dims 64 and 128), bf16 and fp16
+// inputs the tensor-core kernels (48, 64, 80, 128 and 160: the LLaMA head
+// and the SD UNet's 40 (padded to 48 by the caller), 80 and 160), forward
+// and backward on wgmma.  Any other (dtype, head_dim) is refused.
+#define FA_SM90_DIMS(CALL_SM90, E)                                         \
+  if (head_dim == 128) return CALL_SM90(E, 128);                           \
+  if (head_dim == 64) return CALL_SM90(E, 64);                             \
+  if (head_dim == 48) return CALL_SM90(E, 48);                             \
+  if (head_dim == 80) return CALL_SM90(E, 80);                             \
+  if (head_dim == 160) return CALL_SM90(E, 160);
 #define FA_DISPATCH(CALL, CALL_SM90)                                       \
   if (dtype == 0 && head_dim == 128) return CALL(128);                     \
   if (dtype == 0 && head_dim == 64) return CALL(64);                       \
-  if (dtype == 1 && head_dim == 128) return CALL_SM90(128);                \
-  if (dtype == 1 && head_dim == 64) return CALL_SM90(64);                  \
-  if (dtype == 1 && head_dim == 48) return CALL_SM90(48);                  \
-  if (dtype == 1 && head_dim == 80) return CALL_SM90(80);                  \
-  if (dtype == 1 && head_dim == 160) return CALL_SM90(160);                \
+  if (dtype == 1) { FA_SM90_DIMS(CALL_SM90, sm90::BF16) }                  \
+  if (dtype == 2) { FA_SM90_DIMS(CALL_SM90, sm90::F16) }                   \
   return cudaErrorInvalidValue;
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -655,8 +660,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_FWD(D) \
   fwd<D>(q, k, v, out, lse, batch, q_len, kv_len, q_heads, kv_heads, scale, causal, st)
-#define FA_FWD_SM90(D) \
-  fwd_sm90<D>(q, k, v, out, lse, batch, q_len, kv_len, q_heads, kv_heads, scale, causal, st)
+#define FA_FWD_SM90(E, D) \
+  fwd_sm90<E, D>(q, k, v, out, lse, batch, q_len, kv_len, q_heads, kv_heads, scale, causal, st)
   FA_DISPATCH(FA_FWD, FA_FWD_SM90)
 #undef FA_FWD
 #undef FA_FWD_SM90
@@ -676,8 +681,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
 #define FA_DQ(D)                                                           \
   bwd_dq<D>(q, k, v, dout, lse, delta, dq, batch, q_len, kv_len, q_heads, \
             kv_heads, scale, causal, st)
-#define FA_DQ_SM90(D)                                                          \
-  bwd_dq_sm90<D>(q, k, v, dout, lse, delta, dq, batch, q_len, kv_len, q_heads, \
+#define FA_DQ_SM90(E, D)                                                       \
+  bwd_dq_sm90<E, D>(q, k, v, dout, lse, delta, dq, batch, q_len, kv_len, q_heads, \
                  kv_heads, scale, causal, st)
   FA_DISPATCH(FA_DQ, FA_DQ_SM90)
 #undef FA_DQ
@@ -700,8 +705,8 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
 #define FA_DKV(D)                                                          \
   bwd_dkv<D>(q, k, v, dout, lse, delta, dk, dv, batch, q_len, kv_len, \
              q_heads, kv_heads, scale, causal, st)
-#define FA_DKV_SM90(D)                                                         \
-  bwd_dkv_sm90<D>(q, k, v, dout, lse, delta, dk, dv, batch, q_len, kv_len, \
+#define FA_DKV_SM90(E, D)                                                      \
+  bwd_dkv_sm90<E, D>(q, k, v, dout, lse, delta, dk, dv, batch, q_len, kv_len, \
                   q_heads, kv_heads, scale, causal, splits, workspace, st)
   FA_DISPATCH(FA_DKV, FA_DKV_SM90)
 #undef FA_DKV

@@ -51,12 +51,16 @@
 // contiguous ranges of query tiles.
 // Each split writes its f32 partial sums to a workspace [2, NS, B, Sk, KH,
 // D] (dK, then dV), and flash_bwd_dkv_reduce_kernel adds the NS partials
-// in index order and rounds to bf16.  NS = 1 writes bf16 directly.  NS is
+// in index order and rounds to E.  NS = 1 writes E directly.  NS is
 // a pure function of the shape, so the result stays deterministic.
 //
-// Precision.  P and dS enter their second products as hi + lo bf16 terms,
-// as P does in the forward (one bf16 term adds a 2^-9 relative error to
-// each, against the one-ulp tolerance the port holds its kernels to).
+// Precision.  P and dS enter their second products as hi + lo terms of
+// the element type E (bf16 or fp16, as the forward's; see
+// attention_sm90.cuh), as P does in the forward (one bf16 term adds a
+// 2^-9 relative error to each, against the one-ulp tolerance the port
+// holds its kernels to).  In fp16 a dS past 65504 (a large loss scale)
+// leaves dQ and dK inf or NaN, as JAX's ds.astype(k.dtype) does
+// (flash.py:183, :226): a GradScaler skips that step.
 // Bound: 6 D (dQ) and 8 D (dK/dV) flops per visible (query, key) pair and
 // query head; the lo terms add 2 D to each, so dQ issues 8 D (4/3 of its
 // bound's tensor work) and dK/dV 12 D (3/2), and D 160's shared key tile
@@ -75,9 +79,9 @@ struct BwdArgs {
   CUtensorMap tq, tdo, tk, tv;  // q, dout [B, Sq, H, D]; k, v [B, Sk, KH, D]
   const float* lse;             // [B, H, Sq]
   const float* delta;           // [B, H, Sq]
-  bf16* dq;
-  bf16* dk;
-  bf16* dv;
+  void* dq;                     // E (bf16 or fp16, as q)
+  void* dk;
+  void* dv;
   float* ws;                    // [2, NS, B, Sk, KH, D] f32 when NS > 1
   int B, Sq, Sk, H, KH, causal, splits;
   float scale, sl2;             // sl2 = scale * log2 e
@@ -166,7 +170,7 @@ __device__ __forceinline__ void p_ds_cols(float (&s)[4 * NB],
 }
 
 // ------------------------------------------------------------------ dQ
-template <int D>
+template <class E, int D>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ BwdArgs p) {
   using T = Dims<D>;
@@ -285,14 +289,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ BwdArgs p) {
       mbar_wait(q_full, 0);
       mbar_wait(&full[0], 0);
       wgmma_fence();
-      issue_qk<T::KS>(s, qa, smem_u32(sK));
-      issue_qk<T::KS>(dp, oa, smem_u32(sV));
+      issue_qk<E, T::KS>(s, qa, smem_u32(sK));
+      issue_qk<E, T::KS>(dp, oa, smem_u32(sV));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
       grad(0);
-      to_hi_lo(s, dh, dlo);
+      to_hi_lo<E>(s, dh, dlo);
     }
     // S and dP of tile kt + 1 are in flight with dQ += dS K of tile kt;
     // straight-line body, the last tile peeled (see attention_sm90.cuh)
@@ -301,10 +305,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ BwdArgs p) {
       mbar_wait(&full[sn], ((kt + 1) / ST) & 1);
       fence_regs(acc);
       wgmma_fence();
-      issue_qk<T::KS>(s, qa, smem_u32(sK + sn * T::TILE));
-      issue_qk<T::KS>(dp, oa, smem_u32(sV + sn * T::TILE));
+      issue_qk<E, T::KS>(s, qa, smem_u32(sK + sn * T::TILE));
+      issue_qk<E, T::KS>(dp, oa, smem_u32(sV + sn * T::TILE));
       wgmma_commit();
-      issue_pv<T::DP>(acc, dh, dlo, smem_u32(sK + st * T::TILE));
+      issue_pv<E, T::DP>(acc, dh, dlo, smem_u32(sK + st * T::TILE));
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(s);
@@ -314,13 +318,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ BwdArgs p) {
       fence_regs(acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[st]);
-      to_hi_lo(s, dh, dlo);
+      to_hi_lo<E>(s, dh, dlo);
     }
     if (my > 0) {
       const int st = (my - 1) % ST;
       fence_regs(acc);
       wgmma_fence();
-      issue_pv<T::DP>(acc, dh, dlo, smem_u32(sK + st * T::TILE));
+      issue_pv<E, T::DP>(acc, dh, dlo, smem_u32(sK + st * T::TILE));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -339,11 +343,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ BwdArgs p) {
     for (int hf = 0; hf < 2; ++hf) {
       const int i = i0 + 8 * hf;
       if (i >= nv) continue;
-      bf16* op = p.dq + (((size_t)b * Sq + tile * BM + i) * p.H + h) * D + 2 * t;
+      typename E::T* op = static_cast<typename E::T*>(p.dq) +
+                          (((size_t)b * Sq + tile * BM + i) * p.H + h) * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(op + 8 * n) =
-            __floats2bfloat162_rn(acc[4 * n + 2 * hf], acc[4 * n + 2 * hf + 1]);
+        *reinterpret_cast<typename E::T2*>(op + 8 * n) =
+            E::pack(acc[4 * n + 2 * hf], acc[4 * n + 2 * hf + 1]);
     }
   }
 }
@@ -352,7 +357,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ BwdArgs p) {
 // One consumer warpgroup's walk over the stages: the tiles before its
 // first visible query tile are released unread, the rest computed.  DK,
 // DV: which of the two it accumulates.
-template <int D, bool DK, bool DV>
+template <class E, int D, bool DK, bool DV>
 __device__ __forceinline__ void dkv_consumer(
     const BwdArgs& p, uint8_t* sQ, uint8_t* sO, const float* sL,
     const float* sD, uint64_t* full, uint64_t* empty, uint32_t ka,
@@ -397,8 +402,8 @@ __device__ __forceinline__ void dkv_consumer(
         if constexpr (DK) fence_regs(ak);
         if constexpr (DV) fence_regs(av);
         wgmma_fence();
-        issue_qk<T::KS>(s, ka, qr);                     // S^T = K Q^T
-        if constexpr (DK) issue_qk<T::KS>(dp, va, orow);  // dP^T = V dO^T
+        issue_qk<E, T::KS>(s, ka, qr);                     // S^T = K Q^T
+        if constexpr (DK) issue_qk<E, T::KS>(dp, va, orow);  // dP^T = V dO^T
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
@@ -411,9 +416,9 @@ __device__ __forceinline__ void dkv_consumer(
         else
           p_ds_cols<true, DK, NB>(s, dp, sl, sd, q0, Sq, Sk, off, causal, kr, t, sl2, scale);
         if constexpr (DV) {
-          to_hi_lo(s, ph, pl);
+          to_hi_lo<E>(s, ph, pl);
           wgmma_fence();
-          issue_pv<T::DP>(av, ph, pl, orow);  // dV += P^T dO
+          issue_pv<E, T::DP>(av, ph, pl, orow);  // dV += P^T dO
           wgmma_commit();
         }
         if constexpr (DK) {
@@ -422,9 +427,9 @@ __device__ __forceinline__ void dkv_consumer(
             wgmma_wait<0>();
             fence_regs(av);
           }
-          to_hi_lo(dp, dh, dlo);
+          to_hi_lo<E>(dp, dh, dlo);
           wgmma_fence();
-          issue_pv<T::DP>(ak, dh, dlo, qr);  // dK += dS^T Q
+          issue_pv<E, T::DP>(ak, dh, dlo, qr);  // dK += dS^T Q
           wgmma_commit();
         }
         wgmma_wait<0>();
@@ -436,7 +441,7 @@ __device__ __forceinline__ void dkv_consumer(
     }
   }
 
-  // epilogue: bf16 (one split) or this split's f32 partial sums
+  // epilogue: E (one split) or this split's f32 partial sums
   const size_t plane = (size_t)p.B * Sk * p.KH * D;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -448,11 +453,11 @@ __device__ __forceinline__ void dkv_consumer(
       const int i = 4 * c + 2 * hf;
       if (p.splits == 1) {
         if constexpr (DK)
-          *reinterpret_cast<__nv_bfloat162*>(p.dk + row + 8 * c) =
-              __floats2bfloat162_rn(ak[i], ak[i + 1]);
+          *reinterpret_cast<typename E::T2*>(static_cast<typename E::T*>(p.dk) +
+                                             row + 8 * c) = E::pack(ak[i], ak[i + 1]);
         if constexpr (DV)
-          *reinterpret_cast<__nv_bfloat162*>(p.dv + row + 8 * c) =
-              __floats2bfloat162_rn(av[i], av[i + 1]);
+          *reinterpret_cast<typename E::T2*>(static_cast<typename E::T*>(p.dv) +
+                                             row + 8 * c) = E::pack(av[i], av[i + 1]);
       } else {
         if constexpr (DK)
           *reinterpret_cast<float2*>(p.ws + sp * plane + row + 8 * c) =
@@ -465,7 +470,7 @@ __device__ __forceinline__ void dkv_consumer(
   }
 }
 
-template <int D>
+template <class E, int D>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ BwdArgs p) {
   using T = Dims<D>;
@@ -573,24 +578,25 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ BwdArgs p) {
     const uint32_t va = smem_u32(sV + j * T::TILE);
     if (qf < qe) mbar_wait(kv_full, 0);
     if constexpr (NKT == 2) {
-      dkv_consumer<D, true, true>(p, sQ, sO, sL, sD, full, empty, ka, va, k0, b,
+      dkv_consumer<E, D, true, true>(p, sQ, sO, sL, sD, full, empty, ka, va, k0, b,
                                   kh, sp, G, qlo, qf, qe, warp, lane);
     } else {
       if (wg == 0)
-        dkv_consumer<D, false, true>(p, sQ, sO, sL, sD, full, empty, ka, va, k0,
+        dkv_consumer<E, D, false, true>(p, sQ, sO, sL, sD, full, empty, ka, va, k0,
                                      b, kh, sp, G, qlo, qf, qe, warp, lane);
       else
-        dkv_consumer<D, true, false>(p, sQ, sO, sL, sD, full, empty, ka, va, k0,
+        dkv_consumer<E, D, true, false>(p, sQ, sO, sL, sD, full, empty, ka, va, k0,
                                      b, kh, sp, G, qlo, qf, qe, warp, lane);
     }
   }
 }
 
-// dk, dv = bf16 of the NS partials [2, NS, n] summed in index order
+// dk, dv = E of the NS partials [2, NS, n] summed in index order
+template <class E>
 __global__ void flash_bwd_dkv_reduce_kernel(const float* __restrict__ ws,
-                                            bf16* __restrict__ dk,
-                                            bf16* __restrict__ dv, size_t n,
-                                            int ns) {
+                                            typename E::T* __restrict__ dk,
+                                            typename E::T* __restrict__ dv,
+                                            size_t n, int ns) {
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (size_t)gridDim.x * blockDim.x) {
     float a = 0.f, c = 0.f;
@@ -598,28 +604,29 @@ __global__ void flash_bwd_dkv_reduce_kernel(const float* __restrict__ ws,
       a = __fadd_rn(a, ws[s * n + e]);
       c = __fadd_rn(c, ws[(ns + s) * n + e]);
     }
-    dk[e] = __float2bfloat16_rn(a);
-    dv[e] = __float2bfloat16_rn(c);
+    dk[e] = E::one(a);
+    dv[e] = E::one(c);
   }
 }
 
 // ------------------------------------------------------------------ host
 // Tensor maps of q and dout ([B, Sq, H, D], boxes of 64 rows of one head)
 // and of k and v ([B, Sk, KH, D]); false when an encode fails.
+template <class E>
 inline bool bwd_maps(BwdArgs& a, const void* q, const void* k, const void* v,
                      const void* dout, int D) {
-  const uint64_t row = (uint64_t)D * sizeof(bf16);
+  const uint64_t row = (uint64_t)D * sizeof(typename E::T);
   const uint64_t sk = a.Sk > 0 ? a.Sk : 1;
   const int B = a.B, Sq = a.Sq, H = a.H, KH = a.KH;
-  return make_map(&a.tq, q, D, H, Sq, B, row, row * H, row * H * Sq, 1, BM, 1) &&
-         make_map(&a.tdo, dout, D, H, Sq, B, row, row * H, row * H * Sq, 1, BM, 1) &&
-         make_map(&a.tk, k, D, KH, sk, B, row, row * KH, row * KH * sk, 1, BN, 1) &&
-         make_map(&a.tv, v, D, KH, sk, B, row, row * KH, row * KH * sk, 1, BN, 1);
+  return make_map<E>(&a.tq, q, D, H, Sq, B, row, row * H, row * H * Sq, 1, BM, 1) &&
+         make_map<E>(&a.tdo, dout, D, H, Sq, B, row, row * H, row * H * Sq, 1, BM, 1) &&
+         make_map<E>(&a.tk, k, D, KH, sk, B, row, row * KH, row * KH * sk, 1, BN, 1) &&
+         make_map<E>(&a.tv, v, D, KH, sk, B, row, row * KH, row * KH * sk, 1, BN, 1);
 }
 
-template <int D>
+template <class E, int D>
 cudaError_t launch_bwd_dq(const BwdArgs& a, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_sm90_kernel<D>;
+  auto kernel = flash_bwd_dq_sm90_kernel<E, D>;
   constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -629,9 +636,9 @@ cudaError_t launch_bwd_dq(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <class E, int D>
 cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_sm90_kernel<D>;
+  auto kernel = flash_bwd_dkv_sm90_kernel<E, D>;
   constexpr size_t smem = dkv_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -643,8 +650,9 @@ cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t stream) {
   if (e != cudaSuccess || a.splits == 1) return e;
   const size_t n = (size_t)a.B * a.Sk * a.KH * D;
   const int blocks = n / 256 + 1 < 4096 ? (int)(n / 256 + 1) : 4096;
-  flash_bwd_dkv_reduce_kernel<<<blocks, 256, 0, stream>>>(a.ws, a.dk, a.dv, n,
-                                                          a.splits);
+  flash_bwd_dkv_reduce_kernel<E><<<blocks, 256, 0, stream>>>(
+      a.ws, static_cast<typename E::T*>(a.dk), static_cast<typename E::T*>(a.dv),
+      n, a.splits);
   return cudaGetLastError();
 }
 

@@ -23,14 +23,15 @@
 // masked probabilities are a literal 0 (never exp(NEG_INF - m)), and acc
 // is divided by l once, at the end.  Two kernels:
 //
-// bf16 q over a bf16 or an int8 pool: the Hopper mainloop of
-//   attention_sm90.cuh (wgmma on the tensor cores, K/V by TMA) with the
-//   paged loaders below.  A tile is 64 query vectors; a block owns one
+// bf16 or fp16 q over a pool of its dtype or an int8 pool: the Hopper
+//   mainloop of attention_sm90.cuh (wgmma on the tensor cores, K/V by
+//   TMA; the element type a template parameter) with the paged loaders
+//   below.  A tile is 64 query vectors; a block owns one
 //   tile (decode: one tile holds every vector of a (lane, kv head)) or
 //   two.  The loader views the pool as
 //   rows of KH * D elements and issues one TMA box of 16 tokens per table
 //   column, four columns per 64-key tile; the producer warp reads the
-//   table, 32 columns at a time, itself.  Every bf16 window (decode, spec
+//   table, 32 columns at a time, itself.  Every 16-bit window (decode, spec
 //   verify, prefill) takes this one path and walks the same fixed 64-key
 //   tiles from key 0, so each output row's bits depend only on its q
 //   vector and its visible keys: not on s, the lane count, nb, or the
@@ -38,8 +39,9 @@
 //   kv_cache_dtype="int8") takes the mainloop's int8 policy: per table
 //   column the producer warp issues two TMA boxes of 16 tokens x D int8
 //   bytes and two 64-byte bulk copies of the 16 + 16 scales into a
-//   staging slot, three converter warps turn the slot into the bf16 K/V
-//   stage (exact: int8 values are bf16 integers), and the consumers
+//   staging slot, three converter warps turn the slot into the query's
+//   16-bit K/V stage (exact: int8 values are bf16 and fp16 integers), and
+//   the consumers
 //   multiply S's columns by the K scales and P's by the V scales in f32.
 //   So int8 decode, verify, chunk and prefill windows run on the tensor
 //   cores along the same fixed tiles, and keep the row invariance above.
@@ -264,12 +266,15 @@ paged_attn_kernel(const QT* __restrict__ q, const PT* __restrict__ k_pool,
 // Q tile is one TMA box {D, G heads, TR rows}; a K/V tile is four boxes of
 // 16 tokens, one per table column, and the columns past the block's
 // deepest visible key are not loaded (their ring rows keep finite values
-// from earlier tiles or the initial zeros, under probability 0).
+// from earlier tiles or the initial zeros, under probability 0).  E: the
+// query's element type, bf16 or fp16 (sm90::BF16, sm90::F16).
+template <class E_>
 struct PagedProblem {
+  typedef E_ E;
   CUtensorMap tq, tk, tv;  // q [B, S, QH, D]; pools [NB, 16, KH, D]
   const int* tables;
   const int* pos;
-  sm90::bf16* out;
+  typename E::T* out;
   int S, QH, KH, G, TR, nb;
   float sl2;  // log2 e / sqrt(D)
   static constexpr bool kOverlap = false;  // see attention_sm90.cuh
@@ -328,7 +333,7 @@ struct PagedProblem {
     __syncwarp();
   }
   template <int D>
-  __device__ sm90::bf16* out_row(const Cta& c, int tile, int i) const {
+  __device__ typename E::T* out_row(const Cta& c, int tile, int i) const {
     const int r = tile * TR + i / G;
     return out + (((size_t)c.b * S + r) * QH + c.kh * G + i % G) * D;
   }
@@ -340,8 +345,15 @@ struct PagedProblem {
 // (sm90::Staged): per table column j one TMA box of 16 tokens x D int8
 // bytes of K at j 16 D and of V at KV + j 16 D (unswizzled rows: the
 // converters read them), and the column's 16 K and 16 V scales, 64 bytes
-// each, by bulk copy after them.
-struct PagedInt8Problem : PagedProblem {
+// each, by bulk copy after them.  The converters write E (int8 values
+// are exact in bf16 and in fp16).
+template <class E_>
+struct PagedInt8Problem : PagedProblem<E_> {
+  using typename PagedProblem<E_>::Cta;
+  using PagedProblem<E_>::tk;
+  using PagedProblem<E_>::tv;
+  using PagedProblem<E_>::tables;
+  using PagedProblem<E_>::nb;
   const float* k_scale;  // [NB, 16]
   const float* v_scale;
   static constexpr bool kZeroRing = false;  // every stage is converted whole
@@ -375,8 +387,8 @@ struct PagedInt8Problem : PagedProblem {
   }
 };
 
-// bf16 q over a bf16 pool (Prob = PagedProblem) or an int8 pool
-// (PagedInt8Problem, whose scales the caller has set)
+// a bf16 or fp16 q over a pool of its dtype (Prob = PagedProblem<E>) or
+// an int8 pool (PagedInt8Problem<E>, whose scales the caller has set)
 template <int D, class Prob>
 cudaError_t launch_paged(Prob& p, const void* q, const void* k_pool,
                          const void* v_pool, const int* tables, const int* pos,
@@ -386,8 +398,9 @@ cudaError_t launch_paged(Prob& p, const void* q, const void* k_pool,
   p.G = q_heads / kv_heads;
   p.TR = sm90::BM / p.G;
   if (p.TR < 1) return cudaErrorInvalidValue;
-  const uint64_t row = (uint64_t)D * sizeof(sm90::bf16);
-  bool ok = sm90::make_map(&p.tq, q, D, q_heads, q_len, batch, row,
+  using E = typename Prob::E;
+  const uint64_t row = (uint64_t)D * sizeof(typename E::T);
+  bool ok = sm90::make_map<E>(&p.tq, q, D, q_heads, q_len, batch, row,
                            row * q_heads, row * q_heads * q_len, p.G, p.TR, 1);
   if constexpr (Prob::kInt8) {
     const uint64_t r8 = D;  // an int8 pool row: D bytes
@@ -402,15 +415,15 @@ cudaError_t launch_paged(Prob& p, const void* q, const void* k_pool,
                           CU_TENSOR_MAP_SWIZZLE_NONE);
   } else {
     ok = ok &&
-         sm90::make_map(&p.tk, k_pool, D, kv_heads, BS, num_blocks, row,
+         sm90::make_map<E>(&p.tk, k_pool, D, kv_heads, BS, num_blocks, row,
                         row * kv_heads, row * kv_heads * BS, 1, BS, 1) &&
-         sm90::make_map(&p.tv, v_pool, D, kv_heads, BS, num_blocks, row,
+         sm90::make_map<E>(&p.tv, v_pool, D, kv_heads, BS, num_blocks, row,
                         row * kv_heads, row * kv_heads * BS, 1, BS, 1);
   }
   if (!ok) return cudaErrorInvalidValue;
   p.tables = tables;
   p.pos = pos;
-  p.out = static_cast<sm90::bf16*>(out);
+  p.out = static_cast<typename E::T*>(out);
   p.S = q_len;
   p.QH = q_heads;
   p.KH = kv_heads;
@@ -462,12 +475,22 @@ cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
 #define PAGED_ARGS q, k_pool, v_pool, tables, pos, out, batch, q_len, \
                    q_heads, kv_heads, nb, num_blocks, stream
   if (dtype == 1 && !quantized) {
-    PagedProblem p;
+    PagedProblem<sm90::BF16> p;
+    return launch_paged<D>(p, PAGED_ARGS);
+  }
+  if (dtype == 2 && !quantized) {
+    PagedProblem<sm90::F16> p;
     return launch_paged<D>(p, PAGED_ARGS);
   }
   if (dtype == 0 && quantized) return launch<float, int8_t, D, true>(PA_ARGS);
   if (dtype == 1 && quantized) {
-    PagedInt8Problem p;
+    PagedInt8Problem<sm90::BF16> p;
+    p.k_scale = k_scale;
+    p.v_scale = v_scale;
+    return launch_paged<D>(p, PAGED_ARGS);
+  }
+  if (dtype == 2 && quantized) {
+    PagedInt8Problem<sm90::F16> p;
     p.k_scale = k_scale;
     p.v_scale = v_scale;
     return launch_paged<D>(p, PAGED_ARGS);

@@ -1,6 +1,5 @@
 """``paddle_tpu_torch.io``, the counterpart of ``paddle_tpu/io``: datasets,
-samplers and the DataLoader (``record.py`` and ``reader_compat.py`` are
-not ported yet)."""
+samplers, the DataLoader, the ``PTRECD01`` record file and ``batch``."""
 
 from .dataloader import (DataLoader, WorkerInfo, default_collate_fn,
                          get_worker_info)
@@ -8,15 +7,18 @@ from .dataset import (
     ChainDataset, ComposeDataset, ConcatDataset, Dataset, IterableDataset,
     Subset, TensorDataset, ZipDataset, random_split,
 )
+from .reader_compat import batch
+from .record import RecordDataset, RecordFile, RecordWriter
 from .sampler import (
     BatchSampler, DistributedBatchSampler, RandomSampler, Sampler,
     SequenceSampler, SubsetRandomSampler, WeightedRandomSampler,
 )
 
 __all__ = ["BatchSampler", "ChainDataset", "ComposeDataset",
-           "ConcatDataset", "DataLoader", "Dataset",
+           "ConcatDataset", "DataLoader", "Dataset", "RecordDataset",
+           "RecordFile", "RecordWriter",
            "DistributedBatchSampler", "IterableDataset", "RandomSampler",
            "Sampler", "SequenceSampler", "Subset", "SubsetRandomSampler",
            "TensorDataset", "WeightedRandomSampler", "WorkerInfo",
-           "ZipDataset", "default_collate_fn", "get_worker_info",
+           "ZipDataset", "batch", "default_collate_fn", "get_worker_info",
            "random_split"]

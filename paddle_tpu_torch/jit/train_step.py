@@ -13,12 +13,20 @@ the forward updated, keep their update, as JAX's ``new_buffers``); then
 the scale and the counters move.  The scale, the counters and the
 overflow flag stay on the device: no step reads them on the host.
 
+``many(batches)`` runs K steps over K equal-shape batches and returns
+their losses as one ``[K]`` tensor, JAX's contract
+(``train_step.py:428-533``).  JAX scans one compiled program over the K
+steps; here they are K eager steps, so an RNG-free pack equals K
+sequential calls bit for bit (and so does one that draws: the port's
+counter stream gives the K steps their sequential keys, where JAX's
+splits one key).  Nothing in a step moves the learning-rate schedule,
+so the pack reads one rate, as JAX's reads it once.
+
 The JAX step is one jitted XLA program; PyTorch runs eagerly, and the
 hand-written kernels carry the attention and norms.  Not ported yet
 (TPU/XLA machinery, each named in ROADMAP.md): AUTO layouts, the update
-barrier, ``many()`` (whose Hopper counterpart is a CUDA graph of the
-step).  The grads are dropped after the update, as the JAX step keeps
-none.
+barrier, a pack captured as one program (a CUDA graph of the steps).
+The grads are dropped after the update, as the JAX step keeps none.
 """
 
 from __future__ import annotations
@@ -60,6 +68,26 @@ class TrainStep:
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.has_aux = has_aux
+
+    def many(self, batches):
+        """K steps, one a batch of ``batches`` (K batch tuples, or single
+        tensors, of equal shapes); returns the K losses as a ``[K]``
+        tensor.  Raises with ``has_aux`` (each step's aux would have to be
+        stacked) and on an empty or ragged pack."""
+        if not batches:
+            raise ValueError("many() expects at least one batch")
+        if self.has_aux:
+            raise ValueError("many() does not support has_aux steps (the "
+                             "per-step aux would be K-stacked; run "
+                             "__call__ per step instead)")
+        tuples = [b if isinstance(b, (tuple, list)) else (b,)
+                  for b in batches]
+        shapes = [[tuple(getattr(x, "shape", ())) for x in b]
+                  for b in tuples]
+        if any(s != shapes[0] for s in shapes):
+            raise ValueError(f"many() expects equal-shape batches, got "
+                             f"{shapes}")
+        return torch.stack([self(*b) for b in tuples])
 
     def __call__(self, *batch):
         opt = self.optimizer

@@ -38,6 +38,7 @@ from ..nn.activation import GELU, Tanh
 from ..nn.common import Dropout, Embedding, Linear
 from ..nn.norm import LayerNorm
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
+from ..tensor import matmul
 
 
 @dataclass
@@ -155,7 +156,8 @@ class BertLMPredictionHead(nn.Module):
 
     def forward(self, x):
         x = self.layer_norm(self.activation(self.transform(x)))
-        return torch.matmul(x, self.decoder_weight.t()) + self.decoder_bias
+        # JAX's paddle matmul: an auto_cast scope casts both operands
+        return matmul(x, self.decoder_weight.t()) + self.decoder_bias
 
 
 class BertForMaskedLM(nn.Module):

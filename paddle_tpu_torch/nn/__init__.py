@@ -24,7 +24,8 @@ from .pooling import (
     AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
 )
 from .transformer import (
-    MultiHeadAttention, TransformerEncoder, TransformerEncoderLayer,
+    MultiHeadAttention, Transformer, TransformerDecoder,
+    TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
 )
 
 __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
@@ -42,6 +43,7 @@ __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "MultiHeadAttention", "MultiLabelSoftMarginLoss",
            "MultiMarginLoss", "NLLLoss", "PoissonNLLLoss", "ReLU",
            "Sequential", "SmoothL1Loss", "SoftMarginLoss", "Tanh",
+           "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
            "TransformerEncoder", "TransformerEncoderLayer",
            "TripletMarginLoss", "TripletMarginWithDistanceLoss",
            "functional"]

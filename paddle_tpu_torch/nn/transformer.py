@@ -1,7 +1,9 @@
-"""The Transformer encoder, the counterpart of
-``paddle_tpu/nn/layer/transformer.py:23-186``: ``MultiHeadAttention``,
-``TransformerEncoderLayer`` (post-norm, or pre-norm with
-``normalize_before``) and ``TransformerEncoder``.
+"""The Transformer layers, the counterparts of
+``paddle_tpu/nn/layer/transformer.py``: ``MultiHeadAttention`` with its
+incremental-decoding caches, ``TransformerEncoderLayer`` and
+``TransformerDecoderLayer`` (post-norm, or pre-norm with
+``normalize_before``), ``TransformerEncoder``, ``TransformerDecoder`` and
+``Transformer``.
 
 Parameter names match the JAX layers' ``state_dict()`` keys.  Self-
 attention with ``kdim == vdim == embed_dim`` multiplies q, k and v as
@@ -13,23 +15,33 @@ Attention goes through ``nn.functional.scaled_dot_product_attention``:
 the flash kernels with no mask and no training dropout, the plain f32
 path otherwise.
 
-The incremental-decoding cache (``gen_cache``) and the decoder half
-(``TransformerDecoderLayer``, ``Transformer``) are not ported.
+Incremental decoding, as JAX's: ``MultiHeadAttention.gen_cache`` gives a
+``Cache`` (k and v ``[B, 0, H, D]`` in float32, which each step's k and v
+join along axis 1) or a ``StaticCache`` (k and v projected once from the
+memory: the cross-attention's); ``forward(..., cache=)`` then returns
+``(out, new_cache)``.  Only a call without a cache multiplies q, k and v
+as one product.  A decoding step takes one query row and no mask, so its
+attention runs the flash forward at ``q_len`` 1.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from . import functional as F
 from .common import Dropout, Linear
 from .norm import LayerNorm
 
 
 class MultiHeadAttention(nn.Module):
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
+
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, bias_attr=None, device=None,
                  dtype=None):
@@ -55,10 +67,25 @@ class MultiHeadAttention(nn.Module):
         b, s = x.shape[0], x.shape[1]
         return x.reshape(b, s, self.num_heads, self.head_dim)
 
-    def forward(self, query, key=None, value=None, attn_mask=None):
+    def gen_cache(self, key, value=None, type=None):
+        """A ``StaticCache`` of ``key`` and ``value`` (``key`` when None)
+        projected to heads, or an empty ``Cache`` for ``key``'s batch."""
+        if type == MultiHeadAttention.StaticCache:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(
+                value if value is not None else key))
+            return self.StaticCache(k, v)
+        empty = torch.zeros(key.shape[0], 0, self.num_heads, self.head_dim,
+                            device=key.device)
+        return self.Cache(empty, empty)
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
         key = query if key is None else key
         value = query if value is None else value
-        if self._fuse_qkv and key is query and value is query:
+        new_cache = None
+        if self._fuse_qkv and key is query and value is query and \
+                cache is None:
             w = torch.cat([self.q_proj.weight, self.k_proj.weight,
                            self.v_proj.weight], dim=0)          # [3E, E]
             bias = None
@@ -71,13 +98,23 @@ class MultiHeadAttention(nn.Module):
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
             q = self._split_heads(self.q_proj(query))
-            k = self._split_heads(self.k_proj(key))
-            v = self._split_heads(self.v_proj(value))
+            if isinstance(cache, self.StaticCache):
+                k, v = cache.k, cache.v
+                new_cache = cache
+            else:
+                k = self._split_heads(self.k_proj(key))
+                v = self._split_heads(self.v_proj(value))
+                if isinstance(cache, self.Cache):
+                    k = torch.cat([cache.k, k], dim=1)
+                    v = torch.cat([cache.v, v], dim=1)
+                    new_cache = self.Cache(k, v)
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
             training=self.training)
         b, s = out.shape[0], out.shape[1]
         out = self.out_proj(out.reshape(b, s, self.embed_dim))
+        if cache is not None and new_cache is not None:
+            return out, new_cache
         if self.need_weights:
             return out, None
         return out
@@ -104,11 +141,14 @@ class TransformerEncoderLayer(nn.Module):
         self.dropout2 = Dropout(dropout)
         self.activation = getattr(F, activation)
 
-    def forward(self, src, src_mask=None):
+    def forward(self, src, src_mask=None, cache=None):
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
-        src = self.self_attn(src, src, src, src_mask)
+        if cache is None:
+            src = self.self_attn(src, src, src, src_mask)
+        else:
+            src, cache = self.self_attn(src, src, src, src_mask, cache)
         src = residual + self.dropout1(src)
         if not self.normalize_before:
             src = self.norm1(src)
@@ -119,7 +159,10 @@ class TransformerEncoderLayer(nn.Module):
         src = residual + self.dropout2(src)
         if not self.normalize_before:
             src = self.norm2(src)
-        return src
+        return src if cache is None else (src, cache)
+
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src, type=MultiHeadAttention.Cache)
 
 
 class TransformerEncoder(nn.Module):
@@ -134,10 +177,175 @@ class TransformerEncoder(nn.Module):
         self.num_layers = num_layers
         self.norm = norm
 
-    def forward(self, src, src_mask=None):
+    def forward(self, src, src_mask=None, cache=None):
         output = src
-        for layer in self.layers:
-            output = layer(output, src_mask)
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                output = layer(output, src_mask)
+            else:
+                output, new_cache = layer(output, src_mask, cache[i])
+                new_caches.append(new_cache)
         if self.norm is not None:
             output = self.norm(output)
-        return output
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Self-attention, cross-attention over ``memory`` and the feed-
+    forward block, each with its residual and LayerNorm."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, bias_attr=None, layer_norm_eps=1e-5,
+                 device=None, dtype=None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        kw = dict(device=device, dtype=dtype)
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            bias_attr=bias_attr, **kw)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                             bias_attr=bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, bias_attr, **kw)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, bias_attr, **kw)
+        self.norm1 = LayerNorm(d_model, layer_norm_eps, **kw)
+        self.norm2 = LayerNorm(d_model, layer_norm_eps, **kw)
+        self.norm3 = LayerNorm(d_model, layer_norm_eps, **kw)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+            incremental_cache = None
+        else:
+            tgt, incremental_cache = self.self_attn(tgt, tgt, tgt, tgt_mask,
+                                                    cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        if cache is None:
+            tgt = self.cross_attn(tgt, memory, memory, memory_mask)
+            static_cache = None
+        else:
+            tgt, static_cache = self.cross_attn(tgt, memory, memory,
+                                                memory_mask, cache[1])
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incremental_cache,
+                                                static_cache))
+
+    def gen_cache(self, memory):
+        """(an empty self-attention ``Cache``, the cross-attention's
+        ``StaticCache`` of ``memory``)."""
+        incremental_cache = self.self_attn.gen_cache(
+            memory, type=MultiHeadAttention.Cache)
+        static_cache = self.cross_attn.gen_cache(
+            memory, memory, type=MultiHeadAttention.StaticCache)
+        return incremental_cache, static_cache
+
+
+class TransformerDecoder(nn.Module):
+    """``num_layers`` copies of ``decoder_layer`` (deep copies), then
+    ``norm`` if given."""
+
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [decoder_layer] + [copy.deepcopy(decoder_layer)
+                               for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output = tgt
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                output = layer(output, memory, tgt_mask, memory_mask)
+            else:
+                output, new_cache = layer(output, memory, tgt_mask,
+                                          memory_mask, cache[i])
+                new_caches.append(new_cache)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        """Each layer's ``(Cache, StaticCache)``; with ``do_zip`` the
+        pairs zipped into (every ``Cache``, every ``StaticCache``)."""
+        cache = [layer.gen_cache(memory) for layer in self.layers]
+        if do_zip:
+            cache = list(zip(*cache))
+        return cache
+
+
+class Transformer(nn.Module):
+    """The encoder-decoder of "Attention Is All You Need": by default
+    its base model (d_model 512, 8 heads, 6 + 6 post-norm layers, FFN
+    2048, dropout 0.1), or ``custom_encoder`` / ``custom_decoder``.  A
+    final LayerNorm closes each stack only with ``normalize_before``."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, bias_attr=None, custom_encoder=None,
+                 custom_decoder=None, device=None, dtype=None):
+        super().__init__()
+        self.d_model = d_model
+        self.nhead = nhead
+        kw = dict(device=device, dtype=dtype)
+        layer_args = (d_model, nhead, dim_feedforward, dropout, activation,
+                      attn_dropout, act_dropout, normalize_before, bias_attr)
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            enc_norm = LayerNorm(d_model, **kw) if normalize_before else None
+            self.encoder = TransformerEncoder(
+                TransformerEncoderLayer(*layer_args, **kw),
+                num_encoder_layers, enc_norm)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            dec_norm = LayerNorm(d_model, **kw) if normalize_before else None
+            self.decoder = TransformerDecoder(
+                TransformerDecoderLayer(*layer_args, **kw),
+                num_decoder_layers, dec_norm)
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length, device=None):
+        """The additive causal mask ``[length, length]`` in float32: 0 on
+        and below the diagonal, -1e9 above."""
+        return torch.full((length, length), -1e9, dtype=torch.float32,
+                          device=resolve_device(device)).triu(1)

@@ -17,11 +17,14 @@ query ``i`` when ``i + (Sk - Sq) >= j`` (the Pallas kernels' ``_mask``).
 On CUDA tensors the three hand-written kernels of
 ``csrc/flash_attention.cu`` run (``flash_fwd_kernel``,
 ``flash_bwd_dq_kernel``, ``flash_bwd_dkv_kernel``, replacing the Pallas
-``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``; bf16 inputs run on
-the tensor cores, the forward on the Hopper wgmma + TMA mainloop of
+``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``; bf16 and float16
+inputs run on the tensor cores, the forward on the Hopper wgmma + TMA mainloop of
 ``csrc/attention_sm90.cuh`` and the backward on the same machinery in
 ``csrc/flash_bwd_sm90.cuh``, f32 inputs on the CUDA cores' FMA, all
-accumulating in f32); ``delta`` is plain torch, as the JAX package
+accumulating in f32; float16 rounds P and dS to float16 before their
+second products, as the Pallas kernels cast them to the input dtype, so
+a dS past 65504 under a large loss scale leaves the gradient inf or NaN
+and a ``GradScaler`` skips the step); ``delta`` is plain torch, as the JAX package
 computes it in jnp outside its kernels.  Where the bf16 dK/dV kernel's
 key tiles alone cannot fill the card (cross-attention over 77 keys), the
 wrapper splits its query tiles into :func:`dkv_splits` contiguous ranges
@@ -34,7 +37,7 @@ A query row with no visible key (causal with ``Sq > Sk``) outputs 0 with
 the JAX package's ``_sdpa_ref`` follows.
 
 Head dims.  The kernels are instantiated at D = 64 and 128 for f32 and
-at 48, 64, 80, 128 and 160 for bf16 (the LLaMA head and the SD UNet's
+at 48, 64, 80, 128 and 160 for bf16 and float16 (the LLaMA head and the SD UNet's
 80 and 160).  A head dim between instantiations runs at the next one up
 (:func:`kernel_head_dim`: the UNet's 40 runs at 48): the wrappers
 zero-pad q, k, v (and dout) to it and slice out, dq, dk and dv back, with
@@ -54,10 +57,11 @@ import torch
 from .. import _build
 from ..amp.auto_cast import cast_inputs
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the head dims csrc/flash_attention.cu instantiates, per dtype
 _KERNEL_HEAD_DIMS = {torch.float32: (64, 128),
-                     torch.bfloat16: (48, 64, 80, 128, 160)}
+                     torch.bfloat16: (48, 64, 80, 128, 160),
+                     torch.float16: (48, 64, 80, 128, 160)}
 
 
 def _visible(sq, sk, causal, device):
@@ -74,7 +78,7 @@ _SMS = 132
 
 
 def dkv_splits(b, sq, sk, kh, d):
-    """Query ranges that the bf16 dK/dV kernel splits into, a pure
+    """Query ranges that the 16-bit dK/dV kernel splits into, a pure
     function of the shape (so the sums, and the result, keep one order):
     1 while its blocks (128 keys each, 64 at a head dim above 128, times
     kv heads times batch) keep more than half of the card's 132 SMs busy
@@ -182,7 +186,8 @@ def _check(q, k, v, *rest):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(f"flash attention kernel: q/k/v dtypes {q.dtype}, "
-                        f"{k.dtype}, {v.dtype} (one of float32, bfloat16)")
+                        f"{k.dtype}, {v.dtype} (one of float32, bfloat16, "
+                        "float16)")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash attention kernel: q [B,Sq,H,D] and equal "
                          "k, v [B,Sk,KH,D]")
@@ -273,8 +278,7 @@ def flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, scale, causal=False):
         dk.zero_()
         dv.zero_()
     elif dk.numel():
-        ns = dkv_splits(b, sq, sk, kh, d) if q.dtype == torch.bfloat16 \
-            else 1
+        ns = 1 if q.dtype == torch.float32 else dkv_splits(b, sq, sk, kh, d)
         ws = None if ns == 1 else torch.empty(
             (2, ns, b, sk, kh, dp), dtype=torch.float32, device=q.device)
         with torch.cuda.device(q.device):
@@ -346,8 +350,7 @@ def _scale_of(q, k, scale):
 def flash_attention(q, k, v, causal=False, scale=None):
     """Attention over ``[B, S, H, D]`` (k/v may carry fewer heads), the
     flash kernels on CUDA and the plain twins on the CPU; differentiable.
-    Under an ``amp.auto_cast`` scope the inputs take its dtype (float16
-    raises: not ported)."""
+    Under an ``amp.auto_cast`` scope the inputs take its dtype."""
     q, k, v = cast_inputs("flash_attention", q, k, v)
     scale = _scale_of(q, k, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

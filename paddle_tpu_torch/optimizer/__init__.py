@@ -1,4 +1,5 @@
 from . import lr
+from .lbfgs import LBFGS
 from .optimizer import Optimizer
 from .optimizers import (
     ASGD, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb, Momentum,
@@ -7,4 +8,4 @@ from .optimizers import (
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adadelta", "RMSProp",
            "Adam", "AdamW", "Adamax", "Lamb", "Rprop", "ASGD", "NAdam",
-           "RAdam", "lr"]
+           "RAdam", "LBFGS", "lr"]

@@ -11,15 +11,15 @@ positions ``<= pos[b] + r`` (write-before-attend).  Returns
 :func:`paged_attention` runs the hand-written CUDA kernels of
 ``csrc/paged_attention.cu`` (which replace the Pallas kernel
 ``_paged_attn_kernel``) for CUDA tensors and the plain PyTorch version
-for CPU tensors; anything else raises.  A bf16 query runs the Hopper
-tensor-core kernel (the wgmma + TMA mainloop of
-``csrc/attention_sm90.cuh``) over a bf16 pool and over an int8 pool
-alike, for every window, decode and prefill: it walks fixed 64-key
+for CPU tensors; anything else raises.  A bf16 or float16 query runs
+the Hopper tensor-core kernel (the wgmma + TMA mainloop of
+``csrc/attention_sm90.cuh``) over a pool of its dtype and over an int8
+pool alike, for every window, decode and prefill: it walks fixed 64-key
 tiles from key 0, so an output row's bits depend only on its q vector
 and its visible keys, not on the window length, the lane count, ``nb``
 or the row's place in its tile.  Over an int8 pool its TMA boxes bring
-int8 K/V and the scales, idle producer warps convert them to bf16
-(exactly: they are integers) and the scales multiply the scores and the
+int8 K/V and the scales, idle producer warps convert them to the query's
+dtype (exactly: they are integers) and the scales multiply the scores and the
 probabilities in f32.  An f32 query (over an f32 or an int8 pool) runs
 the FMA kernel, the precision check.
 
@@ -52,7 +52,7 @@ from .. import _build
 NEG_INF = -1e30      # finite floor: keeps exp(s - m) NaN-free when a
 #                      query row has no visible key in a block
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KERNEL_BLOCK_SIZE = 16
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_MAX_GROUP = 64      # a 64-vector tile holds one row of every group head
@@ -119,7 +119,7 @@ def check_kernel_geometry(block_size, num_heads, kv_heads, head_dim,
                          f"{_KERNEL_MAX_GROUP})")
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"paged_attention kernel: dtype {dtype} "
-                        "(float32 or bfloat16)")
+                        "(float32, bfloat16 or float16)")
 
 
 def _lib():

@@ -19,7 +19,9 @@
   the good/bad counters against JAX's ``TrainStep(scaler=)``; over the
   overflowing step the parameters and the velocities bit for bit
   unchanged, the buffers moved.
-* Float16 attention under a float16 scope raises, naming ROADMAP.md.
+* Attention under a float16 scope computes in float16 as JAX's
+  ``scaled_dot_product_attention`` does (it raised, naming ROADMAP.md,
+  before float16 attention was ported; the test keeps its name).
 
 Tolerance: f32 arithmetic in another order, within 1e-5 of each
 tensor's largest magnitude (losses 1e-5 relative); the scale and the
@@ -45,7 +47,6 @@ from paddle_tpu_torch.optimizer import SGD, AdamW, Momentum
 
 from _torch_port_util import one_thread  # noqa: F401
 
-NOT_PORTED = "ROADMAP.md Queue 1, 'The rest of the training path'"
 
 OPS = ["matmul", "linear", "conv2d", "conv3d_transpose", "flash_attention",
        "scaled_dot_product_attention", "einsum", "cross_entropy",
@@ -129,12 +130,21 @@ def test_functionals_cast_as_jax_ops_do(scope):
 
 
 def test_float16_attention_raises_naming_the_roadmap():
-    q = torch.randn(1, 8, 2, 64)
+    """No raise any more: a float16 scope casts attention to float16 and
+    the port's output is JAX's under the same scope, within float16's
+    rounding of one output (2**-10 relative, 1e-3 of the largest)."""
+    x = np.random.RandomState(0).randn(1, 8, 2, 64).astype(np.float32)
+    q = torch.from_numpy(x)
+    with paddle.amp.auto_cast(dtype="float16"):
+        want = JF.scaled_dot_product_attention(*(paddle.to_tensor(x),) * 3)
+    want = np.asarray(want._data.astype(jnp.float32))
     with amp.auto_cast(dtype="float16"):
-        with pytest.raises(TypeError, match=NOT_PORTED):
-            F.scaled_dot_product_attention(q, q, q)
-        with pytest.raises(TypeError, match=NOT_PORTED):
-            flash_attention(q, q, q)
+        for got in (F.scaled_dot_product_attention(q, q, q),
+                    flash_attention(q, q, q)):
+            assert got.dtype == torch.float16
+            np.testing.assert_allclose(got.float().numpy(), want,
+                                       rtol=2.0 ** -10,
+                                       atol=1e-3 * np.abs(want).max())
     with amp.auto_cast(dtype="bfloat16"):
         assert F.scaled_dot_product_attention(q, q, q).dtype == \
             torch.bfloat16

@@ -1,7 +1,8 @@
 """The port's CUDA build (``paddle_tpu_torch/_build.py``) and the CUDA
 sources' dispatch, read on the CPU (no nvcc, no card): the library cache
 key follows every header, and the head dims that the Python wrappers send
-to the kernels are the ones the sources instantiate."""
+to the kernels are the ones the sources instantiate (bf16 and float16
+through one element-type parameter, ``sm90::BF16`` / ``sm90::F16``)."""
 
 import importlib
 import math
@@ -52,31 +53,50 @@ def test_library_path_changes_when_a_header_is_added(csrc):
     assert _build._library_path(src) != before
 
 
+def _sm90_dims():
+    """The head dims FA_SM90_DIMS sends to CALL_SM90 (each at its own
+    instantiation), for whichever element type it is given."""
+    text = _source("flash_attention.cu")
+    block = text[text.index("#define FA_SM90_DIMS"):]
+    block = block[:block.index("#define FA_DISPATCH")]
+    dims = set()
+    for d, inst in re.findall(
+            r"head_dim == (\d+)\) return CALL_SM90\(E, (\d+)\)", block):
+        assert d == inst, f"head_dim {d} dispatched to instantiation {inst}"
+        dims.add(int(d))
+    return dims
+
+
 def _flash_dispatch():
-    """{dtype code: head dims} of FA_DISPATCH in flash_attention.cu."""
+    """{dtype code: head dims} of FA_DISPATCH in flash_attention.cu: the
+    f32 FMA kernels' lines, and the element type (sm90::BF16 or F16)
+    each 16-bit code hands to FA_SM90_DIMS."""
     text = _source("flash_attention.cu")
     block = text[text.index("#define FA_DISPATCH"):]
     block = block[:block.index("return cudaErrorInvalidValue")]
     out = {}
     for code, d, inst in re.findall(
-            r"dtype == (\d) && head_dim == (\d+)\) return CALL(?:_SM90)?\((\d+)\)",
+            r"dtype == (\d) && head_dim == (\d+)\) return CALL\((\d+)\)",
             block):
         assert d == inst, f"head_dim {d} dispatched to instantiation {inst}"
         out.setdefault(int(code), set()).add(int(d))
+    types = dict(re.findall(
+        r"if \(dtype == (\d)\) \{ FA_SM90_DIMS\(CALL_SM90, sm90::(\w+)\) \}",
+        block))
+    assert types == {"1": "BF16", "2": "F16"}, types
+    for code in types:
+        out[int(code)] = _sm90_dims()
     return out
 
 
 def _bf16_dispatch(macro):
-    """The head dims FA_DISPATCH sends to CALL_SM90 for bf16 (dtype 1) and
-    the function the entry point named ``macro`` maps CALL_SM90 to."""
+    """The head dims FA_DISPATCH sends to CALL_SM90 for the 16-bit types
+    (dtype 1 and 2) and the function the entry point named ``macro``
+    maps CALL_SM90 to."""
     text = _source("flash_attention.cu")
-    block = text[text.index("#define FA_DISPATCH"):]
-    block = block[:block.index("return cudaErrorInvalidValue")]
-    dims = {int(d) for d in re.findall(
-        r"dtype == 1 && head_dim == (\d+)\) return CALL_SM90\(", block)}
-    body = text[text.index(f"#define {macro}_SM90(D)"):]
-    fn = re.search(r"(\w+)<D>\(", body).group(1)
-    return dims, fn
+    body = text[text.index(f"#define {macro}_SM90(E, D)"):]
+    fn = re.search(r"(\w+)<E, D>\(", body).group(1)
+    return _sm90_dims(), fn
 
 
 def test_flash_head_dims_match_the_dispatch():
@@ -92,8 +112,9 @@ def test_bf16_forward_widths_have_a_wgmma_instantiation():
     text = _source("attention_sm90.cuh")
     shapes = {int(n) for n in re.findall(r"void wgmma_rs_n(\d+)\(", text)}
     dispatched = {int(n) for n in re.findall(
-        r"if constexpr \(N == (\d+)\) wgmma_rs_n\1\(", text)}
-    for d in fa._KERNEL_HEAD_DIMS[torch.bfloat16] + pa._KERNEL_HEAD_DIMS:
+        r"if constexpr \(N == (\d+)\) wgmma_rs_n\1<E>\(", text)}
+    for d in fa._KERNEL_HEAD_DIMS[torch.bfloat16] + \
+            fa._KERNEL_HEAD_DIMS[torch.float16] + pa._KERNEL_HEAD_DIMS:
         width = 64 * math.ceil(d / 64)
         assert width in shapes and width in dispatched, (d, width)
 
@@ -123,13 +144,14 @@ def test_bf16_backward_dispatches_to_the_wgmma_kernels(macro, fn):
     backward of flash_bwd_sm90.cuh, whose launchers those functions
     call."""
     dims, got = _bf16_dispatch(macro)
-    assert dims == set(fa._KERNEL_HEAD_DIMS[torch.bfloat16])
+    assert dims == set(fa._KERNEL_HEAD_DIMS[torch.bfloat16]) == \
+        set(fa._KERNEL_HEAD_DIMS[torch.float16])
     assert got == fn
     text = _source("flash_attention.cu")
     body = text[text.index(f"cudaError_t {fn}("):]
     body = body[:body.index("\n}\n")]
     kernel = "launch_bwd_dq" if macro == "FA_DQ" else "launch_bwd_dkv"
-    assert f"sm90::{kernel}<D>" in body
+    assert f"sm90::{kernel}<E, D>" in body
     assert '#include "flash_bwd_sm90.cuh"' in text
 
 
@@ -138,11 +160,12 @@ def test_bf16_backward_widths_have_a_wgmma_rs_shape():
     width: each bf16 head dim needs its wgmma_rs shape."""
     text = _source("attention_sm90.cuh")
     shapes = {int(n) for n in re.findall(
-        r"if constexpr \(N == (\d+)\) wgmma_rs_n\1\(", text)}
-    for d in fa._KERNEL_HEAD_DIMS[torch.bfloat16]:
+        r"if constexpr \(N == (\d+)\) wgmma_rs_n\1<E>\(", text)}
+    for d in fa._KERNEL_HEAD_DIMS[torch.bfloat16] + \
+            fa._KERNEL_HEAD_DIMS[torch.float16]:
         assert 64 * math.ceil(d / 64) in shapes, d
     bwd = _source("flash_bwd_sm90.cuh")
-    assert "issue_pv<T::DP>" in bwd and "wgmma" in bwd
+    assert "issue_pv<E, T::DP>" in bwd and "wgmma" in bwd
 
 
 @pytest.mark.parametrize("name", ["flash_attention.cu", "flash_bwd_sm90.cuh",

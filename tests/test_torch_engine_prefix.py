@@ -412,6 +412,7 @@ def test_kernel_geometry_check():
     """The geometry the engine checks on the card at construction."""
     check_kernel_geometry(16, 32, 32, 128, torch.bfloat16)
     check_kernel_geometry(16, 32, 8, 64, torch.float32)
+    check_kernel_geometry(16, 32, 8, 128, torch.float16)
     with pytest.raises(ValueError, match="block_size"):
         check_kernel_geometry(4, 32, 32, 128, torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
@@ -419,4 +420,4 @@ def test_kernel_geometry_check():
     with pytest.raises(ValueError, match="kv heads"):
         check_kernel_geometry(16, 6, 4, 64, torch.bfloat16)
     with pytest.raises(TypeError, match="dtype"):
-        check_kernel_geometry(16, 32, 32, 128, torch.float16)
+        check_kernel_geometry(16, 32, 32, 128, torch.float64)

@@ -240,12 +240,13 @@ def test_unet_head_dims_match_sdpa_ref(case, dtype_name):
 
 
 def test_kernel_head_dims():
-    bf16, f32 = torch.bfloat16, torch.float32
-    assert [kernel_head_dim(d, bf16) for d in (40, 48, 64, 80, 128, 160)] \
-        == [48, 48, 64, 80, 128, 160]
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    for dt in (bf16, f16):
+        assert [kernel_head_dim(d, dt) for d in (40, 48, 64, 80, 128, 160)] \
+            == [48, 48, 64, 80, 128, 160]
     assert [kernel_head_dim(d, f32) for d in (40, 64, 80, 128)] \
         == [64, 64, 128, 128]
-    for d, dt in ((161, bf16), (160, f32), (64, torch.float16)):
+    for d, dt in ((161, bf16), (160, f32), (192, f16), (64, torch.float64)):
         with pytest.raises(ValueError, match="head_dim"):
             kernel_head_dim(d, dt)
 
