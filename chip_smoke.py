@@ -297,6 +297,26 @@ the script exits nonzero and prints no result:
    sequences of 128: LayerNorm 26 + 26 and flash 12 + 12 + 12 launches a
    step asserted; fit and a TrainStep loop on one batch on the card in
    turns, their sequences a second beside bert_train_flash's.
+22. the fused generation stack (after serve_fp16): fused_decode,
+   GPT-3 6.7B widths (FUSED_GPT3: 32 layers, 4096, 32 heads of 128, FFN
+   16,384, learned positions, a tied 50,257-token head) in bf16 through
+   incubate.nn.functional.fused_multi_transformer as
+   benchmarks/bench_decode.py drives it: b 8 and then b 1 prompts of 512
+   tokens, a prefill into 1024-token caches (the flash forward 32 times,
+   the LayerNorm 65) and 128 greedy steps with time_step on the host
+   (the LayerNorm 65 times a step), once untimed and once timed, each
+   checked step's logits against a fresh prefill of the same tokens
+   (fused_frac) and the greedy token where the top-2 gap clears the
+   bound; a 2-layer slice's kernel calls against their plain twins;
+   prefill and decode tokens/s beside the weight-byte bound, the host's
+   enqueue time, one profiled step, peak memory. fused_rotary: 8 layers
+   of the same widths with inline NeoX and GPT-J rotary (b 4 x 256, 16
+   steps, the same checks), then masked_multihead_attention at 32 x 128
+   against its dense composition. fused_layers:
+   FusedTransformerEncoderLayer at BERT-base width against
+   nn.TransformerEncoderLayer over the same weights in f32, 4 bf16 AdamW
+   steps on the kernels (launches asserted), fused_rms_norm's kernel
+   route.
 
 Every phase prints its wall seconds ({"phase_seconds": name, ...}), and
 a "seconds" line sums them.  The last three lines are the card's
@@ -311,13 +331,15 @@ without a CUDA device.
     python3 chip_smoke.py --resnet-phases
     python3 chip_smoke.py --hapi-phases
     python3 chip_smoke.py --fp16-phases
+    python3 chip_smoke.py --fused-phases
 
 ``--serve-phases`` runs the named serve phases alone on the engine
 phase's model (no other phase and no kernels line); ``--resnet-phases``
 likewise runs phases 14-16 alone and ``--hapi-phases`` phases 17 and
 21 (the kernels built for hapi_fit_bert); ``--fp16-phases`` the float16
 checks of phase 2 that need no plain twin at full size (the backward's
-determinism, row invariance, the raises) and phases 18-20.  The sweeps run the GroupNorm or
+determinism, row invariance, the raises) and phases 18-20;
+``--fused-phases`` the three phases of 22.  The sweeps run the GroupNorm or
 the LayerNorm forward sweep alone (or the paged attention cases and
 their row-invariance checks): with ``--variants`` also every launch the
 kernel takes at each shape
@@ -399,6 +421,11 @@ BERT_WARMUP, BERT_TIMED = 3, 4
 BERT_MLM_RATE = 0.15
 BERT_LR = 1e-4
 BERT_FLASH_CASE = f"bert_base/s{BERT_SEQ}/full"
+# fused_decode's prefill (GPT-3 6.7B widths, b 8 x 512): the flash forward
+# at [8, 512, 32, 128] causal and the LayerNorm over its 4096 rows of 4096
+FUSED_FLASH_CASE = ("gpt3_6p7b/b8_s512/causal", 32, 32, 512, 512, True,
+                    "bfloat16", 8, 128)
+FUSED_LN_ROWS = (8 * 512, 4096)
 # ResNet-50 as bench_resnet50 (benchmarks/bench_models.py:116-152): bf16,
 # Momentum(lr, 0.9), cross-entropy on f32 logits, b64 at 3 x 224 x 224.
 # The learning rate is bench_resnet50's 0.1 scaled to the batch by the
@@ -888,7 +915,7 @@ def flash_cases(torch, dev, summary, seed):
              ("llama3_8b_gqa/s4096/causal", 32, 8, 4096, 4096, True,
               "float16")]
     cases = [c + (b, d) for c in cases] + unet_flash_shapes() + \
-        bert_flash_shapes()
+        bert_flash_shapes() + [FUSED_FLASH_CASE]
     for cname, qh, kh, sq, sk, causal, dname, b, d in cases:
         dtype = getattr(torch, dname)
         g = torch.Generator(device="cpu").manual_seed(seed)
@@ -990,6 +1017,8 @@ def flash_cases(torch, dev, summary, seed):
                 summary[kname + tag] = case
             if cname == BERT_FLASH_CASE and dname != "float32":
                 summary["bert/" + kname + tag] = case
+            if cname == FUSED_FLASH_CASE[0]:
+                summary["fused/" + kname] = case
         del out_p, dq_p, dk_p, dv_p
     return seed
 
@@ -1122,7 +1151,8 @@ def norm_cases(torch, dev, summary, seed):
           ((1024, 1280), "bfloat16", None), ((256, 1280), "bfloat16", None),
           ((4096, 640), "float32", None), ((4096, 768), "bfloat16", None),
           ((16384, 768), "bfloat16", None),
-          ((4096, 100), "bfloat16", None)]
+          ((4096, 100), "bfloat16", None),
+          (FUSED_LN_ROWS, "bfloat16", None)]
     gn = [((4, 320, 64, 64), "bfloat16", 32), ((4, 960, 64, 64), "bfloat16", 32),
           ((4, 2560, 8, 8), "bfloat16", 32), ((4, 320, 64, 64), "float32", 32),
           ((2, 6, 5, 7), "bfloat16", 3), ((1, 64, 128, 128), "float32", 1)]
@@ -1217,6 +1247,8 @@ def norm_cases(torch, dev, summary, seed):
                 if (dname, shape) == ("bfloat16",
                                       (BERT_BATCH * BERT_SEQ, 768)):
                     summary["bert/" + kname] = case     # bert_train's rows
+                if (dname, shape) == ("bfloat16", FUSED_LN_ROWS):
+                    summary["fused/" + kname] = case    # fused_decode's
     return seed
 
 
@@ -3763,13 +3795,13 @@ def functional_plain_path(torch):
     from paddle_tpu_torch.ops.group_norm import group_norm_plain
     from paddle_tpu_torch.ops.layer_norm import layer_norm_plain
 
-    saved = F._layer_norm_op, F._group_norm_op, F.flash_attention
-    F._layer_norm_op, F._group_norm_op, F.flash_attention = (
+    saved = F._layer_norm_op, F._group_norm_op, F._flash_op
+    F._layer_norm_op, F._group_norm_op, F._flash_op = (
         layer_norm_plain, group_norm_plain, flash_attention_plain)
     try:
         yield
     finally:
-        F._layer_norm_op, F._group_norm_op, F.flash_attention = saved
+        F._layer_norm_op, F._group_norm_op, F._flash_op = saved
 
 
 def unet_train_parity_phase(torch, dev):
@@ -5808,6 +5840,537 @@ def lbfgs_phase(torch, dev):
           "losses_cpu": cl})
 
 
+# ------------------------------------------------ the fused generation stack
+# GPT-3 6.7B (Brown et al. 2020, Table 2.1): 32 layers, d_model 4096, 32
+# heads of 128, FFN 4 x 4096, GELU, pre-LN, biases, learned positions,
+# GPT-2's 50,257-token vocabulary with the head tied to the embedding;
+# seeded random bf16 weights made on the card (6.65 B parameters).  The
+# drive follows benchmarks/bench_decode.py (:94-150): embedding (+ positions)
+# -> fused_multi_transformer -> final LayerNorm -> head, a prefill into
+# fixed-capacity caches, then greedy single-token steps with time_step on
+# the host.
+FUSED_GPT3 = dict(layers=32, dim=4096, heads=32, ffn=16384, vocab=50257,
+                  positions=2048)
+FUSED_DRIVE = dict(batches=(8, 1), prompt=512, max_seq=1024, steps=128,
+                   checks=(1, 64, 128))
+FUSED_SLICE_LAYERS = 2
+FUSED_ROTARY = dict(layers=8, batch=4, prompt=256, max_seq=512, steps=16,
+                    checks=(1, 16), mmha_lens=(0, 100, 257, 511))
+FUSED_LAYERS_DRIVE = dict(d_model=768, nhead=12, ffn=3072, batch=32,
+                          seq=128, steps=4, lr=1e-3)
+FUSED_RMS_SHAPE = (8192, 4096)
+
+
+def fused_frac(layers):
+    """The bound on a cached decode step's logits against a fresh
+    prefill of the same tokens, as a fraction of the fresh logits'
+    largest magnitude (plus TOLERANCES["bfloat16"]'s rtol of each
+    element): both run in bf16 through other kernels and GEMM shapes, and
+    each rounds the residual stream at its 2 adds a layer, one
+    TOLERANCES["bfloat16"] rtol (2**-7, two half-ulps) each, so the two
+    drift apart as a random walk over 2 L roundings, relative to the
+    stream: 2**-7 sqrt(2 L) / 2 (2**-5 at 32 layers, 2**-6 at 8, 2**-7
+    at 2).  A wrong position, rope angle or cache slot moves the logits
+    by their own scale (~20 % of the largest)."""
+    return TOLERANCES["bfloat16"][0] * math.sqrt(2 * layers) / 2
+
+
+def check_within(name, got, ref, frac):
+    """|got - ref| <= 2**-7 |ref| + frac max|ref| elementwise; returns the
+    max abs error and the bound's absolute part."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values")
+    err = (got - ref).abs()
+    atol = frac * ref.abs().max().item()
+    limit = TOLERANCES["bfloat16"][0] * ref.abs() + atol
+    if not (err <= limit).all():
+        raise AssertionError(f"{name}: error {err.max().item():.4e} beyond "
+                             f"the bound (frac {frac:.4e}, atol "
+                             f"{atol:.4e})")
+    return err.max().item(), atol
+
+
+class FusedGPT:
+    """The generator of the fused phases, over ``incubate.nn.functional.
+    fused_multi_transformer``: token embedding (+ learned positions, or
+    inline rotary tables) -> the fused stack -> final LayerNorm of the
+    last position -> the tied head, logits in f32 (cuBLAS's f32 output of
+    the bf16 product)."""
+
+    def __init__(self, torch, dev, layers, seed, rotary=None, batch=None,
+                 max_seq=None):
+        from paddle_tpu_torch.convert import FUSED_MT_WEIGHTS
+
+        c = FUSED_GPT3
+        d, f, h = c["dim"], c["ffn"], c["heads"]
+        hd = d // h
+        g = torch.Generator(device=dev).manual_seed(seed)
+        bf = dict(device=dev, dtype=torch.bfloat16)
+
+        def rand(shape, std):
+            return torch.randn(shape, generator=g, **bf).mul_(std)
+
+        out_std = 0.02 / math.sqrt(2 * c["layers"])
+        shapes = dict(ln_scales=(d,), ln_biases=(d,),
+                      qkv_weights=(3, h, hd, d), qkv_biases=(3 * d,),
+                      linear_weights=(d, d), linear_biases=(d,),
+                      ffn_ln_scales=(d,), ffn_ln_biases=(d,),
+                      ffn1_weights=(d, f), ffn1_biases=(f,),
+                      ffn2_weights=(f, d), ffn2_biases=(d,))
+        std = dict(linear_weights=out_std, ffn2_weights=out_std)
+        self.w = {k: [rand(shapes[k], std.get(k, 0.02)) + (
+            1 if k.endswith("scales") else 0) for _ in range(layers)]
+            for k in FUSED_MT_WEIGHTS}
+        self.embed = rand((c["vocab"], d), 0.02)
+        self.pos = None if rotary else rand((c["positions"], d), 0.01)
+        self.lnf_w, self.lnf_b = rand((d,), 0.02) + 1, rand((d,), 0.02)
+        self.torch, self.layers, self.kw = torch, layers, {}
+        if rotary:
+            inv = 1.0 / (10000.0 ** (torch.arange(
+                0, hd, 2, device=dev, dtype=torch.float32) / hd))
+            ang = torch.outer(torch.arange(max_seq, device=dev,
+                                           dtype=torch.float32), inv)
+            ang = (torch.cat([ang, ang], -1) if rotary == "neox"
+                   else ang.repeat_interleave(2, -1))
+            tab = torch.stack([ang.cos(), ang.sin()])[:, None, None]
+            self.kw = dict(rotary_embs=tab.expand(
+                2, batch, 1, max_seq, hd).contiguous(), rotary_emb_dims=1,
+                use_neox_rotary_style=rotary == "neox")
+
+    def weight_bytes(self):
+        ts = [t for v in self.w.values() for t in v] + [
+            self.embed, self.lnf_w, self.lnf_b] + (
+            [self.pos] if self.pos is not None else [])
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def caches(self, b, max_seq):
+        c = FUSED_GPT3
+        return [self.torch.zeros(2, b, c["heads"], max_seq,
+                                 c["dim"] // c["heads"],
+                                 dtype=self.torch.bfloat16,
+                                 device=self.embed.device)
+                for _ in range(self.layers)]
+
+    def __call__(self, ids, caches=None, start=0, slice_layers=None):
+        """f32 logits ``[b, vocab]`` of the last position of ``ids``
+        ``[b, s]`` at positions ``start...``; with ``caches`` a prefill
+        into them (``start`` 0) or a decode step at ``start``."""
+        from paddle_tpu_torch.incubate.nn.functional import (
+            fused_multi_transformer,
+        )
+        from paddle_tpu_torch.nn import functional as F
+        from paddle_tpu_torch.ops.fused_ce import _mm_f32
+
+        torch = self.torch
+        x = self.embed[ids]
+        if self.pos is not None:
+            x = x + self.pos[start:start + ids.shape[1]]
+        w = self.w if slice_layers is None else {
+            k: v[:slice_layers] for k, v in self.w.items()}
+        kw = dict(self.kw)
+        if caches is not None:
+            kw["cache_kvs"] = caches
+            if start:
+                kw["time_step"] = torch.tensor(start)     # on the host
+        out = fused_multi_transformer(x, **w, **kw)
+        h = out[0] if caches is not None else out
+        h = F.layer_norm(h[:, -1], [h.shape[-1]], self.lnf_w, self.lnf_b)
+        return _mm_f32(h, self.embed.t())
+
+
+def fused_generate(torch, model, prompt, max_seq, steps, checks, tag):
+    """A prefill of ``prompt`` [b, s] into fresh caches and ``steps``
+    greedy decode steps (the next token stays on the card; nothing syncs
+    until the end), once untimed on caches of its own (cuBLAS's choices
+    for these shapes and the allocator's blocks for every window made
+    before the clock starts), then timed; then each step in ``checks``
+    against a fresh prefill of the same tokens (:func:`fused_frac`), and
+    the greedy token wherever the fresh top-2 gap exceeds twice the
+    bound.  Returns the figures."""
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    b, s = prompt.shape
+    L = model.layers
+
+    def run():
+        caches = model.caches(b, max_seq)
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        logits = model(prompt, caches)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        got = kernel_launches()
+        want = {"flash_fwd": L, "layer_norm": 2 * L + 1}
+        if {k: v for k, v in got.items() if v} != want:
+            raise AssertionError(f"{tag}: prefill launches {got}, want "
+                                 f"{want}")
+        launches = dict(got)
+        tok = logits.argmax(-1)
+        toks, saved = [tok], {}
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        for k in range(1, steps + 1):
+            logits = model(tok[:, None], caches, s + k - 1)
+            if k in checks:
+                saved[k] = logits
+            tok = logits.argmax(-1)
+            toks.append(tok)
+        enqueue_s = time.perf_counter() - t0   # the host's share: no sync
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        got = kernel_launches()
+        want = {"layer_norm": (2 * L + 1) * steps}
+        if {k: v for k, v in got.items() if v} != want:
+            raise AssertionError(f"{tag}: decode launches {got}, want "
+                                 f"{want}")
+        launches = {k: v + got[k] for k, v in launches.items()}
+        return (caches, tok, toks, saved, launches, prefill_s, enqueue_s,
+                decode_s)
+
+    run()                                                   # warm-up
+    caches, tok, toks, saved, launches, prefill_s, enqueue_s, decode_s = \
+        run()
+    frac = fused_frac(L)
+    seq = torch.cat([prompt, torch.stack(toks, 1)], 1)
+    parity = {}
+    for k in checks:
+        fresh = model(seq[:, :s + k])
+        err, atol = check_within(f"{tag}/step{k}", saved[k], fresh, frac)
+        top2 = fresh.topk(2, -1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * atol
+        agree = saved[k].argmax(-1) == fresh.argmax(-1)
+        if not agree[clear].all():
+            raise AssertionError(f"{tag}/step{k}: greedy token differs "
+                                 "where the top-2 gap exceeds the bound")
+        parity[k] = {"max_abs_err": err, "atol": atol,
+                     "clear_rows": int(clear.sum()),
+                     "tokens_agree": int(agree.sum())}
+    step = lambda: model(tok[:, None], caches, s + steps)
+    prof = profiled(torch, step)
+    return {"batch": b, "prompt": s, "max_seq": max_seq, "steps": steps,
+            "prefill_s": prefill_s, "prefill_tokens_per_s": b * s / prefill_s,
+            "decode_s": decode_s, "decode_ms_per_step": decode_s / steps * 1e3,
+            "host_enqueue_ms_per_step": enqueue_s / steps * 1e3,
+            "decode_tokens_per_s": b * steps / decode_s,
+            "parity_frac": frac, "parity": parity,
+            "distinct_tokens_row0": len(set(seq[0, s:].tolist())),
+            "kernel_launches": launches,
+            "profiled_step": {k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "kernel_events", "device_ms_by_kind")}}
+
+
+def fused_slice_check(torch, model, prompt):
+    """A 2-layer slice of the model's widths on the kernels against its
+    plain twins: every flash and LayerNorm call of the prefill held
+    against the twin on the same inputs (TOLERANCES), and the slice's
+    logits against the all-twin slice (:func:`fused_frac` at 2 layers)."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.flash_attention import flash_attention_plain
+    from paddle_tpu_torch.ops.layer_norm import layer_norm_plain
+
+    kern = IF._flash_op, IF._layer_norm_op, F._layer_norm_op
+    errs = {"flash_fwd": 0.0, "layer_norm": 0.0}
+
+    def held(name, fn, twin):
+        def call(*a, **kw):
+            out, ref = fn(*a, **kw), twin(*a, **kw)
+            errs[name] = max(errs[name], check_close(
+                f"fused_slice/{name}", out, ref, "bfloat16"))
+            return out
+        return call
+
+    IF._flash_op = held("flash_fwd", kern[0], flash_attention_plain)
+    IF._layer_norm_op = held("layer_norm", kern[1], layer_norm_plain)
+    F._layer_norm_op = held("layer_norm", kern[2], layer_norm_plain)
+    try:
+        got = model(prompt, slice_layers=FUSED_SLICE_LAYERS)
+        IF._flash_op = flash_attention_plain
+        IF._layer_norm_op = F._layer_norm_op = layer_norm_plain
+        ref = model(prompt, slice_layers=FUSED_SLICE_LAYERS)
+    finally:
+        IF._flash_op, IF._layer_norm_op, F._layer_norm_op = kern
+    err, _ = check_within("fused_slice/logits", got, ref,
+                          fused_frac(FUSED_SLICE_LAYERS))
+    return {"layers": FUSED_SLICE_LAYERS, "calls_max_abs_err": errs,
+            "logits_max_abs_err": err}
+
+
+def fused_decode_phase(torch, dev):
+    """GPT-3 6.7B at full width through fused_multi_transformer (see
+    FUSED_GPT3, FUSED_DRIVE): b 8 and then b 1 prompts of 512 tokens, a
+    prefill into 1024-token caches (the flash forward 32 times, the
+    LayerNorm 65) and 128 greedy steps (the LayerNorm 65 times a step,
+    nothing else of the port's kernels), each checked step against a
+    fresh prefill; a 2-layer slice against its plain twins.  Prints the
+    prefill and decode rates beside the weight-byte bound of a step, one
+    profiled step's idle share and the peak memory."""
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = FusedGPT(torch, dev, FUSED_GPT3["layers"], seed=6700)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    wbytes = model.weight_bytes()
+    g = torch.Generator(device="cpu").manual_seed(6701)
+    fd = FUSED_DRIVE
+    prompt = torch.randint(0, FUSED_GPT3["vocab"],
+                           (max(fd["batches"]), fd["prompt"]),
+                           generator=g).to(dev)
+    with torch.no_grad():
+        runs = {}
+        for b in fd["batches"]:
+            runs[f"b{b}"] = fused_generate(torch, model, prompt[:b],
+                                           fd["max_seq"], fd["steps"],
+                                           fd["checks"], f"fused_decode/b{b}")
+            free_device_memory(torch)
+        slice_check = fused_slice_check(torch, model, prompt)
+    kv_bytes = lambda b, t: (2 * FUSED_GPT3["layers"] * b * t
+                             * FUSED_GPT3["dim"] * 2)
+    bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    for key, r in runs.items():
+        mid = fd["prompt"] + fd["steps"] // 2
+        r["weight_bound_ms"] = bound_ms
+        r["weight_kv_bound_ms"] = (wbytes + kv_bytes(r["batch"], mid)) \
+            / HBM_BYTES_PER_S * 1e3
+        r["bound_tokens_per_s"] = r["batch"] / (bound_ms / 1e3)
+        r["share_of_weight_bound"] = bound_ms / r["decode_ms_per_step"]
+    emit({"phase": "fused_decode", "model": "GPT-3 6.7B widths",
+          **{k: v for k, v in FUSED_GPT3.items()}, "dtype": "bfloat16",
+          "weight_gb": wbytes / 1e9, "init_s": init_s,
+          "kv_cache_gb_b8": kv_bytes(8, fd["max_seq"]) / 1e9,
+          "time_step_on": "host", **runs, "slice": slice_check,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del model
+    free_device_memory(torch)
+    return runs[f"b{max(fd['batches'])}"]["kernel_launches"]
+
+
+def mmha_check(torch, dev):
+    """masked_multihead_attention at the model's widths (32 heads of
+    128), b 4 at cached lengths FUSED_ROTARY["mmha_lens"] of a 512-token
+    bf16 cache, an additive src_mask and NeoX tables, against the dense
+    composition of the same steps: ``ops.rope.apply_rotary_emb`` at each
+    row's position, the new k and v put in a copy of the cache, then
+    ``nn.functional.sdpa_plain`` over keys ``<= length`` with the mask
+    (TOLERANCES); the kernel-free function's cache bit for bit."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        masked_multihead_attention,
+    )
+    from paddle_tpu_torch.nn.functional import sdpa_plain
+    from paddle_tpu_torch.ops.rope import apply_rotary_emb
+
+    fr = FUSED_ROTARY
+    h, d = FUSED_GPT3["heads"], FUSED_GPT3["dim"] // FUSED_GPT3["heads"]
+    lens = torch.tensor(fr["mmha_lens"])
+    b, t = len(fr["mmha_lens"]), fr["max_seq"]
+    g = torch.Generator(device="cpu").manual_seed(6720)
+    cache = torch.zeros(2, b, h, t, d, dtype=torch.bfloat16)
+    for i, n in enumerate(fr["mmha_lens"]):
+        cache[:, i, :, :n] = torch.randn(2, h, n, d, generator=g)
+    x = torch.randn(b, 3 * h * d, generator=g).to(torch.bfloat16)
+    mask = torch.zeros(b, 1, 1, t)
+    mask[2, ..., 10:20] = -1e4
+    mask[1] += torch.randn(1, 1, t, generator=g)
+    cache, x, mask, lens = (v.to(dev) for v in (cache, x, mask, lens))
+    # the tables on the card, as ops.rope makes its own there (the CPU's
+    # sin and cos differ from the card's in the last ulp)
+    inv = 1.0 / (10000.0 ** (torch.arange(
+        0, d, 2, dtype=torch.float32, device=dev) / d))
+    ang = torch.outer(torch.arange(t, dtype=torch.float32, device=dev), inv)
+    ang = torch.cat([ang, ang], -1)
+    tab = torch.stack([ang.cos(), ang.sin()])[:, None, None].expand(
+        2, b, 1, t, d)
+    ref_cache = cache.clone()
+    out, got_cache = masked_multihead_attention(
+        x, cache_kv=cache, src_mask=mask, sequence_lengths=lens.cpu(),
+        rotary_tensor=tab, rotary_emb_dims=1, use_neox_rotary_style=True)
+    qkv = x.view(b, 3, h, d)
+    q, k = (apply_rotary_emb(qkv[:, j, None], position_ids=lens[:, None],
+                             neox=True)[:, 0] for j in (0, 1))
+    rows = torch.arange(b, device=dev)
+    ref_cache[0, rows, :, lens] = k
+    ref_cache[1, rows, :, lens] = qkv[:, 2]
+    if not torch.equal(got_cache, ref_cache):
+        raise AssertionError("mmha: the written cache differs")
+    valid = torch.arange(t, device=dev)[None, :] <= lens[:, None]
+    full = torch.where(valid[:, None, None, :], mask, -1e30)
+    ref = sdpa_plain(q[:, None], ref_cache[0].transpose(1, 2),
+                     ref_cache[1].transpose(1, 2), full)
+    err = check_close("mmha/out", out, ref.reshape(b, h * d), "bfloat16")
+    return {"batch": b, "heads": h, "head_dim": d, "max_seq": t,
+            "lengths": list(fr["mmha_lens"]), "max_abs_err": err,
+            "cache": "bitwise"}
+
+
+def fused_rotary_phase(torch, dev):
+    """FUSED_ROTARY: GPT-3 6.7B widths at 8 layers with inline rotary
+    tables (no learned positions), NeoX and then interleaved (GPT-J)
+    pairs: b 4 prompts of 256 tokens into 512-token caches, 16 greedy
+    steps, each checked step against a fresh prefill
+    (:func:`fused_frac` at 8 layers); then :func:`mmha_check`."""
+    fr = FUSED_ROTARY
+    g = torch.Generator(device="cpu").manual_seed(6711)
+    prompt = torch.randint(0, FUSED_GPT3["vocab"], (fr["batch"],
+                                                    fr["prompt"]),
+                           generator=g).to(dev)
+    runs = {}
+    with torch.no_grad():
+        for style in ("neox", "gptj"):
+            model = FusedGPT(torch, dev, fr["layers"], seed=6712,
+                             rotary=style, batch=fr["batch"],
+                             max_seq=fr["max_seq"])
+            runs[style] = fused_generate(
+                torch, model, prompt, fr["max_seq"], fr["steps"],
+                fr["checks"], f"fused_rotary/{style}")
+            del model
+            free_device_memory(torch)
+        mmha = mmha_check(torch, dev)
+    emit({"phase": "fused_rotary", "model": "GPT-3 6.7B widths",
+          "layers": fr["layers"], "rotary_emb_dims": 1, **runs,
+          "masked_multihead_attention": mmha})
+    return runs["neox"]["kernel_launches"]
+
+
+def fused_layers_phase(torch, dev):
+    """FusedTransformerEncoderLayer at BERT-base width (FUSED_LAYERS_DRIVE,
+    dropouts 0, post-LN, relu) against nn.TransformerEncoderLayer over the
+    same weights, b 32 x s 128: output, the input's and every weight's
+    gradient in f32 with TF32 off (TOLERANCES["float32"], the weights'
+    fraction of the largest weight gradient); then 4 AdamW
+    steps in bf16 on the kernels (LayerNorm 2 + 2, flash 1 + 1 + 1
+    launches a step asserted), the loss finite and falling; then
+    fused_rms_norm at FUSED_RMS_SHAPE (2-D: the RMSNorm kernel, once,
+    against its plain twin) and at [8, 1024, 4096] (the default
+    begin_norm_axis=1 normalizes the last two axes: no kernel)."""
+    from paddle_tpu_torch import random as prandom
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    from paddle_tpu_torch.incubate.nn.functional import fused_rms_norm
+    from paddle_tpu_torch.nn import TransformerEncoderLayer
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.ops.rms_norm import rms_norm_plain
+    from paddle_tpu_torch.optimizer import AdamW
+
+    fl = FUSED_LAYERS_DRIVE
+    e, nh, f = fl["d_model"], fl["nhead"], fl["ffn"]
+    prandom.seed(7680)
+    fused = FusedTransformerEncoderLayer(e, nh, f, dropout_rate=0.0,
+                                         device=dev)
+    ref = TransformerEncoderLayer(e, nh, f, dropout=0.0, device=dev)
+    at, ff = fused.fused_attn, fused.ffn
+    sa = ref.self_attn
+    part = lambda j: (lambda t: t[j].reshape(e, e))          # noqa: E731
+    third = lambda j: (lambda t: t[j * e:(j + 1) * e])       # noqa: E731
+    same, tr = (lambda t: t), (lambda t: t.t())
+    # (nn parameter, fused parameter, fused layout -> nn layout)
+    pairs = [(sa.q_proj.weight, at.qkv_weight, part(0)),
+             (sa.k_proj.weight, at.qkv_weight, part(1)),
+             (sa.v_proj.weight, at.qkv_weight, part(2)),
+             (sa.q_proj.bias, at.qkv_bias, third(0)),
+             (sa.k_proj.bias, at.qkv_bias, third(1)),
+             (sa.v_proj.bias, at.qkv_bias, third(2)),
+             (sa.out_proj.weight, at.linear_weight, tr),
+             (sa.out_proj.bias, at.linear_bias, same),
+             (ref.linear1.weight, ff.linear1_weight, tr),
+             (ref.linear1.bias, ff.linear1_bias, same),
+             (ref.linear2.weight, ff.linear2_weight, tr),
+             (ref.linear2.bias, ff.linear2_bias, same),
+             (ref.norm1.weight, at.ln_scale, same),
+             (ref.norm1.bias, at.ln_bias, same),
+             (ref.norm2.weight, ff.ln2_scale, same),
+             (ref.norm2.bias, ff.ln2_bias, same)]
+    with torch.no_grad():
+        for p, fp, to_nn in pairs:
+            p.copy_(to_nn(fp))
+    g = torch.Generator(device="cpu").manual_seed(7681)
+    x = torch.randn(fl["batch"], fl["seq"], e, generator=g).to(dev)
+    gy = torch.randn(fl["batch"], fl["seq"], e, generator=g).to(dev)
+    errs = {}
+    with backend_flags(torch, tf32=False):
+        xs = [x.clone().requires_grad_(), x.clone().requires_grad_()]
+        outs = [fused(xs[0]), ref(xs[1])]
+        errs["out"] = check_close("fused_layers/out", outs[0], outs[1],
+                                  "float32")
+        for o in outs:
+            (o * gy).sum().backward()
+        errs["dx"] = check_close("fused_layers/dx", xs[0].grad, xs[1].grad,
+                                 "float32")
+        # TOLERANCES["float32"] with its fraction taken of the layer's
+        # largest gradient: the key bias's gradient is 0 up to rounding
+        # (softmax ignores a shift of a query's scores), ~1e-8 here
+        rtol, frac = TOLERANCES["float32"]
+        scale = max(p.grad.abs().max().item() for p, _, _ in pairs)
+        errs["weight_grads"] = 0.0
+        for i, (p, fp, to_nn) in enumerate(pairs):
+            err = (to_nn(fp.grad) - p.grad).abs()
+            if not (err <= rtol * p.grad.abs() + frac * scale).all():
+                raise AssertionError(f"fused_layers/grad{i}: error "
+                                     f"{err.max().item():.3e} beyond "
+                                     f"rtol {rtol} + {frac} of the "
+                                     f"largest gradient {scale:.3e}")
+            errs["weight_grads"] = max(errs["weight_grads"],
+                                       err.max().item())
+    # bf16 training on the kernels
+    net = copy.deepcopy(fused).to(torch.bfloat16)
+    opt = AdamW(learning_rate=fl["lr"], parameters=net.parameters(),
+                multi_precision=True, device=dev)
+    xb = x.to(torch.bfloat16)
+    target = torch.randn(fl["batch"], fl["seq"], e, generator=g).to(dev)
+    losses, step_s, launches = [], [], {}
+    want = {"layer_norm": 2, "layer_norm_bwd": 2, "flash_fwd": 1,
+            "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    for step in range(fl["steps"]):
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        loss = (net(xb).float() - target).square().mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+        got = {k: v for k, v in kernel_launches().items() if v}
+        if got != want:
+            raise AssertionError(f"fused_layers: step {step} launched "
+                                 f"{got}, want {want}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"fused_layers: losses {losses}")
+    # fused_rms_norm: the kernel for a 2-D input, not for a 3-D one
+    xr = torch.randn(*FUSED_RMS_SHAPE, generator=g).to(torch.bfloat16) \
+        .to(dev)
+    wr = (1 + 0.1 * torch.randn(FUSED_RMS_SHAPE[1], generator=g)).to(
+        torch.bfloat16).to(dev)
+    reset_kernel_launches()
+    yr = fused_rms_norm(xr, wr)
+    if kernel_launches()["rms_norm"] != 1:
+        raise AssertionError("fused_rms_norm: a 2-D input did not launch "
+                             "the RMSNorm kernel once")
+    rms_err = check_close("fused_rms_norm", yr, rms_norm_plain(xr, wr),
+                          "bfloat16")
+    y3 = fused_rms_norm(xr.view(8, -1, FUSED_RMS_SHAPE[1]), wr)
+    if kernel_launches()["rms_norm"] != 1 or not torch.isfinite(y3).all():
+        raise AssertionError("fused_rms_norm: a 3-D input at "
+                             "begin_norm_axis=1 reached the kernel")
+    launches["rms_norm"] = 1
+    emit({"phase": "fused_layers", "layer": "FusedTransformerEncoderLayer",
+          **fl, "parity_f32_max_abs_err": errs, "losses": losses,
+          "step_s": step_s, "launches_per_step": want,
+          "fused_rms_norm": {"shape": list(FUSED_RMS_SHAPE),
+                             "max_abs_err": rms_err,
+                             "3d_default_axis_launches": 0}})
+    del fused, ref, net, opt
+    free_device_memory(torch)
+    return launches
+
+
 def hapi_phases_main(torch):
     """``--hapi-phases``: hapi_fit and hapi_fit_bert alone; the kernels
     are built because hapi_fit_bert's BERT runs the LayerNorm and flash
@@ -5945,6 +6508,30 @@ def fp16_phases_main(torch):
     return 0
 
 
+def fused_phases_main(torch):
+    """``--fused-phases``: fused_decode, fused_rotary and fused_layers
+    alone (the kernels built: they run the flash, LayerNorm and RMSNorm
+    kernels), each with its kernel launches."""
+    from paddle_tpu_torch import _build, resolve_device
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    built = _build.build_all(verbose=False)
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": time.perf_counter() - t0, "built": sorted(built)})
+    dev = resolve_device()
+    for name, fn in (("fused_decode", fused_decode_phase),
+                     ("fused_rotary", fused_rotary_phase),
+                     ("fused_layers", fused_layers_phase)):
+        t1 = time.perf_counter()
+        launches = fn(torch, dev)
+        emit({"phase_seconds": name, "seconds": time.perf_counter() - t1,
+              "kernel_launches": launches})
+    print(smi)
+    return 0
+
+
 def main():
     import torch
 
@@ -5963,6 +6550,8 @@ def main():
         return hapi_phases_main(torch)
     if "--fp16-phases" in sys.argv[1:]:
         return fp16_phases_main(torch)
+    if "--fused-phases" in sys.argv[1:]:
+        return fused_phases_main(torch)
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
@@ -6008,6 +6597,9 @@ def main():
     del model
     torch.cuda.empty_cache()
     serve_fp16 = phase("serve_fp16", serve_fp16_phase, torch, dev)
+    fused_decode = phase("fused_decode", fused_decode_phase, torch, dev)
+    fused_rotary = phase("fused_rotary", fused_rotary_phase, torch, dev)
+    fused_layers = phase("fused_layers", fused_layers_phase, torch, dev)
     train = phase("train", train_phase, torch, dev)
     phase("train_parity", train_parity_phase, torch, dev)
     unet = phase("unet_train", unet_train_phase, torch, dev)
@@ -6098,7 +6690,8 @@ def main():
             "bert_train_flash": bert_flash, "resnet_train": resnet,
             "hapi_fit": hapi_fit, "hapi_fit_bert": hapi_fit_bert,
             "serve_fp16": serve_fp16, "bert_amp": bert_amp,
-            "transformer_mt": transformer_mt}
+            "transformer_mt": transformer_mt, "fused_decode": fused_decode,
+            "fused_rotary": fused_rotary, "fused_layers": fused_layers}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]
@@ -6114,11 +6707,13 @@ def main():
                  "path": path,
                  "launches_by_path": {p: r.get(counter, 0)
                                       for p, r in runs.items()}}
-        bc = summary.get("bert/" + name)
-        if bc is not None:          # the same kernel at BERT's shape
-            entry["bert_case"] = {k: bc.get(k) for k in (
-                "name", "max_abs_err", "ms", "device_ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "library_device_ms")}
+        for tag in ("bert", "fused"):   # the same kernel at BERT's shape
+            bc = summary.get(f"{tag}/{name}")   # or fused_decode's prefill
+            if bc is not None:
+                entry[f"{tag}_case"] = {k: bc.get(k) for k in (
+                    "name", "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms",
+                    "library_device_ms")}
         kernels.append(entry)
     print(smi)
     emit({"kernels": kernels})

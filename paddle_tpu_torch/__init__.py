@@ -6,7 +6,7 @@ kernels that the JAX package wrote in Pallas for the TPU are written by
 hand for Hopper (``csrc/`` for CUDA C++, Triton beside its module);
 each has a plain PyTorch twin that runs for CPU tensors.
 
-Six paths so far:
+Seven paths so far:
 
 * serving a GPT / LLaMA decoder through the continuous-batching engine
   (``serving.Engine``), reached over HTTP through the gateway
@@ -40,7 +40,16 @@ Six paths so far:
   ``vision.transforms``, with the loss layers of ``nn`` and
   ``save``/``load`` (``framework``), which also read the JAX package's
   files.  It adds no kernel: a BERT model fitted through it runs the
-  LayerNorm and flash kernels as its ``TrainStep`` does.
+  LayerNorm and flash kernels as its ``TrainStep`` does;
+* Paddle's fused generation stack (``incubate``: the fused functionals
+  of ``incubate.nn.functional`` with ``fused_multi_transformer`` and
+  ``masked_multihead_attention`` over fixed-capacity KV caches, the
+  fused layers, ``LookAhead`` and ``ModelAverage``; ``nn.RMSNorm``, the
+  public flash functionals, ``inference.create_llm_engine``): the flash
+  forward on the causal prefill, the LayerNorm kernels in the fused
+  layers and the stack's norms, the RMSNorm kernel through
+  ``fused_rms_norm``; the decode attention over the cache is plain
+  torch, as JAX's is jnp.
 
 On the CPU the UNet runs at a tiny size with ``device="cpu"``, e.g.
 ``UNet2DConditionModel(UNetConfig(block_out_channels=(16, 32),
@@ -55,10 +64,13 @@ device="cpu")`` on 32 px images; ``resnet_train``, ``resnet_amp`` and
 ``resnet_parity`` drive ResNet-50 at 224 px on the card.  ``Model.fit``
 runs on the CPU with ``device="cpu"`` models and ``places="cpu"``
 loaders; ``hapi_fit`` (ResNet-50 from ``FakeData`` through the threaded
-loader) and ``hapi_fit_bert`` (BERT-base) drive it on the card.
+loader) and ``hapi_fit_bert`` (BERT-base) drive it on the card.  The
+fused stack runs on the CPU at a tiny size on CPU tensors (its functions
+run where their tensors lie); ``fused_decode`` (GPT-3 6.7B widths),
+``fused_rotary`` and ``fused_layers`` drive it on the card.
 """
 
-from . import amp, framework, hapi, io, metric, vision
+from . import amp, framework, hapi, incubate, inference, io, metric, vision
 from .device import resolve_device
 from .framework import load, save
 from .hapi import Model, flops, summary
@@ -66,6 +78,6 @@ from .io.reader_compat import batch
 from .tensor import flatten, matmul
 
 __all__ = ["Model", "amp", "batch", "flatten", "flops", "framework", "hapi",
-           "io",
+           "incubate", "inference", "io",
            "load", "matmul", "metric", "resolve_device", "save", "summary",
            "vision"]

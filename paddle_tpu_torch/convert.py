@@ -33,6 +33,15 @@ do biases and the GroupNorm / LayerNorm weights and biases.
 (``vision/models/resnet.py``): only the ``fc`` Linear's weight
 transposes; convolutions (OIHW), BatchNorm weights and biases and both
 running buffers (``_mean``, ``_variance``) keep their layout.
+
+The fused generation stack (``incubate``) keeps paddle's layout, as the
+JAX functions and layers take it, so nothing transposes:
+``fused_multi_transformer_params_from_jax`` carries the twelve per-layer
+weight lists of ``fused_multi_transformer`` across, and
+``fused_layer_state_dict_from_jax`` the ``state_dict`` of a fused layer
+(``FusedMultiHeadAttention``, ``FusedFeedForward``,
+``FusedTransformerEncoderLayer``), checked key by key against the port
+layer's.
 """
 
 from __future__ import annotations
@@ -420,3 +429,48 @@ def transformer_state_dict_from_jax(np_state, d_model=512,
             dim_feedforward, normalize_before),
         lambda key: key.endswith(".weight") and
         key.rsplit(".", 2)[-2] in _TRANSFORMER_LINEARS, device, dtype)
+
+
+#: the per-layer weight lists of ``fused_multi_transformer``, in its order
+FUSED_MT_WEIGHTS = ("ln_scales", "ln_biases", "qkv_weights", "qkv_biases",
+                    "linear_weights", "linear_biases", "ffn_ln_scales",
+                    "ffn_ln_biases", "ffn1_weights", "ffn1_biases",
+                    "ffn2_weights", "ffn2_biases")
+
+
+def fused_multi_transformer_params_from_jax(np_params, device=None,
+                                            dtype=None):
+    """``{name: [array or None per layer] or None}`` over the twelve
+    names of :data:`FUSED_MT_WEIGHTS` (numpy) -> the same lists of
+    tensors on ``device`` (``cuda`` unless asked otherwise) in ``dtype``
+    (default: the arrays' own), ready to pass as keyword arguments.
+    Raises on a missing or unexpected name, or lists of unequal
+    length."""
+    dev = resolve_device(device)
+    if set(np_params) != set(FUSED_MT_WEIGHTS):
+        raise KeyError(f"fused_multi_transformer weights: missing "
+                       f"{sorted(set(FUSED_MT_WEIGHTS) - set(np_params))}, "
+                       f"unexpected "
+                       f"{sorted(set(np_params) - set(FUSED_MT_WEIGHTS))}")
+    lengths = {len(v) for v in np_params.values() if v is not None}
+    if len(lengths) != 1:
+        raise ValueError(f"fused_multi_transformer weights: per-layer "
+                         f"lists of lengths {sorted(lengths)}")
+    out = {}
+    for name in FUSED_MT_WEIGHTS:
+        lst = np_params[name]
+        out[name] = None if lst is None else [
+            None if a is None else
+            torch.tensor(np.asarray(a)).to(device=dev, dtype=dtype)
+            for a in lst]
+    return out
+
+
+def fused_layer_state_dict_from_jax(np_state, layer, device=None,
+                                    dtype=None):
+    """A JAX fused layer's ``state_dict`` (as numpy) -> tensors for
+    ``layer.load_state_dict`` (``layer`` the port's fused layer of the
+    same arguments), on ``device`` in ``dtype``.  Raises on a missing,
+    unexpected or misshaped key."""
+    want = {k: tuple(v.shape) for k, v in layer.state_dict().items()}
+    return _from_jax(np_state, want, lambda key: False, device, dtype)

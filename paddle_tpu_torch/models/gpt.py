@@ -186,8 +186,8 @@ class GPTAttention(nn.Module):
         k = self.k_proj(x).view(b, s, self.kv_heads, self.head_dim)
         v = self.v_proj(x).view(b, s, self.kv_heads, self.head_dim)
         pos = torch.arange(s, device=x.device)
-        q = apply_rotary_emb(q, pos, self.rope_theta)
-        k = apply_rotary_emb(k, pos, self.rope_theta)
+        q = apply_rotary_emb(q, position_ids=pos, base=self.rope_theta)
+        k = apply_rotary_emb(k, position_ids=pos, base=self.rope_theta)
         out = flash_attention(q, k, v, causal=True)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
@@ -210,8 +210,10 @@ class GPTAttention(nn.Module):
             b, s, self.kv_heads, self.head_dim)
         pos = cache.pos
         pos_ids = pos.long()[:, None] + torch.arange(s, device=q.device)
-        q = apply_rotary_emb(q, pos_ids, self.rope_theta)
-        k = apply_rotary_emb(k, pos_ids, self.rope_theta)
+        q = apply_rotary_emb(q, position_ids=pos_ids,
+                             base=self.rope_theta)
+        k = apply_rotary_emb(k, position_ids=pos_ids,
+                             base=self.rope_theta)
         if cache.k_scale is None:
             paged_write(cache.k, k, cache.tables, pos)
             paged_write(cache.v, v, cache.tables, pos)

@@ -16,7 +16,7 @@ from .conv import (
 )
 from .norm import (
     BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
-    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
+    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm, RMSNorm,
 )
 from .pooling import (
     AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
@@ -41,7 +41,7 @@ __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "LayerList", "LayerNorm", "Linear", "MSELoss",
            "MarginRankingLoss", "MaxPool1D", "MaxPool2D", "MaxPool3D",
            "MultiHeadAttention", "MultiLabelSoftMarginLoss",
-           "MultiMarginLoss", "NLLLoss", "PoissonNLLLoss", "ReLU",
+           "MultiMarginLoss", "NLLLoss", "PoissonNLLLoss", "RMSNorm", "ReLU",
            "Sequential", "SmoothL1Loss", "SoftMarginLoss", "Tanh",
            "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
            "TransformerEncoder", "TransformerEncoderLayer",

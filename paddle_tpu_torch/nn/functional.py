@@ -21,7 +21,12 @@ Routing follows the JAX package with the card in the TPU's place:
   TPU tiling rule), which computes ``_sdpa_ref``'s function, rows with
   no visible key included.  With a mask or training dropout it runs
   :func:`sdpa_plain`, JAX's ``_sdpa_ref`` term for term in f32: JAX
-  computes that path in jnp, outside any Pallas kernel.
+  computes that path in jnp, outside any Pallas kernel.  The public
+  :func:`flash_attention` and :func:`flash_attn_unpadded` (one segment
+  at a time) route the same way.
+* :func:`rms_norm` is JAX's plain jnp RMSNorm (``norm.py:186-206``): no
+  kernel there, none here (``incubate.nn.functional.fused_rms_norm`` is
+  the kernel's entry).
 
 :func:`linear` takes the port's ``[out, in]`` weight (torch's layout;
 ``convert`` transposes paddle's ``[in, out]`` once, at load).
@@ -47,6 +52,7 @@ under an ``amp.auto_cast`` scope, with JAX's op name.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -54,9 +60,10 @@ import torch.nn.functional as TF
 
 from .. import random as _random
 from ..amp.auto_cast import cast_inputs
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention as _flash_op
 from ..ops.group_norm import group_norm as _group_norm_op
 from ..ops.layer_norm import layer_norm as _layer_norm_op
+from ..ops.rms_norm import rms_norm_axes_plain as rms_norm  # noqa: F401
 from .functional_loss import *  # noqa: F401,F403  (the loss functionals)
 
 
@@ -169,6 +176,12 @@ def relu(x):
     return torch.relu(x)
 
 
+def silu(x):
+    """``x * sigmoid(x)`` (``activation.py:35-36``)."""
+    (x,) = cast_inputs("silu", x)
+    return TF.silu(x)
+
+
 def tanh(x):
     (x,) = cast_inputs("tanh", x)
     return torch.tanh(x)
@@ -225,11 +238,57 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                     key, value)
     drop = dropout_p > 0.0 and training
     if attn_mask is None and not drop:
-        return flash_attention(query, key, value, causal=is_causal)
+        return _flash_op(query, key, value, causal=is_causal)
     gen = _random.next_generator(query.device) if drop else None
     return sdpa_plain(query, key, value, attn_mask,
                       dropout_p if drop else 0.0, is_causal,
                       generator=gen)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True):
+    """``attention.py:94-101``: :func:`scaled_dot_product_attention`
+    with no mask -> ``(out, None)`` (no softmax is ever returned)."""
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training)
+    return out, None
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale=None, dropout=0.0,
+                        causal=False, return_softmax=False, training=True):
+    """``attention.py:104-126``: packed sequences ``[total, H, D]`` cut at
+    the cumulative lengths (read on the host: one copy from the card per
+    tensor there), each attended alone as a batch of one, the outputs
+    concatenated -> ``(out, None)``.  Without training dropout each
+    segment runs the flash kernels, with it the plain f32 path, as
+    :func:`scaled_dot_product_attention` routes.  ``scale`` multiplies
+    the scores (default ``1/sqrt(D)``); JAX's version drops it (ROADMAP.md
+    Queue 3)."""
+    cq = [int(v) for v in torch.as_tensor(cu_seqlens_q).tolist()]
+    ck = [int(v) for v in torch.as_tensor(cu_seqlens_k).tolist()]
+    query, key, value = cast_inputs("scaled_dot_product_attention", query,
+                                    key, value)
+    drop = dropout > 0.0 and training
+    outs = []
+    for i in range(len(cq) - 1):
+        q = query[cq[i]:cq[i + 1]].unsqueeze(0)
+        k = key[ck[i]:ck[i + 1]].unsqueeze(0)
+        v = value[ck[i]:ck[i + 1]].unsqueeze(0)
+        if drop:
+            o = sdpa_plain(q, k, v, None, dropout, causal, scale,
+                           generator=_random.next_generator(q.device))
+        else:
+            o = _flash_op(q, k, v, causal=causal, scale=scale)
+        outs.append(o.squeeze(0))
+    return torch.cat(outs, dim=0), None
+
+
+def sdp_kernel(*args, **kwargs):
+    """``attention.py:129-131``: a context that selects nothing (the
+    routing above is fixed)."""
+    return contextlib.nullcontext()
 
 
 # ------------------------------------------------------------ convolution

@@ -1,6 +1,7 @@
 """Norm layers, the counterparts of ``paddle_tpu/nn/layer/norm.py``:
 ``LayerNorm`` and ``GroupNorm`` (``:98-158``; the CUDA kernels on the
-card), ``BatchNorm``/``BatchNorm1D/2D/3D`` (``:13-61``) and
+card), ``RMSNorm`` (``:121-134``; weight only, eps 1e-6, plain torch as
+JAX's), ``BatchNorm``/``BatchNorm1D/2D/3D`` (``:13-61``) and
 ``InstanceNorm1D/2D/3D`` (``:161-189``), each with parameters
 ``weight`` (ones) and ``bias`` (zeros), default eps 1e-5, the forward
 through :mod:`paddle_tpu_torch.nn.functional`.  ``weight_attr=False`` /
@@ -33,6 +34,26 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
                             self.bias, self._epsilon)
+
+
+class RMSNorm(nn.Module):
+    """``paddle_tpu/nn/layer/norm.py:121-134``: weight ones, eps 1e-6,
+    the forward through :func:`nn.functional.rms_norm` (JAX's plain
+    path; ``incubate.nn.functional.fused_rms_norm`` is the kernel's
+    entry)."""
+
+    def __init__(self, normalized_shape, epsilon=1e-6, device=None,
+                 dtype=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(self._normalized_shape,
+                                              device=device, dtype=dtype))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, None, self._epsilon)
 
 
 class GroupNorm(nn.Module):

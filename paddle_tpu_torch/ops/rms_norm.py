@@ -28,6 +28,8 @@ write is a coalesced row, and no byte is touched twice.
 kernels for CUDA tensors, the plain PyTorch twins for CPU tensors, and
 a raise for anything else.  :func:`rms_norm_plain` is the plain forward
 differentiated by torch autograd, the reference of the kernel path.
+:func:`rms_norm_arrays` is JAX's entry over any trailing axes, with an
+optional bias, which routes the kernel's form to :func:`rms_norm`.
 """
 
 from __future__ import annotations
@@ -227,3 +229,40 @@ def rms_norm(x, weight, eps=1e-6):
 
 rms_norm.launches = 0
 rms_norm_bwd.launches = 0
+
+
+def rms_norm_arrays(x, weight=None, bias=None, epsilon=1e-6,
+                    begin_norm_axis=-1):
+    """``paddle_tpu/ops/rms_norm.py:15-30``: RMSNorm over the axes from
+    ``begin_norm_axis`` on.  A 1-D weight, no bias and the last axis go
+    to :func:`rms_norm` (the Triton kernel on a CUDA tensor, its plain
+    twin on a CPU tensor), as JAX routes that form to its Pallas kernel;
+    any other form is JAX's plain path: f32 statistics, ``x * rstd``
+    rounded to x's dtype, then times the weight and plus the bias.  So a
+    3-D input with ``begin_norm_axis=1`` (``fused_rms_norm``'s default)
+    normalizes over its last two axes and never reaches the kernel.
+    The kernel rounds ``x * rstd * w`` once where JAX's plain path
+    rounds ``x * rstd`` first: the same in f32, an ulp apart in bf16."""
+    ax = begin_norm_axis % x.dim()
+    if (weight is not None and bias is None and ax == x.dim() - 1
+            and weight.dim() == 1):
+        return rms_norm(x.contiguous(), weight, epsilon)
+    return rms_norm_axes_plain(x, weight, bias, epsilon, begin_norm_axis)
+
+
+def rms_norm_axes_plain(x, weight=None, bias=None, epsilon=1e-6,
+                        begin_norm_axis=-1):
+    """JAX's plain RMSNorm (``paddle_tpu/ops/rms_norm.py:24-30``, and
+    ``nn.functional.rms_norm``): f32 mean of squares over the axes from
+    ``begin_norm_axis``, ``x * rstd`` rounded to x's dtype, times the
+    weight, plus the bias."""
+    x, weight, bias = cast_inputs("rms_norm", x, weight, bias)
+    ax = begin_norm_axis % x.dim()
+    xf = x.to(torch.float32)
+    ms = xf.square().mean(tuple(range(ax, x.dim())), keepdim=True)
+    out = (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out

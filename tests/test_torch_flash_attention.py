@@ -288,8 +288,8 @@ def test_functional_sdpa_routes_to_flash_and_matches_sdpa_ref_with_masks_and_dro
     from paddle_tpu_torch.nn import functional as F
 
     calls = []
-    flash = F.flash_attention
-    monkeypatch.setattr(F, "flash_attention",
+    flash = F._flash_op
+    monkeypatch.setattr(F, "_flash_op",
                         lambda *a, **kw: calls.append(1) or flash(*a, **kw))
     (jq, jk, jv), (q, k, v) = _as("float32", *_inputs(1, 16, 77, 2, 2, 40,
                                                       seed=6)[:3])

@@ -119,7 +119,8 @@ def test_rope_matches_jax(base):
     pos = np.array([[0, 1, 2, 3, 4], [7, 8, 9, 10, 11]], np.int32)
     ref = np.asarray(rope_arrays(jnp.asarray(x), position_ids=jnp.asarray(pos),
                                  base=base))
-    out = apply_rotary_emb(torch.from_numpy(x), torch.from_numpy(pos), base)
+    out = apply_rotary_emb(torch.from_numpy(x),
+                           position_ids=torch.from_numpy(pos), base=base)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
 
 

@@ -66,7 +66,7 @@ def unet_norm_shapes():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(F, "_group_norm_op", group_norm)
         mp.setattr(F, "_layer_norm_op", layer_norm)
-        mp.setattr(F, "flash_attention", flash_attention_plain)
+        mp.setattr(F, "_flash_op", flash_attention_plain)
         mp.setattr(U, "resolve_device", lambda device=None: torch.device("meta"))
         mp.setattr(U.UNet2DConditionModel, "_init_weights",
                    lambda self, dev, seed: None)
