@@ -318,6 +318,29 @@ the script exits nonzero and prints no result:
    steps on the kernels (launches asserted), fused_rms_norm's kernel
    route.
 
+23. the vision model zoo (after hapi_fit_bert; no port kernel lies on
+   it: cuDNN's convolutions, the rest plain torch): zoo_train,
+   mobilenet_v3_large(num_classes=1000) at scale 1.0 in bf16, b 128 x
+   224 px, Momentum(0.05, 0.9) through jit.TrainStep, 2 warm-up and 4
+   timed steps: finite losses, every BatchNorm buffer moved; images/s,
+   model FLOP/s (hapi.flops), one profiled step's idle share and top
+   kernels, peak memory, no port kernel launched.
+24. zoo_forward: each of the 25 constructors but the nine ResNets at its
+   published input (LeNet 1 x 28 x 28, Inception-v3 299 px, the rest 224
+   px), bf16 b 8: an eval forward (shape, finite, eval images/s) and a
+   train-mode forward and backward (finite gradients; GoogLeNet's aux
+   heads in the loss).
+25. zoo_parity: each family's flagship with weights from one numpy seed
+   through convert.zoo_state_dict_from_jax, b 2 eval logits on the card
+   in f32 (TF32 off) within ZOO_LOGIT_TOL of the CPU's f64; then one
+   MobileNetV3-Large Momentum step held as resnet_parity's.
+26. vision_ops: nms over 2,000 boxes of 80 categories (top_k 1,000;
+   indices equal to the CPU's exactly), roi_align (sampling ratios 2 and
+   -1) and roi_pool over 1,000 RoIs of a [2, 256, 200, 304] map, 7 x 7,
+   box_coder's round trip, grid_sample and interpolate (bilinear,
+   nearest, bicubic) on [8, 256, 64, 64], each against the CPU within
+   TOLERANCES['float32'] with its CUDA-event ms.
+
 Every phase prints its wall seconds ({"phase_seconds": name, ...}), and
 a "seconds" line sums them.  The last three lines are the card's
 nvidia-smi line, the per-kernel JSON summary (the float16 variants as
@@ -332,6 +355,7 @@ without a CUDA device.
     python3 chip_smoke.py --hapi-phases
     python3 chip_smoke.py --fp16-phases
     python3 chip_smoke.py --fused-phases
+    python3 chip_smoke.py --zoo-phases
 
 ``--serve-phases`` runs the named serve phases alone on the engine
 phase's model (no other phase and no kernels line); ``--resnet-phases``
@@ -339,7 +363,8 @@ likewise runs phases 14-16 alone and ``--hapi-phases`` phases 17 and
 21 (the kernels built for hapi_fit_bert); ``--fp16-phases`` the float16
 checks of phase 2 that need no plain twin at full size (the backward's
 determinism, row invariance, the raises) and phases 18-20;
-``--fused-phases`` the three phases of 22.  The sweeps run the GroupNorm or
+``--fused-phases`` the three phases of 22; ``--zoo-phases`` the four
+phases of 23-26 (no kernel built: none lies on their path).  The sweeps run the GroupNorm or
 the LayerNorm forward sweep alone (or the paged attention cases and
 their row-invariance checks): with ``--variants`` also every launch the
 kernel takes at each shape
@@ -6371,6 +6396,515 @@ def fused_layers_phase(torch, dev):
     return launches
 
 
+# ---------------------------------------------------------- phases 23-26
+# MobileNetV3-Large (Howard et al. 2019, Table 1: 15 bneck blocks, 8 of
+# them with squeeze-excite, hardswish in the last 11 and the stem) at its
+# published width (scale 1.0) and input (224 px), bf16, trained as
+# resnet_train is: Momentum(0.9), cross-entropy on the f32 logits, the
+# rate 0.1 a 256 images (Goyal et al. 2017) at b 128
+ZOO_BATCH, ZOO_PX, ZOO_CLASSES = 128, 224, 1000
+ZOO_WARMUP, ZOO_TIMED = 2, 4
+ZOO_LR, ZOO_MOMENTUM = 0.1 * ZOO_BATCH / 256, 0.9
+# zoo_forward: every constructor but the nine ResNets at its published
+# input, bf16 b 8 (LeNet takes 1 x 28 x 28, Inception-v3 299 px)
+ZOO_FORWARD_BATCH = 8
+ZOO_FORWARD = (
+    "LeNet", "alexnet", "vgg11", "vgg13", "vgg16", "vgg19", "squeezenet1_0",
+    "squeezenet1_1", "mobilenet_v1", "mobilenet_v2", "mobilenet_v3_small",
+    "mobilenet_v3_large", "shufflenet_v2_x0_25", "shufflenet_v2_x0_33",
+    "shufflenet_v2_x0_5", "shufflenet_v2_x1_0", "shufflenet_v2_x1_5",
+    "shufflenet_v2_x2_0", "densenet121", "densenet161", "densenet169",
+    "densenet201", "densenet264", "googlenet", "inception_v3")
+# zoo_parity: each family's flagship, b 2 eval logits on the card in f32
+# (TF32 off) against the CPU in f64: both sum the same products in other
+# orders in f32 and f64, ~1e-6 of the logits' norm; ZOO_LOGIT_TOL leaves
+# two orders of margin and a wrong layer moves them by far more
+ZOO_PARITY = (("LeNet", {}), ("alexnet", {}), ("vgg16", {"batch_norm": True}),
+              ("squeezenet1_1", {}), ("mobilenet_v1", {}),
+              ("mobilenet_v2", {}), ("mobilenet_v3_large", {}),
+              ("shufflenet_v2_x1_0", {}), ("densenet121", {}),
+              ("googlenet", {}), ("inception_v3", {}))
+ZOO_PARITY_BATCH, ZOO_LOGIT_TOL = 2, 1e-4
+# zoo_parity's MobileNetV3-Large step.  In f64 the card and the CPU
+# compute the same function to ~1e-9 of each tensor (the card's f64 run
+# held within ZOO_F64_TOL).  In f32 one activation can land on the other
+# side of a hardswish kink (x = +-3, where its derivative jumps by 0.5)
+# than in f64: on an H100, one of the 131,712 inputs of
+# features.13.block.1.act crossed it on the card and none on the CPU, and
+# that one element moved every gradient below it by 2-5e-3 of its norm.
+# So the f32 step is held to GRAD_PARITY_FACTOR x the CPU f32's error plus
+# ZOO_GRAD_FLOOR, and the crossings are counted
+ZOO_F64_TOL, ZOO_GRAD_FLOOR = 1e-8, 1e-2
+# vision_ops: a detection head's calls at Faster R-CNN's sizes (a
+# stride-4 FPN level of an 800 x 1216 image: [2, 256, 200, 304]; 1,000
+# RoIs of 16-400 px, 7 x 7 bins; NMS over 2,000 boxes of 80 categories
+# keeping 1,000), and the resizes of a [8, 256, 64, 64] map
+OPS_MAP, OPS_SCALE, OPS_ROIS, OPS_BINS = (2, 256, 200, 304), 0.25, 1000, 7
+OPS_NMS_BOXES, OPS_NMS_CLASSES, OPS_NMS_TOP_K = 2000, 80, 1000
+OPS_RESIZE = (8, 256, 64, 64)
+
+
+def zoo_model(torch, name, dev, dtype=None, seed=0, **kw):
+    """The zoo constructor ``name`` at its published width (1,000
+    classes; LeNet's 10) on ``dev``."""
+    from paddle_tpu_torch.vision import models
+
+    classes = 10 if name == "LeNet" else ZOO_CLASSES
+    return getattr(models, name)(num_classes=classes, device=dev,
+                                 dtype=dtype, seed=seed, **kw)
+
+
+def zoo_input_shape(name, batch):
+    if name == "LeNet":
+        return (batch, 1, 28, 28)
+    px = 299 if name == "inception_v3" else ZOO_PX
+    return (batch, 3, px, px)
+
+
+def zoo_train_phase(torch, dev):
+    """MobileNetV3-Large (1,000 classes, 224 px) training in bf16
+    through jit.TrainStep with Momentum: 2 warm-up and 4 timed steps,
+    the losses finite, every BatchNorm buffer moved and finite; images/s,
+    step seconds, model FLOP/s (``hapi.flops``: 3 x the forward), one
+    profiled step's idle share and top kernels, peak memory.  Returns the
+    port kernels' launches (none lies on this path)."""
+    import numpy as np
+
+    from paddle_tpu_torch import flops as hapi_flops
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from paddle_tpu_torch.optimizer import Momentum
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = zoo_model(torch, "mobilenet_v3_large", dev).to(torch.bfloat16)
+    model.train()
+    opt = Momentum(learning_rate=ZOO_LR, momentum=ZOO_MOMENTUM,
+                   parameters=model.named_parameters(), device=dev)
+    step = TrainStep(model, resnet_loss, opt, device=dev)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(ZOO_BATCH, 3, ZOO_PX, ZOO_PX).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    y = torch.from_numpy(rng.randint(0, ZOO_CLASSES, ZOO_BATCH)).to(dev)
+    flops = 3 * hapi_flops(model, [ZOO_BATCH, 3, ZOO_PX, ZOO_PX])
+    buffers0 = {n: b.clone() for n, b in model.named_buffers()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    with backend_flags(torch, benchmark=True) as flags:
+        losses = [step(x, y).item() for _ in range(ZOO_WARMUP)]
+        step_s = []
+        reset_kernel_launches()
+        for _ in range(ZOO_TIMED):
+            t1 = time.perf_counter()
+            losses.append(step(x, y).item())      # .item() synchronises
+            step_s.append(time.perf_counter() - t1)
+        launches = kernel_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prof = resnet_profile(torch, step, opt, (x, y))
+    if any(launches.values()):
+        raise AssertionError(f"zoo_train: a port kernel ran on a path that "
+                             f"reaches none {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"zoo_train: non-finite loss {losses}")
+    for n, b in model.named_buffers():
+        if torch.equal(b, buffers0[n]) or not torch.isfinite(b).all():
+            raise AssertionError(f"zoo_train: buffer {n} did not move or "
+                                 "is not finite")
+    mean_s = sum(step_s) / len(step_s)
+    emit({"phase": "zoo_train",
+          "model": "mobilenet_v3_large(num_classes=1000), scale 1.0",
+          "dtype": "bfloat16", "batch": ZOO_BATCH,
+          "image": [3, ZOO_PX, ZOO_PX],
+          "optimizer": f"Momentum({ZOO_LR}, {ZOO_MOMENTUM})",
+          "backend_flags": flags,
+          "params": sum(p.numel() for p in model.parameters()),
+          "setup_s": setup_s, "losses": losses, "step_s": step_s,
+          "step_s_mean": mean_s, "step_s_range": [min(step_s), max(step_s)],
+          "images_per_s": ZOO_BATCH / mean_s,
+          "model_flops_per_step": flops,
+          "model_flops_formula": "3 x hapi.flops of the forward",
+          "model_tflops_per_s": flops / mean_s / 1e12,
+          "mfu_of_989": flops / mean_s / 989e12,
+          "peak_memory_gb": peak_gb, "kernel_launches": launches})
+    emit(dict(prof, phase="zoo_train_profile", steps=1))
+    del step, opt, model, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_forward_phase(torch, dev):
+    """Every zoo constructor but the ResNets (ZOO_FORWARD) at its
+    published width and input, bf16 b 8 on the card: one eval forward
+    (the logits' shape, finite; eval images/s over a second, timed
+    forward) and one train-mode forward and backward (finite, every
+    parameter with a finite gradient; GoogLeNet's two aux heads in the
+    loss)."""
+    from paddle_tpu_torch.nn import functional as F
+
+    report = {}
+    for i, name in enumerate(ZOO_FORWARD):
+        t0 = time.perf_counter()
+        model = zoo_model(torch, name, dev, torch.bfloat16, seed=i)
+        shape = zoo_input_shape(name, ZOO_FORWARD_BATCH)
+        x = torch.randn(shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(i)).to(torch.bfloat16)
+        classes = 10 if name == "LeNet" else ZOO_CLASSES
+        model.eval()
+        with torch.no_grad():
+            model(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = model(x)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t1
+        if tuple(logits.shape) != (ZOO_FORWARD_BATCH, classes) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"zoo_forward {name}: logits "
+                                 f"{tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        model.train()
+        out = model(x)
+        outs = out if isinstance(out, tuple) else (out,)
+        y = torch.arange(ZOO_FORWARD_BATCH, device=dev) % classes
+        loss = sum(F.cross_entropy(o.float(), y) for o in outs)
+        loss.backward()
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not torch.isfinite(p.grad).all()]
+        if not math.isfinite(loss.item()) or bad:
+            raise AssertionError(f"zoo_forward {name}: loss {loss.item()}, "
+                                 f"parameters without a finite gradient "
+                                 f"{bad[:4]}")
+        report[name] = {"input": list(shape),
+                        "params": sum(p.numel() for p in model.parameters()),
+                        "eval_images_per_s": ZOO_FORWARD_BATCH / eval_s,
+                        "train_outputs": len(outs), "loss": loss.item(),
+                        "seconds": time.perf_counter() - t0}
+        del model, x, logits, out, outs, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "zoo_forward", "dtype": "bfloat16",
+          "batch": ZOO_FORWARD_BATCH, "models": report})
+
+
+def zoo_numpy_state(model, seed):
+    """A ``state_dict`` of ``model``'s keys in the JAX models' layout
+    (Linear weights [in, out]) from one numpy seed: convolutions and
+    their biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)), Linear weights
+    Xavier-normal and biases 0, BatchNorm weights U(0.5, 1.5), biases and
+    running means N(0, 0.1^2), running variances U(0.5, 1.5)."""
+    import numpy as np
+
+    from paddle_tpu_torch.nn import Conv2D, Linear
+
+    rng = np.random.RandomState(seed)
+    kinds = {}
+    for name, m in model.named_modules():
+        for leaf in ("weight", "bias", "_mean", "_variance"):
+            kinds[f"{name}.{leaf}"] = (type(m), leaf, m)
+    state = {}
+    for key, t in model.state_dict().items():
+        kind, leaf, m = kinds[key]
+        shape = tuple(t.shape)
+        if kind is Linear and leaf == "weight":
+            fan_out, fan_in = shape
+            a = rng.randn(fan_in, fan_out) * math.sqrt(2.0 / (fan_in
+                                                              + fan_out))
+        elif kind is Linear:
+            a = np.zeros(shape)
+        elif kind is Conv2D:
+            a = rng.uniform(-1, 1, shape) / math.sqrt(
+                math.prod(m.weight.shape[1:]))
+        elif leaf in ("weight", "_variance"):
+            a = rng.uniform(0.5, 1.5, shape)
+        else:
+            a = rng.randn(*shape) * 0.1
+        state[key] = a.astype(np.float32)
+    return state
+
+
+def zoo_parity_phase(torch, dev):
+    """Each family's flagship (ZOO_PARITY) with weights from one numpy
+    seed through convert.zoo_state_dict_from_jax: b 2 eval logits on the
+    card in f32 (TF32 off) against the CPU in f64, within ZOO_LOGIT_TOL
+    of the f64 logits' norm.  Then MobileNetV3-Large one Momentum step (b
+    4, the head's Dropout at 0: its masks come from the card's stream)
+    on the card in f64 and f32, the CPU in f32 and in f64 (the truth):
+    the logits, the loss, every gradient, parameter and buffer after it,
+    norm-wise (a gradient that is 0 in exact arithmetic against the
+    gradients' global norm, as grad_parity's zero_truth): the card's f64
+    within ZOO_F64_TOL, its f32 within GRAD_PARITY_FACTOR of the CPU
+    f32's error plus ZOO_GRAD_FLOOR (see there); the hardswish inputs
+    that f32 puts across a kink are counted."""
+    import numpy as np
+
+    from paddle_tpu_torch.convert import zoo_state_dict_from_jax
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import Hardswish
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+
+    def build(name, kw, where, dtype, state=None):
+        model = zoo_model(torch, name, where, dtype, **kw)
+        if state is None:
+            state = zoo_numpy_state(model, 1234)
+        model.load_state_dict(zoo_state_dict_from_jax(
+            state, model, device=where, dtype=dtype))
+        return model, state
+
+    def rel(got, ref):
+        return ((got.double().cpu() - ref).norm()
+                / max(ref.norm().item(), 1e-30)).item()
+
+    logits_err = {}
+    with backend_flags(torch, tf32=False, benchmark=False) as flags:
+        for i, (name, kw) in enumerate(ZOO_PARITY):
+            x = torch.from_numpy(np.random.RandomState(i).randn(
+                *zoo_input_shape(name, ZOO_PARITY_BATCH)).astype(np.float32))
+            ref_model, state = build(name, kw, "cpu", torch.float64)
+            card_model, _ = build(name, kw, dev, torch.float32, state)
+            with torch.no_grad():
+                ref = ref_model.eval()(x.double())
+                got = card_model.eval()(x.to(dev))
+            logits_err[name] = rel(got, ref)
+            if not logits_err[name] <= ZOO_LOGIT_TOL:
+                raise AssertionError(f"zoo_parity {name}: card f32 logits "
+                                     f"{logits_err[name]:.3e} from the CPU "
+                                     f"f64, beyond {ZOO_LOGIT_TOL}")
+            del ref_model, card_model
+        x = torch.from_numpy(np.random.RandomState(7).randn(
+            4, 3, ZOO_PX, ZOO_PX).astype(np.float32))
+        y = torch.from_numpy(np.random.RandomState(8).randint(
+            0, ZOO_CLASSES, 4))
+        state = None
+
+        def step_run(where, dtype):
+            nonlocal state
+            model, state = build("mobilenet_v3_large", {}, where, dtype,
+                                 state)
+            model.classifier[2].p = 0.0
+            model.train()
+            opt = Momentum(learning_rate=ZOO_LR, momentum=ZOO_MOMENTUM,
+                           parameters=model.named_parameters(),
+                           device=where)
+            grads, acts = {}, {}
+            for n, p in model.named_parameters():
+                p.register_post_accumulate_grad_hook(
+                    lambda p, n=n: grads.__setitem__(
+                        n, p.grad.detach().clone()))
+            for n, m in model.named_modules():
+                if isinstance(m, Hardswish):
+                    m.register_forward_hook(
+                        lambda m, i, o, n=n: acts.__setitem__(
+                            n, i[0].detach()))
+
+            def loss_aux(net, a, lbl):      # in the run's dtype (f32, f64)
+                logits = net(a)
+                return F.cross_entropy(logits, lbl), logits
+
+            tstep = TrainStep(model, loss_aux, opt, has_aux=True,
+                              device=where)
+            loss, logits = tstep(x.to(where, dtype), y.to(where))
+            out = {"loss": loss, "logits": logits}
+            out.update({"grad." + n: g for n, g in grads.items()})
+            out.update(model.state_dict())
+            out.update({"act." + n: a for n, a in acts.items()})
+            return {k: v.detach().to("cpu", torch.float64)
+                    for k, v in out.items()}
+
+        truth = step_run("cpu", torch.float64)
+        cpu32 = step_run("cpu", torch.float32)
+        card32 = step_run(dev, torch.float32)
+        card64 = step_run(dev, torch.float64)
+    # a gradient that is 0 in exact arithmetic (a BatchNorm bias whose
+    # shift the next train-mode BatchNorm subtracts again) is rounding
+    # noise on every path: its error is taken relative to the global
+    # norm of the f64 gradients, as grad_parity's zero_truth
+    total = math.sqrt(sum(v.norm().item() ** 2 for k, v in truth.items()
+                          if k.startswith("grad.")))
+    zero = {k for k, v in truth.items() if k.startswith("grad.")
+            and v.norm().item() <= 1e-9 * total}
+
+    def err(got, k):
+        ref = truth[k]
+        return ((got[k] - ref).norm().item() / total if k in zero
+                else rel(got[k], ref))
+
+    e_card = {k: err(card32, k) for k in truth}
+    e_cpu = {k: err(cpu32, k) for k in truth}
+    e_card64 = {k: err(card64, k) for k in truth}
+    failed = [f"f64 {k}: card {e_card64[k]:.3e} > {ZOO_F64_TOL}"
+              for k in truth if not e_card64[k] <= ZOO_F64_TOL]
+    failed += [f"f32 {k}: card {e_card[k]:.3e} > {GRAD_PARITY_FACTOR} x "
+               f"CPU {e_cpu[k]:.3e} + {ZOO_GRAD_FLOOR}" for k in truth
+               if not (math.isfinite(e_card[k]) and e_card[k]
+                       <= GRAD_PARITY_FACTOR * e_cpu[k] + ZOO_GRAD_FLOOR)]
+    if failed:
+        raise AssertionError(f"zoo_parity: {len(failed)} tensors of the "
+                             f"MobileNetV3-Large step out of tolerance: "
+                             f"{failed[:12]}")
+    crossings = {}
+    for tag, got in (("card_f32", card32), ("cpu_f32", cpu32)):
+        crossings[tag] = {k[4:]: n for k, v in truth.items()
+                          if k.startswith("act.") for n in [int(sum(
+                              (torch.sign(got[k] - c) != torch.sign(v - c))
+                              .sum().item() for c in (3.0, -3.0)))] if n}
+    emit({"phase": "zoo_parity", "backend_flags": flags,
+          "eval_logits_rel_err_card_f32_vs_cpu_f64": logits_err,
+          "eval_tolerance": ZOO_LOGIT_TOL,
+          "step_model": "mobilenet_v3_large(num_classes=1000), b4 x 224",
+          "step_tensors_checked": len(truth),
+          "step_worst_card_f64": max(e_card64.items(), key=lambda kv: kv[1]),
+          "step_f64_tolerance": ZOO_F64_TOL,
+          "hardswish_kink_crossings_against_f64": crossings,
+          "step_zero_truth_gradients": sorted(k[5:] for k in zero),
+          "step_rule": f"f32: card err <= {GRAD_PARITY_FACTOR} x CPU f32 "
+                       f"err + {ZOO_GRAD_FLOOR}; f64: card err <= "
+                       f"{ZOO_F64_TOL}; norm-wise against the CPU f64",
+          "step_loss": {"f64": truth["loss"].item(),
+                        "card_f32": card32["loss"].item()},
+          "step_worst_card": max(e_card.items(), key=lambda kv: kv[1]),
+          "step_worst_cpu_f32": max(e_cpu.items(), key=lambda kv: kv[1])})
+
+
+def detection_inputs(torch, seed):
+    """vision_ops' inputs on the CPU: the feature map, 1,000 RoIs split
+    between the two images, 2,000 NMS boxes with scores and categories,
+    in image pixels (800 x 1216)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n, _, h, w = OPS_MAP
+    feat = torch.from_numpy(rng.randn(*OPS_MAP).astype(np.float32))
+
+    def boxes(k, lo, hi):
+        wh = rng.uniform(lo, hi, (k, 2))
+        xy = rng.uniform(0, 1, (k, 2)) * ([w / OPS_SCALE, h / OPS_SCALE]
+                                         - wh)
+        return torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(
+            np.float32))
+
+    rois = boxes(OPS_ROIS, 16, 400)
+    num = torch.tensor([OPS_ROIS // 2, OPS_ROIS - OPS_ROIS // 2],
+                       dtype=torch.int32)
+    nms_boxes = boxes(OPS_NMS_BOXES, 8, 300)
+    scores = torch.from_numpy(rng.uniform(0, 1, OPS_NMS_BOXES).astype(
+        np.float32))
+    cats = torch.from_numpy(rng.randint(0, OPS_NMS_CLASSES, OPS_NMS_BOXES))
+    return feat, rois, num, nms_boxes, scores, cats
+
+
+def vision_ops_phase(torch, dev):
+    """``vision.ops`` and the resizes on the card against the same calls
+    on the CPU, each with its CUDA-event ms: nms (2,000 boxes, 80
+    categories, top_k 1,000; indices equal exactly), roi_align (sampling
+    ratios 2 and -1) and roi_pool over 1,000 RoIs of the [2, 256, 200,
+    304] map, 7 x 7, within TOLERANCES['float32'] (and their gradients'
+    time); box_coder's encode and decode, the round trip giving the
+    targets back; grid_sample and interpolate (bilinear x 2 with and
+    without aligned corners, nearest, bicubic) on [8, 256, 64, 64]."""
+    import numpy as np
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision import ops
+
+    feat, rois, num, nboxes, scores, cats = detection_inputs(torch, 0)
+    card = [t.to(dev) for t in (feat, rois, num, nboxes, scores, cats)]
+    report = {}
+
+    def both(name, fn, cpu_args, card_args, exact=False, reps=5):
+        ref = fn(*cpu_args)
+        got = fn(*card_args)
+        if exact:
+            if not torch.equal(got.cpu(), ref):
+                raise AssertionError(f"vision_ops {name}: the card's "
+                                     "result differs from the CPU's")
+            err = 0.0
+        else:
+            err = check_close(f"vision_ops {name}", got.cpu(), ref,
+                              "float32")
+        report[name] = {"ms": cuda_ms(lambda: fn(*card_args), reps),
+                        "max_abs_err": err, "shape": list(got.shape)}
+        return got
+
+    kept = both("nms", lambda b, s, c: ops.nms(
+        b, 0.5, s, c, list(range(OPS_NMS_CLASSES)), OPS_NMS_TOP_K),
+        (nboxes, scores, cats), card[3:], exact=True)
+    report["nms"]["kept"] = int(kept.numel())
+    for name, kw in (("roi_align/sampling2", dict(sampling_ratio=2)),
+                     ("roi_align/sampling-1", dict(sampling_ratio=-1))):
+        both(name, lambda f, r, k, kw=kw: ops.roi_align(
+            f, r, k, OPS_BINS, OPS_SCALE, **kw), (feat, rois, num),
+            card[:3])
+    both("roi_pool", lambda f, r, k: ops.roi_pool(
+        f, r, k, OPS_BINS, OPS_SCALE), (feat, rois, num), card[:3])
+    fmap = card[0].clone().requires_grad_()
+    for name, fn in (("roi_align/backward", lambda: ops.roi_align(
+            fmap, card[1], card[2], OPS_BINS, OPS_SCALE, 2)),
+                     ("roi_pool/backward", lambda: ops.roi_pool(
+                         fmap, card[1], card[2], OPS_BINS, OPS_SCALE))):
+        out = fn()
+        report[name] = {"ms": cuda_ms(lambda: torch.autograd.grad(
+            fn().sum(), fmap), 3)}
+        del out
+    priors, targets = nboxes[:OPS_ROIS], rois
+    var = torch.tensor([0.1, 0.1, 0.2, 0.2])
+    enc = both("box_coder/encode", lambda p, v, t: ops.box_coder(p, v, t),
+               (priors, var, targets), (card[3][:OPS_ROIS], var.to(dev),
+                                        card[1]))
+    dec = both("box_coder/decode", lambda p, v, d: ops.box_coder(
+        p, v, d, code_type="decode_center_size"),
+        (priors, var, enc.cpu()), (card[3][:OPS_ROIS], var.to(dev), enc))
+    check_close("vision_ops box_coder round trip", dec,
+                card[1][:, None, :].expand_as(dec), "float32")
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(*OPS_RESIZE).astype(np.float32))
+    grid = torch.from_numpy(rng.uniform(-1.1, 1.1, (OPS_RESIZE[0], 64, 64,
+                                                   2)).astype(np.float32))
+    both("grid_sample/bilinear", lambda a, g: F.grid_sample(a, g),
+         (x, grid), (x.to(dev), grid.to(dev)))
+    for name, kw in (("bilinear_x2", dict(scale_factor=2,
+                                          mode="bilinear")),
+                     ("bilinear_x2_corners", dict(
+                         scale_factor=2, mode="bilinear",
+                         align_corners=True)),
+                     ("nearest_x2", dict(scale_factor=2, mode="nearest")),
+                     ("bicubic_x2", dict(scale_factor=2, mode="bicubic")),
+                     ("bilinear_down", dict(size=[32, 32],
+                                            mode="bilinear"))):
+        both(f"interpolate/{name}", lambda a, kw=kw: F.interpolate(a, **kw),
+             (x,), (x.to(dev),))
+    emit({"phase": "vision_ops", "map": list(OPS_MAP), "rois": OPS_ROIS,
+          "bins": OPS_BINS, "nms_boxes": OPS_NMS_BOXES,
+          "resize_input": list(OPS_RESIZE),
+          "tolerance": f"TOLERANCES['float32'] {TOLERANCES['float32']}; "
+                       "nms indices exact", "ops": report})
+
+
+def zoo_phases_main(torch):
+    """``--zoo-phases``: zoo_train, zoo_forward, zoo_parity and
+    vision_ops alone (no CUDA kernel of the port lies on their path, so
+    none is built), each with its own checks."""
+    from paddle_tpu_torch import resolve_device
+
+    smi = nvidia_smi()
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "cudnn": torch.backends.cudnn.version()})
+    dev = resolve_device()
+    for name, fn in (("zoo_train", zoo_train_phase),
+                     ("zoo_forward", zoo_forward_phase),
+                     ("zoo_parity", zoo_parity_phase),
+                     ("vision_ops", vision_ops_phase)):
+        t0 = time.perf_counter()
+        fn(torch, dev)
+        emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
+    print(smi)
+    return 0
+
+
 def hapi_phases_main(torch):
     """``--hapi-phases``: hapi_fit and hapi_fit_bert alone; the kernels
     are built because hapi_fit_bert's BERT runs the LayerNorm and flash
@@ -6552,6 +7086,8 @@ def main():
         return fp16_phases_main(torch)
     if "--fused-phases" in sys.argv[1:]:
         return fused_phases_main(torch)
+    if "--zoo-phases" in sys.argv[1:]:
+        return zoo_phases_main(torch)
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
@@ -6629,6 +7165,10 @@ def main():
     hapi_fit = phase("hapi_fit", hapi_fit_phase, torch, dev)
     hapi_fit_bert = phase("hapi_fit_bert", hapi_fit_bert_phase, torch, dev,
                           flash_figures)
+    zoo_train = phase("zoo_train", zoo_train_phase, torch, dev)
+    phase("zoo_forward", zoo_forward_phase, torch, dev)
+    phase("zoo_parity", zoo_parity_phase, torch, dev)
+    phase("vision_ops", vision_ops_phase, torch, dev)
     emit({"phase": "seconds", "by_phase": seconds,
           "total": time.perf_counter() - t_start})
 
@@ -6691,7 +7231,8 @@ def main():
             "hapi_fit": hapi_fit, "hapi_fit_bert": hapi_fit_bert,
             "serve_fp16": serve_fp16, "bert_amp": bert_amp,
             "transformer_mt": transformer_mt, "fused_decode": fused_decode,
-            "fused_rotary": fused_rotary, "fused_layers": fused_layers}
+            "fused_rotary": fused_rotary, "fused_layers": fused_layers,
+            "zoo_train": zoo_train}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]

@@ -33,6 +33,10 @@ do biases and the GroupNorm / LayerNorm weights and biases.
 (``vision/models/resnet.py``): only the ``fc`` Linear's weight
 transposes; convolutions (OIHW), BatchNorm weights and biases and both
 running buffers (``_mean``, ``_variance``) keep their layout.
+``zoo_state_dict_from_jax`` does the same for any model of the zoo
+(``vision/models/``), given the port's model: its keys and shapes are
+the expected ones, and the weight of each of its ``nn.Linear`` layers
+transposes.
 
 The fused generation stack (``incubate``) keeps paddle's layout, as the
 JAX functions and layers take it, so nothing transposes:
@@ -373,6 +377,22 @@ def resnet_state_dict_from_jax(np_state, depth=50, width=64,
     return _from_jax(np_state, resnet_expected_shapes(depth, width,
                                                       num_classes, groups),
                      lambda key: key == "fc.weight", device, dtype)
+
+
+def zoo_state_dict_from_jax(np_state, model, device=None, dtype=None):
+    """A JAX zoo model's ``state_dict`` (as numpy, BatchNorm buffers
+    included) -> tensors for ``model.load_state_dict``, ``model`` the
+    port's model of the same constructor and arguments, on ``device``
+    (``cuda`` unless asked otherwise) in ``dtype`` (default: the arrays'
+    own).  The weights of ``model``'s ``Linear`` layers transpose;
+    convolutions, norms and buffers keep their layout.  Raises on a
+    missing, unexpected or misshaped key."""
+    from .nn import Linear
+
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    linear = {f"{name}.weight" for name, m in model.named_modules()
+              if isinstance(m, Linear)}
+    return _from_jax(np_state, want, linear.__contains__, device, dtype)
 
 
 _TRANSFORMER_LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj", "linear1",

@@ -1,7 +1,17 @@
 from . import functional
-from .activation import GELU, ReLU, Tanh
+from .activation import (
+    CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
+    LeakyReLU, LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6,
+    RReLU, Sigmoid, SiLU, Softmax, Softmax2D, Softplus, Softshrink,
+    Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU,
+)
 from .clip import ClipGradByGlobalNorm
-from .common import Dropout, Embedding, Linear
+from .common import (
+    AlphaDropout, Bilinear, ChannelShuffle, CosineSimilarity, Dropout,
+    Dropout2D, Dropout3D, Embedding, Flatten, Fold, Identity, Linear, Pad1D,
+    Pad2D, Pad3D, PairwiseDistance, PixelShuffle, PixelUnshuffle, Unflatten,
+    Unfold, Upsample, UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D,
+)
 from .container import LayerList, Sequential
 from .loss import (
     BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,
@@ -16,34 +26,19 @@ from .conv import (
 )
 from .norm import (
     BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
-    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm, RMSNorm,
+    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
+    LocalResponseNorm, RMSNorm, SpectralNorm,
 )
 from .pooling import (
     AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
     AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
-    AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
+    AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D, MaxUnPool1D,
+    MaxUnPool2D, MaxUnPool3D,
 )
 from .transformer import (
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
 )
 
-__all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
-           "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
-           "AvgPool1D", "AvgPool2D", "AvgPool3D", "BCELoss",
-           "BCEWithLogitsLoss", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "CTCLoss", "ClipGradByGlobalNorm", "Conv1D",
-           "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D",
-           "Conv3DTranspose", "CosineEmbeddingLoss", "CrossEntropyLoss",
-           "Dropout", "Embedding", "GELU", "GaussianNLLLoss", "GroupNorm",
-           "HSigmoidLoss", "HingeEmbeddingLoss", "InstanceNorm1D",
-           "InstanceNorm2D", "InstanceNorm3D", "KLDivLoss", "L1Loss",
-           "LayerList", "LayerNorm", "Linear", "MSELoss",
-           "MarginRankingLoss", "MaxPool1D", "MaxPool2D", "MaxPool3D",
-           "MultiHeadAttention", "MultiLabelSoftMarginLoss",
-           "MultiMarginLoss", "NLLLoss", "PoissonNLLLoss", "RMSNorm", "ReLU",
-           "Sequential", "SmoothL1Loss", "SoftMarginLoss", "Tanh",
-           "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
-           "TransformerEncoder", "TransformerEncoderLayer",
-           "TripletMarginLoss", "TripletMarginWithDistanceLoss",
-           "functional"]
+__all__ = sorted([n for n, v in dict(globals()).items()
+                  if isinstance(v, type)] + ["functional"])

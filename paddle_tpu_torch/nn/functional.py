@@ -1,7 +1,12 @@
 """Functionals of the port's model slices, the counterparts of
-``paddle_tpu/nn/functional/norm.py``, ``attention.py``, ``common.py``,
-``activation.py``, ``conv.py`` and ``pooling.py``; the losses of
-``loss.py`` live in :mod:`.functional_loss` and are re-exported here.
+``paddle_tpu/nn/functional/norm.py``, ``attention.py``, ``common.py``
+(``linear``, ``embedding``), ``conv.py`` and ``pooling.py``; the
+activations (:mod:`.functional_activation`), the rest of ``common.py``
+(:mod:`.functional_common`), ``vision.py`` (:mod:`.functional_vision`)
+and the losses (:mod:`.functional_loss`) live beside it and are
+re-exported here.  The max pools return JAX's mask with
+``return_mask`` (the flat position of each window's first maximum in
+its (N, C) plane) and ``max_unpool1d/2d/3d`` put values back at it.
 
 Routing follows the JAX package with the card in the TPU's place:
 
@@ -29,9 +34,9 @@ Routing follows the JAX package with the card in the TPU's place:
   the kernel's entry).
 
 :func:`linear` takes the port's ``[out, in]`` weight (torch's layout;
-``convert`` transposes paddle's ``[in, out]`` once, at load).
-:func:`dropout` and the attention dropout draw their masks from the
-port's counter stream (:mod:`paddle_tpu_torch.random`), one key a call.
+``convert`` transposes paddle's ``[in, out]`` once, at load).  The
+attention dropout draws its masks from the port's counter stream
+(:mod:`paddle_tpu_torch.random`), one key a call.
 
 Convolution, pooling, BatchNorm and InstanceNorm are plain torch, as the
 JAX package leaves them to ``lax.conv_general_dilated``,
@@ -53,7 +58,10 @@ under an ``amp.auto_cast`` scope, with JAX's op name.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
+
+import numpy as np
 
 import torch
 import torch.nn.functional as TF
@@ -64,7 +72,11 @@ from ..ops.flash_attention import flash_attention as _flash_op
 from ..ops.group_norm import group_norm as _group_norm_op
 from ..ops.layer_norm import layer_norm as _layer_norm_op
 from ..ops.rms_norm import rms_norm_axes_plain as rms_norm  # noqa: F401
+from .functional_activation import *  # noqa: F401,F403
+from .functional_activation import weak as _weak
+from .functional_common import *  # noqa: F401,F403
 from .functional_loss import *  # noqa: F401,F403  (the loss functionals)
+from .functional_vision import *  # noqa: F401,F403
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
@@ -121,39 +133,11 @@ def linear(x, weight, bias=None):
     return TF.linear(x, weight, bias)
 
 
-def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
-    """``paddle_tpu/nn/functional/common.py:24-45``.  ``axis`` (an int or
-    a list) names the dims the mask varies along; it is shared along
-    the others.  ``"upscale_in_train"`` scales kept values by
-    ``1/(1-p)`` in training and is the identity in eval;
-    ``"downscale_in_infer"`` keeps them unscaled and multiplies by
-    ``1-p`` in eval.  Each training call with ``p > 0`` takes one key.
-    The mask is a bool tensor that autograd saves, so the backward
-    passes the gradient through the forward's mask."""
-    if mode not in ("upscale_in_train", "downscale_in_infer"):
-        raise ValueError(f"dropout mode {mode!r}")
-    (x,) = cast_inputs("dropout", x)
-    if not training or p == 0.0:
-        if mode == "downscale_in_infer" and not training:
-            return x * (1.0 - p)
-        return x
-    shape = list(x.shape)
-    if axis is not None:
-        axes = [axis] if isinstance(axis, int) else list(axis)
-        axes = [a % x.dim() for a in axes]
-        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
-    u = torch.rand(shape, generator=_random.next_generator(x.device),
-                   device=x.device)
-    keep = u < 1.0 - p
-    if mode == "upscale_in_train":
-        return torch.where(keep, x / (1.0 - p), 0.0)
-    return torch.where(keep, x, 0.0)
-
-
-def embedding(x, weight, padding_idx=None):
+def embedding(x, weight, padding_idx=None, sparse=False):
     """Rows of ``weight`` [num, dim] at the ids ``x``; with
     ``padding_idx`` those positions give 0 (and no gradient), as
-    ``common.py:110-121``.  An indexing gather: its backward sums the rows
+    ``common.py:110-121``; ``sparse`` is accepted and ignored, as JAX's
+    (the gradient is dense).  An indexing gather: its backward sums the rows
     of a repeated id in a fixed order (a sorted, accumulating
     ``index_put_``), where ``torch.nn.functional.embedding``'s CUDA
     backward gave another gradient from run to run for ids repeated
@@ -163,28 +147,6 @@ def embedding(x, weight, padding_idx=None):
     if padding_idx is not None:
         out = torch.where((x == padding_idx)[..., None], 0.0, out)
     return out
-
-
-def gelu(x, approximate=False):
-    """Exact (erf) GELU, or the tanh approximation with ``approximate``."""
-    (x,) = cast_inputs("gelu", x)
-    return TF.gelu(x, approximate="tanh" if approximate else "none")
-
-
-def relu(x):
-    (x,) = cast_inputs("relu", x)
-    return torch.relu(x)
-
-
-def silu(x):
-    """``x * sigmoid(x)`` (``activation.py:35-36``)."""
-    (x,) = cast_inputs("silu", x)
-    return TF.silu(x)
-
-
-def tanh(x):
-    (x,) = cast_inputs("tanh", x)
-    return torch.tanh(x)
 
 
 def sdpa_plain(q, k, v, mask=None, dropout_p=0.0, causal=False,
@@ -512,31 +474,151 @@ def _pool(x, kernel, stride, padding, n, data_format, op, ceil_mode=False,
     return out.movedim(1, -1) if channels_last else out
 
 
-def _no_mask(return_mask):
-    if return_mask:
-        raise NotImplementedError("return_mask (and max_unpool) is not "
-                                  "ported yet (ROADMAP.md Queue 1)")
+@functools.lru_cache(maxsize=64)
+def _mask_windows(spatial, out_sp, kernel, stride, pad_lo):
+    """NumPy ``[L * K]`` flat input positions of each output's window
+    (clipped into the plane) and whether each lies inside it, window by
+    window in row-major order (``pooling.py:186-213``)."""
+    n = len(spatial)
+    flat = valid = None
+    for d in range(n):
+        c = (np.arange(out_sp[d])[:, None] * stride[d] - pad_lo[d]
+             + np.arange(kernel[d])[None, :])
+        shape = [1] * (2 * n)
+        shape[d], shape[n + d] = out_sp[d], kernel[d]
+        c = c.reshape(shape)
+        v = (c >= 0) & (c < spatial[d])
+        cc = np.clip(c, 0, spatial[d] - 1)
+        valid = v if valid is None else valid & v
+        flat = cc if flat is None else flat * spatial[d] + cc
+    full = tuple(out_sp) + tuple(kernel)
+    return (np.broadcast_to(flat, full).reshape(-1).astype(np.int64),
+            np.broadcast_to(valid, full).reshape(-1).copy())
+
+
+def _max_pool_with_mask(x, kernel, stride, padding, n, channel_last,
+                        ceil_mode):
+    """``pooling.py:164-236``: the pooled output and the mask, the flat
+    position of each window's maximum in its (N, C) plane (int32); the
+    first maximum in the window's row-major order wins a tie, padding
+    never does, and the windows are ``_pool``'s (``ceil_mode`` too).
+    String padding raises, as JAX's."""
+    (x,) = cast_inputs(f"max_pool{n}d_mask", x)
+    kernel = _ntuple(kernel, n)
+    stride = _ntuple(stride if stride is not None else kernel, n)
+    pads = _norm_padding(padding, n)
+    if isinstance(pads, str):
+        raise NotImplementedError("return_mask with string padding")
+    if channel_last:
+        x = x.movedim(-1, 1)
+    spatial = tuple(x.shape[2:])
+    out_sp = []
+    for size, k, s, (lo, hi) in zip(spatial, kernel, stride, pads):
+        num = size + lo + hi - k
+        o = -(-num // s) + 1 if ceil_mode else num // s + 1
+        if ceil_mode and (o - 1) * s >= size + lo:
+            o -= 1
+        out_sp.append(o)
+    out_sp = tuple(out_sp)
+    flat_np, valid_np = _mask_windows(spatial, out_sp, kernel, stride,
+                                      tuple(lo for lo, _ in pads))
+    flat = torch.from_numpy(flat_np).to(x.device)
+    valid = torch.from_numpy(valid_np).to(x.device)
+    nb, c = x.shape[:2]
+    big_l, big_k = math.prod(out_sp), math.prod(kernel)
+    windows = torch.where(valid, x.reshape(nb, c, -1)[:, :, flat],
+                          -math.inf).reshape(nb, c, big_l, big_k)
+    arg = windows.argmax(-1, keepdim=True)
+    out = windows.gather(-1, arg).reshape((nb, c) + out_sp)
+    mask = flat.reshape(big_l, big_k).expand(nb, c, big_l, big_k).gather(
+        -1, arg).reshape((nb, c) + out_sp).int()
+    if channel_last:
+        out, mask = out.movedim(1, -1), mask.movedim(1, -1)
+    return out, mask
 
 
 def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCL"):
-    _no_mask(return_mask)
+    """With ``return_mask``, ``(out, mask)`` (:func:`_max_pool_with_mask`)."""
+    if return_mask:
+        return _max_pool_with_mask(x, kernel_size, stride, padding, 1,
+                                   data_format in ("NLC", "NWC"), ceil_mode)
     return _pool(x, kernel_size, stride, padding, 1, data_format,
                  "max_pool1d", ceil_mode)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW"):
-    _no_mask(return_mask)
+    if return_mask:
+        return _max_pool_with_mask(x, kernel_size, stride, padding, 2,
+                                   data_format == "NHWC", ceil_mode)
     return _pool(x, kernel_size, stride, padding, 2, data_format,
                  "max_pool2d", ceil_mode)
 
 
 def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCDHW"):
-    _no_mask(return_mask)
+    if return_mask:
+        return _max_pool_with_mask(x, kernel_size, stride, padding, 3,
+                                   data_format == "NDHWC", ceil_mode)
     return _pool(x, kernel_size, stride, padding, 3, data_format,
                  "max_pool3d", ceil_mode)
+
+
+def _max_unpool(x, indices, kernel, stride, padding, n, output_size,
+                channel_last):
+    """``pooling.py:239-283``: each value of ``x`` written at its mask
+    position of an (N, C) plane of zeros, the plane ``output_size[-n:]``
+    or ``(L - 1) s - 2 pad + k`` a dim; a position outside the plane is
+    dropped, and of values written to one position the last lands, as
+    JAX's scatter does (its gradient goes to that value alone)."""
+    kernel = _ntuple(kernel, n)
+    stride = _ntuple(stride if stride is not None else kernel, n)
+    pads = _norm_padding(padding, n)
+    pad_lo = ((0,) * n if isinstance(pads, str)
+              else tuple(lo for lo, _ in pads))
+    (x,) = cast_inputs(f"max_unpool{n}d", x)
+    if channel_last:
+        x, indices = x.movedim(-1, 1), indices.movedim(-1, 1)
+    in_sp = x.shape[2:]
+    if output_size is not None:
+        out_sp = tuple(int(s) for s in list(output_size)[-n:])
+    else:
+        out_sp = tuple((in_sp[i] - 1) * stride[i] - 2 * pad_lo[i] + kernel[i]
+                       for i in range(n))
+    nb, c = x.shape[:2]
+    size = math.prod(out_sp)
+    idx = indices.reshape(nb * c, -1).long()
+    idx = torch.where((idx >= 0) & (idx < size), idx, size)
+    # one write a position, the last, as JAX's scatter: so the gradient
+    # reaches the value that landed once (overlapping windows repeat a
+    # position), where torch's would reach every write
+    pos = torch.arange(idx.shape[1], device=x.device).expand_as(idx)
+    last = torch.full((nb * c, size + 1), -1, dtype=torch.long,
+                      device=x.device).scatter_reduce(1, idx, pos, "amax")
+    idx = torch.where(last.gather(1, idx) == pos, idx, size)
+    out = torch.zeros((nb * c, size + 1), dtype=x.dtype,
+                      device=x.device).scatter(1, idx, x.reshape(nb * c, -1))
+    out = out[:, :size].reshape((nb, c) + out_sp)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None):
+    return _max_unpool(x, indices, kernel_size, stride, padding, 1,
+                       output_size, data_format == "NLC")
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None):
+    return _max_unpool(x, indices, kernel_size, stride, padding, 2,
+                       output_size, data_format == "NHWC")
+
+
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None):
+    return _max_unpool(x, indices, kernel_size, stride, padding, 3,
+                       output_size, data_format == "NDHWC")
 
 
 def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
@@ -595,28 +677,20 @@ def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
 
 
 def adaptive_max_pool1d(x, output_size, return_mask=False):
-    _no_mask(return_mask)
+    """``return_mask`` is accepted and ignored, as JAX's
+    (``pooling.py:152-155``; ROADMAP.md Queue 3)."""
     return _adaptive_pool(x, output_size, 1, "NCL", "max")
 
 
 def adaptive_max_pool2d(x, output_size, return_mask=False):
-    _no_mask(return_mask)
     return _adaptive_pool(x, output_size, 2, "NCHW", "max")
 
 
 def adaptive_max_pool3d(x, output_size, return_mask=False):
-    _no_mask(return_mask)
     return _adaptive_pool(x, output_size, 3, "NCDHW", "max")
 
 
 # ----------------------------------------------------- batch / instance norm
-def _weak(v, t):
-    """The Python float ``v`` as JAX's weak-typed constant beside the
-    tensor ``t``: rounded to ``t``'s dtype first (0.9 is 0.8984375
-    beside bf16), where torch would keep it in f32."""
-    return torch.tensor(v, dtype=t.dtype).item()
-
-
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW", use_global_stats=None):
@@ -676,3 +750,25 @@ def instance_norm(x, running_mean=None, running_var=None, weight=None,
     if bias is not None:
         out = out + bias.reshape(shape)
     return out
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12):
+    """``x / max(|x|_p, epsilon)``, the vector p-norm along ``axis``
+    (``norm.py:210-215``)."""
+    (x,) = cast_inputs("normalize", x)
+    n = torch.linalg.vector_norm(x, ord=p, dim=axis, keepdim=True)
+    return x / n.clamp(min=epsilon)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW"):
+    """``x / (k + alpha s / size)^beta``, ``s`` the sum of squares over
+    the channels ``[c - (size - size // 2 - 1), c + size // 2]`` that
+    exist (``norm.py:218-235``)."""
+    (x,) = cast_inputs("local_response_norm", x)
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    half = size // 2
+    sq = x.square().movedim(ch, -1)
+    sq = TF.pad(sq, (size - half - 1, half))
+    acc = sq.unfold(-1, size, 1).sum(-1).movedim(-1, ch)
+    return x / torch.pow(k + alpha * acc / size, beta)

@@ -8,14 +8,20 @@ through :mod:`paddle_tpu_torch.nn.functional`.  ``weight_attr=False`` /
 ``bias_attr=False`` leave a BatchNorm or InstanceNorm parameter out.
 BatchNorm keeps its running statistics in the buffers ``_mean`` (zeros)
 and ``_variance`` (ones), JAX's ``state_dict`` keys; ``Module.to(dtype)``
-casts them with the parameters, as JAX's ``Layer.to``.  ``SyncBatchNorm``
-waits for distributed training (ROADMAP.md)."""
+casts them with the parameters, as JAX's ``Layer.to``.
+``LocalResponseNorm`` and ``SpectralNorm`` (``:191-237``) have JAX's
+arithmetic.  ``SyncBatchNorm`` waits for distributed training
+(ROADMAP.md)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
+from .. import random as _random
+from ..tensor.manipulation import to_dtype
 from . import functional as F
 
 
@@ -156,3 +162,50 @@ class InstanceNorm3D(InstanceNorm1D):
                  device=None, dtype=None):
         super().__init__(num_features, epsilon, momentum, weight_attr,
                          bias_attr, data_format, device, dtype)
+
+
+class LocalResponseNorm(nn.Module):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW"):
+        super().__init__()
+        self.args = (size, alpha, beta, k, data_format)
+
+    def forward(self, x):
+        return F.local_response_norm(x, *self.args)
+
+
+class SpectralNorm(nn.Module):
+    """``weight / sigma``, ``sigma`` the largest singular value of
+    ``weight`` with dim ``dim`` first and the rest flattened, by
+    ``power_iters`` power iterations from ``weight_u`` [h] and
+    ``weight_v`` [w] (N(0, 1), parameters that take no gradient and that
+    the forward does not update, as JAX's; ``nn/layer/norm.py:200-237``)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, epsilon=1e-12,
+                 dtype="float32", device=None):
+        super().__init__()
+        self._dim = dim
+        self._power_iters = power_iters
+        self._epsilon = epsilon
+        h = weight_shape[dim]
+        w = math.prod(s for i, s in enumerate(weight_shape) if i != dim)
+        kw = dict(device=device, dtype=to_dtype(dtype))
+        self.weight_u = nn.Parameter(torch.empty(h, **kw),
+                                     requires_grad=False)
+        self.weight_v = nn.Parameter(torch.empty(w, **kw),
+                                     requires_grad=False)
+        with torch.no_grad():
+            for p in (self.weight_u, self.weight_v):
+                p.normal_(0.0, 1.0,
+                          generator=_random.next_generator(p.device))
+
+    def forward(self, weight):
+        wm = weight.movedim(self._dim, 0).reshape(weight.shape[self._dim],
+                                                  -1)
+        u, v = self.weight_u, self.weight_v
+        for _ in range(self._power_iters):
+            v = wm.T @ u
+            v = v / (torch.linalg.vector_norm(v) + self._epsilon)
+            u = wm @ v
+            u = u / (torch.linalg.vector_norm(u) + self._epsilon)
+        return weight / (u @ wm @ v)

@@ -1,5 +1,7 @@
 """Pooling layers, the counterparts of ``paddle_tpu/nn/layer/pooling.py``
-(all but ``MaxUnPool*``; ``return_mask`` raises, see ROADMAP.md)."""
+(all of them).  ``MaxPool*(return_mask=True)`` returns ``(out, mask)``,
+the mask ``MaxUnPool*`` takes back; the adaptive max pools accept
+``return_mask`` and ignore it, as JAX's (ROADMAP.md Queue 3)."""
 
 from __future__ import annotations
 
@@ -111,3 +113,34 @@ class AdaptiveMaxPool3D(_Adaptive):
     def __init__(self, output_size, return_mask=False):
         super().__init__(F.adaptive_max_pool3d, output_size,
                          return_mask=return_mask)
+
+
+class _MaxUnPool(nn.Module):
+    def __init__(self, fn, kernel_size, stride=None, padding=0, **kw):
+        super().__init__()
+        self._fn = functools.partial(fn, **kw)
+        self._args = (kernel_size, stride, padding)
+
+    def forward(self, x, indices):
+        return self._fn(x, indices, *self._args)
+
+
+class MaxUnPool1D(_MaxUnPool):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None):
+        super().__init__(F.max_unpool1d, kernel_size, stride, padding,
+                         data_format=data_format, output_size=output_size)
+
+
+class MaxUnPool2D(_MaxUnPool):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None):
+        super().__init__(F.max_unpool2d, kernel_size, stride, padding,
+                         data_format=data_format, output_size=output_size)
+
+
+class MaxUnPool3D(_MaxUnPool):
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None):
+        super().__init__(F.max_unpool3d, kernel_size, stride, padding,
+                         data_format=data_format, output_size=output_size)

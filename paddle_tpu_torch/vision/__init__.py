@@ -1,8 +1,7 @@
-"""``paddle_tpu_torch.vision``: the ResNet family (``models``), the
-datasets (``datasets``) and the NumPy image transforms
-(``transforms``), the counterparts of ``paddle_tpu/vision`` (``ops``
-and the rest of the model zoo are not ported yet)."""
+"""``paddle_tpu_torch.vision``: the model zoo (``models``), the detection
+ops (``ops``), the datasets (``datasets``) and the NumPy image
+transforms (``transforms``), the counterparts of ``paddle_tpu/vision``."""
 
-from . import datasets, models, transforms
+from . import datasets, models, ops, transforms
 
-__all__ = ["datasets", "models", "transforms"]
+__all__ = ["datasets", "models", "ops", "transforms"]

@@ -1,10 +1,17 @@
 """Building blocks of the vision model zoo, the counterparts of
-``paddle_tpu/vision/models/_ops.py``."""
+``paddle_tpu/vision/models/_ops.py``, and the constructors' shared
+set-up: the device (``cuda`` unless the caller passes ``"cpu"``), the
+initial values' stream (with ``seed``, a private stream seeded by it)
+and the refusal of pretrained weights."""
 
 from __future__ import annotations
 
+import contextlib
+
 from torch import nn
 
+from ... import random as _random
+from ...device import resolve_device
 from ...nn import BatchNorm2D, Conv2D, ReLU
 
 
@@ -17,6 +24,25 @@ def make_divisible(v, divisor=8, min_value=None):
     if new_v < 0.9 * v:
         new_v += divisor
     return new_v
+
+
+def model_kw(device, dtype):
+    """The layers' ``device``/``dtype`` keywords of a model built on
+    ``device`` (resolved: ``cuda`` unless asked otherwise)."""
+    return dict(device=resolve_device(device), dtype=dtype)
+
+
+def seeded(seed):
+    """Draw initial values from a private stream seeded by ``seed``, or
+    from this thread's stream when it is None."""
+    return (contextlib.nullcontext() if seed is None
+            else _random.fork_rng(seed))
+
+
+def no_pretrained(pretrained):
+    if pretrained:
+        raise NotImplementedError("pretrained weights are not in the "
+                                  "repository")
 
 
 class ConvBNReLU(nn.Module):

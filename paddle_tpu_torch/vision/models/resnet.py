@@ -19,17 +19,14 @@ variance 1), the ``fc`` Linear Xavier-normal with bias 0.
 
 from __future__ import annotations
 
-import contextlib
-
 from torch import nn
 
-from ... import random as _random
-from ...device import resolve_device
 from ...nn import (
     AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear, MaxPool2D, ReLU,
     Sequential,
 )
 from ...tensor import flatten
+from ._ops import model_kw, no_pretrained, seeded
 
 
 class BasicBlock(nn.Module):
@@ -111,9 +108,8 @@ class ResNet(nn.Module):
         self._norm_layer = BatchNorm2D
         self.inplanes = 64
         self.dilation = 1
-        kw = dict(device=resolve_device(device), dtype=dtype)
-        with (contextlib.nullcontext() if seed is None
-              else _random.fork_rng(seed)):
+        kw = model_kw(device, dtype)
+        with seeded(seed):
             self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
                                 bias_attr=False, **kw)
             self.bn1 = self._norm_layer(self.inplanes, **kw)
@@ -164,9 +160,7 @@ class ResNet(nn.Module):
 
 
 def _resnet(block, depth, pretrained=False, **kwargs):
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not in the "
-                                  "repository")
+    no_pretrained(pretrained)
     return ResNet(block, depth, **kwargs)
 
 

@@ -20,34 +20,7 @@ import random as pyrandom
 import numpy as np
 import torch
 
-
-def _triangle(x):
-    return np.maximum(0, 1 - np.abs(x))
-
-
-def _keys_cubic(x):
-    out = ((1.5 * x - 2.5) * x) * x + 1.
-    out = np.where(x >= 1., ((-0.5 * x + 2.5) * x - 4.) * x + 2., out)
-    return np.where(x >= 2., 0., out)
-
-
-def _weight_mat(m, n, kernel):
-    """``[m, n]`` float32 weights of output sample j over input pixel i
-    (``jax/_src/image/scale.py`` ``compute_weight_mat`` at scale n / m,
-    translation 0, antialias)."""
-    f32 = np.float32
-    inv_scale = 1. / (n / m)
-    kernel_scale = f32(max(inv_scale, 1.))
-    sample_f = (np.arange(n, dtype=f32) + f32(0.5)) * f32(inv_scale) \
-        - f32(0.0) - f32(0.5)
-    x = np.abs(sample_f[None, :] - np.arange(m, dtype=f32)[:, None]) \
-        / kernel_scale
-    w = kernel(x).astype(f32)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000. * float(np.finfo(f32).eps),
-                 w / np.where(total != 0, total, f32(1)), f32(0))
-    inside = (sample_f >= -0.5) & (sample_f <= m - 0.5)
-    return np.where(inside[None, :], w, f32(0)).astype(f32)
+from ..nn._resize import keys_cubic, nearest_index, triangle, weight_mat
 
 
 def _resize_np(arr, shape, method):
@@ -57,12 +30,9 @@ def _resize_np(arr, shape, method):
         if m == n:
             continue
         if method == "nearest":
-            offsets = (np.arange(n, dtype=np.float32) + np.float32(0.5)) \
-                * np.float32(m) / np.float32(n)
-            out = np.take(out, np.floor(offsets).astype(np.int32), axis=d)
+            out = np.take(out, nearest_index(m, n), axis=d)
             continue
-        w = _weight_mat(m, n, _triangle if method == "linear"
-                        else _keys_cubic)
+        w = weight_mat(m, n, triangle if method == "linear" else keys_cubic)
         out = np.moveaxis(np.tensordot(out, w, axes=([d], [0])), -1, d)
     return np.ascontiguousarray(out, dtype=np.float32)
 

@@ -223,11 +223,19 @@ def test_max_pool_tie_input_has_ties():
 
 
 def test_return_mask_raises():
+    """``return_mask`` with string padding raises, as JAX's
+    (``pooling.py:172-173``); with any other padding the max pools return
+    ``(out, mask)`` (held against JAX by tests/test_torch_nn_surface.py)
+    and the adaptive ones ignore it, as JAX's."""
     x = torch.zeros(1, 1, 4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.max_pool2d(x, 2, return_mask=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.adaptive_max_pool2d(x, 2, return_mask=True)
+    for pad in ("SAME", "VALID"):
+        with pytest.raises(NotImplementedError, match="string padding"):
+            F.max_pool2d(x, 2, padding=pad, return_mask=True)
+    out, mask = F.max_pool2d(x, 2, return_mask=True)
+    assert out.shape == mask.shape == (1, 1, 2, 2)
+    assert mask.dtype == torch.int32
+    assert F.adaptive_max_pool2d(x, 2, return_mask=True).shape == (1, 1, 2,
+                                                                    2)
 
 
 LAYERS = {
