@@ -6,7 +6,7 @@ kernels that the JAX package wrote in Pallas for the TPU are written by
 hand for Hopper (``csrc/`` for CUDA C++, Triton beside its module);
 each has a plain PyTorch twin that runs for CPU tensors.
 
-Seven paths so far:
+Eight paths so far:
 
 * serving a GPT / LLaMA decoder through the continuous-batching engine
   (``serving.Engine``), reached over HTTP through the gateway
@@ -49,7 +49,13 @@ Seven paths so far:
   forward on the causal prefill, the LayerNorm kernels in the fused
   layers and the stack's norms, the RMSNorm kernel through
   ``fused_rms_norm``; the decode attention over the cache is plain
-  torch, as JAX's is jnp.
+  torch, as JAX's is jnp;
+* the tensor surface (``tensor``: every function of JAX's tensor
+  namespace, re-exported here as JAX's root does, functions only;
+  ``linalg``, ``fft``, ``signal``) and the recurrent layers of ``nn``
+  with ``BeamSearchDecoder``/``dynamic_decode``, driven by an attention
+  LSTM seq2seq: cuDNN's fused RNN, cuBLAS, cuSOLVER and cuFFT, as the
+  JAX package computes these outside Pallas.
 
 On the CPU the UNet runs at a tiny size with ``device="cpu"``, e.g.
 ``UNet2DConditionModel(UNetConfig(block_out_channels=(16, 32),
@@ -70,14 +76,18 @@ run where their tensors lie); ``fused_decode`` (GPT-3 6.7B widths),
 ``fused_rotary`` and ``fused_layers`` drive it on the card.
 """
 
-from . import amp, framework, hapi, incubate, inference, io, metric, vision
+from . import tensor
+from .tensor import *  # noqa: F401,F403  (JAX's root: from .tensor import *)
+from . import (amp, fft, framework, hapi, incubate, inference, io, linalg,
+               metric, nn, signal, vision)
 from .device import resolve_device
 from .framework import load, save
 from .hapi import Model, flops, summary
 from .io.reader_compat import batch
-from .tensor import flatten, matmul
+from .random import get_rng_state, seed, set_rng_state
 
-__all__ = ["Model", "amp", "batch", "flatten", "flops", "framework", "hapi",
-           "incubate", "inference", "io",
-           "load", "matmul", "metric", "resolve_device", "save", "summary",
-           "vision"]
+__all__ = sorted(tensor.__all__ + [
+    "Model", "amp", "batch", "fft", "flops", "framework", "get_rng_state",
+    "hapi", "incubate", "inference", "io", "linalg", "load", "metric", "nn",
+    "resolve_device", "save", "seed", "set_rng_state", "signal", "summary",
+    "tensor", "vision"])

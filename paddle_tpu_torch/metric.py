@@ -1,16 +1,19 @@
 """Metrics, the counterparts of ``paddle_tpu/metric/__init__.py``:
 ``Metric``, ``Accuracy`` (top-k), ``Precision`` and ``Recall``.
 
-``Accuracy.compute`` ranks on the tensors' device (``torch.topk``) and
-returns the ``[..., maxk]`` f32 hits; ``update`` adds them to host
-counts, one read of the device a call, as JAX's numpy path reads its
-arrays."""
+``Accuracy.compute`` ranks on the tensors' device and returns the
+``[..., maxk]`` f32 hits; equal scores rank the lower index first
+(:func:`paddle_tpu_torch.tensor.topk`, ``lax.top_k``'s rule), on the
+card as on the CPU.  ``update`` adds them to host counts, one read of
+the device a call, as JAX's numpy path reads its arrays."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+
+from .tensor.search import topk
 
 
 class Metric:
@@ -48,7 +51,7 @@ class Accuracy(Metric):
         pred, label = torch.as_tensor(pred), torch.as_tensor(label)
         if label.dim() == pred.dim():
             label = label.squeeze(-1)
-        order = torch.topk(pred, self.maxk, dim=-1).indices
+        order = topk(pred, self.maxk)[1]
         return (order == label.to(order.device)[..., None]).to(torch.float32)
 
     def update(self, correct, *args):

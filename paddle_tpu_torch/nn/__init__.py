@@ -13,6 +13,7 @@ from .common import (
     Unfold, Upsample, UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D,
 )
 from .container import LayerList, Sequential
+from .decode import BeamSearchDecoder, dynamic_decode
 from .loss import (
     BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,
     CTCLoss, GaussianNLLLoss, HingeEmbeddingLoss, HSigmoidLoss, KLDivLoss,
@@ -35,10 +36,14 @@ from .pooling import (
     AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D, MaxUnPool1D,
     MaxUnPool2D, MaxUnPool3D,
 )
+from .rnn import (
+    GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, RNNCellBase, SimpleRNN,
+    SimpleRNNCell,
+)
 from .transformer import (
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
 )
 
 __all__ = sorted([n for n, v in dict(globals()).items()
-                  if isinstance(v, type)] + ["functional"])
+                  if isinstance(v, type)] + ["dynamic_decode", "functional"])

@@ -295,9 +295,24 @@ def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False):
     return (d.abs() ** p).sum(dim=-1, keepdim=keepdim) ** (1.0 / p)
 
 
+def gather_tree(ids, parents):
+    """Beam-search backtrace: ``ids``/``parents`` ``[time, batch, beam]``
+    -> each final beam's tokens from the first step, walked back from
+    the last step through the parents (JAX's scan, as a host loop over
+    the steps)."""
+    ids, parents = ids.detach(), parents.detach()
+    beams = torch.arange(ids.shape[2], device=ids.device).expand(
+        ids.shape[1:]).to(parents.dtype)
+    outs = [ids[-1]]
+    for t in range(ids.shape[0] - 2, -1, -1):
+        beams = torch.gather(parents[t + 1], -1, beams.long())
+        outs.append(torch.gather(ids[t], -1, beams.long()))
+    return torch.stack(outs[::-1])
+
+
 __all__ = [
     "alpha_dropout", "bilinear", "channel_shuffle", "cosine_similarity",
-    "dropout", "dropout2d", "dropout3d", "fold", "interpolate",
+    "dropout", "dropout2d", "dropout3d", "fold", "gather_tree", "interpolate",
     "label_smooth", "one_hot", "pad", "pairwise_distance", "pixel_shuffle",
     "pixel_unshuffle", "sequence_mask", "unfold", "upsample", "zeropad2d",
 ]

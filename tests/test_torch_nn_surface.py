@@ -974,7 +974,7 @@ def test_name_sets_match_jax():
     functionals, its activation, common, norm and pooling layers,
     ``tensor.manipulation``, ``vision.models`` and ``vision.ops`` exists
     in the port, less the deferrals (``sparse_attention``,
-    ``gather_tree``, ``SyncBatchNorm``)."""
+    ``SyncBatchNorm``)."""
     import paddle_tpu.vision.models as jmodels
     import paddle_tpu.vision.ops as jops
     from paddle_tpu.nn.functional import activation as jfa
@@ -988,7 +988,7 @@ def test_name_sets_match_jax():
     from paddle_tpu_torch.vision import models as tmodels
     from paddle_tpu_torch.vision import ops as tops
 
-    deferred = {"sparse_attention", "gather_tree", "SyncBatchNorm"}
+    deferred = {"sparse_attention", "SyncBatchNorm"}
     functionals = set().union(*(_public(m) for m in (jfa, jfc, jfp, jfv)))
     functionals |= {"normalize", "local_response_norm", "elu_"}
     assert len(_public(jfa)) == 31
