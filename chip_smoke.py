@@ -248,7 +248,7 @@ the script exits nonzero and prints no result:
    parameter and velocity bit for bit, moves the buffers and halves
    the scale; steps until one fits, then two that train.
 16. resnet_parity: ResNet-50, b4 x 224 px, weights from one numpy seed
-   through convert.resnet_state_dict_from_jax (each bottleneck's
+   through convert.state_from_jax (each bottleneck's
    bn3.weight at RESNET_BRANCH_SCALE): one Momentum TrainStep on the
    card and the CPU in f32 (TF32 off) and bf16 against the CPU in f64:
    the logits, the loss, every gradient, parameter and buffer, the card
@@ -331,7 +331,7 @@ the script exits nonzero and prints no result:
    train-mode forward and backward (finite gradients; GoogLeNet's aux
    heads in the loss).
 25. zoo_parity: each family's flagship with weights from one numpy seed
-   through convert.zoo_state_dict_from_jax, b 2 eval logits on the card
+   through convert.state_from_jax, b 2 eval logits on the card
    in f32 (TF32 off) within ZOO_LOGIT_TOL of the CPU's f64; then one
    MobileNetV3-Large Momentum step held as resnet_parity's.
 26. vision_ops: nms over 2,000 boxes of 80 categories (top_k 1,000;
@@ -355,7 +355,7 @@ the script exits nonzero and prints no result:
    BeamSearchDecoder and dynamic_decode: steps, ms a step, the host's
    share (the profiled decode's idle share), hypotheses' tokens/s.
 29. seq2seq_parity: weights from one numpy seed through
-   convert.zoo_state_dict_from_jax at full width, batch 4: one Adam step
+   convert.state_from_jax at full width, batch 4: one Adam step
    on the card in f32 (TF32 off) against the CPU in f32 and f64, held
    as resnet_parity holds them; a beam decode in f64 on card and CPU
    whose every step's tokens and parents, ids and lengths are equal; a
@@ -370,6 +370,21 @@ the script exits nonzero and prints no result:
    [32, 160000] (n_fft 512, hop 160, Hann), fft2 of [64, 512, 512]
    complex64, topk/sort/argsort over [4096, 32000] and multinomial over
    [128, 32000].
+31. layer_api: a Paddle-style script through the root namespace
+   (``import paddle_tpu_torch as paddle``): before any set_device, a
+   Layer subclass lands on the card and takes an SGD step; set_device("gpu"),
+   get_device, to_tensor on the card; BERT-base's four GEMMs at b 32 x
+   128 forward + backward as paddle's F.linear on [in, out] weights
+   against torch's on [out, in] copies, in turns (LAYER_GEMMS); BERT-base
+   MLM inside a ``paddle.nn.Layer`` subclass re-drawn with
+   TruncatedNormal(std=0.02) through ``Layer.apply``, built on the CPU,
+   saved, loaded on the card with ``set_state_dict`` (card f32 logits
+   against the CPU's), then 4 bf16 AdamW steps of a plain loop with
+   ClipGradByGlobalNorm(group_name=...) (the LayerNorm kernels' launches
+   asserted; step seconds beside bert_train's, idle share); ResNet-50
+   bf16 b 64 with Momentum(0.1, 0.9, weight_decay=L2Decay(1e-4)) against
+   the float decay, 4 steps each in turns, bitwise equal; a frozen conv1
+   and a half-rate fc by ParamAttr after one f32 step.
 
 Every phase prints its wall seconds ({"phase_seconds": name, ...}), and
 a "seconds" line sums them.  The last three lines are the card's
@@ -387,6 +402,7 @@ without a CUDA device.
     python3 chip_smoke.py --fused-phases
     python3 chip_smoke.py --zoo-phases
     python3 chip_smoke.py --seq2seq-phases
+    python3 chip_smoke.py --layer-phases
 
 ``--serve-phases`` runs the named serve phases alone on the engine
 phase's model (no other phase and no kernels line); ``--resnet-phases``
@@ -396,7 +412,8 @@ checks of phase 2 that need no plain twin at full size (the backward's
 determinism, row invariance, the raises) and phases 18-20;
 ``--fused-phases`` the three phases of 22; ``--zoo-phases`` the four
 phases of 23-26 and ``--seq2seq-phases`` the four of 27-30 (no kernel
-built: none lies on their path).  The sweeps run the GroupNorm or
+built: none lies on their path); ``--layer-phases`` bert_train and 31
+(the kernels built).  The sweeps run the GroupNorm or
 the LayerNorm forward sweep alone (or the paged attention cases and
 their row-invariance checks): with ``--variants`` also every launch the
 kernel takes at each shape
@@ -4484,7 +4501,7 @@ def resnet_forward_flops(torch, model, x):
 
     def count(m, inp, out):
         per = m.weight[0].numel() if isinstance(m, Conv2D) else \
-            m.weight.shape[1]
+            m.weight.shape[0]
         total[0] += 2 * per * out.numel()
 
     hooks = [m.register_forward_hook(count) for m in model.modules()
@@ -4839,23 +4856,22 @@ def resnet_amp_phase(torch, dev, bf16_figures):
     torch.cuda.empty_cache()
 
 
-def resnet_numpy_state(seed):
-    """A ResNet-50 (1,000 classes) ``state_dict`` in the JAX model's
-    layout (``fc.weight`` [in, out]) from one numpy seed, with JAX's
+def resnet_numpy_state(model, seed):
+    """A ``state_dict`` of the keys and shapes of ``model`` (the port's
+    ResNet-50, whose layout is the JAX model's: ``fc.weight`` [in, out])
+    from one numpy seed, with JAX's
     initial distributions: convolutions U(-1/sqrt(fan_in),
     1/sqrt(fan_in)), the fc Xavier-normal, BatchNorm weight 1 (each
     bottleneck's bn3 RESNET_BRANCH_SCALE) and bias 0, running mean 0 and
     variance 1."""
     import numpy as np
 
-    from paddle_tpu_torch.convert import resnet_expected_shapes
-
     rng = np.random.RandomState(seed)
     state = {}
-    for key, shape in resnet_expected_shapes(
-            50, num_classes=RESNET_CLASSES).items():
+    for key, t in model.state_dict().items():
+        shape = tuple(t.shape)
         if key == "fc.weight":
-            fan_out, fan_in = shape
+            fan_in, fan_out = shape
             a = rng.randn(fan_in, fan_out) * math.sqrt(2.0 / (fan_in
                                                               + fan_out))
         elif len(shape) == 4:
@@ -4872,7 +4888,7 @@ def resnet_numpy_state(seed):
 
 def resnet_parity_phase(torch, dev):
     """ResNet-50 at full width, b4 x 224 px, weights from one numpy seed
-    through convert.resnet_state_dict_from_jax (resnet_numpy_state), one
+    through convert.state_from_jax (resnet_numpy_state), one
     TrainStep with Momentum on each of: the card in f32, the CPU in f32
     and in f64 (the truth), with TF32 off; the card in bf16 and the CPU
     in bf16.  The logits, the loss, every gradient, every parameter and
@@ -4882,13 +4898,14 @@ def resnet_parity_phase(torch, dev):
     against the CPU's bf16.  Then the same seed's bf16 step twice on the
     card with cuDNN's deterministic algorithms: every tensor bit for
     bit."""
-    from paddle_tpu_torch.convert import resnet_state_dict_from_jax
+    from paddle_tpu_torch.convert import state_from_jax
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.optimizer import Momentum
     from paddle_tpu_torch.vision.models import resnet50
 
-    state = resnet_numpy_state(1234)
+    state = resnet_numpy_state(resnet50(num_classes=RESNET_CLASSES,
+                                        device=dev), 1234)
     x32, y = resnet_batch(torch, RESNET_PARITY_BATCH, 7, "cpu",
                           torch.float32)
 
@@ -4898,9 +4915,8 @@ def resnet_parity_phase(torch, dev):
         buffers after the update."""
         model = resnet50(num_classes=RESNET_CLASSES, device=where,
                          dtype=dtype)
-        model.load_state_dict(resnet_state_dict_from_jax(
-            state, 50, num_classes=RESNET_CLASSES, device=where,
-            dtype=dtype))
+        model.load_state_dict(state_from_jax(state, model, device=where,
+                                             dtype=dtype))
         model.train()
         opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
                        parameters=model.named_parameters(), device=where)
@@ -6321,9 +6337,11 @@ def fused_layers_phase(torch, dev):
     ref = TransformerEncoderLayer(e, nh, f, dropout=0.0, device=dev)
     at, ff = fused.fused_attn, fused.ffn
     sa = ref.self_attn
-    part = lambda j: (lambda t: t[j].reshape(e, e))          # noqa: E731
+    # q, k or v of the fused [3, heads, head_dim, E] weight as nn's
+    # [in, out]
+    part = lambda j: (lambda t: t[j].reshape(e, e).t())      # noqa: E731
     third = lambda j: (lambda t: t[j * e:(j + 1) * e])       # noqa: E731
-    same, tr = (lambda t: t), (lambda t: t.t())
+    same = lambda t: t                                       # noqa: E731
     # (nn parameter, fused parameter, fused layout -> nn layout)
     pairs = [(sa.q_proj.weight, at.qkv_weight, part(0)),
              (sa.k_proj.weight, at.qkv_weight, part(1)),
@@ -6331,11 +6349,11 @@ def fused_layers_phase(torch, dev):
              (sa.q_proj.bias, at.qkv_bias, third(0)),
              (sa.k_proj.bias, at.qkv_bias, third(1)),
              (sa.v_proj.bias, at.qkv_bias, third(2)),
-             (sa.out_proj.weight, at.linear_weight, tr),
+             (sa.out_proj.weight, at.linear_weight, same),
              (sa.out_proj.bias, at.linear_bias, same),
-             (ref.linear1.weight, ff.linear1_weight, tr),
+             (ref.linear1.weight, ff.linear1_weight, same),
              (ref.linear1.bias, ff.linear1_bias, same),
-             (ref.linear2.weight, ff.linear2_weight, tr),
+             (ref.linear2.weight, ff.linear2_weight, same),
              (ref.linear2.bias, ff.linear2_bias, same),
              (ref.norm1.weight, at.ln_scale, same),
              (ref.norm1.bias, at.ln_bias, same),
@@ -6641,7 +6659,7 @@ def zoo_numpy_state(model, seed):
         kind, leaf, m = kinds[key]
         shape = tuple(t.shape)
         if kind is Linear and leaf == "weight":
-            fan_out, fan_in = shape
+            fan_in, fan_out = shape
             a = rng.randn(fan_in, fan_out) * math.sqrt(2.0 / (fan_in
                                                               + fan_out))
         elif kind is Linear:
@@ -6659,7 +6677,7 @@ def zoo_numpy_state(model, seed):
 
 def zoo_parity_phase(torch, dev):
     """Each family's flagship (ZOO_PARITY) with weights from one numpy
-    seed through convert.zoo_state_dict_from_jax: b 2 eval logits on the
+    seed through convert.state_from_jax: b 2 eval logits on the
     card in f32 (TF32 off) against the CPU in f64, within ZOO_LOGIT_TOL
     of the f64 logits' norm.  Then MobileNetV3-Large one Momentum step (b
     4, the head's Dropout at 0: its masks come from the card's stream)
@@ -6672,7 +6690,7 @@ def zoo_parity_phase(torch, dev):
     that f32 puts across a kink are counted."""
     import numpy as np
 
-    from paddle_tpu_torch.convert import zoo_state_dict_from_jax
+    from paddle_tpu_torch.convert import state_from_jax
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import Hardswish
     from paddle_tpu_torch.nn import functional as F
@@ -6682,8 +6700,8 @@ def zoo_parity_phase(torch, dev):
         model = zoo_model(torch, name, where, dtype, **kw)
         if state is None:
             state = zoo_numpy_state(model, 1234)
-        model.load_state_dict(zoo_state_dict_from_jax(
-            state, model, device=where, dtype=dtype))
+        model.load_state_dict(state_from_jax(state, model, device=where,
+                                             dtype=dtype))
         return model, state
 
     def rel(got, ref):
@@ -7053,16 +7071,11 @@ def seq2seq_numpy_state(model, seed):
     ``RandomState``, ``Linear`` weights in paddle's ``[in, out]``."""
     import numpy as np
 
-    from paddle_tpu_torch import nn
-
     rng = np.random.RandomState(seed)
-    linear = {f"{n}.weight" for n, m in model.named_modules()
-              if isinstance(m, nn.Linear)}
     out = {}
     for k, v in model.state_dict().items():
-        shape = tuple(v.shape)[::-1] if k in linear else tuple(v.shape)
         s = S2S["init_scale"]
-        out[k] = rng.uniform(-s, s, shape).astype(np.float32)
+        out[k] = rng.uniform(-s, s, tuple(v.shape)).astype(np.float32)
     return out
 
 
@@ -7288,7 +7301,7 @@ def beam_tie_step(torch, dev, b, beam, vocab, seed):
 
 
 def seq2seq_parity_phase(torch, dev):
-    """Weights from one numpy seed through convert.zoo_state_dict_from_jax
+    """Weights from one numpy seed through convert.state_from_jax
     at full width, batch 4, dropout 0: one TrainStep (Adam, clip) on the
     card in f32 with TF32 off, the CPU in f32 and the CPU in f64 (the
     truth): logits, loss, every gradient and every parameter after the
@@ -7298,7 +7311,7 @@ def seq2seq_parity_phase(torch, dev):
     tokens and parents, the ids and the lengths equal exactly.  Then a
     full-width beam step on tied bf16-valued log-probs (beam_tie_step):
     tokens, parents and finished flags equal exactly."""
-    from paddle_tpu_torch.convert import zoo_state_dict_from_jax
+    from paddle_tpu_torch.convert import state_from_jax
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import BeamSearchDecoder, ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import Adam
@@ -7311,9 +7324,8 @@ def seq2seq_parity_phase(torch, dev):
 
     def build(where, dtype):
         model = seq2seq_model(torch, where, dtype, dropout=0.0)
-        model.load_state_dict(zoo_state_dict_from_jax(state, model,
-                                                      device=where,
-                                                      dtype=dtype))
+        model.load_state_dict(state_from_jax(state, model, device=where,
+                                             dtype=dtype))
         return model
 
     def run(where, dtype):
@@ -7966,6 +7978,389 @@ def tensor_surface_phase(torch, dev):
           "ms": timings})
 
 
+# ------------------------------------------------------------ phase 31
+# layer_api: BERT-base's four GEMMs at b 32 x 128 (rows, in, out) as
+# paddle's F.linear on an [in, out] weight against torch's on the same
+# values stored [out, in], forward + backward, in turns; and the head at
+# 30,528 columns: an [in, out] row of 30,522 bf16 values is 61,044
+# bytes, not a multiple of 16, and 30,528 makes it one
+LAYER_GEMMS = (("attention_proj", 768, 768), ("ffn_in", 768, 3072),
+               ("ffn_out", 3072, 768), ("vocab_head", 768, 30522),
+               ("vocab_head_pad8", 768, 30528))
+LAYER_GEMM_ORDER = ("paddle", "torch", "torch", "paddle", "paddle", "torch")
+LAYER_GEMM_REPS = 20
+# the card-against-CPU forward of the loaded start: b 2 x 128, eval
+LAYER_PARITY_BATCH = (2, 128)
+LAYER_BERT_WARMUP, LAYER_BERT_STEPS = BERT_WARMUP, BERT_TIMED
+LAYER_BERT_LR = 1e-4
+# PaddleClas's ResNet50 recipe: Momentum(0.1, 0.9), L2Decay(1e-4)
+LAYER_RESNET_LR, LAYER_RESNET_DECAY = 0.1, 1e-4
+LAYER_RESNET_STEPS = 4
+
+
+def _max_diff(a, c):
+    return (a.float() - c.float()).abs().max().item()
+
+
+def layer_gemm_turns(torch, dev):
+    """{gemm: figures}: paddle's ``nn.functional.linear(x, w, b)`` on a
+    bf16 ``[in, out]`` weight against ``torch.nn.functional.linear`` on
+    the same values ``[out, in]`` (a contiguous copy), forward and
+    backward (gradients of x, w and b), CUDA-event ms of each in turns
+    (LAYER_GEMM_ORDER, LAYER_GEMM_REPS calls a turn), the profiler's
+    device ms of a call (device_ms) in the same order, and the largest
+    difference of the output and of each gradient (dw compared in one
+    layout)."""
+    import torch.nn.functional as TF
+
+    import paddle_tpu_torch as paddle
+
+    rows = BERT_BATCH * BERT_SEQ
+    g = torch.Generator(device="cpu").manual_seed(2121)
+    out = {}
+    for name, k, n in LAYER_GEMMS:
+        x = torch.randn(rows, k, generator=g).to(dev, torch.bfloat16)
+        w = (torch.randn(k, n, generator=g) * k ** -0.5).to(
+            dev, torch.bfloat16)
+        b = (torch.randn(n, generator=g) * 0.1).to(dev, torch.bfloat16)
+        gy = torch.randn(rows, n, generator=g).to(dev, torch.bfloat16)
+        leaves = {"paddle": [t.clone().requires_grad_() for t in (x, w, b)],
+                  "torch": [t.clone().requires_grad_()
+                            for t in (x, w.t().contiguous(), b)]}
+        fns = {"paddle": paddle.nn.functional.linear, "torch": TF.linear}
+
+        def run(who):
+            for t in leaves[who]:
+                t.grad = None
+            y = fns[who](*leaves[who])
+            y.backward(gy)
+            return y
+
+        ys = {who: run(who).detach() for who in fns}
+        (xp, wp, bp), (xt, wt, bt) = leaves["paddle"], leaves["torch"]
+        ms = {who: [] for who in fns}
+        dev_ms = {who: [] for who in fns}
+        for who in LAYER_GEMM_ORDER:
+            ms[who].append(cuda_ms(lambda: run(who), LAYER_GEMM_REPS))
+        for who in LAYER_GEMM_ORDER:
+            dev_ms[who].append(device_ms(torch, lambda: run(who),
+                                         LAYER_GEMM_REPS))
+        flops = 6 * rows * k * n
+        out[name] = {
+            "rows": rows, "in": k, "out": n, "dtype": "bfloat16",
+            "ms_fwd_bwd": ms,
+            "ms_median": {who: statistics.median(v) for who, v in ms.items()},
+            "paddle_over_torch": statistics.median(ms["paddle"])
+            / statistics.median(ms["torch"]),
+            "device_ms_fwd_bwd": dev_ms,
+            "tflops_per_s_paddle": flops / statistics.median(ms["paddle"])
+            / 1e9,
+            "max_abs_diff": {"y": _max_diff(ys["paddle"], ys["torch"]),
+                             "dx": _max_diff(xp.grad, xt.grad),
+                             "dw": _max_diff(wp.grad, wt.grad.t()),
+                             "db": _max_diff(bp.grad, bt.grad)}}
+        del x, w, b, gy, leaves, ys
+    return out
+
+
+def layer_api_phase(torch, dev, bert_figures):
+    """A Paddle-style script through the root namespace alone (``import
+    paddle_tpu_torch as paddle``): (0) before any ``set_device``, a
+    ``Layer`` subclass (a ``Linear`` and a ``create_parameter``) lands on
+    the card and takes an SGD step on ``to_tensor`` input; (1)
+    ``paddle.set_device("gpu")``,
+    ``get_device()`` "gpu:N", ``to_tensor`` on the card; (2) the [in,
+    out] layout's cost (layer_gemm_turns); (3) BERT-base MLM
+    (bert_train's config: b 32 x 128, dropout 0.1, bf16) built inside a
+    ``paddle.nn.Layer`` subclass whose ``Linear`` and ``Embedding``
+    weights are re-drawn from ``TruncatedNormal(std=0.02)`` through
+    ``Layer.apply`` (PaddleNLP's ``init_weights``): the start built on the
+    CPU, saved with ``paddle.save``, loaded on the card with
+    ``set_state_dict``; one eval forward's logits on the card (f32, TF32
+    off) against the CPU's, held as bert_parity holds its logits (the
+    card's error from the CPU's f64 within GRAD_PARITY_FACTOR of the
+    CPU's f32 own plus GRAD_PARITY_FLOOR); then ``astype("bfloat16")``
+    and LAYER_BERT_STEPS timed steps of a plain loop (``backward``,
+    ``AdamW(1e-4, weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0,
+    group_name="default_group"), multi_precision=True)``, ``clear_grad``)
+    with the LayerNorm kernels' launches asserted (26 forward and 26
+    backward a step), the step seconds beside bert_train's from the same
+    call, one profiled step's idle share; (4) ResNet-50 at b 64 x 224 in
+    bf16 with PaddleClas's ``Momentum(0.1, 0.9,
+    weight_decay=L2Decay(1e-4))`` against ``weight_decay=1e-4`` from the
+    same start, LAYER_RESNET_STEPS steps each in turns with cuDNN's
+    deterministic algorithms: every parameter and buffer bitwise equal
+    (JAX maps L2Decay onto the coupled float path); then in f32 (TF32
+    off) a copy whose ``fc`` has ``weight_attr=ParamAttr(learning_rate=
+    0.5)`` and whose ``conv1`` has ``ParamAttr(trainable=False)``, one
+    step against the default's: conv1 bitwise unchanged (no gradient),
+    fc's update half the default's within f32 rounding.  Returns the
+    LayerNorm kernels' launches of the timed BERT steps and the
+    figures."""
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import BERT_BASE, BertForMaskedLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    nn = paddle.nn
+    figures = {"phase": "layer_api"}
+    # (0) no set_device yet: a Layer, its parameters, to_tensor and an
+    # optimizer step all land on the card, as in a Paddle script
+    if paddle.device._CURRENT[0] is not None:
+        raise AssertionError("layer_api: set_device was called before")
+
+    class Tiny(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = nn.Linear(4, 3)
+            self.scale = self.create_parameter(
+                [3], default_initializer=nn.initializer.Constant(1.0))
+
+        def forward(self, x):
+            return self.fc(x) * self.scale
+
+    tiny = Tiny()
+    where = sorted({str(p.device) for p in tiny.parameters()})
+    opt = paddle.optimizer.SGD(0.1, parameters=tiny.parameters())
+    tiny(paddle.to_tensor(np.ones((2, 4), np.float32))).sum().backward()
+    w0 = tiny.fc.weight.detach().clone()
+    opt.step()
+    if where != [str(dev)] or torch.equal(w0, tiny.fc.weight):
+        raise AssertionError(f"layer_api: with no set_device the Layer's "
+                             f"parameters are on {where}, not {dev}")
+    figures["no_set_device"] = {"parameters_on": where,
+                                "sgd_step": "moved fc.weight"}
+    del tiny, opt
+    # (1) the device
+    paddle.set_device("gpu")
+    want = f"gpu:{torch.cuda.current_device()}"
+    if paddle.get_device() != want or paddle.device.resolve_device() != dev:
+        raise AssertionError(f"layer_api: get_device {paddle.get_device()}"
+                             f", want {want}")
+    arr = np.arange(12, dtype=np.float64).reshape(3, 4)
+    t = paddle.to_tensor(arr)
+    if t.device != dev or t.dtype != torch.float32 or not torch.equal(
+            t.cpu(), torch.from_numpy(arr).float()):
+        raise AssertionError(f"layer_api: to_tensor gave {t.dtype} on "
+                             f"{t.device}")
+    figures["device"] = {"get_device": paddle.get_device(),
+                         "to_tensor": [str(t.device), str(t.dtype)]}
+    # (2) the layout's cost
+    figures["gemm_layout"] = layer_gemm_turns(torch, dev)
+    emit({"phase": "layer_api_gemm", **figures["gemm_layout"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) BERT-base through the Layer API
+    class BertPretrain(nn.Layer):
+        def __init__(self, cfg):
+            super().__init__()
+            self.bert = BertForMaskedLM(cfg)      # on paddle's device
+            self.apply(self.init_weights)
+
+        @staticmethod
+        def init_weights(layer):
+            if isinstance(layer, (nn.Linear, nn.Embedding)):
+                w = layer.weight
+                with paddle.no_grad():
+                    w.copy_(nn.initializer.TruncatedNormal(std=0.02)(
+                        w.shape, w.dtype, device=w.device))
+
+        def forward(self, ids, types, labels=None):
+            return self.bert(ids, types, labels=labels)
+
+    cfg = BERT_BASE
+    paddle.set_device("cpu")
+    paddle.seed(2121)
+    cpu_model = BertPretrain(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert_start.pdparams")
+        paddle.save(cpu_model.state_dict(), path)
+        paddle.set_device("gpu")
+        model = BertPretrain(cfg)
+        missing, unexpected = model.set_state_dict(paddle.load(path))
+    if missing or unexpected or model.bert.bert.embeddings.word_embeddings \
+            .weight.device != dev:
+        raise AssertionError(f"layer_api: set_state_dict missing {missing}"
+                             f", unexpected {unexpected}")
+    std = model.bert.bert.encoder.layers[0].linear1.weight.float().std()
+    ids, types, _ = bert_batch(torch, cfg, *LAYER_PARITY_BATCH, "cpu", 77)
+    cpu_model.eval()
+    model.eval()
+    with torch.no_grad(), backend_flags(torch, tf32=False):
+        l32 = cpu_model(ids, types)
+        l64 = copy.deepcopy(cpu_model).double()(ids, types)
+        reset_kernel_launches()
+        lcard = model(ids.to(dev), types.to(dev)).cpu()
+        eval_launches = kernel_launches()
+    e_card = ((lcard.double() - l64).norm() / l64.norm()).item()
+    e_cpu = ((l32.double() - l64).norm() / l64.norm()).item()
+    tol = GRAD_PARITY_FACTOR * e_cpu + GRAD_PARITY_FLOOR
+    if not e_card <= tol or eval_launches["layer_norm"] != \
+            BERT_PER_STEP["layer_norm"]:
+        raise AssertionError(f"layer_api: card logits rel err {e_card:.3e}"
+                             f" > {tol:.3e} (CPU f32 {e_cpu:.3e}), launches "
+                             f"{eval_launches}")
+    figures["bert_start"] = {
+        "saved_loaded_keys": len(model.state_dict()),
+        "linear1_weight_std": std.item(),
+        "logits_rel_err_card_f32_vs_cpu_f64": e_card,
+        "logits_rel_err_cpu_f32_vs_cpu_f64": e_cpu, "tolerance": tol,
+        "batch": list(LAYER_PARITY_BATCH)}
+    del cpu_model, l32, l64, lcard
+    gc.collect()
+    model = model.astype("bfloat16")
+    model.train()
+    opt = paddle.optimizer.AdamW(
+        learning_rate=LAYER_BERT_LR, parameters=model.parameters(),
+        weight_decay=0.01, multi_precision=True,
+        grad_clip=nn.ClipGradByGlobalNorm(1.0, group_name="default_group"))
+    batch = bert_batch(torch, cfg, BERT_BATCH, BERT_SEQ, dev, 1234)
+
+    def train_step():
+        loss, _ = model(batch[0], batch[1], labels=batch[2])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    losses = [train_step().item() for _ in range(LAYER_BERT_WARMUP)]
+    step_s = []
+    reset_kernel_launches()
+    for _ in range(LAYER_BERT_STEPS):
+        t1 = time.perf_counter()
+        losses.append(train_step().item())       # .item() synchronises
+        step_s.append(time.perf_counter() - t1)
+    launches = kernel_launches()
+    for name in ("layer_norm", "layer_norm_bwd"):
+        if launches[name] != BERT_PER_STEP[name] * LAYER_BERT_STEPS:
+            raise AssertionError(f"layer_api: {name} launched "
+                                 f"{launches[name]} times in "
+                                 f"{LAYER_BERT_STEPS} steps")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"layer_api: BERT losses {losses}")
+    prof = profiled(torch, lambda: train_step().item())
+    mean_s = sum(step_s) / len(step_s)
+    figures["bert_train_layer_api"] = {
+        "batch": BERT_BATCH, "seq": BERT_SEQ, "dtype": "bfloat16",
+        "losses": losses, "step_s": step_s, "step_s_mean": mean_s,
+        "bert_train_step_s_mean": bert_figures["step_s_mean"],
+        "ratio_to_bert_train": mean_s / bert_figures["step_s_mean"],
+        "device_idle_share": prof["device_idle_share"],
+        "kernel_events": prof["kernel_events"],
+        "launches": {k: launches[k] for k in ("layer_norm",
+                                              "layer_norm_bwd")}}
+    emit({"phase": "layer_api_bert", **figures["bert_train_layer_api"]})
+    del model, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) the regularizers and ParamAttr on ResNet-50
+    figures["resnet"] = layer_resnet_checks(torch, dev)
+    emit(figures)
+    return launches, figures
+
+
+def layer_resnet_checks(torch, dev):
+    """Step (4) of :func:`layer_api_phase`."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.regularizer import L2Decay
+
+    nn = paddle.nn
+    out = {}
+    x, y = resnet_batch(torch, RESNET_BATCH, 31, dev, torch.bfloat16)
+    paddle.seed(3131)
+    nets = [paddle.vision.resnet50(num_classes=RESNET_CLASSES,
+                                   dtype=torch.bfloat16)]
+    nets.append(copy.deepcopy(nets[0]))
+    fc0 = nets[0].fc.weight.detach().clone()
+    decays = {"L2Decay": L2Decay(LAYER_RESNET_DECAY),
+              "float": LAYER_RESNET_DECAY}
+    opts = [paddle.optimizer.Momentum(LAYER_RESNET_LR, 0.9, net.parameters(),
+                                      weight_decay=wd)
+            for net, wd in zip(nets, decays.values())]
+    ms = {k: [] for k in decays}
+    with backend_flags(torch, deterministic=True, benchmark=False):
+        for i in range(LAYER_RESNET_STEPS):
+            order = (0, 1) if i % 2 == 0 else (1, 0)
+            for j in order:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                resnet_loss(nets[j], x, y).backward()
+                opts[j].step()
+                opts[j].clear_grad()
+                torch.cuda.synchronize()
+                ms[list(decays)[j]].append((time.perf_counter() - t1) * 1e3)
+    sd = [n.state_dict() for n in nets]
+    differ = [k for k in sd[0] if not torch.equal(sd[0][k], sd[1][k])]
+    if differ or len(sd[0]) != len(sd[1]) or torch.equal(sd[0]["fc.weight"],
+                                                          fc0):
+        raise AssertionError(f"layer_api: L2Decay and the float decay "
+                             f"differ in {differ[:5]}")
+    # the first step of each holds cuDNN's algorithm search
+    out["l2decay_vs_float"] = {"steps": LAYER_RESNET_STEPS,
+                               "tensors_bitwise_equal": len(sd[0]),
+                               "step_ms": ms, "batch": RESNET_BATCH,
+                               "step_ms_median": {
+                                   k: statistics.median(v)
+                                   for k, v in ms.items()}}
+    del nets, opts, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ParamAttr: fc at half the rate, conv1 frozen, in f32
+    paddle.seed(3232)
+    base = paddle.vision.resnet50(num_classes=RESNET_CLASSES)
+    attr = copy.deepcopy(base)
+    attr.fc = nn.Linear(2048, RESNET_CLASSES,
+                        weight_attr=paddle.ParamAttr(learning_rate=0.5))
+    attr.conv1 = nn.Conv2D(3, 64, 7, stride=2, padding=3, bias_attr=False,
+                           weight_attr=paddle.ParamAttr(trainable=False))
+    attr.fc.set_state_dict(base.fc.state_dict())
+    attr.conv1.set_state_dict(base.conv1.state_dict())
+    start = {k: v.clone() for k, v in base.state_dict().items()}
+    x32 = x.float()
+    with backend_flags(torch, deterministic=True, benchmark=False,
+                       tf32=False):
+        for net in (base, attr):
+            opt = paddle.optimizer.Momentum(
+                LAYER_RESNET_LR, 0.9, net.parameters(),
+                weight_decay=L2Decay(LAYER_RESNET_DECAY))
+            resnet_loss(net, x32, y).backward()
+            opt.step()
+    if attr.conv1.weight.grad is not None or not torch.equal(
+            attr.conv1.weight, start["conv1.weight"]) or torch.equal(
+            base.conv1.weight, start["conv1.weight"]):
+        raise AssertionError("layer_api: the frozen conv1 moved, or the "
+                             "default's did not")
+    p0 = start["fc.weight"]
+    d_half = attr.fc.weight.detach() - p0
+    d_base = base.fc.weight.detach() - p0
+    eps = torch.finfo(torch.float32).eps
+    err = (d_half - 0.5 * d_base).abs()
+    limit = 2 * eps * (p0.abs() + d_base.abs())
+    if not (err <= limit).all() or not d_base.abs().max() > 0:
+        raise AssertionError(f"layer_api: fc's update {err.max().item():.3e}"
+                             " from half the default's")
+    same = sum(torch.equal(a, b) for (k, a), b in zip(
+        base.state_dict().items(), attr.state_dict().values())
+        if not k.startswith(("fc.weight", "conv1.")))
+    out["param_attr"] = {
+        "conv1_frozen": "bitwise unchanged, no gradient",
+        "fc_update_max_err_from_half": err.max().item(),
+        "fc_update_max_abs": d_base.abs().max().item(),
+        "other_tensors_bitwise_equal_to_default": same,
+        "other_tensors": len(start) - 1 - sum(
+            k.startswith("conv1.") for k in start)}
+    del base, attr, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def zoo_phases_main(torch):
     """``--zoo-phases``: zoo_train, zoo_forward, zoo_parity and
     vision_ops alone (no CUDA kernel of the port lies on their path, so
@@ -8028,6 +8423,32 @@ def hapi_phases_main(torch):
     hapi_fit_phase(torch, dev)
     hapi_fit_bert_phase(torch, dev)
     emit({"phase": "hapi_seconds", "seconds": time.perf_counter() - t0})
+    print(smi)
+    return 0
+
+
+def layer_phases_main(torch):
+    """``--layer-phases``: bert_train (whose step seconds layer_api sets
+    its own beside) and layer_api alone; the kernels are built because
+    both run BERT's LayerNorm kernels."""
+    from paddle_tpu_torch import _build, resolve_device
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    built = _build.build_all(verbose=False)
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "cudnn": torch.backends.cudnn.version(),
+          "build_s": time.perf_counter() - t0, "built": sorted(built)})
+    dev = resolve_device()
+    for name, fn, args in (("bert_train", bert_train_phase, ()),
+                           ("layer_api", layer_api_phase, None)):
+        t0 = time.perf_counter()
+        if args is None:
+            fn(torch, dev, bert_figures)
+        else:
+            _, bert_figures = fn(torch, dev)
+        emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
     print(smi)
     return 0
 
@@ -8195,6 +8616,8 @@ def main():
         return zoo_phases_main(torch)
     if "--seq2seq-phases" in sys.argv[1:]:
         return seq2seq_phases_main(torch)
+    if "--layer-phases" in sys.argv[1:]:
+        return layer_phases_main(torch)
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
@@ -8280,6 +8703,8 @@ def main():
     phase("seq2seq_decode", seq2seq_decode_phase, torch, dev)
     phase("seq2seq_parity", seq2seq_parity_phase, torch, dev)
     phase("tensor_surface", tensor_surface_phase, torch, dev)
+    layer_api, _ = phase("layer_api", layer_api_phase, torch, dev,
+                         bert_figures)
     emit({"phase": "seconds", "by_phase": seconds,
           "total": time.perf_counter() - t_start})
 
@@ -8343,7 +8768,8 @@ def main():
             "serve_fp16": serve_fp16, "bert_amp": bert_amp,
             "transformer_mt": transformer_mt, "fused_decode": fused_decode,
             "fused_rotary": fused_rotary, "fused_layers": fused_layers,
-            "zoo_train": zoo_train, "seq2seq_train": seq2seq}
+            "zoo_train": zoo_train, "seq2seq_train": seq2seq,
+            "layer_api": layer_api}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]

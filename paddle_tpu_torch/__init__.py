@@ -74,20 +74,69 @@ loader) and ``hapi_fit_bert`` (BERT-base) drive it on the card.  The
 fused stack runs on the CPU at a tiny size on CPU tensors (its functions
 run where their tensors lie); ``fused_decode`` (GPT-3 6.7B widths),
 ``fused_rotary`` and ``fused_layers`` drive it on the card.
+
+The root is Paddle's namespace, as JAX's: ``to_tensor`` (on the current
+device), the grad modes, ``grad``, the dtype names and default dtype,
+``set_device``/``get_device`` (``"gpu"`` is the card and raises without
+one), the flags, ``finfo``/``iinfo``, ``Tensor`` (``torch.Tensor``),
+``Parameter``, ``Layer`` (``torch.nn.Module`` with Paddle's methods;
+every layer of the port is one), ``ParamAttr`` and ``LazyGuard``; the
+heavy subpackages (``serving``, ``optimizer``, ``jit``, ...) are
+attached on first use, so importing the package builds no kernel.
+``layer_api`` drives a script written against it on the card.
 """
+
+import importlib
 
 from . import tensor
 from .tensor import *  # noqa: F401,F403  (JAX's root: from .tensor import *)
-from . import (amp, fft, framework, hapi, incubate, inference, io, linalg,
-               metric, nn, signal, vision)
-from .device import resolve_device
+from . import (amp, device, fft, framework, hapi, incubate, inference, io,
+               linalg, metric, nn, signal, vision)
+from .core import (Parameter, Tensor, enable_grad, grad, is_grad_enabled,
+                   no_grad, set_grad_enabled, to_tensor)
+from .device import (device_count, get_device, is_compiled_with_cuda,
+                     resolve_device, set_device, synchronize)
+from .dtype import (bfloat16, bool_, complex64, complex128, float16, float32,
+                    float64, get_default_dtype, int8, int16, int32, int64,
+                    set_default_dtype, uint8)
+from .flags import get_flags, set_flags
 from .framework import load, save
+from .framework.dtype_info import finfo, iinfo
+from .framework.param_attr import ParamAttr
 from .hapi import Model, flops, summary
 from .io.reader_compat import batch
+from .nn import Layer
+from .nn.initializer import LazyGuard
 from .random import get_rng_state, seed, set_rng_state
 
-__all__ = sorted(tensor.__all__ + [
-    "Model", "amp", "batch", "fft", "flops", "framework", "get_rng_state",
-    "hapi", "incubate", "inference", "io", "linalg", "load", "metric", "nn",
-    "resolve_device", "save", "seed", "set_rng_state", "signal", "summary",
-    "tensor", "vision"])
+#: attached on first use (PEP 562), as JAX's root attaches its subpackages:
+#: importing the package builds no kernel and starts no serving engine
+_LAZY_SUBMODULES = ("distributed", "jit", "models", "optimizer",
+                    "quantization", "regularizer", "serving")
+
+
+def __getattr__(name):
+    if name in _LAZY_SUBMODULES:
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def in_dynamic_mode():
+    """True: the port runs eagerly (``static`` is not ported yet)."""
+    return True
+
+
+__all__ = sorted(tensor.__all__ + list(_LAZY_SUBMODULES) + [
+    "LazyGuard", "Layer", "Model", "ParamAttr", "Parameter", "Tensor", "amp",
+    "batch", "bfloat16", "bool_", "complex128", "complex64", "device",
+    "device_count", "enable_grad", "fft", "finfo", "float16", "float32",
+    "float64", "flops", "framework", "get_default_dtype", "get_device",
+    "get_flags", "get_rng_state", "grad", "hapi", "iinfo", "in_dynamic_mode",
+    "incubate", "inference", "int16", "int32", "int64", "int8", "io",
+    "is_compiled_with_cuda", "is_grad_enabled", "linalg", "load", "metric",
+    "nn", "no_grad", "resolve_device", "save", "seed", "set_default_dtype",
+    "set_device", "set_flags", "set_grad_enabled", "set_rng_state",
+    "signal", "summary", "synchronize", "tensor", "to_tensor", "uint8",
+    "vision"])

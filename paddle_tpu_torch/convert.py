@@ -14,38 +14,26 @@ norm weights keep their layout.  With tied embeddings the JAX model has
 no ``lm_head.weight`` and neither has the port: both compute the logits
 against the embedding matrix.
 
-``bert_state_dict_from_jax`` does the same for ``BertForMaskedLM`` or
-``BertForSequenceClassification`` (``models/bert.py``): the attention
-projections, ``linear1``/``linear2``, the MLM head's ``transform``, the
-pooler's ``dense`` and the classifier transpose; embeddings (the MLM
-decoder's tied weight among them, listed once by both frameworks),
-biases and LayerNorms keep their layout.
-
 ``unet_state_dict_from_jax`` does the same for the SD UNet
-(``models/unet.py``): the weights of its linear layers transpose
+(``models/unet.py``, whose projections are ``torch.nn.Linear`` too): the
+weights of its linear layers transpose
 (``time_mlp1``, ``time_mlp2``, each ResnetBlock's ``time_emb_proj``, each
 attention's ``to_q``, ``to_k``, ``to_v`` and ``to_out``, each
 TransformerBlock's ``ff1`` and ``ff2``); convolution weights are OIHW in
 both frameworks (in either ``channels_last`` layout) and keep theirs, as
 do biases and the GroupNorm / LayerNorm weights and biases.
 
-``resnet_state_dict_from_jax`` does the same for the vision ResNet family
-(``vision/models/resnet.py``): only the ``fc`` Linear's weight
-transposes; convolutions (OIHW), BatchNorm weights and biases and both
-running buffers (``_mean``, ``_variance``) keep their layout.
-``zoo_state_dict_from_jax`` does the same for any model of the zoo
-(``vision/models/``), given the port's model: its keys and shapes are
-the expected ones, and the weight of each of its ``nn.Linear`` layers
-transposes.
-
-The fused generation stack (``incubate``) keeps paddle's layout, as the
-JAX functions and layers take it, so nothing transposes:
-``fused_multi_transformer_params_from_jax`` carries the twelve per-layer
-weight lists of ``fused_multi_transformer`` across, and
-``fused_layer_state_dict_from_jax`` the ``state_dict`` of a fused layer
-(``FusedMultiHeadAttention``, ``FusedFeedForward``,
-``FusedTransformerEncoderLayer``), checked key by key against the port
-layer's.
+The models built on the port's ``nn.Linear`` keep paddle's ``[in, out]``
+weights, as the JAX models do, and the fused generation stack
+(``incubate``) keeps paddle's layout, as the JAX functions and layers
+take it, so nothing of theirs transposes: ``load_state_dict`` or
+``Model.load`` of a JAX ``state_dict`` loads them as it is, and
+``state_from_jax(np_state, model)`` gives the same tensors checked key by
+key and shape by shape against ``model.state_dict()`` (BERT, the vision
+zoo with its BatchNorm buffers, ``nn.Transformer``, the RNNs, the fused
+layers: any model of the port).  ``fused_multi_transformer_params_from_jax``
+carries the twelve per-layer weight lists of ``fused_multi_transformer``
+across.
 """
 
 from __future__ import annotations
@@ -89,10 +77,11 @@ def _is_linear(key):
         key.rsplit(".", 2)[-2] in _PROJECTIONS
 
 
-def _from_jax(np_state, want, is_linear, device, dtype):
+def _from_jax(np_state, want, device, dtype, is_linear=None):
     """Tensors of the keys ``want`` ({key: torch-layout shape}) from the
-    numpy ``np_state``, the keys for which ``is_linear`` holds transposed
-    (paddle ``[in, out]`` -> ``[out, in]``), on ``device`` in ``dtype``
+    numpy ``np_state``, the keys for which ``is_linear`` holds (if given)
+    transposed (paddle ``[in, out]`` -> ``[out, in]``), on ``device`` in
+    ``dtype``
     (default: the arrays' own).  Raises on a missing, unexpected or
     misshaped key."""
     dev = resolve_device(device)
@@ -104,7 +93,7 @@ def _from_jax(np_state, want, is_linear, device, dtype):
     out = {}
     for key, shape in want.items():
         a = np.asarray(np_state[key])
-        if is_linear(key):
+        if is_linear is not None and is_linear(key):
             a = a.T
         if tuple(a.shape) != shape:
             raise ValueError(f"{key}: shape {tuple(a.shape)} after layout "
@@ -119,8 +108,8 @@ def state_dict_from_jax(np_state, config, device=None, dtype=None):
     ``dict[str, torch.Tensor]`` on ``device`` (``cuda`` unless asked
     otherwise), in ``dtype`` (default: the arrays' own).  Raises on a
     missing, unexpected or misshaped key."""
-    return _from_jax(np_state, expected_shapes(config), _is_linear, device,
-                     dtype)
+    return _from_jax(np_state, expected_shapes(config), device, dtype,
+                     _is_linear)
 
 
 _ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow",
@@ -252,203 +241,20 @@ def unet_state_dict_from_jax(np_state, config, device=None, dtype=None):
     Linear weights are transposed (see the module docstring).  Raises on
     a missing, unexpected or misshaped key."""
     return _from_jax(
-        np_state, unet_expected_shapes(config),
+        np_state, unet_expected_shapes(config), device, dtype,
         lambda key: key.endswith(".weight") and
-        key.rsplit(".", 2)[-2] in _UNET_LINEARS, device, dtype)
+        key.rsplit(".", 2)[-2] in _UNET_LINEARS)
 
 
-_BERT_LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj", "linear1",
-                 "linear2", "transform", "dense", "classifier")
-
-
-def bert_expected_shapes(config, num_classes=None):
-    """``{key: torch-layout shape}`` of a ``BertForMaskedLM(config)``, or
-    with ``num_classes`` of a ``BertForSequenceClassification``.  The
-    tied MLM decoder weight is the word embedding and has no key of its
-    own."""
-    c = config
-    h, f = c.hidden_size, c.intermediate_size
-    shapes = {}
-
-    def linear(p, i, o):
-        shapes[p + ".weight"] = (o, i)
-        shapes[p + ".bias"] = (o,)
-
-    def norm(p):
-        shapes[p + ".weight"] = (h,)
-        shapes[p + ".bias"] = (h,)
-
-    e = "bert.embeddings."
-    shapes[e + "word_embeddings.weight"] = (c.vocab_size, h)
-    shapes[e + "position_embeddings.weight"] = (c.max_position_embeddings, h)
-    shapes[e + "token_type_embeddings.weight"] = (c.type_vocab_size, h)
-    norm(e + "layer_norm")
-    for i in range(c.num_hidden_layers):
-        p = f"bert.encoder.layers.{i}."
-        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            linear(p + "self_attn." + proj, h, h)
-        linear(p + "linear1", h, f)
-        linear(p + "linear2", f, h)
-        norm(p + "norm1")
-        norm(p + "norm2")
-    if num_classes is None:
-        linear("cls.transform", h, h)
-        norm("cls.layer_norm")
-        shapes["cls.decoder_bias"] = (c.vocab_size,)
-    else:
-        linear("bert.pooler.dense", h, h)
-        linear("classifier", h, num_classes)
-    return shapes
-
-
-def bert_state_dict_from_jax(np_state, config, num_classes=None, device=None,
-                             dtype=None):
-    """The JAX BERT's ``state_dict`` (as numpy) -> tensors for the port's
-    ``load_state_dict``, on ``device`` (``cuda`` unless asked otherwise)
-    in ``dtype`` (default: the arrays' own); ``num_classes`` as in
-    :func:`bert_expected_shapes`.  Linear weights are transposed (see the
-    module docstring).  Raises on a missing, unexpected or misshaped
+def state_from_jax(np_state, model, device=None, dtype=None):
+    """A JAX model's ``state_dict`` (as numpy, buffers included) ->
+    tensors for ``model.load_state_dict``, ``model`` the port's model (or
+    layer) of the same constructor and arguments, on ``device`` (``cuda``
+    unless asked otherwise) in ``dtype`` (default: the arrays' own).
+    Nothing transposes.  Raises on a missing, unexpected or misshaped
     key."""
-    return _from_jax(
-        np_state, bert_expected_shapes(config, num_classes),
-        lambda key: key.endswith(".weight") and
-        key.rsplit(".", 2)[-2] in _BERT_LINEARS, device, dtype)
-
-
-def resnet_expected_shapes(depth=50, width=64, num_classes=1000, groups=1):
-    """``{key: torch-layout shape}`` of ``vision.models.ResNet`` at
-    ``depth`` (18 and 34 of BasicBlocks, 50, 101 and 152 of
-    BottleneckBlocks) with ``width`` (the bottleneck's base width),
-    ``num_classes`` (0: no ``fc``) and ``groups``, BatchNorm buffers
-    included."""
-    from .vision.models.resnet import LAYERS
-
-    shapes = {}
-    bottleneck = depth >= 50
-    expansion = 4 if bottleneck else 1
-
-    def conv(p, i, o, k, g=1):
-        shapes[p + ".weight"] = (o, i // g, k, k)
-
-    def bn(p, c):
-        for name in ("weight", "bias", "_mean", "_variance"):
-            shapes[f"{p}.{name}"] = (c,)
-
-    conv("conv1", 3, 64, 7)
-    bn("bn1", 64)
-    inplanes = 64
-    for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
-                                                 LAYERS[depth])):
-        for b in range(blocks):
-            p = f"layer{stage + 1}.{b}"
-            out = planes * expansion
-            if bottleneck:
-                mid = int(planes * (width / 64.0)) * groups
-                conv(p + ".conv1", inplanes, mid, 1)
-                bn(p + ".bn1", mid)
-                conv(p + ".conv2", mid, mid, 3, groups)
-                bn(p + ".bn2", mid)
-                conv(p + ".conv3", mid, out, 1)
-                bn(p + ".bn3", out)
-            else:
-                conv(p + ".conv1", inplanes, planes, 3)
-                bn(p + ".bn1", planes)
-                conv(p + ".conv2", planes, planes, 3)
-                bn(p + ".bn2", planes)
-            if b == 0 and (stage > 0 or inplanes != out):
-                conv(p + ".downsample.0", inplanes, out, 1)
-                bn(p + ".downsample.1", out)
-            inplanes = out
-    if num_classes > 0:
-        shapes["fc.weight"] = (num_classes, 512 * expansion)
-        shapes["fc.bias"] = (num_classes,)
-    return shapes
-
-
-def resnet_state_dict_from_jax(np_state, depth=50, width=64,
-                               num_classes=1000, groups=1, device=None,
-                               dtype=None):
-    """The JAX ResNet's ``state_dict`` (as numpy, BatchNorm buffers
-    included) -> tensors for the port's ``load_state_dict``, on
-    ``device`` (``cuda`` unless asked otherwise) in ``dtype`` (default:
-    the arrays' own); the model's arguments as in
-    :func:`resnet_expected_shapes`.  ``fc.weight`` is transposed.
-    Raises on a missing, unexpected or misshaped key."""
-    return _from_jax(np_state, resnet_expected_shapes(depth, width,
-                                                      num_classes, groups),
-                     lambda key: key == "fc.weight", device, dtype)
-
-
-def zoo_state_dict_from_jax(np_state, model, device=None, dtype=None):
-    """A JAX zoo model's ``state_dict`` (as numpy, BatchNorm buffers
-    included) -> tensors for ``model.load_state_dict``, ``model`` the
-    port's model of the same constructor and arguments, on ``device``
-    (``cuda`` unless asked otherwise) in ``dtype`` (default: the arrays'
-    own).  The weights of ``model``'s ``Linear`` layers transpose;
-    convolutions, norms and buffers keep their layout.  Raises on a
-    missing, unexpected or misshaped key."""
-    from .nn import Linear
-
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    linear = {f"{name}.weight" for name, m in model.named_modules()
-              if isinstance(m, Linear)}
-    return _from_jax(np_state, want, linear.__contains__, device, dtype)
-
-
-_TRANSFORMER_LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj", "linear1",
-                        "linear2")
-
-
-def transformer_expected_shapes(d_model=512, num_encoder_layers=6,
-                                num_decoder_layers=6, dim_feedforward=2048,
-                                normalize_before=False):
-    """``{key: torch-layout shape}`` of an ``nn.Transformer`` with these
-    arguments (its default encoder and decoder stacks; a final LayerNorm
-    on each only with ``normalize_before``)."""
-    shapes = {}
-
-    def linear(p, i, o):
-        shapes[p + ".weight"] = (o, i)
-        shapes[p + ".bias"] = (o,)
-
-    def norm(p):
-        shapes[p + ".weight"] = (d_model,)
-        shapes[p + ".bias"] = (d_model,)
-
-    for stack, n, attns, norms in (
-            ("encoder", num_encoder_layers, ("self_attn",), 2),
-            ("decoder", num_decoder_layers, ("self_attn", "cross_attn"), 3)):
-        for i in range(n):
-            p = f"{stack}.layers.{i}."
-            for a in attns:
-                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-                    linear(p + a + "." + proj, d_model, d_model)
-            linear(p + "linear1", d_model, dim_feedforward)
-            linear(p + "linear2", dim_feedforward, d_model)
-            for j in range(1, norms + 1):
-                norm(f"{p}norm{j}")
-        if normalize_before:
-            norm(stack + ".norm")
-    return shapes
-
-
-def transformer_state_dict_from_jax(np_state, d_model=512,
-                                    num_encoder_layers=6,
-                                    num_decoder_layers=6,
-                                    dim_feedforward=2048,
-                                    normalize_before=False, device=None,
-                                    dtype=None):
-    """The JAX ``nn.Transformer``'s ``state_dict`` (as numpy) -> tensors
-    for the port's ``load_state_dict``, on ``device`` (``cuda`` unless
-    asked otherwise) in ``dtype`` (default: the arrays' own); the model's
-    arguments as in :func:`transformer_expected_shapes`.  Linear weights
-    are transposed.  Raises on a missing, unexpected or misshaped key."""
-    return _from_jax(
-        np_state, transformer_expected_shapes(
-            d_model, num_encoder_layers, num_decoder_layers,
-            dim_feedforward, normalize_before),
-        lambda key: key.endswith(".weight") and
-        key.rsplit(".", 2)[-2] in _TRANSFORMER_LINEARS, device, dtype)
+    return _from_jax(np_state, want, device, dtype)
 
 
 #: the per-layer weight lists of ``fused_multi_transformer``, in its order
@@ -484,13 +290,3 @@ def fused_multi_transformer_params_from_jax(np_params, device=None,
             torch.tensor(np.asarray(a)).to(device=dev, dtype=dtype)
             for a in lst]
     return out
-
-
-def fused_layer_state_dict_from_jax(np_state, layer, device=None,
-                                    dtype=None):
-    """A JAX fused layer's ``state_dict`` (as numpy) -> tensors for
-    ``layer.load_state_dict`` (``layer`` the port's fused layer of the
-    same arguments), on ``device`` in ``dtype``.  Raises on a missing,
-    unexpected or misshaped key."""
-    want = {k: tuple(v.shape) for k, v in layer.state_dict().items()}
-    return _from_jax(np_state, want, lambda key: False, device, dtype)

@@ -49,8 +49,8 @@ from ...tensor import matmul as _matmul
 
 def _plinear(x, weight, bias=None):
     """``x @ weight + bias`` with paddle's ``[in, out]`` weight (an
-    ``amp`` ``linear`` op, as JAX's ``F.linear``)."""
-    return F.linear(x, weight.t(), bias)
+    ``amp`` ``linear`` op: JAX's ``F.linear``)."""
+    return F.linear(x, weight, bias)
 
 
 def _mm(x, weight, bias=None):

@@ -13,46 +13,25 @@ card (attention with no mask and, in training, ``attn_dropout_rate``
 
 from __future__ import annotations
 
-import math
-
-import torch
-from torch import nn
-
-from ... import random as _random
+from ...nn.initializer import Constant, XavierUniform
+from ...nn.layers import Layer
 from . import functional as IF
 
 
-def _fans(shape):
-    if len(shape) == 1:
-        return shape[0], shape[0]
-    if len(shape) == 2:
-        return shape[0], shape[1]
-    receptive = math.prod(shape[2:])
-    return shape[1] * receptive, shape[0] * receptive
+def _param(layer, shape, device, value=None):
+    """A weight Xavier-uniform over JAX's fans, or a constant ``value``."""
+    init = XavierUniform() if value is None else Constant(value)
+    return layer.create_parameter(shape, default_initializer=init,
+                                  device=device)
 
 
-def _xavier(shape, kw):
-    w = torch.empty(shape, **kw)
-    fin, fout = _fans(shape)
-    limit = math.sqrt(6.0 / (fin + fout))
-    with torch.no_grad():
-        w.uniform_(-limit, limit,
-                   generator=_random.next_generator(w.device))
-    return nn.Parameter(w)
-
-
-def _const(shape, value, kw):
-    return nn.Parameter(torch.full(shape, value, **kw))
-
-
-class FusedMultiHeadAttention(nn.Module):
+class FusedMultiHeadAttention(Layer):
     def __init__(self, embed_dim, num_heads, dropout_rate=0.5,
                  attn_dropout_rate=0.5, kdim=None, vdim=None,
                  normalize_before=False, need_weights=False, epsilon=1e-5,
                  nranks=1, ring_id=-1, transpose_qkv_wb=False, device=None,
                  dtype=None):
-        super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        super().__init__(dtype=dtype)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -63,14 +42,14 @@ class FusedMultiHeadAttention(nn.Module):
         self._transpose_qkv_wb = transpose_qkv_wb
         qkv_shape = ((embed_dim, 3 * embed_dim) if transpose_qkv_wb else
                      (3, num_heads, self.head_dim, embed_dim))
-        self.qkv_weight = _xavier(qkv_shape, kw)
-        self.qkv_bias = _const((3 * embed_dim,), 0.0, kw)
-        self.linear_weight = _xavier((embed_dim, embed_dim), kw)
-        self.linear_bias = _const((embed_dim,), 0.0, kw)
-        self.pre_ln_scale = _const((embed_dim,), 1.0, kw)
-        self.pre_ln_bias = _const((embed_dim,), 0.0, kw)
-        self.ln_scale = _const((embed_dim,), 1.0, kw)
-        self.ln_bias = _const((embed_dim,), 0.0, kw)
+        self.qkv_weight = _param(self, qkv_shape, device)
+        self.qkv_bias = _param(self, (3 * embed_dim,), device, 0.0)
+        self.linear_weight = _param(self, (embed_dim, embed_dim), device)
+        self.linear_bias = _param(self, (embed_dim,), device, 0.0)
+        self.pre_ln_scale = _param(self, (embed_dim,), device, 1.0)
+        self.pre_ln_bias = _param(self, (embed_dim,), device, 0.0)
+        self.ln_scale = _param(self, (embed_dim,), device, 1.0)
+        self.ln_bias = _param(self, (embed_dim,), device, 0.0)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -86,27 +65,26 @@ class FusedMultiHeadAttention(nn.Module):
             transpose_qkv_wb=self._transpose_qkv_wb)
 
 
-class FusedFeedForward(nn.Module):
+class FusedFeedForward(Layer):
     def __init__(self, d_model, dim_feedforward, dropout_rate=0.1,
                  epsilon=1e-5, activation="relu", act_dropout_rate=None,
                  normalize_before=False, nranks=1, ring_id=-1, device=None,
                  dtype=None):
-        super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        super().__init__(dtype=dtype)
         self._activation = activation
         self._dropout_rate = dropout_rate
         self._act_dropout_rate = (dropout_rate if act_dropout_rate is None
                                   else act_dropout_rate)
         self._epsilon = epsilon
         self._normalize_before = normalize_before
-        self.linear1_weight = _xavier((d_model, dim_feedforward), kw)
-        self.linear1_bias = _const((dim_feedforward,), 0.0, kw)
-        self.linear2_weight = _xavier((dim_feedforward, d_model), kw)
-        self.linear2_bias = _const((d_model,), 0.0, kw)
-        self.ln1_scale = _const((d_model,), 1.0, kw)
-        self.ln1_bias = _const((d_model,), 0.0, kw)
-        self.ln2_scale = _const((d_model,), 1.0, kw)
-        self.ln2_bias = _const((d_model,), 0.0, kw)
+        self.linear1_weight = _param(self, (d_model, dim_feedforward), device)
+        self.linear1_bias = _param(self, (dim_feedforward,), device, 0.0)
+        self.linear2_weight = _param(self, (dim_feedforward, d_model), device)
+        self.linear2_bias = _param(self, (d_model,), device, 0.0)
+        self.ln1_scale = _param(self, (d_model,), device, 1.0)
+        self.ln1_bias = _param(self, (d_model,), device, 0.0)
+        self.ln2_scale = _param(self, (d_model,), device, 1.0)
+        self.ln2_bias = _param(self, (d_model,), device, 0.0)
 
     def forward(self, src, cache=None):
         return IF.fused_feedforward(
@@ -117,7 +95,7 @@ class FusedFeedForward(nn.Module):
             self._normalize_before, self.training)
 
 
-class FusedTransformerEncoderLayer(nn.Module):
+class FusedTransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout_rate=0.1,
                  activation="relu", attn_dropout_rate=None,
                  act_dropout_rate=None, normalize_before=False, device=None,

@@ -9,7 +9,7 @@ else JAX's plain f32 path (``nn.functional.sdpa_plain``).  The padding
 mask is JAX's additive ``(1 - m) * -1e30`` in f32, ``[B, 1, 1, S]``.
 
 Parameter names match the JAX model's ``state_dict()`` key for key
-(``convert.bert_state_dict_from_jax``).  The MLM decoder multiplies by the
+(``load_state_dict``, or ``convert.state_from_jax``).  The MLM decoder multiplies by the
 word-embedding ``nn.Parameter`` itself, untransposed (``bert.py:106-114``):
 one parameter, whose gradient sums both uses.  The head holds it outside
 its own parameters, so ``state_dict()`` lists it once, under
@@ -36,6 +36,7 @@ from ..device import resolve_device
 from ..nn import functional as F
 from ..nn.activation import GELU, Tanh
 from ..nn.common import Dropout, Embedding, Linear
+from ..nn.layers import Layer
 from ..nn.norm import LayerNorm
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
 from ..tensor import matmul
@@ -68,7 +69,7 @@ def _init_stream(seed):
             else _random.fork_rng(seed))
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, c: BertConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -95,7 +96,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, c: BertConfig, device=None, dtype=None):
         super().__init__()
         self.dense = Linear(c.hidden_size, c.hidden_size, device=device,
@@ -106,7 +107,7 @@ class BertPooler(nn.Module):
         return self.activation(self.dense(hidden_states[:, 0]))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     def __init__(self, config: BertConfig = None, with_pool=True,
                  device=None, dtype=torch.float32, seed=None):
         super().__init__()
@@ -137,7 +138,7 @@ class BertModel(nn.Module):
         return seq, pooled
 
 
-class BertLMPredictionHead(nn.Module):
+class BertLMPredictionHead(Layer):
     def __init__(self, c: BertConfig, embedding_weights, device=None,
                  dtype=None):
         super().__init__()
@@ -148,7 +149,8 @@ class BertLMPredictionHead(nn.Module):
         # the tied [vocab, hidden] word embedding, kept out of this
         # module's parameters (see the module docstring)
         self._tied = (embedding_weights,)
-        self.decoder_bias = nn.Parameter(torch.zeros(c.vocab_size, **kw))
+        self.decoder_bias = nn.Parameter(torch.zeros(
+            c.vocab_size, device=resolve_device(device), dtype=dtype))
 
     @property
     def decoder_weight(self):
@@ -160,7 +162,7 @@ class BertLMPredictionHead(nn.Module):
         return matmul(x, self.decoder_weight.t()) + self.decoder_bias
 
 
-class BertForMaskedLM(nn.Module):
+class BertForMaskedLM(Layer):
     def __init__(self, config: BertConfig = None, device=None,
                  dtype=torch.float32, seed=None):
         super().__init__()
@@ -187,7 +189,7 @@ class BertForMaskedLM(nn.Module):
         return logits
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     def __init__(self, config: BertConfig = None, num_classes=2, device=None,
                  dtype=torch.float32, seed=None):
         super().__init__()

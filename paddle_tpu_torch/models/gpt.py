@@ -49,6 +49,7 @@ from ..device import resolve_device
 from ..distributed.recompute import recompute
 from ..nn import functional as port_F
 from ..nn.common import Dropout
+from ..nn.layers import Layer
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.rms_norm import rms_norm
@@ -95,7 +96,7 @@ LLAMA2_13B = GPTConfig(
 )
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     def __init__(self, hidden_size, eps=1e-6, device=None, dtype=None):
         super().__init__()
         self.eps = eps
@@ -163,7 +164,7 @@ def row_linear(x, weight):
     return tiled_linear(pad_rows(x), weight)[:m].view(*x.shape[:-1], -1)
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         c = config
@@ -228,7 +229,7 @@ class GPTAttention(nn.Module):
                             cache.k_scale, cache.v_scale)
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     """SwiGLU feed-forward."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=None):
@@ -252,7 +253,7 @@ class GPTMLP(nn.Module):
         return tiled_linear(h, w(self.down_proj))
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         h, eps = config.hidden_size, config.rms_norm_eps
@@ -277,7 +278,7 @@ class GPTDecoderLayer(nn.Module):
         return rows, new_cache
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config: GPTConfig, device=None, dtype=None):
         super().__init__()
         self.config = config
@@ -313,7 +314,7 @@ class GPTModel(nn.Module):
         return self.norm(rows[:b * s]).view(b, s, -1), new_caches
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """The causal LM.  Built on ``device`` (``cuda`` unless the caller
     passes ``"cpu"``) in ``dtype``, with weights drawn from a
     ``torch.Generator`` seeded by ``seed`` on that device: every matrix

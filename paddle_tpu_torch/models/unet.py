@@ -38,6 +38,7 @@ from torch import nn
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn.conv import Conv2D
+from ..nn.layers import Layer
 from ..nn.norm import GroupNorm, LayerNorm
 
 
@@ -70,7 +71,7 @@ def _conv(in_c, out_c, k, stride=1, padding=0, channels_last=False, **kw):
                   data_format="NHWC" if channels_last else "NCHW", **kw)
 
 
-class ResnetBlock2D(nn.Module):
+class ResnetBlock2D(Layer):
     def __init__(self, in_c, out_c, temb_c, groups=32, channels_last=False,
                  **kw):
         super().__init__()
@@ -96,7 +97,7 @@ class ResnetBlock2D(nn.Module):
         return h + sc
 
 
-class CrossAttention(nn.Module):
+class CrossAttention(Layer):
     def __init__(self, query_dim, context_dim, heads, **kw):
         super().__init__()
         self.heads = heads
@@ -126,7 +127,7 @@ class CrossAttention(nn.Module):
         return self.to_out(out.reshape(b, s, self.heads * self.head_dim))
 
 
-class TransformerBlock2D(nn.Module):
+class TransformerBlock2D(Layer):
     def __init__(self, dim, context_dim, heads, groups=32,
                  channels_last=False, **kw):
         super().__init__()
@@ -165,7 +166,7 @@ class TransformerBlock2D(nn.Module):
         return self.proj_out(y) + residual
 
 
-class Downsample2D(nn.Module):
+class Downsample2D(Layer):
     def __init__(self, c, channels_last=False, **kw):
         super().__init__()
         self.conv = _conv(c, c, 3, stride=2, padding=1,
@@ -175,7 +176,7 @@ class Downsample2D(nn.Module):
         return self.conv(x)
 
 
-class Upsample2D(nn.Module):
+class Upsample2D(Layer):
     def __init__(self, c, channels_last=False, **kw):
         super().__init__()
         self._nhwc = channels_last
@@ -190,12 +191,12 @@ class Upsample2D(nn.Module):
         return self.conv(x)
 
 
-class _Identity(nn.Module):
+class _Identity(Layer):
     def forward(self, x, *a, **k):
         return x
 
 
-class UNet2DConditionModel(nn.Module):
+class UNet2DConditionModel(Layer):
     """The conditional UNet, built on ``device`` (``cuda`` unless the
     caller passes ``"cpu"``) in ``dtype``, with weights drawn from a
     ``torch.Generator`` seeded by ``seed`` on that device: each conv and

@@ -7,13 +7,12 @@ NCHW tensor."""
 
 from __future__ import annotations
 
-import torch
-from torch import nn
-
 from . import functional as F
+from .initializer import Constant
+from .layers import Layer
 
 
-class _Act(nn.Module):
+class _Act(Layer):
     """A parameterless activation: ``fn(x, **kw)``."""
 
     fn = None
@@ -64,19 +63,20 @@ class LeakyReLU(_Act):
         super().__init__(negative_slope=negative_slope)
 
 
-class PReLU(nn.Module):
-    def __init__(self, num_parameters=1, init=0.25, data_format="NCHW",
-                 device=None, dtype=None):
-        super().__init__()
+class PReLU(Layer):
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None, *, device=None, dtype=None):
+        super().__init__(dtype=dtype)
         self._data_format = data_format
-        self.weight = nn.Parameter(torch.full((num_parameters,), init,
-                                              device=device, dtype=dtype))
+        self.weight = self.create_parameter(
+            [num_parameters], weight_attr, default_initializer=Constant(init),
+            device=device)
 
     def forward(self, x):
         return F.prelu(x, self.weight, self._data_format)
 
 
-class RReLU(nn.Module):
+class RReLU(Layer):
     def __init__(self, lower=1.0 / 8.0, upper=1.0 / 3.0):
         super().__init__()
         self._lower, self._upper = lower, upper
@@ -190,7 +190,7 @@ class GLU(_Act):
         super().__init__(axis=axis)
 
 
-class Softmax2D(nn.Module):
+class Softmax2D(Layer):
     """Softmax over the channels of an NCHW tensor."""
 
     def forward(self, x):

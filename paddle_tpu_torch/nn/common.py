@@ -4,65 +4,68 @@
 pads, ``CosineSimilarity``, ``Bilinear``, ``Unfold``/``Fold`` and
 ``PairwiseDistance``, each over its functional.
 
-``Linear`` keeps the port's ``[out, in]`` weight (torch's layout;
-``convert`` transposes paddle's ``[in, out]`` at load).  Initial values
-follow the JAX layers' defaults, drawn from the port's counter stream
-(:mod:`paddle_tpu_torch.random`), one key a parameter: ``Linear`` weights
+``Linear`` keeps paddle's ``[in, out]`` weight, as JAX's, so a JAX
+``state_dict`` loads as it is.  Parameters come from
+``Layer.create_parameter`` with JAX's default initializers (each random
+one draws one key of the port's counter stream): ``Linear`` weights
 Xavier-normal, biases 0; ``Embedding`` N(0, 1) with the ``padding_idx``
-row at 0.  Models that want other initial values (BERT's N(0, 0.02)
-embeddings) draw them over these.
+row at 0; ``weight_attr``/``bias_attr`` as JAX's.  Models that want
+other initial values (BERT's N(0, 0.02) embeddings) draw them over
+these.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
-from torch import nn
 
-from .. import random as _random
 from .. import tensor as _tensor
 from . import functional as F
+from .initializer import Normal, XavierNormal
+from .layers import Layer
 
 
-class Linear(nn.Module):
-    def __init__(self, in_features, out_features, bias_attr=None,
-                 device=None, dtype=None):
-        """``bias_attr=False`` leaves out the bias, as paddle's."""
-        super().__init__()
-        kw = dict(device=device, dtype=dtype)
-        self.weight = nn.Parameter(torch.empty(out_features, in_features,
-                                               **kw))
-        std = math.sqrt(2.0 / (in_features + out_features))
-        with torch.no_grad():
-            self.weight.normal_(0.0, std, generator=_random.next_generator(
-                self.weight.device))
-        self.bias = (None if bias_attr is False else
-                     nn.Parameter(torch.zeros(out_features, **kw)))
+class Linear(Layer):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None):
+        """``weight`` ``[in, out]`` (Xavier-normal), ``bias`` ``[out]``
+        (0); ``bias_attr=False`` leaves out the bias, as paddle's."""
+        super().__init__(dtype=dtype)
+        self._in_features = in_features
+        self._out_features = out_features
+        self.weight = self.create_parameter(
+            [in_features, out_features], weight_attr,
+            default_initializer=XavierNormal(), device=device)
+        self.bias = (None if bias_attr is False else self.create_parameter(
+            [out_features], bias_attr, is_bias=True, device=device))
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
 
+    def extra_repr(self):
+        return (f"in_features={self._in_features}, "
+                f"out_features={self._out_features}")
 
-class Embedding(nn.Module):
+
+class Embedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
-                 sparse=False, device=None, dtype=None):
+                 sparse=False, weight_attr=None, name=None, *, device=None,
+                 dtype=None):
         """``sparse`` is accepted and ignored, as JAX's."""
-        super().__init__()
+        super().__init__(dtype=dtype)
         self._padding_idx = padding_idx
-        self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, device=device, dtype=dtype))
-        with torch.no_grad():
-            self.weight.normal_(0.0, 1.0, generator=_random.next_generator(
-                self.weight.device))
-            if padding_idx is not None:
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], weight_attr,
+            default_initializer=(Normal(0.0, 1.0) if weight_attr is None
+                                 else None), device=device)
+        if padding_idx is not None:
+            with torch.no_grad():
                 self.weight[padding_idx] = 0.0
 
     def forward(self, x):
         return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
         super().__init__()
         self.p = p
@@ -77,12 +80,12 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
-class Identity(nn.Module):
+class Identity(Layer):
     def forward(self, x):
         return x
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     def __init__(self, start_axis=1, stop_axis=-1):
         super().__init__()
         self.start_axis = start_axis
@@ -92,7 +95,7 @@ class Flatten(nn.Module):
         return _tensor.flatten(x, self.start_axis, self.stop_axis)
 
 
-class Unflatten(nn.Module):
+class Unflatten(Layer):
     def __init__(self, axis, shape):
         super().__init__()
         self._axis = axis
@@ -102,7 +105,7 @@ class Unflatten(nn.Module):
         return _tensor.unflatten(x, self._axis, self._shape)
 
 
-class Dropout2D(nn.Module):
+class Dropout2D(Layer):
     def __init__(self, p=0.5, data_format="NCHW"):
         super().__init__()
         self.p = p
@@ -113,7 +116,7 @@ class Dropout2D(nn.Module):
                            data_format=self.data_format)
 
 
-class Dropout3D(nn.Module):
+class Dropout3D(Layer):
     def __init__(self, p=0.5, data_format="NCDHW"):
         super().__init__()
         self.p = p
@@ -124,7 +127,7 @@ class Dropout3D(nn.Module):
                            data_format=self.data_format)
 
 
-class AlphaDropout(nn.Module):
+class AlphaDropout(Layer):
     def __init__(self, p=0.5):
         super().__init__()
         self.p = p
@@ -133,7 +136,7 @@ class AlphaDropout(nn.Module):
         return F.alpha_dropout(x, self.p, training=self.training)
 
 
-class Upsample(nn.Module):
+class Upsample(Layer):
     def __init__(self, size=None, scale_factor=None, mode="nearest",
                  align_corners=False, align_mode=0, data_format="NCHW"):
         super().__init__()
@@ -164,7 +167,7 @@ class UpsamplingBilinear2D(Upsample):
                          data_format)
 
 
-class PixelShuffle(nn.Module):
+class PixelShuffle(Layer):
     def __init__(self, upscale_factor, data_format="NCHW"):
         super().__init__()
         self.upscale_factor = upscale_factor
@@ -174,7 +177,7 @@ class PixelShuffle(nn.Module):
         return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
 
 
-class PixelUnshuffle(nn.Module):
+class PixelUnshuffle(Layer):
     def __init__(self, downscale_factor, data_format="NCHW"):
         super().__init__()
         self.downscale_factor = downscale_factor
@@ -184,7 +187,7 @@ class PixelUnshuffle(nn.Module):
         return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
 
 
-class ChannelShuffle(nn.Module):
+class ChannelShuffle(Layer):
     def __init__(self, groups, data_format="NCHW"):
         super().__init__()
         self.groups = groups
@@ -194,7 +197,7 @@ class ChannelShuffle(nn.Module):
         return F.channel_shuffle(x, self.groups, self.data_format)
 
 
-class Pad1D(nn.Module):
+class Pad1D(Layer):
     def __init__(self, padding, mode="constant", value=0.0,
                  data_format="NCL"):
         super().__init__()
@@ -225,7 +228,7 @@ class ZeroPad2D(Pad2D):
         super().__init__(padding, "constant", 0.0, data_format)
 
 
-class CosineSimilarity(nn.Module):
+class CosineSimilarity(Layer):
     def __init__(self, axis=1, eps=1e-8):
         super().__init__()
         self.axis = axis
@@ -235,29 +238,28 @@ class CosineSimilarity(nn.Module):
         return F.cosine_similarity(x1, x2, self.axis, self.eps)
 
 
-class Bilinear(nn.Module):
+class Bilinear(Layer):
     """``weight`` ``[out, in1, in2]`` Xavier-normal over fan-in ``in1`` and
     fan-out ``out`` (JAX's layout, which ``F.bilinear`` contracts as it
     is), ``bias`` ``[out]`` at 0."""
 
     def __init__(self, in1_features, in2_features, out_features,
-                 bias_attr=None, device=None, dtype=None):
-        super().__init__()
-        kw = dict(device=device, dtype=dtype)
-        self.weight = nn.Parameter(torch.empty(
-            out_features, in1_features, in2_features, **kw))
-        std = math.sqrt(2.0 / (in1_features + out_features))
-        with torch.no_grad():
-            self.weight.normal_(0.0, std, generator=_random.next_generator(
-                self.weight.device))
-        self.bias = (None if bias_attr is False else
-                     nn.Parameter(torch.zeros(out_features, **kw)))
+                 weight_attr=None, bias_attr=None, name=None, *, device=None,
+                 dtype=None):
+        super().__init__(dtype=dtype)
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], weight_attr,
+            default_initializer=XavierNormal(fan_in=in1_features,
+                                             fan_out=out_features),
+            device=device)
+        self.bias = (None if bias_attr is False else self.create_parameter(
+            [out_features], bias_attr, is_bias=True, device=device))
 
     def forward(self, x1, x2):
         return F.bilinear(x1, x2, self.weight, self.bias)
 
 
-class Unfold(nn.Module):
+class Unfold(Layer):
     def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1):
         super().__init__()
         self.args = (kernel_sizes, strides, paddings, dilations)
@@ -266,7 +268,7 @@ class Unfold(nn.Module):
         return F.unfold(x, *self.args)
 
 
-class Fold(nn.Module):
+class Fold(Layer):
     def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
                  dilations=1):
         super().__init__()
@@ -277,7 +279,7 @@ class Fold(nn.Module):
         return F.fold(x, self.output_sizes, *self.args)
 
 
-class PairwiseDistance(nn.Module):
+class PairwiseDistance(Layer):
     def __init__(self, p=2.0, epsilon=1e-6, keepdim=False):
         super().__init__()
         self._kw = dict(p=p, epsilon=epsilon, keepdim=keepdim)

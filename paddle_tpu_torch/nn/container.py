@@ -1,5 +1,7 @@
-"""``Sequential`` and ``LayerList``, the counterparts of
-``paddle_tpu/nn/layer/container.py:11-77``.
+"""The containers, the counterparts of ``paddle_tpu/nn/layer/container.py``:
+``Sequential``, ``LayerList``, ``LayerDict`` and ``ParameterList``, each a
+``Layer`` over torch's container of the same role (``nn.Sequential``,
+``nn.ModuleList``, ``nn.ModuleDict``, ``nn.ParameterList``).
 
 ``Sequential`` takes layers, one list of them, or ``(name, layer)``
 pairs; a child's name (its index, or the pair's name) is its
@@ -10,8 +12,10 @@ from __future__ import annotations
 
 from torch import nn
 
+from .layers import Layer
 
-class Sequential(nn.Sequential):
+
+class Sequential(Layer, nn.Sequential):
     def __init__(self, *layers):
         super().__init__()
         if len(layers) == 1 and isinstance(layers[0], (list, tuple)):
@@ -24,9 +28,25 @@ class Sequential(nn.Sequential):
     def __getitem__(self, idx):
         if isinstance(idx, slice):
             return Sequential(*list(self._modules.values())[idx])
-        return super().__getitem__(idx)
+        return nn.Sequential.__getitem__(self, idx)
 
 
-class LayerList(nn.ModuleList):
+class LayerList(Layer, nn.ModuleList):
     def __init__(self, sublayers=None):
-        super().__init__(sublayers)
+        super().__init__()
+        if sublayers is not None:
+            self.extend(sublayers)
+
+
+class LayerDict(Layer, nn.ModuleDict):
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            self.update(sublayers)
+
+
+class ParameterList(Layer, nn.ParameterList):
+    def __init__(self, parameters=None):
+        super().__init__()
+        if parameters is not None:
+            self.extend(parameters)

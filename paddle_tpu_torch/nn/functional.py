@@ -33,8 +33,7 @@ Routing follows the JAX package with the card in the TPU's place:
   kernel there, none here (``incubate.nn.functional.fused_rms_norm`` is
   the kernel's entry).
 
-:func:`linear` takes the port's ``[out, in]`` weight (torch's layout;
-``convert`` transposes paddle's ``[in, out]`` once, at load).  The
+:func:`linear` takes paddle's ``[in, out]`` weight, as JAX's.  The
 attention dropout draws its masks from the port's counter stream
 (:mod:`paddle_tpu_torch.random`), one key a call.
 
@@ -128,9 +127,11 @@ def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
 
 
 def linear(x, weight, bias=None):
-    """``x @ weight.T + bias`` with ``weight`` ``[out, in]``."""
+    """``x @ weight + bias`` with ``weight`` ``[in, out]``, paddle's
+    layout (``paddle_tpu/nn/functional/common.py:16-21``): cuBLAS's GEMM
+    over the transposed view, with the other transpose flag, no copy."""
     x, weight, bias = cast_inputs("linear", x, weight, bias)
-    return TF.linear(x, weight, bias)
+    return TF.linear(x, weight.t(), bias)
 
 
 def embedding(x, weight, padding_idx=None, sparse=False):

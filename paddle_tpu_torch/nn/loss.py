@@ -12,10 +12,12 @@ import torch
 from torch import nn
 
 from .. import random as _random
+from ..device import resolve_device
 from . import functional as F
+from .layers import Layer
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0):
@@ -30,7 +32,7 @@ class CrossEntropyLoss(nn.Module):
         return F.cross_entropy(input, label, weight=self._weight, **self._kw)
 
 
-class MSELoss(nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self._reduction = reduction
@@ -39,7 +41,7 @@ class MSELoss(nn.Module):
         return F.mse_loss(input, label, self._reduction)
 
 
-class L1Loss(nn.Module):
+class L1Loss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self._reduction = reduction
@@ -48,7 +50,7 @@ class L1Loss(nn.Module):
         return F.l1_loss(input, label, self._reduction)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean"):
         super().__init__()
         self._weight = weight
@@ -60,7 +62,7 @@ class NLLLoss(nn.Module):
                           self._reduction)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean"):
         super().__init__()
         self._weight = weight
@@ -71,7 +73,7 @@ class BCELoss(nn.Module):
                                       self._reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None):
         super().__init__()
         self._weight = weight
@@ -83,7 +85,7 @@ class BCEWithLogitsLoss(nn.Module):
             logit, label, self._weight, self._reduction, self._pos_weight)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0):
         super().__init__()
         self._reduction = reduction
@@ -93,7 +95,7 @@ class SmoothL1Loss(nn.Module):
         return F.smooth_l1_loss(input, label, self._reduction, self._delta)
 
 
-class KLDivLoss(nn.Module):
+class KLDivLoss(Layer):
     def __init__(self, reduction="mean", log_target=False):
         super().__init__()
         self._reduction = reduction
@@ -103,7 +105,7 @@ class KLDivLoss(nn.Module):
         return F.kl_div(input, label, self._reduction, self._log_target)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean"):
         super().__init__()
         self._margin = margin
@@ -114,7 +116,7 @@ class MarginRankingLoss(nn.Module):
                                      self._reduction)
 
 
-class CosineEmbeddingLoss(nn.Module):
+class CosineEmbeddingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean"):
         super().__init__()
         self._margin = margin
@@ -125,7 +127,7 @@ class CosineEmbeddingLoss(nn.Module):
                                        self._reduction)
 
 
-class HingeEmbeddingLoss(nn.Module):
+class HingeEmbeddingLoss(Layer):
     def __init__(self, margin=1.0, reduction="mean"):
         super().__init__()
         self._margin = margin
@@ -136,7 +138,7 @@ class HingeEmbeddingLoss(nn.Module):
                                       self._reduction)
 
 
-class TripletMarginLoss(nn.Module):
+class TripletMarginLoss(Layer):
     def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
                  reduction="mean"):
         super().__init__()
@@ -147,7 +149,7 @@ class TripletMarginLoss(nn.Module):
         return F.triplet_margin_loss(input, positive, negative, **self._kw)
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     def __init__(self, blank=0, reduction="mean"):
         super().__init__()
         self._blank = blank
@@ -159,7 +161,7 @@ class CTCLoss(nn.Module):
                           self._blank, self._reduction, norm_by_times)
 
 
-class GaussianNLLLoss(nn.Module):
+class GaussianNLLLoss(Layer):
     def __init__(self, full=False, epsilon=1e-6, reduction="mean"):
         super().__init__()
         self._kw = dict(full=full, epsilon=epsilon, reduction=reduction)
@@ -168,7 +170,7 @@ class GaussianNLLLoss(nn.Module):
         return F.gaussian_nll_loss(input, label, variance, **self._kw)
 
 
-class PoissonNLLLoss(nn.Module):
+class PoissonNLLLoss(Layer):
     def __init__(self, log_input=True, full=False, epsilon=1e-8,
                  reduction="mean"):
         super().__init__()
@@ -179,7 +181,7 @@ class PoissonNLLLoss(nn.Module):
         return F.poisson_nll_loss(input, label, **self._kw)
 
 
-class SoftMarginLoss(nn.Module):
+class SoftMarginLoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self._reduction = reduction
@@ -188,7 +190,7 @@ class SoftMarginLoss(nn.Module):
         return F.soft_margin_loss(input, label, self._reduction)
 
 
-class MultiLabelSoftMarginLoss(nn.Module):
+class MultiLabelSoftMarginLoss(Layer):
     def __init__(self, weight=None, reduction="mean"):
         super().__init__()
         self._weight = weight
@@ -199,7 +201,7 @@ class MultiLabelSoftMarginLoss(nn.Module):
                                               self._reduction)
 
 
-class MultiMarginLoss(nn.Module):
+class MultiMarginLoss(Layer):
     def __init__(self, p=1, margin=1.0, weight=None, reduction="mean"):
         super().__init__()
         self._kw = dict(p=p, margin=margin, weight=weight, reduction=reduction)
@@ -208,7 +210,7 @@ class MultiMarginLoss(nn.Module):
         return F.multi_margin_loss(input, label, **self._kw)
 
 
-class TripletMarginWithDistanceLoss(nn.Module):
+class TripletMarginWithDistanceLoss(Layer):
     def __init__(self, distance_function=None, margin=1.0, swap=False,
                  reduction="mean"):
         super().__init__()
@@ -220,7 +222,7 @@ class TripletMarginWithDistanceLoss(nn.Module):
                                                    **self._kw)
 
 
-class HSigmoidLoss(nn.Module):
+class HSigmoidLoss(Layer):
     """Hierarchical sigmoid classifier head (the default
     complete-binary-tree coding)."""
 
@@ -231,7 +233,7 @@ class HSigmoidLoss(nn.Module):
         if is_custom:
             raise NotImplementedError("custom-tree HSigmoidLoss")
         self._num_classes = num_classes
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.weight = nn.Parameter(torch.empty(num_classes - 1, feature_size,
                                                **kw))
         bound = math.sqrt(6.0 / (num_classes - 1 + feature_size))

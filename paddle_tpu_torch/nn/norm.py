@@ -3,9 +3,10 @@
 card), ``RMSNorm`` (``:121-134``; weight only, eps 1e-6, plain torch as
 JAX's), ``BatchNorm``/``BatchNorm1D/2D/3D`` (``:13-61``) and
 ``InstanceNorm1D/2D/3D`` (``:161-189``), each with parameters
-``weight`` (ones) and ``bias`` (zeros), default eps 1e-5, the forward
-through :mod:`paddle_tpu_torch.nn.functional`.  ``weight_attr=False`` /
-``bias_attr=False`` leave a BatchNorm or InstanceNorm parameter out.
+``weight`` (ones) and ``bias`` (zeros) from ``Layer.create_parameter``,
+default eps 1e-5, the forward through
+:mod:`paddle_tpu_torch.nn.functional`.  ``weight_attr``/``bias_attr``
+are JAX's; ``False`` leaves the parameter out.
 BatchNorm keeps its running statistics in the buffers ``_mean`` (zeros)
 and ``_variance`` (ones), JAX's ``state_dict`` keys; ``Module.to(dtype)``
 casts them with the parameters, as JAX's ``Layer.to``.
@@ -18,83 +19,91 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
-from .. import random as _random
+from ..dtype import get_default_dtype
 from ..tensor.manipulation import to_dtype
 from . import functional as F
+from .initializer import Constant, Normal
+from .layers import Layer
 
 
-class LayerNorm(nn.Module):
-    def __init__(self, normalized_shape, epsilon=1e-5, device=None,
-                 dtype=None):
-        super().__init__()
+def _affine(layer, shape, weight_attr, bias_attr, device):
+    """JAX's norm parameters: ``weight`` ones and ``bias`` zeros, each
+    left out (None) for an attr of False."""
+    layer.weight = None if weight_attr is False else layer.create_parameter(
+        shape, weight_attr, default_initializer=Constant(1.0), device=device)
+    layer.bias = None if bias_attr is False else layer.create_parameter(
+        shape, bias_attr, is_bias=True, device=device)
+
+
+class LayerNorm(Layer):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None):
+        super().__init__(dtype=dtype)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        kw = dict(device=device, dtype=dtype)
-        self.weight = nn.Parameter(torch.ones(self._normalized_shape, **kw))
-        self.bias = nn.Parameter(torch.zeros(self._normalized_shape, **kw))
+        _affine(self, self._normalized_shape, weight_attr, bias_attr, device)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
                             self.bias, self._epsilon)
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """``paddle_tpu/nn/layer/norm.py:121-134``: weight ones, eps 1e-6,
     the forward through :func:`nn.functional.rms_norm` (JAX's plain
     path; ``incubate.nn.functional.fused_rms_norm`` is the kernel's
     entry)."""
 
-    def __init__(self, normalized_shape, epsilon=1e-6, device=None,
-                 dtype=None):
-        super().__init__()
+    def __init__(self, normalized_shape, epsilon=1e-6, weight_attr=None,
+                 name=None, *, device=None, dtype=None):
+        super().__init__(dtype=dtype)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(self._normalized_shape,
-                                              device=device, dtype=dtype))
+        self.weight = self.create_parameter(
+            self._normalized_shape, weight_attr,
+            default_initializer=Constant(1.0), device=device)
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, None, self._epsilon)
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(Layer):
     def __init__(self, num_groups, num_channels, epsilon=1e-5,
-                 data_format="NCHW", device=None, dtype=None):
-        super().__init__()
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, dtype=None):
+        super().__init__(dtype=dtype)
         self._num_groups = num_groups
         self._epsilon = epsilon
         self._data_format = data_format
-        kw = dict(device=device, dtype=dtype)
-        self.weight = nn.Parameter(torch.ones(num_channels, **kw))
-        self.bias = nn.Parameter(torch.zeros(num_channels, **kw))
+        _affine(self, [num_channels], weight_attr, bias_attr, device)
 
     def forward(self, x):
         return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
                             self.bias, self._data_format)
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 use_global_stats=None, device=None, dtype=None):
-        super().__init__()
+                 use_global_stats=None, name=None, *, device=None,
+                 dtype=None):
+        super().__init__(dtype=dtype)
         self._num_features = num_features
         self._momentum = momentum
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        kw = dict(device=device, dtype=dtype)
-        self.weight = (None if weight_attr is False else
-                       nn.Parameter(torch.ones(num_features, **kw)))
-        self.bias = (None if bias_attr is False else
-                     nn.Parameter(torch.zeros(num_features, **kw)))
-        self.register_buffer("_mean", torch.zeros(num_features, **kw))
-        self.register_buffer("_variance", torch.ones(num_features, **kw))
+        _affine(self, [num_features], weight_attr, bias_attr, device)
+        dt = to_dtype(dtype if dtype is not None else get_default_dtype())
+        self.register_buffer("_mean", Constant(0.0)(
+            [num_features], dt, device))
+        self.register_buffer("_variance", Constant(1.0)(
+            [num_features], dt, device))
 
     def forward(self, x):
         return F.batch_norm(x, self._mean, self._variance, self.weight,
@@ -123,24 +132,21 @@ class BatchNorm2D(_BatchNormBase):
 class BatchNorm3D(_BatchNormBase):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCDHW",
-                 use_global_stats=None, device=None, dtype=None):
+                 use_global_stats=None, name=None, *, device=None,
+                 dtype=None):
         super().__init__(num_features, momentum, epsilon, weight_attr,
-                         bias_attr, data_format, use_global_stats, device,
-                         dtype)
+                         bias_attr, data_format, use_global_stats, name,
+                         device=device, dtype=dtype)
 
 
-class InstanceNorm1D(nn.Module):
+class InstanceNorm1D(Layer):
     def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
                  weight_attr=None, bias_attr=None, data_format="NCL",
-                 device=None, dtype=None):
-        super().__init__()
+                 name=None, *, device=None, dtype=None):
+        super().__init__(dtype=dtype)
         self._epsilon = epsilon
         self._data_format = data_format
-        kw = dict(device=device, dtype=dtype)
-        self.weight = (None if weight_attr is False else
-                       nn.Parameter(torch.ones(num_features, **kw)))
-        self.bias = (None if bias_attr is False else
-                     nn.Parameter(torch.zeros(num_features, **kw)))
+        _affine(self, [num_features], weight_attr, bias_attr, device)
 
     def forward(self, x):
         return F.instance_norm(x, weight=self.weight, bias=self.bias,
@@ -151,20 +157,22 @@ class InstanceNorm1D(nn.Module):
 class InstanceNorm2D(InstanceNorm1D):
     def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 device=None, dtype=None):
+                 name=None, *, device=None, dtype=None):
         super().__init__(num_features, epsilon, momentum, weight_attr,
-                         bias_attr, data_format, device, dtype)
+                         bias_attr, data_format, name, device=device,
+                         dtype=dtype)
 
 
 class InstanceNorm3D(InstanceNorm1D):
     def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
                  weight_attr=None, bias_attr=None, data_format="NCDHW",
-                 device=None, dtype=None):
+                 name=None, *, device=None, dtype=None):
         super().__init__(num_features, epsilon, momentum, weight_attr,
-                         bias_attr, data_format, device, dtype)
+                         bias_attr, data_format, name, device=device,
+                         dtype=dtype)
 
 
-class LocalResponseNorm(nn.Module):
+class LocalResponseNorm(Layer):
     def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
                  data_format="NCHW"):
         super().__init__()
@@ -174,7 +182,7 @@ class LocalResponseNorm(nn.Module):
         return F.local_response_norm(x, *self.args)
 
 
-class SpectralNorm(nn.Module):
+class SpectralNorm(Layer):
     """``weight / sigma``, ``sigma`` the largest singular value of
     ``weight`` with dim ``dim`` first and the rest flattened, by
     ``power_iters`` power iterations from ``weight_u`` [h] and
@@ -189,15 +197,12 @@ class SpectralNorm(nn.Module):
         self._epsilon = epsilon
         h = weight_shape[dim]
         w = math.prod(s for i, s in enumerate(weight_shape) if i != dim)
-        kw = dict(device=device, dtype=to_dtype(dtype))
-        self.weight_u = nn.Parameter(torch.empty(h, **kw),
-                                     requires_grad=False)
-        self.weight_v = nn.Parameter(torch.empty(w, **kw),
-                                     requires_grad=False)
-        with torch.no_grad():
-            for p in (self.weight_u, self.weight_v):
-                p.normal_(0.0, 1.0,
-                          generator=_random.next_generator(p.device))
+        self.weight_u = self.create_parameter(
+            [h], dtype=dtype, default_initializer=Normal(0.0, 1.0),
+            device=device).requires_grad_(False)
+        self.weight_v = self.create_parameter(
+            [w], dtype=dtype, default_initializer=Normal(0.0, 1.0),
+            device=device).requires_grad_(False)
 
     def forward(self, weight):
         wm = weight.movedim(self._dim, 0).reshape(weight.shape[self._dim],

@@ -7,12 +7,11 @@ from __future__ import annotations
 
 import functools
 
-from torch import nn
-
 from . import functional as F
+from .layers import Layer
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     def __init__(self, fn, kernel_size, stride=None, padding=0, **kw):
         super().__init__()
         self._fn = functools.partial(fn, **kw)
@@ -70,7 +69,7 @@ class AvgPool3D(_Pool):
                          data_format=data_format)
 
 
-class _Adaptive(nn.Module):
+class _Adaptive(Layer):
     def __init__(self, fn, output_size, **kw):
         super().__init__()
         self._fn = functools.partial(fn, **kw)
@@ -115,7 +114,7 @@ class AdaptiveMaxPool3D(_Adaptive):
                          return_mask=return_mask)
 
 
-class _MaxUnPool(nn.Module):
+class _MaxUnPool(Layer):
     def __init__(self, fn, kernel_size, stride=None, padding=0, **kw):
         super().__init__()
         self._fn = functools.partial(fn, **kw)

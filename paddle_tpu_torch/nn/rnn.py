@@ -27,8 +27,10 @@ As JAX's, these ignore ``sequence_length`` (``RNN``, ``BiRNN`` and the
 multi-layer layers run every step of every sequence), the inter-layer
 ``dropout`` (stored, never applied) and ``LSTMCell``'s ``proj_size``;
 Paddle masks by length and applies the dropout (``ROADMAP.md`` Queue 3).
-The ParamAttr arguments (``weight_ih_attr``, ...) are not ported: any
-value but None raises.
+The ParamAttr arguments (``weight_ih_attr``, ``weight_hh_attr``,
+``bias_ih_attr``, ``bias_hh_attr``) are JAX's: ``Layer.create_parameter``
+takes each for its parameters (an attr's initializer replaces the
+uniform one).
 """
 
 from __future__ import annotations
@@ -37,13 +39,13 @@ import math
 
 import torch
 import torch.nn.functional as TF
-from torch import nn
 
-from .. import random as _random
 from ..amp.auto_cast import cast_inputs
 from ..device import resolve_device
 from ..tensor import manipulation as _manip
 from ..tensor.creation import jax_dtype
+from .initializer import Uniform
+from .layers import Layer
 
 __all__ = ["BiRNN", "GRU", "GRUCell", "LSTM", "LSTMCell", "RNN",
            "RNNCellBase", "SimpleRNN", "SimpleRNNCell"]
@@ -51,24 +53,16 @@ __all__ = ["BiRNN", "GRU", "GRUCell", "LSTM", "LSTMCell", "RNN",
 _ROUTES = (None, "fused", "loop")
 
 
-def _check_attrs(**attrs):
-    for name, v in attrs.items():
-        if v is not None:
-            raise NotImplementedError(
-                f"{name}: ParamAttr arguments are not ported (pass None)")
-
-
-def _uniform_params(module, names, shapes, hidden_size, device, dtype):
-    """Register ``names`` as parameters of ``shapes`` drawn from
-    ``Uniform(-1/sqrt(H), 1/sqrt(H))``, one key each, in order."""
+def _uniform_params(module, names, shapes, attrs, hidden_size, device):
+    """Register ``names`` as parameters of ``shapes`` (the last two
+    biases) with ``attrs``, by default drawn from ``Uniform(-1/sqrt(H),
+    1/sqrt(H))``, one key each, in order."""
     std = 1.0 / math.sqrt(hidden_size)
     dev = resolve_device(device)
-    for name, shape in zip(names, shapes):
-        p = nn.Parameter(torch.empty(shape, device=dev,
-                                     dtype=dtype or torch.float32))
-        with torch.no_grad():
-            p.uniform_(-std, std, generator=_random.next_generator(dev))
-        setattr(module, name, p)
+    for i, (name, shape, attr) in enumerate(zip(names, shapes, attrs)):
+        setattr(module, name, module.create_parameter(
+            shape, attr, is_bias=i >= 2,
+            default_initializer=Uniform(-std, std), device=dev))
 
 
 def _gates(x, h, wi, wh, bi, bh):
@@ -91,7 +85,7 @@ def _gru_step(x, h, wi, wh, bi, bh):
     return (1 - z) * c + z * h
 
 
-class RNNCellBase(nn.Module):
+class RNNCellBase(Layer):
     def get_initial_states(self, batch_ref, shape=None, dtype=None,
                            init_value=0.0, batch_dim_idx=0):
         """``[batch, hidden_size]`` of ``init_value`` in ``dtype``
@@ -108,17 +102,15 @@ class _Cell(RNNCellBase):
 
     def __init__(self, input_size, hidden_size, weight_ih_attr,
                  weight_hh_attr, bias_ih_attr, bias_hh_attr, device, dtype):
-        super().__init__()
-        _check_attrs(weight_ih_attr=weight_ih_attr,
-                     weight_hh_attr=weight_hh_attr,
-                     bias_ih_attr=bias_ih_attr, bias_hh_attr=bias_hh_attr)
+        super().__init__(dtype=dtype)
         self.input_size = input_size
         self.hidden_size = hidden_size
         g = self.GATES * hidden_size
         _uniform_params(self, ("weight_ih", "weight_hh", "bias_ih",
                                "bias_hh"),
                         ((g, input_size), (g, hidden_size), (g,), (g,)),
-                        hidden_size, device, dtype)
+                        (weight_ih_attr, weight_hh_attr, bias_ih_attr,
+                         bias_hh_attr), hidden_size, device)
 
     def _weights(self):
         return self.weight_ih, self.weight_hh, self.bias_ih, self.bias_hh
@@ -127,7 +119,7 @@ class _Cell(RNNCellBase):
 class SimpleRNNCell(_Cell):
     def __init__(self, input_size, hidden_size, activation="tanh",
                  weight_ih_attr=None, weight_hh_attr=None, bias_ih_attr=None,
-                 bias_hh_attr=None, name=None, device=None, dtype=None):
+                 bias_hh_attr=None, name=None, *, device=None, dtype=None):
         super().__init__(input_size, hidden_size, weight_ih_attr,
                          weight_hh_attr, bias_ih_attr, bias_hh_attr, device,
                          dtype)
@@ -152,7 +144,7 @@ class LSTMCell(_Cell):
 
     def __init__(self, input_size, hidden_size, weight_ih_attr=None,
                  weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None,
-                 proj_size=None, name=None, device=None, dtype=None):
+                 proj_size=None, name=None, *, device=None, dtype=None):
         """``proj_size`` is ignored, as JAX's."""
         super().__init__(input_size, hidden_size, weight_ih_attr,
                          weight_hh_attr, bias_ih_attr, bias_hh_attr, device,
@@ -178,7 +170,7 @@ class GRUCell(_Cell):
 
     def __init__(self, input_size, hidden_size, weight_ih_attr=None,
                  weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None,
-                 name=None, device=None, dtype=None):
+                 name=None, *, device=None, dtype=None):
         super().__init__(input_size, hidden_size, weight_ih_attr,
                          weight_hh_attr, bias_ih_attr, bias_hh_attr, device,
                          dtype)
@@ -195,7 +187,7 @@ class GRUCell(_Cell):
         return ((self.hidden_size,),)
 
 
-class RNN(nn.Module):
+class RNN(Layer):
     """A cell run over the time steps, one call a step (teacher
     forcing); ``sequence_length`` is ignored, as JAX's."""
 
@@ -220,7 +212,7 @@ class RNN(nn.Module):
         return _manip.stack(outs, axis), states
 
 
-class BiRNN(nn.Module):
+class BiRNN(Layer):
     def __init__(self, cell_fw, cell_bw, time_major=False):
         super().__init__()
         self.rnn_fw = RNN(cell_fw, False, time_major)
@@ -239,18 +231,15 @@ _VF_FNS = {"LSTM": "lstm", "GRU": "gru", "RNN_TANH": "rnn_tanh",
 _CUDNN_MODES = {"RNN_RELU": 0, "RNN_TANH": 1, "LSTM": 2, "GRU": 3}
 
 
-class _RNNBase(nn.Module):
+class _RNNBase(Layer):
     MODE = "RNN_TANH"
 
     def __init__(self, input_size, hidden_size, num_layers=1,
                  direction="forward", time_major=False, dropout=0.0,
                  weight_ih_attr=None, weight_hh_attr=None, bias_ih_attr=None,
-                 bias_hh_attr=None, activation=None, name=None, device=None,
-                 dtype=None):
-        super().__init__()
-        _check_attrs(weight_ih_attr=weight_ih_attr,
-                     weight_hh_attr=weight_hh_attr,
-                     bias_ih_attr=bias_ih_attr, bias_hh_attr=bias_hh_attr)
+                 bias_hh_attr=None, activation=None, name=None, *,
+                 device=None, dtype=None):
+        super().__init__(dtype=dtype)
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -271,7 +260,9 @@ class _RNNBase(nn.Module):
                          f"bias_ih_{sfx}", f"bias_hh_{sfx}")
                 _uniform_params(self, names, ((g, in_size), (g, hidden_size),
                                               (g,), (g,)),
-                                hidden_size, device, dtype)
+                                (weight_ih_attr, weight_hh_attr,
+                                 bias_ih_attr, bias_hh_attr), hidden_size,
+                                device)
                 self._param_names += names
 
     def _weights(self):

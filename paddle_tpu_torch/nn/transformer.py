@@ -5,12 +5,12 @@ incremental-decoding caches, ``TransformerEncoderLayer`` and
 ``normalize_before``), ``TransformerEncoder``, ``TransformerDecoder`` and
 ``Transformer``.
 
-Parameter names match the JAX layers' ``state_dict()`` keys.  Self-
-attention with ``kdim == vdim == embed_dim`` multiplies q, k and v as
-one product over the three weights concatenated along the output rows
-(``[3E, E]`` in the port's ``[out, in]`` layout; JAX concatenates its
-``[in, out]`` weights along axis 1, the same columns), as JAX does by
-default; autograd splits the gradient back through the concatenation.
+Parameter names, shapes (paddle's ``[in, out]`` Linear weights) and
+``weight_attr``/``bias_attr`` match the JAX layers'.  Self-attention
+with ``kdim == vdim == embed_dim`` multiplies q, k and v as one product
+over the three weights concatenated along the output columns
+(``[E, 3E]``), as JAX does by default; autograd splits the gradient
+back through the concatenation.
 Attention goes through ``nn.functional.scaled_dot_product_attention``:
 the flash kernels with no mask and no training dropout, the plain f32
 path otherwise.
@@ -30,21 +30,22 @@ import collections
 import copy
 
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from . import functional as F
 from .common import Dropout, Linear
+from .container import LayerList
+from .layers import Layer
 from .norm import LayerNorm
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
-                 vdim=None, need_weights=False, bias_attr=None, device=None,
-                 dtype=None):
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, *, device=None, dtype=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
@@ -56,7 +57,8 @@ class MultiHeadAttention(nn.Module):
         self.need_weights = need_weights
         kdim = kdim or embed_dim
         vdim = vdim or embed_dim
-        kw = dict(bias_attr=bias_attr, device=device, dtype=dtype)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                  device=device, dtype=dtype)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(kdim, embed_dim, **kw)
         self.v_proj = Linear(vdim, embed_dim, **kw)
@@ -87,7 +89,7 @@ class MultiHeadAttention(nn.Module):
         if self._fuse_qkv and key is query and value is query and \
                 cache is None:
             w = torch.cat([self.q_proj.weight, self.k_proj.weight,
-                           self.v_proj.weight], dim=0)          # [3E, E]
+                           self.v_proj.weight], dim=1)          # [E, 3E]
             bias = None
             if self.q_proj.bias is not None:
                 bias = torch.cat([self.q_proj.bias, self.k_proj.bias,
@@ -120,21 +122,24 @@ class MultiHeadAttention(nn.Module):
         return out
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, bias_attr=None, layer_norm_eps=1e-5,
-                 device=None, dtype=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5, *, device=None, dtype=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         kw = dict(device=device, dtype=dtype)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
                                             bias_attr=bias_attr, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, **kw)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, bias_attr, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, **kw)
         self.norm1 = LayerNorm(d_model, layer_norm_eps, **kw)
         self.norm2 = LayerNorm(d_model, layer_norm_eps, **kw)
         self.dropout1 = Dropout(dropout)
@@ -165,13 +170,13 @@ class TransformerEncoderLayer(nn.Module):
         return self.self_attn.gen_cache(src, type=MultiHeadAttention.Cache)
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer`` (deep copies: equal
     initial values, separate parameters), then ``norm`` if given."""
 
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [encoder_layer] + [copy.deepcopy(encoder_layer)
                                for _ in range(num_layers - 1)])
         self.num_layers = num_layers
@@ -194,26 +199,30 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention, cross-attention over ``memory`` and the feed-
     forward block, each with its residual and LayerNorm."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, bias_attr=None, layer_norm_eps=1e-5,
-                 device=None, dtype=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5, *, device=None, dtype=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         kw = dict(device=device, dtype=dtype)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
                                             bias_attr=bias_attr, **kw)
         self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                             weight_attr=weight_attr,
                                              bias_attr=bias_attr, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, **kw)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, bias_attr, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, **kw)
         self.norm1 = LayerNorm(d_model, layer_norm_eps, **kw)
         self.norm2 = LayerNorm(d_model, layer_norm_eps, **kw)
         self.norm3 = LayerNorm(d_model, layer_norm_eps, **kw)
@@ -270,13 +279,13 @@ class TransformerDecoderLayer(nn.Module):
         return incremental_cache, static_cache
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` copies of ``decoder_layer`` (deep copies), then
     ``norm`` if given."""
 
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [decoder_layer] + [copy.deepcopy(decoder_layer)
                                for _ in range(num_layers - 1)])
         self.num_layers = num_layers
@@ -306,7 +315,7 @@ class TransformerDecoder(nn.Module):
         return cache
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """The encoder-decoder of "Attention Is All You Need": by default
     its base model (d_model 512, 8 heads, 6 + 6 post-norm layers, FFN
     2048, dropout 0.1), or ``custom_encoder`` / ``custom_decoder``.  A
@@ -315,14 +324,16 @@ class Transformer(nn.Module):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, bias_attr=None, custom_encoder=None,
-                 custom_decoder=None, device=None, dtype=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, *, device=None,
+                 dtype=None):
         super().__init__()
         self.d_model = d_model
         self.nhead = nhead
         kw = dict(device=device, dtype=dtype)
         layer_args = (d_model, nhead, dim_feedforward, dropout, activation,
-                      attn_dropout, act_dropout, normalize_before, bias_attr)
+                      attn_dropout, act_dropout, normalize_before, weight_attr,
+                      bias_attr)
         if custom_encoder is not None:
             self.encoder = custom_encoder
         else:

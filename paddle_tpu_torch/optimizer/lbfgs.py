@@ -23,9 +23,9 @@ class LBFGS(Optimizer):
     def __init__(self, learning_rate=1.0, max_iter=20, max_eval=None,
                  tolerance_grad=1e-7, tolerance_change=1e-9,
                  history_size=100, line_search_fn=None, parameters=None,
-                 weight_decay=None, grad_clip=None, device=None):
+                 weight_decay=None, grad_clip=None, name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         device)
+                         name, device)
         self._max_iter = max_iter
         self._max_eval = max_eval or max_iter * 5 // 4
         self._tol_grad = tolerance_grad

@@ -3,7 +3,8 @@
 ``last_lr``), ``LinearWarmup`` (a linear ramp that hands over to a wrapped
 scheduler or a constant) and the JAX package's fifteen others, each
 ``get_lr`` copied term for term.  Plain Python floats; the optimizer
-reads ``get_lr()`` once per step.  BERT's recipe is
+reads ``get_lr()`` once per step.  ``verbose`` prints each step's rate,
+as JAX's (``lr.py:29-30``).  BERT's recipe is
 ``LinearWarmup(PolynomialDecay(power=1.0))``; ``ReduceOnPlateau`` steps
 on a metric (``step(metrics)``)."""
 
@@ -13,9 +14,10 @@ import math
 
 
 class LRScheduler:
-    def __init__(self, learning_rate=0.1, last_epoch=-1):
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
         self.base_lr = float(learning_rate)
         self.last_epoch = last_epoch
+        self.verbose = verbose
         self.last_lr = self.base_lr
         self.step()
 
@@ -31,6 +33,8 @@ class LRScheduler:
         else:
             self.last_epoch = epoch
         self.last_lr = self.get_lr()
+        if self.verbose:
+            print(f"Epoch {self.last_epoch}: lr set to {self.last_lr}")
 
     def state_dict(self):
         return {k: v for k, v in self.__dict__.items()
@@ -42,7 +46,7 @@ class LRScheduler:
 
 class LinearWarmup(LRScheduler):
     def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
-                 last_epoch=-1):
+                 last_epoch=-1, verbose=False):
         self.lr_sched = (learning_rate if isinstance(learning_rate,
                                                      LRScheduler) else None)
         self.target = (learning_rate if not isinstance(learning_rate,
@@ -50,7 +54,7 @@ class LinearWarmup(LRScheduler):
         self.warmup_steps = warmup_steps
         self.start_lr = start_lr
         self.end_lr = end_lr
-        super().__init__(start_lr, last_epoch)
+        super().__init__(start_lr, last_epoch, verbose)
 
     def get_lr(self):
         if self.last_epoch < self.warmup_steps:
@@ -67,10 +71,11 @@ class LinearWarmup(LRScheduler):
 
 
 class CosineAnnealingDecay(LRScheduler):
-    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1):
+    def __init__(self, learning_rate, T_max, eta_min=0,
+                 last_epoch=-1, verbose=False):
         self.T_max = T_max
         self.eta_min = eta_min
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         return self.eta_min + (self.base_lr - self.eta_min) * (
@@ -79,10 +84,10 @@ class CosineAnnealingDecay(LRScheduler):
 
 class NoamDecay(LRScheduler):
     def __init__(self, d_model, warmup_steps, learning_rate=1.0,
-                 last_epoch=-1):
+                 last_epoch=-1, verbose=False):
         self.d_model = d_model
         self.warmup_steps = warmup_steps
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         step = max(self.last_epoch, 1)
@@ -91,10 +96,10 @@ class NoamDecay(LRScheduler):
 
 
 class PiecewiseDecay(LRScheduler):
-    def __init__(self, boundaries, values, last_epoch=-1):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
         self.boundaries = list(boundaries)
         self.values = list(values)
-        super().__init__(values[0], last_epoch)
+        super().__init__(values[0], last_epoch, verbose)
 
     def get_lr(self):
         for i, b in enumerate(self.boundaries):
@@ -104,18 +109,18 @@ class PiecewiseDecay(LRScheduler):
 
 
 class NaturalExpDecay(LRScheduler):
-    def __init__(self, learning_rate, gamma, last_epoch=-1):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
         self.gamma = gamma
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         return self.base_lr * math.exp(-self.gamma * self.last_epoch)
 
 
 class InverseTimeDecay(LRScheduler):
-    def __init__(self, learning_rate, gamma, last_epoch=-1):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
         self.gamma = gamma
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         return self.base_lr / (1 + self.gamma * self.last_epoch)
@@ -123,12 +128,12 @@ class InverseTimeDecay(LRScheduler):
 
 class PolynomialDecay(LRScheduler):
     def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
-                 cycle=False, last_epoch=-1):
+                 cycle=False, last_epoch=-1, verbose=False):
         self.decay_steps = decay_steps
         self.end_lr = end_lr
         self.power = power
         self.cycle = cycle
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         step = self.last_epoch
@@ -143,19 +148,20 @@ class PolynomialDecay(LRScheduler):
 
 
 class ExponentialDecay(LRScheduler):
-    def __init__(self, learning_rate, gamma, last_epoch=-1):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
         self.gamma = gamma
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         return self.base_lr * (self.gamma ** self.last_epoch)
 
 
 class MultiStepDecay(LRScheduler):
-    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1):
+    def __init__(self, learning_rate, milestones, gamma=0.1,
+                 last_epoch=-1, verbose=False):
         self.milestones = list(milestones)
         self.gamma = gamma
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         n = sum(1 for m in self.milestones if self.last_epoch >= m)
@@ -163,10 +169,11 @@ class MultiStepDecay(LRScheduler):
 
 
 class StepDecay(LRScheduler):
-    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1):
+    def __init__(self, learning_rate, step_size, gamma=0.1,
+                 last_epoch=-1, verbose=False):
         self.step_size = step_size
         self.gamma = gamma
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         return self.base_lr * (
@@ -174,18 +181,18 @@ class StepDecay(LRScheduler):
 
 
 class LambdaDecay(LRScheduler):
-    def __init__(self, learning_rate, lr_lambda, last_epoch=-1):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
         self.lr_lambda = lr_lambda
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         return self.base_lr * self.lr_lambda(self.last_epoch)
 
 
 class MultiplicativeDecay(LRScheduler):
-    def __init__(self, learning_rate, lr_lambda, last_epoch=-1):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
         self.lr_lambda = lr_lambda
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         lr = self.base_lr
@@ -195,11 +202,12 @@ class MultiplicativeDecay(LRScheduler):
 
 
 class CosineAnnealingWarmRestarts(LRScheduler):
-    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0,
+                 last_epoch=-1, verbose=False):
         self.T_0 = T_0
         self.T_mult = T_mult
         self.eta_min = eta_min
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         t = self.last_epoch
@@ -215,7 +223,8 @@ class CyclicLR(LRScheduler):
     def __init__(self, base_learning_rate, max_learning_rate,
                  step_size_up=2000,
                  step_size_down=None, mode="triangular", exp_gamma=1.0,
-                 scale_fn=None, scale_mode="cycle", last_epoch=-1):
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1,
+                 verbose=False):
         self.max_lr = max_learning_rate
         self.step_up = step_size_up
         self.step_down = step_size_down or step_size_up
@@ -223,7 +232,7 @@ class CyclicLR(LRScheduler):
         self.exp_gamma = exp_gamma
         self.scale_fn = scale_fn
         self.scale_mode = scale_mode
-        super().__init__(base_learning_rate, last_epoch)
+        super().__init__(base_learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         total = self.step_up + self.step_down
@@ -249,7 +258,7 @@ class OneCycleLR(LRScheduler):
     def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
                  end_learning_rate=0.0001, phase_pct=0.3,
                  anneal_strategy="cos",
-                 three_phase=False, last_epoch=-1):
+                 three_phase=False, last_epoch=-1, verbose=False):
         self.max_lr = max_learning_rate
         self.total_steps = total_steps
         self.initial_lr = max_learning_rate / divide_factor
@@ -257,7 +266,7 @@ class OneCycleLR(LRScheduler):
         self.phase_pct = phase_pct
         self.anneal = anneal_strategy
         self.three_phase = three_phase
-        super().__init__(self.initial_lr, last_epoch)
+        super().__init__(self.initial_lr, last_epoch, verbose)
 
     def _anneal(self, start, end, pct):
         if self.anneal == "cos":
@@ -278,7 +287,7 @@ class OneCycleLR(LRScheduler):
 class ReduceOnPlateau(LRScheduler):
     def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
                  threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
-                 epsilon=1e-8):
+                 epsilon=1e-8, verbose=False):
         self.mode = mode
         self.factor = factor
         self.patience = patience
@@ -291,7 +300,7 @@ class ReduceOnPlateau(LRScheduler):
         self.num_bad_epochs = 0
         self.cooldown_counter = 0
         self._current = float(learning_rate)
-        super().__init__(learning_rate, -1)
+        super().__init__(learning_rate, -1, verbose)
 
     def get_lr(self):
         return self._current

@@ -12,6 +12,15 @@ The optimizer lives on ``device`` (``cuda`` unless the caller passes
 ``"cpu"``) and refuses parameters elsewhere.  ``parameters`` may be
 tensors or ``(name, tensor)`` pairs (``model.named_parameters()``); the
 names key :meth:`state_dict` as ``"<name>.<accumulator>"``.
+
+Per parameter, as JAX's ``step`` (``optimizer.py:140-190``): the rate is
+multiplied by the parameter's ``optimize_attr["learning_rate"]``
+(``ParamAttr(learning_rate=)``); a parameter with ``trainable`` False is
+not updated; a ``regularizer`` attached through ``ParamAttr`` adds its
+gradient term and replaces the optimizer's ``weight_decay`` for it.
+``weight_decay`` takes a float or ``L2Decay`` (the coupled L2 of the
+update, its ``coeff``) or ``L1Decay`` (a gradient term), as JAX maps
+them (``:39-51``).
 """
 
 from __future__ import annotations
@@ -19,11 +28,12 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..regularizer import L2Decay
 
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, device=None):
+                 weight_decay=None, grad_clip=None, name=None, device=None):
         if parameters is None:
             raise ValueError("parameters must be provided")
         self.device = resolve_device(device)
@@ -39,9 +49,14 @@ class Optimizer:
             self._param_names[id(p)] = pname
         self._learning_rate = learning_rate
         self._grad_clip = grad_clip
-        # coupled L2 coefficient (a float; paddle's regularizer objects
-        # are not ported)
-        self._weight_decay = float(weight_decay or 0.0)
+        self._regularizer_fn = None
+        if weight_decay is None or isinstance(weight_decay, (int, float)):
+            self._weight_decay = float(weight_decay or 0.0)
+        elif isinstance(weight_decay, L2Decay):
+            self._weight_decay = weight_decay.coeff
+        else:                        # L1Decay: a gradient term
+            self._weight_decay = 0.0
+            self._regularizer_fn = weight_decay
         self._cur_wd = self._weight_decay
         self._accumulators = {}      # id(param) -> {state name: tensor}
         self._step_count = 0
@@ -117,6 +132,33 @@ class Optimizer:
         """Decay skips a parameter flagged ``no_weight_decay``."""
         return getattr(p, "no_weight_decay", False)
 
+    def _coupled_wd_for(self, p):
+        """The coupled L2 coefficient for ``p``: none where a
+        ``ParamAttr`` regularizer replaces it or ``p`` is exempt."""
+        if getattr(p, "regularizer", None) is not None or \
+                self._decay_exempt(p):
+            return 0.0
+        return self._weight_decay
+
+    def _regularized_grad(self, p, grad):
+        """``grad`` plus the winning gradient-term regularizer: the
+        parameter's own, else (unless exempt) the optimizer's L1."""
+        per_param = getattr(p, "regularizer", None)
+        if per_param is not None:
+            return grad + per_param(p.detach())
+        if self._regularizer_fn is not None and not self._decay_exempt(p):
+            return grad + self._regularizer_fn(p.detach())
+        return grad
+
+    def _lr_for(self, p, lrs):
+        """This step's f32 rate times ``p``'s multiplier (the product
+        taken in Python, as JAX's), one tensor per multiplier."""
+        mult = getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+        if mult not in lrs:
+            lrs[mult] = torch.tensor(self.get_lr() * mult,
+                                     dtype=torch.float32, device=self.device)
+        return lrs[mult]
+
     def _apply(self, params_grads, skip=None):
         """Update each parameter in place from its (clipped) gradient at
         this step's learning rate, an f32 scalar as in the JAX step.
@@ -124,17 +166,16 @@ class Optimizer:
         state keep their values (a loss-scaled step whose gradients
         overflowed, ``paddle_tpu/jit/train_step.py:335-341``), decided on
         the device."""
-        lr = torch.tensor(self.get_lr(), dtype=torch.float32,
-                          device=self.device)
+        lrs = {}
         with torch.no_grad():
             for p, g in params_grads:
                 if g is None:
                     continue
-                self._cur_wd = (0.0 if self._decay_exempt(p)
-                                else self._weight_decay)
+                self._cur_wd = self._coupled_wd_for(p)
+                g = self._regularized_grad(p, g)
                 state = self._state_for(p)
-                new_p, new_state = self._update_raw(p, p.detach(), g, state,
-                                                    lr)
+                new_p, new_state = self._update_raw(
+                    p, p.detach(), g, state, self._lr_for(p, lrs))
                 if skip is not None:
                     new_p = torch.where(skip, p, new_p)
                     new_state = {k: torch.where(skip, state[k], v)
@@ -148,7 +189,8 @@ class Optimizer:
         """Clip, count the step and update (see :meth:`_apply` for
         ``skip``, which ``jit.TrainStep`` passes under a loss scaler)."""
         params_grads = [(p, p.grad) for p in self._parameter_list
-                        if p.requires_grad and p.grad is not None]
+                        if p.requires_grad and p.grad is not None
+                        and getattr(p, "trainable", True)]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._step_count += 1

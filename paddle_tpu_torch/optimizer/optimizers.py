@@ -33,9 +33,9 @@ def _apply_l2(grad, param, coeff):
 
 class SGD(Optimizer):
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, device=None):
+                 weight_decay=None, grad_clip=None, name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         device)
+                         name, device)
 
     def _update(self, param, grad, state, lr):
         grad = _apply_l2(grad, param, self._cur_wd)
@@ -45,9 +45,9 @@ class SGD(Optimizer):
 class Momentum(Optimizer):
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
-                 device=None):
+                 name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         device)
+                         name, device)
         self._momentum = momentum
         self._nesterov = use_nesterov
 
@@ -67,9 +67,9 @@ class Momentum(Optimizer):
 class Adagrad(Optimizer):
     def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
                  weight_decay=None, grad_clip=None,
-                 initial_accumulator_value=0.0, device=None):
+                 initial_accumulator_value=0.0, name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         device)
+                         name, device)
         self._epsilon = epsilon
         self._init_acc = initial_accumulator_value
 
@@ -89,9 +89,9 @@ class Adadelta(Optimizer):
 
     def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
                  parameters=None, weight_decay=None, grad_clip=None,
-                 multi_precision=False, device=None):
+                 multi_precision=False, name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         device)
+                         name, device)
         self._epsilon = epsilon
         self._rho = rho
         self._multi_precision = multi_precision
@@ -123,9 +123,9 @@ class Adadelta(Optimizer):
 class RMSProp(Optimizer):
     def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
                  centered=False, parameters=None, weight_decay=None,
-                 grad_clip=None, device=None):
+                 grad_clip=None, name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         device)
+                         name, device)
         self._rho = rho
         self._epsilon = epsilon
         self._momentum = momentum
@@ -157,9 +157,12 @@ class RMSProp(Optimizer):
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False, device=None):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None, device=None):
+        """``lazy_mode`` is stored and never read, as JAX's."""
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         device)
+                         name, device)
+        self._lazy_mode = lazy_mode
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -210,9 +213,11 @@ class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=False, device=None):
+                 lazy_mode=False, multi_precision=False, name=None,
+                 device=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip, multi_precision, device)
+                         None, grad_clip, lazy_mode, multi_precision, name,
+                         device)
         self._coeff = float(weight_decay)
         self._lr_ratio = lr_ratio
         self._apply_decay_param_fun = apply_decay_param_fun
@@ -261,8 +266,9 @@ class Lamb(Optimizer):
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
                  grad_clip=None, exclude_from_weight_decay_fn=None,
-                 multi_precision=False, device=None):
-        super().__init__(learning_rate, parameters, None, grad_clip, device)
+                 multi_precision=False, name=None, device=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         device)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -311,8 +317,9 @@ class Rprop(Optimizer):
 
     def __init__(self, learning_rate=0.001, learning_rate_range=(1e-5, 50.0),
                  parameters=None, etas=(0.5, 1.2), grad_clip=None,
-                 multi_precision=False, device=None):
-        super().__init__(learning_rate, parameters, None, grad_clip, device)
+                 multi_precision=False, name=None, device=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         device)
         self._lr_min, self._lr_max = learning_rate_range
         self._eta_neg, self._eta_pos = etas
 
@@ -342,9 +349,9 @@ class ASGD(Optimizer):
 
     def __init__(self, learning_rate=0.001, batch_num=1, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
-                 device=None):
+                 name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         device)
+                         name, device)
         self._batch_num = max(1, int(batch_num))
 
     def _init_state(self, p):
@@ -373,9 +380,10 @@ class NAdam(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, momentum_decay=0.004, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
-                 device=None):
+                 name=None, device=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, grad_clip, multi_precision, device)
+                         weight_decay, grad_clip, False, multi_precision,
+                         name, device)
         self._psi = momentum_decay
 
     def _init_state(self, p):

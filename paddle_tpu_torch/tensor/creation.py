@@ -9,8 +9,9 @@ on the CUDA card unless the caller passes ``device="cpu"``
 
 JAX's dtype rules with x64 off: with no ``dtype`` a bool fill is bool,
 an int fill (and ``arange`` over ints) int32, anything else the default
-float dtype; an integer dtype asked for as ``"int64"`` comes back int32
-(``tril_indices``' default), as JAX's does.  ``diag_embed`` keeps JAX's
+float dtype (``dtype.get_default_dtype``); an integer dtype asked for
+as ``"int64"`` comes back int32 (``tril_indices``' default), as JAX's
+does.  ``diag_embed`` keeps JAX's
 ``[..., n, n + |offset|]`` result (``dim1``/``dim2`` ignored; a
 negative offset's rows past ``n`` dropped), where Paddle's is square.
 No creation function is an op JAX names, so none casts under AMP.
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..dtype import get_default_dtype
 from .manipulation import to_dtype
 
 __all__ = [
@@ -39,7 +41,7 @@ def jax_dtype(dtype, default=None):
     """A torch dtype for ``dtype`` by JAX's x64-off rule (int64 ->
     int32); ``default`` (else the default float dtype) for None."""
     if dtype is None:
-        return default if default is not None else torch.get_default_dtype()
+        return default if default is not None else get_default_dtype()
     dt = to_dtype(dtype)
     return torch.int32 if dt == torch.int64 else dt
 
@@ -77,7 +79,7 @@ def _fill_dtype(fill_value, dtype):
         return torch.bool
     if isinstance(fill_value, (int, np.integer)):
         return torch.int32
-    return torch.get_default_dtype()
+    return get_default_dtype()
 
 
 def full(shape, fill_value, dtype=None, device=None):
@@ -120,7 +122,7 @@ def arange(start=0, end=None, step=1, dtype=None, device=None):
     if dtype is None:
         ints = builtins.all(isinstance(v, (int, np.integer, type(None)))
                             for v in (start, end, step))
-        dt = torch.int32 if ints else torch.get_default_dtype()
+        dt = torch.int32 if ints else get_default_dtype()
     else:
         dt = jax_dtype(dtype)
     if end is None:
@@ -133,7 +135,7 @@ def _linspace(start, stop, num, dtype, device):
     from .search import jnp_linspace
 
     dt = jax_dtype(dtype)
-    comp = dt if dt.is_floating_point else torch.get_default_dtype()
+    comp = dt if dt.is_floating_point else get_default_dtype()
     dev = resolve_device(device)
     lo = torch.tensor(start, dtype=comp, device=dev)
     hi = torch.tensor(stop, dtype=comp, device=dev)
@@ -231,7 +233,7 @@ def one_hot(x, num_classes):
 def complex(real, imag):
     """``real + 1j * imag``."""
     dt = torch.promote_types(torch.promote_types(real.dtype, imag.dtype),
-                             torch.get_default_dtype())
+                             get_default_dtype())
     return torch.complex(real.to(dt), imag.to(dt))
 
 

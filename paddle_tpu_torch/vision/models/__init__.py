@@ -1,8 +1,7 @@
 """The vision model zoo, the counterparts of ``paddle_tpu/vision/models/``:
 every constructor JAX exports, with the JAX models' layer names so
-``convert.zoo_state_dict_from_jax`` (and, for ResNet,
-``resnet_state_dict_from_jax``) maps one ``state_dict`` onto the other
-key for key.  Each model is built on ``device`` (``cuda`` unless the
+``load_state_dict`` (or ``convert.state_from_jax``) maps one
+``state_dict`` onto the other key for key.  Each model is built on ``device`` (``cuda`` unless the
 caller passes ``"cpu"``) in ``dtype``, its initial values drawn from the
 port's counter stream (with ``seed``, from a private stream seeded by
 it) by JAX's initialisers: convolutions U(-1/sqrt(fan_in),

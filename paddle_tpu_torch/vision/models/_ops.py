@@ -8,11 +8,11 @@ from __future__ import annotations
 
 import contextlib
 
-from torch import nn
 
 from ... import random as _random
 from ...device import resolve_device
 from ...nn import BatchNorm2D, Conv2D, ReLU
+from ...nn.layers import Layer
 
 
 def make_divisible(v, divisor=8, min_value=None):
@@ -45,7 +45,7 @@ def no_pretrained(pretrained):
                                   "repository")
 
 
-class ConvBNReLU(nn.Module):
+class ConvBNReLU(Layer):
     def __init__(self, in_ch, out_ch, kernel, stride=1, padding=0, groups=1,
                  device=None, dtype=None):
         super().__init__()

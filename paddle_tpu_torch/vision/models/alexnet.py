@@ -2,16 +2,15 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import (
     AdaptiveAvgPool2D, Conv2D, Dropout, Linear, MaxPool2D, ReLU, Sequential,
 )
+from ...nn.layers import Layer
 from ...tensor import flatten
 from ._ops import model_kw, no_pretrained, seeded
 
 
-class AlexNet(nn.Module):
+class AlexNet(Layer):
     def __init__(self, num_classes=1000, device=None, dtype=None,
                  seed=None):
         super().__init__()

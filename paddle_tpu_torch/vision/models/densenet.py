@@ -4,17 +4,16 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import (
     AdaptiveAvgPool2D, AvgPool2D, BatchNorm2D, Conv2D, Dropout, Linear,
     MaxPool2D, ReLU, Sequential,
 )
+from ...nn.layers import Layer
 from ...tensor import concat, flatten
 from ._ops import model_kw, no_pretrained, seeded
 
 
-class _DenseLayer(nn.Module):
+class _DenseLayer(Layer):
     def __init__(self, num_input_features, growth_rate, bn_size, drop_rate,
                  device=None, dtype=None):
         super().__init__()
@@ -34,7 +33,7 @@ class _DenseLayer(nn.Module):
         return concat([x, out], axis=1)
 
 
-class _DenseBlock(nn.Module):
+class _DenseBlock(Layer):
     def __init__(self, num_layers, num_input_features, bn_size, growth_rate,
                  drop_rate, device=None, dtype=None):
         super().__init__()
@@ -47,7 +46,7 @@ class _DenseBlock(nn.Module):
         return self.block(x)
 
 
-class _Transition(nn.Module):
+class _Transition(Layer):
     def __init__(self, num_input_features, num_output_features, device=None,
                  dtype=None):
         super().__init__()
@@ -67,7 +66,7 @@ _CFG = {121: (32, (6, 12, 24, 16)), 161: (48, (6, 12, 36, 24)),
         264: (32, (6, 12, 64, 48))}
 
 
-class DenseNet(nn.Module):
+class DenseNet(Layer):
     def __init__(self, layers=121, bn_size=4, dropout=0.0, num_classes=1000,
                  with_pool=True, device=None, dtype=None, seed=None):
         super().__init__()

@@ -6,17 +6,16 @@ mode the logits alone (``googlenet.py:81-97``)."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import (
     AdaptiveAvgPool2D, AvgPool2D, Dropout, Linear, MaxPool2D, ReLU,
     Sequential,
 )
+from ...nn.layers import Layer
 from ...tensor import concat, flatten
 from ._ops import ConvBNReLU, model_kw, no_pretrained, seeded
 
 
-class Inception(nn.Module):
+class Inception(Layer):
     def __init__(self, in_ch, c1, c3r, c3, c5r, c5, proj, device=None,
                  dtype=None):
         super().__init__()
@@ -35,7 +34,7 @@ class Inception(nn.Module):
                        self.branch4(x)], axis=1)
 
 
-class InceptionAux(nn.Module):
+class InceptionAux(Layer):
     def __init__(self, in_ch, num_classes, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -51,7 +50,7 @@ class InceptionAux(nn.Module):
         return self.fc2(self.dropout(self.relu(self.fc1(x))))
 
 
-class GoogLeNet(nn.Module):
+class GoogLeNet(Layer):
     def __init__(self, num_classes=1000, with_pool=True, device=None,
                  dtype=None, seed=None):
         super().__init__()

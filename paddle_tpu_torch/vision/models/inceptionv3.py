@@ -3,16 +3,15 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import (
     AdaptiveAvgPool2D, AvgPool2D, Dropout, Linear, MaxPool2D, Sequential,
 )
+from ...nn.layers import Layer
 from ...tensor import concat, flatten
 from ._ops import ConvBNReLU, model_kw, no_pretrained, seeded
 
 
-class InceptionA(nn.Module):
+class InceptionA(Layer):
     def __init__(self, in_ch, pool_features, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -30,7 +29,7 @@ class InceptionA(nn.Module):
                        self.bpool(x)], axis=1)
 
 
-class InceptionB(nn.Module):
+class InceptionB(Layer):
     def __init__(self, in_ch, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -44,7 +43,7 @@ class InceptionB(nn.Module):
         return concat([self.b3x3(x), self.b3x3dbl(x), self.pool(x)], axis=1)
 
 
-class InceptionC(nn.Module):
+class InceptionC(Layer):
     def __init__(self, in_ch, ch7, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -67,7 +66,7 @@ class InceptionC(nn.Module):
                        self.bpool(x)], axis=1)
 
 
-class InceptionD(nn.Module):
+class InceptionD(Layer):
     def __init__(self, in_ch, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -84,7 +83,7 @@ class InceptionD(nn.Module):
         return concat([self.b3x3(x), self.b7x7x3(x), self.pool(x)], axis=1)
 
 
-class InceptionE(nn.Module):
+class InceptionE(Layer):
     def __init__(self, in_ch, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -107,7 +106,7 @@ class InceptionE(nn.Module):
         return concat([self.b1x1(x), b3, bd, self.bpool(x)], axis=1)
 
 
-class InceptionV3(nn.Module):
+class InceptionV3(Layer):
     def __init__(self, num_classes=1000, with_pool=True, device=None,
                  dtype=None, seed=None):
         super().__init__()

@@ -3,13 +3,12 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import Conv2D, Flatten, Linear, MaxPool2D, ReLU, Sequential
+from ...nn.layers import Layer
 from ._ops import model_kw, seeded
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, device=None, dtype=None, seed=None):
         super().__init__()
         self.num_classes = num_classes

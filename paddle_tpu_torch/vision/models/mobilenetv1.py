@@ -3,14 +3,13 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import AdaptiveAvgPool2D, Linear, Sequential
+from ...nn.layers import Layer
 from ...tensor import flatten
 from ._ops import ConvBNReLU, model_kw, no_pretrained, seeded
 
 
-class _DepthwiseSeparable(nn.Module):
+class _DepthwiseSeparable(Layer):
     def __init__(self, in_ch, out_ch, stride, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -22,7 +21,7 @@ class _DepthwiseSeparable(nn.Module):
         return self.pointwise(self.depthwise(x))
 
 
-class MobileNetV1(nn.Module):
+class MobileNetV1(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
                  device=None, dtype=None, seed=None):
         super().__init__()

@@ -3,12 +3,11 @@ inverted residuals with ReLU6, a Dropout(0.2) head."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import (
     AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout, Linear, ReLU6,
     Sequential,
 )
+from ...nn.layers import Layer
 from ...tensor import flatten
 from ._ops import make_divisible, model_kw, no_pretrained, seeded
 
@@ -24,7 +23,7 @@ class ConvBNReLU(Sequential):
             BatchNorm2D(out_planes, **kw), ReLU6())
 
 
-class InvertedResidual(nn.Module):
+class InvertedResidual(Layer):
     def __init__(self, inp, oup, stride, expand_ratio, device=None,
                  dtype=None):
         super().__init__()
@@ -48,7 +47,7 @@ class InvertedResidual(nn.Module):
         return self.conv(x)
 
 
-class MobileNetV2(nn.Module):
+class MobileNetV2(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
                  device=None, dtype=None, seed=None):
         super().__init__()

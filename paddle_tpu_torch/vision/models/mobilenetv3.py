@@ -5,17 +5,16 @@ ReLU or hardswish, a Linear-hardswish-Dropout(0.2)-Linear head."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import (
     AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout, Hardsigmoid, Hardswish,
     Linear, ReLU, Sequential,
 )
+from ...nn.layers import Layer
 from ...tensor import flatten
 from ._ops import make_divisible, model_kw, no_pretrained, seeded
 
 
-class _ConvBNAct(nn.Module):
+class _ConvBNAct(Layer):
     def __init__(self, in_ch, out_ch, kernel, stride=1, groups=1, act=None,
                  device=None, dtype=None):
         super().__init__()
@@ -31,7 +30,7 @@ class _ConvBNAct(nn.Module):
         return self.act(x) if self.act else x
 
 
-class SqueezeExcite(nn.Module):
+class SqueezeExcite(Layer):
     def __init__(self, ch, reduction=4, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -47,7 +46,7 @@ class SqueezeExcite(nn.Module):
         return x * self.hsig(self.fc2(self.relu(self.fc1(s))))
 
 
-class _Bneck(nn.Module):
+class _Bneck(Layer):
     def __init__(self, in_ch, exp, out_ch, kernel, stride, use_se, act,
                  device=None, dtype=None):
         super().__init__()
@@ -89,7 +88,7 @@ _SMALL = [
 ]
 
 
-class MobileNetV3(nn.Module):
+class MobileNetV3(Layer):
     def __init__(self, cfg, last_channel, scale=1.0, num_classes=1000,
                  with_pool=True, device=None, dtype=None, seed=None):
         super().__init__()

@@ -2,8 +2,9 @@
 ``paddle_tpu/vision/models/resnet.py``: ``BasicBlock``,
 ``BottleneckBlock``, ``ResNet`` and its nine constructors, with the JAX
 model's layer names (``conv1``, ``bn1``, ``layer1.0.conv1``,
-``layer1.0.downsample.0``, ``fc``), so ``convert.resnet_state_dict_from_jax``
-maps one ``state_dict`` onto the other key for key.
+``layer1.0.downsample.0``, ``fc``), so ``load_state_dict`` (or
+``convert.state_from_jax``) maps one ``state_dict`` onto the other key
+for key.
 
 Convolutions run through cuDNN (``nn.functional.conv2d``), BatchNorm,
 pooling and ReLU as plain torch: the JAX package computes all of them
@@ -19,17 +20,16 @@ variance 1), the ``fc`` Linear Xavier-normal with bias 0.
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import (
     AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear, MaxPool2D, ReLU,
     Sequential,
 )
+from ...nn.layers import Layer
 from ...tensor import flatten
 from ._ops import model_kw, no_pretrained, seeded
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -57,7 +57,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -95,7 +95,7 @@ LAYERS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
           101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, device=None, dtype=None,
                  seed=None):

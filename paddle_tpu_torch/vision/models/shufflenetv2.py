@@ -7,13 +7,12 @@ refuses; ROADMAP.md Queue 3)."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import (
     AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear, MaxPool2D, ReLU,
     Sequential, Swish,
 )
 from ...nn import functional as F
+from ...nn.layers import Layer
 from ...tensor import concat, flatten
 from ._ops import model_kw, no_pretrained, seeded
 
@@ -24,7 +23,7 @@ def channel_shuffle(x, groups):
     return F.channel_shuffle(x, groups)
 
 
-class InvertedResidual(nn.Module):
+class InvertedResidual(Layer):
     def __init__(self, in_ch, out_ch, stride, act="relu", device=None,
                  dtype=None):
         super().__init__()
@@ -69,7 +68,7 @@ _STAGE_OUT = {
 _STAGE_REPEATS = (4, 8, 4)
 
 
-class ShuffleNetV2(nn.Module):
+class ShuffleNetV2(Layer):
     def __init__(self, scale="1.0x", act="relu", num_classes=1000,
                  with_pool=True, device=None, dtype=None, seed=None):
         super().__init__()

@@ -3,16 +3,15 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import (
     AdaptiveAvgPool2D, Conv2D, Dropout, MaxPool2D, ReLU, Sequential,
 )
+from ...nn.layers import Layer
 from ...tensor import concat, flatten
 from ._ops import model_kw, no_pretrained, seeded
 
 
-class Fire(nn.Module):
+class Fire(Layer):
     def __init__(self, inplanes, squeeze_planes, expand1x1_planes,
                  expand3x3_planes, device=None, dtype=None):
         super().__init__()
@@ -29,7 +28,7 @@ class Fire(nn.Module):
                        self.relu(self.expand3x3(x))], axis=1)
 
 
-class SqueezeNet(nn.Module):
+class SqueezeNet(Layer):
     def __init__(self, version="1.1", num_classes=1000, with_pool=True,
                  device=None, dtype=None, seed=None):
         super().__init__()

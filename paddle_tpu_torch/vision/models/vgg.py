@@ -3,12 +3,11 @@ configurations, with or without BatchNorm after each convolution."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from ...nn import (
     AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout, Linear, MaxPool2D,
     ReLU, Sequential,
 )
+from ...nn.layers import Layer
 from ...tensor import flatten
 from ._ops import model_kw, no_pretrained, seeded
 
@@ -39,7 +38,7 @@ def make_layers(cfg, batch_norm=False, device=None, dtype=None):
     return Sequential(*layers)
 
 
-class VGG(nn.Module):
+class VGG(Layer):
     """``features`` from :func:`make_layers` (built on the model's device),
     an optional 7 x 7 adaptive pool and the three-Linear head."""
 

@@ -25,7 +25,7 @@ import paddle_tpu as paddle
 from paddle_tpu.models.bert import BertConfig as JBertConfig
 from paddle_tpu.models.bert import BertForMaskedLM as JBertForMaskedLM
 from paddle_tpu_torch import amp
-from paddle_tpu_torch.convert import bert_state_dict_from_jax
+from paddle_tpu_torch.convert import state_from_jax
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import BertConfig, BertForMaskedLM
 from paddle_tpu_torch.optimizer import SGD
@@ -44,8 +44,8 @@ def _models(seed):
     jm = JBertForMaskedLM(jcfg)
     cfg = BertConfig(**dataclasses.asdict(jcfg))
     tm = BertForMaskedLM(cfg, device="cpu")
-    tm.load_state_dict(bert_state_dict_from_jax(
-        {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}, cfg,
+    tm.load_state_dict(state_from_jax(
+        {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}, tm,
         device="cpu"))
     jm.eval()
     tm.eval()
@@ -80,7 +80,7 @@ def test_bert_fp16_auto_cast_matches_jax(level):
                                rtol=2.0 ** -8)
     jg = {k: np.asarray(p.grad.numpy()).astype(np.float32)
           for k, p in jm.state_dict().items()}
-    want = bert_state_dict_from_jax(jg, cfg, device="cpu")
+    want = state_from_jax(jg, tm, device="cpu")
     top = max(t.abs().max().item() for t in want.values())
     for n, p in tm.named_parameters():
         assert p.grad.dtype == p.dtype == (torch.float16 if level == "O2"

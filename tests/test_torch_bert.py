@@ -1,5 +1,5 @@
 """The port's BERT against the JAX package's on the same weights
-(``convert.bert_state_dict_from_jax``), in f32 on the CPU, on the tiny
+(``convert.state_from_jax``), in f32 on the CPU, on the tiny
 config of ``tests/test_models.py`` ``TestBert`` (hidden 32, 2 layers, 2
 heads): the MLM logits, loss and every parameter's gradient in
 ``eval()`` (no dropout), with and without a padding mask;
@@ -34,9 +34,7 @@ from paddle_tpu.models.bert import BertForMaskedLM as JBertForMaskedLM
 from paddle_tpu.models.bert import (
     BertForSequenceClassification as JBertForSequenceClassification,
 )
-from paddle_tpu_torch.convert import (
-    bert_expected_shapes, bert_state_dict_from_jax,
-)
+from paddle_tpu_torch.convert import state_from_jax
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (
     BERT_BASE, BertConfig, BertForMaskedLM, BertForSequenceClassification,
@@ -66,8 +64,7 @@ def _port(cls, jcfg, jm, num_classes=None):
     cfg = BertConfig(**dataclasses.asdict(jcfg))
     kw = {} if num_classes is None else {"num_classes": num_classes}
     tm = cls(cfg, device="cpu", **kw)
-    tm.load_state_dict(bert_state_dict_from_jax(
-        _state(jm), cfg, num_classes, device="cpu"))
+    tm.load_state_dict(state_from_jax(_state(jm), tm, device="cpu"))
     return cfg, tm
 
 
@@ -80,11 +77,11 @@ def _batch(b=2, s=10, seed=0, vocab=100):
     return ids, types, labels
 
 
-def _grads_close(tm, jm, cfg, num_classes=None):
-    """Every port gradient against the JAX parameter's, in the port's
-    layout (Linear weights transposed)."""
+def _grads_close(tm, jm):
+    """Every port gradient against the JAX parameter's (one layout:
+    paddle's)."""
     jg = {k: np.asarray(p.grad.numpy()) for k, p in jm.state_dict().items()}
-    tg = bert_state_dict_from_jax(jg, cfg, num_classes, device="cpu")
+    tg = state_from_jax(jg, tm, device="cpu")
     got = {n: p.grad for n, p in tm.named_parameters()}
     assert set(got) == set(tg)
     top = max(t.abs().max().item() for t in tg.values())
@@ -98,7 +95,7 @@ def _grads_close(tm, jm, cfg, num_classes=None):
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
 def test_mlm_logits_loss_and_grads_match_jax(masked):
     cfg, jm = _jax_model(JBertForMaskedLM, seed=1)
-    tcfg, tm = _port(BertForMaskedLM, cfg, jm)
+    _, tm = _port(BertForMaskedLM, cfg, jm)
     jm.eval()
     tm.eval()
     ids, types, labels = _batch(seed=1)
@@ -120,13 +117,13 @@ def test_mlm_logits_loss_and_grads_match_jax(masked):
     np.testing.assert_allclose(tlogits.detach().numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
     np.testing.assert_allclose(tloss.item(), float(jloss.numpy()), rtol=1e-5)
-    _grads_close(tm, jm, tcfg)
+    _grads_close(tm, jm)
 
 
 def test_sequence_classification_matches_jax():
     cfg, jm = _jax_model(JBertForSequenceClassification, seed=2,
                          num_classes=3)
-    tcfg, tm = _port(BertForSequenceClassification, cfg, jm, num_classes=3)
+    _, tm = _port(BertForSequenceClassification, cfg, jm, num_classes=3)
     jm.eval()
     tm.eval()
     ids, types, _ = _batch(b=4, seed=2)
@@ -141,7 +138,7 @@ def test_sequence_classification_matches_jax():
     np.testing.assert_allclose(tlogits.detach().numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
     np.testing.assert_allclose(tloss.item(), float(jloss.numpy()), rtol=1e-5)
-    _grads_close(tm, jm, tcfg, num_classes=3)
+    _grads_close(tm, jm)
 
 
 def test_padding_mask_hides_masked_tokens():
@@ -186,7 +183,8 @@ def test_tied_decoder_is_the_embedding_parameter():
     m = BertForMaskedLM(cfg, device="cpu", seed=4)
     emb = m.bert.embeddings.word_embeddings.weight
     assert m.cls.decoder_weight is emb
-    assert set(m.state_dict()) == set(bert_expected_shapes(cfg))
+    assert set(m.state_dict()) == set(
+        _state(_jax_model(JBertForMaskedLM, seed=4)[1]))
     assert sum(p is emb for p in m.parameters()) == 1
     ids, types, labels = (torch.from_numpy(a) for a in _batch(seed=4))
     loss, _ = m(ids, types, labels=labels)
@@ -213,21 +211,22 @@ def test_converter_checks_keys_and_shapes():
     cfg, jm = _jax_model(JBertForMaskedLM, seed=5)
     tcfg = BertConfig(**dataclasses.asdict(cfg))
     js = _state(jm)
-    assert set(js) == set(bert_expected_shapes(tcfg))
-    out = bert_state_dict_from_jax(js, tcfg, device="cpu")
+    tm = BertForMaskedLM(tcfg, device="cpu")
+    assert {k: v.shape for k, v in js.items()} == {
+        k: tuple(v.shape) for k, v in tm.state_dict().items()}
+    out = state_from_jax(js, tm, device="cpu")
     w = "bert.encoder.layers.0.linear1.weight"
-    np.testing.assert_array_equal(out[w].numpy(), js[w].T)
+    np.testing.assert_array_equal(out[w].numpy(), js[w])
     e = "bert.embeddings.word_embeddings.weight"
     np.testing.assert_array_equal(out[e].numpy(), js[e])
     with pytest.raises(KeyError, match="missing"):
-        bert_state_dict_from_jax({k: v for k, v in js.items() if k != e},
-                                 tcfg, device="cpu")
+        state_from_jax({k: v for k, v in js.items() if k != e}, tm,
+                       device="cpu")
     with pytest.raises(KeyError, match="unexpected"):
-        bert_state_dict_from_jax(dict(js, **{"cls.decoder_weight": js[e]}),
-                                 tcfg, device="cpu")
+        state_from_jax(dict(js, **{"cls.decoder_weight": js[e]}), tm,
+                       device="cpu")
     with pytest.raises(ValueError, match="linear1"):
-        bert_state_dict_from_jax(dict(js, **{w: js[w].T}), tcfg,
-                                 device="cpu")
+        state_from_jax(dict(js, **{w: js[w].T}), tm, device="cpu")
 
 
 def test_bert_base_is_the_published_width():
@@ -238,8 +237,8 @@ def test_bert_base_is_the_published_width():
             BERT_BASE.attention_probs_dropout_prob,
             BERT_BASE.layer_norm_eps) == (30522, 768, 12, 12, 3072, "gelu",
                                           0.1, 0.1, 1e-12)
-    shapes = bert_expected_shapes(BERT_BASE)
-    n = sum(int(np.prod(s)) for s in shapes.values())
+    m = BertForMaskedLM(BERT_BASE, device="cpu", seed=0)
+    n = sum(v.numel() for v in m.state_dict().values())
     assert n == 109_514_298         # BERT-base MLM, the decoder tied
 
 
@@ -275,7 +274,7 @@ def test_three_adamw_train_steps_match_jax_train_step():
         losses.append(tl)
         np.testing.assert_allclose(tl, jl, rtol=1e-5)
     assert losses[2] < losses[0]
-    want = bert_state_dict_from_jax(_state(jm), tcfg, device="cpu")
+    want = state_from_jax(_state(jm), tm, device="cpu")
     for k, p in tm.state_dict().items():
         w = want[k].numpy()
         np.testing.assert_allclose(p.numpy(), w, rtol=0,

@@ -30,10 +30,22 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu.nn as jnn
 import paddle_tpu.nn.functional as JF
+from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn import functional as F
 
 from _torch_port_util import one_thread  # noqa: F401
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_the_cpu():
+    """The layers here are built without ``device=``, as a Paddle script
+    builds them: ``set_device("cpu")`` puts them on the CPU, and the
+    default is restored when the file ends."""
+    prev = tdevice._CURRENT[0]
+    tdevice.set_device("cpu")
+    yield
+    tdevice._CURRENT[0] = prev
 
 
 def _close(got, want, what):

@@ -62,14 +62,12 @@ def _nets():
     with torch.no_grad():
         for k, v in jnet.state_dict().items():
             a = np.asarray(v.numpy())
-            tnet.state_dict()[k].copy_(torch.tensor(
-                a.T if k.endswith("weight") else a))
+            tnet.state_dict()[k].copy_(torch.tensor(a))
     return jnet, tnet
 
 
 def _port_params(tnet):
-    return {k: (v.detach().numpy().T if k.endswith("weight")
-                else v.detach().numpy()) for k, v in tnet.state_dict().items()}
+    return {k: v.detach().numpy() for k, v in tnet.state_dict().items()}
 
 
 class _Recorder:

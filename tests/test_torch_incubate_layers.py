@@ -21,7 +21,7 @@ from paddle_tpu.serving.sharded.mesh_engine import MeshEngine
 
 import paddle_tpu_torch.incubate as tinc
 from paddle_tpu_torch import nn as tnn
-from paddle_tpu_torch.convert import fused_layer_state_dict_from_jax
+from paddle_tpu_torch.convert import state_from_jax
 from paddle_tpu_torch.inference import _mesh_shape, create_llm_engine
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.optimizer import Momentum
@@ -82,8 +82,7 @@ def test_fused_layers_match_jax(case):
                           v.shape[0] * v[0, 0].numel()))
             assert v.abs().max() <= np.sqrt(6.0 / (fin + fout))
             assert v.std() > 0.3 * np.sqrt(2.0 / (fin + fout))
-    tl.load_state_dict(fused_layer_state_dict_from_jax(state, tl,
-                                                       device="cpu"))
+    tl.load_state_dict(state_from_jax(state, tl, device="cpu"))
     r = np.random.RandomState(4)
     x = r.randn(2, 6, 64).astype(np.float32)
     g = r.randn(2, 6, 64).astype(np.float32)
@@ -112,7 +111,7 @@ def _pair(seed):
     jm = jnn.Linear(4, 3)
     tm = tnn.Linear(4, 3, device="cpu")
     with torch.no_grad():
-        tm.weight.copy_(torch.from_numpy(np.array(jm.weight.numpy()).T))
+        tm.weight.copy_(torch.from_numpy(np.array(jm.weight.numpy())))
         tm.bias.copy_(torch.from_numpy(np.array(jm.bias.numpy())))
     return jm, tm
 
@@ -129,7 +128,7 @@ def _step(jm, tm, jopt, topt, x, y):
 
 
 def _same_params(jm, tm):
-    _near(tm.weight.T, jm.weight)
+    _near(tm.weight, jm.weight)
     _near(tm.bias, jm.bias)
 
 

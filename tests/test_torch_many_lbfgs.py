@@ -48,7 +48,7 @@ def _port_mlp(ws):
                        tnn.Linear(8, 1, device="cpu"))
     with torch.no_grad():
         for p, w in zip(m.parameters(), ws):
-            p.copy_(torch.from_numpy(w.T if w.ndim == 2 else w))
+            p.copy_(torch.from_numpy(w))
     return m
 
 
@@ -87,8 +87,7 @@ def test_many_equals_sequential_calls_and_jax_many():
     np.testing.assert_allclose(many.numpy(), jl, rtol=1e-5)
     for p, w in zip(m2.parameters(), jm.parameters()):
         w = w.numpy()
-        np.testing.assert_allclose(p.detach().numpy(),
-                                   w.T if w.ndim == 2 else w, rtol=0,
+        np.testing.assert_allclose(p.detach().numpy(), w, rtol=0,
                                    atol=1e-5 * np.abs(w).max())
 
 
@@ -172,8 +171,7 @@ def test_lbfgs_fixed_step_on_an_mlp_matches_jax():
         np.testing.assert_allclose(losses[-1], jl, rtol=1e-4)
         for p, w in zip(tm.parameters(), jm.parameters()):
             w = w.numpy()
-            np.testing.assert_allclose(p.detach().numpy(),
-                                       w.T if w.ndim == 2 else w, rtol=0,
+            np.testing.assert_allclose(p.detach().numpy(), w, rtol=0,
                                        atol=1e-4 * np.abs(w).max())
     assert losses[-1] < losses[0]
     with pytest.raises(ValueError, match="closure"):

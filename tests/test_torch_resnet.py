@@ -1,5 +1,5 @@
 """The port's ResNet family (``vision.models``) against the JAX package's
-on the same weights (``convert.resnet_state_dict_from_jax``), in f32 on
+on the same weights (``convert.state_from_jax``), in f32 on
 the CPU, 10 classes, b2, in training mode.
 
 * ``resnet18`` and ``resnet50`` (the bottleneck net) at 64 px: the
@@ -9,10 +9,10 @@ the CPU, 10 classes, b2, in training mode.
   parameter and both BatchNorm buffers after the first, the buffers
   (ResNet-18: and the parameters) after the second.
 * All nine constructors' ``state_dict`` shapes (and so their parameter
-  counts) against JAX's and against ``convert.resnet_expected_shapes``;
+  counts) against JAX's;
   ``pretrained=True`` raises.
-* The converter: buffers carried, ``fc.weight`` transposed, a missing or
-  an extra key raises.
+* The converter: buffers carried, ``fc.weight`` as it is (paddle's
+  ``[in, out]`` in both), a missing or an extra key raises.
 
 Sizes and weights.  Training-mode BatchNorm normalises each channel over
 the batch and the positions.  At 32 px the last stage is 1 x 1, so at b2
@@ -46,9 +46,7 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu.nn as jnn
 from paddle_tpu.vision import models as jmodels
-from paddle_tpu_torch.convert import (
-    resnet_expected_shapes, resnet_state_dict_from_jax,
-)
+from paddle_tpu_torch.convert import state_from_jax
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import Momentum
@@ -56,12 +54,10 @@ from paddle_tpu_torch.vision import models as tmodels
 
 from _torch_port_util import one_thread  # noqa: F401
 
-#: constructor -> convert's (depth, width, groups)
-ARCH = {"resnet18": (18, 64, 1), "resnet34": (34, 64, 1),
-        "resnet50": (50, 64, 1), "resnet101": (101, 64, 1),
-        "resnet152": (152, 64, 1), "wide_resnet50_2": (50, 128, 1),
-        "wide_resnet101_2": (101, 128, 1), "resnext50_32x4d": (50, 4, 32),
-        "resnext101_64x4d": (101, 4, 64)}
+#: the constructors
+ARCH = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+        "wide_resnet50_2", "wide_resnet101_2", "resnext50_32x4d",
+        "resnext101_64x4d")
 LR = 0.1
 
 
@@ -80,10 +76,8 @@ def _models(name, seed=0, branch_scale=None):
         state = {k: v * branch_scale if k.endswith("bn3.weight") else v
                  for k, v in state.items()}
         jm.set_state_dict(state)
-    depth, width, groups = ARCH[name]
     tm = getattr(tmodels, name)(num_classes=10, device="cpu")
-    tm.load_state_dict(resnet_state_dict_from_jax(
-        state, depth, width, 10, groups, device="cpu"))
+    tm.load_state_dict(state_from_jax(state, tm, device="cpu"))
     return jm, tm
 
 
@@ -102,8 +96,7 @@ def _port_loss(net, x, y):
 
 
 def _forward_backward(jm, tm, x, y):
-    """Logits, loss and gradients of both (the JAX gradients in the
-    port's layout)."""
+    """Logits, loss and gradients of both (one layout: paddle's)."""
     jlogits = jm(paddle.to_tensor(x))
     jloss = jnn.functional.cross_entropy(jlogits, paddle.to_tensor(y))
     jloss.backward()
@@ -112,7 +105,6 @@ def _forward_backward(jm, tm, x, y):
     tloss.backward()
     jgrads = {n: np.asarray(p.grad.numpy())
               for n, p in jm.named_parameters()}
-    jgrads["fc.weight"] = jgrads["fc.weight"].T
     for p in jm.parameters():
         p.clear_gradient()
     tgrads = {n: p.grad.clone() for n, p in tm.named_parameters()}
@@ -148,13 +140,11 @@ def _two_steps_close(jm, tm, x, y, name, params_after_second=True):
     topt = Momentum(learning_rate=LR, momentum=0.9,
                     parameters=tm.named_parameters(), device="cpu")
     tstep = TrainStep(tm, _port_loss, topt, device="cpu")
-    depth, width, groups = ARCH[name]
     for i in range(2):
         jl = float(jstep(paddle.to_tensor(x), paddle.to_tensor(y)))
         tl = tstep(torch.from_numpy(x), torch.from_numpy(y)).item()
         assert abs(tl - jl) <= 1e-4 * abs(jl), (i, tl, jl)
-        want = resnet_state_dict_from_jax(_state(jm), depth, width, 10,
-                                          groups, device="cpu")
+        want = state_from_jax(_state(jm), tm, device="cpu")
         got = tm.state_dict()
         assert set(got) == set(want)
         for n, w in want.items():
@@ -187,11 +177,8 @@ def test_constructor_shapes_match_jax(name):
     jm = getattr(jmodels, name)(num_classes=1000)
     tm = getattr(tmodels, name)(num_classes=1000, device="cpu")
     want = {k: tuple(v.shape) for k, v in jm.state_dict().items()}
-    want["fc.weight"] = want["fc.weight"][::-1]
     got = {k: tuple(v.shape) for k, v in tm.state_dict().items()}
     assert got == want
-    depth, width, groups = ARCH[name]
-    assert got == resnet_expected_shapes(depth, width, 1000, groups)
     assert sum(p.numel() for p in tm.parameters()) == sum(
         int(np.prod(p.shape)) for p in jm.parameters())
 
@@ -206,9 +193,10 @@ def test_converter_carries_buffers_transposes_fc_and_checks_keys():
     jm = jmodels.resnet18(num_classes=10)
     jm(paddle.to_tensor(_batch(32)[0]))          # moves the buffers
     state = _state(jm)
-    sd = resnet_state_dict_from_jax(state, 18, num_classes=10, device="cpu")
+    tm = tmodels.resnet18(num_classes=10, device="cpu")
+    sd = state_from_jax(state, tm, device="cpu")
     np.testing.assert_array_equal(sd["fc.weight"].numpy(),
-                                  state["fc.weight"].T)
+                                  state["fc.weight"])
     np.testing.assert_array_equal(sd["layer2.0.downsample.1._variance"]
                                   .numpy(),
                                   state["layer2.0.downsample.1._variance"])
@@ -216,11 +204,10 @@ def test_converter_carries_buffers_transposes_fc_and_checks_keys():
     missing = dict(state)
     del missing["layer3.1.bn2._mean"]
     with pytest.raises(KeyError, match="layer3.1.bn2._mean"):
-        resnet_state_dict_from_jax(missing, 18, num_classes=10,
-                                   device="cpu")
+        state_from_jax(missing, tm, device="cpu")
     extra = dict(state, **{"layer9.weight": state["fc.bias"]})
     with pytest.raises(KeyError, match="layer9"):
-        resnet_state_dict_from_jax(extra, 18, num_classes=10, device="cpu")
+        state_from_jax(extra, tm, device="cpu")
 
 
 def test_zoo_ops_match_jax():

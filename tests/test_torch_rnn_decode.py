@@ -10,14 +10,14 @@ states, each through both of the port's routes (``torch._VF``, which is
 cuDNN's on the card, and the step loop).  JAX's references come from one
 ``jax.jit`` with the layers' parameters swapped for traced arrays
 (``_torch_jax_table``); the port runs ``torch.func.functional_call`` on
-the same arrays (``Linear`` weights transposed).  The beam searches run
+the same arrays (paddle's ``[in, out]`` ``Linear`` weights in both).  The beam searches run
 both packages eagerly and hold ids, parents and lengths exactly: a step
 with planted ties (JAX's ``lax.top_k`` rule), ``dynamic_decode`` over an
 LSTM cell (beam 3, ``max_step_num`` 8, ``return_length``), and a tiny
 attention seq2seq built from each package's public layers the same way
 (vocabulary 50, hidden 16), whose logits, loss and gradients are held
 too.  Last, the state-dict keys and shapes equal JAX's through
-``convert.zoo_state_dict_from_jax``.
+``convert.state_from_jax``.
 """
 
 import functools
@@ -34,7 +34,7 @@ import paddle_tpu.nn.functional as JF
 from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import tensor as T
-from paddle_tpu_torch.convert import zoo_state_dict_from_jax
+from paddle_tpu_torch.convert import state_from_jax
 from paddle_tpu_torch.nn import functional as TF
 
 from _torch_jax_table import close, compare, first, jax_table, numpy_init
@@ -53,18 +53,12 @@ def _jax_params(model):
     return list(model.named_parameters())
 
 
-def _linears(tmodel):
-    return {f"{n}.weight" for n, m in tmodel.named_modules()
-            if isinstance(m, tnn.Linear)}
-
-
 def _module_case(jmodel, tmodel, call, inputs):
     """A table case: ``call(model, *inputs)`` of each package with the
     parameters taken from the case's arrays (after the inputs)."""
     names = [n for n, _ in _jax_params(jmodel)]
     jparams = dict(_jax_params(jmodel))
     n_in = len(inputs)
-    linear = _linears(tmodel)
 
     def jfn(*ts):
         saved = {n: p._data for n, p in jparams.items()}
@@ -87,8 +81,7 @@ def _module_case(jmodel, tmodel, call, inputs):
     wrapper = Call()
 
     def tfn(*ts):
-        pd = {f"m.{n}": (t.t() if n in linear else t)
-              for n, t in zip(names, ts[n_in:])}
+        pd = {f"m.{n}": t for n, t in zip(names, ts[n_in:])}
         return torch.func.functional_call(wrapper, pd, tuple(ts[:n_in]))
 
     arrays = list(inputs) + [np.asarray(p.numpy()) for _, p in
@@ -330,8 +323,12 @@ def test_routes_are_explicit():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tnn.GRU(I, H)
-    with pytest.raises(NotImplementedError):
-        tnn.LSTMCell(I, H, weight_ih_attr=False, **CPU)
+    # the ParamAttr arguments are JAX's (they raised before they were
+    # ported): False builds the parameter, an initializer fills it
+    cell = tnn.LSTMCell(I, H, weight_ih_attr=False, bias_hh_attr=tnn.ParamAttr(
+        initializer=tnn.initializer.Constant(0.5)), **CPU)
+    assert tuple(cell.weight_ih.shape) == (4 * H, I)
+    assert (cell.bias_hh == 0.5).all()
 
 
 def test_gather_tree_matches_jax():
@@ -423,7 +420,7 @@ def test_dynamic_decode_matches_jax():
     with numpy_init(3):
         jcell = jnn.LSTMCell(8, 8)
     tcell = tnn.LSTMCell(8, 8, **CPU)
-    tcell.load_state_dict(zoo_state_dict_from_jax(
+    tcell.load_state_dict(state_from_jax(
         {k: v.numpy() for k, v in jcell.state_dict().items()}, tcell,
         device="cpu"))
     emb, proj = _f((12, 8), (8, 12), seed=4, scale=2.0)
@@ -457,7 +454,7 @@ def test_dynamic_decode_matches_jax():
 def test_seq2seq_beam_ids_match_jax(route):
     """The tiny seq2seq's beam search (beam 4, 8 steps, end token 2)
     gives JAX's ids and lengths exactly on the same weights."""
-    PORT_S2S.load_state_dict(zoo_state_dict_from_jax(
+    PORT_S2S.load_state_dict(state_from_jax(
         {k: v.numpy() for k, v in JAX_S2S.state_dict().items()}, PORT_S2S,
         device="cpu"))
     PORT_S2S.encoder.route = route
@@ -482,20 +479,17 @@ def test_state_dict_keys_and_shapes_match_jax():
         assert {k: tuple(v.shape) for k, v in t.state_dict().items()} == \
             want
         assert list(t.state_dict()) == list(want)
-        t.load_state_dict(zoo_state_dict_from_jax(
+        t.load_state_dict(state_from_jax(
             {k: v.numpy() for k, v in j.state_dict().items()}, t,
             device="cpu"))
     jsd = JAX_S2S.state_dict()
     tsd = PORT_S2S.state_dict()
     assert set(tsd) == set(jsd)
     for k in jsd:
-        shape = tuple(jsd[k].shape)
-        if k in _linears(PORT_S2S):
-            shape = shape[::-1]
-        assert tuple(tsd[k].shape) == shape, k
+        assert tuple(tsd[k].shape) == tuple(jsd[k].shape), k
     with pytest.raises(KeyError):
-        zoo_state_dict_from_jax({"weight_ih_l0": np.zeros((4, 4))},
-                                tnn.GRU(I, H, **CPU), device="cpu")
+        state_from_jax({"weight_ih_l0": np.zeros((4, 4))},
+                       tnn.GRU(I, H, **CPU), device="cpu")
 
 
 def test_initial_values_follow_jax_rule():
@@ -545,7 +539,7 @@ def test_rnn_ignores_sequence_length_dropout_and_proj_size_as_jax():
         jm = jnn.LSTM(I, H, num_layers=2, dropout=0.5)
         jcell = jnn.LSTMCell(I, H, proj_size=3)
     tm = tnn.LSTM(I, H, num_layers=2, dropout=0.5, **CPU)
-    tm.load_state_dict(zoo_state_dict_from_jax(
+    tm.load_state_dict(state_from_jax(
         {k: v.numpy() for k, v in jm.state_dict().items()}, tm,
         device="cpu"))
     tm.train()

@@ -1,7 +1,7 @@
 """The port's Transformer encoder and the functionals under it against
 the JAX package's, in f32 on the CPU, on numpy-seeded inputs and the JAX
-layers' own weights (Linear weights transposed to the port's
-``[out, in]``): ``MultiHeadAttention`` (the fused q/k/v product against
+layers' own weights (paddle's ``[in, out]`` Linear weights in both):
+``MultiHeadAttention`` (the fused q/k/v product against
 separate projections), ``TransformerEncoderLayer`` with both
 ``normalize_before`` settings, with no mask, a bool mask (a row with no
 visible key among them) and an additive mask, outputs and every
@@ -39,11 +39,10 @@ B, S, E, H = 2, 9, 16, 4
 
 
 def _load(tm, jm):
-    """The JAX layer's weights into the port's, 2-D ones transposed."""
+    """The JAX layer's weights into the port's, as they are."""
     sd = {}
     for k, v in jm.state_dict().items():
-        a = np.asarray(v.numpy())
-        sd[k] = torch.from_numpy((a.T if a.ndim == 2 else a).copy())
+        sd[k] = torch.from_numpy(np.asarray(v.numpy()).copy())
     tm.load_state_dict(sd)
 
 
@@ -82,7 +81,6 @@ def _run_both(jlayer, tlayer, seed, mask_kind, call):
     (tout * torch.from_numpy(cot)).sum().backward()
     jg = {k: np.asarray(p.grad.numpy()) for k, p in
           jlayer.state_dict().items()}
-    jg = {k: (g.T if g.ndim == 2 else g) for k, g in jg.items()}
     jg["x"] = np.asarray(jx.grad.numpy())
     tg = {k: p.grad.numpy() for k, p in tlayer.named_parameters()}
     tg["x"] = tx.grad.numpy()
@@ -257,6 +255,6 @@ def test_gelu_embedding_linear_match_jax(approximate):
     b = r.randn(6).astype(np.float32)
     want = JF.linear(paddle.to_tensor(table), paddle.to_tensor(w),
                      paddle.to_tensor(b))
-    got = F.linear(torch.from_numpy(table), torch.from_numpy(w.T.copy()),
+    got = F.linear(torch.from_numpy(table), torch.from_numpy(w),
                    torch.from_numpy(b))
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)

@@ -2,7 +2,7 @@
 ``TransformerDecoder``, ``Transformer``, the ``Cache``/``StaticCache``
 incremental decoding and ``generate_square_subsequent_mask``) against the
 JAX package's ``nn.Transformer`` on the same weights
-(``convert.transformer_state_dict_from_jax``), d_model 32, 4 heads, 2 + 2
+(``convert.state_from_jax``), d_model 32, 4 heads, 2 + 2
 layers, f32, numpy-seeded inputs, in eval mode.
 
 Tolerance: f32 on both sides in another summation order through four
@@ -18,7 +18,7 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu.nn as jnn
 from paddle_tpu_torch import nn as tnn
-from paddle_tpu_torch.convert import transformer_state_dict_from_jax
+from paddle_tpu_torch.convert import state_from_jax
 
 from _torch_port_util import one_thread  # noqa: F401
 
@@ -35,8 +35,7 @@ def _models(normalize_before=False):
     tm = tnn.Transformer(nhead=4, dropout=0.0,
                          normalize_before=normalize_before, device="cpu",
                          **DIMS)
-    tm.load_state_dict(transformer_state_dict_from_jax(
-        state, normalize_before=normalize_before, device="cpu", **DIMS))
+    tm.load_state_dict(state_from_jax(state, tm, device="cpu"))
     tm.eval()
     return jm, tm
 
@@ -165,8 +164,8 @@ def test_gen_cache_do_zip_and_encoder_cache():
 
 
 def test_converter_refuses_a_wrong_key():
-    jm, _ = _models()
+    jm, tm = _models()
     state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     state["decoder.layers.9.norm1.weight"] = np.ones(32, np.float32)
     with pytest.raises((KeyError, ValueError)):
-        transformer_state_dict_from_jax(state, device="cpu", **DIMS)
+        state_from_jax(state, tm, device="cpu")

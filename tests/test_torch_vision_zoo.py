@@ -1,5 +1,5 @@
 """The port's vision model zoo (``paddle_tpu_torch.vision.models``) against
-the JAX package's on the same weights (``convert.zoo_state_dict_from_jax``),
+the JAX package's on the same weights (``convert.state_from_jax``),
 in f32 on the CPU.
 
 * Blocks: MobileNetV1's ``_DepthwiseSeparable``, MobileNetV2's and
@@ -63,8 +63,9 @@ from paddle_tpu.vision.models import mobilenetv3 as jmv3
 from paddle_tpu.vision.models import shufflenetv2 as jshuffle
 from paddle_tpu.vision.models import squeezenet as jsqueeze
 from paddle_tpu.vision.models import vgg as jvgg
+from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch import nn as tnn
-from paddle_tpu_torch.convert import zoo_state_dict_from_jax
+from paddle_tpu_torch.convert import state_from_jax
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.vision import models as tmodels
 from paddle_tpu_torch.vision.models import densenet as tdensenet
@@ -77,6 +78,18 @@ from paddle_tpu_torch.vision.models import squeezenet as tsqueeze
 from paddle_tpu_torch.vision.models import vgg as tvgg
 
 from _torch_port_util import one_thread  # noqa: F401
+
+
+@pytest.fixture(autouse=True, scope="module")
+def on_the_cpu():
+    """The layers here are built without ``device=``, as a Paddle script
+    builds them: ``set_device("cpu")`` puts them on the CPU, and the
+    default is restored when the file ends."""
+    prev = tdevice._CURRENT[0]
+    tdevice.set_device("cpu")
+    yield
+    tdevice._CURRENT[0] = prev
+
 
 # the packages export a function of the module's name
 jgooglenet = importlib.import_module("paddle_tpu.vision.models.googlenet")
@@ -152,7 +165,7 @@ def _pair(jbuild, tbuild, seed):
         jm = jbuild()
     state = _randomize_norms(jm, seed + 1)
     tm = tbuild()
-    tm.load_state_dict(zoo_state_dict_from_jax(state, tm, device="cpu"))
+    tm.load_state_dict(state_from_jax(state, tm, device="cpu"))
     jm.eval()
     tm.eval()
     return jm, tm, state
@@ -346,12 +359,10 @@ def test_model_eval_forward_matches_jax(zoo, name):
 
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_state_dict_keys_and_shapes_match_jax(zoo, name):
-    """JAX's keys, each with its shape (a Linear weight transposed)."""
+    """JAX's keys, each with its shape (paddle's ``[in, out]`` Linear
+    weights in both)."""
     jm, tm, state = zoo["pairs"][name]
-    linear = {f"{n}.weight" for n, m in tm.named_modules()
-              if isinstance(m, tnn.Linear)}
-    want = {k: (v.shape[::-1] if k in linear else v.shape)
-            for k, v in state.items()}
+    want = {k: v.shape for k, v in state.items()}
     got = {k: tuple(v.shape) for k, v in tm.state_dict().items()}
     assert got == want
     assert sum(v.size for v in state.values()) == sum(
@@ -368,14 +379,11 @@ def test_train_step_matches_jax(zoo):
     loss.backward()
     _close(logits.detach().numpy(), jlogits, "train logits")
     assert abs(loss.item() - float(jloss)) <= 1e-5 * abs(float(jloss))
-    linear = {f"{n}.weight" for n, m in tt.named_modules()
-              if isinstance(m, tnn.Linear)}
     params = dict(tt.named_parameters())
     assert set(params) == set(pnames)
     top = max(np.abs(g).max() for g in jgrads)
     for n, g in zip(pnames, jgrads):
-        g = np.asarray(g).T if n in linear else np.asarray(g)
-        _close(params[n].grad.numpy(), g, f"{n} grad", rel=1e-4,
+        _close(params[n].grad.numpy(), np.asarray(g), f"{n} grad", rel=1e-4,
                extra=1e-6 * top)
     bufs = dict(tt.named_buffers())
     assert set(bufs) == set(bnames)
@@ -386,18 +394,17 @@ def test_train_step_matches_jax(zoo):
 def test_converter_raises_on_a_key_mismatch(zoo):
     _, tm, state = zoo["pairs"]["LeNet"]
     with pytest.raises(KeyError):
-        zoo_state_dict_from_jax({k: v for k, v in state.items()
-                                 if k != "fc.1.bias"}, tm, device="cpu")
+        state_from_jax({k: v for k, v in state.items()
+                        if k != "fc.1.bias"}, tm, device="cpu")
     with pytest.raises(KeyError):
-        zoo_state_dict_from_jax(dict(state, extra=np.zeros(1)), tm,
-                                device="cpu")
+        state_from_jax(dict(state, extra=np.zeros(1)), tm, device="cpu")
     bad = dict(state)
     bad["features.0.weight"] = np.zeros((6, 1, 5, 5), np.float32)
     with pytest.raises(ValueError):
-        zoo_state_dict_from_jax(bad, tm, device="cpu")
-    got = zoo_state_dict_from_jax(state, tm, device="cpu")
+        state_from_jax(bad, tm, device="cpu")
+    got = state_from_jax(state, tm, device="cpu")
     np.testing.assert_array_equal(got["fc.1.weight"].numpy(),
-                                  state["fc.1.weight"].T)
+                                  state["fc.1.weight"])
 
 
 CONSTRUCTORS = [n for n in tmodels.__all__ if n[0].islower()
@@ -405,11 +412,14 @@ CONSTRUCTORS = [n for n in tmodels.__all__ if n[0].islower()
 
 
 @pytest.mark.parametrize("name", CONSTRUCTORS)
-def test_constructor_refuses_pretrained_and_defaults_to_the_card(name):
-    """``pretrained=True`` raises; without ``device`` the model is built
-    on the card, so with none it raises before building anything."""
+def test_constructor_refuses_pretrained_and_defaults_to_the_card(
+        name, monkeypatch):
+    """``pretrained=True`` raises; without ``device`` (and with no
+    ``set_device``) the model is built on the card, so with none it
+    raises before building anything."""
     with pytest.raises(NotImplementedError):
         getattr(tmodels, name)(pretrained=True, device="cpu")
+    monkeypatch.setattr(tdevice, "_CURRENT", [None])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             getattr(tmodels, name)()
