@@ -385,6 +385,23 @@ the script exits nonzero and prints no result:
    bf16 b 64 with Momentum(0.1, 0.9, weight_decay=L2Decay(1e-4)) against
    the float decay, 4 steps each in turns, bitwise equal; a frozen conv1
    and a half-rate fc by ParamAttr after one f32 step.
+32. host_api: the small host modules through the root namespace: a
+   ``paddle.autograd.PyLayer`` over the RMSNorm kernels at [8192, 4096]
+   bf16 (y, dx, dw bitwise equal to rms_norm's autograd path, forward +
+   backward ms of both in turns; jacobian and jvp through it against the
+   CPU's plain formula); ``paddle.profiler.Profiler(scheduler=(1, 3))``
+   over 4 of layer_api's BERT-base steps with a RecordEvent each (the
+   chrome trace's LayerNorm kernels equal the launch counters of steps 1
+   and 2; step seconds without a profiler, timer_only and tracing in
+   turns); a bf16 8192^3 product on a side ``device.Stream``, bitwise
+   equal to the default stream's, and ``device.cuda``'s memory counters;
+   ``text.viterbi_decode`` at B 256 x T 128 x 64 tags, card = CPU, ms a
+   call and idle share; ``amp.debugging`` (check_numerics, the tensor
+   checker naming the op, its cost on one BERT step); ``utils``
+   (dlpack shares storage, run_check, a cpp_extension host op); and
+   ``tiled_linear`` over paddle's [in, out] weight against an [out, in]
+   copy at LLaMA-2-7B's projections, 8 and 1,024 rows, in turns, rows
+   bitwise equal across the windows (the layout repair).
 
 Every phase prints its wall seconds ({"phase_seconds": name, ...}), and
 a "seconds" line sums them.  The last three lines are the card's
@@ -403,6 +420,7 @@ without a CUDA device.
     python3 chip_smoke.py --zoo-phases
     python3 chip_smoke.py --seq2seq-phases
     python3 chip_smoke.py --layer-phases
+    python3 chip_smoke.py --host-phases
 
 ``--serve-phases`` runs the named serve phases alone on the engine
 phase's model (no other phase and no kernels line); ``--resnet-phases``
@@ -413,7 +431,8 @@ determinism, row invariance, the raises) and phases 18-20;
 ``--fused-phases`` the three phases of 22; ``--zoo-phases`` the four
 phases of 23-26 and ``--seq2seq-phases`` the four of 27-30 (no kernel
 built: none lies on their path); ``--layer-phases`` bert_train and 31
-(the kernels built).  The sweeps run the GroupNorm or
+(the kernels built); ``--host-phases`` 32 alone (the kernels built).
+The sweeps run the GroupNorm or
 the LayerNorm forward sweep alone (or the paged attention cases and
 their row-invariance checks): with ``--variants`` also every launch the
 kernel takes at each shape
@@ -3737,10 +3756,8 @@ def unet_forward_flops(torch, model, batch):
     concatenated weights (2 D 3D per token self, 2 Ctx 2D per context
     token cross) and 4 D per (query, key) pair per head.  A train step
     is 3x (the backward does two products per forward product)."""
-    from torch import nn
-
     from paddle_tpu_torch.models.unet import CrossAttention
-    from paddle_tpu_torch.nn import Conv2D
+    from paddle_tpu_torch.nn import Conv2D, Linear
 
     total = [0]
 
@@ -3762,7 +3779,7 @@ def unet_forward_flops(torch, model, batch):
     hooks = []
     for m in model.modules():
         fn = (conv if isinstance(m, Conv2D) else
-              linear if isinstance(m, nn.Linear) else
+              linear if isinstance(m, Linear) else
               attn if isinstance(m, CrossAttention) else None)
         if fn is not None:
             hooks.append(m.register_forward_hook(fn))
@@ -8063,6 +8080,32 @@ def layer_gemm_turns(torch, dev):
     return out
 
 
+def layer_bert_step(torch, dev, model, cfg):
+    """layer_api's BERT-base train step on ``model`` (bf16, put in train
+    mode): a plain loop of ``backward``, ``AdamW(1e-4, weight_decay=0.01,
+    grad_clip=ClipGradByGlobalNorm(1.0, group_name=...),
+    multi_precision=True)``, ``step`` and ``clear_grad`` on one seeded
+    b 32 x 128 MLM batch.  Returns ``train_step()`` -> the loss."""
+    import paddle_tpu_torch as paddle
+
+    model.train()
+    opt = paddle.optimizer.AdamW(
+        learning_rate=LAYER_BERT_LR, parameters=model.parameters(),
+        weight_decay=0.01, multi_precision=True,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(
+            1.0, group_name="default_group"))
+    batch = bert_batch(torch, cfg, BERT_BATCH, BERT_SEQ, dev, 1234)
+
+    def train_step():
+        loss, _ = model(batch[0], batch[1], labels=batch[2])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return train_step
+
+
 def layer_api_phase(torch, dev, bert_figures):
     """A Paddle-style script through the root namespace alone (``import
     paddle_tpu_torch as paddle``): (0) before any ``set_device``, a
@@ -8213,20 +8256,7 @@ def layer_api_phase(torch, dev, bert_figures):
     del cpu_model, l32, l64, lcard
     gc.collect()
     model = model.astype("bfloat16")
-    model.train()
-    opt = paddle.optimizer.AdamW(
-        learning_rate=LAYER_BERT_LR, parameters=model.parameters(),
-        weight_decay=0.01, multi_precision=True,
-        grad_clip=nn.ClipGradByGlobalNorm(1.0, group_name="default_group"))
-    batch = bert_batch(torch, cfg, BERT_BATCH, BERT_SEQ, dev, 1234)
-
-    def train_step():
-        loss, _ = model(batch[0], batch[1], labels=batch[2])
-        loss.backward()
-        opt.step()
-        opt.clear_grad()
-        return loss
-
+    train_step = layer_bert_step(torch, dev, model, cfg)
     losses = [train_step().item() for _ in range(LAYER_BERT_WARMUP)]
     step_s = []
     reset_kernel_launches()
@@ -8255,7 +8285,7 @@ def layer_api_phase(torch, dev, bert_figures):
         "launches": {k: launches[k] for k in ("layer_norm",
                                               "layer_norm_bwd")}}
     emit({"phase": "layer_api_bert", **figures["bert_train_layer_api"]})
-    del model, opt, batch
+    del model, train_step
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -8359,6 +8389,518 @@ def layer_resnet_checks(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------ phase 32
+HOST_RMS_SHAPE = (8192, 4096)       # the serve shape of the RMSNorm rows
+HOST_TURNS = ("pylayer", "kernel", "kernel", "pylayer", "pylayer", "kernel")
+HOST_REPS = 10
+HOST_JAC_SHAPE = (4, 64)            # the small function of the jacobian
+HOST_PROFILE_STEPS, HOST_SCHEDULE = 4, (1, 3)
+HOST_PROFILE_WINDOWS = 3
+HOST_PROFILER_TURNS = ("none", "timer_only", "trace", "trace", "timer_only",
+                       "none")
+HOST_TURN_STEPS = 2
+HOST_STREAM_GEMM = 8192
+# a CRF tagger's batch: B 256 sentences of 128 tokens, 64 tags
+HOST_VITERBI = (256, 128, 64)
+HOST_VITERBI_REPS = 5
+# LLaMA-2-7B's projections (q/k/v/o, gate/up, down, the head), decode's
+# 8 rows and a 1,024-row prefill window
+HOST_LAYOUT_GEMMS = (("qkvo_proj", 4096, 4096), ("gate_up_proj", 4096, 11008),
+                     ("down_proj", 11008, 4096), ("lm_head", 4096, 32000))
+HOST_LAYOUT_ROWS = (8, 1024)
+HOST_LAYOUT_ORDER = ("in_out", "out_in", "out_in", "in_out", "in_out",
+                     "out_in")
+HOST_LAYOUT_REPS = 20
+
+
+def host_rms_pylayer(torch, dev, figures):
+    """Step (1) of :func:`host_api_phase`."""
+    from paddle_tpu_torch import autograd as AG
+    from paddle_tpu_torch.ops.rms_norm import (rms_norm, rms_norm_bwd,
+                                               rms_norm_fwd,
+                                               rms_norm_fwd_plain)
+
+    class RMSNormLayer(AG.PyLayer):
+        @staticmethod
+        def forward(ctx, x, w, eps):
+            y, rstd = rms_norm_fwd(x, w, eps)
+            ctx.save_for_backward(x, w, rstd)
+            return y
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, w, rstd = ctx.saved_tensor()
+            return rms_norm_bwd(x, w, rstd, dy.contiguous())
+
+    g = torch.Generator(device="cpu").manual_seed(2222)
+    rows, h = HOST_RMS_SHAPE
+    x0 = torch.randn(rows, h, generator=g).to(dev, torch.bfloat16)
+    w0 = (1 + 0.1 * torch.randn(h, generator=g)).to(dev, torch.bfloat16)
+    gy = torch.randn(rows, h, generator=g).to(dev, torch.bfloat16)
+    fns = {"pylayer": lambda x, w: RMSNormLayer.apply(x, w, 1e-6),
+           "kernel": lambda x, w: rms_norm(x, w, 1e-6)}
+    leaves = {k: (x0.clone().requires_grad_(), w0.clone().requires_grad_())
+              for k in fns}
+
+    def run(who):
+        x, w = leaves[who]
+        x.grad = w.grad = None
+        y = fns[who](x, w)
+        y.backward(gy)
+        return y
+
+    outs = {who: (run(who).detach(), leaves[who][0].grad,
+                  leaves[who][1].grad) for who in fns}
+    equal = [torch.equal(a, b) for a, b in zip(outs["pylayer"],
+                                               outs["kernel"])]
+    if not all(equal):
+        raise AssertionError(f"host_api: the RMSNorm PyLayer's y, dx, dw "
+                             f"bitwise equal to the kernel path: {equal}")
+    ms = {who: [] for who in fns}
+    for who in HOST_TURNS:
+        ms[who].append(cuda_ms(lambda: run(who), HOST_REPS))
+    # jacobian and jvp of a small f32 function through the PyLayer on
+    # the card against the plain formula's on the CPU
+    xs = torch.randn(*HOST_JAC_SHAPE, generator=g)
+    ws = 1 + 0.1 * torch.randn(HOST_JAC_SHAPE[1], generator=g)
+    vs = torch.randn(*HOST_JAC_SHAPE, generator=g)
+    wc = ws.to(dev)
+    card = lambda t: RMSNormLayer.apply(t, wc, 1e-6)       # noqa: E731
+    plain = lambda t: rms_norm_fwd_plain(t, ws, 1e-6)[0]   # noqa: E731
+    jac = (AG.jacobian(card, xs.to(dev)).cpu(), AG.jacobian(plain, xs))
+    jvp = (AG.jvp(card, xs.to(dev), vs.to(dev))[1].cpu(),
+           AG.jvp(plain, xs, vs)[1])
+    err = {k: ((a - b).abs().max() / b.abs().max()).item()
+           for k, (a, b) in (("jacobian", jac), ("jvp", jvp))}
+    if not max(err.values()) <= TOLERANCES["float32"][0]:
+        raise AssertionError(f"host_api: jacobian/jvp through the PyLayer "
+                             f"on the card vs the CPU's plain: {err}")
+    figures["rms_pylayer"] = {
+        "shape": list(HOST_RMS_SHAPE), "dtype": "bfloat16",
+        "bitwise_equal_y_dx_dw": equal, "ms_fwd_bwd": ms,
+        "ms_median": {k: statistics.median(v) for k, v in ms.items()},
+        "pylayer_over_kernel": statistics.median(ms["pylayer"])
+        / statistics.median(ms["kernel"]),
+        "jacobian_jvp_rel_err_vs_cpu_plain": err,
+        "jacobian_shape": list(jac[0].shape)}
+    emit({"phase": "host_api_rms_pylayer", **figures["rms_pylayer"]})
+
+
+def host_profiled_steps(torch, P, train_step, kernel_launches):
+    """HOST_PROFILE_STEPS train steps, each in a ``RecordEvent``, under
+    ``P.Profiler(scheduler=HOST_SCHEDULE)`` whose ``on_trace_ready``
+    exports the window's chrome trace: (the profiler, the trace's
+    events, the launch counters after each step, the exported paths)."""
+    import tempfile
+
+    launches, ready = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert.json")
+        prof = P.Profiler(scheduler=HOST_SCHEDULE,
+                          on_trace_ready=lambda p: ready.append(
+                              p.export(path)))
+        with prof:
+            for i in range(HOST_PROFILE_STEPS):
+                with P.RecordEvent(f"bert_step_{i}"):
+                    train_step().item()
+                launches.append(kernel_launches())
+                prof.step(num_samples=BERT_BATCH)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return prof, events, launches, ready
+
+
+def host_ln_by_step(events, kernels):
+    """{step span: [LayerNorm forward, backward] kernels} of a trace, a
+    kernel placed in the span whose device-side annotation covers it."""
+    out = {}
+    for e in events:
+        if e.get("cat") == "gpu_user_annotation" and \
+                str(e.get("name", "")).startswith("bert_step_"):
+            lo, hi = e["ts"], e["ts"] + e.get("dur", 0)
+            inside = [k["name"] for k in kernels if lo <= k["ts"] <= hi]
+            out[e["name"]] = [sum("ln_fwd_" in n for n in inside),
+                              sum("ln_bwd_" in n for n in inside)]
+    return out
+
+
+def host_profiler(torch, dev, figures):
+    """Step (2) of :func:`host_api_phase`."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import BERT_BASE, BertForMaskedLM
+    from paddle_tpu_torch.ops import kernel_launches
+
+    P = paddle.profiler
+    paddle.seed(2222)
+    model = BertForMaskedLM(BERT_BASE, device=dev).astype("bfloat16")
+    train_step = layer_bert_step(torch, dev, model, BERT_BASE)
+    for _ in range(BERT_WARMUP):
+        train_step().item()
+    first, last = HOST_SCHEDULE
+    want_spans = [f"bert_step_{i}" for i in range(first, last)]
+    windows = []
+    # CUPTI can drop a kernel record (device_ms); a window whose trace
+    # misses one is recorded and profiled again, and one window must
+    # hold every launch
+    for _ in range(HOST_PROFILE_WINDOWS):
+        prof, events, launches, ready = host_profiled_steps(
+            torch, P, train_step, kernel_launches)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        in_trace = {"layer_norm": sum("ln_fwd_" in e["name"]
+                                      for e in kernels),
+                    "layer_norm_bwd": sum("ln_bwd_" in e["name"]
+                                          for e in kernels)}
+        counted = {k: launches[last - 1][k] - launches[first - 1][k]
+                   for k in in_trace}
+        spans = sorted({e["name"] for e in events
+                        if str(e.get("name", "")).startswith("bert_step_")})
+        windows.append({"layer_norm_in_trace": in_trace,
+                        "layer_norm_launches": counted,
+                        "in_trace_by_step": host_ln_by_step(events, kernels),
+                        "trace_kernels": len(kernels)})
+        if in_trace == counted:
+            break
+    summary = prof.summary()
+    if len(ready) != 1 or in_trace != counted or spans != want_spans or \
+            not counted["layer_norm"] or "steps: " not in summary:
+        raise AssertionError(f"host_api: profiler windows {windows}, "
+                             f"spans {spans}, ready {ready}, summary "
+                             f"{summary[:200]!r}")
+    print(summary, flush=True)
+    step_s = {k: [] for k in ("none", "timer_only", "trace")}
+    for turn in HOST_PROFILER_TURNS:
+        p = None if turn == "none" else P.Profiler(
+            timer_only=turn == "timer_only")
+        if p is not None:
+            p.start()
+        for _ in range(HOST_TURN_STEPS):
+            t0 = time.perf_counter()
+            train_step().item()
+            step_s[turn].append(time.perf_counter() - t0)
+            if p is not None:
+                p.step()
+        if p is not None:
+            p.stop()
+    med = {k: statistics.median(v) for k, v in step_s.items()}
+    figures["profiler"] = {
+        "steps": HOST_PROFILE_STEPS, "scheduler": list(HOST_SCHEDULE),
+        "windows": windows, "spans": spans,
+        "summary": summary.splitlines()[0], "step_s": step_s,
+        "step_s_median": med,
+        "timer_only_over_none": med["timer_only"] / med["none"],
+        "trace_over_none": med["trace"] / med["none"]}
+    emit({"phase": "host_api_profiler", **figures["profiler"]})
+    return model, train_step
+
+
+def host_device(torch, dev, figures):
+    """Step (3) of :func:`host_api_phase`."""
+    import paddle_tpu_torch as paddle
+
+    D = paddle.device
+    g = torch.Generator(device="cpu").manual_seed(2223)
+    n = HOST_STREAM_GEMM
+    a = torch.randn(n, n, generator=g).to(dev, torch.bfloat16)
+    b = torch.randn(n, n, generator=g).to(dev, torch.bfloat16)
+    ref = a @ b
+    side, main = D.Stream(), D.current_stream()
+    side.wait_stream(main)
+    with D.stream_guard(side):
+        out = a @ b
+        done = side.record_event()
+    main.wait_event(done)
+    equal = torch.equal(out, ref)
+    ev = D.Event()
+    ev.record()
+    ev.synchronize()
+    mem = {"max_memory_allocated": (D.cuda.max_memory_allocated(),
+                                    torch.cuda.max_memory_allocated()),
+           "memory_allocated": (D.cuda.memory_allocated(),
+                                torch.cuda.memory_allocated())}
+    if not equal or not ev.query() or any(x != y for x, y in mem.values()) \
+            or side._stream == main._stream:
+        raise AssertionError(f"host_api: side-stream product equal {equal},"
+                             f" memory {mem}")
+    figures["device"] = {"side_stream_gemm": [n, n, n],
+                         "bitwise_equal": equal, "memory": mem,
+                         "device_count": D.cuda.device_count(),
+                         "available": D.get_available_device()}
+    emit({"phase": "host_api_device", **figures["device"]})
+
+
+def host_viterbi(torch, dev, figures):
+    """Step (4) of :func:`host_api_phase`."""
+    import paddle_tpu_torch as paddle
+
+    b, t, n = HOST_VITERBI
+    g = torch.Generator(device="cpu").manual_seed(2224)
+    pot = torch.randn(b, t, n, generator=g)
+    trans = torch.randn(n, n, generator=g)
+    # planted ties: a quarter of the sentences in small integers
+    pot[: b // 4] = torch.randint(0, 3, (b // 4, t, n), generator=g).float()
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[:2] = t
+    out = {}
+    for bos_eos in (True, False):
+        cpu = paddle.text.viterbi_decode(pot, trans, lengths, bos_eos)
+        card = paddle.text.viterbi_decode(pot.to(dev), trans.to(dev),
+                                          lengths.to(dev), bos_eos)
+        eq = [torch.equal(c.cpu(), r) for c, r in zip(card, cpu)]
+        if not all(eq):
+            raise AssertionError(f"host_api: viterbi on the card equals "
+                                 f"the CPU's: {eq} (bos_eos {bos_eos})")
+        out[bos_eos] = eq
+    args = (pot.to(dev), trans.to(dev), lengths.to(dev))
+    ms = cuda_ms(lambda: paddle.text.viterbi_decode(*args), HOST_VITERBI_REPS)
+    prof = profiled(torch, lambda: paddle.text.viterbi_decode(*args))
+    figures["viterbi"] = {
+        "batch": b, "seq": t, "tags": n, "dtype": "float32",
+        "equal_scores_paths": {"bos_eos": out[True], "plain": out[False]},
+        "ms_per_call": ms, "device_idle_share": prof["device_idle_share"],
+        "kernel_events": prof["kernel_events"]}
+    emit({"phase": "host_api_viterbi", **figures["viterbi"]})
+
+
+def host_debugging(torch, dev, figures, train_step):
+    """Step (5) of :func:`host_api_phase`."""
+    import warnings
+
+    import paddle_tpu_torch as paddle
+
+    D = paddle.amp.debugging
+    x = torch.zeros(*HOST_RMS_SHAPE, dtype=torch.bfloat16, device=dev)
+    flat = x.view(-1)
+    flat[::100003] = float("nan")
+    flat[7::200003] = float("inf")
+    flat[11::300007] = -float("inf")
+    want = (len(range(0, flat.numel(), 100003)),
+            len(range(7, flat.numel(), 200003))
+            + len(range(11, flat.numel(), 300007)))
+    n_nan, n_inf = D.check_numerics(x, "host_api", "x",
+                                    debug_mode=D.DebugMode.CHECK_NAN_INF)
+    got = (n_nan.item(), n_inf.item())
+
+    class Net(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc = paddle.nn.Linear(16, 16)
+
+        def forward(self, t):
+            return torch.sqrt(self.fc(t) - 1e3)
+
+    net = Net()
+    D.enable_tensor_checker(D.TensorCheckerConfig(True))
+    try:
+        net(torch.ones(4, 16, device=dev))
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        D.disable_tensor_checker()
+    if got != want or n_nan.device != x.device or raised is None or \
+            "aten.sqrt" not in raised:
+        raise AssertionError(f"host_api: check_numerics {got} of {want}, "
+                             f"tensor checker raised {raised!r}")
+    step_s = {"off": [], "checker": []}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for turn in ("off", "checker", "checker", "off"):
+            if turn == "checker":
+                D.enable_tensor_checker(D.TensorCheckerConfig(
+                    True, debug_mode=D.DebugMode.CHECK_NAN_INF))
+            try:
+                t0 = time.perf_counter()
+                train_step().item()
+                step_s[turn].append(time.perf_counter() - t0)
+            finally:
+                D.disable_tensor_checker()
+    found = [str(w.message) for w in caught
+             if "tensor checker" in str(w.message)]
+    figures["debugging"] = {
+        "check_numerics": got, "planted": want, "raised": raised,
+        "bert_step_s": step_s,
+        "checker_over_off": statistics.mean(step_s["checker"])
+        / statistics.mean(step_s["off"]),
+        "checker_warnings_in_bert_steps": len(found),
+        "first_warnings": found[:3]}
+    emit({"phase": "host_api_debugging", **figures["debugging"]})
+
+
+def host_utils(torch, dev, figures):
+    """Step (6) of :func:`host_api_phase`."""
+    import io
+    import tempfile
+    import textwrap
+
+    import paddle_tpu_torch as paddle
+
+    U = paddle.utils
+    t = torch.randn(1024, 1024, device=dev)
+    back = U.dlpack.from_dlpack(U.dlpack.to_dlpack(t))
+    capsule = U.dlpack.from_dlpack(torch.utils.dlpack.to_dlpack(t))
+    shared = back.data_ptr() == t.data_ptr() == capsule.data_ptr() and \
+        back.device == t.device
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        U.run_check()
+    printed = buf.getvalue().strip()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "op.cc")
+        with open(src, "w") as f:
+            f.write(textwrap.dedent("""
+                extern "C" void double_plus_one(const float* in, float* out,
+                                                long n) {
+                    for (long i = 0; i < n; ++i) out[i] = 2.0f * in[i] + 1.0f;
+                }
+            """))
+        lib = U.cpp_extension.load("host_api_op", [src], build_directory=tmp)
+        op = U.cpp_extension.host_op(lib, "double_plus_one", lambda s: s)
+        x = torch.randn(64, 128, device=dev)
+        y = op(x)
+    host_ok = y.device == x.device and torch.equal(y, 2.0 * x + 1.0)
+    name = torch.cuda.get_device_name(dev)
+    if not shared or name not in printed or not host_ok:
+        raise AssertionError(f"host_api: dlpack shares {shared}, run_check "
+                             f"{printed!r}, host_op {host_ok}")
+    figures["utils"] = {"dlpack_shares_storage": shared,
+                        "run_check": printed, "host_op_equal": host_ok,
+                        "version": paddle.__version__,
+                        "cuda_version": paddle.version.cuda(),
+                        "cudnn_version": paddle.version.cudnn()}
+    emit({"phase": "host_api_utils", **figures["utils"]})
+
+
+def host_layout(torch, dev, figures):
+    """Step (7) of :func:`host_api_phase`: the serving path's
+    ``tiled_linear`` over paddle's ``[in, out]`` weight against the same
+    product over an ``[out, in]`` copy (the layout before the repair: the
+    batch's B transposed), in turns; rows bitwise equal across window
+    sizes."""
+    from paddle_tpu_torch.models import gpt
+
+    g = torch.Generator(device="cpu").manual_seed(2225)
+    tile = gpt.ROW_TILE
+
+    def out_in(rows, w_oi):
+        n = rows.shape[0] // tile
+        return torch.bmm(rows.view(n, tile, -1),
+                         w_oi.t().expand(n, -1, -1)).view(n * tile, -1)
+
+    out = {}
+    for name, k, n in HOST_LAYOUT_GEMMS:
+        w = (torch.randn(k, n, generator=g) * k ** -0.5).to(
+            dev, torch.bfloat16)
+        w_oi = w.t().contiguous()
+        x = torch.randn(max(HOST_LAYOUT_ROWS), k, generator=g).to(
+            dev, torch.bfloat16)
+        full = gpt.tiled_linear(gpt.pad_rows(x), w)
+        case = {}
+        for m in HOST_LAYOUT_ROWS:
+            rows = gpt.pad_rows(x[:m])
+            fns = {"in_out": lambda: gpt.tiled_linear(rows, w),
+                   "out_in": lambda: out_in(rows, w_oi)}
+            y = fns["in_out"]()[:m]
+            invariant = torch.equal(y, full[:m])
+            diff = _max_diff(y, fns["out_in"]()[:m])
+            ms = {who: [] for who in fns}
+            for who in HOST_LAYOUT_ORDER:
+                ms[who].append(cuda_ms(fns[who], HOST_LAYOUT_REPS))
+            if not invariant:
+                raise AssertionError(f"host_api: {name} rows {m}: the "
+                                     f"[in, out] product's rows differ "
+                                     f"from the {max(HOST_LAYOUT_ROWS)}-row "
+                                     f"window's")
+            med = {who: statistics.median(v) for who, v in ms.items()}
+            case[m] = {"ms": ms, "ms_median": med,
+                       "in_out_over_out_in": med["in_out"] / med["out_in"],
+                       "rows_bitwise_equal_across_windows": invariant,
+                       "max_abs_diff_vs_out_in": diff,
+                       "tflops_per_s_in_out": 2 * rows.shape[0] * k * n
+                       / med["in_out"] / 1e9}
+        out[name] = {"in": k, "out": n, "rows": case}
+        del w, w_oi, x, full
+    figures["layout"] = out
+    emit({"phase": "host_api_layout", **out})
+
+
+def host_api_phase(torch, dev):
+    """The small host modules on the card through ``import
+    paddle_tpu_torch as paddle``: (1) a ``PyLayer`` whose forward and
+    backward call the RMSNorm kernels (``rms_norm_fwd``/``rms_norm_bwd``)
+    at [8192, 4096] bf16: y, dx, dw bitwise equal to ``rms_norm``'s own
+    autograd path, forward + backward ms of both in turns; ``jacobian``
+    and ``jvp`` of a small f32 function through it against the CPU's
+    plain formula within TOLERANCES' f32 rtol; (2) ``profiler.Profiler``
+    over 4 of layer_api's BERT-base steps (layer_bert_step) with a
+    ``RecordEvent`` around each and ``scheduler=(1, 3)``: the exported
+    chrome trace holds the spans of steps 1 and 2 and as many LayerNorm
+    forward and backward kernels as the launch counters counted in those
+    steps (a window whose trace lost a kernel record is kept in the
+    figures and profiled again, up to HOST_PROFILE_WINDOWS windows);
+    ``summary()`` printed; step seconds with no profiler,
+    ``timer_only`` and tracing, in turns; (3) ``device``: a bf16 8192^3
+    product on a side ``Stream`` under ``stream_guard``, joined by
+    ``wait_stream``/``Event``, bitwise equal to the default stream's;
+    ``cuda.max_memory_allocated``/``memory_allocated`` equal torch's;
+    (4) ``text.viterbi_decode`` at B 256, T 128, 64 tags (f32, a quarter
+    of the sentences in small integers for ties, ragged lengths):
+    scores and paths equal the CPU's, ms per call and idle share; (5)
+    ``amp.debugging``: ``check_numerics`` counts planted NaN/Inf in a
+    bf16 card tensor, the tensor checker raises naming the operator
+    that made a NaN in a layer's forward, and one BERT step with the
+    checker (warning mode) against one without, in turns; (6)
+    ``utils``: a dlpack round trip shares storage, ``run_check`` prints
+    the card, a ``cpp_extension`` host op on a card tensor; (7) the
+    layout repair: ``tiled_linear`` at LLaMA-2-7B's projections over
+    ``[in, out]`` against ``[out, in]`` at 8 and 1,024 rows, in turns,
+    rows bitwise equal across the two windows.  Returns the kernels'
+    launches over the phase and the figures."""
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    figures = {"phase": "host_api"}
+    reset_kernel_launches()
+    host_rms_pylayer(torch, dev, figures)
+    model, train_step = host_profiler(torch, dev, figures)
+    host_debugging(torch, dev, figures, train_step)
+    del model, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_device(torch, dev, figures)
+    host_viterbi(torch, dev, figures)
+    host_utils(torch, dev, figures)
+    host_layout(torch, dev, figures)
+    launches = kernel_launches()
+    for name in ("rms_norm", "rms_norm_bwd", "layer_norm", "layer_norm_bwd"):
+        if not launches[name]:
+            raise AssertionError(f"host_api: {name} never launched")
+    figures["launches"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, figures
+
+
+def host_phases_main(torch):
+    """``--host-phases``: host_api alone; the kernels are built (its
+    PyLayer runs the RMSNorm kernels, its BERT steps the LayerNorm
+    ones)."""
+    from paddle_tpu_torch import _build, resolve_device
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    built = _build.build_all(verbose=False)
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "cudnn": torch.backends.cudnn.version(),
+          "build_s": time.perf_counter() - t0, "built": sorted(built)})
+    dev = resolve_device()
+    t0 = time.perf_counter()
+    launches, figures = host_api_phase(torch, dev)
+    emit({"phase_seconds": "host_api", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    print(smi)
+    return 0
 
 
 def zoo_phases_main(torch):
@@ -8618,6 +9160,8 @@ def main():
         return seq2seq_phases_main(torch)
     if "--layer-phases" in sys.argv[1:]:
         return layer_phases_main(torch)
+    if "--host-phases" in sys.argv[1:]:
+        return host_phases_main(torch)
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
@@ -8705,6 +9249,7 @@ def main():
     phase("tensor_surface", tensor_surface_phase, torch, dev)
     layer_api, _ = phase("layer_api", layer_api_phase, torch, dev,
                          bert_figures)
+    host_api, _ = phase("host_api", host_api_phase, torch, dev)
     emit({"phase": "seconds", "by_phase": seconds,
           "total": time.perf_counter() - t_start})
 
@@ -8769,7 +9314,7 @@ def main():
             "transformer_mt": transformer_mt, "fused_decode": fused_decode,
             "fused_rotary": fused_rotary, "fused_layers": fused_layers,
             "zoo_train": zoo_train, "seq2seq_train": seq2seq,
-            "layer_api": layer_api}
+            "layer_api": layer_api, "host_api": host_api}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]

@@ -80,10 +80,12 @@ device), the grad modes, ``grad``, the dtype names and default dtype,
 ``set_device``/``get_device`` (``"gpu"`` is the card and raises without
 one), the flags, ``finfo``/``iinfo``, ``Tensor`` (``torch.Tensor``),
 ``Parameter``, ``Layer`` (``torch.nn.Module`` with Paddle's methods;
-every layer of the port is one), ``ParamAttr`` and ``LazyGuard``; the
-heavy subpackages (``serving``, ``optimizer``, ``jit``, ...) are
-attached on first use, so importing the package builds no kernel.
-``layer_api`` drives a script written against it on the card.
+every layer of the port is one), ``ParamAttr``, ``LazyGuard`` and
+``__version__``; the heavy subpackages (``serving``, ``optimizer``,
+``jit``, ...) and the small host modules (``autograd``, ``profiler``,
+``text``, ``hub``, ``utils``, ``sysconfig``) are attached on first use,
+so importing the package builds no kernel.  ``layer_api`` drives a
+script written against it on the card, ``host_api`` the host modules.
 """
 
 import importlib
@@ -91,11 +93,13 @@ import importlib
 from . import tensor
 from .tensor import *  # noqa: F401,F403  (JAX's root: from .tensor import *)
 from . import (amp, device, fft, framework, hapi, incubate, inference, io,
-               linalg, metric, nn, signal, vision)
+               linalg, metric, nn, signal, version, vision)
 from .core import (Parameter, Tensor, enable_grad, grad, is_grad_enabled,
                    no_grad, set_grad_enabled, to_tensor)
-from .device import (device_count, get_device, is_compiled_with_cuda,
-                     resolve_device, set_device, synchronize)
+from .device import (device_count, get_cudnn_version, get_device,
+                     is_compiled_with_cuda, is_compiled_with_rocm,
+                     is_compiled_with_xpu, resolve_device, set_device,
+                     synchronize)
 from .dtype import (bfloat16, bool_, complex64, complex128, float16, float32,
                     float64, get_default_dtype, int8, int16, int32, int64,
                     set_default_dtype, uint8)
@@ -108,11 +112,13 @@ from .io.reader_compat import batch
 from .nn import Layer
 from .nn.initializer import LazyGuard
 from .random import get_rng_state, seed, set_rng_state
+from .version import full_version as __version__
 
 #: attached on first use (PEP 562), as JAX's root attaches its subpackages:
 #: importing the package builds no kernel and starts no serving engine
-_LAZY_SUBMODULES = ("distributed", "jit", "models", "optimizer",
-                    "quantization", "regularizer", "serving")
+_LAZY_SUBMODULES = ("autograd", "distributed", "hub", "jit", "models",
+                    "optimizer", "profiler", "quantization", "regularizer",
+                    "serving", "sysconfig", "text", "utils")
 
 
 def __getattr__(name):
@@ -133,10 +139,11 @@ __all__ = sorted(tensor.__all__ + list(_LAZY_SUBMODULES) + [
     "batch", "bfloat16", "bool_", "complex128", "complex64", "device",
     "device_count", "enable_grad", "fft", "finfo", "float16", "float32",
     "float64", "flops", "framework", "get_default_dtype", "get_device",
-    "get_flags", "get_rng_state", "grad", "hapi", "iinfo", "in_dynamic_mode",
-    "incubate", "inference", "int16", "int32", "int64", "int8", "io",
-    "is_compiled_with_cuda", "is_grad_enabled", "linalg", "load", "metric",
+    "get_cudnn_version", "get_flags", "get_rng_state", "grad", "hapi",
+    "iinfo", "in_dynamic_mode", "incubate", "inference", "int16", "int32",
+    "int64", "int8", "io", "is_compiled_with_cuda", "is_compiled_with_rocm",
+    "is_compiled_with_xpu", "is_grad_enabled", "linalg", "load", "metric",
     "nn", "no_grad", "resolve_device", "save", "seed", "set_default_dtype",
     "set_device", "set_flags", "set_grad_enabled", "set_rng_state",
     "signal", "summary", "synchronize", "tensor", "to_tensor", "uint8",
-    "vision"])
+    "version", "vision"])

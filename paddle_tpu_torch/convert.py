@@ -1,39 +1,31 @@
 """Load the JAX package's model weights and optimizer state into the
 port.
 
-``state_dict_from_jax`` takes the arrays of a JAX ``GPTForCausalLM``'s
-``state_dict()`` (as numpy, e.g. ``{k: v.numpy() for k, v in
-m.state_dict().items()}``) and returns tensors for the port's
-``GPTForCausalLM.load_state_dict``: the keys are the same.
+Every model of the port keeps the JAX model's parameter names and
+layouts: a ``Linear.weight`` is paddle's ``[in, out]`` (the port's
+``nn.Linear``, under GPT's and the UNet's projections as under BERT,
+the vision zoo and ``nn.Transformer``), convolutions are OIHW in both
+frameworks, and the fused generation stack (``incubate``) takes
+paddle's layout as the JAX functions and layers do.  So nothing here
+transposes: ``load_state_dict`` or ``Model.load`` of a JAX
+``state_dict`` loads it as it is, and these functions give the same
+arrays as tensors on a device, each key and shape checked first.
 
-Layout: a paddle ``Linear.weight`` is ``[in, out]``
-(``paddle_tpu/nn/layer/common.py``); the port's projections are
-``torch.nn.Linear`` with ``[out, in]`` weights, so every projection
-matrix is transposed here, once.  Embeddings (``[vocab, hidden]``) and
-norm weights keep their layout.  With tied embeddings the JAX model has
-no ``lm_head.weight`` and neither has the port: both compute the logits
-against the embedding matrix.
+* ``state_from_jax(np_state, model)`` checks the keys and shapes
+  against ``model.state_dict()`` (any model or layer of the port,
+  buffers included);
+* ``state_dict_from_jax(np_state, config)`` and
+  ``unet_state_dict_from_jax(np_state, config)`` check them against the
+  shapes a ``GPTForCausalLM(config)`` or ``UNet2DConditionModel(config)``
+  has (``expected_shapes``, ``unet_expected_shapes``), without building
+  the model;
+* ``optimizer_state_from_jax`` carries a JAX ``Adam``/``AdamW`` run's
+  accumulators across, so it resumes in the port;
+* ``fused_multi_transformer_params_from_jax`` carries the twelve
+  per-layer weight lists of ``fused_multi_transformer`` across.
 
-``unet_state_dict_from_jax`` does the same for the SD UNet
-(``models/unet.py``, whose projections are ``torch.nn.Linear`` too): the
-weights of its linear layers transpose
-(``time_mlp1``, ``time_mlp2``, each ResnetBlock's ``time_emb_proj``, each
-attention's ``to_q``, ``to_k``, ``to_v`` and ``to_out``, each
-TransformerBlock's ``ff1`` and ``ff2``); convolution weights are OIHW in
-both frameworks (in either ``channels_last`` layout) and keep theirs, as
-do biases and the GroupNorm / LayerNorm weights and biases.
-
-The models built on the port's ``nn.Linear`` keep paddle's ``[in, out]``
-weights, as the JAX models do, and the fused generation stack
-(``incubate``) keeps paddle's layout, as the JAX functions and layers
-take it, so nothing of theirs transposes: ``load_state_dict`` or
-``Model.load`` of a JAX ``state_dict`` loads them as it is, and
-``state_from_jax(np_state, model)`` gives the same tensors checked key by
-key and shape by shape against ``model.state_dict()`` (BERT, the vision
-zoo with its BatchNorm buffers, ``nn.Transformer``, the RNNs, the fused
-layers: any model of the port).  ``fused_multi_transformer_params_from_jax``
-carries the twelve per-layer weight lists of ``fused_multi_transformer``
-across.
+With tied embeddings the JAX GPT has no ``lm_head.weight`` and neither
+has the port: both compute the logits against the embedding matrix.
 """
 
 from __future__ import annotations
@@ -43,12 +35,9 @@ import torch
 
 from .device import resolve_device
 
-_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
-                "up_proj", "down_proj")
-
-
 def expected_shapes(config):
-    """``{key: torch-layout shape}`` of a ``GPTForCausalLM(config)``."""
+    """``{key: shape}`` of a ``GPTForCausalLM(config)``: projections
+    ``[in, out]``."""
     c = config
     hd, kvd = c.num_attention_heads * c.head_dim, c.kv_heads * c.head_dim
     h, f = c.hidden_size, c.intermediate_size
@@ -57,33 +46,25 @@ def expected_shapes(config):
         p = f"model.layers.{i}."
         shapes.update({
             p + "input_layernorm.weight": (h,),
-            p + "self_attn.q_proj.weight": (hd, h),
-            p + "self_attn.k_proj.weight": (kvd, h),
-            p + "self_attn.v_proj.weight": (kvd, h),
-            p + "self_attn.o_proj.weight": (h, hd),
+            p + "self_attn.q_proj.weight": (h, hd),
+            p + "self_attn.k_proj.weight": (h, kvd),
+            p + "self_attn.v_proj.weight": (h, kvd),
+            p + "self_attn.o_proj.weight": (hd, h),
             p + "post_attention_layernorm.weight": (h,),
-            p + "mlp.gate_proj.weight": (f, h),
-            p + "mlp.up_proj.weight": (f, h),
-            p + "mlp.down_proj.weight": (h, f),
+            p + "mlp.gate_proj.weight": (h, f),
+            p + "mlp.up_proj.weight": (h, f),
+            p + "mlp.down_proj.weight": (f, h),
         })
     shapes["model.norm.weight"] = (h,)
     if not c.tie_word_embeddings:
-        shapes["lm_head.weight"] = (c.vocab_size, h)
+        shapes["lm_head.weight"] = (h, c.vocab_size)
     return shapes
 
 
-def _is_linear(key):
-    return key == "lm_head.weight" or \
-        key.rsplit(".", 2)[-2] in _PROJECTIONS
-
-
-def _from_jax(np_state, want, device, dtype, is_linear=None):
-    """Tensors of the keys ``want`` ({key: torch-layout shape}) from the
-    numpy ``np_state``, the keys for which ``is_linear`` holds (if given)
-    transposed (paddle ``[in, out]`` -> ``[out, in]``), on ``device`` in
-    ``dtype``
-    (default: the arrays' own).  Raises on a missing, unexpected or
-    misshaped key."""
+def _from_jax(np_state, want, device, dtype):
+    """Tensors of the keys ``want`` ({key: shape}) from the numpy
+    ``np_state``, on ``device`` in ``dtype`` (default: the arrays' own).
+    Raises on a missing, unexpected or misshaped key."""
     dev = resolve_device(device)
     missing = sorted(set(want) - set(np_state))
     extra = sorted(set(np_state) - set(want))
@@ -93,11 +74,9 @@ def _from_jax(np_state, want, device, dtype, is_linear=None):
     out = {}
     for key, shape in want.items():
         a = np.asarray(np_state[key])
-        if is_linear is not None and is_linear(key):
-            a = a.T
         if tuple(a.shape) != shape:
-            raise ValueError(f"{key}: shape {tuple(a.shape)} after layout "
-                             f"conversion, expected {shape}")
+            raise ValueError(f"{key}: shape {tuple(a.shape)}, expected "
+                             f"{shape}")
         t = torch.tensor(a)              # a copy: the state stays the caller's
         out[key] = t.to(device=dev, dtype=dtype or t.dtype)
     return out
@@ -108,8 +87,7 @@ def state_dict_from_jax(np_state, config, device=None, dtype=None):
     ``dict[str, torch.Tensor]`` on ``device`` (``cuda`` unless asked
     otherwise), in ``dtype`` (default: the arrays' own).  Raises on a
     missing, unexpected or misshaped key."""
-    return _from_jax(np_state, expected_shapes(config), device, dtype,
-                     _is_linear)
+    return _from_jax(np_state, expected_shapes(config), device, dtype)
 
 
 _ACCUMULATORS = ("moment1", "moment2", "beta1_pow", "beta2_pow",
@@ -124,8 +102,8 @@ def optimizer_state_from_jax(np_state, config, device=None):
     (``moment1``, ``moment2``, ``beta1_pow``, ``beta2_pow`` and, under
     ``multi_precision``, ``master_weight``: the JAX optimizer's
     ``_accumulators`` of each parameter, keyed by the model's state_dict
-    key) and may carry ``"global_step"``.  Per-element accumulators of a
-    ``Linear`` weight are transposed as the weight is.  Load the result
+    key) and may carry ``"global_step"``; each per-element accumulator
+    has its parameter's shape, as in JAX.  Load the result
     with ``optimizer.set_state_dict`` on an optimizer built from
     ``model.named_parameters()``.  Raises on a key that names no
     parameter or accumulator, or a misshaped array."""
@@ -144,23 +122,17 @@ def optimizer_state_from_jax(np_state, config, device=None):
             if a.size != 1:
                 raise ValueError(f"{key}: shape {a.shape}, expected a scalar")
             a = a.reshape(())
-        else:
-            if _is_linear(pkey):
-                a = a.T
-            if tuple(a.shape) != want[pkey]:
-                raise ValueError(f"{key}: shape {tuple(a.shape)} after "
-                                 f"layout conversion, expected {want[pkey]}")
+        elif tuple(a.shape) != want[pkey]:
+            raise ValueError(f"{key}: shape {tuple(a.shape)}, expected "
+                             f"{want[pkey]}")
         out[key] = torch.tensor(a, dtype=torch.float32, device=dev)
     return out
 
 
-_UNET_LINEARS = ("time_mlp1", "time_mlp2", "time_emb_proj", "to_q", "to_k",
-                 "to_v", "to_out", "ff1", "ff2")
-
-
 def unet_expected_shapes(config):
-    """``{key: torch-layout shape}`` of a ``UNet2DConditionModel(config)``,
-    from the same topology the model builds."""
+    """``{key: shape}`` of a ``UNet2DConditionModel(config)``, from the
+    same topology the model builds: linear weights ``[in, out]``,
+    convolutions OIHW."""
     from .models.unet import UNet2DConditionModel
 
     c = config
@@ -173,7 +145,7 @@ def unet_expected_shapes(config):
         shapes[p + ".bias"] = (o,)
 
     def linear(p, i, o, bias=True):
-        shapes[p + ".weight"] = (o, i)
+        shapes[p + ".weight"] = (i, o)
         if bias:
             shapes[p + ".bias"] = (o,)
 
@@ -238,12 +210,8 @@ def unet_state_dict_from_jax(np_state, config, device=None, dtype=None):
     """The JAX ``UNet2DConditionModel``'s ``state_dict`` (as numpy) ->
     tensors for the port's ``load_state_dict``, on ``device`` (``cuda``
     unless asked otherwise) in ``dtype`` (default: the arrays' own).
-    Linear weights are transposed (see the module docstring).  Raises on
-    a missing, unexpected or misshaped key."""
-    return _from_jax(
-        np_state, unet_expected_shapes(config), device, dtype,
-        lambda key: key.endswith(".weight") and
-        key.rsplit(".", 2)[-2] in _UNET_LINEARS)
+    Raises on a missing, unexpected or misshaped key."""
+    return _from_jax(np_state, unet_expected_shapes(config), device, dtype)
 
 
 def state_from_jax(np_state, model, device=None, dtype=None):
@@ -251,8 +219,7 @@ def state_from_jax(np_state, model, device=None, dtype=None):
     tensors for ``model.load_state_dict``, ``model`` the port's model (or
     layer) of the same constructor and arguments, on ``device`` (``cuda``
     unless asked otherwise) in ``dtype`` (default: the arrays' own).
-    Nothing transposes.  Raises on a missing, unexpected or misshaped
-    key."""
+    Raises on a missing, unexpected or misshaped key."""
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     return _from_jax(np_state, want, device, dtype)
 

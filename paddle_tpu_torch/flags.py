@@ -3,9 +3,9 @@ of flag values, set and read by :func:`set_flags` and :func:`get_flags`
 (keys with or without the ``FLAGS_`` prefix).  JAX's five flags start at
 JAX's defaults, or at their ``FLAGS_<name>`` environment variable, read
 once at import and parsed by the default's type.  The values are stored
-for the caller to read: nothing in the port reads them, and
-``check_nan_inf``, which JAX's ``set_flags`` turns into
-``jax_debug_nans``, raises when set true."""
+for the caller to read; setting ``check_nan_inf`` true turns on
+``amp.debugging``'s tensor checker (JAX's turns on ``jax_debug_nans``),
+and setting it false turns the checker off."""
 
 from __future__ import annotations
 
@@ -36,10 +36,15 @@ _FLAGS = {k: _parse(os.environ[f"FLAGS_{k}"], v)
 def set_flags(flags):
     """Set each flag; a name not known yet is added."""
     flags = {_norm(k): v for k, v in flags.items()}
-    if flags.get("check_nan_inf"):
-        raise NotImplementedError(
-            "FLAGS_check_nan_inf: the port has no NaN/Inf check to turn on")
     _FLAGS.update(flags)
+    if "check_nan_inf" in flags:
+        from .amp import debugging
+
+        if flags["check_nan_inf"]:
+            debugging.enable_tensor_checker(
+                debugging.TensorCheckerConfig(True))
+        else:
+            debugging.disable_tensor_checker()
 
 
 def get_flags(names=None):

@@ -3,7 +3,8 @@ functionals and layers (``incubate.nn``), the masked softmaxes,
 ``identity_loss``, and the ``LookAhead`` and ``ModelAverage`` wrappers
 over the port's optimizers (``:62-149``).  ``graph_send_recv``,
 ``graph_khop_sampler`` and the ``segment_*`` reductions wait for
-``geometric/``, ``incubate.autograd`` for ``autograd/`` (ROADMAP.md)."""
+``geometric/`` (ROADMAP.md); ``incubate.autograd`` holds the
+``Jacobian``/``Hessian`` objects over ``autograd``."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import contextlib
 
 import torch
 
-from . import nn
+from . import autograd, nn
 from ..ops.softmax_mask_fuse import (softmax_mask_fuse,
                                      softmax_mask_fuse_upper_triangle)
 

@@ -1,10 +1,10 @@
 """Decoder-only transformer LM (pre-norm RMSNorm, RoPE, SwiGLU, optional
 GQA), the counterpart of ``paddle_tpu/models/gpt.py``.
 
-Parameter names match the JAX model's ``state_dict()`` key for key, so
-``convert.state_dict_from_jax`` maps one onto the other.  Projections are
-``torch.nn.Linear`` and keep torch's ``[out, in]`` weight layout; the
-conversion transposes paddle's ``[in, out]`` once, at load.
+Parameter names and shapes match the JAX model's ``state_dict()`` key
+for key: projections are the port's ``nn.Linear`` with paddle's
+``[in, out]`` weight, so a JAX state dict loads as it is
+(``load_state_dict``).
 
 ``GPTAttention`` has two forward paths:
 
@@ -48,7 +48,8 @@ from torch import nn
 from ..device import resolve_device
 from ..distributed.recompute import recompute
 from ..nn import functional as port_F
-from ..nn.common import Dropout
+from ..nn.common import Dropout, Linear
+from ..nn.initializer import Constant
 from ..nn.layers import Layer
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_ce import fused_linear_cross_entropy
@@ -108,7 +109,10 @@ class RMSNorm(Layer):
 
 
 def _linear(i, o, device, dtype):
-    return nn.Linear(i, o, bias=False, device=device, dtype=dtype)
+    """A bias-free ``[in, out]`` projection, zero until the model's own
+    seeded generator draws its weight."""
+    return Linear(i, o, weight_attr=Constant(0.0), bias_attr=False,
+                  device=device, dtype=dtype)
 
 
 #: rows one serving-path product multiplies at once (see tiled_linear)
@@ -125,9 +129,9 @@ def pad_rows(x):
 
 
 def tiled_linear(rows, weight):
-    """``F.linear(rows, weight)`` for the paged serving path, over rows
-    [Mp, in] made by :func:`pad_rows`, with each row's bits independent
-    of how many rows the call has.
+    """``rows @ weight`` (``weight`` ``[in, out]``, paddle's layout) for
+    the paged serving path, over rows [Mp, in] made by :func:`pad_rows`,
+    with each row's bits independent of how many rows the call has.
 
     cuBLAS picks its algorithm (tile shape, split-K) from the product's
     shape, so one row multiplied in a decode step (8 rows) and in a
@@ -138,21 +142,22 @@ def tiled_linear(rows, weight):
     as ``ROW_TILE``-row batches of one strided-batched product over the
     same weight (batch stride 0): every call solves the same
     ``[ROW_TILE, in] x [in, out]`` problem, whatever the window.
-    ``ROW_TILE = 0`` multiplies the whole window in one ``F.linear``
-    (how ``chip_smoke.py``'s ``serve_rows`` measures what the tiling
-    costs and what it prevents)."""
+    ``ROW_TILE = 0`` multiplies the whole window in one product
+    (``nn.functional.linear``; how ``chip_smoke.py``'s ``serve_rows``
+    measures what the tiling costs and what it prevents)."""
     tile = ROW_TILE
     if not tile:
-        return F.linear(rows, weight)
+        return port_F.linear(rows, weight)
     n = rows.shape[0] // tile
     return torch.bmm(rows.view(n, tile, -1),
-                     weight.t().expand(n, -1, -1)).view(n * tile, -1)
+                     weight.expand(n, -1, -1)).view(n * tile, -1)
 
 
 def serving_weight(linear, wq):
-    """``linear``'s weight on the serving path: with ``wq`` (the engine's
-    ``{nn.Linear: QuantizedWeight}`` under ``weight_dtype="int8"``) the
-    int8 weight dequantized to the model's dtype, else the weight."""
+    """``linear``'s ``[in, out]`` weight on the serving path: with ``wq``
+    (the engine's ``{nn.Linear: QuantizedWeight}`` under
+    ``weight_dtype="int8"``) the int8 weight dequantized to the model's
+    dtype, else the weight."""
     qw = wq.get(linear) if wq else None
     return linear.weight if qw is None else qw.dequantize()
 
@@ -350,15 +355,12 @@ class GPTForCausalLM(Layer):
     def _logits(self, h, paged=False, wq=None):
         """The LM head; ``paged`` (the serving engine) multiplies through
         :func:`row_linear`, with ``wq``'s int8 head if it has one."""
-        weight = (self.lm_head.weight if self.lm_head is not None
-                  else self.model.embed_tokens.weight)
+        if self.lm_head is None:            # tied: [vocab, hidden]
+            weight = self.model.embed_tokens.weight.t()
+            return row_linear(h, weight) if paged else h @ weight
         if paged:
-            if self.lm_head is not None:
-                weight = serving_weight(self.lm_head, wq)
-            return row_linear(h, weight)
-        if self.lm_head is not None:
-            return self.lm_head(h)
-        return h @ weight.t()
+            return row_linear(h, serving_weight(self.lm_head, wq))
+        return self.lm_head(h)
 
     def forward(self, input_ids, labels=None):
         """Full-sequence causal logits [B, S, vocab] (the uncached path);
@@ -367,12 +369,13 @@ class GPTForCausalLM(Layer):
         mean cross-entropy over the rows that are not ignored."""
         h = self.model(input_ids)
         if labels is not None and self.config.fused_lm_loss:
-            # torch Linear weights are [vocab, hidden], as a tied embedding
-            weight = (self.lm_head.weight if self.lm_head is not None
-                      else self.model.embed_tokens.weight)
+            # the head is [hidden, vocab], a tied embedding [vocab, hidden]
+            tied = self.lm_head is None
+            weight = (self.model.embed_tokens.weight if tied
+                      else self.lm_head.weight)
             loss = fused_linear_cross_entropy(
                 h.reshape(-1, self.config.hidden_size), weight,
-                labels.reshape(-1), ignore_index=-100, transpose_weight=True)
+                labels.reshape(-1), ignore_index=-100, transpose_weight=tied)
             return loss, None
         logits = self._logits(h)
         if labels is not None:

@@ -2,12 +2,12 @@
 ``paddle_tpu/models/unet.py`` (SD-1.x topology by default: 0.81 B
 parameters at ``block_out_channels=(320, 640, 1280, 1280)``).
 
-Parameter names match the JAX model's ``state_dict()`` key for key, so
-``convert.unet_state_dict_from_jax`` maps one onto the other: linear
-layers are ``torch.nn.Linear`` (``[out, in]`` weights; paddle's
-``[in, out]`` is transposed once, at load), convolutions the port's
-``nn.Conv2D`` (OIHW in both frameworks, computed by cuDNN as the JAX
-package leaves them to ``lax.conv``).  GroupNorm, LayerNorm and
+Parameter names and shapes match the JAX model's ``state_dict()`` key
+for key, so a JAX state dict loads as it is (``load_state_dict``):
+linear layers are the port's ``nn.Linear`` (paddle's ``[in, out]``
+weights), convolutions the port's ``nn.Conv2D`` (OIHW in both
+frameworks, computed by cuDNN as the JAX package leaves them to
+``lax.conv``).  GroupNorm, LayerNorm and
 attention go through :mod:`paddle_tpu_torch.nn.functional`: on the card
 the CUDA GroupNorm and LayerNorm kernels (``csrc/norms.cu``), forward
 and backward, and the CUDA flash kernels (head dims 320/8 =
@@ -37,6 +37,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
+from ..nn.common import Linear
 from ..nn.conv import Conv2D
 from ..nn.layers import Layer
 from ..nn.norm import GroupNorm, LayerNorm
@@ -80,7 +81,7 @@ class ResnetBlock2D(Layer):
         self.norm1 = GroupNorm(min(groups, in_c), in_c, data_format=df, **kw)
         self.conv1 = _conv(in_c, out_c, 3, padding=1,
                              channels_last=channels_last, **kw)
-        self.time_emb_proj = nn.Linear(temb_c, out_c, **kw)
+        self.time_emb_proj = Linear(temb_c, out_c, **kw)
         self.norm2 = GroupNorm(min(groups, out_c), out_c, data_format=df,
                                **kw)
         self.conv2 = _conv(out_c, out_c, 3, padding=1,
@@ -102,26 +103,26 @@ class CrossAttention(Layer):
         super().__init__()
         self.heads = heads
         self.head_dim = query_dim // heads
-        self.to_q = nn.Linear(query_dim, query_dim, bias=False, **kw)
-        self.to_k = nn.Linear(context_dim, query_dim, bias=False, **kw)
-        self.to_v = nn.Linear(context_dim, query_dim, bias=False, **kw)
-        self.to_out = nn.Linear(query_dim, query_dim, **kw)
+        self.to_q = Linear(query_dim, query_dim, bias_attr=False, **kw)
+        self.to_k = Linear(context_dim, query_dim, bias_attr=False, **kw)
+        self.to_v = Linear(context_dim, query_dim, bias_attr=False, **kw)
+        self.to_out = Linear(query_dim, query_dim, **kw)
 
     def forward(self, x, context=None):
         b, s, _ = x.shape
         if context is None:
-            # self-attention: one [3D, D] GEMM over the concatenated
+            # self-attention: one [D, 3D] GEMM over the concatenated
             # weights, as the JAX model (the state dict keeps three)
             w = torch.cat([self.to_q.weight, self.to_k.weight,
-                           self.to_v.weight], dim=0)
-            qkv = TF.linear(x, w).view(b, s, 3, self.heads, self.head_dim)
+                           self.to_v.weight], dim=1)
+            qkv = F.linear(x, w).view(b, s, 3, self.heads, self.head_dim)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
             sk = context.shape[1]
             q = self.to_q(x).view(b, s, self.heads, self.head_dim)
-            wkv = torch.cat([self.to_k.weight, self.to_v.weight], dim=0)
-            kv = TF.linear(context, wkv).view(b, sk, 2, self.heads,
-                                              self.head_dim)
+            wkv = torch.cat([self.to_k.weight, self.to_v.weight], dim=1)
+            kv = F.linear(context, wkv).view(b, sk, 2, self.heads,
+                                             self.head_dim)
             k, v = kv[:, :, 0], kv[:, :, 1]
         out = F.scaled_dot_product_attention(q, k, v, training=self.training)
         return self.to_out(out.reshape(b, s, self.heads * self.head_dim))
@@ -142,8 +143,8 @@ class TransformerBlock2D(Layer):
         self.norm2 = LayerNorm(dim, **kw)
         self.attn2 = CrossAttention(dim, context_dim, heads, **kw)
         self.norm3 = LayerNorm(dim, **kw)
-        self.ff1 = nn.Linear(dim, dim * 4, **kw)
-        self.ff2 = nn.Linear(dim * 4, dim, **kw)
+        self.ff1 = Linear(dim, dim * 4, **kw)
+        self.ff2 = Linear(dim * 4, dim, **kw)
         self.proj_out = _conv(dim, dim, 1, channels_last=channels_last,
                                 **kw)
 
@@ -201,7 +202,9 @@ class UNet2DConditionModel(Layer):
     caller passes ``"cpu"``) in ``dtype``, with weights drawn from a
     ``torch.Generator`` seeded by ``seed`` on that device: each conv and
     linear weight from U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (the bound of
-    torch's default init), biases 0, norm weights 1 and biases 0."""
+    torch's default init; a Linear's fan-in is its ``[in, out]``
+    weight's first dim, a convolution's the size of one OIHW filter),
+    biases 0, norm weights 1 and biases 0."""
 
     def __init__(self, config: UNetConfig = None, device=None,
                  dtype=torch.float32, seed=0):
@@ -217,8 +220,8 @@ class UNet2DConditionModel(Layer):
         self.conv_in = _conv(c.in_channels, ch[0], 3, padding=1,
                                channels_last=cl, **kw)
         self.time_proj_dim = ch[0]
-        self.time_mlp1 = nn.Linear(ch[0], temb_c, **kw)
-        self.time_mlp2 = nn.Linear(temb_c, temb_c, **kw)
+        self.time_mlp1 = Linear(ch[0], temb_c, **kw)
+        self.time_mlp2 = Linear(temb_c, temb_c, **kw)
         heads, groups = c.attention_head_dim, c.norm_num_groups
 
         def attn(out_c):
@@ -282,8 +285,10 @@ class UNet2DConditionModel(Layer):
                 if isinstance(mod, (GroupNorm, LayerNorm)):
                     mod.weight.fill_(1.0)
                     mod.bias.zero_()
-                elif isinstance(mod, (nn.Linear, Conv2D)):
-                    bound = 1.0 / math.sqrt(mod.weight[0].numel())
+                elif isinstance(mod, (Linear, Conv2D)):
+                    fan_in = (mod.weight.shape[0] if isinstance(mod, Linear)
+                              else mod.weight[0].numel())
+                    bound = 1.0 / math.sqrt(fan_in)
                     mod.weight.uniform_(-bound, bound, generator=gen)
                     if mod.bias is not None:
                         mod.bias.zero_()

@@ -18,10 +18,11 @@ point's: the card unless the caller or ``set_device`` named the CPU),
 ``add_parameter``, ``add_sublayer``, ``register_buffer(...,
 persistable=)``, ``sublayers``/``named_sublayers``, ``full_name``,
 ``set_state_dict`` (JAX's: copies values in, returns ``(missing,
-unexpected)``, raises on a shape mismatch), ``clear_gradients`` and
-``astype``.  ``state_dict()`` lists the parameters first and then the
-persistable buffers, as JAX's; ``parameters()`` stays torch's iterator
-(JAX's is a list).
+unexpected)``, raises on a shape mismatch), ``clear_gradients``,
+``astype`` and JAX's ``to(device=, dtype=, blocking=)`` (Paddle's dtype
+and device names; torch's forms still work).  ``state_dict()`` lists
+the parameters first and then the persistable buffers, as JAX's;
+``parameters()`` stays torch's iterator (JAX's is a list).
 """
 
 from __future__ import annotations
@@ -158,6 +159,31 @@ class Layer(nn.Module):
 
     load_dict = set_state_dict
     set_dict = set_state_dict
+
+    def to(self, *args, **kwargs):
+        """JAX's ``to(device=None, dtype=None, blocking=None)``: the
+        floating parameters and buffers cast to ``dtype`` (a Paddle name
+        such as ``"float16"``, or a torch dtype) and moved to ``device``
+        (``"gpu"``, ``"gpu:0"``, ``"cpu"``, resolved as every entry
+        point's: :func:`device.resolve_device`).  torch's forms
+        (``to(torch.float16)``, ``to(tensor)``, ``memory_format=``) run
+        as torch's."""
+        if (args and isinstance(args[0], (torch.Tensor, torch.dtype))) \
+                or "memory_format" in kwargs or "tensor" in kwargs:
+            return super().to(*args, **kwargs)
+        from ..device import resolve_device
+
+        names = ("device", "dtype", "blocking")
+        given = dict(zip(names, args))
+        given.update(kwargs)
+        blocking = given.pop("blocking", None)
+        move = {"non_blocking": given.pop("non_blocking", False)
+                or blocking is False}
+        if given.get("device") is not None:
+            move["device"] = resolve_device(given["device"])
+        if given.get("dtype") is not None:
+            move["dtype"] = to_torch_dtype(given["dtype"])
+        return super().to(**move)
 
     def astype(self, dtype):
         return self.to(dtype=to_torch_dtype(dtype))

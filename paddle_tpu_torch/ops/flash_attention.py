@@ -334,6 +334,10 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        if torch.is_grad_enabled():          # create_graph: a 2nd order
+            raise RuntimeError("flash_attention: the kernel's backward has "
+                               "no derivative of its own (first order "
+                               "only)")
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
                                ctx.scale, ctx.causal)

@@ -459,6 +459,9 @@ class _GroupNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if torch.is_grad_enabled():          # create_graph: a 2nd order
+            raise RuntimeError("group_norm: the kernel's backward has no "
+                               "derivative of its own (first order only)")
         x, weight, mean, rstd = ctx.saved_tensors
         dx, dw, db = group_norm_bwd(x, weight, mean, rstd, g.contiguous(),
                                     ctx.num_groups)

@@ -403,6 +403,9 @@ class _LayerNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if torch.is_grad_enabled():          # create_graph: a 2nd order
+            raise RuntimeError("layer_norm: the kernel's backward has no "
+                               "derivative of its own (first order only)")
         x, weight, mean, rstd = ctx.saved_tensors
         dx, dw, db = layer_norm_bwd(x, weight, mean, rstd, g.contiguous())
         return dx, dw, db, None

@@ -211,6 +211,9 @@ class _RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if torch.is_grad_enabled():          # create_graph: a 2nd order
+            raise RuntimeError("rms_norm: the kernel's backward has no "
+                               "derivative of its own (first order only)")
         x, weight, rstd = ctx.saved_tensors
         dx, dw = rms_norm_bwd(x, weight, rstd, g.contiguous())
         return dx, dw, None

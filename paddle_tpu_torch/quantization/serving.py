@@ -7,13 +7,13 @@ rebuilt as ``(q.float() * scale).to(dtype)`` before its product, as the
 JAX engine's ``_run_model`` does; the product itself stays the serving
 path's row-tiled cuBLAS product (``models.gpt.tiled_linear``).
 
-Scale layout: one absmax scale per OUTPUT channel.  ``torch.nn.Linear``
-stores its weight ``[out_features, in_features]``, so the per-output
-scale reduces dim 1 and has shape ``[out, 1]``.  (JAX's ``Linear``
-stores ``[in, out]`` and reduces axis 0: the two give the same payload
-and scales up to the transpose.)  The floor is applied per channel
-(``max(absmax, 1e-8)``) before any division, so an all-zero output
-channel quantizes to exact zeros instead of 0/0.
+Scale layout: one absmax scale per OUTPUT channel.  The port's
+``nn.Linear`` stores its weight ``[in_features, out_features]``, as
+paddle's, so the per-output scale reduces axis 0 and has shape
+``[1, out]``: payload and scales equal the JAX package's bit for bit.
+The floor is applied per channel (``max(absmax, 1e-8)``) before any
+division, so an all-zero output channel quantizes to exact zeros
+instead of 0/0.
 
 :func:`quantize_for_serving` quantizes every ``nn.Linear`` weight of a
 model (the q/k/v/o projections, the SwiGLU MLP, the LM head).
@@ -25,17 +25,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch import nn
+
+from ..nn.common import Linear
 
 #: per-channel absmax floor: an all-zero channel quantizes to zeros
 #: (scale floor / qmax) instead of dividing by zero
 SCALE_FLOOR = 1e-8
 
 
-def channelwise_scales(w, channel_axis=0, quant_bits=8):
+def channelwise_scales(w, channel_axis=-1, quant_bits=8):
     """Per-channel symmetric quantization step for ``w``: absmax over
-    every dim except ``channel_axis`` (0, the output channel of a torch
-    ``[out, in]`` weight), floored at :data:`SCALE_FLOOR` per channel,
+    every dim except ``channel_axis`` (-1, the output channel of an
+    ``[in, out]`` weight), floored at :data:`SCALE_FLOOR` per channel,
     divided by the int range; f32, with ``keepdim`` so it broadcasts
     against ``w``."""
     qmax = float(2 ** (quant_bits - 1) - 1)
@@ -45,7 +46,7 @@ def channelwise_scales(w, channel_axis=0, quant_bits=8):
     return absmax.clamp_min(SCALE_FLOOR) / qmax
 
 
-def quantize_weight(w, channel_axis=0, quant_bits=8):
+def quantize_weight(w, channel_axis=-1, quant_bits=8):
     """Symmetric per-channel int8 quantization: ``(q, scale)`` with ``q``
     int8 shaped like ``w`` and ``scale`` f32 broadcastable against it
     (:func:`dequantize_weight` inverts)."""
@@ -88,8 +89,8 @@ def quantize_for_serving(model, quant_bits=8):
     out = {}
     with torch.no_grad():
         for name, mod in model.named_modules():
-            if isinstance(mod, nn.Linear):
+            if isinstance(mod, Linear):
                 w = mod.weight
-                q, scale = quantize_weight(w, 0, quant_bits)
+                q, scale = quantize_weight(w, -1, quant_bits)
                 out[f"{name}.weight"] = QuantizedWeight(q, scale, w.dtype)
     return out

@@ -273,11 +273,14 @@ def test_dtypes_default_dtype_finfo_iinfo_and_flags():
         assert pt.get_flags(["log_level", "FLAGS_new_flag"]) == {
             "FLAGS_log_level": "DEBUG", "FLAGS_new_flag": 3}
         assert pt.get_flags("nothing_set") == {}
-        # JAX's turns on jax_debug_nans; the port has no such check
-        with pytest.raises(NotImplementedError):
-            pt.set_flags({"FLAGS_check_nan_inf": True})
+        # JAX's turns on jax_debug_nans; the port its tensor checker
+        pt.set_flags({"FLAGS_check_nan_inf": True})
+        with pytest.raises(FloatingPointError, match="aten.log"):
+            torch.log(torch.tensor([-1.0]))
         pt.set_flags({"check_nan_inf": False})
+        assert torch.isnan(torch.log(torch.tensor([-1.0]))).all()
     finally:
+        pt.amp.debugging.disable_tensor_checker()
         tflags._FLAGS.clear()
         tflags._FLAGS.update(saved)
     assert pt.get_flags() == paddle.get_flags()
@@ -660,6 +663,35 @@ def test_linear_takes_paddles_in_out_weight():
     got = TF.linear(torch.from_numpy(x), torch.from_numpy(w),
                     torch.from_numpy(b)).numpy()
     assert np.abs(got - want).max() <= 1e-6
+
+
+def test_layer_to_takes_paddle_dtype_names_and_devices():
+    """JAX's ``to(device=None, dtype=None, blocking=None)``: Paddle dtype
+    names cast the floating parameters and buffers (an int buffer
+    stays), Paddle device names resolve as every entry point's; torch's
+    forms keep working."""
+    pt.set_device("cpu")
+    jl, tl = jnn.Linear(4, 4), tnn.Linear(4, 4)
+    for layer in (jl, tl):
+        layer.register_buffer("steps", layer.weight * 0 if layer is jl
+                              else torch.zeros(2, dtype=torch.int32))
+    assert tl.to(dtype="float16") is tl
+    jl.to(dtype="float16")
+    assert tl.weight.dtype == tl.bias.dtype == torch.float16
+    assert _np(jl.weight).dtype == np.float16
+    assert tl.steps.dtype == torch.int32
+    tl.to(device="cpu", dtype="bfloat16", blocking=True)
+    assert (tl.weight.dtype, tl.weight.device.type) == (torch.bfloat16, "cpu")
+    tl.to(None, "float64")
+    assert tl.weight.dtype == torch.float64
+    tl.to(torch.float32)
+    tl.to("cpu")
+    tl.to(torch.zeros(1, dtype=torch.float16))
+    assert tl.weight.dtype == torch.float16
+    if not torch.cuda.is_available():
+        for name in ("gpu", "gpu:0"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                tl.to(device=name)
 
 
 def test_jax_saved_linear_loads_as_it_is(tmp_path):

@@ -1,5 +1,6 @@
-"""The port's decoder against the JAX model on the same weights
-(``convert.state_dict_from_jax``), in f32 on the CPU: the uncached
+"""The port's decoder against the JAX model on the same weights (the
+JAX ``state_dict`` loaded as it is: both keep paddle's ``[in, out]``
+projections), in f32 on the CPU: the uncached
 full-sequence logits, and the paged serving path (prefill windows, then
 decode steps) against the JAX model driven through its own ``PagedKV``
 views.  Tolerance 1e-4 absolute: the same f32 arithmetic in another
@@ -45,9 +46,10 @@ def test_convert_loads_every_key_with_torch_layout(cfg):
     tm = port_model(cfg, jm)
     js = jax_state(jm)
     assert set(tm.state_dict()) == set(js)
-    # a non-square projection: paddle [in, out] -> torch [out, in]
+    # a non-square projection keeps paddle's [in, out]
     w = tm.model.layers[0].mlp.gate_proj.weight.detach().numpy()
-    np.testing.assert_array_equal(w, js["model.layers.0.mlp.gate_proj.weight"].T)
+    assert w.shape == (cfg.hidden_size, cfg.intermediate_size)
+    np.testing.assert_array_equal(w, js["model.layers.0.mlp.gate_proj.weight"])
     np.testing.assert_array_equal(
         tm.model.embed_tokens.weight.detach().numpy(),
         js["model.embed_tokens.weight"])
@@ -124,6 +126,46 @@ def test_rope_matches_jax(base):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
 
 
+@CONFIGS
+def test_jax_state_dict_loads_as_it_is(cfg):
+    """``load_state_dict`` of the JAX arrays as they are: logits within
+    ATOL of JAX's, and four greedy tokens equal JAX's."""
+    jm = jax_model(cfg, seed=3)
+    tm = GPTForCausalLM(torch_config(cfg), device="cpu")
+    tm.load_state_dict({k: torch.tensor(v) for k, v in
+                        jax_state(jm).items()})
+    tm.eval()
+    ids = _ids(cfg, (2, 7), seed=3)
+    for _ in range(4):
+        with _tape.no_grad():
+            jl = np.asarray(jm(paddle.to_tensor(ids)).numpy())
+        with torch.no_grad():
+            tl = tm(torch.from_numpy(ids)).numpy()
+        np.testing.assert_allclose(tl, jl, rtol=0, atol=ATOL)
+        nxt = jl[:, -1].argmax(-1)
+        np.testing.assert_array_equal(tl[:, -1].argmax(-1), nxt)
+        ids = np.concatenate([ids, nxt[:, None]], axis=1)
+
+
+def test_quantize_for_serving_equals_jax_bitwise():
+    """The int8 payload and the [1, out] scales of every projection equal
+    the JAX package's ``quantize_for_serving`` bit for bit."""
+    from paddle_tpu.quantization.serving import (
+        quantize_for_serving as jax_quantize_for_serving,
+    )
+    from paddle_tpu_torch.quantization import quantize_for_serving
+
+    jm = jax_model(TINY, seed=4)
+    want = jax_quantize_for_serving(jm)
+    got = quantize_for_serving(port_model(TINY, jm))
+    assert set(got) == set(want) and len(got) == 7 * TINY.num_hidden_layers + 1
+    for k, qw in got.items():
+        assert qw.scale.shape[0] == 1
+        np.testing.assert_array_equal(qw.q.numpy(), np.asarray(want[k].q))
+        np.testing.assert_array_equal(qw.scale.numpy(),
+                                      np.asarray(want[k].scale))
+
+
 def test_convert_refuses_a_mismatched_state():
     jm = jax_model(TINY)
     js = jax_state(jm)
@@ -133,7 +175,7 @@ def test_convert_refuses_a_mismatched_state():
     with pytest.raises(KeyError, match="missing"):
         state_dict_from_jax(bad, cfg, device="cpu")
     bad = dict(js)
-    bad["lm_head.weight"] = bad["lm_head.weight"][:, :10]
+    bad["lm_head.weight"] = bad["lm_head.weight"][:10]
     with pytest.raises(ValueError, match="lm_head.weight"):
         state_dict_from_jax(bad, cfg, device="cpu")
 

@@ -54,37 +54,36 @@ W8KV8_LOGIT_ATOL = 1e-4
 
 
 def test_quantize_weight_matches_jax_up_to_the_transpose():
-    """JAX's Linear stores [in, out] and scales per output column
-    (axis 0 reduced); the port's nn.Linear stores [out, in] and reduces
-    dim 1.  Payloads equal exactly, scales within one f32 ulp."""
+    """Both Linears store [in, out] and scale per output column (axis 0
+    reduced): there is no transpose left, and payloads and scales are
+    equal bit for bit."""
     r = np.random.RandomState(0)
     w = (r.randn(48, 80) * 0.05).astype(np.float32)        # [in, out]
     w[:, 3] *= 40.0                                          # an outlier column
     jq, js = jax_quantize_weight(jnp.asarray(w))
-    q, s = quantize_weight(torch.from_numpy(w.T.copy()))
-    assert q.dtype == torch.int8 and tuple(s.shape) == (80, 1)
-    np.testing.assert_array_equal(q.numpy(), np.asarray(jq).T)
-    np.testing.assert_allclose(s.numpy()[:, 0], np.asarray(js)[0],
-                               rtol=float(np.finfo(np.float32).eps), atol=0)
+    q, s = quantize_weight(torch.from_numpy(w))
+    assert q.dtype == torch.int8 and tuple(s.shape) == (1, 80)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
     np.testing.assert_array_equal(
-        channelwise_scales(torch.from_numpy(w.T.copy())).numpy()[:, 0],
-        np.asarray(jax_channelwise_scales(jnp.asarray(w)))[0])
+        channelwise_scales(torch.from_numpy(w)).numpy(),
+        np.asarray(jax_channelwise_scales(jnp.asarray(w))))
 
 
 def test_zero_channel_scale_floor():
     """An all-zero output channel quantizes without NaN: the 1e-8 floor
     is applied per channel before the divide."""
-    w = torch.zeros(4, 8)
-    w[1:] = 3.0                                  # channel 0 all zero
-    scale = channelwise_scales(w)[:, 0]
+    w = torch.zeros(8, 4)                        # [in, out]
+    w[:, 1:] = 3.0                               # output channel 0 all zero
+    scale = channelwise_scales(w)[0]
     assert torch.isfinite(scale).all() and (scale > 0).all()
     assert scale[0].item() == pytest.approx(1e-8 / 127.0)
     assert scale[1].item() == pytest.approx(3.0 / 127.0)
     q, s = quantize_weight(w)
     dq = dequantize_weight(q, s)
     assert torch.isfinite(dq).all()
-    assert (dq[0] == 0).all()
-    torch.testing.assert_close(dq[1:], torch.full((3, 8), 3.0), rtol=0,
+    assert (dq[:, 0] == 0).all()
+    torch.testing.assert_close(dq[:, 1:], torch.full((8, 3), 3.0), rtol=0,
                                atol=3.0 / 254.0)
 
 

@@ -135,7 +135,6 @@ def test_recomputed_gpt_matches_jax():
     np.testing.assert_allclose(tloss.item(), float(jloss.numpy()), rtol=1e-5)
     jg = {k: np.asarray(p.grad.numpy()) for k, p in jm.state_dict().items()}
     for n, p in tm.named_parameters():
-        want = jg[n].T if p.dim() == 2 and n != "model.embed_tokens.weight" \
-            else jg[n]
+        want = jg[n]
         np.testing.assert_allclose(p.grad.numpy(), want, rtol=0,
                                    atol=1e-4 * np.abs(want).max(), err_msg=n)

@@ -108,8 +108,7 @@ def test_three_train_steps_match_jax_train_step(cfg, fused):
     assert all(p.grad is None for p in tm.parameters())
     js = {k: v.numpy() for k, v in jm.state_dict().items()}
     for k, p in tm.state_dict().items():
-        want = js[k].T if p.dim() == 2 and k != "model.embed_tokens.weight" \
-            else js[k]
+        want = js[k]
         np.testing.assert_allclose(p.numpy(), want, rtol=0,
                                    atol=2e-5 * np.abs(want).max())
 

@@ -1,6 +1,6 @@
 """The port's SD UNet (``paddle_tpu_torch.models.unet``) against the JAX
-package's on the same weights (``convert.unet_state_dict_from_jax``), in
-f32 on the CPU, on the tiny config of ``tests/test_models.py``
+package's on the same weights (the JAX ``state_dict`` loaded as it is:
+both keep paddle's ``[in, out]`` Linear weight), in f32 on the CPU, on the tiny config of ``tests/test_models.py``
 (``TestUNet``): the forward in both ``channels_last`` layouts, the
 conversion's key and shape check, and three ``jit.TrainStep`` steps with
 ``AdamW(multi_precision=True)`` and ``mse_loss`` as ``bench_unet``
@@ -56,8 +56,8 @@ def _models(seed=0, **kw):
     jm.eval()
     tcfg = UNetConfig(**cfg)
     tm = UNet2DConditionModel(tcfg, device="cpu")
-    state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
-    tm.load_state_dict(unet_state_dict_from_jax(state, tcfg, device="cpu"))
+    tm.load_state_dict({k: torch.tensor(np.asarray(v.numpy()))
+                        for k, v in jm.state_dict().items()})
     return tcfg, jm, tm.eval()
 
 
@@ -123,13 +123,15 @@ def test_sd_default_topology_size():
 
 
 def test_conversion_transposes_linears_and_checks_keys():
+    """Nothing transposes any more: every array, the Linear weights
+    ``[in, out]`` included, comes back as JAX saved it."""
     cfg, jm, tm = _models(seed=2)
     state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     conv = unet_state_dict_from_jax(state, cfg, device="cpu")
     key = "down_attns.0.attn2.to_k.weight"                 # [ctx, dim]
-    np.testing.assert_array_equal(conv[key].numpy(), state[key].T)
-    for key in ("conv_in.weight", "down_resnets.0.norm1.weight",
-                "time_mlp1.bias"):
+    assert state[key].shape == (16, 16) and \
+        tuple(tm.state_dict()["time_mlp1.weight"].shape) == (16, 64)
+    for key in state:
         np.testing.assert_array_equal(conv[key].numpy(), state[key])
     with pytest.raises(KeyError, match="missing"):
         unet_state_dict_from_jax({k: v for k, v in state.items()
@@ -164,12 +166,44 @@ def test_three_train_steps_match_jax_train_step(channels_last):
         np.testing.assert_allclose(tl, jl, rtol=1e-5)
     assert losses[2] < losses[0]
     js = {k: v.numpy() for k, v in jm.state_dict().items()}
-    linear = unet_state_dict_from_jax(js, cfg, device="cpu")
     for k, p in tm.state_dict().items():
-        want = linear[k].numpy()
+        want = js[k]
         np.testing.assert_allclose(p.numpy(), want, rtol=0,
                                    atol=2e-5 * np.abs(want).max()
                                    + 0.01 * 1e-4 * 3)
+
+
+def test_jax_state_dict_loads_as_it_is():
+    """A JAX UNet's ``state_dict`` goes through ``load_state_dict``
+    unchanged (the forward tests hold its outputs to JAX's): every tensor
+    equals JAX's array and the converter's, the non-square Linears
+    ``[in, out]``."""
+    paddle.seed(5)
+    jm = JUNet(JUNetConfig(**TINY))
+    state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
+    tm = UNet2DConditionModel(UNetConfig(**TINY), device="cpu")
+    tm.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    conv = unet_state_dict_from_jax(state, UNetConfig(**TINY), device="cpu")
+    for k, p in tm.state_dict().items():
+        np.testing.assert_array_equal(p.numpy(), state[k])
+        assert torch.equal(p, conv[k])
+    assert tuple(tm.time_mlp1.weight.shape) == (16, 64)
+    assert tuple(tm.down_attns[0].attn2.to_k.weight.shape) == (16, 16)
+    assert tuple(tm.down_attns[0].ff1.weight.shape) == (16, 64)
+
+
+def test_seeded_linear_init_bound_is_the_fan_in():
+    """A Linear's U(-1/sqrt(fan_in), 1/sqrt(fan_in)) takes the fan-in
+    from the ``[in, out]`` weight's first dim: time_mlp1 (16 -> 64) draws
+    past 1/sqrt(64) and within 1/sqrt(16); ff2 (64 -> 16) within
+    1/sqrt(64)."""
+    tm = UNet2DConditionModel(UNetConfig(**TINY), device="cpu", seed=6)
+    w1 = tm.time_mlp1.weight.detach().abs().max().item()
+    assert 1 / math.sqrt(64) < w1 <= 1 / math.sqrt(16)
+    w2 = tm.down_attns[0].ff2.weight.detach().abs().max().item()
+    assert w2 <= 1 / math.sqrt(64)
+    conv = tm.conv_in.weight.detach().abs().max().item()
+    assert conv <= 1 / math.sqrt(4 * 3 * 3)
 
 
 def test_bf16_train_step_on_cpu_keeps_dtypes_and_counts_nothing():
