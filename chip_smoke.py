@@ -402,6 +402,31 @@ the script exits nonzero and prints no result:
    ``tiled_linear`` over paddle's [in, out] weight against an [out, in]
    copy at LLaMA-2-7B's projections, 8 and 1,024 rows, in turns, rows
    bitwise equal across the windows (the layout repair).
+33. jit_deploy: BERT-base bf16 at full width, dropout 0, through Paddle's
+   deployment flow (parts 1 and 3, which compile with Inductor, at 2 of
+   its 12 layers): (1) ``jit.to_static`` eval forward at [32, 128]
+   against eager within bert_parity's eval bound, the first call's
+   seconds, ms a call in turns, the trace's flash and LayerNorm forward
+   records equal to the counters (2 and 6); (2) ``jit.save`` of all 12
+   layers with ``InputSpec([None, 128], "int64", "input_ids")``,
+   ``jit.load`` and ``inference.create_predictor`` at batches 1, 8 and
+   32 within the bound, one ``predictor.run`` profiled (its flash and
+   LayerNorm forward records equal to the counters, 12 and 26; no
+   library LayerNorm or SDPA kernel); (3) one training step through
+   ``to_static`` with eager ``loss.backward()`` against an f32 copy's
+   plain step within bert_parity's gradient bound, rows 5, 9 and 10
+   launched; (4) ``TrainStep.many(8)`` as one CUDA graph against 8 eager
+   steps: after three packs (two replays) every loss, parameter and
+   optimizer state bitwise equal to 24 eager steps', replays and eager
+   packs in turns (sequences/s, idle share), one replay's and one eager
+   pack's profile records of rows 4, 5 and 8-10 equal to the counters'
+   rise (a replay's counts are the ones ``TrainStep`` adds for it), the
+   same models with a ``GradScaler`` under replay (a scale forced to
+   +inf skips both steps, a loaded state takes effect; bitwise equal to
+   eager), then hidden dropout 0.1: finite losses and masks that differ
+   between steps and packs; (5) the dy2static decode
+   with a data-dependent early exit saved, loaded and equal to eager on
+   both exits.
 
 Every phase prints its wall seconds ({"phase_seconds": name, ...}), and
 a "seconds" line sums them.  The last three lines are the card's
@@ -421,6 +446,7 @@ without a CUDA device.
     python3 chip_smoke.py --seq2seq-phases
     python3 chip_smoke.py --layer-phases
     python3 chip_smoke.py --host-phases
+    python3 chip_smoke.py --jit-phases
 
 ``--serve-phases`` runs the named serve phases alone on the engine
 phase's model (no other phase and no kernels line); ``--resnet-phases``
@@ -431,7 +457,8 @@ determinism, row invariance, the raises) and phases 18-20;
 ``--fused-phases`` the three phases of 22; ``--zoo-phases`` the four
 phases of 23-26 and ``--seq2seq-phases`` the four of 27-30 (no kernel
 built: none lies on their path); ``--layer-phases`` bert_train and 31
-(the kernels built); ``--host-phases`` 32 alone (the kernels built).
+(the kernels built); ``--host-phases`` 32 alone and ``--jit-phases``
+33 alone (the kernels built).
 The sweeps run the GroupNorm or
 the LayerNorm forward sweep alone (or the paged attention cases and
 their row-invariance checks): with ``--variants`` also every launch the
@@ -4146,23 +4173,38 @@ def bf16_ulp(x):
 @contextlib.contextmanager
 def twin_path(torch):
     """Every kernel of BERT's path replaced by its plain twin on CUDA
-    tensors: the LayerNorm pair, and attention through the flash
-    autograd function with ``flash_fwd_plain`` and ``flash_bwd_plain``,
-    the kernels' own recompute form (``delta`` from the bf16 output, as
-    the JAX kernel's ``paddle_tpu/ops/pallas/flash.py:251-253``)."""
+    tensors: the LayerNorm pair, and attention through the flash custom
+    op's registered backward with the plain twins in place of the three
+    kernels, the kernels' own recompute form (``delta`` from the bf16
+    output, as the JAX kernel's ``paddle_tpu/ops/pallas/flash.py:251-253``)."""
     import importlib
 
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops.layer_norm import layer_norm_plain
 
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
-    saved = fa.flash_fwd, fa.flash_bwd, F._layer_norm_op
-    fa.flash_fwd, fa.flash_bwd = fa.flash_fwd_plain, fa.flash_bwd_plain
+    saved = (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+             fa.flash_bwd_dkv_kernel, F._layer_norm_op)
+
+    def fwd(q, k, v, scale, causal=False):
+        return fa._contiguous(fa.flash_fwd_plain(q, k, v, scale, causal))
+
+    def dq(q, k, v, dout, lse, delta, scale, causal=False):
+        return fa._bwd_plain(q, k, v, dout, lse, delta, scale,
+                             causal)[0].contiguous()
+
+    def dkv(q, k, v, dout, lse, delta, scale, causal=False):
+        return fa._contiguous(fa._bwd_plain(q, k, v, dout, lse, delta,
+                                            scale, causal)[1:])
+
+    fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel = fwd, dq
+    fa.flash_bwd_dkv_kernel = dkv
     F._layer_norm_op = layer_norm_plain
     try:
         yield
     finally:
-        fa.flash_fwd, fa.flash_bwd, F._layer_norm_op = saved
+        (fa.flash_fwd_kernel, fa.flash_bwd_dq_kernel,
+         fa.flash_bwd_dkv_kernel, F._layer_norm_op) = saved
 
 
 def bert_parity_phase(torch, dev):
@@ -8881,6 +8923,576 @@ def host_api_phase(torch, dev):
     return launches, figures
 
 
+# ------------------------------------------------------------ jit_deploy
+JIT_EVAL_BATCH = 32              # the to_static eval forward's [32, 128]
+JIT_PREDICT_BATCHES = (1, 8, 32)
+JIT_MANY_K = 8
+#: the depth of parts 1 and 3, which compile with Inductor: BERT-base's
+#: width, 2 of its 12 layers (the compile grows with depth: at 12 the eval
+#: forward took 41-80 s and the training step 60-95 s); part 2 saves,
+#: loads and serves all 12
+JIT_CUT_LAYERS = 2
+JIT_TURNS = ("graph", "eager", "eager", "graph")
+#: the LayerNorm forward's and the flash forward's kernel names in the
+#: profile, and what the library's LayerNorm and SDPA kernels are named
+JIT_LN_FWD_KERNELS = ("ln_fwd_warp_kernel", "ln_fwd_cta_kernel",
+                      "ln_fwd_row_kernel")
+JIT_FLASH_FWD_KERNELS = ("FlashProblem",)
+JIT_LIBRARY_KERNELS = ("layer_norm_kernel", "LayerNorm", "pytorch_flash",
+                       "fmha", "efficient_attention", "flash_fwd_kernel")
+
+
+def kernel_counts(prof, names):
+    """How many kernel records of ``prof`` have one of ``names`` in
+    their name."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and any(n in e.name for n in names))
+
+
+def profile_run(torch, run, host=True, between=None):
+    """``run()`` under torch.profiler, after a warm-up run in a window of
+    its own (a cold window late in a long process has lost kernel
+    records: PERF.md, Findings) -> (the profile, the figures of
+    :func:`profile_figures` for the second run); ``between()``, if
+    given, runs between the two (a reset of the launch counters);
+    ``host=False`` records the device's kernels alone (a pack of steps
+    makes ~500,000 host events)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host
+                                      else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        if between is not None:
+            between()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # (no step after the active run: leaving the block ends the window
+    # and keeps its events, where a step would start a new cycle)
+    return prof, profile_figures(prof, wall_us)
+
+
+def jit_eval_bound(torch, model, ids):
+    """bert_parity's eval bound at this batch: twice the plain bf16
+    path's relative error against an f32 copy, plus the floor."""
+    model32 = copy.deepcopy(model).float()
+    with torch.no_grad(), functional_plain_path(torch):
+        lp = model(ids).float()
+        l32 = model32(ids)
+    e_p = ((lp - l32).norm() / l32.norm()).item()
+    del model32, lp, l32
+    return GRAD_PARITY_FACTOR * e_p + GRAD_PARITY_FLOOR, e_p
+
+
+def rel_err(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def jit_to_static_eval(torch, dev, model, ids, out):
+    """Part 1, on a model of ``JIT_CUT_LAYERS`` layers: the to_static
+    eval forward against eager (bert_parity's eval bound), the first
+    call's seconds, ms per call in turns, and the profile's flash and
+    LayerNorm forward records against the counters."""
+    from paddle_tpu_torch import jit
+
+    tol, e_p = jit_eval_bound(torch, model, ids)
+    with torch.no_grad():
+        ref = model(ids)
+        static = jit.to_static(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = static(ids)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+    err = rel_err(got, ref)
+    if not err <= tol:
+        raise AssertionError(f"jit_deploy to_static eval: logits rel err "
+                             f"{err:.3e} > {tol:.3e}")
+    fwd = static.forward
+    eager_fwd = fwd._orig
+    times = {"to_static": [], "eager": []}
+    with torch.no_grad():
+        for turn in ("to_static", "eager", "eager", "to_static"):
+            fn = fwd if turn == "to_static" else eager_fwd
+            times[turn].append(cuda_ms(lambda: fn(ids), 10))
+        _, recs, fig, _ = profiled_launches(
+            torch, "to_static eval", lambda: fwd(ids),
+            eval_launches(model), host=True)
+    out["to_static_eval"] = {
+        "layers": model.config.num_hidden_layers,
+        "batch": list(ids.shape), "logit_rel_err": err, "bound": tol,
+        "plain_bf16_rel_err": e_p, "first_call_s": compile_s,
+        "ms": times, "profile_records": recs, "profile": fig}
+    # back to the eager forward for what follows
+    del model.forward
+    return ref
+
+
+def jit_save_predict(torch, dev, model, tmp, out):
+    """Part 2, on the whole model: jit.save with a dynamic batch,
+    jit.load and a Predictor, batches 1, 8 and 32 against eager; one
+    predictor.run profiled: its flash and LayerNorm forward records
+    equal to the counters (12 and 26 at BERT-base), no library
+    LayerNorm or SDPA kernel."""
+    from paddle_tpu_torch import inference, jit
+
+    prefix = os.path.join(tmp, "bert_mlm")
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=[
+        jit.InputSpec([None, BERT_SEQ], "int64", "input_ids")])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = jit.load(prefix)
+    pred = inference.create_predictor(inference.Config(
+        prefix + ".pdmodel", prefix + ".pdiparams"))
+    load_s = time.perf_counter() - t0
+    if pred.get_input_names() != ["input_ids"]:
+        raise AssertionError(f"jit_deploy: predictor inputs "
+                             f"{pred.get_input_names()}")
+    g = torch.Generator(device="cpu").manual_seed(77)
+    errs = {}
+    for b in JIT_PREDICT_BATCHES:
+        ids = torch.randint(0, model.config.vocab_size, (b, BERT_SEQ),
+                            generator=g)
+        with torch.no_grad():
+            ref = model(ids.to(dev))
+            tol, _ = jit_eval_bound(torch, model, ids.to(dev))
+            via_load = loaded(ids.to(dev))
+        h = pred.get_input_handle("input_ids")
+        h.copy_from_cpu(ids.numpy())
+        pred.run()
+        via_pred = torch.from_numpy(pred.get_output_handle(
+            pred.get_output_names()[0]).copy_to_cpu()).to(dev)
+        e_l, e_p = rel_err(via_load, ref), rel_err(via_pred, ref)
+        if not (e_l <= tol and e_p <= tol):
+            raise AssertionError(f"jit_deploy predict b{b}: rel err load "
+                                 f"{e_l:.3e} predictor {e_p:.3e} > "
+                                 f"{tol:.3e}")
+        errs[b] = {"jit_load": e_l, "predictor": e_p, "bound": tol}
+    prof, recs, fig, _ = profiled_launches(
+        torch, "predictor", pred.run, eval_launches(model), host=True)
+    recs["library_norm_or_sdpa"] = kernel_counts(prof, JIT_LIBRARY_KERNELS)
+    if recs["library_norm_or_sdpa"]:
+        raise AssertionError(f"jit_deploy predictor profile: {recs}")
+    out["save_predict"] = {
+        "save_s": save_s, "load_s": load_s,
+        "pdmodel_bytes": os.path.getsize(prefix + ".pdmodel"),
+        "pdiparams_bytes": os.path.getsize(prefix + ".pdiparams"),
+        "rel_err_by_batch": errs, "profile_records": recs,
+        "profile": fig}
+
+
+def jit_train_through_to_static(torch, dev, cfg, batch, out):
+    """Part 3, at ``JIT_CUT_LAYERS`` layers of ``cfg``'s width: one
+    training step's loss and gradients with a to_static forward and
+    eager ``loss.backward()`` against an f32 copy's plain step, within
+    bert_parity's bound (GRAD_PARITY_FACTOR times the eager
+    kernel path's own error plus the floor: at BERT's initial weights
+    the q and k gradients are a small difference that rounding swamps,
+    so two bf16 paths that round differently are not held to each
+    other); the step launches the LayerNorm backward, dQ and dK/dV."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.bert import BertForMaskedLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    cfg = dataclasses.replace(cfg, num_hidden_layers=JIT_CUT_LAYERS)
+    model = BertForMaskedLM(cfg, device=dev, dtype=torch.bfloat16, seed=3)
+    model.train()
+    model32 = copy.deepcopy(model).float()
+
+    def grads(m):
+        m.zero_grad(set_to_none=True)
+        loss = bert_loss(m, *batch)
+        loss.backward()
+        res = {n: p.grad.float() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.item(), res
+
+    eager = grads(model)
+    with functional_plain_path(torch):
+        f32 = grads(model32)
+    del model32
+    jit.to_static(model)
+    t0 = time.perf_counter()
+    grads(model)                          # the capture (forward + backward)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    reset_kernel_launches()
+    static = grads(model)
+    launches = kernel_launches()
+    n = JIT_CUT_LAYERS
+    per_step = dict(BERT_FLASH_PER_STEP, flash_fwd=n, flash_bwd_dq=n,
+                    flash_bwd_dkv=n, layer_norm=2 * n + 2,
+                    layer_norm_bwd=2 * n + 2)
+    if {k: launches[k] for k in per_step} != per_step:
+        raise AssertionError(f"jit_deploy train: launches {launches}, want "
+                             f"{per_step}")
+    worst, report = grad_parity("jit_deploy train", static, eager, f32,
+                                loss_floor=bf16_ulp(f32[0]),
+                                zero_truth=("self_attn.k_proj.bias",))
+    out["train_to_static"] = {
+        "layers": n, "loss_eager": eager[0], "loss_to_static": static[0],
+        "loss_f32": f32[0], "first_step_s": compile_s,
+        "worst_err_over_tol": worst,
+        "largest_grad_rel_err_to_static_vs_eager": sorted(
+            report.items(), key=lambda kv: -kv[1][0])[:5],
+        "launches": launches}
+    del model
+
+
+def jit_train_step(torch, dev, cfg):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertForMaskedLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = BertForMaskedLM(cfg, device=dev, dtype=torch.bfloat16, seed=5)
+    model.train()
+    opt = AdamW(learning_rate=BERT_LR, parameters=model.named_parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0),
+                multi_precision=True, device=dev)
+    return model, opt, TrainStep(model, bert_loss, opt, device=dev)
+
+
+#: each counted kernel's records in a profile: one record per launch
+#: (the dK/dV reduction kernel is left out: it follows the dK/dV kernel
+#: and is not counted on its own)
+JIT_STEP_KERNELS = {
+    "flash_fwd": JIT_FLASH_FWD_KERNELS,
+    "flash_bwd_dq": ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel"),
+    "flash_bwd_dkv": ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel"),
+    "layer_norm": JIT_LN_FWD_KERNELS,
+    "layer_norm_bwd": ("ln_bwd_warp_kernel", "ln_bwd_row_kernel"),
+}
+
+
+def eval_launches(model):
+    """The counted launches of one eval forward of a BertForMaskedLM: a
+    flash forward a layer, two LayerNorms a layer and two more."""
+    n = model.config.num_hidden_layers
+    return {"flash_fwd": n, "layer_norm": 2 * n + 2}
+
+
+def profiled_launches(torch, what, run, want, windows=3, host=False):
+    """``run()`` profiled (:func:`profile_run`; device events only unless
+    ``host``): the counters' rise over the profiled run must equal
+    ``want`` and the profile's kernel records, for each kernel of
+    ``want`` -> (profile, records, figures, windows used).  For a replayed CUDA graph the rise is what
+    ``TrainStep`` adds per replay, so this holds that tally to what the
+    card ran.  The profiler can lose a record late in a long process
+    (PERF.md, Findings), never add one: a window with more records than
+    the rise fails at once, one with fewer is profiled again, up to
+    ``windows`` times, and the first window that matches passes."""
+    from paddle_tpu_torch.ops import kernel_launches
+
+    seen = []
+    for used in range(1, windows + 1):
+        base = {}
+        prof, fig = profile_run(
+            torch, run, host=host,
+            between=lambda: base.update(kernel_launches()))
+        now = kernel_launches()
+        recs = {n: kernel_counts(prof, JIT_STEP_KERNELS[n]) for n in want}
+        rise = {n: now[n] - base[n] for n in want}
+        seen.append(recs)
+        if rise != want or any(recs[n] > rise[n] for n in rise):
+            break
+        if recs == rise:
+            return prof, recs, fig, used
+    raise AssertionError(f"jit_deploy {what}: profile records {seen}, "
+                         f"counters {rise}, want {want}")
+
+
+def train_state(model, opt, scaler=None):
+    """A step's whole state: parameters, buffers, optimizer and scaler."""
+    st = dict(model.state_dict())
+    st.update({f"opt.{n}": v for n, v in opt.state_dict().items()})
+    if scaler is not None:
+        st.update({f"scaler.{n}": v for n, v in scaler.state_dict().items()})
+    return st
+
+
+def differing(torch, a, b):
+    """The names whose values differ (tensors bitwise)."""
+    return [n for n in a if not (
+        torch.equal(a[n], b[n]) if isinstance(a[n], torch.Tensor)
+        else a[n] == b[n])]
+
+
+def jit_many(torch, dev, cfg, out):
+    """Part 4: TrainStep.many(K) as one CUDA graph against K eager steps:
+    after three packs (the first eager, then captured; two replays)
+    every loss, parameter and optimizer state bitwise equal to 3K eager
+    steps'; then replays and eager packs in turns, sequences/s and the
+    idle share of each, one replay and one eager pack profiled with the
+    counters' rise held to the profile's kernel records; then the loss
+    scaler under replay (:func:`jit_many_scaler`); then with hidden
+    dropout 0.1 the losses are finite and the masks differ from step to
+    step and pack to pack."""
+    from paddle_tpu_torch import random as prandom
+
+    k = JIT_MANY_K
+    packs = [[bert_batch(torch, cfg, BERT_BATCH, BERT_SEQ, dev, 500 + 10 * j
+                         + i) for i in range(k)] for j in range(3)]
+    prandom.seed(11)
+    m_g, o_g, s_g = jit_train_step(torch, dev, cfg)
+    prandom.seed(11)
+    m_e, o_e, s_e = jit_train_step(torch, dev, cfg)
+    t0 = time.perf_counter()
+    got = [s_g.many(packs[0])]
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    got += [s_g.many(p) for p in packs[1:]]
+    eager = [s_e(*b) for p in packs for b in p]
+    if not torch.equal(torch.cat(got), torch.stack(eager)):
+        raise AssertionError("jit_deploy many: losses differ from eager")
+    differ = differing(torch, train_state(m_g, o_g),
+                       train_state(m_e, o_e))
+    if differ:
+        raise AssertionError(f"jit_deploy many: state differs from eager "
+                             f"steps: {differ[:5]}")
+    times = {"graph": [], "eager": []}
+    for turn in JIT_TURNS:
+        t1 = time.perf_counter()
+        if turn == "graph":
+            s_g.many(packs[0]).sum().item()
+        else:
+            torch.stack([s_e(*b) for b in packs[0]]).sum().item()
+        times[turn].append(time.perf_counter() - t1)
+    want = {n: BERT_FLASH_PER_STEP[n] * k for n in JIT_STEP_KERNELS}
+    _, recs_g, fig_g, win_g = profiled_launches(
+        torch, "many replay", lambda: s_g.many(packs[1]).sum().item(), want)
+    _, recs_e, fig_e, win_e = profiled_launches(
+        torch, "many eager", lambda: torch.stack(
+            [s_e(*b) for b in packs[1]]).sum().item(), want)
+    rate = {t: BERT_BATCH * k / statistics.median(v)
+            for t, v in times.items()}
+    del s_g, s_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the profiles may have run one side more packs: the eager side
+    # takes the captured side's state, in place
+    m_e.set_state_dict(m_g.state_dict())
+    o_e.set_state_dict(o_g.state_dict())
+    scaler = jit_many_scaler(torch, dev, ((m_g, o_g), (m_e, o_e)), packs)
+    del m_g, o_g, m_e, o_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    # dropout 0.1: each step draws its own masks
+    drop_cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.1)
+    prandom.seed(12)
+    m_d, _, s_d = jit_train_step(torch, dev, drop_cfg)
+    masks = []
+    hook = m_d.bert.embeddings.dropout.register_forward_hook(
+        lambda mod, inp, res: masks.append(res.detach() == 0))
+    s_d.many(packs[0])                        # eager, then the capture
+    captured = masks[k:]                      # refreshed on each replay
+    losses, seen = [], []
+    for j in range(2):
+        losses.append(s_d.many(packs[0]).tolist())
+        seen.append([m.clone() for m in captured])
+    hook.remove()
+    if not all(math.isfinite(x) for ls in losses for x in ls):
+        raise AssertionError(f"jit_deploy many dropout: losses {losses}")
+    same_step = sum(torch.equal(seen[0][i], seen[0][i + 1])
+                    for i in range(k - 1))
+    same_pack = sum(torch.equal(seen[0][i], seen[1][i]) for i in range(k))
+    if same_step or same_pack:
+        raise AssertionError(f"jit_deploy many dropout: {same_step} equal "
+                             f"masks between steps, {same_pack} between "
+                             "packs")
+    del m_d, s_d, masks, captured, seen
+    out["many"] = {
+        "k": k, "batch": BERT_BATCH, "seq": BERT_SEQ,
+        "first_pack_and_capture_s": capture_s,
+        "bitwise_equal_to_eager": "losses, parameters, optimizer state "
+                                  "after 3 packs (2 replays)",
+        "replay_profile_records": recs_g, "eager_profile_records": recs_e,
+        "profile_windows": {"replay": win_g, "eager": win_e},
+        "pack_s": times, "seqs_per_s": rate, "graph_profile": fig_g,
+        "eager_profile": fig_e, "scaler": scaler,
+        "dropout_losses": losses,
+        "dropout_masks": "differ between all steps and packs"}
+
+
+def jit_many_scaler(torch, dev, pairs, packs):
+    """``many`` with a GradScaler against eager steps, on two equal
+    (model, optimizer) ``pairs`` (those the steps without a scaler
+    left), over three packs of 2 steps (the first eager, then captured;
+    two replays): before the first replay the scale is set to +inf
+    (every step overflows and is skipped), before the second the state
+    is loaded back at 2**12.  A replay that read the scale it captured
+    would update where the eager steps skip.  Losses, parameters,
+    optimizer and scaler state bitwise equal to the eager steps'."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit import TrainStep
+
+    scalers = [GradScaler(init_loss_scaling=2.0 ** 15, device=dev)
+               for _ in pairs]
+    (m_g, o_g), (m_e, o_e) = pairs
+    s_g, s_e = (TrainStep(m, bert_loss, o, scaler=sc, device=dev)
+                for (m, o), sc in zip(pairs, scalers))
+    k = 2
+    got, eager = [], []
+    for j, pack in enumerate(p[:k] for p in packs):
+        if j == 1:
+            for sc in scalers:
+                sc.set_init_loss_scaling(float("inf"))
+            held = [p.clone() for p in m_g.parameters()]
+        if j == 2:
+            moved = sum(not torch.equal(a, p)
+                        for a, p in zip(held, m_g.parameters()))
+            if moved:
+                raise AssertionError(f"jit_deploy many scaler: {moved} "
+                                     f"parameters moved at scale inf")
+            del held
+            for sc in scalers:
+                sc.load_state_dict(dict(sc.state_dict(), scale=2.0 ** 12))
+        got.append(s_g.many(pack))
+        eager += [s_e(*b) for b in pack]
+    if not torch.equal(torch.cat(got), torch.stack(eager)):
+        raise AssertionError("jit_deploy many scaler: losses differ")
+    differ = differing(torch, train_state(m_g, o_g, scalers[0]),
+                       train_state(m_e, o_e, scalers[1]))
+    if differ:
+        raise AssertionError(f"jit_deploy many scaler: state differs from "
+                             f"eager steps: {differ[:5]}")
+    return {"k": k, "packs": 3, "replay_at_inf_scale": "every step skipped",
+            "final_scale": scalers[0].get_loss_scaling().item(),
+            "bitwise_equal_to_eager": "losses, parameters, optimizer and "
+                                      "scaler state"}
+
+
+def jit_dy2static_decode(torch, dev, tmp, out):
+    """Part 5: the JAX test's greedy decode with a data-dependent early
+    exit (``tests/test_jit_io_amp.py:684``), saved and loaded on the
+    card, equal to eager; both exits taken."""
+    from paddle_tpu_torch import jit, nn
+    import paddle_tpu_torch as paddle
+
+    class Dec(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.lin = nn.Linear(4, 4, device=dev)
+
+        def forward(self, h):
+            n = 0
+            while n < 8:
+                h = self.lin(h)
+                if paddle.max(paddle.abs(h)) < 0.05:
+                    return h * 0.0
+                n = n + 1
+            return h
+
+    m = Dec()
+    m.eval()
+    with torch.no_grad():
+        m.lin.weight.copy_(torch.eye(4, device=dev) * 0.1)
+        m.lin.bias.zero_()
+    path = os.path.join(tmp, "dec")
+    jit.save(m, path, input_spec=[jit.InputSpec([1, 4])])
+    if "forward" in m.__dict__:
+        raise AssertionError("jit_deploy decode: the export's forward was "
+                             "left on the instance")
+    loaded = jit.load(path)
+    res = {}
+    # h shrinks 10x a step: from 1 it falls under 0.05 at the second step
+    # (the early return); from 1e8 it is still 1 after the eighth
+    for name, start in (("early_exit", 1.0), ("runs_out", 1e8)):
+        x = torch.full((1, 4), start, device=dev)
+        with torch.no_grad():
+            ref, got = m(x), loaded(x)
+        if not torch.equal(ref, got):
+            raise AssertionError(f"jit_deploy decode {name}: {got} vs {ref}")
+        res[name] = got.tolist()
+    out["dy2static_decode"] = res
+
+
+def jit_deploy_phase(torch, dev):
+    """``to_static`` -> ``jit.save`` -> ``inference.create_predictor`` on
+    BERT-base bf16 at full width (PaddleNLP's deployment flow), training
+    through ``to_static``, ``TrainStep.many`` as one CUDA graph, and the
+    dy2static decode (see the five parts above)."""
+    import tempfile
+
+    from paddle_tpu_torch import random as prandom
+    from paddle_tpu_torch.models.bert import BERT_BASE, BertForMaskedLM
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(BERT_BASE, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    out = {"phase": "jit_deploy", "model": "BERT_BASE", "dtype": "bfloat16",
+           "seq": BERT_SEQ}
+    reset_kernel_launches()
+    prandom.seed(2024)
+    g = torch.Generator(device="cpu").manual_seed(31)
+    ids = torch.randint(0, cfg.vocab_size, (JIT_EVAL_BATCH, BERT_SEQ),
+                        generator=g).to(dev)
+    parts = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        parts[name] = time.perf_counter() - t0
+        emit({"phase": f"jit_deploy/{name}", "seconds": parts[name],
+              **{k: v for k, v in out[name].items() if k != "profile"}})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        small = BertForMaskedLM(
+            dataclasses.replace(cfg, num_hidden_layers=JIT_CUT_LAYERS),
+            device=dev, dtype=torch.bfloat16, seed=9).eval()
+        part("to_static_eval", jit_to_static_eval, torch, dev, small, ids,
+             out)
+        del small
+        model = BertForMaskedLM(cfg, device=dev, dtype=torch.bfloat16,
+                                seed=9).eval()
+        part("save_predict", jit_save_predict, torch, dev, model, tmp, out)
+        del model
+        batch = bert_batch(torch, cfg, BERT_BATCH, BERT_SEQ, dev, 4321)
+        part("train_to_static", jit_train_through_to_static, torch, dev,
+             cfg, batch, out)
+        part("many", jit_many, torch, dev, cfg, out)
+        part("dy2static_decode", jit_dy2static_decode, torch, dev, tmp, out)
+    out["part_seconds"] = parts
+    emit(out)
+    launches = kernel_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def jit_phases_main(torch):
+    """``--jit-phases``: jit_deploy alone; the kernels are built."""
+    from paddle_tpu_torch import _build, resolve_device
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    built = _build.build_all(verbose=False)
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": time.perf_counter() - t0, "built": sorted(built)})
+    dev = resolve_device()
+    t0 = time.perf_counter()
+    launches = jit_deploy_phase(torch, dev)
+    emit({"phase_seconds": "jit_deploy", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    print(smi)
+    return 0
+
+
 def host_phases_main(torch):
     """``--host-phases``: host_api alone; the kernels are built (its
     PyLayer runs the RMSNorm kernels, its BERT steps the LayerNorm
@@ -9162,6 +9774,8 @@ def main():
         return layer_phases_main(torch)
     if "--host-phases" in sys.argv[1:]:
         return host_phases_main(torch)
+    if "--jit-phases" in sys.argv[1:]:
+        return jit_phases_main(torch)
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
@@ -9250,6 +9864,7 @@ def main():
     layer_api, _ = phase("layer_api", layer_api_phase, torch, dev,
                          bert_figures)
     host_api, _ = phase("host_api", host_api_phase, torch, dev)
+    jit_deploy = phase("jit_deploy", jit_deploy_phase, torch, dev)
     emit({"phase": "seconds", "by_phase": seconds,
           "total": time.perf_counter() - t_start})
 
@@ -9314,7 +9929,8 @@ def main():
             "transformer_mt": transformer_mt, "fused_decode": fused_decode,
             "fused_rotary": fused_rotary, "fused_layers": fused_layers,
             "zoo_train": zoo_train, "seq2seq_train": seq2seq,
-            "layer_api": layer_api, "host_api": host_api}
+            "layer_api": layer_api, "host_api": host_api,
+            "jit_deploy": jit_deploy}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]

@@ -117,8 +117,8 @@ from .version import full_version as __version__
 #: attached on first use (PEP 562), as JAX's root attaches its subpackages:
 #: importing the package builds no kernel and starts no serving engine
 _LAZY_SUBMODULES = ("autograd", "distributed", "hub", "jit", "models",
-                    "optimizer", "profiler", "quantization", "regularizer",
-                    "serving", "sysconfig", "text", "utils")
+                    "onnx", "optimizer", "profiler", "quantization",
+                    "regularizer", "serving", "sysconfig", "text", "utils")
 
 
 def __getattr__(name):

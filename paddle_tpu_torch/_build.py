@@ -106,7 +106,10 @@ def ticket(device, stream=None):
     the last block of a norm backward launch finds itself
     (``csrc/norms.cu``), left at 0 again by that block.  One per (device,
     stream): the launches of one stream run in order and never hold it at
-    once."""
+    once.  A stream that captures a CUDA graph takes its ticket before
+    the capture (``jit.TrainStep.many`` calls this for its capture
+    stream first): allocated during a capture, the tensor would come
+    from the graph's private pool and be zeroed by a captured kernel."""
     import torch
 
     if stream is None:

@@ -39,7 +39,8 @@ class AmpScaler:
         self._incr_every = incr_every_n_steps
         self._decr_every = decr_every_n_nan_or_inf
         self._dynamic = use_dynamic_loss_scaling
-        self.set_init_loss_scaling(init_loss_scaling)
+        self._scale = torch.tensor(float(init_loss_scaling),
+                                   dtype=torch.float32, device=self.device)
         self._good_steps = self._count(0)
         self._bad_steps = self._count(0)
         self._found_inf = torch.zeros((), dtype=torch.bool, device=self.device)
@@ -103,12 +104,16 @@ class AmpScaler:
         if self._dynamic:
             dec = found_inf & (bad >= self._decr_every)
             inc = ~found_inf & (good >= self._incr_every)
-            self._scale = torch.where(
+            # in place: the tensors outlive the step (a replayed CUDA
+            # graph reads and writes the same storage every time)
+            self._scale.copy_(torch.where(
                 dec, torch.clamp(self._scale * self._decr_ratio, min=1.0),
-                torch.where(inc, self._scale * self._incr_ratio, self._scale))
+                torch.where(inc, self._scale * self._incr_ratio,
+                            self._scale)))
             good = torch.where(inc, 0, good)
             bad = torch.where(dec, 0, bad)
-        self._good_steps, self._bad_steps = good, bad
+        self._good_steps.copy_(good)
+        self._bad_steps.copy_(bad)
 
     def update(self):
         if self._enable and self._dynamic:
@@ -123,11 +128,14 @@ class AmpScaler:
 
     # -------- introspection / state --------
     def get_loss_scaling(self):
-        return self._scale
+        """The scale now: a copy, which later steps leave as it is."""
+        return self._scale.clone()
 
     def set_init_loss_scaling(self, v):
-        self._scale = torch.tensor(float(v), dtype=torch.float32,
-                                   device=self.device)
+        # written into the scale's own storage, as every other setter of
+        # the scale and the counters: a captured ``TrainStep.many`` pack
+        # reads the addresses it recorded
+        self._scale.fill_(float(v))
 
     def get_incr_ratio(self):
         return self._incr_ratio
@@ -173,8 +181,8 @@ class AmpScaler:
         self._incr_every = state.get("incr_every_n_steps", self._incr_every)
         self._decr_every = state.get("decr_every_n_nan_or_inf",
                                      self._decr_every)
-        self._good_steps = self._count(state.get("incr_count", 0))
-        self._bad_steps = self._count(state.get("decr_count", 0))
+        self._good_steps.fill_(int(state.get("incr_count", 0)))
+        self._bad_steps.fill_(int(state.get("decr_count", 0)))
 
 
 class GradScaler(AmpScaler):

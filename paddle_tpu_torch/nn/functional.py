@@ -714,7 +714,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         out = (x - mean.reshape(shape)) * torch.rsqrt(
             var.reshape(shape) + _weak(epsilon, var))
         if running_mean is not None:
-            n = math.prod(x.shape[i] for i in axes)
+            n = math.prod([x.shape[i] for i in axes])
             with torch.no_grad():
                 unbiased = var * _weak(n / max(n - 1, 1), var)
                 running_mean.copy_(running_mean * _weak(momentum, running_mean)

@@ -23,8 +23,11 @@ def _counters():
 
 def kernel_launches():
     """The process-wide launch counts of every kernel wrapper of the
-    port (each adds one where it launches its kernel, and nowhere
-    else)."""
+    port.  Each wrapper adds one where it launches its kernel; the one
+    other place that adds is ``jit.TrainStep``'s CUDA graph replay,
+    which runs no Python and adds, once per replay, the launches its
+    capture made through the wrappers (``chip_smoke.py`` holds that
+    tally to the profiler's kernel records of a replay)."""
     return {name: fn.launches for name, fn in _counters().items()}
 
 

@@ -11,8 +11,9 @@ query ``i`` when ``i + (Sk - Sq) >= j`` (the Pallas kernels' ``_mask``).
 * :func:`flash_bwd` -> ``(dq, dk, dv)`` from the saved ``out`` and
   ``lse`` alone (the recompute form): ``P = exp(S - lse)``,
   ``dS = P * (dO V^T - delta) * scale`` with ``delta = rowsum(dO * O)``.
-* :func:`flash_attention` -> out, differentiable (an
-  ``autograd.Function`` over the two).
+* :func:`flash_attention` -> out, differentiable (the custom op
+  ``paddle_tpu_torch::flash_fwd`` with its backward registered over the
+  ops ``flash_bwd_dq`` and ``flash_bwd_dkv``: ``ops/_library.py``).
 
 On CUDA tensors the three hand-written kernels of
 ``csrc/flash_attention.cu`` run (``flash_fwd_kernel``,
@@ -55,6 +56,7 @@ import math
 import torch
 
 from .. import _build
+from . import _library
 from ..amp.auto_cast import cast_inputs
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -124,14 +126,25 @@ def flash_fwd_plain(q, k, v, scale, causal=False):
     return o.transpose(1, 2).to(q.dtype), lse[..., 0]
 
 
+def flash_delta(out, dout):
+    """``delta = rowsum(dO * O)`` in f32, ``[B, H, Sq]`` (plain torch on
+    every device, as in the JAX package)."""
+    delta = (dout.to(torch.float32) * out.to(torch.float32)).sum(-1)
+    return delta.transpose(1, 2).contiguous()
+
+
 def flash_bwd_plain(q, k, v, out, lse, dout, scale, causal=False):
     """The plain twin of the two backward kernels (and of ``delta``)."""
+    return _bwd_plain(q, k, v, dout, lse, flash_delta(out, dout), scale,
+                      causal)
+
+
+def _bwd_plain(q, k, v, dout, lse, delta, scale, causal):
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     groups = h // kh
     qf, dof = q.to(torch.float32), dout.to(torch.float32)
     kf, vf = _expand_kv(k, groups), _expand_kv(v, groups)
-    delta = (dof * out.to(torch.float32)).sum(-1).transpose(1, 2)  # [B,H,Sq]
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     p = torch.exp(s - lse[..., None])
     vis = _visible(sq, sk, causal, q.device)
@@ -300,48 +313,93 @@ flash_bwd_dkv_kernel.launches = 0
 
 
 # ---------------------------------------------------------------- dispatch
-def flash_fwd(q, k, v, scale, causal=False):
-    """(out, lse): the kernel for CUDA tensors, the plain twin for CPU."""
+def _fwd_impl(q, k, v, scale, causal):
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, scale, causal)
+        return _contiguous(flash_fwd_plain(q, k, v, scale, causal))
     if q.device.type == "cuda":
         return flash_fwd_kernel(q, k, v, scale, causal)
     raise ValueError(f"flash_fwd: unsupported device {q.device}")
 
 
+def _contiguous(ts):
+    """The plain twins' outputs in the kernels' (row-major) layout."""
+    return tuple(t.contiguous() for t in ts)
+
+
+def _fwd_fake(q, k, v, scale, causal):
+    """The outputs after the head-dim padding is cut back: out as q,
+    lse f32 [B, H, Sq]."""
+    b, sq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+def _dq_impl(q, k, v, dout, lse, delta, scale, causal):
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, dout, lse, delta, scale,
+                          causal)[0].contiguous()
+    if q.device.type == "cuda":
+        return flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal)
+    raise ValueError(f"flash_bwd_dq: unsupported device {q.device}")
+
+
+def _dkv_impl(q, k, v, dout, lse, delta, scale, causal):
+    if q.device.type == "cpu":
+        return _contiguous(_bwd_plain(q, k, v, dout, lse, delta, scale,
+                                      causal)[1:])
+    if q.device.type == "cuda":
+        return flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, scale, causal)
+    raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
+
+
+_BWD_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, "
+               "Tensor delta, float scale, bool causal) -> ")
+#: ``paddle_tpu_torch::flash_fwd`` -> (out, lse), ``flash_bwd_dq`` ->
+#: dq and ``flash_bwd_dkv`` -> (dk, dv)
+flash_fwd_op = _library.define(
+    "flash_fwd", "(Tensor q, Tensor k, Tensor v, float scale, bool causal) "
+    "-> (Tensor, Tensor)", _fwd_impl, _fwd_fake)
+flash_bwd_dq_op = _library.define(
+    "flash_bwd_dq", _BWD_SCHEMA + "Tensor", _dq_impl,
+    lambda q, k, v, dout, lse, delta, scale, causal: q.new_empty(q.shape))
+flash_bwd_dkv_op = _library.define(
+    "flash_bwd_dkv", _BWD_SCHEMA + "(Tensor, Tensor)", _dkv_impl,
+    lambda q, k, v, dout, lse, delta, scale, causal: (
+        k.new_empty(k.shape), v.new_empty(v.shape)))
+
+
+def flash_fwd(q, k, v, scale, causal=False):
+    """(out, lse): the kernel for CUDA tensors, the plain twin for CPU
+    (the custom op ``flash_fwd``)."""
+    return flash_fwd_op(q, k, v, float(scale), bool(causal))
+
+
 def flash_bwd(q, k, v, out, lse, dout, scale, causal=False):
     """(dq, dk, dv): the two kernels for CUDA tensors, the plain twin for
-    CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, out, lse, dout, scale, causal)
-    if q.device.type == "cuda":
-        delta = (dout.to(torch.float32) * out.to(torch.float32)).sum(-1)
-        delta = delta.transpose(1, 2).contiguous()            # [B, H, Sq]
-        dq = flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal)
-        dk, dv = flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, scale,
-                                      causal)
-        return dq, dk, dv
-    raise ValueError(f"flash_bwd: unsupported device {q.device}")
+    CPU tensors (``delta`` in plain torch, then the custom ops
+    ``flash_bwd_dq`` and ``flash_bwd_dkv``)."""
+    delta = flash_delta(out, dout)
+    scale, causal = float(scale), bool(causal)
+    dq = flash_bwd_dq_op(q, k, v, dout, lse, delta, scale, causal)
+    dk, dv = flash_bwd_dkv_op(q, k, v, dout, lse, delta, scale, causal)
+    return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        out, lse = flash_fwd(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.causal = scale, causal
-        return out
+def _setup(ctx, inputs, output):
+    q, k, v, scale, causal = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.scale, ctx.causal = scale, causal
 
-    @staticmethod
-    def backward(ctx, dout):
-        if torch.is_grad_enabled():          # create_graph: a 2nd order
-            raise RuntimeError("flash_attention: the kernel's backward has "
-                               "no derivative of its own (first order "
-                               "only)")
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
-                               ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None
+
+def _backward(ctx, dout, _):
+    _library.first_order("flash_attention")
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale,
+                           ctx.causal)
+    return dq, dk, dv, None, None
+
+
+flash_fwd_op.register_autograd(_backward, setup_context=_setup)
 
 
 def _scale_of(q, k, scale):
@@ -358,8 +416,6 @@ def flash_attention(q, k, v, causal=False, scale=None):
     q, k, v = cast_inputs("flash_attention", q, k, v)
     scale = _scale_of(q, k, scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, scale, bool(causal))
     return flash_fwd(q, k, v, scale, bool(causal))[0]
 
 

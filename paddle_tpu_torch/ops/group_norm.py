@@ -43,8 +43,9 @@ Replaces the Pallas kernels ``_gn_fwd_kernel`` (launched by
 Bound: bytes (``2 N C HW`` elements forward, ``3 N C HW`` backward, plus
 the statistics and affine vectors), against a few operations per element.
 
-:func:`group_norm` is differentiable (a ``torch.autograd.Function``):
-the kernels for CUDA tensors, the plain twins for CPU tensors, and a
+:func:`group_norm` is differentiable (the custom op
+``paddle_tpu_torch::group_norm_fwd``, its backward registered over
+``group_norm_bwd``: ``ops/_library.py``): the kernels for CUDA tensors, the plain twins for CPU tensors, and a
 raise for anything else.  :func:`group_norm_plain` is the plain forward
 differentiated by torch autograd, the reference of the kernel path.
 """
@@ -56,6 +57,7 @@ import ctypes
 import torch
 
 from .. import _build
+from . import _library
 from .layer_norm import DTYPE_CODES, _on_device, _stream
 
 #: the backward's geometry (``csrc/norms.cu``): warps a CTA, CTAs a
@@ -264,6 +266,13 @@ def group_norm_kernel(x, weight, bias, num_groups, eps=1e-5):
     the plan and the launch's constants are made once per (device,
     dtypes, shapes, 16-byte alignment of x); a later call of the same
     key reads them back."""
+    y, stats = _kernel_stats(x, weight, bias, num_groups, eps)
+    return y, stats[0], stats[1]
+
+
+def _kernel_stats(x, weight, bias, num_groups, eps):
+    """:func:`group_norm_kernel` with the statistics as one [2, N*G] f32
+    tensor (mean, rstd), as the custom op returns them."""
     key = (x.device, x.dtype, x.shape, num_groups, weight.device,
            weight.dtype, weight.shape, bias.device, bias.dtype, bias.shape,
            x.data_ptr() % 16 == 0)
@@ -288,7 +297,7 @@ def _fwd_run(launch, x, weight, bias, eps):
             raise RuntimeError(f"group_norm kernel launch failed: CUDA error "
                                f"{rc}")
         group_norm.launches += 1
-    return y, stats[0], stats[1]
+    return y, stats
 
 
 def group_norm_bwd_smem(mode, max_ch, hw, item):
@@ -429,19 +438,21 @@ def group_norm_bwd_kernel(x, weight, mean, rstd, g, num_groups):
     return dx, dw, db
 
 
-def group_norm_fwd(x, weight, bias, num_groups, eps=1e-5):
-    """(y, mean, rstd): the kernel for a CUDA tensor, the plain twin for
-    CPU."""
+def _fwd_impl(x, weight, bias, num_groups, eps):
     if x.device.type == "cpu":
-        return group_norm_fwd_plain(x, weight, bias, num_groups, eps)
+        y, mean, rstd = group_norm_fwd_plain(x, weight, bias, num_groups, eps)
+        return y, torch.stack([mean, rstd])
     if x.device.type == "cuda":
-        return group_norm_kernel(x, weight, bias, num_groups, eps)
+        return _kernel_stats(x, weight, bias, num_groups, eps)
     raise ValueError(f"group_norm: unsupported device {x.device}")
 
 
-def group_norm_bwd(x, weight, mean, rstd, g, num_groups):
-    """(dx, dw, db): the kernel for CUDA tensors, the plain twin for
-    CPU."""
+def _fwd_fake(x, weight, bias, num_groups, eps):
+    return (torch.empty_like(x),
+            x.new_empty((2, x.shape[0] * num_groups), dtype=torch.float32))
+
+
+def _bwd_impl(x, weight, mean, rstd, g, num_groups):
     if x.device.type == "cpu":
         return group_norm_bwd_plain(x, weight, mean, rstd, g, num_groups)
     if x.device.type == "cuda":
@@ -449,34 +460,59 @@ def group_norm_bwd(x, weight, mean, rstd, g, num_groups):
     raise ValueError(f"group_norm_bwd: unsupported device {x.device}")
 
 
-class _GroupNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, weight, bias, num_groups, eps):
-        y, mean, rstd = group_norm_fwd(x, weight, bias, num_groups, eps)
-        ctx.save_for_backward(x, weight, mean, rstd)
-        ctx.num_groups = num_groups
-        return y
+def _bwd_fake(x, weight, mean, rstd, g, num_groups):
+    return (torch.empty_like(x), torch.empty_like(weight),
+            torch.empty_like(weight))
 
-    @staticmethod
-    def backward(ctx, g):
-        if torch.is_grad_enabled():          # create_graph: a 2nd order
-            raise RuntimeError("group_norm: the kernel's backward has no "
-                               "derivative of its own (first order only)")
-        x, weight, mean, rstd = ctx.saved_tensors
-        dx, dw, db = group_norm_bwd(x, weight, mean, rstd, g.contiguous(),
-                                    ctx.num_groups)
-        return dx, dw, db, None, None
+
+#: ``paddle_tpu_torch::group_norm_fwd`` -> (y, stats [2, N*G] f32: mean
+#: and rstd) and ``paddle_tpu_torch::group_norm_bwd`` -> (dx, dw, db)
+group_norm_fwd_op = _library.define(
+    "group_norm_fwd", "(Tensor x, Tensor weight, Tensor bias, "
+    "int num_groups, float eps) -> (Tensor, Tensor)", _fwd_impl, _fwd_fake)
+group_norm_bwd_op = _library.define(
+    "group_norm_bwd", "(Tensor x, Tensor weight, Tensor mean, Tensor rstd, "
+    "Tensor g, int num_groups) -> (Tensor, Tensor, Tensor)", _bwd_impl,
+    _bwd_fake)
+
+
+def _setup(ctx, inputs, output):
+    x, weight, _, num_groups, _ = inputs
+    ctx.save_for_backward(x, weight, output[1])
+    ctx.num_groups = num_groups
+
+
+def _backward(ctx, g, _):
+    _library.first_order("group_norm")
+    x, weight, stats = ctx.saved_tensors
+    dx, dw, db = group_norm_bwd_op(x, weight, stats[0], stats[1],
+                                   g.contiguous(), ctx.num_groups)
+    return dx, dw, db, None, None
+
+
+group_norm_fwd_op.register_autograd(_backward, setup_context=_setup)
+
+
+def group_norm_fwd(x, weight, bias, num_groups, eps=1e-5):
+    """(y, mean, rstd): the kernel for a CUDA tensor, the plain twin for
+    CPU (the custom op ``group_norm_fwd``)."""
+    y, stats = group_norm_fwd_op(x, weight, bias, int(num_groups),
+                                 float(eps))
+    return y, stats[0], stats[1]
+
+
+def group_norm_bwd(x, weight, mean, rstd, g, num_groups):
+    """(dx, dw, db): the kernel for CUDA tensors, the plain twin for
+    CPU (the custom op ``group_norm_bwd``)."""
+    return group_norm_bwd_op(x, weight, mean, rstd, g, int(num_groups))
 
 
 def group_norm(x, weight, bias, num_groups, eps=1e-5):
     """GroupNorm over NC* with 1-D weight and bias of C entries,
-    differentiable in all three.  With no gradient to record, the
-    forward runs alone."""
-    x = x.contiguous()
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, weight, bias)):
-        return _GroupNorm.apply(x, weight, bias, num_groups, eps)
-    return group_norm_fwd(x, weight, bias, num_groups, eps)[0]
+    differentiable in all three (through the custom op's registered
+    backward, the backward kernel)."""
+    return group_norm_fwd_op(x.contiguous(), weight, bias, int(num_groups),
+                             float(eps))[0]
 
 
 group_norm.launches = 0

@@ -42,8 +42,9 @@ read and write is a coalesced row.  The host path of each is memoized:
 checks, plan and the C call's constants are made once per (device,
 dtypes, shapes, alignment).
 
-:func:`layer_norm` is differentiable (a ``torch.autograd.Function``): the
-kernels for CUDA tensors, the plain twins for CPU tensors, and a raise
+:func:`layer_norm` is differentiable (the custom op
+``paddle_tpu_torch::layer_norm_fwd``, its backward registered over
+``layer_norm_bwd``: ``ops/_library.py``): the kernels for CUDA tensors, the plain twins for CPU tensors, and a raise
 for anything else.  :func:`layer_norm_plain` is the plain forward
 differentiated by torch autograd, the reference of the kernel path.
 """
@@ -56,6 +57,7 @@ import math
 import torch
 
 from .. import _build
+from . import _library
 
 #: x's and the weight's dtype as ``csrc/norms.cu`` codes them
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -288,6 +290,14 @@ def layer_norm_kernel(x, weight, bias, eps=1e-5):
     the plan and the launch's constants are made once per (device,
     dtypes, shapes, 16-byte alignment of x, weight and bias); a later
     call of the same key reads them back."""
+    y, stats = _kernel_stats(x, weight, bias, eps)
+    mean, rstd = stats.unbind()
+    return y, mean, rstd
+
+
+def _kernel_stats(x, weight, bias, eps):
+    """:func:`layer_norm_kernel` with the statistics as one [2, N] f32
+    tensor (mean, rstd), as the custom op returns them."""
     key = (x.device, x.dtype, x.shape, weight.device, weight.dtype,
            weight.shape, bias.device, bias.dtype, bias.shape,
            (x.data_ptr() | weight.data_ptr() | bias.data_ptr()) % 16 == 0)
@@ -312,8 +322,7 @@ def _fwd_run(launch, x, weight, bias, eps):
             raise RuntimeError(f"layer_norm kernel launch failed: CUDA error "
                                f"{rc}")
         layer_norm.launches += 1
-    mean, rstd = stats.unbind()
-    return y, mean, rstd
+    return y, stats
 
 
 def _bwd_launch(x, weight, mean, rstd, g):
@@ -374,19 +383,21 @@ def layer_norm_bwd_kernel(x, weight, mean, rstd, g):
     return dx, dw, db
 
 
-def layer_norm_fwd(x, weight, bias, eps=1e-5):
-    """(y, mean, rstd): the kernel for a CUDA tensor, the plain twin for
-    CPU."""
+def _fwd_impl(x, weight, bias, eps):
     if x.device.type == "cpu":
-        return layer_norm_fwd_plain(x, weight, bias, eps)
+        y, mean, rstd = layer_norm_fwd_plain(x, weight, bias, eps)
+        return y, torch.stack([mean, rstd])
     if x.device.type == "cuda":
-        return layer_norm_kernel(x, weight, bias, eps)
+        return _kernel_stats(x, weight, bias, eps)
     raise ValueError(f"layer_norm: unsupported device {x.device}")
 
 
-def layer_norm_bwd(x, weight, mean, rstd, g):
-    """(dx, dw, db): the kernel for CUDA tensors, the plain twin for
-    CPU."""
+def _fwd_fake(x, weight, bias, eps):
+    n = math.prod(x.shape[:-1])
+    return torch.empty_like(x), x.new_empty((2, n), dtype=torch.float32)
+
+
+def _bwd_impl(x, weight, mean, rstd, g):
     if x.device.type == "cpu":
         return layer_norm_bwd_plain(x, weight, mean, rstd, g)
     if x.device.type == "cuda":
@@ -394,32 +405,56 @@ def layer_norm_bwd(x, weight, mean, rstd, g):
     raise ValueError(f"layer_norm_bwd: unsupported device {x.device}")
 
 
-class _LayerNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps):
-        y, mean, rstd = layer_norm_fwd(x, weight, bias, eps)
-        ctx.save_for_backward(x, weight, mean, rstd)
-        return y
+def _bwd_fake(x, weight, mean, rstd, g):
+    return (torch.empty_like(x), torch.empty_like(weight),
+            torch.empty_like(weight))
 
-    @staticmethod
-    def backward(ctx, g):
-        if torch.is_grad_enabled():          # create_graph: a 2nd order
-            raise RuntimeError("layer_norm: the kernel's backward has no "
-                               "derivative of its own (first order only)")
-        x, weight, mean, rstd = ctx.saved_tensors
-        dx, dw, db = layer_norm_bwd(x, weight, mean, rstd, g.contiguous())
-        return dx, dw, db, None
+
+#: ``paddle_tpu_torch::layer_norm_fwd`` -> (y, stats [2, N] f32: mean
+#: and rstd) and ``paddle_tpu_torch::layer_norm_bwd`` -> (dx, dw, db)
+layer_norm_fwd_op = _library.define(
+    "layer_norm_fwd", "(Tensor x, Tensor weight, Tensor bias, float eps) "
+    "-> (Tensor, Tensor)", _fwd_impl, _fwd_fake)
+layer_norm_bwd_op = _library.define(
+    "layer_norm_bwd", "(Tensor x, Tensor weight, Tensor mean, Tensor rstd, "
+    "Tensor g) -> (Tensor, Tensor, Tensor)", _bwd_impl, _bwd_fake)
+
+
+def _setup(ctx, inputs, output):
+    x, weight, _, _ = inputs
+    ctx.save_for_backward(x, weight, output[1])
+
+
+def _backward(ctx, g, _):
+    _library.first_order("layer_norm")
+    x, weight, stats = ctx.saved_tensors
+    dx, dw, db = layer_norm_bwd_op(x, weight, stats[0], stats[1],
+                                   g.contiguous())
+    return dx, dw, db, None
+
+
+layer_norm_fwd_op.register_autograd(_backward, setup_context=_setup)
+
+
+def layer_norm_fwd(x, weight, bias, eps=1e-5):
+    """(y, mean, rstd): the kernel for a CUDA tensor, the plain twin for
+    CPU (the custom op ``layer_norm_fwd``)."""
+    y, stats = layer_norm_fwd_op(x, weight, bias, float(eps))
+    mean, rstd = stats.unbind()
+    return y, mean, rstd
+
+
+def layer_norm_bwd(x, weight, mean, rstd, g):
+    """(dx, dw, db): the kernel for CUDA tensors, the plain twin for
+    CPU (the custom op ``layer_norm_bwd``)."""
+    return layer_norm_bwd_op(x, weight, mean, rstd, g)
 
 
 def layer_norm(x, weight, bias, eps=1e-5):
     """LayerNorm over the last dim with 1-D weight and bias,
-    differentiable in all three.  With no gradient to record, the
-    forward runs alone."""
-    x = x.contiguous()
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, weight, bias)):
-        return _LayerNorm.apply(x, weight, bias, eps)
-    return layer_norm_fwd(x, weight, bias, eps)[0]
+    differentiable in all three (through the custom op's registered
+    backward, the backward kernel)."""
+    return layer_norm_fwd_op(x.contiguous(), weight, bias, float(eps))[0]
 
 
 layer_norm.launches = 0

@@ -24,8 +24,9 @@ the weight, the backward ``3 * N * H`` (x, g in, dx out) plus the weight
 and partials, against a few operations per element; every read and
 write is a coalesced row, and no byte is touched twice.
 
-:func:`rms_norm` is differentiable (a ``torch.autograd.Function``): the
-kernels for CUDA tensors, the plain PyTorch twins for CPU tensors, and
+:func:`rms_norm` is differentiable (the custom op
+``paddle_tpu_torch::rms_norm_fwd``, its backward registered over
+``rms_norm_bwd``: ``ops/_library.py``): the kernels for CUDA tensors, the plain PyTorch twins for CPU tensors, and
 a raise for anything else.  :func:`rms_norm_plain` is the plain forward
 differentiated by torch autograd, the reference of the kernel path.
 :func:`rms_norm_arrays` is JAX's entry over any trailing axes, with an
@@ -34,9 +35,12 @@ optional bias, which routes the kernel's form to :func:`rms_norm`.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..amp.auto_cast import cast_inputs
+from . import _library
 
 #: ``triton.language``, bound at the first launch (triton is imported
 #: only when a kernel is launched, so this module imports without it)
@@ -184,8 +188,7 @@ def rms_norm_bwd_kernel(x, weight, rstd, g):
     return dx.view(x.shape), partial.sum(0).to(weight.dtype)
 
 
-def rms_norm_fwd(x, weight, eps=1e-6):
-    """(y, rstd): the kernel for a CUDA tensor, the plain twin for CPU."""
+def _fwd_impl(x, weight, eps):
     if x.device.type == "cpu":
         return rms_norm_fwd_plain(x, weight, eps)
     if x.device.type == "cuda":
@@ -193,8 +196,12 @@ def rms_norm_fwd(x, weight, eps=1e-6):
     raise ValueError(f"rms_norm: unsupported device {x.device}")
 
 
-def rms_norm_bwd(x, weight, rstd, g):
-    """(dx, dw): the kernel for CUDA tensors, the plain twin for CPU."""
+def _fwd_fake(x, weight, eps):
+    n = math.prod(x.shape[:-1])
+    return torch.empty_like(x), x.new_empty((n,), dtype=torch.float32)
+
+
+def _bwd_impl(x, weight, rstd, g):
     if x.device.type == "cpu":
         return rms_norm_bwd_plain(x, weight, rstd, g)
     if x.device.type == "cuda":
@@ -202,32 +209,54 @@ def rms_norm_bwd(x, weight, rstd, g):
     raise ValueError(f"rms_norm_bwd: unsupported device {x.device}")
 
 
-class _RMSNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, weight, eps):
-        y, rstd = rms_norm_fwd(x, weight, eps)
-        ctx.save_for_backward(x, weight, rstd)
-        return y
+def _bwd_fake(x, weight, rstd, g):
+    return torch.empty_like(x), torch.empty_like(weight)
 
-    @staticmethod
-    def backward(ctx, g):
-        if torch.is_grad_enabled():          # create_graph: a 2nd order
-            raise RuntimeError("rms_norm: the kernel's backward has no "
-                               "derivative of its own (first order only)")
-        x, weight, rstd = ctx.saved_tensors
-        dx, dw = rms_norm_bwd(x, weight, rstd, g.contiguous())
-        return dx, dw, None
+
+#: ``paddle_tpu_torch::rms_norm_fwd`` -> (y, rstd [N] f32) and
+#: ``paddle_tpu_torch::rms_norm_bwd`` -> (dx, dw)
+rms_norm_fwd_op = _library.define(
+    "rms_norm_fwd", "(Tensor x, Tensor weight, float eps) -> "
+    "(Tensor, Tensor)", _fwd_impl, _fwd_fake)
+rms_norm_bwd_op = _library.define(
+    "rms_norm_bwd", "(Tensor x, Tensor weight, Tensor rstd, Tensor g) -> "
+    "(Tensor, Tensor)", _bwd_impl, _bwd_fake)
+
+
+def _setup(ctx, inputs, output):
+    x, weight, _ = inputs
+    ctx.save_for_backward(x, weight, output[1])
+
+
+def _backward(ctx, g, _):
+    _library.first_order("rms_norm")
+    x, weight, rstd = ctx.saved_tensors
+    dx, dw = rms_norm_bwd_op(x, weight, rstd, g.contiguous())
+    return dx, dw, None
+
+
+rms_norm_fwd_op.register_autograd(_backward, setup_context=_setup)
+
+
+def rms_norm_fwd(x, weight, eps=1e-6):
+    """(y, rstd): the kernel for a CUDA tensor, the plain twin for CPU
+    (the custom op ``rms_norm_fwd``)."""
+    return rms_norm_fwd_op(x, weight, float(eps))
+
+
+def rms_norm_bwd(x, weight, rstd, g):
+    """(dx, dw): the kernel for CUDA tensors, the plain twin for CPU (the
+    custom op ``rms_norm_bwd``)."""
+    return rms_norm_bwd_op(x, weight, rstd, g)
 
 
 def rms_norm(x, weight, eps=1e-6):
-    """RMSNorm over the last dim, differentiable in x and the weight.
-    With no gradient to record (serving), the forward runs alone.  Under
-    an ``amp.auto_cast`` scope the inputs are cast as JAX's ``rms_norm``
-    op's."""
+    """RMSNorm over the last dim, differentiable in x and the weight
+    (through the custom op's registered backward, the backward kernel).
+    Under an ``amp.auto_cast`` scope the inputs are cast as JAX's
+    ``rms_norm`` op's."""
     x, weight = cast_inputs("rms_norm", x, weight)
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        return _RMSNorm.apply(x, weight, eps)
-    return rms_norm_fwd(x, weight, eps)[0]
+    return rms_norm_fwd_op(x, weight, float(eps))[0]
 
 
 rms_norm.launches = 0

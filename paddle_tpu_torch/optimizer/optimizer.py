@@ -13,6 +13,13 @@ The optimizer lives on ``device`` (``cuda`` unless the caller passes
 tensors or ``(name, tensor)`` pairs (``model.named_parameters()``); the
 names key :meth:`state_dict` as ``"<name>.<accumulator>"``.
 
+Every tensor a step reads or writes keeps its storage from step to step,
+so a step can be captured in a CUDA graph and replayed
+(``jit.TrainStep.many``): the accumulators are updated in place, and the
+rate is a persistent f32 tensor per multiplier, filled on the device
+before each eager step (and, for a replayed graph, once before the
+replay: :meth:`_fill_lrs`), never filled while a stream captures.
+
 Per parameter, as JAX's ``step`` (``optimizer.py:140-190``): the rate is
 multiplied by the parameter's ``optimize_attr["learning_rate"]``
 (``ParamAttr(learning_rate=)``); a parameter with ``trainable`` False is
@@ -29,6 +36,11 @@ import torch
 
 from ..device import resolve_device
 from ..regularizer import L2Decay
+
+
+def _capturing(device):
+    """Whether ``device``'s current stream is capturing a CUDA graph."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
 class Optimizer:
@@ -59,6 +71,7 @@ class Optimizer:
             self._regularizer_fn = weight_decay
         self._cur_wd = self._weight_decay
         self._accumulators = {}      # id(param) -> {state name: tensor}
+        self._lr_tensors = {}        # multiplier -> persistent f32 rate
         self._step_count = 0
 
     # -------- lr --------
@@ -119,7 +132,7 @@ class Optimizer:
                 raise ValueError(f"optimizer state {key!r}: shape "
                                  f"{tuple(v.shape)}, expected "
                                  f"{tuple(st[k].shape)}")
-            st[k] = v.to(device=st[k].device, dtype=st[k].dtype).clone()
+            st[k].copy_(v.to(device=st[k].device, dtype=st[k].dtype))
 
     # -------- core --------
     def _update(self, param, grad, state, lr):
@@ -152,12 +165,26 @@ class Optimizer:
 
     def _lr_for(self, p, lrs):
         """This step's f32 rate times ``p``'s multiplier (the product
-        taken in Python, as JAX's), one tensor per multiplier."""
+        taken in Python, as JAX's), one persistent tensor per multiplier,
+        filled on the device once a step (not while a stream captures: a
+        replayed graph reads what :meth:`_fill_lrs` wrote)."""
         mult = getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
         if mult not in lrs:
-            lrs[mult] = torch.tensor(self.get_lr() * mult,
-                                     dtype=torch.float32, device=self.device)
+            t = self._lr_tensors.get(mult)
+            if t is None:
+                t = self._lr_tensors[mult] = torch.empty(
+                    (), dtype=torch.float32, device=self.device)
+            if not _capturing(self.device):
+                t.fill_(self.get_lr() * mult)
+            lrs[mult] = t
         return lrs[mult]
+
+    def _fill_lrs(self):
+        """Write this step's rate into every rate tensor (before a
+        replayed graph: the rate is read once for the pack)."""
+        lr = self.get_lr()
+        for mult, t in self._lr_tensors.items():
+            t.fill_(lr * mult)
 
     def _apply(self, params_grads, skip=None):
         """Update each parameter in place from its (clipped) gradient at
@@ -181,9 +208,13 @@ class Optimizer:
                     new_state = {k: torch.where(skip, state[k], v)
                                  for k, v in new_state.items()}
                 p.copy_(new_p)
-                # each accumulator keeps its dtype, as JAX's _update_for
-                self._accumulators[id(p)] = {
-                    k: v.to(state[k].dtype) for k, v in new_state.items()}
+                # in place, each accumulator in its dtype (as JAX's
+                # _update_for): its storage outlives the step
+                for k, v in new_state.items():
+                    if k in state:
+                        state[k].copy_(v)
+                    else:
+                        state[k] = v
 
     def step(self, skip=None):
         """Clip, count the step and update (see :meth:`_apply` for

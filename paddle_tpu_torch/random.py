@@ -13,6 +13,13 @@ The bits differ from JAX's threefry bits by design (as sampled tokens do,
 compare with JAX at p = 0 or in ``eval()``.
 
 The stream is per thread, as JAX's.
+
+Under a capture the draws come from elsewhere, so that a replayed
+program draws anew: inside ``torch.compile`` (``jit.to_static``) a draw
+takes the torch generator of its device, which ``to_static`` seeds from
+one key of this stream per call; while ``jit.TrainStep.many`` captures a
+CUDA graph, a draw takes the generator registered with that graph (its
+offset advances on every replay).
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ class _KeyStream:
 class _RandomState(threading.local):
     def __init__(self):
         self.stream = _KeyStream(0)
+        self.graph_generator = None
 
 
 _STATE = _RandomState()
@@ -92,11 +100,31 @@ def generator(key, device):
     meta device, whose tensors hold no values to draw)."""
     if torch.device(device).type == "meta":
         return None
+    g = _STATE.graph_generator
+    if g is not None and torch.device(device).type == "cuda":
+        return g
     g = torch.Generator(device=device)
     g.manual_seed(key_seed(*key))
     return g
 
 
 def next_generator(device):
-    """:func:`generator` of :func:`next_key`."""
+    """:func:`generator` of :func:`next_key`; under ``torch.compile``
+    None (the device's torch generator, seeded per call by
+    ``jit.to_static``: the module docstring)."""
+    if torch.compiler.is_compiling():
+        return None
     return generator(next_key(), device)
+
+
+@contextlib.contextmanager
+def graph_generator(g):
+    """Inside the block every CUDA draw of this thread takes ``g`` (a
+    generator registered with the CUDA graph being captured), and the
+    stream's keys are not taken."""
+    prev = _STATE.graph_generator
+    _STATE.graph_generator = g
+    try:
+        yield
+    finally:
+        _STATE.graph_generator = prev

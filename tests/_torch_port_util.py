@@ -33,6 +33,30 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module")
+def jax_compile_cache(tmp_path_factory):
+    """JAX's persistent compilation cache in a temporary directory for
+    the module: every JAX engine builds its own ``jax.jit`` programs, so
+    engines of one configuration compile the same XLA programs again;
+    with the cache each distinct program compiles once per module.  The
+    cache is turned off again afterwards."""
+    import jax
+    from jax._src import compilation_cache as cc
+
+    opts = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs",
+            "jax_persistent_cache_min_entry_size_bytes")
+    saved = {k: getattr(jax.config, k) for k in opts}
+    jax.config.update(opts[0], str(tmp_path_factory.mktemp("jax_cache")))
+    jax.config.update(opts[1], 0)
+    jax.config.update(opts[2], 0)
+    cc.reset_cache()
+    yield
+    for k, v in saved.items():
+        jax.config.update(k, v)
+    cc.reset_cache()
+
+
 def torch_config(cfg):
     """The port's config with the same fields as a JAX GPTConfig."""
     return TGPTConfig(

@@ -26,8 +26,10 @@ from paddle_tpu_torch.serving import Engine, EngineConfig, SamplingParams
 from paddle_tpu_torch.serving.paged_attention import check_kernel_geometry
 
 from _torch_port_util import (  # noqa: F401
-    CONFIGS, TINY, jax_model, one_thread, port_model,
+    CONFIGS, TINY, jax_compile_cache, jax_model, one_thread, port_model,
 )
+
+pytestmark = pytest.mark.usefixtures("jax_compile_cache")
 
 SHARED = [7, 3, 9, 1, 4, 4, 2, 8]                  # 2 blocks of 4
 PREFIX_KW = dict(num_slots=4, max_seq_len=48, min_prefill_bucket=4,
@@ -55,7 +57,8 @@ def _sampled(sp_cls, budgets, seed=3):
 
 
 def _jax(jm, **kw):
-    return JEngine(jm, JEngineConfig(**kw), register_profiler=False)
+    return JEngine(jm, JEngineConfig(program_cards=False, **kw),
+                   register_profiler=False)
 
 
 def _port(tm, **kw):

@@ -24,8 +24,11 @@ from paddle_tpu_torch.serving import engine as engine_mod
 from paddle_tpu_torch.serving.structured import compile_grammar, compile_regex
 
 from _torch_port_util import (  # noqa: F401
-    CONFIGS, TINY, TINY_GQA, jax_model, one_thread, port_model,
+    CONFIGS, TINY, TINY_GQA, jax_compile_cache, jax_model, one_thread,
+    port_model,
 )
+
+pytestmark = pytest.mark.usefixtures("jax_compile_cache")
 
 EOS = 95
 SCHEMA = {"type": "object",

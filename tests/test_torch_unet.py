@@ -21,11 +21,13 @@ of their updates and the absolute 1 % of a step bounds them).
 import dataclasses
 import math
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu.models import UNetConfig as JUNetConfig
 from paddle_tpu.models import UNet2DConditionModel as JUNet
 from paddle_tpu.models.unet import timestep_embedding as jax_timestep_emb
@@ -39,6 +41,7 @@ from paddle_tpu_torch.models.unet import (
 from paddle_tpu_torch.ops import kernel_launches
 from paddle_tpu_torch.optimizer import AdamW
 
+from _torch_jax_table import FAST_COMPILE, numpy_init
 from _torch_port_util import one_thread  # noqa: F401
 
 # tests/test_models.py TestUNet's tiny config
@@ -73,12 +76,25 @@ def _loss_fn(net, x, t, ctx, target):
     return paddle.nn.functional.mse_loss(net(x, t, ctx), target)
 
 
+def _jax_forward(jm, *arrays):
+    """The JAX model's eval forward as one ``jax.jit`` over its state
+    (compiled op by op, the NCHW forward alone took 90 s)."""
+    names = list(jm.state_dict())
+
+    def run(state, *arrs):
+        with paddle.no_grad(), jm.use_state(dict(zip(names, state))):
+            return jm(*[JTensor(a) for a in arrs])._data
+
+    state = [v._data for v in jm.state_dict().values()]
+    return np.asarray(jax.jit(run).lower(state, *arrays).compile(
+        compiler_options=FAST_COMPILE)(state, *arrays))
+
+
 @LAYOUT
 def test_forward_matches_jax(channels_last):
     _, jm, tm = _models(seed=1, channels_last=channels_last)
     lat, t, ctx = _batch(seed=1)
-    ref = jm(paddle.to_tensor(lat), paddle.to_tensor(t),
-             paddle.to_tensor(ctx)).numpy()
+    ref = _jax_forward(jm, lat, t, ctx)
     with torch.no_grad():
         out = tm(*(torch.from_numpy(a) for a in (lat, t, ctx))).numpy()
     assert out.shape == ref.shape == (2, 4, 8, 8)
@@ -103,8 +119,8 @@ def test_timestep_embedding_matches_jax():
 def test_expected_shapes_are_the_models(cfg):
     """The conversion's shape table is the port model's state dict and
     the JAX model's key set (in either layout)."""
-    paddle.seed(0)
-    jkeys = set(JUNet(JUNetConfig(**cfg)).state_dict())
+    with numpy_init(0):
+        jkeys = set(JUNet(JUNetConfig(**cfg)).state_dict())
     tm = UNet2DConditionModel(UNetConfig(**cfg), device="cpu")
     want = unet_expected_shapes(UNetConfig(**cfg))
     assert want == {k: tuple(v.shape) for k, v in tm.state_dict().items()}
@@ -178,8 +194,8 @@ def test_jax_state_dict_loads_as_it_is():
     unchanged (the forward tests hold its outputs to JAX's): every tensor
     equals JAX's array and the converter's, the non-square Linears
     ``[in, out]``."""
-    paddle.seed(5)
-    jm = JUNet(JUNetConfig(**TINY))
+    with numpy_init(5):
+        jm = JUNet(JUNetConfig(**TINY))
     state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     tm = UNet2DConditionModel(UNetConfig(**TINY), device="cpu")
     tm.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
