@@ -418,15 +418,35 @@ the script exits nonzero and prints no result:
    launched; (4) ``TrainStep.many(8)`` as one CUDA graph against 8 eager
    steps: after three packs (two replays) every loss, parameter and
    optimizer state bitwise equal to 24 eager steps', replays and eager
-   packs in turns (sequences/s, idle share), one replay's and one eager
-   pack's profile records of rows 4, 5 and 8-10 equal to the counters'
-   rise (a replay's counts are the ones ``TrainStep`` adds for it), the
+   packs in turns (sequences/s, idle share), one replay's and each step
+   of one eager pack's profile records of rows 4, 5 and 8-10 equal to the
+   counters' rise (a replay's counts are the ones ``TrainStep`` adds for
+   it), the
    same models with a ``GradScaler`` under replay (a scale forced to
    +inf skips both steps, a loaded state takes effect; bitwise equal to
    eager), then hidden dropout 0.1: finite losses and masks that differ
    between steps and packs; (5) the dy2static decode
    with a data-dependent early exit saved, loaded and equal to eager on
    both exits.
+34. static_graph: ``paddle.static`` on BERT-base bf16 at full width,
+   dropout 0, feeds fixed at [32, 128], its MLM loss recorded under
+   ``enable_static`` layer by layer: (1) ``AdamW(1e-4).minimize`` and
+   4 ``Executor.run`` steps against 4 eager steps of an identical model
+   on the same batches, in turns, every loss, parameter and AdamW moment
+   bitwise equal; each run's counter rise equal to an eager step's
+   (26/26/12/12/12 of rows 4, 5 and 8-10) and to a profiled run's
+   records; record, run and eager step seconds and the idle share;
+   (2) the test clone's logits through ``save_inference_model`` and
+   ``inference.create_predictor`` bitwise equal to ``Executor.run``, one
+   ``predictor.run`` profiled (12 flash and 26 LayerNorm forward
+   records, no library LayerNorm or SDPA kernel); (3) at 2 of the 12
+   layers: ``static.amp.decorate(AdamW, dtype="float16")`` (two runs at
+   the largest f32 scale, the loss scaled to +inf, leave parameters and
+   moments bitwise unchanged and shrink the scale by ``decr_ratio``;
+   then finite runs, a white-listed op's fetched output float16 and the
+   loss float32) and recompute with a checkpoint at each layer's output
+   bitwise equal to no recompute (losses, gradients, parameters), both
+   memory peaks printed.
 
 Every phase prints its wall seconds ({"phase_seconds": name, ...}), and
 a "seconds" line sums them.  The last three lines are the card's
@@ -447,6 +467,7 @@ without a CUDA device.
     python3 chip_smoke.py --layer-phases
     python3 chip_smoke.py --host-phases
     python3 chip_smoke.py --jit-phases
+    python3 chip_smoke.py --static-phases
 
 ``--serve-phases`` runs the named serve phases alone on the engine
 phase's model (no other phase and no kernels line); ``--resnet-phases``
@@ -457,8 +478,8 @@ determinism, row invariance, the raises) and phases 18-20;
 ``--fused-phases`` the three phases of 22; ``--zoo-phases`` the four
 phases of 23-26 and ``--seq2seq-phases`` the four of 27-30 (no kernel
 built: none lies on their path); ``--layer-phases`` bert_train and 31
-(the kernels built); ``--host-phases`` 32 alone and ``--jit-phases``
-33 alone (the kernels built).
+(the kernels built); ``--host-phases`` 32 alone, ``--jit-phases``
+33 alone and ``--static-phases`` 34 alone (the kernels built).
 The sweeps run the GroupNorm or
 the LayerNorm forward sweep alone (or the paged attention cases and
 their row-invariance checks): with ``--variants`` also every launch the
@@ -9233,8 +9254,9 @@ def jit_many(torch, dev, cfg, out):
     after three packs (the first eager, then captured; two replays)
     every loss, parameter and optimizer state bitwise equal to 3K eager
     steps'; then replays and eager packs in turns, sequences/s and the
-    idle share of each, one replay and one eager pack profiled with the
-    counters' rise held to the profile's kernel records; then the loss
+    idle share of each, one replay and each step of one eager pack
+    profiled with the counters' rise held to the profile's kernel
+    records; then the loss
     scaler under replay (:func:`jit_many_scaler`); then with hidden
     dropout 0.1 the losses are finite and the masks differ from step to
     step and pack to pack."""
@@ -9271,9 +9293,19 @@ def jit_many(torch, dev, cfg, out):
     want = {n: BERT_FLASH_PER_STEP[n] * k for n in JIT_STEP_KERNELS}
     _, recs_g, fig_g, win_g = profiled_launches(
         torch, "many replay", lambda: s_g.many(packs[1]).sum().item(), want)
-    _, recs_e, fig_e, win_e = profiled_launches(
-        torch, "many eager", lambda: torch.stack(
-            [s_e(*b) for b in packs[1]]).sum().item(), want)
+    # the eager pack step by step: each step's records held to its own
+    # rise, the pack's to their sum (a ~56,000-kernel window late in the
+    # script lost records in all of its windows in one run)
+    step_want = {n: BERT_FLASH_PER_STEP[n] for n in JIT_STEP_KERNELS}
+    recs_e, win_e = dict.fromkeys(want, 0), []
+    for b in packs[1]:
+        _, r, fig_e, w = profiled_launches(
+            torch, "many eager step", lambda b=b: s_e(*b).item(), step_want)
+        recs_e = {n: recs_e[n] + r[n] for n in want}
+        win_e.append(w)
+    if recs_e != want:
+        raise AssertionError(f"jit_deploy many eager: records {recs_e}, "
+                             f"want {want}")
     rate = {t: BERT_BATCH * k / statistics.median(v)
             for t, v in times.items()}
     del s_g, s_e
@@ -9472,6 +9504,405 @@ def jit_deploy_phase(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------ phase 34
+STATIC_STEPS = 4
+STATIC_AMP_FINITE_RUNS = 4
+
+
+def static_state_equal(torch, smodel, sopt, emodel, eopt):
+    """The names of the parameters (and AdamW moments) of a static model
+    and an eager one that differ bitwise, pairing them in module order."""
+    bad = []
+    for (n, sp), ep in zip(smodel.named_parameters(), emodel.parameters()):
+        if not torch.equal(sp, ep):
+            bad.append(n)
+        s_st = sopt._accumulators.get(id(sp), {})
+        e_st = eopt._accumulators.get(id(ep), {})
+        if set(s_st) != set(e_st) or any(
+                not torch.equal(s_st[k], e_st[k]) for k in s_st):
+            bad.append(n + ".moments")
+    return bad
+
+
+def static_bert_program(torch, dev, cfg, dtype, seed, batch_shape,
+                        checkpoints=False):
+    """BertForMaskedLM's MLM loss recorded as a static program ->
+    (program, startup, model, feeds (ids, types, labels), loss, logits,
+    each layer's output, record seconds).  The forward is the model's
+    own, layer by layer, so that each layer's output can be a recompute
+    checkpoint."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.bert import BertForMaskedLM
+    from paddle_tpu_torch.nn import functional as F
+
+    main, startup = static.Program(), static.Program()
+    paddle.enable_static()
+    try:
+        with static.program_guard(main, startup):
+            model = BertForMaskedLM(cfg, device=dev, dtype=dtype, seed=seed)
+            t0 = time.perf_counter()
+            ids = static.data("input_ids", batch_shape, "int64")
+            types = static.data("token_type_ids", batch_shape, "int64")
+            labels = static.data("labels", batch_shape, "int64")
+            x = model.bert.embeddings(ids, types)
+            outs = []
+            for layer in model.bert.encoder.layers:
+                x = layer(x, None)
+                outs.append(x)
+            logits = model.cls(x)
+            loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                                   labels.reshape(-1), ignore_index=-100)
+            record_s = time.perf_counter() - t0
+    finally:
+        paddle.disable_static()
+    return (main, startup, model, (ids, types, labels), loss, logits, outs,
+            record_s)
+
+
+def static_feed(batch):
+    return dict(zip(("input_ids", "token_type_ids", "labels"), batch))
+
+
+def static_train(torch, dev, cfg, batches, out):
+    """Part 1: the program trained by AdamW(1e-4) through ``minimize``
+    against an identical eager model's steps, in turns, bitwise; the
+    counters' rise of one run against one eager step's and a profile's
+    records."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.bert import BertForMaskedLM
+    from paddle_tpu_torch.ops import kernel_launches
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    main, startup, smodel, feeds, loss, logits, _, record_s = \
+        static_bert_program(torch, dev, cfg, torch.bfloat16, 9,
+                            [BERT_BATCH, BERT_SEQ])
+    paddle.enable_static()
+    try:
+        with static.program_guard(main, startup):
+            sopt = AdamW(learning_rate=1e-4)        # parameters=None
+            sopt.minimize(loss)
+    finally:
+        paddle.disable_static()
+    build_s = time.perf_counter() - t0
+    emodel = BertForMaskedLM(cfg, device=dev, dtype=torch.bfloat16, seed=9)
+    eopt = AdamW(learning_rate=1e-4, parameters=emodel.parameters(),
+                 device=dev)
+    if static_state_equal(torch, smodel, sopt, emodel, eopt):
+        raise AssertionError("static_graph: the two models start apart")
+    exe = static.Executor()
+    exe.run(startup)
+
+    def static_run(batch):
+        return exe.run(main, feed=static_feed(batch), fetch_list=[loss],
+                       return_numpy=False)[0]
+
+    def eager_step(batch):
+        el = bert_loss(emodel, *batch)
+        el.backward()
+        eopt.step()
+        eopt.clear_grad()
+        return el
+
+    s_losses, e_losses, s_times, e_times = [], [], [], []
+    rises = {}
+    for i, batch in enumerate(batches):
+        for kind in (("static", "eager") if i % 2 == 0
+                     else ("eager", "static")):
+            base = kernel_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if kind == "static":
+                v = static_run(batch)
+            else:
+                v = eager_step(batch)
+            torch.cuda.synchronize()
+            (s_times if kind == "static" else e_times).append(
+                time.perf_counter() - t1)
+            (s_losses if kind == "static" else e_losses).append(v.detach())
+            rises.setdefault(kind, []).append(
+                {k: n - base[k] for k, n in kernel_launches().items()
+                 if n != base[k]})
+    differ = [i for i, (a, b) in enumerate(zip(s_losses, e_losses))
+              if not torch.equal(a, b)]
+    state = static_state_equal(torch, smodel, sopt, emodel, eopt)
+    if differ or state:
+        raise AssertionError(f"static_graph: static steps {differ} and "
+                             f"state {state[:6]} differ from eager")
+    want = dict(BERT_FLASH_PER_STEP)
+    for kind in ("static", "eager"):
+        for r in rises[kind]:
+            if r != want:
+                raise AssertionError(f"static_graph {kind} run launched {r}"
+                                     f", want {want}")
+    batch = batches[0]
+    prof, recs, fig, windows = profiled_launches(
+        torch, "static run", lambda: static_run(batch), want)
+    out["train"] = {
+        "build_s": build_s, "record_s": record_s,
+        "nodes": len(main.nodes),
+        "params": len(sopt._parameter_list),
+        "losses": [x.float().item() for x in s_losses],
+        "static_run_s": s_times, "eager_step_s": e_times,
+        "static_run_s_median": statistics.median(s_times),
+        "eager_step_s_median": statistics.median(e_times),
+        "static_over_eager": (statistics.median(s_times)
+                              / statistics.median(e_times)),
+        "launches_per_run": rises["static"][0],
+        "profile_records": recs, "profile_windows": windows,
+        "device_idle_share": fig["device_idle_share"], "profile": fig}
+    return main, feeds, logits, smodel, exe
+
+
+def static_inference(torch, dev, tmp, main, feeds, logits, model, exe,
+                     batch, out):
+    """Part 2: the test clone's logits through ``save_inference_model``
+    and ``inference.create_predictor``, bitwise against ``Executor.run``
+    of the same program; one predictor.run profiled."""
+    from paddle_tpu_torch import inference, static
+
+    test_prog = main.clone(for_test=True)
+    feed = static_feed(batch[:2])
+    want = exe.run(test_prog, feed=feed, fetch_list=[logits],
+                   return_numpy=False)[0]
+    prefix = os.path.join(tmp, "static_bert")
+    t0 = time.perf_counter()
+    static.save_inference_model(prefix, list(feeds[:2]), [logits], exe)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(
+        prefix + ".pdmodel", prefix + ".pdiparams"))
+    load_s = time.perf_counter() - t0
+    if pred.get_input_names() != ["input_ids", "token_type_ids"]:
+        raise AssertionError(f"static_graph: predictor inputs "
+                             f"{pred.get_input_names()}")
+    for name in ("input_ids", "token_type_ids"):
+        pred.get_input_handle(name).copy_from_cpu(feed[name].cpu().numpy())
+    pred.run()
+    got = torch.from_numpy(pred.get_output_handle(
+        pred.get_output_names()[0]).copy_to_cpu())
+    if not torch.equal(got, want.float().cpu()):
+        raise AssertionError(
+            f"static_graph: predictor logits differ from Executor.run's "
+            f"(max {(got - want.float().cpu()).abs().max().item():.3e})")
+    prof, recs, fig, windows = profiled_launches(
+        torch, "static predictor", pred.run, eval_launches(model),
+        host=True)
+    recs["library_norm_or_sdpa"] = kernel_counts(prof, JIT_LIBRARY_KERNELS)
+    if recs["library_norm_or_sdpa"]:
+        raise AssertionError(f"static_graph predictor profile: {recs}")
+    out["inference"] = {
+        "save_s": save_s, "load_s": load_s,
+        "pdmodel_bytes": os.path.getsize(prefix + ".pdmodel"),
+        "pdiparams_bytes": os.path.getsize(prefix + ".pdiparams"),
+        "bitwise_equal_to_executor": True, "profile_records": recs,
+        "profile_windows": windows,
+        "device_idle_share": fig["device_idle_share"]}
+
+
+def static_amp_recompute(torch, dev, cfg, batches, out):
+    """Part 3, at JIT_CUT_LAYERS layers of full width: float16
+    ``static.amp.decorate`` (two runs at the largest f32 scale skip
+    bitwise and shrink it by decr_ratio; then finite runs, a
+    white-listed op's output float16, the loss float32), and recompute
+    at each layer's output bitwise against no recompute."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.distributed.fleet import (
+        DistributedStrategy, StaticMetaOptimizer,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static.graph import SymbolicTensor
+
+    small = dataclasses.replace(cfg, num_hidden_layers=JIT_CUT_LAYERS)
+    main, startup, model, feeds, loss, logits, _, amp_record_s = \
+        static_bert_program(torch, dev, small, torch.float32, 21,
+                            [BERT_BATCH, BERT_SEQ])
+    paddle.enable_static()
+    try:
+        with static.program_guard(main, startup):
+            opt = static.amp.decorate(AdamW(learning_rate=1e-4),
+                                      dtype="float16")
+            opt.minimize(loss)
+    finally:
+        paddle.disable_static()
+    # the first white-listed node (the first layer's q/k/v product)
+    node = next(n for n in main.nodes if n.op_name == "linear"
+                and n.n_out == 1 and n.out_fakes[0].dim() == 3)
+    white = SymbolicTensor(node.out_fakes[0], node, 0)
+    exe = static.Executor()
+    scaler = opt._static_amp_scaler
+    cfg_amp = scaler["cfg"]
+    params = list(opt._parameter_list)
+    before = [p.detach().clone() for p in params]
+    fmax = torch.tensor(torch.finfo(torch.float32).max, device=dev)
+    scaler["state"]["scale"] = fmax.clone()
+    inf_losses = []
+    for batch in batches[:2]:
+        inf_losses.append(exe.run(main, feed=static_feed(batch),
+                                  fetch_list=[loss],
+                                  return_numpy=False)[0].item())
+    moved = [i for i, (p, b) in enumerate(zip(params, before))
+             if not torch.equal(p, b)]
+    fresh = [i for i, p in enumerate(params) if any(
+        not torch.equal(v, w) for v, w in zip(
+            opt._accumulators[id(p)].values(),
+            opt.inner_opt._init_state(p).values()))]
+    scale = scaler["state"]["scale"]
+    want_scale = fmax * float(cfg_amp["decr_ratio"])
+    if moved or fresh or not torch.equal(scale, want_scale):
+        raise AssertionError(
+            f"static_graph amp: the +inf runs moved params {moved[:4]} or "
+            f"moments {fresh[:4]}, or the scale is {scale.item()} (want "
+            f"{want_scale.item()})")
+    scaler["state"]["scale"] = torch.tensor(
+        float(cfg_amp["init_loss_scaling"]), device=dev)
+    finite = []
+    for i in range(STATIC_AMP_FINITE_RUNS):
+        lv, wv = exe.run(main, feed=static_feed(batches[i % len(batches)]),
+                         fetch_list=[loss, white], return_numpy=False)
+        finite.append(lv.item())
+        if wv.dtype != torch.float16 or lv.dtype != torch.float32:
+            raise AssertionError(f"static_graph amp: white op {wv.dtype}, "
+                                 f"loss {lv.dtype}")
+    if not all(math.isfinite(x) for x in finite) or all(
+            torch.equal(p, b) for p, b in zip(params, before)):
+        raise AssertionError(f"static_graph amp: finite runs {finite}")
+    amp = {"record_s": amp_record_s, "nodes": len(main.nodes),
+           "inf_scale_losses": inf_losses,
+           "scale_after_inf_runs": scale.item(),
+           "finite_losses": finite,
+           "scale_after": opt.get_loss_scaling(),
+           "white_op": node.op_name, "white_dtype": "float16",
+           "loss_dtype": "float32"}
+    del main, startup, model, opt, exe, white, node
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for remat in (False, True):
+        main, startup, model, feeds, loss, logits, outs, _ = \
+            static_bert_program(torch, dev, small, torch.bfloat16, 23,
+                                [BERT_BATCH, BERT_SEQ])
+        strat = DistributedStrategy()
+        if remat:
+            strat.recompute = True
+            strat.recompute_configs = {"checkpoints": outs}
+        paddle.enable_static()
+        try:
+            with static.program_guard(main, startup):
+                opt = StaticMetaOptimizer(AdamW(learning_rate=1e-4), strat)
+                _, pairs = opt.minimize(loss)
+        finally:
+            paddle.disable_static()
+        exe = static.Executor()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, grads = [], None
+        for batch in batches[:2]:
+            res = exe.run(main, feed=static_feed(batch),
+                          fetch_list=[loss] + [g for _, g in pairs],
+                          return_numpy=False)
+            losses.append(res[0])
+            grads = res[1:]
+        runs[remat] = {"losses": losses, "grads": grads,
+                       "state": [p.detach().clone() for p in
+                                 opt._parameter_list],
+                       "peak_gb": (torch.cuda.max_memory_allocated()
+                                   - base) / 1e9}
+        del main, startup, model, opt, exe, pairs, feeds, loss, logits, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    same = (all(torch.equal(x, y) for x, y in zip(a["losses"], b["losses"]))
+            and all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"]))
+            and all(torch.equal(x, y) for x, y in zip(a["state"],
+                                                      b["state"])))
+    if not same:
+        raise AssertionError("static_graph: recompute differs from no "
+                             "recompute")
+    out["amp_recompute"] = {
+        "layers": JIT_CUT_LAYERS, "amp": amp,
+        "recompute": {"losses": [x.float().item() for x in a["losses"]],
+                      "bitwise_equal": True,
+                      "peak_gb_above_start": {"plain": a["peak_gb"],
+                                              "recompute": b["peak_gb"]}}}
+
+
+def static_graph_phase(torch, dev):
+    """``paddle.static`` on BERT-base bf16 at full width, dropout 0,
+    fixed feeds [BERT_BATCH, BERT_SEQ] (the three parts above)."""
+    import tempfile
+
+    from paddle_tpu_torch import random as prandom
+    from paddle_tpu_torch.models.bert import BERT_BASE
+    from paddle_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(BERT_BASE, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    out = {"phase": "static_graph", "model": "BERT_BASE",
+           "dtype": "bfloat16", "batch": BERT_BATCH, "seq": BERT_SEQ}
+    reset_kernel_launches()
+    prandom.seed(2024)
+    # int32 ids and labels: a placeholder asked for as int64 is int32 (x64
+    # off), and the eager steps take the same tensors
+    batches = [tuple(t.int() for t in bert_batch(
+        torch, cfg, BERT_BATCH, BERT_SEQ, dev, 500 + i))
+        for i in range(STATIC_STEPS)]
+    parts = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        emit({"phase": f"static_graph/{name}", "seconds": parts[name],
+              **{k: v for k, v in out[name].items() if k != "profile"}})
+        return res
+
+    main, feeds, logits, model, exe = part(
+        "train", static_train, torch, dev, cfg, batches, out)
+    with tempfile.TemporaryDirectory() as tmp:
+        part("inference", static_inference, torch, dev, tmp, main, feeds,
+             logits, model, exe, batches[0], out)
+    del main, feeds, logits, model, exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("amp_recompute", static_amp_recompute, torch, dev, cfg, batches,
+         out)
+    launches = kernel_launches()
+    out["part_seconds"] = parts
+    out["kernel_launches"] = launches
+    emit(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def static_phases_main(torch):
+    """``--static-phases``: static_graph alone; the kernels are built."""
+    from paddle_tpu_torch import _build, resolve_device
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    built = _build.build_all(verbose=False)
+    emit({"phase": "environment", "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": time.perf_counter() - t0, "built": sorted(built)})
+    dev = resolve_device()
+    t0 = time.perf_counter()
+    launches = static_graph_phase(torch, dev)
+    emit({"phase_seconds": "static_graph",
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    print(smi)
+    return 0
 
 
 def jit_phases_main(torch):
@@ -9776,6 +10207,8 @@ def main():
         return host_phases_main(torch)
     if "--jit-phases" in sys.argv[1:]:
         return jit_phases_main(torch)
+    if "--static-phases" in sys.argv[1:]:
+        return static_phases_main(torch)
     from paddle_tpu_torch import _build, resolve_device
 
     dev = resolve_device()
@@ -9865,6 +10298,7 @@ def main():
                          bert_figures)
     host_api, _ = phase("host_api", host_api_phase, torch, dev)
     jit_deploy = phase("jit_deploy", jit_deploy_phase, torch, dev)
+    static_graph = phase("static_graph", static_graph_phase, torch, dev)
     emit({"phase": "seconds", "by_phase": seconds,
           "total": time.perf_counter() - t_start})
 
@@ -9930,7 +10364,7 @@ def main():
             "fused_rotary": fused_rotary, "fused_layers": fused_layers,
             "zoo_train": zoo_train, "seq2seq_train": seq2seq,
             "layer_api": layer_api, "host_api": host_api,
-            "jit_deploy": jit_deploy}
+            "jit_deploy": jit_deploy, "static_graph": static_graph}
     kernels = []
     for name, (route, source, replaces, path) in sources.items():
         c = summary[name]

@@ -86,6 +86,10 @@ every layer of the port is one), ``ParamAttr``, ``LazyGuard`` and
 ``text``, ``hub``, ``utils``, ``sysconfig``) are attached on first use,
 so importing the package builds no kernel.  ``layer_api`` drives a
 script written against it on the card, ``host_api`` the host modules.
+``enable_static``/``disable_static`` switch Paddle's static-graph mode
+(``static``: programs recorded on symbolic tensors and replayed through
+the kernels by ``static.Executor``, trained through
+``Optimizer.minimize``); ``static_graph`` drives it on the card.
 """
 
 import importlib
@@ -118,7 +122,8 @@ from .version import full_version as __version__
 #: importing the package builds no kernel and starts no serving engine
 _LAZY_SUBMODULES = ("autograd", "distributed", "hub", "jit", "models",
                     "onnx", "optimizer", "profiler", "quantization",
-                    "regularizer", "serving", "sysconfig", "text", "utils")
+                    "regularizer", "serving", "static", "sysconfig", "text",
+                    "utils")
 
 
 def __getattr__(name):
@@ -129,17 +134,34 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
+def enable_static():
+    """Enter static-graph mode: ``static.data`` placeholders, recorded
+    ops and ``static.Executor.run`` (see ``paddle_tpu_torch.static``)."""
+    from .static.graph import enable_static as _enable
+
+    _enable()
+
+
+def disable_static(place=None):
+    """Leave static-graph mode (back to eager, the default)."""
+    from .static.graph import disable_static as _disable
+
+    _disable()
+
+
 def in_dynamic_mode():
-    """True: the port runs eagerly (``static`` is not ported yet)."""
-    return True
+    """False between ``enable_static()`` and ``disable_static()``."""
+    from .tensor.logic import in_dynamic_mode as _dynamic
+
+    return _dynamic()
 
 
 __all__ = sorted(tensor.__all__ + list(_LAZY_SUBMODULES) + [
     "LazyGuard", "Layer", "Model", "ParamAttr", "Parameter", "Tensor", "amp",
     "batch", "bfloat16", "bool_", "complex128", "complex64", "device",
-    "device_count", "enable_grad", "fft", "finfo", "float16", "float32",
-    "float64", "flops", "framework", "get_default_dtype", "get_device",
-    "get_cudnn_version", "get_flags", "get_rng_state", "grad", "hapi",
+    "device_count", "disable_static", "enable_grad", "enable_static", "fft",
+    "finfo", "float16", "float32", "float64", "flops", "framework",
+    "get_default_dtype", "get_device", "get_cudnn_version", "get_flags", "get_rng_state", "grad", "hapi",
     "iinfo", "in_dynamic_mode", "incubate", "inference", "int16", "int32",
     "int64", "int8", "io", "is_compiled_with_cuda", "is_compiled_with_rocm",
     "is_compiled_with_xpu", "is_grad_enabled", "linalg", "load", "metric",

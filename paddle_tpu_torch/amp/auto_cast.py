@@ -22,6 +22,7 @@ take them.
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 
 import torch
@@ -88,10 +89,18 @@ def amp_dtype_for(op_name):
     return None
 
 
+#: set by ``static.enable_static``: names the nodes the calling functional
+#: records (``static/graph.py``), the one place where an op names itself
+_static_namer = None
+
+
 def cast_inputs(op_name, *tensors):
     """``tensors`` with each real floating tensor cast to
     :func:`amp_dtype_for` ``(op_name)``; the others (None, integer
-    labels) pass through.  Returns a tuple."""
+    labels) pass through.  Returns a tuple.  In static mode the calling
+    functional's recorded nodes take ``op_name``."""
+    if _static_namer is not None:
+        _static_namer(op_name, sys._getframe(1))
     dt = amp_dtype_for(op_name)
     if dt is None:
         return tensors

@@ -69,6 +69,7 @@ from __future__ import annotations
 import ast
 import functools
 import inspect
+import sys
 import textwrap
 import types
 
@@ -143,9 +144,16 @@ UNDEF = UndefinedVar()
 
 def _is_traced(x):
     """True when ``x`` is a tensor under a capture (``torch.compile`` or
-    ``torch.export``): its value is not known, so a predicate on it
-    stages."""
-    return isinstance(x, torch.Tensor) and torch.compiler.is_compiling()
+    ``torch.export``) or a static Program's symbolic tensor
+    (``paddle.enable_static()``): its value is not known, so a predicate
+    on it stages (JAX's ``dy2static.py:125-136``)."""
+    return isinstance(x, torch.Tensor) and (
+        torch.compiler.is_compiling() or _is_symbolic(x))
+
+
+def _is_symbolic(x):
+    graph = sys.modules.get("paddle_tpu_torch.static.graph")
+    return graph is not None and isinstance(x, graph.SymbolicTensor)
 
 
 class UnconvertibleControlFlowError(TypeError):
@@ -361,10 +369,17 @@ def convert_ifelse(pred, true_fn, false_fn, vals, names, guard=False):
         # the branches return copies: torch.cond's outputs may not alias
         # its inputs
         k = len(t_sel)
-        picked = torch.cond(_pred(pred, dev),
-                            lambda *ops: tuple(o.clone() for o in ops[:k]),
-                            lambda *ops: tuple(o.clone() for o in ops[k:]),
-                            tuple(t_sel + f_sel))
+        if _is_symbolic(pred):
+            # a static Program records the select, as static.nn.cond does
+            p = pred.reshape(()).to(torch.bool)
+            picked = [torch.where(p, t, f) for t, f in zip(t_sel, f_sel)]
+        else:
+            picked = torch.cond(_pred(pred, dev),
+                                lambda *ops: tuple(o.clone()
+                                                   for o in ops[:k]),
+                                lambda *ops: tuple(o.clone()
+                                                   for o in ops[k:]),
+                                tuple(t_sel + f_sel))
         for i, v in zip(sel_idx, picked):
             merged[i] = v
     return tuple(merged)

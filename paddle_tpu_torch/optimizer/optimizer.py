@@ -11,7 +11,9 @@ tensors on the parameter's device, each keeping its dtype.
 The optimizer lives on ``device`` (``cuda`` unless the caller passes
 ``"cpu"``) and refuses parameters elsewhere.  ``parameters`` may be
 tensors or ``(name, tensor)`` pairs (``model.named_parameters()``); the
-names key :meth:`state_dict` as ``"<name>.<accumulator>"``.
+names key :meth:`state_dict` as ``"<name>.<accumulator>"``.  In static
+mode ``parameters`` may be None: :meth:`minimize` takes them from the
+loss's recorded graph (JAX's ``optimizer.py:24-33``).
 
 Every tensor a step reads or writes keeps its storage from step to step,
 so a step can be captured in a CUDA graph and replayed
@@ -46,11 +48,19 @@ def _capturing(device):
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None, device=None):
-        if parameters is None:
-            raise ValueError("parameters must be provided")
         self.device = resolve_device(device)
-        self._parameter_list = []
         self._param_names = {}
+        if parameters is None:
+            from ..tensor.logic import in_dynamic_mode
+
+            if in_dynamic_mode():
+                raise ValueError("parameters must be provided (dygraph "
+                                 "mode)")
+            # static mode: minimize() takes them from the loss's graph
+            self._parameter_list = None
+            parameters = ()
+        else:
+            self._parameter_list = []
         for i, item in enumerate(parameters):
             pname, p = item if isinstance(item, tuple) else (f"param_{i}",
                                                              item)
@@ -100,7 +110,7 @@ class Optimizer:
         out = {"LR_Scheduler": {}}
         if isinstance(self._learning_rate, LRScheduler):
             out["LR_Scheduler"] = self._learning_rate.state_dict()
-        for p in self._parameter_list:
+        for p in self._parameter_list or ():
             name = self._param_names[id(p)]
             for k, v in self._accumulators.get(id(p), {}).items():
                 out[f"{name}.{k}"] = v
@@ -117,7 +127,7 @@ class Optimizer:
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
         self._step_count = int(state.get("global_step", 0))
         slots = {}
-        for p in self._parameter_list:
+        for p in self._parameter_list or ():
             st = self._state_for(p)
             for k in st:
                 slots[f"{self._param_names[id(p)]}.{k}"] = (st, k)
@@ -219,7 +229,7 @@ class Optimizer:
     def step(self, skip=None):
         """Clip, count the step and update (see :meth:`_apply` for
         ``skip``, which ``jit.TrainStep`` passes under a loss scaler)."""
-        params_grads = [(p, p.grad) for p in self._parameter_list
+        params_grads = [(p, p.grad) for p in self._parameter_list or ()
                         if p.requires_grad and p.grad is not None
                         and getattr(p, "trainable", True)]
         if self._grad_clip is not None:
@@ -228,5 +238,20 @@ class Optimizer:
         self._apply(params_grads, skip)
 
     def clear_grad(self):
-        for p in self._parameter_list:
+        for p in self._parameter_list or ():
             p.grad = None
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """A static loss (JAX's ``optimizer.py:200-209``): register the
+        training op on the loss's program, each ``Executor.run`` of it
+        steps -> (None, [(param, grad)]).  An eager loss: backward, then
+        :meth:`step` -> (None, None)."""
+        from ..static import graph
+
+        if graph.is_symbolic(loss):
+            return graph.register_minimize(self, loss, parameters=parameters,
+                                           no_grad_set=no_grad_set)
+        loss.backward()
+        self.step()
+        return None, None

@@ -11,6 +11,8 @@ static mode).  The shifts are arithmetic, as ``jnp``'s, whatever
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 __all__ = [
@@ -129,4 +131,6 @@ def is_tensor(x):
 
 
 def in_dynamic_mode():
-    return True
+    """False in static-graph mode (``paddle.enable_static()``)."""
+    graph = sys.modules.get("paddle_tpu_torch.static.graph")
+    return graph is None or not graph.in_static_mode()
